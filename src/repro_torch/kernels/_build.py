@@ -1,0 +1,155 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use; bind them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on its own into ``build/repro_torch_kernels/
+<name>-<hash>.so`` at the repository root (a directory ``.gitignore`` lists),
+keyed by a hash of the source, the shared headers and the flags, so an edit
+rebuilds and an unchanged source loads the library already built.  The
+sources have a plain C interface (no PyTorch headers), which keeps a build at
+seconds; :func:`build` starts one ``nvcc`` per stale source, all at once.
+
+Every C entry point takes its pointers and the CUDA stream as ``void*`` and
+returns ``cudaGetLastError()`` after its launch.  :func:`launch` raises on a
+non-zero return and otherwise adds one to the kernel's launch count — the
+only place the counts grow, so they show which kernels really ran.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+#: source name -> {C function: argtypes}.  Pointers and the stream are
+#: c_void_p: ctypes would otherwise pass a Python int as a 32-bit int.
+SIGNATURES = {
+    "sr_round": {
+        # w, step, noise, out, rows, cols, lo, hi, stream
+        "sr_round_launch": (_P, _P, _P, _P, _I64, _I64, _I, _I, _P),
+    },
+    "dequant_gather": {
+        # codes, step, ids, out, n, d, b, stream
+        "dequant_gather_launch": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
+        # packed, step, ids, out, n, d, b, bits, stream
+        "dequant_gather_packed_launch": (_P, _P, _P, _P, _I64, _I64, _I64, _I, _P),
+    },
+}
+
+#: Launches per kernel since the last :func:`reset_launches`.
+LAUNCHES: collections.Counter = collections.Counter()
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``, or PATH."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (pathlib.Path(home) / "bin" / "nvcc").is_file():
+            return str(pathlib.Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def _library_path(name: str) -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=None) -> dict[str, pathlib.Path]:
+    """Compile every stale source in parallel; returns name -> library path."""
+    names = tuple(SIGNATURES) if names is None else tuple(names)
+    paths = {name: _library_path(name) for name in names}
+    stale = {name: p for name, p in paths.items() if not p.exists()}
+    if not stale:
+        return paths
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, path in stale.items():
+        # Build under a private name and rename into place: concurrent
+        # builders of one source never see each other's half-written file.
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, stale[name])
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.repro_error_string.argtypes = [ctypes.c_int]
+            lib.repro_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return lib
+
+
+def check_operand(kernel: str, name: str, t, dtype, shape: tuple, device=None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of this dtype and shape
+    (on ``device`` when given): the kernels take raw pointers and trust them."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{kernel}: {name} must be a CUDA tensor, got "
+                         f"{getattr(t, 'device', type(t).__name__)}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def stream_of(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(kernel: str, source: str, fn: str, *args) -> None:
+    """Call C entry point ``fn`` of ``source``; raise on a CUDA error, else count."""
+    lib = library(source)
+    err = getattr(lib, fn)(*args)
+    if err != 0:
+        msg = lib.repro_error_string(err).decode()
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err} ({msg})")
+    LAUNCHES[kernel] += 1
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
