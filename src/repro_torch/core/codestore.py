@@ -114,3 +114,23 @@ class CodeStore:
         if self.packed:
             return unpack_codes(rows, self.bits, self.d)
         return rows
+
+    def set_rows(self, ids: torch.Tensor, codes_rows: torch.Tensor) -> "CodeStore":
+        """Write int8 code rows ``[k, d]`` at ``ids`` [k] **in place** and
+        return this store.  Ids outside ``[0, n)`` are dropped, as the
+        reference's ``mode="drop"`` scatter drops them; a packed store packs
+        the rows and writes bytes."""
+        ids, codes_rows = in_range_rows(ids, codes_rows, self.n)
+        rows = pack_codes(codes_rows, self.bits) if self.packed else codes_rows.to(torch.int8)
+        self.data.index_copy_(0, ids, rows)
+        return self
+
+
+def in_range_rows(ids: torch.Tensor, rows: torch.Tensor, n: int):
+    """``(ids, rows)`` as int64 ids in ``[0, n)`` and their rows: the rows a
+    ``mode="drop"`` scatter keeps."""
+    ids = ids.reshape(-1).to(torch.int64)
+    keep = (ids >= 0) & (ids < n)
+    if not bool(keep.all()):
+        ids, rows = ids[keep], rows[keep]
+    return ids, rows

@@ -7,8 +7,9 @@ the value of code c is ``Delta * c`` (paper §2.1).  Two rounding functions
 the port and the reference round identically when handed the same noise).
 
 Every function keeps the reference's operation order, so given the same
-operands the codes are bitwise equal (tests/test_torch_quant.py).  The
-LSQ/PACT fake-quant autograd functions come with the training slice.
+operands the codes are bitwise equal (tests/test_torch_quant.py).
+:func:`fake_quant_lsq` is the LSQ fake-quantizer ALPT learns Delta through
+(Eq. 6/7); the PACT variant comes with the QAT methods.
 """
 from __future__ import annotations
 
@@ -100,3 +101,49 @@ def init_step_size(w: torch.Tensor, bits: int, per_row: bool = True) -> torch.Te
         mean_abs = torch.mean(a)
     root_p = torch.sqrt(torch.tensor(float(p), dtype=torch.float32, device=w.device))
     return torch.clamp_min(2.0 * mean_abs / root_p, 1e-8).to(torch.float32)
+
+
+def quantize(w: torch.Tensor, step, bits: int, rounding: Rounding = "sr",
+             noise: torch.Tensor | None = None) -> torch.Tensor:
+    """Full quantizer Q(w) = Delta * codes (Eq. 2): float values on the grid."""
+    return dequantize(quantize_codes(w, step, bits, rounding, noise), step)
+
+
+class _FakeQuantLSQ(torch.autograd.Function):
+    """Forward Q_D(w, step); backward straight-through for ``w`` and Eq. 7
+    for ``step`` (``repro/core/quant.py:119-158``)."""
+
+    @staticmethod
+    def forward(ctx, w, step, bits, grad_scale):
+        ctx.save_for_backward(w, step)
+        ctx.bits, ctx.grad_scale = bits, grad_scale
+        return quantize(w, step, bits, rounding="dr")
+
+    @staticmethod
+    def backward(ctx, g):
+        w, step = ctx.saved_tensors
+        n, p = code_bounds(ctx.bits)
+        scaled = w.to(torch.float32) / _broadcast_step(w, step)
+        in_range = (scaled > n) & (scaled < p)
+        # dQ/dw: straight-through inside the clip range, 0 outside.
+        dw = (g * in_range).to(w.dtype)
+        # dQ/dstep (Eq. 7): -2^{m-1} below, 2^{m-1}-1 above, R(w/D) - w/D inside.
+        dstep_elem = torch.where(
+            scaled <= n, float(n),
+            torch.where(scaled >= p, float(p), round_deterministic(scaled) - scaled))
+        dstep_full = g.to(torch.float32) * dstep_elem * ctx.grad_scale
+        if step.ndim == 0:
+            dstep = torch.sum(dstep_full)
+        elif step.ndim == w.ndim - 1:
+            dstep = torch.sum(dstep_full, dim=-1)
+        else:
+            dstep = dstep_full
+        return dw, dstep.to(step.dtype), None, None
+
+
+def fake_quant_lsq(w: torch.Tensor, step: torch.Tensor, bits: int,
+                   grad_scale: float = 1.0) -> torch.Tensor:
+    """Forward: Q_D(w, step) with DR.  Backward: STE for ``w``; Eq. 7 times
+    ``grad_scale`` for ``step`` (paper §3.2: g = 1/sqrt(b*d*q)), summed over
+    the trailing dim when ``step`` is per row."""
+    return _FakeQuantLSQ.apply(w, step, bits, grad_scale)

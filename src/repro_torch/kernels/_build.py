@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 #: source name -> {C function: argtypes}.  Pointers and the stream are
 #: c_void_p: ctypes would otherwise pass a Python int as a 32-bit int.
 SIGNATURES = {
@@ -45,6 +45,17 @@ SIGNATURES = {
         "dequant_gather_launch": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
         # packed, step, ids, out, n, d, b, bits, stream
         "dequant_gather_packed_launch": (_P, _P, _P, _P, _I64, _I64, _I64, _I, _P),
+    },
+    "sparse_row_update": {
+        # codes, step, mu, nu, uniq, g_sum, noise, w_new, n, d, k, width,
+        # container_bits, bits, lr, c1, c2, b1, 1-b1, b2, 1-b2, eps, wd, stream
+        "sparse_row_update_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                     _I, _I, *(_F,) * 9, _P),
+    },
+    "adam_update": {
+        # count, 7*count tensor pointers, count sizes, lr, bc1, bc2, b1, 1-b1,
+        # b2, 1-b2, eps, wd, stream
+        "adam_update_launch": (_I, _P, _P, *(_F,) * 9, _P),
     },
 }
 

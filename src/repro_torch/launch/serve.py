@@ -1,14 +1,14 @@
-"""Serving CLI of the port: CTR scoring over a freshly initialized state.
+"""Serving CLI of the port: CTR scoring over a freshly initialized or trained state.
 
     python -m repro_torch.launch.serve ctr --config avazu --scale 1.0 \\
-        --method alpt --bits 8 --batch 1024 --requests 4096
+        --method alpt --bits 8 --batch 1024 --requests 4096 [--train-steps 20]
 
 ``--device cpu`` runs the plain PyTorch versions on the CPU; the default is
 ``cuda`` and fails without a GPU.  The state is initialized from ``--seed``
-(table init through the ``sr_round`` kernel), served by ``CTREngine`` (rows
-through ``dequant_gather``), and the report ends with one JSON line of the
-engine's metrics.  Training before serving (the reference's
-``--train-steps``) comes with the training slice.
+(table init through the ``sr_round`` kernel), trained ``--train-steps``
+batches of ``--batch`` first (default 0: serve the initial state), served by
+``CTREngine`` (rows through ``dequant_gather``), and the report ends with one
+JSON line of the engine's metrics.
 """
 from __future__ import annotations
 
@@ -17,23 +17,24 @@ import json
 import sys
 
 from repro_torch import device as device_mod
-from repro_torch.configs import dcn_ctr
-from repro_torch.data.ctr_synth import CTRSynthetic
+from repro_torch.launch import train as train_cli
 from repro_torch.serving.ctr import CTREngine, CTRRequest
-from repro_torch.training.ctr_trainer import TrainerConfig, init_state
-
-SETUPS = {"avazu": dcn_ctr.avazu_setup, "criteo": dcn_ctr.criteo_setup}
+from repro_torch.training.ctr_trainer import CTRTrainer, init_state
 
 
 def _run_ctr(args) -> int:
     device = device_mod.resolve(args.device)
-    data_cfg, spec, dcn = SETUPS[args.config](
-        method=args.method, bits=args.bits, scale=args.scale
-    )
-    cfg = TrainerConfig(spec=spec, dcn=dcn, seed=args.seed)
-    state = init_state(cfg, device=device)
+    data, cfg = train_cli.build(args, args.method)
+    if args.train_steps:
+        state, history = CTRTrainer(cfg, device=device).fit(data, steps=args.train_steps,
+                                                            batch_size=args.batch)
+        print(f"[serve] trained {args.train_steps} steps: loss {history[0]['loss']:.4f} -> "
+              f"{history[-1]['loss']:.4f}, {train_cli.ms_per_step(history):.2f} ms/step "
+              "(host clock)")
+    else:
+        state = init_state(cfg, device=device)
     engine = CTREngine.from_state(state, cfg, batch=args.batch)
-    ids, _ = CTRSynthetic(data_cfg).batch("test", 0, args.requests)
+    ids, _ = data.batch("test", 0, args.requests)
     rids = [engine.submit(CTRRequest(ids=row)) for row in ids]
     done = engine.run()
     m = engine.metrics()
@@ -53,15 +54,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="scenario", required=True)
     ctr = sub.add_parser("ctr", help="batched CTR request scoring")
-    ctr.add_argument("--config", choices=sorted(SETUPS), default="avazu")
-    ctr.add_argument("--scale", type=float, default=0.01,
-                     help="vocabulary scale of the synthetic dataset (1.0 = full)")
+    train_cli.add_model_args(ctr)
     ctr.add_argument("--method", choices=("lpt", "alpt"), default="alpt")
-    ctr.add_argument("--bits", type=int, default=8)
-    ctr.add_argument("--batch", type=int, default=32)
     ctr.add_argument("--requests", type=int, default=64)
-    ctr.add_argument("--seed", type=int, default=0)
-    ctr.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ctr.add_argument("--train-steps", type=int, default=0,
+                     help="train this many batches of --batch before serving")
     return _run_ctr(ap.parse_args(argv))
 
 

@@ -1,16 +1,17 @@
 """The `EmbeddingMethod` protocol + registry (port of repro/methods/base.py).
 
-Every consumer dispatches on ``spec.method`` through :func:`get`.  This slice
-ports the serving surface of a method — ``init`` / ``lookup`` /
-``memory_bytes`` / ``serving_state`` — for ``fp``, ``lpt`` and ``alpt``; the
-training formulations (``fused_row_step``, ``sparse_apply``, the dense path)
-come with the training slice.
+Every consumer dispatches on ``spec.method`` through :func:`get`.  Ported
+for ``fp``, ``lpt`` and ``alpt``: the serving surface (``init`` / ``lookup``
+/ ``memory_bytes`` / ``serving_state``), the float-leaf formulation
+(``trainable_params`` / ``with_params``) and the sparse row formulation
+(``sparse_apply`` / ``fused_row_step``).  The dense formulation the
+data-parallel and LM paths use comes later.
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -71,6 +72,8 @@ class EmbeddingMethod(abc.ABC):
     name: str = "?"  # set by @register
     #: Table is integer codes (no differentiable float leaves).
     is_integer_table: bool = False
+    #: SR noise tensors [K, d] one ``fused_row_step`` consumes.
+    noise_draws: int = 0
 
     @abc.abstractmethod
     def init(self, generator: torch.Generator, spec: EmbeddingSpec) -> Any:
@@ -88,11 +91,69 @@ class EmbeddingMethod(abc.ABC):
         """What a serving Engine keeps resident: the fp table by default."""
         return serving_tbl.FloatTable(state)
 
+    @abc.abstractmethod
+    def trainable_params(self, state: Any, spec: EmbeddingSpec) -> Any:
+        """Differentiable leaves (None for integer tables)."""
+
+    @abc.abstractmethod
+    def with_params(self, state: Any, params: Any, spec: EmbeddingSpec) -> Any:
+        """Rebuild state from updated differentiable leaves."""
+
+    def fused_row_step(self, state: Any, ids: torch.Tensor, *, spec: EmbeddingSpec,
+                       loss_from_rows: Callable, dense_params: list,
+                       update_dense: Callable, lr: float, weight_decay: float,
+                       noise: list):
+        """Single-device train step of an integer table (row formulation).
+
+        ``loss_from_rows(rows) -> scalar`` closes over the batch and reads
+        the dense model's *current* parameters ``dense_params``;
+        ``update_dense(grads)`` steps them in place.  ``noise`` holds
+        ``noise_draws`` SR draws [K, d].  Returns ``(new_state, metrics)``.
+        """
+        raise NotImplementedError(
+            f"{self.name!r} has no row formulation; use the float-leaf path")
+
 
 class IntegerTableMethod(EmbeddingMethod):
-    """Base for methods whose table is integer codes + per-row Delta."""
+    """Base for methods whose table is integer codes + per-row Delta.
+
+    Subclasses supply ``sparse_apply`` (paper Eq. 8 on the touched rows) and
+    inherit a fused row step: one backward w.r.t. (looked-up rows, dense
+    params), the dense update, then the sparse row update.
+    """
 
     is_integer_table = True
+    noise_draws = 1
+
+    def trainable_params(self, state, spec):
+        return None
+
+    def with_params(self, state, params, spec):
+        return state
+
+    @abc.abstractmethod
+    def sparse_apply(self, state: Any, ids: torch.Tensor, g_rows: torch.Tensor, *,
+                     spec: EmbeddingSpec, lr: float, weight_decay: float,
+                     noise: torch.Tensor) -> Any:
+        """Row update from per-occurrence cotangents (paper Eq. 8), in place."""
+
+    def row_grads(self, state, ids, *, spec, loss_from_rows, dense_params):
+        """``(loss, g_rows, g_dense)``: one forward/backward at the batch's rows."""
+        rows = self.lookup(state, ids, spec).detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = loss_from_rows(rows)
+            g_rows, *g_dense = torch.autograd.grad(loss, [rows, *dense_params])
+        return loss.detach(), g_rows, g_dense
+
+    def fused_row_step(self, state, ids, *, spec, loss_from_rows, dense_params,
+                       update_dense, lr, weight_decay, noise):
+        loss, g_rows, g_dense = self.row_grads(state, ids, spec=spec,
+                                               loss_from_rows=loss_from_rows,
+                                               dense_params=dense_params)
+        update_dense(g_dense)
+        new_state = self.sparse_apply(state, ids, g_rows, spec=spec, lr=lr,
+                                      weight_decay=weight_decay, noise=noise[0])
+        return new_state, {"loss": loss}
 
     def serving_state(self, state, spec):
         """int8-resident serving export: the codes + per-row Delta as they are.

@@ -17,3 +17,9 @@ class FPMethod(EmbeddingMethod):
 
     def memory_bytes(self, state, spec):
         return spec.n * spec.d * 4
+
+    def trainable_params(self, state, spec):
+        return state
+
+    def with_params(self, state, params, spec):
+        return params

@@ -1,9 +1,9 @@
 """LPT: int8 codes + per-row Delta, no fp32 master copy (port of repro/methods/lpt.py).
 
 A thin adapter over :mod:`repro_torch.core.lpt`.  ``spec.use_kernels``
-routes the init quantize through ``sr_round`` and lookups through
-``dequant_gather``; ``serving_state`` (inherited) hands codes + Delta to the
-serving Engine as they are.
+routes the init quantize through ``sr_round``, lookups through
+``dequant_gather`` and the row step through ``sparse_row_update``; ``serving_state``
+(inherited) hands codes + Delta to the serving Engine as they are.
 """
 from __future__ import annotations
 
@@ -31,3 +31,10 @@ class LPTMethod(IntegerTableMethod):
         # Container-actual code bytes (packed widths are ceil(d*bits/8) per
         # row) + the per-row fp32 Delta.
         return state.codes.resident_bytes + spec.n_padded * 4
+
+    def sparse_apply(self, state, ids, g_rows, *, spec, lr, weight_decay, noise):
+        return lpt_core.sparse_apply(
+            state, ids, g_rows, lr=lr, bits=spec.bits, rounding=spec.alpt.rounding,
+            noise=noise, optimizer=spec.row_optimizer, weight_decay=weight_decay,
+            id_space=spec.n, use_kernels=spec.use_kernels,
+        )
