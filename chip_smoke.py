@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of ALPT CTR serving and training on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of ALPT CTR serving and training and of
+int8-resident LM serving on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -32,6 +33,24 @@ Phases (each prints its lines; any failure exits non-zero with no result):
   6b. the training CLI (python -m repro_torch.launch.train ctr) at full
      width in the paper's setup, without the scratch row, 5 steps: one row
      kernel and one Adam launch per step, no fallbacks;
+  2d. dequant_matmul / dequant_matmul_packed (bits 4, 2) at SmolLM's head
+     (M in {1, 8}, N = 49,152, K = 576) and ragged shapes against their plain
+     versions and a float64 recomputation, each logit within the fp32 error
+     bound of its K-term sum; the packed head bitwise equal to the int8 head
+     on the unpacked codes; flash_attention_fwd at (B, T, S, H, KH, D) =
+     (1, 157, 157, 9, 3, 64), (2, 96, 96, 4, 2, 80) window 32,
+     (1, 64, 64, 4, 4, 128) non-causal and (1, 2048, 2048, 9, 3, 64);
+  7. serve SmolLM-135M at full width (30 layers, d=576, 9/3 heads, vocab
+     49,152, ALPT table, random weights from a seed) at 8 bits, then 4 bits
+     packed: 16 requests, prompts of 64/100/128/157 tokens, 32 new tokens
+     each, slot batch 8 (token rows through dequant_gather, prefill attention
+     through flash_attention_fwd, the tied head through dequant_matmul);
+     the plain path (use_kernel=False) teacher-forced on the engine's tokens
+     agrees at every step; the requests in reverse order give the same
+     tokens; resident bytes exactly codes + Delta; a decode step's peak
+     memory grows by less than the fp32 table;
+  7b. the serving CLI (python -m repro_torch.launch.serve lm --arch
+     smollm-135m) at its defaults, as a subprocess;
   5. time each kernel at the slices' shapes (median of per-launch CUDA-event
      times after warm-up, device work only) beside its bound, its plain
      version's time and the library's one call where there is one, and the
@@ -81,7 +100,33 @@ KERNELS = {
     # XLA fuses, with no Pallas kernel.
     "adam_update": ("src/repro_torch/kernels/csrc/adam_update.cu",
                     "src/repro/optim/adam.py:32"),
+    "dequant_matmul": ("src/repro_torch/kernels/csrc/dequant_matmul.cu",
+                       "src/repro/kernels/dequant_matmul.py:49"),
+    "dequant_matmul_packed": ("src/repro_torch/kernels/csrc/dequant_matmul.cu",
+                              "src/repro/kernels/dequant_matmul.py:99"),
+    "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:88"),
 }
+# LM serving (phase 7): SmolLM-135M at full width.
+LM_ARCH = "smollm-135m"
+LM_REQUESTS, LM_PROMPTS, LM_MAX_NEW, LM_BATCH, LM_MAX_LEN = 16, (64, 100, 128, 157), 32, 8, 192
+# Resident vocab table: 49,152 rows of 576 codes (1 byte each at 8 bits, 288
+# bytes per packed 4-bit row) + fp32 Delta.
+EXPECTED_LM_RESIDENT = {8: 28_508_160, 4: 14_352_384}
+FP32_TABLE_BYTES = 49_152 * 576 * 4  # 113,246,208: what the head never builds
+# Teacher-forced logits, kernels on vs off: fp32 through 30 layers, where
+# cuBLAS at the slot batch and at batch 1, the flash kernel's online softmax
+# and the head kernel each sum in another order (logits are ~N(0, 1)).
+LM_LOGIT_ATOL = 2e-3
+# (B, T, S, H, KH, D, causal, window) of the attention checks: SmolLM's
+# longest prompt, Danube's head dim with a window, Qwen3's head dim without
+# a causal mask, and a long causal prefill.
+FLASH_CASES = [(1, 157, 157, 9, 3, 64, True, None), (2, 96, 96, 4, 2, 80, True, 32),
+               (1, 64, 64, 4, 4, 128, False, None), (1, 2048, 2048, 9, 3, 64, True, None)]
+# Attention outputs, kernel vs plain: convex combinations of v (|v| < 6),
+# exp and sums in another order, online rescaling.
+FLASH_ATOL = 1e-4
+U32 = 2.0 ** -24  # unit roundoff of fp32
 
 
 class SmokeFailure(Exception):
@@ -488,10 +533,341 @@ def profile_steps(torch, trainer, state, batches, bits: int) -> None:
             f"{e.key[:60]} {e.self_device_time_total / 3:.1f}" for e in top))
 
 
+def head_bound(torch, x, codes, step):
+    """(float64 logits, gamma_{K+1} * (|x| @ |w|.T)): the fp32 error bound of
+    a K-term sum of rounded products, in any order."""
+    k = x.shape[1]
+    w = codes.double() * step.double()[:, None]
+    gamma = (k + 1) * U32 / (1 - (k + 1) * U32)
+    return x.double() @ w.T, gamma * (x.double().abs() @ w.abs().T)
+
+
+def check_lm_kernels(torch, dev, g, err: dict) -> None:
+    """Phase 2d: the head and attention kernels against their plain versions."""
+    from repro_torch.core.codestore import CodeStore
+    from repro_torch.kernels import ops
+
+    for m, n, k in ((1, 49_152, 576), (8, 49_152, 576), (3, 37, 13), (3, 37, 15)):
+        x = torch.randn(m, k, generator=g, device=dev)
+        step = torch.rand(n, generator=g, device=dev) * 0.01 + 1e-4
+        for bits in (8, 4, 2):
+            lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+            codes = torch.randint(lo, hi + 1, (n, k), generator=g, device=dev, dtype=torch.int8)
+            store = CodeStore.from_codes(codes, bits)
+            got = ops.dequant_matmul(x, store, step)
+            plain = ops.dequant_matmul(x, store, step, use_kernel=False)
+            exact, bound = head_bound(torch, x, codes, step)
+            torch.cuda.synchronize()
+            name = "dequant_matmul_packed" if store.packed else "dequant_matmul"
+            e = float((got - plain).abs().max())
+            err[name] = max(err[name], e)
+            check(bool(((got.double() - exact).abs() <= bound).all()),
+                  f"{name} {m}x{n}x{k} bits={bits}: off the float64 value by more than "
+                  f"gamma_(K+1) sum|x w|")
+            check(bool(((got.double() - plain.double()).abs() <= 2 * bound).all()),
+                  f"{name} {m}x{n}x{k} bits={bits}: max err {e} vs plain")
+            if store.packed:
+                check(torch.equal(got, ops.dequant_matmul(x, codes, step)),
+                      f"{name} {m}x{n}x{k} bits={bits}: packed head != int8 head")
+    log("[check] dequant_matmul(_packed) at M 1 and 8 x 49152 x 576 and ragged 3x37x13/15, "
+        "bits 8, 4, 2: within gamma_(K+1) sum|x w| of float64, within twice that of the "
+        "plain matmul; packed heads bitwise equal to the int8 head on the same codes")
+    for b, t, s, h, kh, d, causal, window in FLASH_CASES:
+        q = torch.randn(b, t, h, d, generator=g, device=dev)
+        k = torch.randn(b, s, kh, d, generator=g, device=dev)
+        v = torch.randn(b, s, kh, d, generator=g, device=dev)
+        got = ops.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        plain = ops.flash_attention_fwd(q, k, v, causal=causal, window=window, use_kernel=False)
+        torch.cuda.synchronize()
+        e = float((got - plain).abs().max())
+        err["flash_attention_fwd"] = max(err["flash_attention_fwd"], e)
+        check(bool(torch.isfinite(got).all()) and e <= FLASH_ATOL,
+              f"flash_attention_fwd {(b, t, s, h, kh, d, causal, window)}: max err {e}")
+    log(f"[check] flash_attention_fwd within {FLASH_ATOL} of the plain masked softmax at "
+        f"{[c[:6] for c in FLASH_CASES]}; max err {err['flash_attention_fwd']:.3g}")
+
+
+def lm_engine_class():
+    """``LMEngine`` that also keeps, per request, the logits it chose each
+    token from, and the host time of each prefill and decode step (ending
+    with the card synchronised)."""
+    import torch
+
+    from repro_torch.serving.lm import LMEngine
+
+    class RecordingEngine(LMEngine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.logits = {}
+            self.prefill_ms, self.decode_ms = [], []
+
+        def _prefill(self, req):
+            t0 = time.perf_counter()
+            logits, cache = super()._prefill(req)
+            torch.cuda.synchronize()
+            self.prefill_ms.append((len(req.prompt), (time.perf_counter() - t0) * 1e3))
+            self.logits[req.rid] = [logits[0].clone()]
+            return logits, cache
+
+        def _decode(self):
+            t0 = time.perf_counter()
+            logits = super()._decode()
+            torch.cuda.synchronize()
+            self.decode_ms.append((time.perf_counter() - t0) * 1e3)
+            for slot, rid in enumerate(self._slot_rid):
+                if rid is not None:
+                    self.logits[rid].append(logits[slot].clone())
+            return logits
+
+    return RecordingEngine
+
+
+def lm_serve(torch, np, dev, bits: int) -> dict:
+    """Phase 7: LM serving at full width (the main path), then its checks."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.lm import LMRequest
+    from repro_torch.training import lm_trainer
+
+    cfg = configs.full_config(LM_ARCH, embedding_bits=bits)
+    rng = np.random.RandomState(bits)
+    prompts = [rng.randint(0, cfg.vocab_size, LM_PROMPTS[i % len(LM_PROMPTS)]).astype(np.int32)
+               for i in range(LM_REQUESTS)]
+    engine_cls = lm_engine_class()
+    gather = "dequant_gather_packed" if bits < 8 else "dequant_gather"
+    head = "dequant_matmul_packed" if bits < 8 else "dequant_matmul"
+
+    ops.reset_kernel_calls()  # the main path starts here ...
+    ops.reset_fallbacks()
+    t0 = time.perf_counter()
+    state = lm_trainer.init_state(cfg, seed=bits, device=dev)
+    engine = engine_cls.from_state(state, cfg, batch=LM_BATCH, max_len=LM_MAX_LEN)
+    for i, p in enumerate(prompts):
+        engine.submit(LMRequest(prompt=p, max_new=LM_MAX_NEW, rid=i))
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.kernel_calls()  # ... and ends here
+    for kernel in ("sr_round", gather, head, "flash_attention_fwd"):
+        check(launches.get(kernel, 0) > 0, f"lm bits={bits}: {kernel} never launched")
+    check(launches["flash_attention_fwd"] == LM_REQUESTS * cfg.n_layers,
+          f"lm bits={bits}: flash launches {launches['flash_attention_fwd']}")
+    check(ops.fallbacks() == [], f"lm bits={bits}: fallbacks {ops.fallbacks()}")
+    m = engine.metrics()
+    check(len(done) == LM_REQUESTS and all(len(done[i]) == LM_MAX_NEW for i in done),
+          f"lm bits={bits}: requests lost or short")
+    check(all(0 <= t < cfg.vocab_size for toks in done.values() for t in toks),
+          f"lm bits={bits}: tokens outside the vocabulary")
+    check(m.tokens_generated == LM_REQUESTS * LM_MAX_NEW and m.int8_resident,
+          f"lm bits={bits}: engine metrics {m.to_json()}")
+    check(m.resident_embedding_bytes == m.embedding_code_bytes + m.embedding_scale_bytes
+          == EXPECTED_LM_RESIDENT[bits],
+          f"lm bits={bits}: resident bytes {m.resident_embedding_bytes} != "
+          f"{EXPECTED_LM_RESIDENT[bits]}")
+    for rid, rows in engine.logits.items():
+        check(len(rows) == LM_MAX_NEW and all(bool(torch.isfinite(r).all()) for r in rows),
+              f"lm bits={bits}: request {rid} logits not finite or missing")
+    decode_ms = statistics.mean(engine.decode_ms[1:])
+    prefill = {n: statistics.mean(ms for t, ms in engine.prefill_ms[1:] if t == n)
+               for n in LM_PROMPTS}
+    log(f"[lm] bits={bits}: {LM_REQUESTS} requests x {LM_MAX_NEW} tokens, slot batch "
+        f"{LM_BATCH}: init+serve {wall:.2f}s, serve {m.wall_s:.3f}s "
+        f"({m.to_json()['us_per_token']:.1f} us/token); host clock per decode step "
+        f"{decode_ms:.2f} ms over {len(engine.decode_ms) - 1} steps, per prefill "
+        + ", ".join(f"T={n}: {ms:.2f} ms" for n, ms in prefill.items())
+        + f"; resident {m.resident_embedding_bytes} B = codes {m.embedding_code_bytes} + "
+        f"Delta {m.embedding_scale_bytes}; launches {launches}")
+
+    # The plain path, teacher-forced on the engine's tokens.
+    plain = dataclasses.replace(engine.table, use_kernels=False)
+    worst, agree, held, total = 0.0, 0, 0, 0
+    with torch.inference_mode():
+        for rid, prompt in enumerate(prompts):
+            tokens = done[rid]
+            p = torch.from_numpy(prompt).to(dev)
+            logits, cache = tfm.prefill(state.params, plain, p[None], cfg, LM_MAX_LEN,
+                                        use_kernel=False)
+            for i, tok in enumerate(tokens):
+                if i:
+                    logits, cache = tfm.decode_step(
+                        state.params, plain, torch.tensor([tokens[i - 1]], device=dev), cache,
+                        len(prompt) + i - 1, cfg, use_kernel=False)
+                ref_row, got_row = logits[0], engine.logits[rid][i]
+                e = float((ref_row - got_row).abs().max())
+                worst = max(worst, e)
+                check(e <= LM_LOGIT_ATOL, f"lm bits={bits}: request {rid} step {i}: kernel "
+                                          f"logits differ from the plain path by {e}")
+                top2 = torch.topk(ref_row, 2).values
+                total += 1
+                agree += int(int(torch.argmax(ref_row)) == tok)
+                if float(top2[0] - top2[1]) > 10 * LM_LOGIT_ATOL:
+                    held += 1
+                    check(int(torch.argmax(ref_row)) == tok,
+                          f"lm bits={bits}: request {rid} step {i}: the plain path picks "
+                          f"another token at margin {float(top2[0] - top2[1])}")
+    log(f"[lm] bits={bits}: teacher-forced plain path (use_kernel=False) within "
+        f"{worst:.3g} of the kernel logits (tolerance {LM_LOGIT_ATOL}); greedy tokens agree at "
+        f"{agree}/{total} steps, {held} of them held at a top-2 margin > "
+        f"{10 * LM_LOGIT_ATOL}")
+
+    # Peak memory over one decode step: the head never builds the fp32 table.
+    def decode_peak(table, use_kernel):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        with torch.inference_mode():
+            tfm.decode_step(state.params, table, torch.zeros(LM_BATCH, dtype=torch.int32,
+                                                             device=dev),
+                            engine._cache, torch.zeros(LM_BATCH, dtype=torch.int32, device=dev),
+                            cfg, use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(dev) - base
+
+    kernel_peak, plain_peak = decode_peak(engine.table, True), decode_peak(plain, False)
+    check(kernel_peak < FP32_TABLE_BYTES, f"lm bits={bits}: a decode step's peak grows by "
+                                          f"{kernel_peak} B >= the fp32 table")
+    log(f"[lm] bits={bits}: a decode step's peak memory grows by {kernel_peak} B with the "
+        f"kernels ({plain_peak} B on the plain path, which builds the {FP32_TABLE_BYTES} B "
+        "fp32 table)")
+
+    profile_decode(torch, engine, bits)
+
+    # Slot-refill determinism: the same requests in reverse order.
+    again = engine_cls.from_state(state, cfg, batch=LM_BATCH, max_len=LM_MAX_LEN)
+    for i in reversed(range(LM_REQUESTS)):
+        again.submit(LMRequest(prompt=prompts[i], max_new=LM_MAX_NEW, rid=i))
+    check(again.run() == done, f"lm bits={bits}: reversed arrival order changed the tokens")
+    log(f"[lm] bits={bits}: the {LM_REQUESTS} requests in reverse order give every request "
+        "the same tokens")
+    return {"launches": launches, "state": state, "table": engine.table, "cfg": cfg,
+            "decode_ms": decode_ms, "prefill_ms": prefill}
+
+
+def profile_decode(torch, engine, bits: int, steps: int = 5) -> None:
+    """Where a decode step's time goes: ``steps`` more decode steps of the
+    engine's slot batch under torch.profiler; the card's busy share of the
+    host clock and the top device ops.  Prints "not measured" when the
+    profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        engine._decode()  # warm, outside the window
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                engine._decode()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    if busy_us <= 0:
+        log(f"[profile] lm bits={bits}: device time not measured (the profiler saw none)")
+        return
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"[profile] lm bits={bits}: {steps} decode steps in {wall_us / 1e3:.2f} ms (host "
+        f"clock, profiler on); device busy {busy_us / 1e3:.3f} ms = {busy_us / wall_us:.1%}; "
+        f"{sum(e.count for e in events) / steps:.0f} device ops per step; top (us per step): "
+        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / steps:.1f}" for e in top))
+
+
+def lm_cli() -> dict:
+    """Phase 7b: ``python -m repro_torch.launch.serve lm --arch smollm-135m``
+    at its defaults in a subprocess; returns its launches."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "lm", "--arch",
+                           LM_ARCH], capture_output=True, text=True, cwd=ROOT, env=env,
+                          timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and bool(lines),
+          f"serve lm CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    m = json.loads(lines[-1])
+    launches = m["kernel_launches"]
+    check(m["requests_completed"] == 8 and m["tokens_generated"] == 8 * 16 and m["int8_resident"]
+          and m["resident_embedding_bytes"] == EXPECTED_LM_RESIDENT[8],
+          f"serve lm CLI metrics {m}")
+    check(all(launches.get(k, 0) > 0 for k in ("dequant_gather", "dequant_matmul",
+                                                 "flash_attention_fwd")),
+          f"serve lm CLI launches {launches}")
+    log(f"[serve-cli] {lines[0]}")
+    return launches
+
+
+def flash_pairs(t: int, s: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks let through: the work this input needs."""
+    total = 0
+    for qi in range(t):
+        hi = min(s, qi + 1) if causal else s
+        lo = max(0, qi - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def time_lm_kernels(torch, lm_runs, flush) -> dict:
+    """Phase 5 for the LM kernels: the head at M = 1 (prefill) and 8 (decode)
+    at both widths over the served tables, flash at the slice's longest
+    prompt and at T = 2048; each beside its bound, its plain version and the
+    library's one call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    timings, notes = {}, []
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for bits, kernel in ((8, "dequant_matmul"), (4, "dequant_matmul_packed")):
+        table = lm_runs[bits]["table"]
+        n, k = table.codes.n, table.codes.d
+        width = table.codes.data.shape[1]
+        w_fp32 = ops.dequant_gather(table.codes, table.step,
+                                    torch.arange(n, dtype=torch.int32, device="cuda"))
+        for m in (1, 8):
+            x = torch.randn(m, k, generator=g, device="cuda")
+            got = time_ms(torch, lambda: ops.dequant_matmul(x, table.codes, table.step), 50, flush)
+            plain = time_ms(torch, lambda: ops.dequant_matmul(x, table.codes, table.step,
+                                                              use_kernel=False), 20, flush)[0]
+            lib = time_ms(torch, lambda: torch.matmul(x, w_fp32.T), 50, flush)[0]
+            # fp32 work at both widths: the product and one Delta multiply per
+            # code (the packed unpack is integer work on another pipe).
+            b_ms, b_by = bound_ms(n * width + 4 * n + 4 * m * k + 4 * m * n,
+                                  2 * m * n * k + n * k)
+            notes.append(f"[time] {kernel} M={m} N={n} K={k}: {got[0] * 1e3:.2f} us (plain "
+                         f"{plain * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us by {b_by}; "
+                         f"torch.matmul over the pre-dequantized {n * k * 4} B fp32 table, "
+                         f"which the kernel never builds: {lib * 1e3:.2f} us); host enqueue "
+                         f"{got[1]:.1f} us")
+            if m == LM_BATCH:
+                timings[kernel] = (*got, plain, b_ms, b_by, None)
+        del w_fp32
+    for t, window in ((max(LM_PROMPTS), None), (2048, None)):
+        h, kh, d = 9, 3, 64
+        q = torch.randn(1, t, h, d, generator=g, device="cuda")
+        k = torch.randn(1, t, kh, d, generator=g, device="cuda")
+        v = torch.randn(1, t, kh, d, generator=g, device="cuda")
+        got = time_ms(torch, lambda: ops.flash_attention_fwd(q, k, v, window=window), 30, flush)
+        plain = time_ms(torch, lambda: ops.flash_attention_fwd(q, k, v, window=window,
+                                                               use_kernel=False), 10, flush)[0]
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 30, flush)[0]
+        pairs = flash_pairs(t, t, True, window)
+        b_ms, b_by = bound_ms(4 * (2 * t * h * d + 2 * t * kh * d), 4 * pairs * h * d)
+        notes.append(f"[time] flash_attention_fwd T=S={t} H={h} KH={kh} D={d} causal: "
+                     f"{got[0] * 1e3:.2f} us (plain {plain * 1e3:.2f} us, bound "
+                     f"{b_ms * 1e3:.3f} us by {b_by}, scaled_dot_product_attention "
+                     f"{lib * 1e3:.2f} us); host enqueue {got[1]:.1f} us")
+        if t == max(LM_PROMPTS):
+            timings["flash_attention_fwd"] = (*got, plain, b_ms, b_by, lib)
+    for line in notes:
+        log(line)
+    return timings
+
+
 def main() -> int:
     # cuBLAS picks deterministic algorithms only with a fixed workspace; the
     # kernels-on / kernels-off training runs of phase 6 must agree bitwise.
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    t_start = time.perf_counter()
     try:
         import numpy as np
         import torch
@@ -588,6 +964,9 @@ def main() -> int:
     adam_ops = check_adam(torch, dense_params, g_dense, err)
     del g_occ
 
+    # 2d. the LM head and attention kernels
+    check_lm_kernels(torch, dev, g, err)
+
     # 3, 4. the serving path at 8 bits, then 4 bits packed
     runs = {8: serve(torch, np, dev, 8, ids, "dequant_gather"),
             4: serve(torch, np, dev, 4, ids, "dequant_gather_packed")}
@@ -603,6 +982,13 @@ def main() -> int:
     # 6b. the training CLI at the paper's setup: no scratch row
     cli = train_cli(n)
     launches = {k: launches[k] + cli.get(k, 0) for k in KERNELS}
+
+    # 7. LM serving at full width, 8 bits then 4 bits packed; 7b. its CLI
+    lm_runs = {bits: lm_serve(torch, np, dev, bits) for bits in (8, 4)}
+    served = {k: sum(r["launches"].get(k, 0) for r in lm_runs.values()) for k in KERNELS}
+    log(f"[kernels] launches on the LM serving path: {served}")
+    cli = lm_cli()
+    launches = {k: launches[k] + served[k] + cli.get(k, 0) for k in KERNELS}
 
     # 5. timing at the slice's shapes
     flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
@@ -624,13 +1010,14 @@ def main() -> int:
         table = runs[bits]["table"]
         width = table.codes.data.shape[1]
         b, d = wave.numel(), table.codes.d
-        ops_per = 1 if bits == 8 else 5  # multiply; packed adds shift/mask/sign/convert
+        # fp32 work: one Delta multiply per element (the packed unpack is
+        # integer work on another pipe).
         timings[kernel] = (
             *time_ms(torch, lambda: ops.dequant_gather(table.codes, table.step, wave), 50,
                      flush),
             time_ms(torch, lambda: ops.dequant_gather(table.codes, table.step, wave,
                                                       use_kernel=False), 20, flush)[0],
-            *bound_ms(b * 4 + uniq * (width + 4) + b * d * 4, b * d * ops_per), None,
+            *bound_ms(b * 4 + uniq * (width + 4) + b * d * 4, b * d), None,
         )
     k, distinct = row_ops[8]["uniq"].numel(), row_ops["distinct"]
     for bits, kernel in ((8, "sparse_row_update"), (4, "sparse_row_update_packed")):
@@ -666,6 +1053,7 @@ def main() -> int:
                               time_ms(torch, lambda: adam(False), 20, flush)[0],
                               *bound_ms(n_el * 28, n_el * 15),
                               time_ms(torch, lib_opt.step, 50, flush)[0])
+    timings.update(time_lm_kernels(torch, lm_runs, flush))
     log(f"[time] one wave = {wave.numel()} ids ({uniq} distinct rows); L2 flushed before "
         "each gather and row-step launch; sr_round over the full table; the row step over "
         f"the full padded table at the training wave's {k} slots ({distinct} distinct); "
@@ -673,6 +1061,11 @@ def main() -> int:
     for bits, r in trains.items():
         log(f"[time] training step, bits={bits}: {r['ms_per_step']:.2f} ms/step on the host "
             f"clock (steps 2-{TRAIN_STEPS}; first step {r['first_ms']:.1f} ms)")
+    for bits, r in lm_runs.items():
+        log(f"[time] LM serving, bits={bits}: {r['decode_ms']:.2f} ms per decode step of "
+            f"{LM_BATCH} slots, prefill " + ", ".join(f"T={t}: {ms:.2f} ms" for t, ms in
+                                                      r["prefill_ms"].items())
+            + " on the host clock")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -693,6 +1086,7 @@ def main() -> int:
         })
     check(all(r["launches"] > 0 for r in rows_out), f"a kernel never launched: {launches}")
     check(all(math.isfinite(r["ms"]) for r in rows_out), "a timing is not finite")
+    log(f"[chip_smoke] every phase passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows_out}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

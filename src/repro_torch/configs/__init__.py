@@ -1,1 +1,31 @@
-"""Paper configurations of the port."""
+"""Configurations of the port: the paper's DCN setups (``dcn_ctr``) and the
+LM architecture registry (port of repro/configs/__init__.py).
+
+``--arch <id>`` resolves here.  The registry holds only the architectures
+the port runs: dense attention-only stacks.  The MoE, SSM, encoder-only and
+M-RoPE architectures of the reference come with their slices.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCHS = {
+    "smollm-135m": "repro_torch.configs.smollm_135m",
+    "qwen3-1.7b": "repro_torch.configs.qwen3_1p7b",
+    "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1p8b",
+}
+
+
+def get_arch(name: str):
+    """The config module of an architecture id."""
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
+    return importlib.import_module(ARCHS[name])
+
+
+def full_config(name: str, **overrides):
+    return get_arch(name).full_config(**overrides)
+
+
+def smoke_config(name: str):
+    return get_arch(name).smoke_config()

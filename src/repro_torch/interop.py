@@ -1,4 +1,4 @@
-"""Carry the reference's CTR trainer state, as numpy arrays, into the port and back.
+"""Carry the reference's states, as numpy arrays, into the port (and CTR back).
 
 The JAX package's ``TrainState`` crosses as plain numpy (the caller converts
 it; this module never imports ``jax``): the code container's bytes, the
@@ -7,6 +7,11 @@ DCN parameter pytree, and the DCN's Adam state (``OptState`` step and the
 ``mu`` / ``nu`` pytrees, laid out as the parameters).  :func:`state_to_numpy`
 returns the same layout, so a test can hold a whole trained state against
 the reference's.
+
+For the LM slice, :func:`lm_params_from_numpy` carries the reference's
+transformer params (``repro.models.transformer.init_params``, numpy leaves)
+and :func:`quant_table_from_numpy` its serving table (codes + Delta, int8 or
+packed) into the port's layouts.
 """
 from __future__ import annotations
 
@@ -16,8 +21,11 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.core.codestore import CodeStore, is_packable, packed_width
 from repro_torch.core.lpt import LPTTable
+from repro_torch.methods import EmbeddingSpec
 from repro_torch.models import ctr as ctr_models
+from repro_torch.models import transformer as tfm
 from repro_torch.optim import OptState
+from repro_torch.serving.table import QuantTable
 from repro_torch.training.ctr_trainer import TrainerConfig, TrainState
 
 
@@ -33,6 +41,32 @@ def _dcn_tree(cfg: TrainerConfig, tensors) -> dict:
         for p, t in zip(module.parameters(), tensors):
             p.copy_(t)
     return module.jax_params()
+
+
+def _codes_and_step(spec: EmbeddingSpec, codes: np.ndarray, step: np.ndarray,
+                    dev) -> tuple[CodeStore, torch.Tensor]:
+    """The reference ``CodeStore.data`` (uint8 ``[n, ceil(d*bits/8)]`` when
+    packed, int8 ``[n, d]`` otherwise, at the spec's allocated geometry) and
+    its Delta, checked and on ``dev``."""
+    n, d = spec.n_padded, spec.d_padded
+    codes = np.asarray(codes)
+    packed = codes.dtype == np.uint8
+    if packed:
+        if not is_packable(spec.bits):
+            raise ValueError(f"packed codes at bits={spec.bits}")
+        expect = (n, packed_width(d, spec.bits))
+    else:
+        if codes.dtype != np.int8:
+            raise ValueError(f"codes must be int8 or packed uint8, got {codes.dtype}")
+        expect = (n, d)
+    if codes.shape != expect:
+        raise ValueError(f"codes shape {codes.shape} != {expect}")
+    step = np.asarray(step, np.float32)
+    if step.shape != (n,):
+        raise ValueError(f"step shape {step.shape} != ({n},)")
+    data = torch.from_numpy(np.array(codes)).to(dev)
+    store = CodeStore(data=data, bits=spec.bits, n=n, d=d, packed=packed)
+    return store, torch.from_numpy(np.array(step)).to(dev)
 
 
 def state_from_numpy(cfg: TrainerConfig, *, codes: np.ndarray, step: np.ndarray,
@@ -55,30 +89,15 @@ def state_from_numpy(cfg: TrainerConfig, *, codes: np.ndarray, step: np.ndarray,
         raise ValueError(f"state_from_numpy loads integer tables; got {spec.method!r}")
     dev = device_mod.resolve(device)
     n, d = spec.n_padded, spec.d_padded
-    codes = np.asarray(codes)
-    packed = codes.dtype == np.uint8
-    if packed:
-        if not is_packable(spec.bits):
-            raise ValueError(f"packed codes at bits={spec.bits}")
-        expect = (n, packed_width(d, spec.bits))
-    else:
-        if codes.dtype != np.int8:
-            raise ValueError(f"codes must be int8 or packed uint8, got {codes.dtype}")
-        expect = (n, d)
-    if codes.shape != expect:
-        raise ValueError(f"codes shape {codes.shape} != {expect}")
-    step = np.asarray(step, np.float32)
-    if step.shape != (n,):
-        raise ValueError(f"step shape {step.shape} != ({n},)")
+    store, step_t = _codes_and_step(spec, codes, step, dev)
 
     def tensor(a, dtype):
         return torch.as_tensor(np.array(a), dtype=dtype).to(dev)
 
     slot = (n, d) if spec.row_optimizer == "adam" else (n,)
     table = LPTTable(
-        codes=CodeStore(data=tensor(codes, torch.uint8 if packed else torch.int8),
-                        bits=spec.bits, n=n, d=d, packed=packed),
-        step=tensor(step, torch.float32),
+        codes=store,
+        step=step_t,
         mu=tensor(np.zeros(slot, np.float32) if mu is None else mu, torch.float32),
         nu=tensor(np.zeros(slot, np.float32) if nu is None else nu, torch.float32),
         count=int(train_step if count is None else count),
@@ -111,3 +130,41 @@ def state_to_numpy(cfg: TrainerConfig, state: TrainState) -> dict:
                       "mu": _dcn_tree(cfg, state.dense_opt.mu),
                       "nu": _dcn_tree(cfg, state.dense_opt.nu)},
     }
+
+
+def lm_params_from_numpy(cfg: tfm.ModelConfig, tree: dict, *,
+                         device: str | torch.device = "cuda") -> dict:
+    """The reference's LM params (``transformer.init_params`` with numpy
+    leaves: ``blocks`` a list per period position, each leaf stacked
+    ``[n_groups, ...]``; weights ``[in, out]``) as the port's fp32 params."""
+    dev = device_mod.resolve(device)
+    tfm.check_supported(cfg)
+    if len(tree["blocks"]) != cfg.period:
+        raise ValueError(f"{len(tree['blocks'])} block positions != period {cfg.period}")
+
+    def convert(x):
+        if isinstance(x, dict):
+            return {k: convert(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [convert(v) for v in x]
+        return torch.from_numpy(np.array(x, np.float32)).to(dev)
+
+    params = convert(tree)
+    for block in params["blocks"]:
+        leaves = [block["attn"]["wq"], block["norm1"]]
+        if any(t.shape[0] != cfg.n_groups for t in leaves):
+            raise ValueError(f"block leaves must be stacked over {cfg.n_groups} groups")
+    if cfg.tie_embeddings == ("head" in params):
+        raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings} but the params "
+                         f"{'hold' if 'head' in params else 'lack'} a head")
+    return params
+
+
+def quant_table_from_numpy(spec: EmbeddingSpec, *, codes: np.ndarray, step: np.ndarray,
+                           device: str | torch.device = "cuda") -> QuantTable:
+    """The reference's int8-resident serving table (its ``QuantTable`` codes
+    container bytes, int8 or packed, and Delta) as the port's."""
+    dev = device_mod.resolve(device)
+    store, step_t = _codes_and_step(spec, codes, step, dev)
+    return QuantTable(codes=store, step=step_t, n=spec.n, d=spec.d,
+                      use_kernels=spec.use_kernels)

@@ -52,6 +52,14 @@ SIGNATURES = {
         "sparse_row_update_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                      _I, _I, *(_F,) * 9, _P),
     },
+    "dequant_matmul": {
+        # x, codes, step, y, M, N, K, bits (8: int8 codes; 4, 2: packed), stream
+        "dequant_matmul_launch": (_P, _P, _P, _P, _I64, _I64, _I64, _I, _P),
+    },
+    "flash_attention": {
+        # q, k, v, o, B, T, S, H, KH, D, causal, window (0: none), scale, stream
+        "flash_attention_fwd_launch": (_P, _P, _P, _P, *(_I,) * 8, _F, _P),
+    },
     "adam_update": {
         # count, 7*count tensor pointers, count sizes, lr, bc1, bc2, b1, 1-b1,
         # b2, 1-b2, eps, wd, stream

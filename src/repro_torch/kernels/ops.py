@@ -12,8 +12,8 @@ that are not multiples of 8, the CUDA kernels take every shape, so nothing
 here falls back.  :func:`kernel_calls` counts real launches per kernel, in
 the shape of the reference's ``fallback_stats()["kernel_calls"]``
 (``ops.py:178`` there: op name -> count); the packed variants have their own
-keys (``dequant_gather_packed``, ``sparse_row_update_packed``) because they
-are their own kernels here.
+keys (``dequant_gather_packed``, ``sparse_row_update_packed``,
+``dequant_matmul_packed``) because they are their own kernels here.
 
 A caller that decides *before* a wrapper not to use a kernel (the
 eligibility gate of ``core.lpt.sparse_apply``) records that choice with
@@ -31,6 +31,8 @@ from repro_torch.core.codestore import CodeStore
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import adam_update as _adam
 from repro_torch.kernels import dequant_gather as _gather
+from repro_torch.kernels import dequant_matmul as _matmul
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import sparse_row_update as _row_update
 from repro_torch.kernels import sr_round as _sr_round
 
@@ -99,6 +101,39 @@ def dequant_gather(codes, step: torch.Tensor, ids: torch.Tensor, *,
     if _plain(step, use_kernel):
         return ref.dequant_gather_ref(codes, step, ids)
     return _gather.dequant_gather(codes, step, ids)
+
+
+def dequant_matmul(x: torch.Tensor, codes, step: torch.Tensor, *,
+                   use_kernel: bool = True) -> torch.Tensor:
+    """The quantized LM head: f32 [M, N] ``x @ (step[:, None] * codes).T``
+    for f32 ``x`` [M, K], the fp32 table never built.
+
+    ``codes`` is a :class:`CodeStore` (packed stores take the packed kernel,
+    counted as ``dequant_matmul_packed``) or a raw int8 [N, K] tensor.
+    """
+    if isinstance(codes, CodeStore) and codes.packed:
+        if _plain(x, use_kernel):
+            return ref.dequant_matmul_packed_ref(x, codes.data, step, bits=codes.bits,
+                                                 k=codes.d)
+        return _matmul.dequant_matmul_packed(x, codes.data, step, bits=codes.bits, k=codes.d)
+    if isinstance(codes, CodeStore):
+        codes = codes.data
+    if _plain(x, use_kernel):
+        return ref.dequant_matmul_ref(x, codes, step)
+    return _matmul.dequant_matmul(x, codes, step)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        softmax_scale: float | None = None,
+                        use_kernel: bool = True) -> torch.Tensor:
+    """Attention forward q [B, T, H, D], k/v [B, S, KH, D] -> [B, T, H, D]
+    (GQA, causal, sliding window, ragged T and S; fp32)."""
+    if _plain(q, use_kernel):
+        return ref.flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
+                                           softmax_scale=softmax_scale)
+    return _flash.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                      softmax_scale=softmax_scale)
 
 
 def sparse_row_update(codes, step: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,

@@ -12,6 +12,8 @@ once as ``__fmaf_rn`` does on the card.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -77,6 +79,53 @@ def dequant_gather_packed_ref(packed: torch.Tensor, step: torch.Tensor,
     """The same gather over a packed uint8 container ``[n, ceil(d*bits/8)]``."""
     rows = unpack_codes(packed.index_select(0, ids), bits, d).to(torch.float32)
     return rows * step.index_select(0, ids)[:, None]
+
+
+def dequant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
+                       step: torch.Tensor) -> torch.Tensor:
+    """``x @ (f32(codes) * step[:, None]).T`` -> f32 [M, N] (the LM head over
+    the de-quantized table, as the reference's ``dequant_matmul_ref``)."""
+    w = codes.to(torch.float32) * step[:, None]
+    return x.to(torch.float32) @ w.T
+
+
+def dequant_matmul_packed_ref(x: torch.Tensor, packed: torch.Tensor, step: torch.Tensor, *,
+                              bits: int, k: int) -> torch.Tensor:
+    """The same head over a packed uint8 container ``[N, ceil(k*bits/8)]``."""
+    return dequant_matmul_ref(x, unpack_codes(packed, bits, k), step)
+
+
+#: The Pallas kernel's masked score (``kernels/flash_attention.py:29`` there).
+NEG_INF = -1e30
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool = True, window: int | None = None,
+                            softmax_scale: float | None = None) -> torch.Tensor:
+    """Attention q [B, T, H, D], k/v [B, S, KH, D] -> [B, T, H, D] as one masked
+    softmax over all keys, with the Pallas kernel's mask semantics: key
+    ``k < S``, causal ``q >= k``, window ``q - k < window``, masked scores
+    ``NEG_INF``, masked probabilities 0, the denominator clamped at 1e-20;
+    query head ``h`` reads kv head ``h // (H / KH)``."""
+    b, t, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    kr = k.to(torch.float32).repeat_interleave(h // kh, dim=2)
+    vr = v.to(torch.float32).repeat_interleave(h // kh, dim=2)
+    scores = torch.einsum("bthd,bshd->bhts", q.to(torch.float32) * f32(scale), kr)
+    q_ids = torch.arange(t, device=q.device)[:, None]
+    k_ids = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((t, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_ids >= k_ids
+    if window is not None:
+        mask &= q_ids - k_ids < window
+    scores = torch.where(mask, scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(scores - m), 0.0)
+    denom = torch.clamp_min(p.sum(dim=-1), 1e-20)
+    o = torch.einsum("bhts,bshd->bthd", p, vr)
+    return o / denom.permute(0, 2, 1)[..., None]
 
 
 def sr_round_ref(w: torch.Tensor, step: torch.Tensor, noise: torch.Tensor,

@@ -1,14 +1,22 @@
-"""Serving CLI of the port: CTR scoring over a freshly initialized or trained state.
+"""Serving CLI of the port: CTR scoring and LM decoding.
 
     python -m repro_torch.launch.serve ctr --config avazu --scale 1.0 \\
         --method alpt --bits 8 --batch 1024 --requests 4096 [--train-steps 20]
+    python -m repro_torch.launch.serve lm --arch smollm-135m [--smoke] \\
+        --batch 4 --prompt-len 32 --gen 16 --requests 8
 
 ``--device cpu`` runs the plain PyTorch versions on the CPU; the default is
 ``cuda`` and fails without a GPU.  The state is initialized from ``--seed``
 (table init through the ``sr_round`` kernel), trained ``--train-steps``
 batches of ``--batch`` first (default 0: serve the initial state), served by
 ``CTREngine`` (rows through ``dequant_gather``), and the report ends with one
-JSON line of the engine's metrics.
+JSON line of the engine's metrics.  ``lm`` initializes the architecture's
+params and ALPT vocab table from ``--seed`` (``--smoke``: its reduced
+config), submits ``--requests`` random prompts of ``--prompt-len`` tokens,
+decodes ``--gen`` tokens each greedily in ``LMEngine`` (slot batch
+``--batch``: token rows through ``dequant_gather``, the tied head through
+``dequant_matmul``, prefill attention through ``flash_attention_fwd``) and
+ends with the same JSON line.
 """
 from __future__ import annotations
 
@@ -16,9 +24,14 @@ import argparse
 import json
 import sys
 
+import numpy as np
+
+from repro_torch import configs
 from repro_torch import device as device_mod
 from repro_torch.launch import train as train_cli
 from repro_torch.serving.ctr import CTREngine, CTRRequest
+from repro_torch.serving.lm import LMEngine, LMRequest
+from repro_torch.training import lm_trainer
 from repro_torch.training.ctr_trainer import CTRTrainer, init_state
 
 
@@ -50,6 +63,33 @@ def _run_ctr(args) -> int:
     return 0
 
 
+def _run_lm(args) -> int:
+    device = device_mod.resolve(args.device)
+    cfg = configs.smoke_config(args.arch) if args.smoke else configs.full_config(args.arch)
+    state = lm_trainer.init_state(cfg, seed=args.seed, device=device)
+    engine = LMEngine.from_state(state, cfg, batch=args.batch,
+                                 max_len=args.prompt_len + args.gen)
+    rng = np.random.RandomState(args.seed)
+    for _ in range(args.requests):
+        engine.submit(LMRequest(
+            prompt=rng.randint(0, cfg.vocab_size, args.prompt_len).astype(np.int32),
+            max_new=args.gen))
+    done = engine.run()
+    m = engine.metrics()
+    print(
+        f"[serve] lm/{m.embedding_method} {cfg.name} bits={cfg.embedding_bits} on {device}: "
+        f"{m.requests_completed} requests, {m.tokens_generated} tokens in {m.wall_s:.3f}s "
+        f"({m.to_json()['us_per_token']:.1f} us/token); resident embedding bytes "
+        f"{m.resident_embedding_bytes} (codes {m.embedding_code_bytes} + scales "
+        f"{m.embedding_scale_bytes}; int8_resident={m.int8_resident}); kernel launches "
+        f"{m.kernel_launches}"
+    )
+    for rid in sorted(done)[:2]:
+        print(f"  rid={rid} tokens={done[rid][:8]}...")
+    print(json.dumps(m.to_json(), sort_keys=True))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="scenario", required=True)
@@ -59,7 +99,17 @@ def main(argv=None) -> int:
     ctr.add_argument("--requests", type=int, default=64)
     ctr.add_argument("--train-steps", type=int, default=0,
                      help="train this many batches of --batch before serving")
-    return _run_ctr(ap.parse_args(argv))
+    lm = sub.add_parser("lm", help="continuous-batch LM decode")
+    lm.add_argument("--arch", choices=sorted(configs.ARCHS), required=True)
+    lm.add_argument("--smoke", action="store_true", help="the arch's reduced config")
+    lm.add_argument("--batch", type=int, default=4)
+    lm.add_argument("--prompt-len", type=int, default=32)
+    lm.add_argument("--gen", type=int, default=16)
+    lm.add_argument("--requests", type=int, default=8)
+    lm.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    lm.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    return _run_lm(args) if args.scenario == "lm" else _run_ctr(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,372 @@
+"""Dense attention-only LM backbone (port of repro/models/transformer.py).
+
+The serving half of the reference's unified backbone for the dense
+llama-family architectures (SmolLM, Qwen3, H2O-Danube): GQA attention with
+optional QK-RMSNorm, QKV bias and a sliding window (a window-sized ring
+buffer at decode), SwiGLU MLPs, a tied or untied head.  MoE, Mamba layers,
+the ``embeds`` / ``mixed`` input modes and M-RoPE raise
+``NotImplementedError``: they come with the slices that port them.
+
+Parameters are plain dicts of tensors in the reference's layout, so a
+reference state crosses over leaf for leaf (``repro_torch.interop``):
+``blocks`` is a list over the period positions, each leaf stacked
+``[n_groups, ...]``; weights are ``[in, out]``.  A Python loop over the
+groups replaces ``lax.scan``.  The decode cache has the same layout: one
+``{"k", "v"}`` per period position, ``[n_groups, B, kv_len, KH, D]``.
+
+The embedding table is not in the params: it is a serving table
+(``repro_torch.serving.table``) passed to the forward.  An int8-resident
+``QuantTable`` reads token rows through ``ops.dequant_gather`` and, for a
+tied head, contracts the logits through ``ops.dequant_matmul``: the fp32
+table never exists.  Prefill attention runs ``ops.flash_attention_fwd``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.serving import table as serving_tbl
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int | None = None
+    # Period pattern: layer l has type layer_types[l % period].
+    layer_types: tuple[str, ...] = ("attn",)  # 'attn' | 'mamba'
+    moe_pattern: tuple[bool, ...] = (False,)  # per period position: routed MoE?
+    moe: Any = None  # the reference's MoEConfig; not ported yet
+    ssm: Any = None  # the reference's SSMConfig; not ported yet
+    # Attention flavor.
+    qk_norm: bool = False
+    attn_bias: bool = False
+    sliding_window: int | None = None
+    rope_base: float = 10000.0
+    mrope_sections: tuple[int, int, int] | None = None
+    causal: bool = True  # False -> encoder-only (hubert)
+    mlp_type: str = "swiglu"  # 'swiglu' | 'gelu' (hubert) — d_ff == 0: no MLP
+    # Embedding / head (the paper's technique lives here).
+    embedding_method: str = "alpt"  # 'fp' | 'lpt' | 'alpt'
+    embedding_bits: int = 8
+    tie_embeddings: bool = False
+    input_mode: str = "tokens"  # 'tokens' | 'embeds' | 'mixed'
+    visual_prefix: int = 0  # 'mixed': number of patch-embedding positions
+    # Numerics / sharding-shape knobs.
+    dtype: Any = torch.float32
+    param_dtype: Any = torch.float32
+    head_pad_multiple: int = 1  # pad q-heads to a multiple (16 for TP dry-run)
+    ce_chunk: int = 512
+    attn_q_block: int = 512  # TPU tiling knob; the CUDA kernel picks its own tiles
+    attn_k_block: int = 1024  # TPU tiling knob; the CUDA kernel picks its own tiles
+    remat: bool = False  # checkpoint each period group in the scan
+
+    @property
+    def period(self) -> int:
+        return len(self.layer_types)
+
+    @property
+    def n_groups(self) -> int:
+        assert self.n_layers % self.period == 0, (self.n_layers, self.period)
+        return self.n_layers // self.period
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_heads(self) -> tuple[int, int]:
+        return L.pad_heads(self.n_heads, self.n_kv_heads, self.head_pad_multiple)
+
+    def layer_type(self, pos: int) -> str:
+        return self.layer_types[pos % self.period]
+
+    def is_moe(self, pos: int) -> bool:
+        return self.moe_pattern[pos % self.period] if self.moe is not None else False
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the dense slice does not port."""
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: input_mode {cfg.input_mode!r} comes with the encoder / VLM slice")
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the VLM slice")
+    if any(t != "attn" for t in cfg.layer_types):
+        raise NotImplementedError(f"{cfg.name}: mamba layers come with the SSM slice")
+    if cfg.moe is not None and any(cfg.moe_pattern):
+        raise NotImplementedError(f"{cfg.name}: MoE layers come with the MoE slice")
+    if cfg.d_ff > 0 and cfg.mlp_type != "swiglu":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.mlp_type} MLP comes with the encoder slice")
+
+
+# --------------------------------------------------------------------- init
+
+
+def _init_attn(g: torch.Generator, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    h, kv = cfg.padded_heads
+    hd, d, dt = cfg.hd, cfg.d_model, cfg.param_dtype
+    p = {
+        "wq": L.dense_init(g, (d, h * hd), dtype=dt),
+        "wk": L.dense_init(g, (d, kv * hd), dtype=dt),
+        "wv": L.dense_init(g, (d, kv * hd), dtype=dt),
+        "wo": L.dense_init(g, (h * hd, d), dtype=dt),
+    }
+    if cfg.attn_bias:
+        for name, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
+            p[name] = torch.zeros((width,), dtype=dt, device=g.device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dt, device=g.device)
+        p["k_norm"] = torch.ones((hd,), dtype=dt, device=g.device)
+    return p
+
+
+def _init_block(g: torch.Generator, cfg: ModelConfig) -> dict[str, Any]:
+    d, f, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
+    p: dict[str, Any] = {"norm1": torch.ones((d,), dtype=dt, device=g.device),
+                         "attn": _init_attn(g, cfg)}
+    if f > 0:
+        p["norm2"] = torch.ones((d,), dtype=dt, device=g.device)
+        p["mlp"] = {"w_gate": L.dense_init(g, (d, f), dtype=dt),
+                    "w_up": L.dense_init(g, (d, f), dtype=dt),
+                    "w_down": L.dense_init(g, (f, d), dtype=dt)}
+    return p
+
+
+def _stack(trees: list) -> Any:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig) -> dict[str, Any]:
+    """``{'blocks': [period][stacked over groups], 'final_norm'[, 'head']}``
+    drawn from ``generator`` on its device.  The draws are torch's, not JAX's:
+    a parity test carries the reference's params across instead.  The
+    embedding table is not here (see ``training.lm_trainer.init_state``);
+    untied archs get a float ``head`` [V, d]."""
+    check_supported(cfg)
+    blocks = [_stack([_init_block(generator, cfg) for _ in range(cfg.n_groups)])
+              for _ in range(cfg.period)]
+    params: dict[str, Any] = {
+        "blocks": blocks,
+        "final_norm": torch.ones((cfg.d_model,), dtype=cfg.param_dtype,
+                                 device=generator.device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = L.dense_init(generator, (cfg.vocab_size, cfg.d_model),
+                                      fan_in=cfg.d_model, dtype=cfg.param_dtype)
+    return params
+
+
+def param_count(params) -> int:
+    def count(x):
+        if isinstance(x, dict):
+            return sum(count(v) for v in x.values())
+        if isinstance(x, (list, tuple)):
+            return sum(count(v) for v in x)
+        return x.numel()
+    return count(params)
+
+
+def _group(tree: Any, i: int) -> Any:
+    """Group ``i`` of a tree stacked ``[n_groups, ...]`` (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _group(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# --------------------------------------------------------------------- blocks
+
+
+def _decode_slots(cfg: ModelConfig, cache_size: int, cl: torch.Tensor, b: int):
+    """``(rows, write_idx [B], valid [B, S])`` of a decode step, the same in
+    every layer.  SWA caches are window-sized ring buffers (slot = position %
+    size), whose window mask is off.  ``cl`` is one length for every row or
+    per-slot lengths (continuous batching): each row writes its token at its
+    own cache position, clamped to the last slot as the reference's update is."""
+    ring = cfg.sliding_window is not None and cache_size <= cfg.sliding_window
+    write_idx = cl % cache_size if ring else torch.clamp_max(cl, cache_size - 1)
+    valid_len = torch.clamp_max(cl + 1, cache_size) if ring else cl + 1
+    valid = L.decode_mask(valid_len, cache_size, b,
+                          window=None if ring else cfg.sliding_window, device=cl.device)
+    rows = torch.arange(b, device=cl.device)
+    return rows, write_idx.reshape(-1).expand(b).long(), valid
+
+
+def _attn_block(p, x, cfg: ModelConfig, *, rope, cache=None, slots=None,
+                use_kernel: bool = True):
+    """Pre-norm attention; ``rope`` is ``rope_angles`` of the positions.
+    ``cache=None``: full sequence through the flash kernel, returning the
+    rope'd ``(k, v)`` for the prefill cache.  Else a single-token decode
+    against ``cache`` (``{"k", "v"}`` [B, S, KH, D], written **in place**
+    where ``slots`` (``_decode_slots``) says)."""
+    b, t, _ = x.shape
+    h, kv = cfg.padded_heads
+    hd = cfg.hd
+    a = p["attn"]
+    y = L.rms_norm(x, p["norm1"])
+    q = y @ a["wq"]
+    k = y @ a["wk"]
+    v = y @ a["wv"]
+    if cfg.attn_bias:
+        q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
+    q = q.reshape(b, t, h, hd)
+    k = k.reshape(b, t, kv, hd)
+    v = v.reshape(b, t, kv, hd)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, a["q_norm"])
+        k = L.rms_norm(k, a["k_norm"])
+    q = L.apply_rope(q, *rope)
+    k = L.apply_rope(k, *rope)
+
+    if cache is None:
+        o = L.flash_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
+                              use_kernel=use_kernel)
+        new_kv = (k, v)
+    else:
+        rows, write_idx, valid = slots
+        cache["k"][rows, write_idx] = k[:, 0]
+        cache["v"][rows, write_idx] = v[:, 0]
+        o = L.decode_attention(q, cache["k"], cache["v"], None, valid=valid)
+        new_kv = None
+    o = o.reshape(b, t, h * hd) @ a["wo"]
+    return x + o, new_kv
+
+
+def _mlp_block(p, x, cfg: ModelConfig):
+    if cfg.d_ff == 0:
+        return x
+    y = L.rms_norm(x, p["norm2"])
+    return x + L.swiglu(y, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+
+
+# --------------------------------------------------------------------- fwd
+
+
+def backbone(params: dict[str, Any], embeds: torch.Tensor, cfg: ModelConfig,
+             positions: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
+    """Hidden states [B, T, d] after the final norm (no MoE: no aux loss)."""
+    check_supported(cfg)
+    x = embeds.to(cfg.dtype)
+    rope = L.rope_angles(positions, cfg.hd, cfg.rope_base)
+    for gi in range(cfg.n_groups):
+        for pos in range(cfg.period):
+            p = _group(params["blocks"][pos], gi)
+            x, _ = _attn_block(p, x, cfg, rope=rope, use_kernel=use_kernel)
+            x = _mlp_block(p, x, cfg)
+    return L.rms_norm(x, params["final_norm"])
+
+
+def embed_tokens(table, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Token rows from a serving table (``QuantTable`` through the
+    ``dequant_gather`` kernel) or a raw float [V, d] tensor."""
+    return serving_tbl.rows(table, tokens).to(cfg.dtype)
+
+
+def head_logits(params, table, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits [.., V]: a tied int8-resident table contracts through
+    ``ops.dequant_matmul`` (the fp32 table never exists); a float table or an
+    untied head is a plain fp32 matmul."""
+    w = table if cfg.tie_embeddings else params["head"]
+    return serving_tbl.head_logits(w, h)
+
+
+def default_positions(b: int, t: int, cfg: ModelConfig, device=None) -> torch.Tensor:
+    """Positions 0..t-1 for each of ``b`` rows, int32 [b, t]."""
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the VLM slice")
+    return torch.arange(t, dtype=torch.int32, device=device)[None, :].expand(b, t)
+
+
+# --------------------------------------------------------------------- decode
+
+
+def cache_len_for(cfg: ModelConfig, max_len: int) -> int:
+    """KV slots per attention layer: SWA archs get a window-sized ring buffer."""
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device: str | torch.device = "cuda") -> list:
+    """Decode cache: one ``{"k", "v"}`` per period position, each
+    ``[n_groups, batch, kv_len, KH, D]`` zeros, the reference's layout."""
+    check_supported(cfg)
+    _, kv = cfg.padded_heads
+    shape = (cfg.n_groups, batch, cache_len_for(cfg, max_len), kv, cfg.hd)
+    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+            for _ in range(cfg.period)]
+
+
+def decode_step(params, table, token: torch.Tensor, cache: list, cache_len,
+                cfg: ModelConfig, *, use_kernel: bool = True):
+    """One serve step: ``(logits [B, V], cache)``; the cache is updated **in
+    place** (the reference donates it) and returned.
+
+    ``cache_len`` is an int or a per-slot int [B] tensor: the tokens already
+    in each slot's cache, and the RoPE position of its new token.
+    """
+    check_supported(cfg)
+    b = token.shape[0]
+    x = embed_tokens(table, token[:, None], cfg)
+    cl = torch.as_tensor(cache_len, dtype=torch.int32, device=token.device)
+    offset = cl[:, None] if cl.ndim == 1 else cl
+    positions = default_positions(b, 1, cfg, device=token.device) + offset
+    rope = L.rope_angles(positions, cfg.hd, cfg.rope_base)
+    slots = _decode_slots(cfg, cache[0]["k"].shape[2], cl, b)
+    for gi in range(cfg.n_groups):
+        for pos in range(cfg.period):
+            p = _group(params["blocks"][pos], gi)
+            layer_cache = {"k": cache[pos]["k"][gi], "v": cache[pos]["v"][gi]}
+            x, _ = _attn_block(p, x, cfg, rope=rope, cache=layer_cache, slots=slots,
+                               use_kernel=use_kernel)
+            x = _mlp_block(p, x, cfg)
+    h = L.rms_norm(x, params["final_norm"])
+    return head_logits(params, table, h[:, 0], cfg), cache
+
+
+def prefill(params, table, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
+            lens: torch.Tensor | None = None, *, use_kernel: bool = True):
+    """Run the full prompt and build its decode cache -> ``(logits_last, cache)``.
+
+    ``lens`` ([B], optional) marks each row's true length in a right-padded
+    batch: the logits come from position ``lens - 1``.  Causal attention
+    masks the padding exactly, but the padded length changes the reduction
+    shapes, so that path matches an exact-length prefill to an ulp, not
+    bitwise; the serving engine prefills each request at its exact length.
+    """
+    check_supported(cfg)
+    b, t = tokens.shape
+    x = embed_tokens(table, tokens, cfg)
+    positions = default_positions(b, t, cfg, device=tokens.device)
+    kv_len = cache_len_for(cfg, max_len)
+    # Ring layout: position p lives in slot p % kv_len; only the last kv_len
+    # positions survive.
+    n_keep = min(t, kv_len)
+    slots = torch.arange(t - n_keep, t, device=tokens.device) % kv_len
+    cache = init_cache(cfg, b, max_len, device=tokens.device)
+    rope = L.rope_angles(positions, cfg.hd, cfg.rope_base)
+    for gi in range(cfg.n_groups):
+        for pos in range(cfg.period):
+            p = _group(params["blocks"][pos], gi)
+            x, (k, v) = _attn_block(p, x, cfg, rope=rope, use_kernel=use_kernel)
+            cache[pos]["k"][gi][:, slots] = k[:, t - n_keep:]
+            cache[pos]["v"][gi][:, slots] = v[:, t - n_keep:]
+            x = _mlp_block(p, x, cfg)
+    h_final = L.rms_norm(x, params["final_norm"])
+    if lens is None:
+        h_last = h_final[:, -1]
+    else:
+        idx = torch.clamp(torch.as_tensor(lens, device=tokens.device).long() - 1, 0, t - 1)
+        h_last = h_final[torch.arange(b, device=tokens.device), idx]
+    return head_logits(params, table, h_last, cfg), cache

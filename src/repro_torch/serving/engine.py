@@ -35,11 +35,16 @@ class EngineMetrics:
     embedding_scale_bytes: int
     int8_resident: bool
     kernel_launches: dict[str, int]
+    tokens_generated: int = 0  # LM only
 
     def to_json(self) -> dict:
         out = dataclasses.asdict(self)
         if self.requests_completed:
             out["us_per_request"] = self.wall_s / self.requests_completed * 1e6
+        if self.tokens_generated:
+            out["us_per_token"] = self.wall_s / self.tokens_generated * 1e6
+        else:
+            del out["tokens_generated"]
         return out
 
 
@@ -60,6 +65,7 @@ class Engine:
         self._completed = 0
         self._steps = 0
         self._wall_s = 0.0
+        self._tokens = 0  # generated tokens (LM only)
         self._launches: collections.Counter = collections.Counter()
 
     @staticmethod
@@ -89,7 +95,7 @@ class Engine:
 
     def step(self) -> bool:
         """Advance the scheduler by one unit of work; False once idle."""
-        if not self._queue:
+        if not self._has_work():
             return False
         before = ops.kernel_calls()
         t0 = time.perf_counter()
@@ -105,6 +111,10 @@ class Engine:
         while self.step():
             pass
         return dict(self._done)
+
+    def _has_work(self) -> bool:
+        """Queued requests, or (LM) requests still decoding in their slots."""
+        return bool(self._queue)
 
     def _advance(self) -> None:  # pragma: no cover - abstract
         raise NotImplementedError
@@ -143,4 +153,5 @@ class Engine:
             embedding_scale_bytes=self.embedding_scale_bytes,
             int8_resident=self.int8_resident,
             kernel_launches={k: v for k, v in self._launches.items() if v},
+            tokens_generated=self._tokens,
         )

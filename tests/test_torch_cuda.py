@@ -16,13 +16,18 @@ import torch
 from repro_torch.core import lpt, quant
 from repro_torch.core.codestore import CodeStore
 from repro_torch.data.ctr_synth import CTRDatasetConfig, CTRSynthetic
+from repro_torch import configs
 from repro_torch.kernels import adam_update as adam_kernel
 from repro_torch.kernels import dequant_gather as gather_kernel
+from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sparse_row_update as row_kernel
 from repro_torch.methods import EmbeddingSpec
+from repro_torch.models import transformer as tfm
 from repro_torch.models.ctr import DCNConfig
 from repro_torch.serving.ctr import CTREngine, CTRRequest
+from repro_torch.serving.lm import LMEngine, LMRequest
+from repro_torch.training import lm_trainer
 from repro_torch.training.ctr_trainer import CTRTrainer, TrainerConfig, clone_state, init_state
 
 pytestmark = pytest.mark.gpu
@@ -318,3 +323,123 @@ def test_adam_update_wrapper_raises_on_bad_operands(cuda):
         adam_kernel.adam_update([torch.zeros(3, 4, device=cuda).t()], z, z, z, 1e-3, 0.1, 0.001)
     with pytest.raises(ValueError, match="CUDA"):
         adam_kernel.adam_update(p, [z[0].cpu()], z, z, 1e-3, 0.1, 0.001)
+
+
+def _head_bound(x, codes, step):
+    """(float64 logits, gamma_{K+1} * (|x| @ |w|.T)): the fp32 error bound of
+    a K-term sum of rounded products, in any order."""
+    k = x.shape[1]
+    u = 2.0 ** -24
+    w = codes.double() * step.double()[:, None]
+    return x.double() @ w.T, (k + 1) * u / (1 - (k + 1) * u) * (x.double().abs() @ w.abs().T)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("m,n,k", [(8, 49152, 576), (1, 4099, 576), (3, 37, 13), (3, 37, 15),
+                                   (70, 300, 130)])
+def test_dequant_matmul_kernels_within_the_fp32_bound(cuda, m, n, k, bits):
+    g = _gen(m * n + k + bits, cuda)
+    lo, hi = quant.code_bounds(bits)
+    x = torch.randn(m, k, generator=g, device=cuda)
+    codes = torch.randint(lo, hi + 1, (n, k), generator=g, device=cuda, dtype=torch.int8)
+    step = torch.rand(n, generator=g, device=cuda) * 0.01 + 1e-4
+    store = CodeStore.from_codes(codes, bits)
+    ops.reset_kernel_calls()
+    got = ops.dequant_matmul(x, store, step)
+    torch.cuda.synchronize()
+    kernel = "dequant_matmul_packed" if store.packed else "dequant_matmul"
+    assert ops.kernel_calls() == {kernel: 1}
+    exact, bound = _head_bound(x, codes, step)
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    plain = ops.dequant_matmul(x, store, step, use_kernel=False)
+    assert bool(((got.double() - plain.double()).abs() <= 2 * bound).all())
+    # The packed kernel equals the int8 kernel on the same codes, bitwise,
+    # and a row's logits do not depend on the other rows.
+    assert torch.equal(got, ops.dequant_matmul(x, codes, step))
+    for i in (0, m - 1):
+        assert torch.equal(ops.dequant_matmul(x[i:i + 1].contiguous(), store, step), got[i:i + 1])
+
+
+def test_dequant_matmul_wrappers_raise_on_bad_operands(cuda):
+    codes = torch.zeros(8, 16, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ops.dequant_matmul(torch.zeros(2, 16, device=cuda, dtype=torch.float64), codes,
+                           torch.ones(8, device=cuda))
+    with pytest.raises(ValueError, match="shape"):
+        ops.dequant_matmul(torch.zeros(2, 15, device=cuda), codes, torch.ones(8, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.dequant_matmul(torch.zeros(16, 2, device=cuda).t(), codes, torch.ones(8, device=cuda))
+
+
+@pytest.mark.parametrize("b,t,s,h,kh,d,causal,window", [
+    (1, 157, 157, 9, 3, 64, True, None), (2, 96, 96, 4, 2, 80, True, 32),
+    (1, 64, 64, 4, 4, 128, False, None), (2, 33, 70, 4, 1, 8, False, 7),
+    (1, 70, 33, 2, 2, 24, True, 5), (3, 1, 1, 2, 1, 16, True, None)])
+def test_flash_attention_kernel_matches_plain(cuda, b, t, s, h, kh, d, causal, window):
+    g = _gen(t * d + s, cuda)
+    q = torch.randn(b, t, h, d, generator=g, device=cuda)
+    k = torch.randn(b, s, kh, d, generator=g, device=cuda)
+    v = torch.randn(b, s, kh, d, generator=g, device=cuda)
+    ops.reset_kernel_calls()
+    got = ops.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.kernel_calls() == {"flash_attention_fwd": 1}
+    want = ops.flash_attention_fwd(q, k, v, causal=causal, window=window, use_kernel=False)
+    # exp and sums in another order, online rescaling; outputs are convex
+    # combinations of v.
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_flash_attention_wrapper_raises_on_bad_operands(cuda):
+    kv = torch.zeros(1, 4, 1, 64, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        flash_kernel.flash_attention_fwd(torch.zeros(1, 4, 2, 64, device=cuda).half(), kv, kv)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_kernel.flash_attention_fwd(torch.zeros(1, 4, 2, 20, device=cuda),
+                                         torch.zeros(1, 4, 1, 20, device=cuda),
+                                         torch.zeros(1, 4, 1, 20, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_kernel.flash_attention_fwd(torch.zeros(1, 2, 4, 64, device=cuda).transpose(1, 2),
+                                         kv, kv)
+
+
+@pytest.mark.parametrize("arch,bits", [("smollm-135m", 8), ("smollm-135m", 4),
+                                       ("qwen3-1.7b", 8), ("h2o-danube-1.8b", 8)])
+def test_lm_engine_kernels_vs_plain_teacher_forced(cuda, arch, bits):
+    """Smoke configs on the card: the kernels launch (the head kernel only
+    for a tied table: Danube's head is a float matmul), the plain path fed
+    the kernel engine's tokens agrees within 1e-4 at every step (another
+    summation order in the head, the attention and cuBLAS at batch 1), and
+    the requests in reverse order give the same tokens."""
+    import dataclasses as dc
+
+    cfg = dc.replace(configs.smoke_config(arch), embedding_bits=bits)
+    state = lm_trainer.init_state(cfg, seed=1, device=cuda)
+    rng = np.random.RandomState(0)
+    reqs = [(rng.randint(0, cfg.vocab_size, n).astype(np.int32), m)
+            for n, m in [(40, 6), (17, 3), (33, 5), (9, 1), (25, 4)]]
+    runs = []
+    for order in (range(len(reqs)), reversed(range(len(reqs)))):
+        engine = LMEngine.from_state(state, cfg, batch=2, max_len=48)
+        for i in order:
+            engine.submit(LMRequest(prompt=reqs[i][0], max_new=reqs[i][1], rid=i))
+        runs.append(engine.run())
+        launched = engine.metrics().kernel_launches
+        head = "dequant_matmul_packed" if bits < 8 else "dequant_matmul"
+        assert (launched.get(head, 0) > 0) == cfg.tie_embeddings
+        assert launched.get("flash_attention_fwd") == 5 * cfg.n_layers
+    assert runs[0] == runs[1]
+    plain = dc.replace(engine.table, use_kernels=False)
+    for i, (prompt, _) in enumerate(reqs):
+        tokens = runs[0][i]
+        p = torch.from_numpy(prompt).to(cuda)[None]
+        got, cache = tfm.prefill(state.params, engine.table, p, cfg, 48)
+        want, pcache = tfm.prefill(state.params, plain, p, cfg, 48, use_kernel=False)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        for j, tok in enumerate(tokens[:-1]):
+            t = torch.tensor([tok], device=cuda)
+            got, cache = tfm.decode_step(state.params, engine.table, t, cache, len(prompt) + j,
+                                         cfg)
+            want, pcache = tfm.decode_step(state.params, plain, t, pcache, len(prompt) + j, cfg,
+                                           use_kernel=False)
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
