@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of ALPT CTR serving and training and of
-int8-resident LM serving on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of ALPT CTR serving and training, of
+int8-resident LM serving and of LPT/ALPT LM training on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -51,10 +51,31 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      memory grows by less than the fp32 table;
   7b. the serving CLI (python -m repro_torch.launch.serve lm --arch
      smollm-135m) at its defaults, as a subprocess;
+  2e. lpt_fused_update (bits 8) and lpt_fused_update_packed (bits 4, 2) at
+     SmolLM's table (49,152 x 576) and ragged 37 x 13 / 36 x 15, weight decay
+     0 and 5e-8, with and without a new step: bitwise equal to their plain
+     versions, packed also to pack(int8 kernel(unpack)); sr_round_seeded at
+     49,152 x 576, 37 x 13 and 3 x 5 bitwise equal to its plain version (the
+     same Philox words) for 3 seeds, repeatable, within one lattice step, and
+     unbiased over 64 seeds at 1,000 sampled elements;
+  8. train SmolLM-135M at full width and depth (random weights from a seed,
+     LMTokenStream batches of 4 x 1,024 tokens) for 20 steps each: ALPT at 8
+     bits (Delta's second forward/backward, write-back through sr_round), LPT
+     at 8 bits (lpt_fused_update) and LPT at 4 bits packed
+     (lpt_fused_update_packed): one write-back and one adam_update launch per
+     step and no other kernel, no fallbacks, finite falling losses, the
+     table's training tensors exactly memory_bytes, the write-back's peak
+     memory growth below one fp32 table, the first 3 steps with the kernels
+     off from a copy of the initial state equal bit for bit, a profiler
+     window of 3 steps;
+  8b. the training CLI (python -m repro_torch.launch.train lm --arch
+     smollm-135m --steps 5) at its defaults, as a subprocess;
   5. time each kernel at the slices' shapes (median of per-launch CUDA-event
      times after warm-up, device work only) beside its bound, its plain
      version's time and the library's one call where there is one, and the
-     host's enqueue time per call.
+     host's enqueue time per call; sr_round_seeded beside sr_round with its
+     noise operand at 49,152 x 576, and the training attention's forward +
+     backward (plain PyTorch, no bound row).
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  Without a GPU, or outside a checkout, it
 exits with code 2 and prints no result.
@@ -77,6 +98,14 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# 32-bit integer rate: 64 INT32 lanes per SM (Hopper white paper) x 132 SMs x
+# the 1.98 GHz boost clock behind the 67 TFLOP/s fp32 figure.
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# sr_round_seeded's integer work per element: one Philox4x32-10 call per 4
+# elements (10 rounds of 2 mulhi + 2 mullo + 2 three-input xors, one LOP3
+# each) and the shift of the element's word.  The key schedule depends on
+# the seed alone, so a thread forms it once, not once per call.
+PHILOX_INT_OPS_PER_ELEMENT = 10 * (2 + 2 + 2) / 4 + 1
 REQUESTS, BATCH = 4096, 1024
 SPIN_CYCLES = 2_000_000  # ~1 ms of card clock: outlasts enqueueing one timed call
 SCALE = 1.0  # vocabulary scale of the Avazu setup: the full 4,428,281-row table
@@ -106,6 +135,14 @@ KERNELS = {
                               "src/repro/kernels/dequant_matmul.py:99"),
     "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:88"),
+    "lpt_fused_update": ("src/repro_torch/kernels/csrc/lpt_update.cu",
+                         "src/repro/kernels/lpt_update.py:50"),
+    "lpt_fused_update_packed": ("src/repro_torch/kernels/csrc/lpt_update.cu",
+                                "src/repro/kernels/lpt_update.py:93"),
+    # No caller in the JAX package but its kernel test: its launches are
+    # those of phase 2e's 64-seed unbiasedness run.
+    "sr_round_seeded": ("src/repro_torch/kernels/csrc/sr_round.cu",
+                        "src/repro/kernels/sr_round.py:87"),
 }
 # LM serving (phase 7): SmolLM-135M at full width.
 LM_ARCH = "smollm-135m"
@@ -126,6 +163,15 @@ FLASH_CASES = [(1, 157, 157, 9, 3, 64, True, None), (2, 96, 96, 4, 2, 80, True, 
 # Attention outputs, kernel vs plain: convex combinations of v (|v| < 6),
 # exp and sums in another order, online rescaling.
 FLASH_ATOL = 1e-4
+# LM training (phase 8): SmolLM-135M, batches of 4 x 1,024 tokens (the CE in
+# two chunks of 512), 20 steps per run, the first 3 replayed kernels-off.
+LM_TRAIN_RUNS = (("alpt", 8), ("lpt", 8), ("lpt", 4))
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_REPLAY = 20, 4, 1024, 3
+# The table's training tensors: codes (1 B per code at 8 bits, 288 B per
+# packed 4-bit row) + fp32 Delta + the row-Adam mu and nu (fp32 [V, d] each).
+EXPECTED_LM_TRAIN_BYTES = {8: 255_000_576, 4: 240_844_800}
+SEEDED_SWEEP, SEEDED_SAMPLES = 64, 1000
+LM_TABLE = (49_152, 576)  # SmolLM-135M's vocab table: the write-back's shape
 U32 = 2.0 ** -24  # unit roundoff of fp32
 
 
@@ -142,9 +188,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least time on the card: bytes over the HBM rate or ops over the fp32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def bound_ms(nbytes: float, ops: float, int_ops: float = 0.0) -> tuple[float, str]:
+    """Least time on the card: bytes over the HBM rate, or fp32 ops over the
+    fp32 rate, or 32-bit integer ops over the integer rate, the largest."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(ops / FP32_OPS_PER_S, int_ops / INT32_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -507,30 +555,50 @@ def train(torch, np, dev, bits: int, batches, test_ids) -> dict:
     return {"launches": launches, "ms_per_step": ms, "first_ms": wall[0], "losses": losses}
 
 
-def profile_steps(torch, trainer, state, batches, bits: int) -> None:
-    """Where a training step's time goes: three more steps (kernels on, from
-    ``state``) under torch.profiler; the card's busy share of the host clock
-    and the top device ops.  Prints "not measured" when the profiler sees no
-    device time."""
+def profile_window(torch, run, steps: int, label: str) -> None:
+    """Where the time of ``steps`` steps goes: ``run()`` (the steps, ending
+    with the card synchronised) under torch.profiler; the card's busy share
+    of the host clock, kernels per step, and the top kernels and the top
+    operators by the device time of the kernels they launch.  Busy time sums
+    the kernels alone: an operator's device time is its kernels' time, so
+    summing both would count it twice.  Prints "not measured" when the
+    profiler sees no kernel."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    state, _ = trainer.fit(batches, steps=1, batch_size=BATCH, state=state)  # warm, outside
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        run()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    timed = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+    kernels = [e for e in timed if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us <= 0:
+        log(f"[profile] {label}: device time not measured (the profiler saw no kernel)")
+        return
+
+    def top(events):
+        return "; ".join(f"{e.key[:60]} {e.self_device_time_total / steps:.1f}" for e in
+                         sorted(events, key=lambda e: -e.self_device_time_total)[:5])
+
+    log(f"[profile] {label}: {steps} steps in {wall_us / 1e3:.2f} ms (host clock, profiler "
+        f"on); kernels busy {busy_us / 1e3:.3f} ms = {busy_us / wall_us:.1%}; "
+        f"{sum(e.count for e in kernels) / steps:.0f} kernels per step; top kernels (us per "
+        f"step): {top(kernels)}; top operators by their kernels' time: "
+        f"{top([e for e in timed if e not in kernels])}")
+
+
+def profile_steps(torch, trainer, state, batches, bits: int) -> None:
+    """Three more CTR training steps (kernels on, from ``state``) under the
+    profiler, after one outside it."""
+    state, _ = trainer.fit(batches, steps=1, batch_size=BATCH, state=state)  # warm, outside
+    torch.cuda.synchronize()
+
+    def run():
         trainer.fit(batches, steps=3, batch_size=BATCH, state=state)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
-    busy_us = sum(e.self_device_time_total for e in events)
-    if busy_us <= 0:
-        log(f"[profile] bits={bits}: device time not measured (the profiler saw none)")
-        return
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"[profile] bits={bits}: 3 steps in {wall_us / 1e3:.2f} ms (host clock, "
-        f"profiler on); device busy {busy_us / 1e3:.3f} ms = {busy_us / wall_us:.1%}; top "
-        "device ops (us per step): " + "; ".join(
-            f"{e.key[:60]} {e.self_device_time_total / 3:.1f}" for e in top))
+
+    profile_window(torch, run, 3, f"bits={bits}")
 
 
 def head_bound(torch, x, codes, step):
@@ -745,31 +813,18 @@ def lm_serve(torch, np, dev, bits: int) -> dict:
 
 
 def profile_decode(torch, engine, bits: int, steps: int = 5) -> None:
-    """Where a decode step's time goes: ``steps`` more decode steps of the
-    engine's slot batch under torch.profiler; the card's busy share of the
-    host clock and the top device ops.  Prints "not measured" when the
-    profiler sees no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """``steps`` more decode steps of the engine's slot batch under the
+    profiler, after one outside it."""
     with torch.inference_mode():
         engine._decode()  # warm, outside the window
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+
+        def run():
             for _ in range(steps):
                 engine._decode()
             torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
-    busy_us = sum(e.self_device_time_total for e in events)
-    if busy_us <= 0:
-        log(f"[profile] lm bits={bits}: device time not measured (the profiler saw none)")
-        return
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"[profile] lm bits={bits}: {steps} decode steps in {wall_us / 1e3:.2f} ms (host "
-        f"clock, profiler on); device busy {busy_us / 1e3:.3f} ms = {busy_us / wall_us:.1%}; "
-        f"{sum(e.count for e in events) / steps:.0f} device ops per step; top (us per step): "
-        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / steps:.1f}" for e in top))
+
+        profile_window(torch, run, steps, f"lm decode bits={bits}")
 
 
 def lm_cli() -> dict:
@@ -860,6 +915,324 @@ def time_lm_kernels(torch, lm_runs, flush) -> dict:
             timings["flash_attention_fwd"] = (*got, plain, b_ms, b_by, lib)
     for line in notes:
         log(line)
+    return timings
+
+
+def check_write_back(torch, dev, g, err: dict) -> dict:
+    """Phase 2e: the dense write-back kernels and sr_round_seeded against their
+    plain versions, bitwise; returns the full-table operands for timing and
+    the seeded kernel's launches in its unbiasedness run."""
+    from repro_torch.core import quant
+    from repro_torch.core.codestore import pack_codes, unpack_codes
+    from repro_torch.kernels import lpt_update as lpt_kernel
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sr_round as sr_kernel
+
+    n, d = LM_TABLE
+    timing = {}
+    for rows, cols in ((n, d), (37, 13), (36, 15)):
+        codes = torch.randint(-128, 128, (rows, cols), generator=g, device=dev,
+                              dtype=torch.int8)
+        step = torch.rand(rows, generator=g, device=dev) * 0.01 + 1e-3
+        new_step = step * (1 + 0.02 * torch.rand(rows, generator=g, device=dev))
+        upd = torch.randn(rows, cols, generator=g, device=dev)
+        noise = torch.rand(rows, cols, generator=g, device=dev)
+        for wd in (0.0, 5e-8):
+            for ns in (None, new_step):
+                kw = dict(new_step=ns, weight_decay=wd)
+                got = lpt_kernel.lpt_fused_update(codes, step, upd, noise, 3e-3, 8, **kw)
+                want = ref.lpt_fused_update_ref(codes, step, upd, noise, 3e-3, 8, **kw)
+                torch.cuda.synchronize()
+                e = float((got.int() - want.int()).abs().max())
+                err["lpt_fused_update"] = max(err["lpt_fused_update"], e)
+                check(torch.equal(got, want), f"lpt_fused_update {rows}x{cols} wd={wd} "
+                                              f"new_step={ns is not None}: max err {e}")
+                for bits in (4, 2):
+                    lo, hi = quant.code_bounds(bits)
+                    small = torch.clamp(codes, lo, hi)
+                    packed = pack_codes(small, bits)
+                    got = lpt_kernel.lpt_fused_update_packed(packed, step, upd, noise, 3e-3,
+                                                             bits, cols, **kw)
+                    want = ref.lpt_fused_update_packed_ref(packed, step, upd, noise, 3e-3,
+                                                           bits, cols, **kw)
+                    via = pack_codes(lpt_kernel.lpt_fused_update(small, step, upd, noise, 3e-3,
+                                                                 bits, **kw), bits)
+                    torch.cuda.synchronize()
+                    e = float((unpack_codes(got, bits, cols).int()
+                               - unpack_codes(want, bits, cols).int()).abs().max())
+                    err["lpt_fused_update_packed"] = max(err["lpt_fused_update_packed"], e)
+                    check(torch.equal(got, want) and torch.equal(got, via),
+                          f"lpt_fused_update_packed {rows}x{cols} bits={bits} wd={wd} "
+                          f"new_step={ns is not None}: max err {e}")
+        if rows == n:
+            timing.update(codes=codes, step=step, new_step=new_step, upd=upd, noise=noise,
+                          packed=pack_codes(torch.clamp(codes, -8, 7), 4))
+    log(f"[check] lpt_fused_update (bits 8) and lpt_fused_update_packed (bits 4, 2) bitwise at "
+        f"{n}x{d}, 37x13 and 36x15, weight decay 0 and 5e-8, with and without a new step; "
+        "packed equal to pack(int8 kernel(unpack))")
+
+    for rows, cols in ((n, d), (37, 13), (3, 5)):
+        w = torch.randn(rows, cols, generator=g, device=dev) * 0.05
+        step = quant.init_step_size(w, 8)
+        codes = {}
+        for seed in (0, -1, 12345):
+            codes[seed] = sr_kernel.sr_round_seeded(w, step, seed, 8)
+            want = ref.sr_round_seeded_ref(w, step, seed, 8)
+            again = sr_kernel.sr_round_seeded(w, step, seed, 8)
+            torch.cuda.synchronize()
+            e = float((codes[seed].int() - want.int()).abs().max())
+            err["sr_round_seeded"] = max(err["sr_round_seeded"], e)
+            check(torch.equal(codes[seed], want) and torch.equal(codes[seed], again),
+                  f"sr_round_seeded {rows}x{cols} seed={seed}: max err {e} or not repeatable")
+            exact = torch.clamp(w.double() / step.double()[:, None], -128, 127)
+            check(bool(((codes[seed].double() - exact).abs() < 1).all()),
+                  f"sr_round_seeded {rows}x{cols} seed={seed}: a code off the lattice step")
+        if rows * cols > 100:
+            check(not torch.equal(codes[0], codes[-1]), f"sr_round_seeded {rows}x{cols}: seeds "
+                                                        "0 and -1 give the same codes")
+        if rows == n:
+            timing.update(w=w, w_step=step, w_noise=quant.sr_noise(g, (rows, cols)))
+    # Unbiased: over SEEDED_SWEEP seeds the mean code of each sampled element
+    # lies within 5 sigma of s = clip(w / Delta) (the kernel's float32
+    # quotient), sigma = sqrt(frac(s) (1 - frac(s)) / SEEDED_SWEEP) the standard
+    # error of a mean of Bernoulli(frac(s)) draws, plus 2^-24 for u's grid.
+    w, step = timing["w"], timing["w_step"]
+    pick = torch.randperm(w.numel(), generator=g, device=dev)[:SEEDED_SAMPLES]
+    ops.reset_kernel_calls()
+    draws = torch.stack([ops.sr_round_seeded(w, step, seed, 8).reshape(-1)[pick]
+                         for seed in range(1000, 1000 + SEEDED_SWEEP)]).double()
+    sweep_launches = ops.kernel_calls().get("sr_round_seeded", 0)
+    s32 = torch.clamp(w / step[:, None], -128, 127).reshape(-1)[pick].double()
+    frac = s32 - torch.floor(s32)
+    sigma = torch.sqrt(frac * (1 - frac) / SEEDED_SWEEP)
+    dev_max = float(((draws.mean(0) - s32).abs() - 5 * sigma).max())
+    check(dev_max <= 2.0 ** -24, f"sr_round_seeded biased: a sampled mean exceeds 5 sigma by "
+                                 f"{dev_max}")
+    check(sweep_launches == SEEDED_SWEEP, f"sr_round_seeded sweep launched {sweep_launches}")
+    log(f"[check] sr_round_seeded bitwise equal to its plain version (the same Philox words) at "
+        f"{n}x{d}, 37x13 and 3x5 for seeds 0, -1, 12345, repeatable, every code within one "
+        f"lattice step of w/Delta; over {SEEDED_SWEEP} seeds the mean code of {SEEDED_SAMPLES} "
+        "sampled elements within 5 sigma of w/Delta, sigma = sqrt(frac (1 - frac) / "
+        f"{SEEDED_SWEEP})")
+    timing["seeded_launches"] = sweep_launches
+    return timing
+
+
+def lm_batches(torch, dev, vocab: int) -> list:
+    """Phase 8's training batches, made once: LMTokenStream(seed=17) as the
+    training CLI draws them, tokens and next-token labels on the card."""
+    from repro_torch.data.lm_synth import LMTokenStream
+
+    stream = LMTokenStream(vocab, LM_TRAIN_SEQ, seed=17)
+    out = []
+    for i in range(LM_TRAIN_STEPS):
+        full = torch.from_numpy(stream.batch(i, LM_TRAIN_BATCH)).to(dev)
+        out.append({"tokens": full[:, :-1], "labels": full[:, 1:]})
+    return out
+
+
+def peak_growth(torch, dev, fn) -> int:
+    """Bytes the card's allocated memory peaks above its level before ``fn()``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated(dev) - base
+
+
+def lm_train(torch, dev, method: str, bits: int, batches: list) -> dict:
+    """Phase 8: SmolLM-135M training at full width (the main path), then its
+    checks, the write-back's peak memory, the kernels-off replay and a
+    profiler window."""
+    from repro_torch import configs
+    from repro_torch.core import alpt as alpt_core
+    from repro_torch.core import lpt as lpt_core
+    from repro_torch.core import quant
+    from repro_torch.kernels import ops
+    from repro_torch.optim import tree_leaves
+    from repro_torch.training import lm_trainer
+
+    label = f"lm-train {method} bits={bits}"
+    cfg = configs.full_config(LM_ARCH, embedding_method=method, embedding_bits=bits)
+    tcfg = lm_trainer.LMTrainerConfig()
+    train_step = lm_trainer.make_train_step(cfg, tcfg)
+    write_back = "sr_round" if method == "alpt" else (
+        "lpt_fused_update_packed" if bits < 8 else "lpt_fused_update")
+
+    ops.reset_kernel_calls()  # the main path starts here ...
+    ops.reset_fallbacks()
+    state = lm_trainer.init_state(cfg, tcfg, seed=20 + bits, device=dev)
+    state0 = lm_trainer.clone_state(state)
+    losses, wall = [], []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch)
+        losses.append(float(m["loss"]))  # the host waits for the step
+        wall.append((time.perf_counter() - t0) * 1e3)
+        if i + 1 == LM_REPLAY:
+            early = (lm_trainer.clone_state(state), list(losses))
+    torch.cuda.synchronize()
+    launches = ops.kernel_calls()  # ... and ends here
+    steps = len(batches)
+    want = {"sr_round": 1, "adam_update": steps}  # sr_round: the table's init
+    want[write_back] = want.get(write_back, 0) + steps
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+    check(ops.fallbacks() == [], f"{label}: fallbacks {ops.fallbacks()}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{label}: losses {losses}")
+    table = state.table
+    held = sum(t.numel() * t.element_size() for t in (table.codes.data, table.step, table.mu,
+                                                       table.nu))
+    check(held == lpt_core.memory_bytes(table, bits, count_optimizer=True)
+          == EXPECTED_LM_TRAIN_BYTES[bits],
+          f"{label}: training memory {held} != {EXPECTED_LM_TRAIN_BYTES[bits]}")
+    ms = statistics.mean(wall[1:])
+    log(f"[lm-train] {method} bits={bits}: {steps} steps of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} "
+        f"tokens, loss {losses[0]:.4f} -> {losses[-1]:.4f}; host clock: first step "
+        f"{wall[0]:.1f} ms, then {ms:.2f} ms/step; table training tensors {held} B; "
+        f"launches {launches}")
+
+    # The write-back's peak memory over the trained table, kernel vs plain.
+    spec = lm_trainer.embedding_spec_of(cfg, tcfg)
+    _, (g_table, _) = lm_trainer.make_grad_fn(cfg, tcfg)(state, batches[0])
+    noise = quant.sr_noise(state.generator, tuple(table.codes.shape))
+    if method == "alpt":
+        w_new = alpt_core.dense_weight_update(table, g_table, cfg=spec.alpt, lr=tcfg.lr).w_new
+
+        def write(use_kernel):
+            return ops.sr_round(w_new, table.step, noise, bits, use_kernel=use_kernel)
+    else:
+        upd, _, _ = lpt_core._opt_direction(g_table, table.mu, table.nu, "adam",
+                                            table.count + 1)
+
+        def write(use_kernel):
+            return ops.lpt_update(table.codes, table.step, upd, noise, tcfg.lr, bits,
+                                  weight_decay=tcfg.emb_weight_decay, use_kernel=use_kernel)
+    kernel_peak = peak_growth(torch, dev, lambda: write(True))
+    plain_peak = peak_growth(torch, dev, lambda: write(False))
+    check(kernel_peak < FP32_TABLE_BYTES, f"{label}: the write-back's peak grows by "
+                                          f"{kernel_peak} B >= the fp32 table")
+    log(f"[lm-train] {method} bits={bits}: the write-back ({write_back}) grows the peak by "
+        f"{kernel_peak} B with the kernel, {plain_peak} B on the plain path (one fp32 table is "
+        f"{FP32_TABLE_BYTES} B)")
+
+    # The first LM_REPLAY steps again with the kernels off, from the copy.
+    off_step = lm_trainer.make_train_step(cfg, dataclasses.replace(tcfg, use_kernels=False))
+    ops.reset_kernel_calls()
+    replay, replay_losses = state0, []
+    for batch in batches[:LM_REPLAY]:
+        replay, m = off_step(replay, batch)
+        replay_losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    check(ops.kernel_calls() == {}, f"{label}: kernels-off run launched {ops.kernel_calls()}")
+    ref_state, ref_losses = early
+    pairs = [*zip(tree_leaves(replay.params), tree_leaves(ref_state.params)),
+             *zip(replay.opt.mu + replay.opt.nu, ref_state.opt.mu + ref_state.opt.nu),
+             *((getattr(replay.table, k), getattr(ref_state.table, k))
+               for k in ("step", "mu", "nu")),
+             (replay.table.codes.data, ref_state.table.codes.data)]
+    same = replay_losses == ref_losses and all(torch.equal(a, b) for a, b in pairs)
+    check(same, f"{label}: kernels-off steps 1-{LM_REPLAY} differ from kernels-on: "
+                f"{replay_losses} vs {ref_losses}")
+    log(f"[lm-train] {method} bits={bits}: steps 1-{LM_REPLAY} with the kernels off equal the "
+        f"kernels-on run bit for bit (losses {ref_losses}; params, Adam moments, codes, Delta, "
+        "row-Adam slots)")
+
+    state, _ = train_step(state, batches[0])  # warm, outside the window
+    torch.cuda.synchronize()
+
+    def run():
+        s = state
+        for batch in batches[1:4]:
+            s, _ = train_step(s, batch)
+        torch.cuda.synchronize()
+
+    profile_window(torch, run, 3, label)
+    return {"launches": launches, "ms": ms, "first_ms": wall[0], "losses": losses}
+
+
+def lm_train_cli() -> dict:
+    """Phase 8b: ``python -m repro_torch.launch.train lm --arch smollm-135m
+    --steps 5`` at its defaults in a subprocess; returns its launches."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "lm", "--arch",
+                           LM_ARCH, "--steps", "5"], capture_output=True, text=True, cwd=ROOT,
+                          env=env, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and bool(lines),
+          f"train lm CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    r = json.loads(lines[-1])
+    launches = r["kernel_launches"]
+    check(len(r["losses"]) == 5 and all(math.isfinite(x) for x in r["losses"]),
+          f"train lm CLI losses {r['losses']}")
+    check(launches == {"sr_round": 6, "adam_update": 5}, f"train lm CLI launches {launches}")
+    check(r["fallbacks"] == [] and r["training_bytes"] == EXPECTED_LM_TRAIN_BYTES[8],
+          f"train lm CLI fallbacks {r['fallbacks']}, memory {r['training_bytes']}")
+    log(f"[train-cli] {lines[-2]}; launches {launches}; no fallbacks")
+    return launches
+
+
+def time_write_back(torch, wb: dict, flush) -> dict:
+    """Phase 5 for the LM training kernels at SmolLM's table: the write-back
+    at 8 and 4 bits and sr_round_seeded beside sr_round with its noise
+    operand; then the training attention's forward + backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.codestore import CodeStore
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+
+    timings = {}
+    codes, step, ns, upd, noise = (wb[k] for k in ("codes", "step", "new_step", "upd", "noise"))
+    rows, cols = codes.shape
+    for kernel, c, bits in (("lpt_fused_update", codes, 8),
+                            ("lpt_fused_update_packed", wb["packed"], 4)):
+        store = CodeStore(data=c, bits=bits, n=rows, d=cols, packed=bits < 8)
+
+        def run(use_kernel, store=store, bits=bits):
+            return ops.lpt_update(store, step, upd, noise, 3e-4, bits, new_step=ns,
+                                  weight_decay=5e-8, use_kernel=use_kernel)
+        # Codes in and out, upd and noise in, Delta and Delta' per row; about
+        # 10 fp32 operations per element.
+        nbytes = 2 * c.numel() * c.element_size() + rows * cols * 8 + rows * 8
+        timings[kernel] = (*time_ms(torch, lambda: run(True), 30, flush),
+                           time_ms(torch, lambda: run(False), 5, flush)[0],
+                           *bound_ms(nbytes, rows * cols * 10), None)
+    w, wstep, wnoise = wb["w"], wb["w_step"], wb["w_noise"]
+    n_el = w.numel()
+    timings["sr_round_seeded"] = (
+        *time_ms(torch, lambda: ops.sr_round_seeded(w, wstep, 7, 8), 30, flush),
+        time_ms(torch, lambda: ops.sr_round_seeded(w, wstep, 7, 8, use_kernel=False), 5,
+                flush)[0],
+        *bound_ms(n_el * 5 + rows * 4, n_el * 8, n_el * PHILOX_INT_OPS_PER_ELEMENT), None)
+    noisy = time_ms(torch, lambda: ops.sr_round(w, wstep, wnoise, 8), 30, flush)
+    b_ms, b_by = bound_ms(n_el * 9 + rows * 4, n_el * 8)
+    log(f"[time] sr_round with its noise operand at {rows}x{cols}: {noisy[0] * 1e3:.2f} us "
+        f"(bound {b_ms * 1e3:.3f} us by {b_by}); sr_round_seeded "
+        f"{timings['sr_round_seeded'][0] * 1e3:.2f} us (bound "
+        f"{timings['sr_round_seeded'][3] * 1e3:.3f} us by {timings['sr_round_seeded'][4]})")
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    b, t, h, kh, d = LM_TRAIN_BATCH, LM_TRAIN_SEQ, 9, 3, 64
+    q = torch.randn(b, t, h, d, generator=g, device="cuda").requires_grad_(True)
+    k, v = (torch.randn(b, t, kh, d, generator=g, device="cuda").requires_grad_(True)
+            for _ in range(2))
+    ct = torch.randn(b, t, h, d, generator=g, device="cuda")
+
+    def train_attn():
+        (L.flash_attention_train(q, k, v, q_block=512, k_block=1024) * ct).sum().backward()
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                           v.transpose(1, 2), is_causal=True, enable_gqa=True)
+        (o.transpose(1, 2) * ct).sum().backward()
+    attn = time_ms(torch, train_attn, 10, flush)
+    lib = time_ms(torch, sdpa, 10, flush)[0]
+    log(f"[time] training attention (plain PyTorch, flash_attention_train) forward + backward "
+        f"at B={b} T=S={t} H={h} KH={kh} D={d} causal: {attn[0] * 1e3:.1f} us (SDPA fp32 "
+        f"forward + backward {lib * 1e3:.1f} us); host enqueue {attn[1]:.1f} us")
     return timings
 
 
@@ -964,8 +1337,9 @@ def main() -> int:
     adam_ops = check_adam(torch, dense_params, g_dense, err)
     del g_occ
 
-    # 2d. the LM head and attention kernels
+    # 2d. the LM head and attention kernels; 2e. the LM training kernels
     check_lm_kernels(torch, dev, g, err)
+    wb_ops = check_write_back(torch, dev, g, err)
 
     # 3, 4. the serving path at 8 bits, then 4 bits packed
     runs = {8: serve(torch, np, dev, 8, ids, "dequant_gather"),
@@ -989,6 +1363,20 @@ def main() -> int:
     log(f"[kernels] launches on the LM serving path: {served}")
     cli = lm_cli()
     launches = {k: launches[k] + served[k] + cli.get(k, 0) for k in KERNELS}
+
+    # 8. LM training at full width: ALPT 8, LPT 8, LPT 4 packed; 8b. its CLI
+    t0 = time.perf_counter()
+    lm_data = lm_batches(torch, dev, LM_TABLE[0])
+    log(f"[data] {LM_TRAIN_STEPS} LM batches of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens in "
+        f"{time.perf_counter() - t0:.1f}s")
+    lm_trains = {run: lm_train(torch, dev, *run, lm_data) for run in LM_TRAIN_RUNS}
+    trained = {k: sum(r["launches"].get(k, 0) for r in lm_trains.values()) for k in KERNELS}
+    log(f"[kernels] launches on the LM training path: {trained}")
+    cli = lm_train_cli()
+    launches = {k: launches[k] + trained[k] + cli.get(k, 0) for k in KERNELS}
+    # sr_round_seeded has no main path (no caller in the JAX package but its
+    # kernel test): its launches are its unbiasedness run's (phase 2e).
+    launches["sr_round_seeded"] += wb_ops["seeded_launches"]
 
     # 5. timing at the slice's shapes
     flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
@@ -1054,6 +1442,7 @@ def main() -> int:
                               *bound_ms(n_el * 28, n_el * 15),
                               time_ms(torch, lib_opt.step, 50, flush)[0])
     timings.update(time_lm_kernels(torch, lm_runs, flush))
+    timings.update(time_write_back(torch, wb_ops, flush))
     log(f"[time] one wave = {wave.numel()} ids ({uniq} distinct rows); L2 flushed before "
         "each gather and row-step launch; sr_round over the full table; the row step over "
         f"the full padded table at the training wave's {k} slots ({distinct} distinct); "
@@ -1061,6 +1450,9 @@ def main() -> int:
     for bits, r in trains.items():
         log(f"[time] training step, bits={bits}: {r['ms_per_step']:.2f} ms/step on the host "
             f"clock (steps 2-{TRAIN_STEPS}; first step {r['first_ms']:.1f} ms)")
+    for (method, bits), r in lm_trains.items():
+        log(f"[time] LM training, {method} bits={bits}: {r['ms']:.2f} ms/step on the host clock "
+            f"(steps 2-{LM_TRAIN_STEPS}; first step {r['first_ms']:.1f} ms)")
     for bits, r in lm_runs.items():
         log(f"[time] LM serving, bits={bits}: {r['decode_ms']:.2f} ms per decode step of "
             f"{LM_BATCH} slots, prefill " + ", ".join(f"T={t}: {ms:.2f} ms" for t, ms in

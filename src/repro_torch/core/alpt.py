@@ -11,10 +11,12 @@ Per batch, two alternating sub-steps:
 The Delta gradient comes from an LSQ-style second forward pass over the
 *updated float rows* (:func:`repro_torch.core.quant.fake_quant_lsq`, Eq. 6/7)
 at the updated dense params, scaled by g = 1/sqrt(b * d * q) with
-q = 2^{m-1} - 1.  The weight sub-step is :func:`repro_torch.core.lpt.sparse_apply`,
-so ALPT is LPT plus the learned Delta.  The dense formulation
-(``dense_weight_update`` / ``dense_delta_grad`` / ``dense_finish``) comes with
-the dense/LM slice.
+q = 2^{m-1} - 1.  The weight sub-step is :func:`repro_torch.core.lpt.sparse_apply`
+(the CTR path) or the dense float update of :func:`dense_weight_update` (the
+LM path), so ALPT is LPT plus the learned Delta.  The dense formulation is
+split as the reference's (:func:`dense_weight_update` /
+:func:`dense_delta_grad` / :func:`dense_finish`, composed by
+:func:`alpt_dense_step`).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core import lpt, quant
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 
 class ALPTConfig(NamedTuple):
@@ -123,3 +125,83 @@ def alpt_step(table: lpt.LPTTable, ids: torch.Tensor, g_rows: torch.Tensor,
     table1.codes.set_rows(uniq, codes_rows)
     lpt.set_rows(table1.step, uniq, new_step_b)
     return table1, aux
+
+
+class DenseWeightUpdate(NamedTuple):
+    """Intermediate of the dense weight sub-step (Algorithm 1 lines 1-3),
+    handed from :func:`dense_weight_update` to :func:`dense_finish`."""
+
+    w_new: torch.Tensor  # f32 [n, d] float-updated rows
+    mu_new: torch.Tensor
+    nu_new: torch.Tensor
+    touched: torch.Tensor  # bool [n]
+    count: int
+
+
+def dense_weight_update(table: lpt.LPTTable, grad_table: torch.Tensor, *, cfg: ALPTConfig,
+                        lr: float) -> DenseWeightUpdate:
+    """Dense float weight update (Algorithm 1 line 2) without the write-back:
+    the whole table de-quantized and stepped by the row optimizer."""
+    touched = torch.any(grad_table != 0.0, dim=-1)
+    count = table.count + 1
+    w_new, mu_new, nu_new = lpt._row_update(
+        table.codes.unpack().to(torch.float32), table.step, grad_table.to(torch.float32),
+        table.mu, table.nu, count, lr, cfg.optimizer, cfg.weight_decay)
+    return DenseWeightUpdate(w_new=w_new, mu_new=mu_new, nu_new=nu_new, touched=touched,
+                             count=count)
+
+
+def dense_delta_grad(w_new: torch.Tensor, step_vec: torch.Tensor,
+                     loss_fn_q: Callable[[torch.Tensor], torch.Tensor], *, cfg: ALPTConfig,
+                     gscale: float) -> torch.Tensor:
+    """Delta gradient (Algorithm 1 line 4): ``loss_fn_q`` of the fake-quantized
+    *updated* table differentiated w.r.t. the step vector [n] (Eq. 7 through
+    :func:`repro_torch.core.quant.fake_quant_lsq`)."""
+    step_vec = step_vec.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        table_q = quant.fake_quant_lsq(w_new.detach(), step_vec, cfg.bits, gscale)
+        (g_step,) = torch.autograd.grad(loss_fn_q(table_q), [step_vec])
+    return g_step
+
+
+def dense_finish(table: lpt.LPTTable, upd: DenseWeightUpdate, g_step: torch.Tensor, *,
+                 cfg: ALPTConfig, noise: torch.Tensor) -> lpt.LPTTable:
+    """Delta update + SR re-quantization (Algorithm 1 line 5), touched-row
+    masked so untouched rows keep codes, Delta and slots bit-identical.
+    ``noise`` f32 [n, d] is the reference's ``sr_noise(fold_in(kn, 1), (n, d))``.
+    With ``cfg.use_kernels`` and SR the write-back is ``ops.sr_round`` (f32 in,
+    codes out); DR takes the plain quantizer, counted as a fallback.
+
+    The Delta step ``step - lr_D * (g + wd_D * step)`` is computed as XLA:CPU
+    compiles the reference's, two fused multiply-adds:
+    ``fma(-lr_D, fma(wd_D, step, g), step)``.
+    """
+    inner = ref.fma(ref.f32(cfg.step_weight_decay), table.step, g_step.to(torch.float32))
+    new_step = torch.clamp_min(ref.fma(-ref.f32(cfg.step_lr), inner, table.step), 1e-8)
+    if cfg.step_clamp is not None:
+        new_step = torch.clamp_max(new_step, cfg.step_clamp)
+    new_step = torch.where(upd.touched, new_step, table.step)
+    if cfg.use_kernels and cfg.rounding == "sr":
+        codes_new = ops.sr_round(upd.w_new, new_step, noise, cfg.bits)
+    else:
+        if cfg.use_kernels:
+            ops.note_fallback("sr_round", tuple(upd.w_new.shape), "dr rounding")
+        codes_new = quant.quantize_codes(upd.w_new, new_step, cfg.bits, cfg.rounding, noise)
+    slot_mask = upd.touched[:, None] if table.mu.ndim == 2 else upd.touched
+    return table._replace(codes=table.codes.where_rows(upd.touched, codes_new), step=new_step,
+                          mu=torch.where(slot_mask, upd.mu_new, table.mu),
+                          nu=torch.where(slot_mask, upd.nu_new, table.nu), count=upd.count)
+
+
+def alpt_dense_step(table: lpt.LPTTable, grad_table: torch.Tensor,
+                    loss_fn_q: Callable[[torch.Tensor], torch.Tensor], *, cfg: ALPTConfig,
+                    lr: float, noise: torch.Tensor, batch_rows: int) -> lpt.LPTTable:
+    """Dense ALPT step: :func:`dense_weight_update`, then the Delta gradient of
+    ``loss_fn_q(table_fp) -> scalar`` at the updated rows, then
+    :func:`dense_finish`.  ``batch_rows`` is the paper's b, the table-row
+    lookups of the batch (its token count for an LM), in the gradient scale
+    g = 1/sqrt(b*d*q)."""
+    upd = dense_weight_update(table, grad_table, cfg=cfg, lr=lr)
+    gscale = grad_scale_factor(cfg, batch_rows=int(batch_rows), dim=table.dim)
+    g_step = dense_delta_grad(upd.w_new, table.step, loss_fn_q, cfg=cfg, gscale=gscale)
+    return dense_finish(table, upd, g_step, cfg=cfg, noise=noise)

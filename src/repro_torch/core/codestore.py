@@ -125,6 +125,16 @@ class CodeStore:
         self.data.index_copy_(0, ids, rows)
         return self
 
+    def where_rows(self, mask: torch.Tensor, new: "CodeStore | torch.Tensor") -> "CodeStore":
+        """A new store holding ``new``'s rows where ``mask`` [n] is set and this
+        store's elsewhere (the reference's ``where_rows``).  ``new`` is a store
+        of this layout or logical int8 codes [n, d] (packed here if needed)."""
+        if isinstance(new, CodeStore):
+            data = new.data
+        else:
+            data = pack_codes(new, self.bits) if self.packed else new.to(torch.int8)
+        return dataclasses.replace(self, data=torch.where(mask[:, None], data, self.data))
+
 
 def in_range_rows(ids: torch.Tensor, rows: torch.Tensor, n: int):
     """``(ids, rows)`` as int64 ids in ``[0, n)`` and their rows: the rows a

@@ -8,12 +8,14 @@ re-quantizes with SR or DR (Eq. 8):
     w_hat^{t+1} = Q( w_hat^t - eta * grad f(w_hat^t) )
 
 Ported: :func:`init_table` (SR through the ``sr_round`` kernel),
-:func:`lookup`, and the sparse CTR path :func:`sparse_apply` (ids
+:func:`lookup`, the sparse CTR path :func:`sparse_apply` (ids
 de-duplicated, per-row gradients summed in occurrence order, only those rows
-updated through the ``sparse_row_update`` kernel).  Unlike the reference,
-whose arrays are immutable, :func:`sparse_apply` updates the table's tensors
-**in place** and returns a table that shares them.  ``dense_apply`` (the
-LM/DP path) is not ported yet.
+updated through the ``sparse_row_update`` kernel) and the dense LM path
+:func:`dense_apply` (the whole table's gradient, the optimizer direction
+formed in PyTorch, the write-back through the ``lpt_fused_update`` kernel,
+untouched rows kept bit-identical).  Unlike the reference, whose arrays are
+immutable, :func:`sparse_apply` updates the table's tensors **in place** and
+returns a table that shares them; :func:`dense_apply` returns new tensors.
 """
 from __future__ import annotations
 
@@ -115,6 +117,11 @@ def lookup(table: LPTTable, ids: torch.Tensor, *, use_kernels: bool = False,
     return rows
 
 
+def dense_table(table: LPTTable) -> torch.Tensor:
+    """The full de-quantized f32 [n, d] table (the dense LM path)."""
+    return quant.dequantize(table.codes.unpack(), table.step)
+
+
 # ---------------------------------------------------------------------------
 # Sparse (CTR) training path.
 # ---------------------------------------------------------------------------
@@ -168,10 +175,15 @@ def set_rows(t: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor) -> None:
     t.index_copy_(0, ids, rows)
 
 
-def _opt_direction(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, optimizer: str):
-    """Weight-independent part of an adagrad/sgd row update: (direction, mu, nu).
-    Row-Adam is :func:`repro_torch.kernels.ref.adam_row_step`, the kernel's
-    own arithmetic."""
+def _opt_direction(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, optimizer: str,
+                   count: int | None = None):
+    """Weight-independent part of a row update: ``(direction, mu', nu')``.
+    Adam's (at the 1-indexed ``count``) is
+    :func:`repro_torch.kernels.ref.adam_direction`, the arithmetic the
+    reference's jitted step computes."""
+    if optimizer == "adam":
+        return ref.adam_direction(g, mu, nu, *adam_bias_corrections(count),
+                                  mu_from_numerator=True)
     if optimizer == "adagrad":
         nu = nu + torch.mean(torch.square(g), dim=-1)
         return g / (ref.sqrt_rn(nu)[..., None] + ref.EPS), mu, nu
@@ -182,11 +194,13 @@ def _opt_direction(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, optimize
 
 def _row_update(codes: torch.Tensor, step_rows: torch.Tensor, g: torch.Tensor,
                 mu: torch.Tensor, nu: torch.Tensor, count: int, lr: float, optimizer: str,
-                weight_decay: float):
-    """``(w_new, mu', nu')`` for f32 code rows ``codes`` [k, d] at 1-indexed ``count``."""
+                weight_decay: float, *, mu_from_numerator: bool = False):
+    """``(w_new, mu', nu')`` for f32 code rows ``codes`` [k, d] at 1-indexed
+    ``count`` (``mu_from_numerator``: see ``ref.adam_direction``)."""
     if optimizer == "adam":
         c1, c2 = adam_bias_corrections(count)
-        return ref.adam_row_step(codes, step_rows, mu, nu, g, lr, c1, c2, weight_decay)
+        return ref.adam_row_step(codes, step_rows, mu, nu, g, lr, c1, c2, weight_decay,
+                                 mu_from_numerator=mu_from_numerator)
     w = codes * step_rows[:, None]
     upd, mu, nu = _opt_direction(g, mu, nu, optimizer)
     if weight_decay:
@@ -266,6 +280,56 @@ def sparse_apply(table: LPTTable, ids: torch.Tensor, grad_rows: torch.Tensor, *,
     set_rows(table.nu, uniq, nu_new)
     new_table = table._replace(count=count)
     return (new_table, (uniq, w_new, inv)) if return_updated_rows else new_table
+
+
+# ---------------------------------------------------------------------------
+# Dense (LM) training path.
+# ---------------------------------------------------------------------------
+
+
+def dense_apply(table: LPTTable, grad_table: torch.Tensor, *, lr: float, bits: int,
+                rounding: str = "sr", noise: torch.Tensor | None = None,
+                optimizer: str = "adam", weight_decay: float = 0.0,
+                new_step: torch.Tensor | None = None, use_kernels: bool = False) -> LPTTable:
+    """Dense LPT update: the whole table stepped, touched rows kept.
+
+    A row is touched iff any element of its gradient ``grad_table`` f32
+    [n, d] is nonzero; untouched rows keep their codes, Adam slots and Delta
+    bit-identical.  ``noise`` f32 [n, d] is the SR noise (the reference's
+    ``sr_noise(noise_key, (n, d))``); ``lr`` a float32 value.
+
+    ``use_kernels`` with SR forms the optimizer direction in PyTorch and
+    writes back through ``ops.lpt_update`` (de-quantize, decayed step, SR
+    re-quantize with ``new_step`` or Delta in one pass; the fp32 table is
+    never built).  DR takes the plain path below, counted as a fallback
+    (``ops.fallbacks()``); the two paths are bitwise equal.
+    """
+    touched = torch.any(grad_table != 0.0, dim=-1)
+    count = table.count + 1
+    step = table.step if new_step is None else new_step
+    if rounding == "sr" and noise is None:
+        raise ValueError("SR requires noise")
+    if use_kernels and rounding != "sr":
+        kernel = "lpt_fused_update_packed" if table.codes.packed else "lpt_fused_update"
+        ops.note_fallback(kernel, table.codes.shape, "dr rounding")
+    g = grad_table.to(torch.float32)
+    if use_kernels and rounding == "sr":
+        upd, mu_new, nu_new = _opt_direction(g, table.mu, table.nu, optimizer, count)
+        codes_new = ops.lpt_update(table.codes, table.step, upd, noise, lr, bits,
+                                   new_step=new_step, weight_decay=weight_decay)
+    else:
+        w_new, mu_new, nu_new = _row_update(table.codes.unpack().to(torch.float32), table.step,
+                                            g, table.mu, table.nu, count, lr, optimizer,
+                                            weight_decay, mu_from_numerator=True)
+        codes_new = quant.quantize_codes(w_new, step, bits, rounding, noise)
+    slot_mask = touched[:, None] if table.mu.ndim == 2 else touched
+    return LPTTable(
+        codes=table.codes.where_rows(touched, codes_new),
+        step=table.step if new_step is None else torch.where(touched, step, table.step),
+        mu=torch.where(slot_mask, mu_new, table.mu),
+        nu=torch.where(slot_mask, nu_new, table.nu),
+        count=count,
+    )
 
 
 def memory_bytes(table: LPTTable, bits: int, count_optimizer: bool = False) -> int:

@@ -11,7 +11,10 @@ the reference's.
 For the LM slice, :func:`lm_params_from_numpy` carries the reference's
 transformer params (``repro.models.transformer.init_params``, numpy leaves)
 and :func:`quant_table_from_numpy` its serving table (codes + Delta, int8 or
-packed) into the port's layouts.
+packed) into the port's layouts; :func:`lm_state_from_numpy` its whole
+``LMTrainState`` (params, their Adam state, the table with its row-Adam
+slots and count, or the fp table and its Adam state, the step) and
+:func:`lm_state_to_numpy` the port's back, in the same layout.
 """
 from __future__ import annotations
 
@@ -24,8 +27,9 @@ from repro_torch.core.lpt import LPTTable
 from repro_torch.methods import EmbeddingSpec
 from repro_torch.models import ctr as ctr_models
 from repro_torch.models import transformer as tfm
-from repro_torch.optim import OptState
+from repro_torch.optim import OptState, adam_init, tree_leaves, tree_like
 from repro_torch.serving.table import QuantTable
+from repro_torch.training import lm_trainer
 from repro_torch.training.ctr_trainer import TrainerConfig, TrainState
 
 
@@ -168,3 +172,75 @@ def quant_table_from_numpy(spec: EmbeddingSpec, *, codes: np.ndarray, step: np.n
     store, step_t = _codes_and_step(spec, codes, step, dev)
     return QuantTable(codes=store, step=step_t, n=spec.n, d=spec.d,
                       use_kernels=spec.use_kernels)
+
+
+def _opt_from_numpy(opt: dict | None, like: list, convert) -> OptState:
+    """``{"step", "mu", "nu"}`` (reference ``OptState`` leaves as numpy) as the
+    port's ``OptState`` over the tensors ``like``; zeros when ``opt`` is None."""
+    if opt is None:
+        return adam_init(like)
+    return OptState(step=int(opt["step"]), mu=convert(opt["mu"]), nu=convert(opt["nu"]))
+
+
+def lm_state_from_numpy(cfg: tfm.ModelConfig, tcfg: lm_trainer.LMTrainerConfig | None = None, *,
+                        params: dict, table, opt: dict | None = None,
+                        table_opt: dict | None = None, step: int = 0, seed: int = 0,
+                        device: str | torch.device = "cuda") -> lm_trainer.LMTrainState:
+    """A port ``LMTrainState`` for the reference's.
+
+    ``params`` is the reference's param tree with numpy leaves; ``opt`` its
+    Adam ``OptState`` as ``{"step", "mu", "nu"}`` with ``mu`` / ``nu`` trees
+    laid out as ``params``.  ``table`` is, for lpt / alpt, ``{"codes",
+    "step", "mu", "nu", "count"}`` (``codes`` the ``CodeStore.data`` bytes,
+    int8 or packed uint8), for fp the [V, d] array, with ``table_opt`` its
+    Adam state (``mu`` / ``nu`` arrays).  Missing optimizer states load as
+    zeros.  The SR noise generator is seeded with ``seed``.
+    """
+    dev = device_mod.resolve(device)
+    spec = lm_trainer.embedding_spec_of(cfg, tcfg)
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(dev)
+
+    def tree(t):
+        return tree_leaves(lm_params_from_numpy(cfg, t, device=dev))
+
+    p = lm_params_from_numpy(cfg, params, device=dev)
+    t_opt = None
+    if spec.is_integer_table:
+        store, step_t = _codes_and_step(spec, table["codes"], table["step"], dev)
+        tbl = LPTTable(codes=store, step=step_t, mu=tensor(table["mu"]), nu=tensor(table["nu"]),
+                       count=int(table["count"]))
+    else:
+        tbl = tensor(table)
+        t_opt = _opt_from_numpy(table_opt, [tbl], lambda a: [tensor(a)])
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(seed)
+    return lm_trainer.LMTrainState(params=p, opt=_opt_from_numpy(opt, tree_leaves(p), tree),
+                                   table=tbl, table_opt=t_opt, step=int(step),
+                                   generator=generator)
+
+
+def lm_state_to_numpy(state: lm_trainer.LMTrainState) -> dict:
+    """The inverse of :func:`lm_state_from_numpy`: its keyword arguments
+    (``params``, ``opt``, ``table``, ``table_opt``, ``step``) as numpy."""
+    def cpu(x):
+        if isinstance(x, dict):
+            return {k: cpu(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [cpu(v) for v in x]
+        return x.detach().cpu().numpy()
+
+    def opt(o, shape):
+        return None if o is None else {"step": int(o.step), "mu": cpu(shape(o.mu)),
+                                       "nu": cpu(shape(o.nu))}
+
+    table, table_opt = state.table, opt(state.table_opt, lambda leaves: leaves[0])
+    if isinstance(table, LPTTable):
+        table = {"codes": cpu(table.codes.data), "step": cpu(table.step), "mu": cpu(table.mu),
+                 "nu": cpu(table.nu), "count": int(table.count)}
+    else:
+        table = cpu(table)
+    return {"params": cpu(state.params),
+            "opt": opt(state.opt, lambda leaves: tree_like(state.params, leaves)),
+            "table": table, "table_opt": table_opt, "step": int(state.step)}

@@ -39,6 +39,8 @@ SIGNATURES = {
     "sr_round": {
         # w, step, noise, out, rows, cols, lo, hi, stream
         "sr_round_launch": (_P, _P, _P, _P, _I64, _I64, _I, _I, _P),
+        # w, step, out, rows, cols, lo, hi, seed (uint32), stream
+        "sr_round_seeded_launch": (_P, _P, _P, _I64, _I64, _I, _I, ctypes.c_uint32, _P),
     },
     "dequant_gather": {
         # codes, step, ids, out, n, d, b, stream
@@ -51,6 +53,11 @@ SIGNATURES = {
         # container_bits, bits, lr, c1, c2, b1, 1-b1, b2, 1-b2, eps, wd, stream
         "sparse_row_update_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                      _I, _I, *(_F,) * 9, _P),
+    },
+    "lpt_update": {
+        # codes, step, new_step, upd, noise, out, rows, cols, width,
+        # container_bits, bits, lr, wd, stream
+        "lpt_update_launch": (*(_P,) * 6, _I64, _I64, _I64, _I, _I, _F, _F, _P),
     },
     "dequant_matmul": {
         # x, codes, step, y, M, N, K, bits (8: int8 codes; 4, 2: packed), stream

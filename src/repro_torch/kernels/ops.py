@@ -13,7 +13,16 @@ here falls back.  :func:`kernel_calls` counts real launches per kernel, in
 the shape of the reference's ``fallback_stats()["kernel_calls"]``
 (``ops.py:178`` there: op name -> count); the packed variants have their own
 keys (``dequant_gather_packed``, ``sparse_row_update_packed``,
-``dequant_matmul_packed``) because they are their own kernels here.
+``dequant_matmul_packed``, ``lpt_fused_update_packed``) because they are
+their own kernels here, and the dense write-back counts as
+``lpt_fused_update`` (the reference's ``lpt_update``).
+
+The gather, head and attention kernels are forward only: their CUDA
+wrappers return a tensor autograd never sees, while their plain versions
+are differentiable.  So those dispatchers raise, on every device, when grad
+mode is on and a floating input requires grad (:func:`_forward_only`): a
+training forward that reaches one fails on the CPU too, instead of losing
+its gradient on the card.  Serving runs them under ``inference_mode``.
 
 A caller that decides *before* a wrapper not to use a kernel (the
 eligibility gate of ``core.lpt.sparse_apply``) records that choice with
@@ -23,6 +32,7 @@ eligibility gate of ``core.lpt.sparse_apply``) records that choice with
 from __future__ import annotations
 
 import collections
+import dataclasses
 import logging
 
 import torch
@@ -33,6 +43,7 @@ from repro_torch.kernels import adam_update as _adam
 from repro_torch.kernels import dequant_gather as _gather
 from repro_torch.kernels import dequant_matmul as _matmul
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import lpt_update as _lpt
 from repro_torch.kernels import sparse_row_update as _row_update
 from repro_torch.kernels import sr_round as _sr_round
 
@@ -75,6 +86,17 @@ def _plain(t: torch.Tensor, use_kernel: bool) -> bool:
     return not use_kernel or t.device.type == "cpu"
 
 
+def _forward_only(op: str, *tensors) -> None:
+    """Raise if ``op``, whose kernel has no backward, would be differentiated."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.is_floating_point() and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"ops.{op} is forward only (its CUDA kernel has no backward), but an input "
+            "requires grad with grad mode on; call it under torch.no_grad() or "
+            "torch.inference_mode(), or differentiate a plain PyTorch path instead")
+
+
 def sr_round(w: torch.Tensor, step: torch.Tensor, noise: torch.Tensor, bits: int = 8,
              *, use_kernel: bool = True) -> torch.Tensor:
     """Fused clip + stochastic round to int8 codes (Eq. 1/4)."""
@@ -83,13 +105,51 @@ def sr_round(w: torch.Tensor, step: torch.Tensor, noise: torch.Tensor, bits: int
     return _sr_round.sr_round(w, step, noise, bits)
 
 
+def sr_round_seeded(w: torch.Tensor, step: torch.Tensor, seed: int, bits: int = 8, *,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """:func:`sr_round` with the uniforms drawn from Philox4x32-10 keyed by the
+    int32 ``seed`` (``ref.philox_uniform``), on the card inside the kernel."""
+    if _plain(w, use_kernel):
+        return ref.sr_round_seeded_ref(w, step, seed, bits)
+    return _sr_round.sr_round_seeded(w, step, seed, bits)
+
+
+def lpt_update(codes, step: torch.Tensor, upd: torch.Tensor, noise: torch.Tensor, lr: float,
+               bits: int, *, new_step: torch.Tensor | None = None, weight_decay: float = 0.0,
+               use_kernel: bool = True):
+    """Fused Eq. 8 write-back: de-quantize -> (decayed) step along the formed
+    direction ``upd`` -> SR re-quantize, with ALPT's ``new_step`` when given.
+
+    ``codes`` is a :class:`CodeStore` (returns a new store of the same layout;
+    a packed one takes the packed kernel, counted as
+    ``lpt_fused_update_packed``) or a raw int8 [R, C] tensor (returns int8).
+    ``lr`` and ``weight_decay`` are float32 values.
+    """
+    kw = dict(new_step=new_step, weight_decay=weight_decay)
+    if isinstance(codes, CodeStore):
+        if codes.packed:
+            if _plain(step, use_kernel):
+                data = ref.lpt_fused_update_packed_ref(codes.data, step, upd, noise, lr, bits,
+                                                       codes.d, **kw)
+            else:
+                data = _lpt.lpt_fused_update_packed(codes.data, step, upd, noise, lr, bits,
+                                                    codes.d, **kw)
+        else:
+            data = lpt_update(codes.data, step, upd, noise, lr, bits, use_kernel=use_kernel, **kw)
+        return dataclasses.replace(codes, data=data)
+    if _plain(step, use_kernel):
+        return ref.lpt_fused_update_ref(codes, step, upd, noise, lr, bits, **kw)
+    return _lpt.lpt_fused_update(codes, step, upd, noise, lr, bits, **kw)
+
+
 def dequant_gather(codes, step: torch.Tensor, ids: torch.Tensor, *,
                    use_kernel: bool = True) -> torch.Tensor:
     """f32 [b, d] de-quantized rows for flat int32 ``ids`` [b].
 
     ``codes`` is a :class:`CodeStore` (packed stores take the packed kernel)
-    or a raw int8 [n, d] tensor.
+    or a raw int8 [n, d] tensor.  Forward only (:func:`_forward_only`).
     """
+    _forward_only("dequant_gather", step)
     if isinstance(codes, CodeStore) and codes.packed:
         if _plain(step, use_kernel):
             return ref.dequant_gather_packed_ref(codes.data, step, ids,
@@ -110,7 +170,9 @@ def dequant_matmul(x: torch.Tensor, codes, step: torch.Tensor, *,
 
     ``codes`` is a :class:`CodeStore` (packed stores take the packed kernel,
     counted as ``dequant_matmul_packed``) or a raw int8 [N, K] tensor.
+    Forward only (:func:`_forward_only`).
     """
+    _forward_only("dequant_matmul", x, step)
     if isinstance(codes, CodeStore) and codes.packed:
         if _plain(x, use_kernel):
             return ref.dequant_matmul_packed_ref(x, codes.data, step, bits=codes.bits,
@@ -128,7 +190,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         softmax_scale: float | None = None,
                         use_kernel: bool = True) -> torch.Tensor:
     """Attention forward q [B, T, H, D], k/v [B, S, KH, D] -> [B, T, H, D]
-    (GQA, causal, sliding window, ragged T and S; fp32)."""
+    (GQA, causal, sliding window, ragged T and S; fp32).  Forward only
+    (:func:`_forward_only`): training attention is
+    ``models.layers.flash_attention_train``."""
+    _forward_only("flash_attention_fwd", q, k, v)
     if _plain(q, use_kernel):
         return ref.flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
                                            softmax_scale=softmax_scale)

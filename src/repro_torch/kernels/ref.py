@@ -138,25 +138,135 @@ def sr_round_ref(w: torch.Tensor, step: torch.Tensor, noise: torch.Tensor,
     return torch.clamp(base + up, lo, hi).to(torch.int8)
 
 
+def lpt_fused_update_ref(codes: torch.Tensor, step: torch.Tensor, upd: torch.Tensor,
+                         noise: torch.Tensor, lr: float, bits: int, *,
+                         new_step: torch.Tensor | None = None,
+                         weight_decay: float = 0.0) -> torch.Tensor:
+    """Eq. 8's dense write-back -> int8 codes [R, C]: de-quantize the int8
+    ``codes`` with ``step`` [R], take the (decayed) step along the formed
+    direction ``upd`` [R, C], SR re-quantize with ``new_step`` (default
+    ``step``) and ``noise`` [R, C].
+
+    The arithmetic is the reference's ``lpt_fused_update`` as XLA:CPU
+    compiles it, interpreted or jitted (the two agree): without decay
+    ``w' = fma(code, Delta, -(lr * upd))``; with decay ``upd' = fma(wd, w,
+    upd)``, ``w' = fma(-lr, upd', w)`` with ``w = code * Delta`` — the row
+    step's contraction (:func:`adam_row_step`).  ``lr`` is rounded to float32.
+    """
+    lr = f32(lr)
+    cf = codes.to(torch.float32)
+    st = step[:, None]
+    if weight_decay:
+        w = cf * st
+        w_new = fma(-lr, fma(f32(weight_decay), w, upd.to(torch.float32)), w)
+    else:
+        w_new = fma(cf, st, -(lr * upd.to(torch.float32)))
+    return sr_round_ref(w_new, step if new_step is None else new_step, noise, bits)
+
+
+def lpt_fused_update_packed_ref(packed: torch.Tensor, step: torch.Tensor, upd: torch.Tensor,
+                                noise: torch.Tensor, lr: float, bits: int, d: int, *,
+                                new_step: torch.Tensor | None = None,
+                                weight_decay: float = 0.0) -> torch.Tensor:
+    """The same write-back over a packed uint8 container ``[R, ceil(d*bits/8)]``:
+    ``pack(lpt_fused_update_ref(unpack(packed)))``, new bytes."""
+    codes = lpt_fused_update_ref(unpack_codes(packed, bits, d), step, upd, noise, lr, bits,
+                                 new_step=new_step, weight_decay=weight_decay)
+    return pack_codes(codes, bits)
+
+
+# Philox4x32-10 (Salmon et al., SC'11): the multipliers and Weyl key increments.
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo32(a: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` 32-bit halves of the 64-bit product of uint32 values
+    ``a`` (held in int64) and the constant ``m``.  ``a * m`` can reach 2^64
+    and overflow int64, so ``a`` is split at bit 16: each partial product
+    stays below 2^48."""
+    x = (a & 0xFFFF) * m  # a_lo * m
+    y = (a >> 16) * m  # a_hi * m; a * m = y * 2^16 + x
+    mid = x + ((y & 0xFFFF) << 16)  # < 2^49
+    return (y >> 16) + (mid >> 32), mid & _MASK32
+
+
+def philox4x32_10(counter: list, key: tuple[int, int]) -> list:
+    """Philox4x32-10 on four int64 tensors of uint32 counter words and a
+    two-word key -> the four output words (int64 tensors of uint32 values),
+    as Random123 and the CUDA kernel compute them."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + PHILOX_W[0]) & _MASK32, (k1 + PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo32(c0, PHILOX_M[0])
+        hi1, lo1 = _mulhilo32(c2, PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return [c0, c1, c2, c3]
+
+
+def philox_uniform(seed: int, n: int, device=None) -> torch.Tensor:
+    """``n`` uniforms in [0, 1) (f32) of ``sr_round_seeded``: element ``i``
+    takes word ``i % 4`` of Philox4x32-10 at counter ``(i // 4)`` (two low
+    words; the high two are 0) under key ``(seed mod 2^32, 0)``, and
+    ``u = (word >> 8) * 2^-24`` from the word's top 24 bits as an unsigned
+    integer, so u is a multiple of 2^-24 in [0, 1)."""
+    groups = torch.arange(-(-n // 4), dtype=torch.int64, device=device)
+    zero = torch.zeros_like(groups)
+    words = philox4x32_10([groups & _MASK32, groups >> 32, zero, zero],
+                          (int(seed) & _MASK32, 0))
+    flat = torch.stack(words, dim=1).reshape(-1)[:n]
+    return (flat >> 8).to(torch.float32) * f32(2.0 ** -24)
+
+
+def sr_round_seeded_ref(w: torch.Tensor, step: torch.Tensor, seed: int,
+                        bits: int) -> torch.Tensor:
+    """:func:`sr_round_ref` with the noise drawn from :func:`philox_uniform`
+    over the flat row-major index of ``w`` [r, c]."""
+    noise = philox_uniform(seed, w.numel(), w.device).reshape(w.shape)
+    return sr_round_ref(w, step, noise, bits)
+
+
+def adam_direction(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, c1: float,
+                   c2: float, *, mu_from_numerator: bool = False
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Bias-corrected Adam direction -> ``(upd, mu', nu')`` for f32 gradients
+    ``g``, at ``c1 = 1 - b1^t`` and ``c2 = 1 - b2^t`` (rounded to float32).
+
+    The reference's ``(mu'/c1) / (sqrt(nu'/c2) + eps)`` as XLA:CPU compiles
+    it: ``nu' = fma(b2, nu, (1-b2) g^2)``, and the quotient is ``mu'' / (c1 *
+    (sqrt(nu'/c2) + eps))`` with ``mu'' = fma(1-b1, g, b1 mu)``.  Which
+    contraction XLA stores as ``mu'`` depends on the fusion around it: the
+    other one, ``fma(b1, mu, (1-b1) g)``, in the sparse row kernel's body and
+    in ALPT's ``dense_weight_update``; ``mu''`` itself (``mu_from_numerator``)
+    in ``lpt.dense_apply``, whose new moments feed only the where-merge.
+    """
+    c1, c2 = f32(c1), f32(c2)
+    num = fma(A1, g, B1 * mu)
+    mu_new = num if mu_from_numerator else fma(B1, mu, A1 * g)
+    nu_new = fma(B2, nu, A2 * (g * g))
+    upd = num / (c1 * (sqrt_rn(nu_new / scalar(c2, g)) + EPS))
+    return upd, mu_new, nu_new
+
+
 def adam_row_step(codes: torch.Tensor, step_rows: torch.Tensor, mu: torch.Tensor,
                   nu: torch.Tensor, g: torch.Tensor, lr: float, c1: float, c2: float,
-                  weight_decay: float = 0.0):
+                  weight_decay: float = 0.0, *, mu_from_numerator: bool = False):
     """One row-Adam step on de-quantized rows -> ``(w_new, mu', nu')``.
 
     ``codes`` f32 [k, d] (the integer codes as floats), ``step_rows`` [k];
     ``lr``, ``c1 = 1 - b1^t`` and ``c2 = 1 - b2^t`` are rounded to float32.  The
     arithmetic is the reference kernel body (``repro/kernels/sparse_row_update.py
     :51-58``) as XLA:CPU compiles it, which is where the reference's numbers
-    come from: the two moment updates are fused multiply-adds, the quotient
-    ``(mu'/c1) / (sqrt(nu'/c2) + eps)`` is rewritten as ``mu'' / (c1 *
-    (sqrt(nu'/c2) + eps))`` with a numerator ``mu''`` that contracts the other
-    product, and the final subtraction is fused too.
+    come from: :func:`adam_direction` (``mu_from_numerator`` as there), then
+    the final subtraction fused too.
     """
-    lr, c1, c2 = f32(lr), f32(c1), f32(c2)  # the kernel takes them as float32
+    lr = f32(lr)  # the kernel takes it as float32
     w = codes * step_rows[:, None]
-    mu_new = fma(B1, mu, A1 * g)
-    nu_new = fma(B2, nu, A2 * (g * g))
-    upd = fma(A1, g, B1 * mu) / (c1 * (sqrt_rn(nu_new / scalar(c2, g)) + EPS))
+    upd, mu_new, nu_new = adam_direction(g, mu, nu, c1, c2,
+                                         mu_from_numerator=mu_from_numerator)
     if weight_decay:
         upd = fma(f32(weight_decay), w, upd)
         w_new = fma(-lr, upd, w)

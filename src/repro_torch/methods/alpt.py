@@ -4,11 +4,13 @@ Inherits the LPT table handling and overrides the train step with
 Algorithm 1's two sub-steps: the weight update, then Delta learned through a
 second fake-quant forward at the *updated* dense params.  ``spec.use_kernels``
 flows into :class:`~repro_torch.core.alpt.ALPTConfig`, so the weight step
-runs through ``sparse_row_update`` and the line-5 re-quantize through
-``sr_round``.  Serving ships the codes and the learned Delta as they are
-(inherited ``serving_state``).
+runs through ``sparse_row_update`` (CTR) or the dense float update (LM), and
+the line-5 re-quantize through ``sr_round``.  Serving ships the codes and the
+learned Delta as they are (inherited ``serving_state``).
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core import alpt as alpt_core
 from repro_torch.methods.base import register
@@ -20,6 +22,7 @@ class ALPTMethod(LPTMethod):
     # ALPT learns Delta from the LSQ-style init; the clip knob is LPT-only.
     _clip_value_of = staticmethod(lambda spec: None)
     noise_draws = 2  # step 1's write-back and line 5's re-quantize
+    has_learned_step = True
 
     @staticmethod
     def _acfg(spec, weight_decay) -> alpt_core.ALPTConfig:
@@ -44,3 +47,19 @@ class ALPTMethod(LPTMethod):
             noise=noise, id_space=spec.n, out_dim=spec.d,
         )
         return new_state, {"loss": loss, **aux}
+
+    def dense_update(self, state, opt, grads, *, spec, lr, weight_decay, noise=None,
+                     delta_grad=None, batch_rows=None):
+        acfg = self._acfg(spec, weight_decay)
+        upd = alpt_core.dense_weight_update(state, grads, cfg=acfg, lr=lr)
+        gscale = alpt_core.grad_scale_factor(acfg, batch_rows=int(batch_rows), dim=spec.d)
+        # Algorithm 1 line 4 at the caller's UPDATED dense params.
+        g_step = delta_grad(upd.w_new, state.step, gscale)
+        new_state = alpt_core.dense_finish(state, upd, g_step, cfg=acfg, noise=noise)
+        aux = {"step_grad_norm": torch.linalg.vector_norm(g_step),
+               "mean_step": torch.mean(new_state.step)}
+        return new_state, None, aux
+
+    def dense_delta_grad(self, w_new, step_vec, loss_fn_q, *, spec, weight_decay, gscale):
+        return alpt_core.dense_delta_grad(w_new, step_vec, loss_fn_q,
+                                          cfg=self._acfg(spec, weight_decay), gscale=gscale)

@@ -3,9 +3,10 @@
 Every consumer dispatches on ``spec.method`` through :func:`get`.  Ported
 for ``fp``, ``lpt`` and ``alpt``: the serving surface (``init`` / ``lookup``
 / ``memory_bytes`` / ``serving_state``), the float-leaf formulation
-(``trainable_params`` / ``with_params``) and the sparse row formulation
-(``sparse_apply`` / ``fused_row_step``).  The dense formulation the
-data-parallel and LM paths use comes later.
+(``trainable_params`` / ``with_params``), the sparse row formulation
+(``sparse_apply`` / ``fused_row_step``, the CTR path) and the dense
+formulation (``dense_params`` / ``dense_table_from`` / ``dense_update`` /
+``dense_delta_grad``, the LM path: the gradient of the whole [n, d] table).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core.alpt import ALPTConfig
+from repro_torch.optim import adam_update
 from repro_torch.serving import table as serving_tbl
 
 #: Row/width multiple of ``pad_to_tiles``: the reference's sublane multiple,
@@ -72,6 +74,9 @@ class EmbeddingMethod(abc.ABC):
     name: str = "?"  # set by @register
     #: Table is integer codes (no differentiable float leaves).
     is_integer_table: bool = False
+    #: Learns its step size Delta through a second fake-quant forward (ALPT
+    #: Algorithm 1 line 4): the dense trainer supplies a delta-grad closure.
+    has_learned_step: bool = False
     #: SR noise tensors [K, d] one ``fused_row_step`` consumes.
     noise_draws: int = 0
 
@@ -98,6 +103,40 @@ class EmbeddingMethod(abc.ABC):
     @abc.abstractmethod
     def with_params(self, state: Any, params: Any, spec: EmbeddingSpec) -> Any:
         """Rebuild state from updated differentiable leaves."""
+
+    # ---------------------------------------------------- dense formulation
+
+    def dense_params(self, state: Any, spec: EmbeddingSpec) -> torch.Tensor:
+        """The tensor the dense (LM) backward differentiates w.r.t."""
+        return self.trainable_params(state, spec)
+
+    @abc.abstractmethod
+    def dense_table_from(self, state: Any, params: torch.Tensor,
+                         spec: EmbeddingSpec) -> torch.Tensor:
+        """Full [n, d] float table, differentiable in ``params``."""
+
+    def eval_table(self, state: Any, spec: EmbeddingSpec) -> torch.Tensor:
+        """The [n, d] table evaluation forwards read (training semantics)."""
+        return self.dense_table_from(state, self.dense_params(state, spec), spec)
+
+    def dense_update(self, state: Any, opt: Any, grads: torch.Tensor, *, spec: EmbeddingSpec,
+                     lr: float, weight_decay: float, noise: torch.Tensor | None = None,
+                     delta_grad: Callable | None = None, batch_rows: int | None = None):
+        """Consume the dense gradient -> ``(new_state, new_opt, aux)``.
+
+        The float-leaf rule: AdamW over ``trainable_params`` with decoupled
+        weight decay (``opt`` the caller-held ``OptState`` over that one
+        tensor; the ``adam_update`` kernel on the card).  ``noise`` is the
+        step's SR draw of an integer table; ``delta_grad(w_new, step_vec,
+        gscale) -> g_step`` and ``batch_rows`` (the paper's b) serve methods
+        that learn Delta."""
+        (new,), new_opt = adam_update([grads], opt, [self.trainable_params(state, spec)], lr,
+                                      weight_decay=weight_decay, use_kernel=spec.use_kernels)
+        return self.with_params(state, new, spec), new_opt, {}
+
+    def dense_delta_grad(self, w_new, step_vec, loss_fn_q, *, spec: EmbeddingSpec,
+                         weight_decay: float, gscale: float) -> torch.Tensor:
+        raise NotImplementedError(f"{self.name!r} has no learned step size")
 
     def fused_row_step(self, state: Any, ids: torch.Tensor, *, spec: EmbeddingSpec,
                        loss_from_rows: Callable, dense_params: list,
@@ -130,6 +169,16 @@ class IntegerTableMethod(EmbeddingMethod):
 
     def with_params(self, state, params, spec):
         return state
+
+    @abc.abstractmethod
+    def dense_table(self, state: Any, spec: EmbeddingSpec) -> torch.Tensor:
+        """The full de-quantized live [n, d] table."""
+
+    def dense_params(self, state, spec):
+        return self.dense_table(state, spec)
+
+    def dense_table_from(self, state, params, spec):
+        return params
 
     @abc.abstractmethod
     def sparse_apply(self, state: Any, ids: torch.Tensor, g_rows: torch.Tensor, *,

@@ -23,3 +23,6 @@ class FPMethod(EmbeddingMethod):
 
     def with_params(self, state, params, spec):
         return params
+
+    def dense_table_from(self, state, params, spec):
+        return params  # the params are the table

@@ -2,8 +2,9 @@
 
 A thin adapter over :mod:`repro_torch.core.lpt`.  ``spec.use_kernels``
 routes the init quantize through ``sr_round``, lookups through
-``dequant_gather`` and the row step through ``sparse_row_update``; ``serving_state``
-(inherited) hands codes + Delta to the serving Engine as they are.
+``dequant_gather``, the row step through ``sparse_row_update`` and the dense
+(LM) write-back through ``lpt_fused_update``; ``serving_state`` (inherited)
+hands codes + Delta to the serving Engine as they are.
 """
 from __future__ import annotations
 
@@ -38,3 +39,15 @@ class LPTMethod(IntegerTableMethod):
             noise=noise, optimizer=spec.row_optimizer, weight_decay=weight_decay,
             id_space=spec.n, use_kernels=spec.use_kernels,
         )
+
+    def dense_table(self, state, spec):
+        return lpt_core.dense_table(state)
+
+    def dense_update(self, state, opt, grads, *, spec, lr, weight_decay, noise=None,
+                     delta_grad=None, batch_rows=None):
+        new_state = lpt_core.dense_apply(
+            state, grads, lr=lr, bits=spec.bits,
+            rounding=spec.alpt.rounding, noise=noise, optimizer=spec.row_optimizer,
+            weight_decay=weight_decay, use_kernels=spec.use_kernels,
+        )
+        return new_state, None, {}

@@ -5,8 +5,12 @@ All functions are plain tensor code in the reference's layouts (activations
 ``[B, T, ...]``, weights ``[in, out]``).  Prefill attention is the reference's
 flash formulation, forward only, through ``ops.flash_attention_fwd``: the
 hand-written CUDA kernel on the card, its plain masked-softmax version on the
-CPU.  Decode attention against the KV cache is plain PyTorch, as it is plain
-jnp in the reference.  M-RoPE, LayerNorm and the GELU MLP come with the
+CPU.  Training attention (:func:`flash_attention_train`) is the reference's
+pure-jnp ``flash_attention`` with its custom VJP, a ``torch.autograd.Function``
+in plain PyTorch: an online-softmax forward over the key blocks each query
+block's footprint touches, and a backward that keeps only ``(q, k, v, o,
+lse)``.  Decode attention against the KV cache is plain PyTorch, as it is
+plain jnp in the reference.  M-RoPE, LayerNorm and the GELU MLP come with the
 architectures that use them.
 """
 from __future__ import annotations
@@ -96,6 +100,140 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     return ops.flash_attention_fwd(q, k, v, causal=causal, window=window,
                                    softmax_scale=softmax_scale, use_kernel=use_kernel)
+
+
+def _block_mask(q_ids, k_ids, s: int, causal: bool, window: int | None) -> torch.Tensor:
+    mask = (k_ids < s)[None, :]
+    if causal:
+        mask = mask & (q_ids[:, None] >= k_ids[None, :])
+    if window is not None:
+        mask = mask & (q_ids[:, None] - k_ids[None, :] < window)
+    return mask
+
+
+def _kv_range(q0: int, q1: int, s: int, causal: bool, window, k_block: int):
+    """Key-block footprint ``[k_start, k_end)`` of query rows ``[q0, q1)``."""
+    k_end = min(q1, s) if causal else s
+    k_start = max(0, q0 - window + 1) if window is not None else 0
+    return (k_start // k_block) * k_block, k_end
+
+
+def _flash_train_fwd(q, k, v, causal, window, q_block, k_block, scale, s):
+    """``(o [B, T, KH, G, D], lse [B, KH, G, T])`` over block-padded q/k/v;
+    ``s`` is the unpadded key length (padding is masked)."""
+    b, t, kh, g, d = q.shape
+    out = torch.zeros((b, t, kh, g, d), dtype=q.dtype, device=q.device)
+    lse = torch.zeros((b, kh, g, t), dtype=torch.float32, device=q.device)
+    for q0 in range(0, t, q_block):
+        q1 = q0 + q_block
+        k_start, k_end = _kv_range(q0, q1, s, causal, window, k_block)
+        if k_end <= k_start:
+            continue
+        q_blk = q[:, q0:q1].to(torch.float32) * scale
+        q_ids = torch.arange(q0, q1, device=q.device)
+        acc = torch.zeros((b, kh, g, q_block, d), dtype=torch.float32, device=q.device)
+        m_run = torch.full((b, kh, g, q_block), -torch.inf, device=q.device)
+        l_run = torch.zeros((b, kh, g, q_block), device=q.device)
+        for ks in range(k_start, k_end, k_block):
+            k_ids = ks + torch.arange(k_block, device=q.device)
+            scores = torch.einsum("bqhgd,bkhd->bhgqk", q_blk,
+                                  k[:, ks:ks + k_block].to(torch.float32))
+            mask = _block_mask(q_ids, k_ids, s, causal, window)
+            scores = torch.where(mask, scores, -torch.inf)
+            m_new = torch.maximum(m_run, scores.amax(dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.where(mask, torch.exp(scores - m_safe[..., None]), 0.0)
+            alpha = torch.where(torch.isfinite(m_run), torch.exp(m_run - m_safe), 0.0)
+            l_run = l_run * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, v[:, ks:ks + k_block].to(torch.float32))
+            m_run = m_new
+        l_safe = torch.clamp_min(l_run, 1e-20)
+        out[:, q0:q1] = torch.movedim(acc / l_safe[..., None], 3, 1).to(q.dtype)
+        lse[..., q0:q1] = m_run + torch.log(l_safe)
+    return out, lse
+
+
+def _flash_train_bwd(q, k, v, o, lse, do, causal, window, q_block, k_block, scale, s, t_true):
+    """``(dq, dk, dv)``: an outer loop over key blocks, an inner one over the
+    query blocks that see them; dk / dv written once per key block."""
+    b, t, kh, g, d = q.shape
+    s_pad = k.shape[1]
+    delta = torch.einsum("bthgd,bthgd->bhgt", do.to(torch.float32), o.to(torch.float32))
+    dq = torch.zeros((b, t, kh, g, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, s_pad, kh, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for ks in range(0, s, k_block):
+        ke = min(ks + k_block, s_pad)
+        q_lo = ks if causal else 0
+        q_hi = t_true if window is None else min(t_true, ke + window)
+        if q_lo >= q_hi:
+            continue
+        k_blk = k[:, ks:ke].to(torch.float32)
+        v_blk = v[:, ks:ke].to(torch.float32)
+        k_ids = ks + torch.arange(ke - ks, device=q.device)
+        dk_a = torch.zeros((b, ke - ks, kh, d), dtype=torch.float32, device=q.device)
+        dv_a = torch.zeros_like(dk_a)
+        for q0 in range((q_lo // q_block) * q_block, q_hi, q_block):
+            q1 = q0 + q_block
+            q_ids = torch.arange(q0, q1, device=q.device)
+            qs = q[:, q0:q1].to(torch.float32) * scale
+            scores = torch.einsum("bqhgd,bkhd->bhgqk", qs, k_blk)
+            mask = _block_mask(q_ids, k_ids, s, causal, window)
+            mask = mask & (q_ids < t_true)[:, None]
+            p = torch.where(mask, torch.exp(scores - lse[..., q0:q1, None]), 0.0)
+            do32 = do[:, q0:q1].to(torch.float32)
+            dv_a = dv_a + torch.einsum("bhgqk,bqhgd->bkhd", p, do32)
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", do32, v_blk)
+            ds = p * (dp - delta[..., q0:q1, None])
+            dq[:, q0:q1] += torch.einsum("bhgqk,bkhd->bqhgd", ds, k_blk) * scale
+            dk_a = dk_a + torch.einsum("bhgqk,bqhgd->bkhd", ds, qs)
+        dk[:, ks:ke] = dk_a
+        dv[:, ks:ke] = dv_a
+    return dq, dk, dv
+
+
+class _FlashTrain(torch.autograd.Function):
+    """The reference's ``_flash_core`` custom VJP: residuals ``(q, k, v, o,
+    lse)``, O(T*D), never the [T, S] probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_block, k_block, scale, s, t_true):
+        o, lse = _flash_train_fwd(q, k, v, causal, window, q_block, k_block, scale, s)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, window, q_block, k_block, scale, s, t_true)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_train_bwd(q, k, v, o, lse, do, *ctx.args)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), *(None,) * 7)
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, window: int | None = None,
+                          q_block: int = 512, k_block: int = 1024,
+                          softmax_scale: float | None = None) -> torch.Tensor:
+    """Differentiable attention q [B, T, H, D], k/v [B, S, KH, D] -> [B, T, H, D]
+    (GQA, causal, sliding window; port of the reference's ``flash_attention``).
+
+    Plain PyTorch, not a kernel (the reference's is plain jnp too), and it
+    never calls ``ops.flash_attention_fwd``.  T and S are padded up to the
+    query / key blocks, and the masks neutralise the padding.  The
+    reference's ``q_offset`` (prefill continuation) is not taken: training
+    attends from position 0.
+    """
+    b, t, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    q_block, k_block = min(q_block, t), min(k_block, s)
+    t_pad, s_pad = -(-t // q_block) * q_block, -(-s // k_block) * k_block
+    qg = F.pad(q.reshape(b, t, kh, h // kh, d), (0, 0, 0, 0, 0, 0, 0, t_pad - t))
+    k = F.pad(k, (0, 0, 0, 0, 0, s_pad - s))
+    v = F.pad(v, (0, 0, 0, 0, 0, s_pad - s))
+    o = _FlashTrain.apply(qg, k, v, causal, window, q_block, k_block, scale, s, t)
+    return o[:, :t].reshape(b, t, h, d)
 
 
 def decode_mask(cache_len, s: int, b: int, *, window: int | None = None,

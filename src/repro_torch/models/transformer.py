@@ -19,6 +19,12 @@ The embedding table is not in the params: it is a serving table
 ``QuantTable`` reads token rows through ``ops.dequant_gather`` and, for a
 tied head, contracts the logits through ``ops.dequant_matmul``: the fp32
 table never exists.  Prefill attention runs ``ops.flash_attention_fwd``.
+
+Training (:func:`loss_fn`) reads a dense fp32 [V, d] table, as the
+reference's training step does: the embedding is a plain index into it, the
+tied head a plain fp32 matmul, attention the differentiable
+``layers.flash_attention_train``, and the cross-entropy is taken over chunks
+of the sequence (:func:`chunked_ce_loss`), each recomputed in the backward.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.serving import table as serving_tbl
@@ -204,12 +211,13 @@ def _decode_slots(cfg: ModelConfig, cache_size: int, cl: torch.Tensor, b: int):
 
 
 def _attn_block(p, x, cfg: ModelConfig, *, rope, cache=None, slots=None,
-                use_kernel: bool = True):
+                use_kernel: bool = True, train: bool = False):
     """Pre-norm attention; ``rope`` is ``rope_angles`` of the positions.
-    ``cache=None``: full sequence through the flash kernel, returning the
-    rope'd ``(k, v)`` for the prefill cache.  Else a single-token decode
-    against ``cache`` (``{"k", "v"}`` [B, S, KH, D], written **in place**
-    where ``slots`` (``_decode_slots``) says)."""
+    ``cache=None``: full sequence through the flash kernel (``train``: the
+    differentiable ``flash_attention_train``), returning the rope'd ``(k,
+    v)`` for the prefill cache.  Else a single-token decode against
+    ``cache`` (``{"k", "v"}`` [B, S, KH, D], written **in place** where
+    ``slots`` (``_decode_slots``) says)."""
     b, t, _ = x.shape
     h, kv = cfg.padded_heads
     hd = cfg.hd
@@ -229,7 +237,11 @@ def _attn_block(p, x, cfg: ModelConfig, *, rope, cache=None, slots=None,
     q = L.apply_rope(q, *rope)
     k = L.apply_rope(k, *rope)
 
-    if cache is None:
+    if cache is None and train:
+        o = L.flash_attention_train(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
+                                    q_block=cfg.attn_q_block, k_block=cfg.attn_k_block)
+        new_kv = (k, v)
+    elif cache is None:
         o = L.flash_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
                               use_kernel=use_kernel)
         new_kv = (k, v)
@@ -254,15 +266,21 @@ def _mlp_block(p, x, cfg: ModelConfig):
 
 
 def backbone(params: dict[str, Any], embeds: torch.Tensor, cfg: ModelConfig,
-             positions: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
-    """Hidden states [B, T, d] after the final norm (no MoE: no aux loss)."""
+             positions: torch.Tensor, *, use_kernel: bool = True,
+             train: bool = False) -> torch.Tensor:
+    """Hidden states [B, T, d] after the final norm (no MoE: no aux loss);
+    ``train`` runs the differentiable training attention instead of the
+    forward-only kernel."""
     check_supported(cfg)
+    if train and cfg.remat:
+        raise NotImplementedError(f"{cfg.name}: remat (activation checkpointing per group) "
+                                  "comes with the configs that set it")
     x = embeds.to(cfg.dtype)
     rope = L.rope_angles(positions, cfg.hd, cfg.rope_base)
     for gi in range(cfg.n_groups):
         for pos in range(cfg.period):
             p = _group(params["blocks"][pos], gi)
-            x, _ = _attn_block(p, x, cfg, rope=rope, use_kernel=use_kernel)
+            x, _ = _attn_block(p, x, cfg, rope=rope, use_kernel=use_kernel, train=train)
             x = _mlp_block(p, x, cfg)
     return L.rms_norm(x, params["final_norm"])
 
@@ -279,6 +297,57 @@ def head_logits(params, table, h: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
     untied head is a plain fp32 matmul."""
     w = table if cfg.tie_embeddings else params["head"]
     return serving_tbl.head_logits(w, h)
+
+
+def chunked_ce_loss(params, table_fp: torch.Tensor, h: torch.Tensor, labels: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Mean cross-entropy of ``h`` [B, T, d] against ``labels`` [B, T] (-1:
+    ignored) without the [B, T, V] logits: chunks of ``cfg.ce_chunk``
+    positions (one chunk when it does not divide T) summed in order, each
+    chunk's logits recomputed in the backward (``jax.checkpoint`` of the
+    reference's scan body)."""
+    b, t, d = h.shape
+    chunk = min(cfg.ce_chunk, t)
+    if t % chunk:
+        chunk = t
+    w = table_fp if cfg.tie_embeddings else params["head"]
+
+    def piece(h_blk, l_blk, w):
+        logits = serving_tbl.head_logits(w, h_blk)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, torch.clamp_min(l_blk, 0).long()[..., None])[..., 0]
+        mask = (l_blk >= 0).to(torch.float32)
+        return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, t, chunk):
+        s, c = torch.utils.checkpoint.checkpoint(piece, h[:, c0:c0 + chunk],
+                                                 labels[:, c0:c0 + chunk], w,
+                                                 use_reentrant=False)
+        tot, cnt = tot + s, cnt + c
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def assemble_embeds(table_fp: torch.Tensor, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Input embeddings [B, T, d] of ``batch["tokens"]`` (the ``tokens`` input
+    mode; ``embeds`` / ``mixed`` come with the encoder / VLM slices)."""
+    check_supported(cfg)
+    return embed_tokens(table_fp, batch["tokens"], cfg)
+
+
+def loss_fn(params: dict[str, Any], table_fp: torch.Tensor, batch: dict,
+            cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training loss ``(ce + aux, aux)`` from the dense fp32 table [V, d]
+    (``aux`` is the MoE balance loss: 0 for the dense stacks ported)."""
+    embeds = assemble_embeds(table_fp, batch, cfg)
+    b, t, _ = embeds.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = default_positions(b, t, cfg, device=embeds.device)
+    h = backbone(params, embeds, cfg, positions, train=True)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return chunked_ce_loss(params, table_fp, h, batch["labels"], cfg) + aux, aux
 
 
 def default_positions(b: int, t: int, cfg: ModelConfig, device=None) -> torch.Tensor:

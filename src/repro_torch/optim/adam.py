@@ -6,7 +6,8 @@ bc2) + eps)``, and PyTorch's orders it otherwise.  The arithmetic is
 compiles it inside the jitted train step; tests/test_torch_train_kernels.py
 holds it bitwise), and on the card the ``adam_update`` kernel, which equals
 it bit for bit.  ``OptState.mu`` / ``nu`` follow the order of the parameter
-list (for the DCN, ``module.parameters()``).
+list (for the DCN, ``module.parameters()``; for the transformer's nested
+param dict, :func:`tree_leaves`, the reference's pytree order).
 """
 from __future__ import annotations
 
@@ -46,3 +47,38 @@ def adam_update(grads, state: OptState, params, lr: float, *, b1: float = 0.9,
                                           b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
                                           use_kernel=use_kernel)
     return new_p, OptState(step=step, mu=new_m, nu=new_v)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict / list tree in JAX's flatten order: dict
+    keys sorted, lists in order (so a reference ``OptState`` over the same
+    tree lines up leaf for leaf)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for x in tree for leaf in tree_leaves(x)]
+    return [tree]
+
+
+def tree_like(tree, leaves):
+    """``tree``'s structure with its tensors replaced by ``leaves`` (in
+    :func:`tree_leaves` order)."""
+    it = iter(leaves)
+
+    def build(x):
+        if isinstance(x, dict):
+            built = {k: build(x[k]) for k in sorted(x)}  # consume leaves in sorted order
+            return {k: built[k] for k in x}
+        if isinstance(x, (list, tuple)):
+            return type(x)(build(v) for v in x)
+        return next(it)
+
+    return build(tree)
+
+
+def clip_by_global_norm(grads: list, max_norm: float):
+    """``(grads * min(1, max_norm / (||grads|| + 1e-12)), ||grads||)`` over a
+    list of tensors, the global norm a 0-d tensor (no host sync)."""
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in grads))
+    scale = torch.clamp_max(max_norm / (gnorm + 1e-12), 1.0)
+    return [(g * scale).to(g.dtype) for g in grads], gnorm

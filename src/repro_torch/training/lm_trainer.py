@@ -1,42 +1,65 @@
-"""LM trainer state with a registry-dispatched vocab embedding table (port
-of repro/training/lm_trainer.py, the serving half).
+"""LM training step with a registry-dispatched vocab embedding table (port of
+repro/training/lm_trainer.py, the single-program path).
 
-Ported: :class:`LMTrainerConfig`, :func:`embedding_spec_of` and
-:func:`init_state` (the transformer params and the ALPT / LPT vocab table,
-the table's init quantize through the ``sr_round`` kernel).  The optimizer
-states and the training step (``lpt.dense_apply`` / ``alpt_dense_step``
-through ``lpt_fused_update``) come with the LM training slice.
+The embedding method comes from ``repro_torch.methods``
+(``cfg.embedding_method``); each step:
+
+  1. materialize the method's dense differentiable params (for integer
+     tables: the de-quantized [V, d] table),
+  2. differentiate the LM loss w.r.t. (those params, the transformer params),
+  3. clip the transformer's gradients by their global norm and AdamW them
+     (one ``adam_update`` kernel launch on the card); the method's
+     ``dense_update`` consumes the table gradient (LPT: the row update and
+     the ``lpt_fused_update`` write-back; ALPT: the float update, then
+  4. Delta learned through the second fake-quant forward at the updated
+     params, and the ``sr_round`` write-back).  Untouched rows stay
+     bit-identical.
+
+The SR noise of a step is drawn from the state's ``torch.Generator`` on its
+device; :func:`make_train_step`'s ``noise`` operand lets a parity test pass
+the reference's draw instead (``quant.sr_noise(kn, (n, d))`` for LPT,
+``sr_noise(fold_in(kn, 1), (n, d))`` for ALPT).  The reference's guard,
+prune refresh, compressed data-parallel sync, ``alpt_every`` and
+``pad_to_tiles`` are not ported: their settings come with the slices whose
+code reads them.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import device as device_mod
 from repro_torch import methods
+from repro_torch.core import quant
 from repro_torch.core.alpt import ALPTConfig
+from repro_torch.core.codestore import CodeStore
 from repro_torch.models import transformer as tfm
+from repro_torch.optim import adam_init, adam_update, clip_by_global_norm, tree_leaves, tree_like
 
 
 class LMTrainState(NamedTuple):
-    """The serving half of the reference's state: the optimizer slots and the
-    step's generator come with the training slice."""
-
     params: Any  # transformer blocks (+ untied head)
-    table: Any  # embedding-method state (an LPTTable for lpt/alpt)
+    opt: Any  # OptState over tree_leaves(params)
+    table: Any  # embedding-method state (an LPTTable for lpt/alpt, f32 [V, d] for fp)
+    table_opt: Any  # OptState over the float table (fp), else None
     step: int
+    generator: torch.Generator  # SR noise, on the state's device
 
 
 @dataclasses.dataclass(frozen=True)
 class LMTrainerConfig:
-    """The reference's settings that the vocab table reads; the dense
-    optimizer's, the DP sync's and the guard's come with the training step."""
-
+    lr: float = 3e-4
+    weight_decay: float = 0.01
     emb_weight_decay: float = 5e-8  # paper's embedding decay
+    grad_clip: float = 1.0
     row_optimizer: str = "adam"
     alpt_step_lr: float = 2e-5
+    # Route the integer table's write-back and the dense Adam through the
+    # CUDA kernels; False asks for the plain versions on any device.
+    use_kernels: bool = True
 
 
 def embedding_spec_of(cfg: tfm.ModelConfig,
@@ -57,6 +80,7 @@ def embedding_spec_of(cfg: tfm.ModelConfig,
             weight_decay=tcfg.emb_weight_decay,
             step_lr=tcfg.alpt_step_lr,
         ),
+        use_kernels=tcfg.use_kernels,
     )
 
 
@@ -64,12 +88,163 @@ def init_state(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None = None, *, see
                device: str | torch.device = "cuda") -> LMTrainState:
     """Params, then the vocab table, drawn from one generator seeded with
     ``seed`` on ``device`` (``cuda`` unless the caller asks for the CPU;
-    raises if CUDA is asked for and absent).  The draws are torch's: a parity
-    test carries the reference's state across through ``repro_torch.interop``."""
+    raises if CUDA is asked for and absent), which then draws the SR noise.
+    The draws are torch's: a parity test carries the reference's state
+    across through ``repro_torch.interop``."""
     dev = device_mod.resolve(device)
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
     params = tfm.init_params(generator, cfg)
     spec = embedding_spec_of(cfg, tcfg)
-    table = methods.get(spec.method).init(generator, spec)
-    return LMTrainState(params=params, table=table, step=0)
+    method = methods.get(spec.method)
+    table = method.init(generator, spec)
+    emb = method.trainable_params(table, spec)
+    return LMTrainState(params=params, opt=adam_init(tree_leaves(params)), table=table,
+                        table_opt=None if emb is None else adam_init([emb]), step=0,
+                        generator=generator)
+
+
+def clone_state(state: LMTrainState) -> LMTrainState:
+    """A deep copy, the generator's state included (to replay steps)."""
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, CodeStore):
+            return dataclasses.replace(x, data=x.data.clone())
+        if isinstance(x, dict):
+            return {k: copy(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [copy(v) for v in x]
+        if isinstance(x, tuple):  # the NamedTuples: OptState, LPTTable
+            return type(x)(*(copy(v) for v in x))
+        return x
+
+    generator = torch.Generator(device=state.generator.device)
+    generator.set_state(state.generator.get_state())
+    return copy(state._replace(generator=None))._replace(generator=generator)
+
+
+def table_fp_of(state: LMTrainState, cfg: tfm.ModelConfig,
+                tcfg: LMTrainerConfig | None = None) -> torch.Tensor:
+    """The [V, d] float table evaluation forwards read."""
+    spec = embedding_spec_of(cfg, tcfg)
+    return methods.get(spec.method).eval_table(state.table, spec)
+
+
+def make_grad_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
+    """One backward: ``(state, batch) -> ((loss, aux), (g_emb, g_params))``,
+    ``g_emb`` shaped as the method's ``dense_params`` (for integer tables the
+    de-quantized [V, d] table) and ``g_params`` a list in
+    ``tree_leaves(state.params)`` order."""
+    spec = embedding_spec_of(cfg, tcfg)
+    method = methods.get(spec.method)
+
+    def grad_fn(state: LMTrainState, batch: dict):
+        emb = method.dense_params(state.table, spec).detach().requires_grad_(True)
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(state.params)]
+        params = tree_like(state.params, leaves)
+        with torch.enable_grad():
+            table_fp = method.dense_table_from(state.table, emb, spec)
+            loss, aux = tfm.loss_fn(params, table_fp, batch, cfg)
+            g_emb, *g_params = torch.autograd.grad(loss, [emb, *leaves])
+        return (loss.detach(), aux.detach()), (g_emb, g_params)
+
+    return grad_fn
+
+
+def make_delta_grad_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
+    """ALPT's Delta gradient: ``(w_new, step_vec, params, batch, gscale) -> g_step``."""
+    spec = embedding_spec_of(cfg, tcfg)
+    method = methods.get(spec.method)
+
+    def delta_fn(w_new, step_vec, params, batch, gscale):
+        return method.dense_delta_grad(
+            w_new, step_vec, lambda t: tfm.loss_fn(params, t, batch, cfg)[0],
+            spec=spec, weight_decay=tcfg.emb_weight_decay, gscale=gscale)
+
+    return delta_fn
+
+
+def make_apply_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
+    """The update: ``apply_fn(state, loss_aux, grads, *, lr, noise,
+    delta_grad=None, batch_rows=None) -> (state, metrics)``.
+
+    ``delta_grad(w_new, step_vec, new_params, gscale) -> g_step`` supplies
+    ALPT's Delta gradient at the updated params; ``batch_rows`` is the
+    paper's b, the batch's token count."""
+    spec = embedding_spec_of(cfg, tcfg)
+    method = methods.get(spec.method)
+
+    def apply_fn(state: LMTrainState, loss_aux, grads, *, lr, noise, delta_grad=None,
+                 batch_rows=None):
+        loss, aux = loss_aux
+        g_table, g_params = grads
+        g_params, gnorm = clip_by_global_norm(g_params, tcfg.grad_clip)
+        new_leaves, new_opt = adam_update(g_params, state.opt, tree_leaves(state.params), lr,
+                                          weight_decay=tcfg.weight_decay,
+                                          use_kernel=tcfg.use_kernels)
+        new_params = tree_like(state.params, new_leaves)
+        wrapped = None
+        if delta_grad is not None:
+            def wrapped(w_new, step_vec, gscale):  # Algorithm 1 line 4: UPDATED params
+                return delta_grad(w_new, step_vec, new_params, gscale)
+
+        new_table, new_table_opt, emb_aux = method.dense_update(
+            state.table, state.table_opt, g_table, spec=spec, lr=lr,
+            weight_decay=tcfg.emb_weight_decay, noise=noise, delta_grad=wrapped,
+            batch_rows=batch_rows)
+        metrics = {"loss": loss, "aux_loss": aux, "grad_norm": gnorm, "lr": lr, **emb_aux}
+        return LMTrainState(params=new_params, opt=new_opt, table=new_table,
+                            table_opt=new_table_opt, step=state.step + 1,
+                            generator=state.generator), metrics
+
+    return apply_fn
+
+
+def make_lr_fn(tcfg: LMTrainerConfig):
+    """``lr_at(step) -> float``: the constant ``tcfg.lr``, rounded to float32
+    as the reference holds it."""
+    def lr_at(step: int) -> float:
+        return float(np.float32(tcfg.lr))
+
+    return lr_at
+
+
+def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
+    """``train_step(state, batch, noise=None) -> (state, metrics)``.
+
+    ``batch`` holds int32 ``tokens`` and ``labels`` [B, T] on the state's
+    device.  ``noise`` f32 [n, d] (the table's allocated shape) is the SR
+    draw of the write-back; by default it comes from ``state.generator``.
+    """
+    tfm.check_supported(cfg)
+    spec = embedding_spec_of(cfg, tcfg)
+    method = methods.get(spec.method)
+    lr_at = make_lr_fn(tcfg)
+    grad_fn = make_grad_fn(cfg, tcfg)
+    apply_fn = make_apply_fn(cfg, tcfg)
+    delta_fn = make_delta_grad_fn(cfg, tcfg) if method.has_learned_step else None
+
+    def train_step(state: LMTrainState, batch: dict, noise: torch.Tensor | None = None):
+        if noise is None and spec.is_integer_table:
+            noise = quant.sr_noise(state.generator, tuple(state.table.codes.shape))
+        loss_aux, grads = grad_fn(state, batch)
+        delta_grad = None
+        if delta_fn is not None:
+            def delta_grad(w_new, step_vec, new_params, gscale):
+                return delta_fn(w_new, step_vec, new_params, batch, gscale)
+
+        return apply_fn(state, loss_aux, grads, lr=lr_at(state.step), noise=noise,
+                        delta_grad=delta_grad, batch_rows=int(batch["labels"].numel()))
+
+    return train_step
+
+
+def make_eval_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None = None):
+    """``eval_step(state, batch) -> {"loss", "aux_loss"}`` over the eval table."""
+    def eval_step(state: LMTrainState, batch: dict):
+        with torch.no_grad():
+            loss, aux = tfm.loss_fn(state.params, table_fp_of(state, cfg, tcfg), batch, cfg)
+        return {"loss": loss, "aux_loss": aux}
+
+    return eval_step

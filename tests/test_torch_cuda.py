@@ -20,13 +20,18 @@ from repro_torch import configs
 from repro_torch.kernels import adam_update as adam_kernel
 from repro_torch.kernels import dequant_gather as gather_kernel
 from repro_torch.kernels import flash_attention as flash_kernel
+from repro_torch.kernels import lpt_update as lpt_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sparse_row_update as row_kernel
+from repro_torch.kernels import sr_round as sr_kernel
+from repro_torch.core.codestore import pack_codes, unpack_codes
+from repro_torch.data.lm_synth import LMTokenStream
 from repro_torch.methods import EmbeddingSpec
 from repro_torch.models import transformer as tfm
 from repro_torch.models.ctr import DCNConfig
 from repro_torch.serving.ctr import CTREngine, CTRRequest
 from repro_torch.serving.lm import LMEngine, LMRequest
+from repro_torch.optim import tree_leaves
 from repro_torch.training import lm_trainer
 from repro_torch.training.ctr_trainer import CTRTrainer, TrainerConfig, clone_state, init_state
 
@@ -443,3 +448,128 @@ def test_lm_engine_kernels_vs_plain_teacher_forced(cuda, arch, bits):
             want, pcache = tfm.decode_step(state.params, plain, t, pcache, len(prompt) + j, cfg,
                                            use_kernel=False)
             torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+# ------------------------------------------------------- LM training slice
+
+
+@pytest.mark.parametrize("rows,cols", [(4096, 576), (37, 13), (36, 15), (1, 1)])
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("weight_decay", [0.0, 5e-8])
+@pytest.mark.parametrize("has_new_step", [False, True])
+def test_lpt_fused_update_kernels_bitwise(cuda, rows, cols, bits, weight_decay, has_new_step):
+    """The write-back kernels against their plain versions, and the packed
+    one against pack(int8 kernel(unpack)), on every shape."""
+    g = _gen(rows * cols + bits, cuda)
+    lo, hi = quant.code_bounds(bits)
+    codes = torch.randint(lo, hi + 1, (rows, cols), generator=g, device=cuda, dtype=torch.int8)
+    step = torch.rand(rows, generator=g, device=cuda) * 0.01 + 1e-3
+    upd = torch.randn(rows, cols, generator=g, device=cuda)
+    noise = torch.rand(rows, cols, generator=g, device=cuda)
+    ns = step * 1.02 if has_new_step else None
+    kw = dict(new_step=ns, weight_decay=weight_decay)
+    want = ref.lpt_fused_update_ref(codes, step, upd, noise, 3e-3, bits, **kw)
+    ops.reset_kernel_calls()
+    got = lpt_kernel.lpt_fused_update(codes, step, upd, noise, 3e-3, bits, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if bits < 8:
+        packed = pack_codes(codes, bits)
+        got_p = lpt_kernel.lpt_fused_update_packed(packed, step, upd, noise, 3e-3, bits, cols, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got_p, ref.lpt_fused_update_packed_ref(packed, step, upd, noise, 3e-3,
+                                                                  bits, cols, **kw))
+        assert torch.equal(got_p, pack_codes(got, bits))
+        assert torch.equal(unpack_codes(got_p, bits, cols), want)
+    counts = ops.kernel_calls()
+    assert counts.get("lpt_fused_update") == 1
+    assert counts.get("lpt_fused_update_packed", 0) == int(bits < 8)
+
+
+@pytest.mark.parametrize("rows,cols", [(4096, 576), (37, 13), (3, 5), (1, 1)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_sr_round_seeded_kernel_bitwise(cuda, rows, cols, bits):
+    """Philox in the kernel equals Philox in PyTorch, so the codes are
+    bitwise equal to the plain version for several seeds; a seed repeats its
+    codes, and every code lies within one lattice step of w / Delta."""
+    g = _gen(rows + cols, cuda)
+    w = torch.randn(rows, cols, generator=g, device=cuda) * 0.05
+    step = quant.init_step_size(w, bits)
+    for seed in (0, -1, 12345):
+        got = sr_kernel.sr_round_seeded(w, step, seed, bits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.sr_round_seeded_ref(w, step, seed, bits))
+        assert torch.equal(got, sr_kernel.sr_round_seeded(w, step, seed, bits))
+        lo, hi = quant.code_bounds(bits)
+        exact = torch.clamp(w.double() / step.double()[:, None], lo, hi)
+        assert bool(((got.double() - exact).abs() < 1).all())
+
+
+def test_write_back_wrappers_raise_on_bad_operands(cuda):
+    codes = torch.zeros(8, 16, dtype=torch.int8, device=cuda)
+    step = torch.ones(8, device=cuda)
+    upd = torch.zeros(8, 16, device=cuda)
+    with pytest.raises(ValueError, match="noise must have shape"):
+        lpt_kernel.lpt_fused_update(codes, step, upd, upd[:4], 0.1, 8)
+    with pytest.raises(ValueError, match="codes must be torch.uint8"):
+        lpt_kernel.lpt_fused_update_packed(codes, step, upd, upd, 0.1, 4, 16)
+    with pytest.raises(ValueError, match="step must be torch.float32"):
+        sr_kernel.sr_round_seeded(upd, step.double(), 1, 8)
+
+
+def test_forward_only_kernels_raise_under_autograd_on_the_card(cuda):
+    """A grad-requiring input to a forward-only kernel wrapper raises on the
+    card (where the kernel's output would carry no gradient)."""
+    codes = torch.zeros(8, 16, dtype=torch.int8, device=cuda)
+    step = torch.ones(8, device=cuda, requires_grad=True)
+    ids = torch.zeros(3, dtype=torch.int32, device=cuda)
+    x = torch.zeros(2, 16, device=cuda, requires_grad=True)
+    q = torch.zeros(1, 4, 2, 64, device=cuda, requires_grad=True)
+    kv = torch.zeros(1, 4, 1, 64, device=cuda)
+    ops.reset_kernel_calls()
+    for call in (lambda: ops.dequant_gather(codes, step, ids),
+                 lambda: ops.dequant_matmul(x, codes, step.detach()),
+                 lambda: ops.flash_attention_fwd(q, kv, kv)):
+        with pytest.raises(RuntimeError, match="forward only"):
+            call()
+    assert ops.kernel_calls() == {}
+    with torch.no_grad():
+        ops.dequant_gather(codes, step, ids)
+    assert ops.kernel_calls() == {"dequant_gather": 1}
+
+
+@pytest.mark.parametrize("method,bits", [("alpt", 8), ("lpt", 8), ("lpt", 4)])
+def test_lm_train_step_kernels_bitwise_vs_plain(cuda, method, bits):
+    """Two smoke LM steps with the kernels on and off from one state: the
+    write-back kernel and ``adam_update`` launch once per step, and losses,
+    params and table agree bit for bit."""
+    cfg = dataclasses.replace(configs.smoke_config("smollm-135m"), embedding_method=method,
+                              embedding_bits=bits)
+    stream = LMTokenStream(cfg.vocab_size, 64, seed=17)
+    batches = [{"tokens": torch.from_numpy(b[:, :-1]).to(cuda),
+                "labels": torch.from_numpy(b[:, 1:]).to(cuda)}
+               for b in (stream.batch(i, 4) for i in range(2))]
+    runs = []
+    for use_kernels in (True, False):
+        tcfg = lm_trainer.LMTrainerConfig(use_kernels=use_kernels)
+        state = lm_trainer.init_state(cfg, tcfg, seed=3, device=cuda)
+        step = lm_trainer.make_train_step(cfg, tcfg)
+        ops.reset_kernel_calls()
+        ops.reset_fallbacks()
+        losses = []
+        for batch in batches:
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        runs.append((state, losses, ops.kernel_calls()))
+        assert ops.fallbacks() == []
+    (on, on_losses, launches), (off, off_losses, none) = runs
+    write_back = {"alpt": "sr_round", "lpt": "lpt_fused_update"}[method]
+    if bits < 8:
+        write_back += "_packed"
+    assert launches == {write_back: 2, "adam_update": 2} and none == {}
+    assert on_losses == off_losses
+    assert torch.equal(on.table.codes.data, off.table.codes.data)
+    for name in ("step", "mu", "nu"):
+        assert torch.equal(getattr(on.table, name), getattr(off.table, name)), name
+    for a, b in zip(tree_leaves(on.params), tree_leaves(off.params)):
+        assert torch.equal(a, b)
