@@ -73,8 +73,10 @@ Phases (each prints its lines; any failure exits non-zero with no result):
   5. time each kernel at the slices' shapes (median of per-launch CUDA-event
      times after warm-up, device work only) beside its bound, its plain
      version's time and the library's one call where there is one, and the
-     host's enqueue time per call; sr_round_seeded beside sr_round with its
-     noise operand at 49,152 x 576, and the training attention's forward +
+     host's enqueue time per call; flash_attention_fwd at every prompt
+     length of phase 7 and at T = 2048 (time_flash, which flash_only runs
+     without the rest); sr_round_seeded beside sr_round with its noise
+     operand at 49,152 x 576, and the training attention's forward +
      backward (plain PyTorch, no bound row).
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  Without a GPU, or outside a checkout, it
@@ -98,6 +100,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# fp32-accurate products on the tensor cores: the data sheet's dense TF32
+# rate over the three products of the 3xTF32 split (hi*lo + lo*hi + hi*hi).
+TF32X3_OPS_PER_S = 495e12 / 3
 # 32-bit integer rate: 64 INT32 lanes per SM (Hopper white paper) x 132 SMs x
 # the 1.98 GHz boost clock behind the 67 TFLOP/s fp32 figure.
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -188,11 +193,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(nbytes: float, ops: float, int_ops: float = 0.0) -> tuple[float, str]:
-    """Least time on the card: bytes over the HBM rate, or fp32 ops over the
-    fp32 rate, or 32-bit integer ops over the integer rate, the largest."""
+def bound_ms(nbytes: float, ops: float, int_ops: float = 0.0,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    """Least time on the card: bytes over the HBM rate, or fp32 ops over
+    ``ops_per_s`` (the fp32 rate unless a faster fp32-accurate route exists),
+    or 32-bit integer ops over the integer rate, the largest."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(ops / FP32_OPS_PER_S, int_ops / INT32_OPS_PER_S)
+    t_ops = max(ops / ops_per_s, int_ops / INT32_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -640,6 +647,13 @@ def check_lm_kernels(torch, dev, g, err: dict) -> None:
     log("[check] dequant_matmul(_packed) at M 1 and 8 x 49152 x 576 and ragged 3x37x13/15, "
         "bits 8, 4, 2: within gamma_(K+1) sum|x w| of float64, within twice that of the "
         "plain matmul; packed heads bitwise equal to the int8 head on the same codes")
+    check_flash(torch, dev, g, err)
+
+
+def check_flash(torch, dev, g, err: dict) -> None:
+    """flash_attention_fwd against its plain version at ``FLASH_CASES``."""
+    from repro_torch.kernels import ops
+
     for b, t, s, h, kh, d, causal, window in FLASH_CASES:
         q = torch.randn(b, t, h, d, generator=g, device=dev)
         k = torch.randn(b, s, kh, d, generator=g, device=dev)
@@ -861,11 +875,8 @@ def flash_pairs(t: int, s: int, causal: bool, window) -> int:
 
 def time_lm_kernels(torch, lm_runs, flush) -> dict:
     """Phase 5 for the LM kernels: the head at M = 1 (prefill) and 8 (decode)
-    at both widths over the served tables, flash at the slice's longest
-    prompt and at T = 2048; each beside its bound, its plain version and the
-    library's one call."""
-    import torch.nn.functional as F
-
+    at both widths over the served tables, flash as :func:`time_flash` times
+    it; each beside its bound, its plain version and the library's one call."""
     from repro_torch.kernels import ops
 
     timings, notes = {}, []
@@ -894,28 +905,132 @@ def time_lm_kernels(torch, lm_runs, flush) -> dict:
             if m == LM_BATCH:
                 timings[kernel] = (*got, plain, b_ms, b_by, None)
         del w_fp32
-    for t, window in ((max(LM_PROMPTS), None), (2048, None)):
-        h, kh, d = 9, 3, 64
+    row, flash_notes = time_flash(torch, flush)
+    timings["flash_attention_fwd"] = row
+    for line in notes + flash_notes:
+        log(line)
+    return timings
+
+
+def time_flash(torch, flush) -> tuple[tuple, list[str]]:
+    """flash_attention_fwd at SmolLM's prefill (B = 1, 9/3 heads, D = 64,
+    causal) at every prompt length of the LM slice and at T = 2048, each
+    beside its bound, its plain version and SDPA's one call.  Returns the
+    kernels-line row (the longest prompt) and the ``[time]`` lines."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    row, notes = None, []
+    h, kh, d = 9, 3, 64
+    for t in (*LM_PROMPTS, 2048):
         q = torch.randn(1, t, h, d, generator=g, device="cuda")
         k = torch.randn(1, t, kh, d, generator=g, device="cuda")
         v = torch.randn(1, t, kh, d, generator=g, device="cuda")
-        got = time_ms(torch, lambda: ops.flash_attention_fwd(q, k, v, window=window), 30, flush)
-        plain = time_ms(torch, lambda: ops.flash_attention_fwd(q, k, v, window=window,
-                                                               use_kernel=False), 10, flush)[0]
+        got = time_ms(torch, lambda: ops.flash_attention_fwd(q, k, v), 30, flush)
+        plain = time_ms(torch, lambda: ops.flash_attention_fwd(q, k, v, use_kernel=False), 10,
+                        flush)[0]
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), 30, flush)[0]
-        pairs = flash_pairs(t, t, True, window)
-        b_ms, b_by = bound_ms(4 * (2 * t * h * d + 2 * t * kh * d), 4 * pairs * h * d)
+        # 4 fp32 ops per visible (query, key) pair, head and dimension, at the
+        # better of the two fp32-accurate routes (CUDA cores, 3xTF32).
+        b_ms, b_by = bound_ms(4 * (2 * t * h * d + 2 * t * kh * d),
+                              4 * flash_pairs(t, t, True, None) * h * d,
+                              ops_per_s=max(FP32_OPS_PER_S, TF32X3_OPS_PER_S))
         notes.append(f"[time] flash_attention_fwd T=S={t} H={h} KH={kh} D={d} causal: "
                      f"{got[0] * 1e3:.2f} us (plain {plain * 1e3:.2f} us, bound "
                      f"{b_ms * 1e3:.3f} us by {b_by}, scaled_dot_product_attention "
                      f"{lib * 1e3:.2f} us); host enqueue {got[1]:.1f} us")
         if t == max(LM_PROMPTS):
-            timings["flash_attention_fwd"] = (*got, plain, b_ms, b_by, lib)
-    for line in notes:
+            row = (*got, plain, b_ms, b_by, lib)
+    return row, notes
+
+
+def flash_only() -> int:
+    """Build flash_attention_fwd, check it at ``FLASH_CASES`` and time it at
+    every prompt length, without the rest of the smoke:
+    ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.flash_only())"``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[chip_smoke] torch.cuda.is_available() is False: needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.library("flash_attention")
+    log(f"[build] flash_attention in {time.perf_counter() - t0:.1f}s")
+    err = {"flash_attention_fwd": 0.0}
+    check_flash(torch, torch.device("cuda"), torch.Generator(device="cuda").manual_seed(0), err)
+    flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    for line in time_flash(torch, flush_buf.zero_)[1]:
         log(line)
-    return timings
+    flash_phases(torch, flush_buf.zero_)
+    one = torch.zeros(1, device="cuda")
+    log(f"[time] the timer's floor, a 1-element add_: "
+        f"{time_ms(torch, lambda: one.add_(1), 30, flush_buf.zero_)[0] * 1e3:.2f} us")
+    log(card_name())
+    return 0
+
+
+def flash_phases(torch, flush) -> None:
+    """Where one flash launch spends its time: the kernel built with
+    -DFLASH_PHASES stamps the SM clock in thread 0 of the block with the
+    longest causal footprint; one launch each at SmolLM's longest prompt and
+    at T = 2048, L2 flushed, cycles from the block's start."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    lib_path = _build.BUILD_DIR / "flash_attention-phases.so"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-DFLASH_PHASES", "-o", str(lib_path),
+                    str(_build.CSRC / "flash_attention.cu")], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.flash_attention_fwd_launch.argtypes = list(
+        _build.SIGNATURES["flash_attention"]["flash_attention_fwd_launch"])
+    lib.flash_phases_read.argtypes = [ctypes.c_void_p]
+    h, kh, d = 9, 3, 64
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for t in (max(LM_PROMPTS), 2048):
+        q = torch.randn(1, t, h, d, generator=g, device="cuda")
+        k = torch.randn(1, t, kh, d, generator=g, device="cuda")
+        v = torch.randn(1, t, kh, d, generator=g, device="cuda")
+        o = torch.empty_like(q)
+        stamps = (ctypes.c_longlong * 64)()
+        flush()
+        err = lib.flash_attention_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                             o.data_ptr(), 1, t, t, h, kh, d, 1, 0,
+                                             1.0 / math.sqrt(d), _build.stream_of(q.device))
+        torch.cuda.synchronize()
+        check(err == 0 and lib.flash_phases_read(ctypes.cast(stamps, ctypes.c_void_p)) == 0,
+              f"flash_phases T={t}: launch error {err}")
+        at = [x - stamps[0] for x in stamps]
+        tiles = []
+        for js in range(8):
+            landed, qk, soft, pv = at[8 + 4 * js: 12 + 4 * js]
+            if landed <= 0:
+                break
+            prev = at[2] if js == 0 else at[11 + 4 * (js - 1)]
+            tiles.append(f"{landed - prev}/{qk - landed}/{soft - qk}/{pv - soft}")
+        log(f"[phases] flash_attention_fwd T=S={t}, block of the last query tile, SM cycles: "
+            f"q landed {at[1]}, q split {at[2] - at[1]}; per stage wait+issue/QK/softmax/PV "
+            f"{', '.join(tiles)}; loop end {at[3]}, warp groups merged {at[4] - at[3]}, "
+            f"output written {at[5] - at[4]}, total {at[5]}")
+
+
+def card_name() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0 and smi.stdout.strip() != "", f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
 
 
 def check_write_back(torch, dev, g, err: dict) -> dict:
@@ -1458,12 +1573,7 @@ def main() -> int:
             f"{LM_BATCH} slots, prefill " + ", ".join(f"T={t}: {ms:.2f} ms" for t, ms in
                                                       r["prefill_ms"].items())
             + " on the host clock")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0 and smi.stdout.strip() != "", f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
     rows_out = []
     for kernel, (source, replaces) in KERNELS.items():
         ms, host_us, plain_ms, b_ms, b_by, lib_ms = timings[kernel]

@@ -5,11 +5,16 @@ Port of ``repro/kernels/flash_attention.py:88``; the kernel is in
 built for that.  q [B, T, H, D], k/v [B, S, KH, D] in fp32 -> [B, T, H, D],
 with GQA (query head h reads kv head h // (H / KH)), an optional causal mask
 and sliding window, and ragged T and S masked as the Pallas kernel masks
-them.  The kernel picks its own tiles (32 queries x 32 keys): the reference
-config's ``attn_q_block`` / ``attn_k_block`` are TPU tiling knobs and are
-not read.  Against the plain version in :mod:`repro_torch.kernels.ref` (one
-masked softmax over all keys) it agrees within fp32 rounding of the online
-rescaling and the sums in another order.
+them.  The kernel picks its own tiles: a block holds 16 queries of up to 8
+query heads of one kv head and walks 32-key tiles; when those blocks are too
+few to fill the card (short prompts), up to 5 warp groups in each block
+share the query tile's kv tiles and merge their partial (o, max, sum) in
+shared memory.  The reference config's ``attn_q_block`` /
+``attn_k_block`` are TPU tiling knobs and are not read.  Both products run
+on the tensor cores as 3xTF32 (fp32 accuracy); against the plain version
+in :mod:`repro_torch.kernels.ref` (one masked softmax over all keys) it
+agrees within fp32 rounding of the online rescaling and the sums in
+another order.
 """
 from __future__ import annotations
 

@@ -379,7 +379,19 @@ def test_dequant_matmul_wrappers_raise_on_bad_operands(cuda):
 @pytest.mark.parametrize("b,t,s,h,kh,d,causal,window", [
     (1, 157, 157, 9, 3, 64, True, None), (2, 96, 96, 4, 2, 80, True, 32),
     (1, 64, 64, 4, 4, 128, False, None), (2, 33, 70, 4, 1, 8, False, 7),
-    (1, 70, 33, 2, 2, 24, True, 5), (3, 1, 1, 2, 1, 16, True, None)])
+    (1, 70, 33, 2, 2, 24, True, 5), (3, 1, 1, 2, 1, 16, True, None),
+    # The tiling's edges: a long causal prefill (no kv split); groups of 4
+    # and 8 query heads in one block; groups of 16 and 9 split over blocks
+    # (8 + 8, 3 + 3 + 3 heads); T not a multiple of the query tile with
+    # S > T, non-causal and windowed; a large grid at D = 128, ragged and
+    # windowed; kv warp groups that get no tile (T = 100: 4 groups, the
+    # first query tile has one kv tile); a window whose footprint starts
+    # inside a kv tile, over 3 groups.
+    (1, 2048, 2048, 9, 3, 64, True, None), (1, 157, 157, 12, 3, 64, True, None),
+    (2, 100, 100, 8, 1, 64, True, None), (1, 50, 50, 16, 1, 32, True, None),
+    (1, 40, 40, 9, 1, 16, False, None), (2, 37, 90, 6, 2, 64, False, 20),
+    (2, 1031, 1031, 8, 4, 128, True, 100), (1, 100, 100, 3, 1, 64, True, None),
+    (1, 157, 157, 9, 3, 64, True, 40)])
 def test_flash_attention_kernel_matches_plain(cuda, b, t, s, h, kh, d, causal, window):
     g = _gen(t * d + s, cuda)
     q = torch.randn(b, t, h, d, generator=g, device=cuda)
