@@ -75,7 +75,9 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      version's time and the library's one call where there is one, and the
      host's enqueue time per call; flash_attention_fwd at every prompt
      length of phase 7 and at T = 2048 (time_flash, which flash_only runs
-     without the rest); sr_round_seeded beside sr_round with its noise
+     without the rest); the head at M = 1, 8 and 64 with its share of the
+     HBM rate (time_head, which head_only runs without the rest, optionally
+     beside another build of dequant_matmul.cu); sr_round_seeded beside sr_round with its noise
      operand at 49,152 x 576, and the training attention's forward +
      backward (plain PyTorch, no bound row).
 The last lines are the kernels JSON, the card's name and power limit, and
@@ -103,6 +105,9 @@ FP32_OPS_PER_S = 67e12
 # fp32-accurate products on the tensor cores: the data sheet's dense TF32
 # rate over the three products of the 3xTF32 split (hi*lo + lo*hi + hi*hi).
 TF32X3_OPS_PER_S = 495e12 / 3
+# The LM head's products at fp32 accuracy: codes are exact in TF32, so only x
+# is split, and a product takes two TF32 terms (x_hi c + x_lo c).
+TF32X2_OPS_PER_S = 495e12 / 2
 # 32-bit integer rate: 64 INT32 lanes per SM (Hopper white paper) x 132 SMs x
 # the 1.98 GHz boost clock behind the 67 TFLOP/s fp32 figure.
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -619,6 +624,12 @@ def head_bound(torch, x, codes, step):
 
 def check_lm_kernels(torch, dev, g, err: dict) -> None:
     """Phase 2d: the head and attention kernels against their plain versions."""
+    check_head(torch, dev, g, err)
+    check_flash(torch, dev, g, err)
+
+
+def check_head(torch, dev, g, err: dict) -> None:
+    """dequant_matmul(_packed) at SmolLM's head and ragged shapes, bits 8/4/2."""
     from repro_torch.core.codestore import CodeStore
     from repro_torch.kernels import ops
 
@@ -647,7 +658,6 @@ def check_lm_kernels(torch, dev, g, err: dict) -> None:
     log("[check] dequant_matmul(_packed) at M 1 and 8 x 49152 x 576 and ragged 3x37x13/15, "
         "bits 8, 4, 2: within gamma_(K+1) sum|x w| of float64, within twice that of the "
         "plain matmul; packed heads bitwise equal to the int8 head on the same codes")
-    check_flash(torch, dev, g, err)
 
 
 def check_flash(torch, dev, g, err: dict) -> None:
@@ -874,42 +884,204 @@ def flash_pairs(t: int, s: int, causal: bool, window) -> int:
 
 
 def time_lm_kernels(torch, lm_runs, flush) -> dict:
-    """Phase 5 for the LM kernels: the head at M = 1 (prefill) and 8 (decode)
-    at both widths over the served tables, flash as :func:`time_flash` times
-    it; each beside its bound, its plain version and the library's one call."""
-    from repro_torch.kernels import ops
-
-    timings, notes = {}, []
-    g = torch.Generator(device="cuda").manual_seed(5)
-    for bits, kernel in ((8, "dequant_matmul"), (4, "dequant_matmul_packed")):
-        table = lm_runs[bits]["table"]
-        n, k = table.codes.n, table.codes.d
-        width = table.codes.data.shape[1]
-        w_fp32 = ops.dequant_gather(table.codes, table.step,
-                                    torch.arange(n, dtype=torch.int32, device="cuda"))
-        for m in (1, 8):
-            x = torch.randn(m, k, generator=g, device="cuda")
-            got = time_ms(torch, lambda: ops.dequant_matmul(x, table.codes, table.step), 50, flush)
-            plain = time_ms(torch, lambda: ops.dequant_matmul(x, table.codes, table.step,
-                                                              use_kernel=False), 20, flush)[0]
-            lib = time_ms(torch, lambda: torch.matmul(x, w_fp32.T), 50, flush)[0]
-            # fp32 work at both widths: the product and one Delta multiply per
-            # code (the packed unpack is integer work on another pipe).
-            b_ms, b_by = bound_ms(n * width + 4 * n + 4 * m * k + 4 * m * n,
-                                  2 * m * n * k + n * k)
-            notes.append(f"[time] {kernel} M={m} N={n} K={k}: {got[0] * 1e3:.2f} us (plain "
-                         f"{plain * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us by {b_by}; "
-                         f"torch.matmul over the pre-dequantized {n * k * 4} B fp32 table, "
-                         f"which the kernel never builds: {lib * 1e3:.2f} us); host enqueue "
-                         f"{got[1]:.1f} us")
-            if m == LM_BATCH:
-                timings[kernel] = (*got, plain, b_ms, b_by, None)
-        del w_fp32
+    """Phase 5 for the LM kernels: the head as :func:`time_head` times it over
+    the served tables, flash as :func:`time_flash` times it."""
+    tables = {bits: (r["table"].codes, r["table"].step) for bits, r in lm_runs.items()}
+    timings, notes = time_head(torch, tables, flush)
     row, flash_notes = time_flash(torch, flush)
     timings["flash_attention_fwd"] = row
     for line in notes + flash_notes:
         log(line)
     return timings
+
+
+def head_work(m: int, n: int, k: int, width: int) -> tuple[float, tuple[float, str]]:
+    """(bytes, bound) of one head call: codes, Delta and x in, y out; the
+    2MNK products at the better of the fp32 and 2xTF32 rates, MN Delta
+    multiplies, and the code conversion's NK integer operations."""
+    nbytes = n * width + 4 * n + 4 * m * k + 4 * m * n
+    return nbytes, bound_ms(nbytes, 2 * m * n * k + m * n, int_ops=n * k,
+                            ops_per_s=max(FP32_OPS_PER_S, TF32X2_OPS_PER_S))
+
+
+def baseline_head(torch, source: str, flags=()):
+    """``launch(x, data, step, bits, k) -> y`` through another build of the
+    head (``source``: a dequant_matmul.cu with the same C entry point, e.g.
+    the parent commit's, unpacked beside its own common.cuh; ``flags``: extra
+    nvcc flags such as -DHEAD_STAGES=6), for timing it in the same call; its
+    launches are not counted."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    lib_path = _build.BUILD_DIR / "dequant_matmul-baseline.so"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib_path), source],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.dequant_matmul_launch.argtypes = list(
+        _build.SIGNATURES["dequant_matmul"]["dequant_matmul_launch"])
+
+    def launch(x, data, step, bits, k):
+        y = torch.empty(x.shape[0], data.shape[0], device=x.device)
+        err = lib.dequant_matmul_launch(x.data_ptr(), data.data_ptr(), step.data_ptr(),
+                                        y.data_ptr(), x.shape[0], data.shape[0], k, bits,
+                                        _build.stream_of(x.device))
+        check(err == 0, f"baseline head: launch error {err}")
+        return y
+
+    return launch
+
+
+def time_head(torch, tables: dict, flush, baseline=None) -> tuple[dict, list[str]]:
+    """The head at M = 1 (prefill), 8 (decode) and 64 over ``tables`` ({bits:
+    (CodeStore, step)}, 8 and 4), each beside its bound, its share of the HBM
+    rate, its plain version and ``torch.matmul`` over the pre-dequantized
+    fp32 table (which the kernel never builds).  With ``baseline`` (from
+    :func:`baseline_head`) that build is timed in the same turns: baseline,
+    kernel, kernel, baseline.  Returns the kernels-line rows (M = 8) and the
+    ``[time]`` lines."""
+    from repro_torch.kernels import ops
+
+    timings, notes = {}, []
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for bits, kernel in ((8, "dequant_matmul"), (4, "dequant_matmul_packed")):
+        codes, step = tables[bits]
+        n, k = codes.n, codes.d
+        width = codes.data.shape[1]
+        w_fp32 = ops.dequant_gather(codes, step, torch.arange(n, dtype=torch.int32,
+                                                              device="cuda"))
+        for m in (1, LM_BATCH, 64):
+            x = torch.randn(m, k, generator=g, device="cuda")
+            run = lambda: ops.dequant_matmul(x, codes, step)  # noqa: E731
+            if baseline is None:
+                got = time_ms(torch, run, 50, flush)
+                turns = ""
+            else:
+                base = lambda: baseline(x, codes.data, step, bits, k)  # noqa: E731
+                b0 = time_ms(torch, base, 50, flush)[0]
+                got = time_ms(torch, run, 50, flush)
+                again = time_ms(torch, run, 50, flush)[0]
+                b1 = time_ms(torch, base, 50, flush)[0]
+                turns = (f"; turns baseline {b0 * 1e3:.2f}, kernel {got[0] * 1e3:.2f}, "
+                         f"{again * 1e3:.2f}, baseline {b1 * 1e3:.2f} us")
+            plain = time_ms(torch, lambda: ops.dequant_matmul(x, codes, step, use_kernel=False),
+                            20, flush)[0]
+            lib = time_ms(torch, lambda: torch.matmul(x, w_fp32.T), 50, flush)[0]
+            nbytes, (b_ms, b_by) = head_work(m, n, k, width)
+            share = nbytes / HBM_BYTES_PER_S * 1e3 / got[0]
+            notes.append(f"[time] {kernel} M={m} N={n} K={k}: {got[0] * 1e3:.2f} us, "
+                         f"{share:.1%} of the HBM rate (plain {plain * 1e3:.2f} us, bound "
+                         f"{b_ms * 1e3:.3f} us by {b_by}; torch.matmul over the pre-dequantized "
+                         f"{n * k * 4} B fp32 table, which the kernel never builds: "
+                         f"{lib * 1e3:.2f} us); host enqueue {got[1]:.1f} us{turns}")
+            if m == LM_BATCH:
+                timings[kernel] = (*got, plain, b_ms, b_by, None)
+        del w_fp32
+    return timings, notes
+
+
+def head_phases(torch, tables: dict, flush, flags=()) -> None:
+    """Where one head launch spends its time: the kernel built with
+    -DHEAD_PHASES stamps the SM clock in lane 0 of warp 0 of block 0; one
+    launch per width at M = 8 over ``tables``, L2 flushed, cycles from the
+    block's start: x landed and split, then per ring unit the wait for it
+    and its products."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    lib_path = _build.BUILD_DIR / "dequant_matmul-phases.so"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-DHEAD_PHASES", *flags, "-o",
+                    str(lib_path), str(_build.CSRC / "dequant_matmul.cu")], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.dequant_matmul_launch.argtypes = list(
+        _build.SIGNATURES["dequant_matmul"]["dequant_matmul_launch"])
+    lib.head_phases_read.argtypes = [ctypes.c_void_p]
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for bits, (codes, step) in tables.items():
+        x = torch.randn(LM_BATCH, codes.d, generator=g, device="cuda")
+        y = torch.empty(LM_BATCH, codes.n, device="cuda")
+        stamps = (ctypes.c_longlong * 64)()
+        flush()
+        err = lib.dequant_matmul_launch(x.data_ptr(), codes.data.data_ptr(), step.data_ptr(),
+                                        y.data_ptr(), LM_BATCH, codes.n, codes.d, bits,
+                                        _build.stream_of(x.device))
+        torch.cuda.synchronize()
+        check(err == 0 and lib.head_phases_read(ctypes.cast(stamps, ctypes.c_void_p)) == 0,
+              f"head_phases bits={bits}: launch error {err}")
+        at = [v - stamps[0] for v in stamps]
+        units, prev = [], at[2]
+        for u in range(24):
+            landed, done = at[8 + 2 * u], at[9 + 2 * u]
+            if landed <= 0:
+                break
+            units.append(f"{landed - prev}/{done - landed}")
+            prev = done
+        log(f"[phases] head bits={bits} M={LM_BATCH} {' '.join(flags)}, warp 0 of block 0, SM "
+            f"cycles: x landed {at[1]}, split {at[2] - at[1]}; per unit wait/products "
+            f"{', '.join(units)}; done {at[3]}")
+
+
+def head_only(baseline: str | None = None, flags=(), clean_flush: bool = False) -> int:
+    """Build the head kernels, check them as phase 2d does and time them at
+    SmolLM's head (random codes at 8 and 4 bits), without the rest of the
+    smoke; ``baseline`` (another dequant_matmul.cu) and ``flags`` (nvcc flags
+    for it, or for this source when ``baseline`` is None) add a second build
+    timed in the same turns; ``clean_flush`` times again with L2 evicted by
+    reading a buffer, so that no dirty line is written back during the call:
+    ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.head_only())"``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[chip_smoke] torch.cuda.is_available() is False: needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.codestore import CodeStore
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.library("dequant_matmul")
+    base = None
+    if baseline is not None or flags:
+        source = baseline or str(_build.CSRC / "dequant_matmul.cu")
+        base = baseline_head(torch, source, flags)
+        log(f"[build] baseline: {source} {' '.join(flags)}")
+    log(f"[build] dequant_matmul{' and the baseline' if base else ''} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    err = {"dequant_matmul": 0.0, "dequant_matmul_packed": 0.0}
+    check_head(torch, dev, g, err)
+    log(f"[check] max err vs plain: {err}")
+    n, k = LM_TABLE
+    tables = {}
+    for bits in (8, 4):
+        lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+        codes = torch.randint(lo, hi + 1, (n, k), generator=g, device=dev, dtype=torch.int8)
+        tables[bits] = (CodeStore.from_codes(codes, bits),
+                        torch.rand(n, generator=g, device=dev) * 0.01 + 1e-4)
+    flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    for line in time_head(torch, tables, flush_buf.zero_, base)[1]:
+        log(line)
+    if clean_flush:
+        for line in time_head(torch, tables, flush_buf.max, base)[1]:
+            log(line.replace("[time]", "[time, L2 evicted by reading]"))
+    for bits, (codes, _) in tables.items():
+        data = codes.data
+        log(f"[time] a plain read of the {data.numel()} B of {bits}-bit codes (torch.amax): "
+            f"{time_ms(torch, data.amax, 30, flush_buf.zero_)[0] * 1e3:.2f} us")
+    head_phases(torch, tables, flush_buf.zero_)
+    if flags and baseline is None:
+        head_phases(torch, tables, flush_buf.zero_, flags)
+    one = torch.zeros(1, device=dev)
+    log(f"[time] the timer's floor, a 1-element add_: "
+        f"{time_ms(torch, lambda: one.add_(1), 30, flush_buf.zero_)[0] * 1e3:.2f} us")
+    log(card_name())
+    return 0
 
 
 def time_flash(torch, flush) -> tuple[tuple, list[str]]:

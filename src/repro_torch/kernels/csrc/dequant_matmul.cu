@@ -1,5 +1,5 @@
 // dequant_matmul / dequant_matmul_packed: fused de-quantize x int8-weight matmul,
-//   y[m, n] = sum_k x[m, k] * (f32(codes[n, k]) * Delta[n])
+//   y[m, n] = (sum_k x[m, k] * f32(codes[n, k])) * Delta[n]
 // over int8 codes [N, K], or a packed uint8 container [N, ceil(K*bits/8)]
 // holding 2- or 4-bit codes low-bits-first (repro_torch/core/codestore.py).
 // The quantized LM head: N = vocab, K = d_model, M = tokens.
@@ -14,250 +14,395 @@
 // 8 bits, N*ceil(K*bits/8) packed) with Delta (4N), x (4MK) and y (4MN); the
 // fp32 [N, K] table never exists in device memory.  At SmolLM's head
 // (M = 8, N = 49,152, K = 576) that is ~30.1 MB at 8 bits (~9.0 us at
-// 3.35 TB/s) and ~15.9 MB at 4 bits, where the 2MNK = 0.45 GFLOP of fp32
-// FMAs (~6.8 us at 67 TFLOP/s) come close.
+// 3.35 TB/s) and ~15.9 MB at 4 bits (~4.8 us).
 //
-// Design (simple first; no tensor cores: TF32 or bf16 mma would break the
-// fp32 parity with the reference):
-//  * a block owns a slab of BN code rows and every row of x (up to 64 per
-//    pass; blockIdx.y walks larger M in passes of 64), so each code byte is
-//    read once per launch at the decode M;
-//  * K is walked in chunks of 64 codes.  Each thread holds its share of the
-//    next chunk's code bytes (16-byte loads; bytes where a row is not
-//    16-aligned) and x values (float4 loads) in registers: the loads are
-//    issued before the current chunk's FMAs and land in shared memory after
-//    them, so the memory latency hides behind the arithmetic.  Packed codes
-//    are unpacked to int8 in registers on the way, so int8 and packed stage
-//    the same values;
-//  * thread (r, g) owns code row n0 + r and x rows [g*MT, g*MT + MT): it
-//    scales each code once (__fmul_rn) and accumulates with __fmaf_rn in
-//    increasing k, a fixed order that does not depend on M, on the tile or
-//    on the packing — so a row's logits are the same whatever else is in
-//    the batch, and the packed kernel equals the int8 kernel bitwise.
+// Design:
+//  * Products on the tensor cores at fp32 accuracy, 2xTF32.  A code (8, 4 or
+//    2 bits) is exact in TF32, and Delta is applied once to each finished
+//    sum, so x . c needs only x's split: x = hi + lo, hi = rna_tf32(x),
+//    lo = rna_tf32(x - hi).  mma.sync.m16n8k8 takes 16 code rows as A and
+//    x^T as B (n8 = 8 tokens: the decode batch; M = 1 pads B with zeros);
+//    the lo and hi products accumulate in two fp32 chains (two independent
+//    mma chains per tile), added once per K-block; y = (hi + lo) * Delta.
+//  * K in groups of 64 codes: lane (g, t) of a warp owns codes
+//    [16t, 16t + 16) of the group in rows g and g + 8 (one 16-, 8- or 4-byte
+//    shared-memory read per row), and k-step s (of 8) pairs mma column t with
+//    code 16t + 2s and column t + 4 with code 16t + 2s + 1.  B uses the same
+//    pairing, so a lane's x values are x[m][16t .. 16t + 16) of the group, in
+//    natural order: x is split once per block into shared memory in fragment
+//    order (one 16-byte read per operand and two k-steps), as flash splits q.
+//  * Codes to fp32 without I2F: biased bytes (c ^ sign bit) are placed under
+//    the exponent of 2^23 by PRMT (float 2^23 + c + bias) and the FADD of
+//    -(2^23 + bias) leaves c exactly; 4- and 2-bit fields are first masked
+//    into bytes (one LOP3 per word and field).
+//  * Streaming: a persistent grid of one block per SM; each of its 8 warps
+//    walks its own 16-row tiles (tile w, w + warps, ...) through its own
+//    4-stage ring of cp.async units (16 rows x 3, 5 or 9 groups: 192, 160
+//    or 144 bytes a row, which also keeps the fragment reads conflict-free),
+//    with no block barrier in the main loop.  Widths or pointers that are
+//    not 16-byte aligned stage the same units with byte loads.
+//  * M > 8: a block takes up to MT n8 tiles of x (as shared memory allows)
+//    and reuses each converted A fragment for all of them; larger M runs in
+//    passes (blockIdx.y).  K > 1,152 runs in K-blocks whose partial sums
+//    wait in y (a K-block's size depends on K alone).
+//  The k order, the split and a row's arithmetic do not depend on M, on the
+//  tile a row lands in or on the packing, so a row's logits are the same
+//  whatever else is in the batch, and the packed kernel equals the int8
+//  kernel bitwise.
 #include "common.cuh"
+
+#ifdef HEAD_PHASES
+// Built with -DHEAD_PHASES (chip_smoke.head_phases): lane 0 of warp 0 of
+// block (0, 0) stamps the SM clock at each phase.
+__device__ long long head_phases[64];
+extern "C" int head_phases_read(long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, head_phases, sizeof(head_phases)));
+}
+#define PHASE(i)                                                                  \
+  do {                                                                            \
+    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) head_phases[i] = clock64(); \
+  } while (0)
+#else
+#define PHASE(i) \
+  do {           \
+  } while (0)
+#endif
 
 namespace {
 
-constexpr int kMatThreads = 128;
-constexpr int kChunk = 64;    // codes of K per staged chunk
-constexpr int kMPass = 64;    // rows of x per pass
-constexpr int kMaxRows = 128; // code rows per block (BN <= 128)
-constexpr int kCodeStride = kChunk + 4;  // bytes; 17 words: conflict-free rows
-constexpr int kXVecs = kMPass * kChunk / 4 / kMatThreads;  // float4 of x per thread
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::mma_tf32;
+using repro::Split;
+using repro::split;
 
-__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+#ifndef HEAD_STAGES
+#define HEAD_STAGES 4
+#endif
+#ifndef HEAD_BLOCKS_PER_SM
+#define HEAD_BLOCKS_PER_SM 1
+#endif
+constexpr int kStages = HEAD_STAGES;  // depth of each warp's cp.async ring
+constexpr int kBlocksPerSm = HEAD_BLOCKS_PER_SM;
+#ifndef HEAD_SETS
+#define HEAD_SETS 4
+#endif
+// Independent accumulator chains per tile and part (hi, lo): k-step pair j
+// of a group goes to set j % kSets.
+constexpr int kSets = HEAD_SETS;
+constexpr int kGroup = 64;        // codes per group: 16 per lane column t, 8 k-steps
+constexpr int kBlockK = 1152;     // codes of K per K-block (x of a K-block in shared memory)
+// Shared memory a block may take: an H100 SM has 228 KB, 1 KB of it
+// reserved per block, and a block may opt in to 227 KB.
+constexpr int kSmemLimit = 233472 / kBlocksPerSm - 1024;
 
-// Byte `j` of `word` as a signed code.
-__device__ __forceinline__ int byte_of(uint32_t word, int j) {
-  return static_cast<int>(static_cast<int8_t>((word >> (8 * j)) & 0xffu));
-}
-
-// Code `c` (low bits first) of a 16-byte vector of BITS-wide fields, as int8.
+// A row's bytes for BITS: kLane per lane and group (its 16 codes), kRow per
+// group; a ring unit holds kGroups groups of 16 rows at a row stride of
+// kStride bytes.  kGroups is odd, so the 8 rows g of a fragment read fall
+// on distinct banks.
 template <int BITS>
-__device__ __forceinline__ uint32_t code_of(const uint4& v, int c) {
-  constexpr int kPerByte = 8 / BITS;
-  const int b = c / kPerByte;
-  const uint32_t byte = (word_of(v, b / 4) >> (8 * (b % 4))) & 0xffu;
+struct Layout {
+  static constexpr int kLane = 2 * BITS;
+  static constexpr int kRow = 4 * kLane;
+#ifdef HEAD_GROUPS
+  static constexpr int kGroups = HEAD_GROUPS;
+#else
+  static constexpr int kGroups = BITS == 8 ? 3 : BITS == 4 ? 5 : 9;
+#endif
+  static constexpr int kStride = kGroups * kRow;  // 192, 160, 144
+  static constexpr int kStage = 16 * kStride;
+};
+
+struct Args {
+  const float* x;
+  const uint8_t* codes;
+  const float* step;
+  float* y;
+  int64_t M, N, K, width;
+  int Kp;        // K rounded up to a group (at least one)
+  int codes_aligned, x_aligned;
+};
+
+// Byte `e` of `biased` (a code plus its bias) as the exact fp32 code.
+__device__ __forceinline__ uint32_t code_f32(uint32_t biased, int e, float magic) {
+  return __float_as_uint(
+      __fsub_rn(__uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540u | e)), magic));
+}
+
+// One lane's 16 codes of one row and group, as stored: 16, 8 or 4 bytes.
+template <int BITS>
+__device__ __forceinline__ uint4 load_codes(const uint8_t* p) {
   if constexpr (BITS == 8) {
-    return byte;
+    return *reinterpret_cast<const uint4*>(p);
+  } else if constexpr (BITS == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    return make_uint4(v.x, v.y, 0, 0);
   } else {
-    const int f = static_cast<int>((byte >> ((c % kPerByte) * BITS)) & ((1u << BITS) - 1));
-    return static_cast<uint32_t>(static_cast<uint8_t>(f >= (1 << (BITS - 1)) ? f - (1 << BITS)
-                                                                              : f));
+    return make_uint4(*reinterpret_cast<const uint32_t*>(p), 0, 0, 0);
   }
 }
 
-// One thread's share of a chunk's code bytes: rows [n0, n0 + bn), codes
-// [k0, k0 + kChunk), as 16-byte vectors of the row's container.
+// Those codes as fp32 bit patterns, in the lane's code order: c[i] is code
+// 16t + i of the group.
 template <int BITS>
-struct CodeChunk {
-  static constexpr int kPerByte = 8 / BITS;
-  static constexpr int kVecs = kChunk / kPerByte / 16;  // per row: 4, 2, 1
-  static constexpr int kPerThread = kMaxRows * kVecs / kMatThreads;
-  uint4 v[kPerThread];
-
-  __device__ void load(const uint8_t* __restrict__ codes, int64_t n0, int bn, int64_t N,
-                       int64_t width, int64_t k0, bool aligned) {
+__device__ __forceinline__ void convert(const uint4 v, uint32_t (&c)[16]) {
+  if constexpr (BITS == 8) {
+    const uint32_t w[4] = {v.x ^ 0x80808080u, v.y ^ 0x80808080u, v.z ^ 0x80808080u,
+                           v.w ^ 0x80808080u};
 #pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int idx = threadIdx.x + i * kMatThreads;
-      const int r = idx / kVecs;
-      const int64_t byte = k0 / kPerByte + 16 * (idx % kVecs);
-      v[i] = make_uint4(0, 0, 0, 0);
-      if (r >= bn || n0 + r >= N) continue;
-      const uint8_t* row = codes + (n0 + r) * width;
-      if (aligned && byte + 16 <= width) {
-        v[i] = *reinterpret_cast<const uint4*>(row + byte);
-      } else {
-        uint32_t w[4] = {0, 0, 0, 0};
+    for (int i = 0; i < 16; ++i) c[i] = code_f32(w[i / 4], i % 4, 8388736.0f);  // 2^23 + 128
+  } else if constexpr (BITS == 4) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          if (byte + j < width) w[j / 4] |= static_cast<uint32_t>(row[byte + j]) << (8 * (j % 4));
-        }
-        v[i] = make_uint4(w[0], w[1], w[2], w[3]);
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t b = (h == 0 ? v.x : v.y) ^ 0x88888888u;
+      const uint32_t lo = b & 0x0F0F0F0Fu, hi = (b >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // byte e: codes 2e (low nibble) and 2e + 1
+        c[8 * h + 2 * e] = code_f32(lo, e, 8388616.0f);  // 2^23 + 8
+        c[8 * h + 2 * e + 1] = code_f32(hi, e, 8388616.0f);
       }
     }
-  }
-
-  // Unpack to int8 codes in `cs` [row][kCodeStride], four codes per word.
-  __device__ void store(int8_t* cs, int bn) const {
+  } else {
+    const uint32_t b = v.x ^ 0xAAAAAAAAu;
 #pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int idx = threadIdx.x + i * kMatThreads;
-      const int r = idx / kVecs;
-      if (r >= bn) continue;
-      uint32_t* out = reinterpret_cast<uint32_t*>(cs + r * kCodeStride) +
-                      (idx % kVecs) * 4 * kPerByte;
+    for (int f = 0; f < 4; ++f) {  // field f of byte e: code 4e + f
+      const uint32_t field = (b >> (2 * f)) & 0x03030303u;
 #pragma unroll
-      for (int w = 0; w < 4 * kPerByte; ++w) {
-        out[w] = code_of<BITS>(v[i], 4 * w) | code_of<BITS>(v[i], 4 * w + 1) << 8 |
-                 code_of<BITS>(v[i], 4 * w + 2) << 16 | code_of<BITS>(v[i], 4 * w + 3) << 24;
-      }
-    }
-  }
-};
-
-// One thread's share of a chunk of x: rows [m0, m0 + rows), columns
-// [k0, k0 + kChunk), as float4 (zeros past M or K).
-struct XChunk {
-  float4 v[kXVecs];
-
-  __device__ void load(const float* __restrict__ x, int64_t m0, int rows, int64_t M, int64_t K,
-                       int64_t k0, bool aligned) {
-#pragma unroll
-    for (int i = 0; i < kXVecs; ++i) {
-      const int idx = threadIdx.x + i * kMatThreads;
-      const int mi = idx / (kChunk / 4);
-      const int64_t k = k0 + 4 * (idx % (kChunk / 4));
-      const int64_t m = m0 + mi;
-      v[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (mi >= rows || m >= M) continue;
-      const float* src = x + m * K + k;
-      if (aligned && k + 4 <= K) {
-        v[i] = *reinterpret_cast<const float4*>(src);
-      } else {
-        float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (k + j < K) e[j] = src[j];
-        }
-        v[i] = make_float4(e[0], e[1], e[2], e[3]);
-      }
-    }
-  }
-
-  __device__ void store(float (*xs)[kChunk], int rows) const {
-#pragma unroll
-    for (int i = 0; i < kXVecs; ++i) {
-      const int idx = threadIdx.x + i * kMatThreads;
-      const int mi = idx / (kChunk / 4);
-      if (mi < rows) *reinterpret_cast<float4*>(&xs[mi][4 * (idx % (kChunk / 4))]) = v[i];
-    }
-  }
-};
-
-template <int MT, int BITS>
-__global__ void __launch_bounds__(kMatThreads)
-dequant_matmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
-                      const float* __restrict__ step, float* __restrict__ y, int64_t M,
-                      int64_t N, int64_t K, int64_t width, int bn, bool codes_aligned,
-                      bool x_aligned) {
-  __shared__ __align__(16) float xs[kMPass][kChunk];
-  __shared__ __align__(16) int8_t cs[kMaxRows * kCodeStride];
-  const int groups = kMatThreads / bn;
-  const int r = threadIdx.x % bn;
-  const int g = threadIdx.x / bn;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * bn;
-  const int64_t n = n0 + r;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * kMPass;
-  const int rows = groups * MT;  // rows of x this block stages (<= kMPass)
-  const float s = n < N ? step[n] : 0.0f;
-
-  float acc[MT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) acc[i] = 0.0f;
-
-  CodeChunk<BITS> cc;
-  XChunk xc;
-  cc.load(codes, n0, bn, N, width, 0, codes_aligned);
-  xc.load(x, m0, rows, M, K, 0, x_aligned);
-  for (int64_t k0 = 0; k0 < K; k0 += kChunk) {
-    cc.store(cs, bn);
-    xc.store(xs, rows);
-    __syncthreads();
-    if (k0 + kChunk < K) {  // in flight during this chunk's FMAs
-      cc.load(codes, n0, bn, N, width, k0 + kChunk, codes_aligned);
-      xc.load(x, m0, rows, M, K, k0 + kChunk, x_aligned);
-    }
-    // Codes past K (the pad bits of a packed row's last byte, or past the
-    // row) meet x = 0: fma(0, w, acc) == acc exactly, as acc is never -0.
-    const uint32_t* crow = reinterpret_cast<const uint32_t*>(cs + r * kCodeStride);
-#pragma unroll 4
-    for (int j = 0; j < kChunk / 4; ++j) {
-      const uint32_t q = crow[j];
-      const float w0 = __fmul_rn(static_cast<float>(byte_of(q, 0)), s);
-      const float w1 = __fmul_rn(static_cast<float>(byte_of(q, 1)), s);
-      const float w2 = __fmul_rn(static_cast<float>(byte_of(q, 2)), s);
-      const float w3 = __fmul_rn(static_cast<float>(byte_of(q, 3)), s);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const float4 xv = *reinterpret_cast<const float4*>(&xs[g * MT + i][4 * j]);
-        acc[i] = __fmaf_rn(xv.x, w0, acc[i]);
-        acc[i] = __fmaf_rn(xv.y, w1, acc[i]);
-        acc[i] = __fmaf_rn(xv.z, w2, acc[i]);
-        acc[i] = __fmaf_rn(xv.w, w3, acc[i]);
-      }
-    }
-    __syncthreads();
-  }
-  if (n < N) {
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int64_t m = m0 + g * MT + i;
-      if (m < M) y[m * N + n] = acc[i];
+      for (int e = 0; e < 4; ++e) c[4 * e + f] = code_f32(field, e, 8388610.0f);  // 2^23 + 2
     }
   }
 }
 
-template <int BITS>
-cudaError_t launch_bits(const float* x, const uint8_t* codes, const float* step, float* y,
-                        int64_t M, int64_t N, int64_t K, int64_t width, cudaStream_t s) {
-  // Rows of x per thread (MT) and thread groups per code row (G) from the
-  // rows of one pass; BN = 128 / G code rows per block.
-  const int64_t rows = M < kMPass ? M : kMPass;
-  const int mt = rows <= 1 ? 1 : rows <= 2 ? 2 : rows <= 4 ? 4 : 8;
-  const int64_t need = (rows + mt - 1) / mt;
-  const int groups = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : 8;
-  const int bn = kMatThreads / groups;
-  const bool codes_aligned = width % 16 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
-  const bool x_aligned = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const dim3 grid(static_cast<unsigned int>((N + bn - 1) / bn),
-                  static_cast<unsigned int>((M + kMPass - 1) / kMPass));
-  switch (mt) {
-    case 1:
-      dequant_matmul_kernel<1, BITS><<<grid, kMatThreads, 0, s>>>(x, codes, step, y, M, N, K,
-                                                                   width, bn, codes_aligned,
-                                                                   x_aligned);
-      break;
-    case 2:
-      dequant_matmul_kernel<2, BITS><<<grid, kMatThreads, 0, s>>>(x, codes, step, y, M, N, K,
-                                                                   width, bn, codes_aligned,
-                                                                   x_aligned);
-      break;
-    case 4:
-      dequant_matmul_kernel<4, BITS><<<grid, kMatThreads, 0, s>>>(x, codes, step, y, M, N, K,
-                                                                   width, bn, codes_aligned,
-                                                                   x_aligned);
-      break;
-    default:
-      dequant_matmul_kernel<8, BITS><<<grid, kMatThreads, 0, s>>>(x, codes, step, y, M, N, K,
-                                                                   width, bn, codes_aligned,
-                                                                   x_aligned);
-      break;
+// The chain sets' value e, added pairwise: ((s0 + s1) + (s2 + s3)).
+template <int SETS>
+__device__ __forceinline__ float fold(const float (&acc)[SETS][4], int e) {
+  if constexpr (SETS == 1) {
+    return acc[0][e];
+  } else if constexpr (SETS == 2) {
+    return __fadd_rn(acc[0][e], acc[1][e]);
+  } else {
+    return __fadd_rn(__fadd_rn(acc[0][e], acc[1][e]), __fadd_rn(acc[2][e], acc[3][e]));
   }
+}
+
+template <int BITS, int MT>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) dequant_matmul_kernel(const Args a) {
+  using L = Layout<BITS>;
+  constexpr int kPieces = L::kStride / 16;  // 16-byte pieces of a staged row
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int kb_max = a.Kp < kBlockK ? a.Kp : kBlockK;
+  // x of the pass's rows and the current K-block, split, in fragment order:
+  // float4 ((t * ngb + g) * 4 + j) * 32 + lane holds x[8t + gid][64g + 16tig
+  // + 4j .. + 4) (tile t, group g), hi parts in xh, lo parts in xl.
+  float4* xh = reinterpret_cast<float4*>(smem);
+  float4* xl = xh + MT * (kb_max / kGroup) * 128;
+  uint8_t* ring = reinterpret_cast<uint8_t*>(xl + MT * (kb_max / kGroup) * 128) +
+                  warp * kStages * L::kStage;
+
+  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * 8 * MT;
+  const int tiles = static_cast<int>((a.N + 15) / 16);
+  const int wstride = gridDim.x * kWarps;  // the warp's tiles: w0, w0 + wstride, ...
+  const int w0 = blockIdx.x * kWarps + warp;
+  PHASE(0);
+
+  for (int kb0 = 0; kb0 < a.Kp; kb0 += kBlockK) {
+    const int ngb = (a.Kp - kb0 < kBlockK ? a.Kp - kb0 : kBlockK) / kGroup;
+    const bool last_kb = kb0 + kBlockK >= a.Kp;
+    __syncthreads();  // every warp is done with the previous K-block's x
+
+    // The pass's rows of x over this K-block (zeros past M and K), raw, at
+    // their fragment slots: a thread's slots share j = (tid / 32) % 4 and
+    // lane; (t, g) advances by two groups per 256 slots.
+    {
+      const int j = (tid / 32) % 4;
+      int t = 0, g = tid / 128;
+      while (g >= ngb && t < MT) g -= ngb, ++t;
+      for (int f = tid; f < MT * ngb * 128; f += kThreads) {
+        const int64_t m = m0 + 8 * t + gid;
+        const int64_t k = kb0 + kGroup * g + 16 * tig + 4 * j;
+        const float* src = a.x + m * a.K + k;
+        if (a.x_aligned && m < a.M && k + 4 <= a.K) {
+          cp_async16(&xh[f], src, true);
+        } else {
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = m < a.M && k + e < a.K ? src[e] : 0.0f;
+          xh[f] = make_float4(v[0], v[1], v[2], v[3]);
+        }
+        for (g += 2; g >= ngb && t < MT;) g -= ngb, ++t;
+      }
+      cp_async_commit();
+    }
+
+    // Unit u of the warp: its tile it_t (the it_t-th of the warp), groups
+    // [it_c kGroups, + kGroups) of the K-block, into ring stage u % kStages.
+    // One commit group per unit (empty past the end) keeps the wait counts
+    // uniform.
+    int it_t = w0, it_c = 0;  // the next unit to issue: tile, chunk
+    int u_issue = 0;
+    auto issue = [&]() {
+      if (it_t < tiles) {
+        const int64_t n0 = 16 * static_cast<int64_t>(it_t);
+        const int g0 = it_c * L::kGroups;
+        const int bytes = (ngb - g0 < L::kGroups ? ngb - g0 : L::kGroups) * L::kRow;
+        const int64_t off0 = static_cast<int64_t>(kb0 / kGroup + g0) * L::kRow;
+        uint8_t* st = ring + (u_issue % kStages) * L::kStage;
+        if (a.codes_aligned) {
+#pragma unroll
+          for (int p = lane; p < 16 * kPieces; p += 32) {
+            const int r = p / kPieces, q = p % kPieces;
+            const int64_t off = off0 + 16 * q;
+            const bool ok = n0 + r < a.N && off + 16 <= a.width;
+            if (16 * q < bytes) {
+              cp_async16(st + r * L::kStride + 16 * q,
+                         ok ? a.codes + (n0 + r) * a.width + off : a.codes, ok);
+            }
+          }
+        } else {  // ragged rows: the same unit through byte loads
+#pragma unroll 1
+          for (int p = lane; p < 16 * L::kStride; p += 32) {
+            const int r = p / L::kStride, b = p % L::kStride;
+            const int64_t off = off0 + b;
+            if (b < bytes) {
+              st[r * L::kStride + b] =
+                  n0 + r < a.N && off < a.width ? a.codes[(n0 + r) * a.width + off] : 0;
+            }
+          }
+        }
+        if (++it_c * L::kGroups >= ngb) it_c = 0, it_t += wstride;
+      }
+      cp_async_commit();
+      ++u_issue;
+    };
+#pragma unroll
+    for (int u = 0; u < kStages - 1; ++u) issue();
+
+    // Split this thread's slots of x in place once they have landed (the
+    // code units stay in flight).
+    cp_async_wait<kStages - 1>();
+    PHASE(1);  // x has landed
+    for (int f = tid; f < MT * ngb * 128; f += kThreads) {
+      const float4 v = xh[f];
+      const Split s0 = split(v.x), s1 = split(v.y), s2 = split(v.z), s3 = split(v.w);
+      xh[f] = make_float4(__uint_as_float(s0.hi), __uint_as_float(s1.hi),
+                          __uint_as_float(s2.hi), __uint_as_float(s3.hi));
+      xl[f] = make_float4(__uint_as_float(s0.lo), __uint_as_float(s1.lo),
+                          __uint_as_float(s2.lo), __uint_as_float(s3.lo));
+    }
+    __syncthreads();
+    PHASE(2);  // x is split
+
+    // Accumulators: tile t, chain set j % kSets (the k-step pair j of a
+    // group), 4 values; hi and lo products apart.
+    float acc_h[MT][kSets][4], acc_l[MT][kSets][4];
+    for (int u = 0, tile = w0, c = 0; tile < tiles; ++u) {
+      cp_async_wait<kStages - 2>();
+      __syncwarp();  // unit u has landed for every lane; stage (u - 1) % kStages is free
+      if (u < 24) PHASE(8 + 2 * u);  // unit u has landed
+      issue();
+      const int64_t n0 = 16 * static_cast<int64_t>(tile);
+      const int64_t na = n0 + gid, nb = n0 + gid + 8;  // the lane's rows of y
+      if (c == 0) {  // a tile starts: from zero, or from the previous K-blocks' sums
+#pragma unroll
+        for (int t = 0; t < MT; ++t) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int64_t m = m0 + 8 * t + 2 * tig + (e & 1), n = e < 2 ? na : nb;
+#pragma unroll
+            for (int q = 0; q < kSets; ++q) acc_h[t][q][e] = acc_l[t][q][e] = 0.0f;
+            if (kb0 > 0 && m < a.M && n < a.N) acc_h[t][0][e] = a.y[m * a.N + n];
+          }
+        }
+      }
+      const uint8_t* st = ring + (u % kStages) * L::kStage + tig * L::kLane;
+      const int g0 = c * L::kGroups;
+      const int ng = ngb - g0 < L::kGroups ? ngb - g0 : L::kGroups;
+      uint4 next_a = load_codes<BITS>(st + gid * L::kStride);
+      uint4 next_b = load_codes<BITS>(st + (gid + 8) * L::kStride);
+      for (int g = 0; g < ng; ++g) {
+        uint32_t ca[16], cb[16];  // the lane's codes of rows gid and gid + 8
+        convert<BITS>(next_a, ca);
+        convert<BITS>(next_b, cb);
+        if (g + 1 < ng) {  // the next group's codes, read during this one's products
+          next_a = load_codes<BITS>(st + gid * L::kStride + (g + 1) * L::kRow);
+          next_b = load_codes<BITS>(st + (gid + 8) * L::kStride + (g + 1) * L::kRow);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // k-steps 2j and 2j + 1
+          const uint32_t a0[4] = {ca[4 * j], cb[4 * j], ca[4 * j + 1], cb[4 * j + 1]};
+          const uint32_t a1[4] = {ca[4 * j + 2], cb[4 * j + 2], ca[4 * j + 3], cb[4 * j + 3]};
+#pragma unroll
+          for (int t = 0; t < MT; ++t) {
+            const int f = ((t * ngb + g0 + g) * 4 + j) * 32 + lane;
+            const float4 h = xh[f], l = xl[f];
+            float (&ch)[4] = acc_h[t][j % kSets];
+            float (&cl)[4] = acc_l[t][j % kSets];
+            mma_tf32(cl, a0, __float_as_uint(l.x), __float_as_uint(l.y));
+            mma_tf32(ch, a0, __float_as_uint(h.x), __float_as_uint(h.y));
+            mma_tf32(cl, a1, __float_as_uint(l.z), __float_as_uint(l.w));
+            mma_tf32(ch, a1, __float_as_uint(h.z), __float_as_uint(h.w));
+          }
+        }
+      }
+      if (u < 24) PHASE(9 + 2 * u);  // unit u is computed
+      if (g0 + L::kGroups >= ngb) {  // the tile's K-block is done: y = (hi + lo) * Delta at the end
+        const float sa = last_kb && na < a.N ? a.step[na] : 1.0f;
+        const float sb = last_kb && nb < a.N ? a.step[nb] : 1.0f;
+#pragma unroll
+        for (int t = 0; t < MT; ++t) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int64_t m = m0 + 8 * t + 2 * tig + (e & 1), n = e < 2 ? na : nb;
+            const float sum = __fadd_rn(fold<kSets>(acc_h[t], e), fold<kSets>(acc_l[t], e));
+            if (m < a.M && n < a.N) a.y[m * a.N + n] = last_kb ? __fmul_rn(sum, e < 2 ? sa : sb)
+                                                               : sum;
+          }
+        }
+        c = 0, tile += wstride;
+      } else {
+        ++c;
+      }
+    }
+    cp_async_wait<0>();
+    __syncwarp();  // every lane is done with the ring before the next K-block refills it
+  }
+  PHASE(3);  // the warp is done
+}
+
+template <int BITS>
+size_t smem_bytes(int mt, int kp) {
+  const int kb = kp < kBlockK ? kp : kBlockK;
+  return static_cast<size_t>(mt) * kb * 64 + static_cast<size_t>(kWarps) * kStages *
+                                                 Layout<BITS>::kStage;
+}
+
+template <int BITS, int MT>
+cudaError_t launch(const Args& a, int sms, cudaStream_t s) {
+  const size_t smem = smem_bytes<BITS>(MT, a.Kp);
+  const cudaError_t err = cudaFuncSetAttribute(
+      dequant_matmul_kernel<BITS, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (a.N + 15) / 16;
+  const int64_t blocks = (tiles + kWarps - 1) / kWarps;
+  const int64_t cap = static_cast<int64_t>(sms) * kBlocksPerSm;
+  const dim3 grid(static_cast<unsigned int>(blocks < cap ? blocks : cap),
+                  static_cast<unsigned int>((a.M + 8 * MT - 1) / (8 * MT)));
+  dequant_matmul_kernel<BITS, MT><<<grid, kThreads, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+// n8 tiles of x per pass: two where M needs them and shared memory allows,
+// else one; larger M runs in passes.
+template <int BITS>
+cudaError_t launch_bits(const Args& a, int sms, cudaStream_t s) {
+  if (a.M > 8 && smem_bytes<BITS>(2, a.Kp) <= kSmemLimit) return launch<BITS, 2>(a, sms, s);
+  return launch<BITS, 1>(a, sms, s);
 }
 
 }  // namespace
@@ -268,20 +413,24 @@ cudaError_t launch_bits(const float* x, const uint8_t* codes, const float* step,
 extern "C" int dequant_matmul_launch(const void* x, const void* codes, const void* step, void* y,
                                      int64_t M, int64_t N, int64_t K, int bits, void* stream) {
   if (M * N == 0) return 0;
+  if (bits != 8 && bits != 4 && bits != 2) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Args a{static_cast<const float*>(x), static_cast<const uint8_t*>(codes),
+         static_cast<const float*>(step), static_cast<float*>(y), M, N, K,
+         (K * bits + 7) / 8, 0, 0, 0};
+  a.Kp = static_cast<int>(((K > 0 ? K : 1) + kGroup - 1) / kGroup * kGroup);
+  a.codes_aligned = a.width % 16 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
+  a.x_aligned = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* c = static_cast<const uint8_t*>(codes);
-  const auto* st = static_cast<const float*>(step);
-  auto* yf = static_cast<float*>(y);
-  cudaError_t err;
   if (bits == 8) {
-    err = launch_bits<8>(xf, c, st, yf, M, N, K, K, s);
+    err = launch_bits<8>(a, sms, s);
   } else if (bits == 4) {
-    err = launch_bits<4>(xf, c, st, yf, M, N, K, (K + 1) / 2, s);
-  } else if (bits == 2) {
-    err = launch_bits<2>(xf, c, st, yf, M, N, K, (K + 3) / 4, s);
+    err = launch_bits<4>(a, sms, s);
   } else {
-    err = cudaErrorInvalidValue;
+    err = launch_bits<2>(a, sms, s);
   }
   return static_cast<int>(err);
 }

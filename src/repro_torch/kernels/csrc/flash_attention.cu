@@ -69,6 +69,13 @@ extern "C" int flash_phases_read(long long* host) {
 
 namespace {
 
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::mma_tf32;
+using repro::Split;
+using repro::split;
+
 constexpr int kRows = 16;    // query rows per warp (the m16 of mma.sync)
 constexpr int kBk = 32;      // keys per kv tile
 constexpr int kStages = 2;   // depth of the cp.async ring
@@ -88,17 +95,6 @@ struct Args {
   int hsplit;  // blocks per (b, kv head) along the heads: g / heads
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned int d = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
-  const int bytes = valid ? 16 : 0;  // 0: zero-fill (rows past the data, columns past D)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Row strides (floats) for a padded width DP = 8 KD.  q and K rows are read
 // as float2 at (row gid, column 2 tig): 8 or 24 modulo 32 puts a half-warp
 // on distinct banks.  V rows are read at (key 2 tig (+1), column gid): 4 or
@@ -106,20 +102,6 @@ __device__ __forceinline__ void cp_async_wait() {
 __host__ __device__ constexpr int qk_stride(int dp) { return dp + (dp % 16 == 0 ? 8 : 0); }
 __host__ __device__ constexpr int v_stride(int dp) { return dp + 4; }
 
-// cvt.rna.tf32.f32 on the integer pipe: round the fp32 bit pattern to 10
-// explicit mantissa bits, ties away from zero (the same for finite values).
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-// x = hi + lo to 21 bits: hi = x rounded to TF32, lo the rounded remainder
-// (x - hi is exact in fp32).
-struct Split {
-  uint32_t hi, lo;
-};
-__device__ __forceinline__ Split split(float x) {
-  const uint32_t hi = to_tf32(x);
-  return {hi, to_tf32(__fsub_rn(x, __uint_as_float(hi)))};
-}
 // An A fragment (the 4 values a lane holds), split once for its products.
 struct FragA {
   uint32_t hi[4], lo[4];
@@ -136,15 +118,6 @@ __device__ __forceinline__ FragA split_a(float a0, float a1, float a2, float a3)
   return f;
 }
 
-// c += a b over one m16n8k8 TF32 tile, fp32 accumulate.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 // c += a b at fp32 accuracy (3xTF32): the two small cross terms first, then
 // hi * hi.  b0, b1: the B fragment's 2 values.
 __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const FragA& a, float b0, float b1) {

@@ -5,11 +5,14 @@ in ``csrc/dequant_matmul.cu``, whose header says what bounds them and how
 they are built for that.  ``y = x @ (step[:, None] * codes).T`` in fp32 with
 the codes de-quantized on chip: the fp32 [N, K] table never exists in device
 memory.  Every M, N and K is taken (the reference's TPU kernel needs them to
-divide its blocks).  Each output sums its K products in increasing k, so a
-row's logits do not depend on the other rows of ``x``, and the packed kernel
-equals the int8 kernel on the unpacked codes bitwise.  Against the plain
-versions in :mod:`repro_torch.kernels.ref` (a cuBLAS matmul over the
-de-quantized table) they agree within the fp32 error of a K-term sum.
+divide its blocks).  The products run on the tensor cores as 2xTF32 (x split
+into TF32 hi + lo; codes are exact in TF32) with Δ applied once to each
+finished sum, in a k order that depends on K alone, so a row's logits do not
+depend on the other rows of ``x``, and the packed kernel equals the int8
+kernel on the unpacked codes bitwise.  Against the plain versions in
+:mod:`repro_torch.kernels.ref` (a cuBLAS matmul over the de-quantized table)
+they agree within the fp32 error of a K-term sum
+(``tests/test_torch_head_tf32x2.py`` models the arithmetic on the CPU).
 """
 from __future__ import annotations
 

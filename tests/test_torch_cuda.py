@@ -340,12 +340,19 @@ def _head_bound(x, codes, step):
 
 
 @pytest.mark.parametrize("bits", [8, 4, 2])
-@pytest.mark.parametrize("m,n,k", [(8, 49152, 576), (1, 4099, 576), (3, 37, 13), (3, 37, 15),
-                                   (70, 300, 130)])
-def test_dequant_matmul_kernels_within_the_fp32_bound(cuda, m, n, k, bits):
+@pytest.mark.parametrize("m,n,k", [
+    (8, 49152, 576), (1, 4099, 576), (3, 37, 13), (3, 37, 15), (70, 300, 130),
+    # One n8 tile short, one and one over (passes of x tiles); M = 64 and 65
+    # in passes; N not a multiple of the 16-row tile; widths that are not
+    # 16-byte aligned (200 int8 and 100 packed bytes); K in three K-blocks.
+    (7, 4099, 576), (9, 4099, 576), (64, 4099, 576), (65, 1000, 576), (8, 1000, 200),
+    (9, 300, 2560)])
+@pytest.mark.parametrize("x_offset", [0, 1])
+def test_dequant_matmul_kernels_within_the_fp32_bound(cuda, m, n, k, bits, x_offset):
     g = _gen(m * n + k + bits, cuda)
     lo, hi = quant.code_bounds(bits)
-    x = torch.randn(m, k, generator=g, device=cuda)
+    # x_offset 1: x starts one float into its buffer (not 16-byte aligned).
+    x = torch.randn(m * k + x_offset, generator=g, device=cuda)[x_offset:].view(m, k)
     codes = torch.randint(lo, hi + 1, (n, k), generator=g, device=cuda, dtype=torch.int8)
     step = torch.rand(n, generator=g, device=cuda) * 0.01 + 1e-4
     store = CodeStore.from_codes(codes, bits)
