@@ -88,6 +88,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -914,7 +915,8 @@ def baseline_head(torch, source: str, flags=()):
 
     from repro_torch.kernels import _build
 
-    lib_path = _build.BUILD_DIR / "dequant_matmul-baseline.so"
+    tag = hashlib.sha256(" ".join([source, *flags]).encode()).hexdigest()[:8]
+    lib_path = _build.BUILD_DIR / f"dequant_matmul-baseline-{tag}.so"
     lib_path.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib_path), source],
                    check=True, capture_output=True)
@@ -981,17 +983,19 @@ def time_head(torch, tables: dict, flush, baseline=None) -> tuple[dict, list[str
     return timings, notes
 
 
-def head_phases(torch, tables: dict, flush, flags=()) -> None:
+def head_phases(torch, tables: dict, flush, flags=(), how: str = "L2 flushed") -> None:
     """Where one head launch spends its time: the kernel built with
     -DHEAD_PHASES stamps the SM clock in lane 0 of warp 0 of block 0; one
     launch per width at M = 8 over ``tables``, L2 flushed, cycles from the
     block's start: x landed and split, then per ring unit the wait for it
-    and its products."""
+    and its products (the refill of its stage included), then the output of
+    a finished tile."""
     import ctypes
 
     from repro_torch.kernels import _build
 
-    lib_path = _build.BUILD_DIR / "dequant_matmul-phases.so"
+    tag = hashlib.sha256(" ".join(flags).encode()).hexdigest()[:8]
+    lib_path = _build.BUILD_DIR / f"dequant_matmul-phases-{tag}.so"
     lib_path.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-DHEAD_PHASES", *flags, "-o",
                     str(lib_path), str(_build.CSRC / "dequant_matmul.cu")], check=True,
@@ -1006,6 +1010,7 @@ def head_phases(torch, tables: dict, flush, flags=()) -> None:
         y = torch.empty(LM_BATCH, codes.n, device="cuda")
         stamps = (ctypes.c_longlong * 64)()
         flush()
+        torch.cuda._sleep(SPIN_CYCLES)  # as time_ms runs a call
         err = lib.dequant_matmul_launch(x.data_ptr(), codes.data.data_ptr(), step.data_ptr(),
                                         y.data_ptr(), LM_BATCH, codes.n, codes.d, bits,
                                         _build.stream_of(x.device))
@@ -1014,14 +1019,14 @@ def head_phases(torch, tables: dict, flush, flags=()) -> None:
               f"head_phases bits={bits}: launch error {err}")
         at = [v - stamps[0] for v in stamps]
         units, prev = [], at[2]
-        for u in range(24):
-            landed, done = at[8 + 2 * u], at[9 + 2 * u]
+        for u in range(18):
+            landed, computed, done = at[8 + 3 * u: 11 + 3 * u]
             if landed <= 0:
                 break
-            units.append(f"{landed - prev}/{done - landed}")
+            units.append(f"{landed - prev}/{computed - landed}/{done - computed}")
             prev = done
-        log(f"[phases] head bits={bits} M={LM_BATCH} {' '.join(flags)}, warp 0 of block 0, SM "
-            f"cycles: x landed {at[1]}, split {at[2] - at[1]}; per unit wait/products "
+        log(f"[phases] head bits={bits} M={LM_BATCH} {' '.join(flags)} ({how}), warp 0 of "
+            f"block 0, SM cycles: x landed {at[1]}, split {at[2] - at[1]}; per unit wait/products/write "
             f"{', '.join(units)}; done {at[3]}")
 
 
@@ -1070,11 +1075,14 @@ def head_only(baseline: str | None = None, flags=(), clean_flush: bool = False) 
     if clean_flush:
         for line in time_head(torch, tables, flush_buf.max, base)[1]:
             log(line.replace("[time]", "[time, L2 evicted by reading]"))
+
     for bits, (codes, _) in tables.items():
         data = codes.data
         log(f"[time] a plain read of the {data.numel()} B of {bits}-bit codes (torch.amax): "
             f"{time_ms(torch, data.amax, 30, flush_buf.zero_)[0] * 1e3:.2f} us")
     head_phases(torch, tables, flush_buf.zero_)
+    if clean_flush:
+        head_phases(torch, tables, flush_buf.max, how="L2 evicted by reading")
     if flags and baseline is None:
         head_phases(torch, tables, flush_buf.zero_, flags)
     one = torch.zeros(1, device=dev)

@@ -13,10 +13,9 @@ rna_tf32(x)``, ``lo = rna_tf32(x - hi)``.  This file models that:
 * K in groups of 64, k-step ``s`` of group ``g`` pairing mma column ``t``
   with code ``64g + 16t + 2s`` and column ``t + 4`` with ``64g + 16t + 2s +
   1``;
-* the lo and hi products accumulated apart, each in 4 fp32 chains (k-step
-  pair ``j`` of a group to chain ``j``), one fp32 rounding per k-step (the 8
-  products of a k-step are exact); the chains added pairwise and hi + lo
-  once per K-block of 1,152 codes; ``y = fp32(hi + lo) * Δ``;
+* the lo and hi products accumulated in two fp32 chains, one fp32 rounding
+  per k-step (the 8 products of a k-step are exact), added once per K-block
+  of 1,152 codes; ``y = fp32(hi + lo) * Δ``;
 
 and holds it against ``head_bound`` (``chip_smoke.head_bound``: γ_{K+1} ·
 Σ|x·w|, the fp32 error bound of a K-term sum, which the card is held to):
@@ -30,7 +29,7 @@ import torch
 from repro_torch.core.codestore import pack_codes
 
 U32 = 2.0 ** -24
-GROUP, BLOCK_K, SETS = 64, 1152, 4
+GROUP, BLOCK_K = 64, 1152
 MAGIC = {8: 8388736.0, 4: 8388616.0, 2: 8388610.0}  # 2^23 + the bias of a field
 
 
@@ -71,11 +70,6 @@ def k_steps(kp: int):
             yield np.concatenate([GROUP * g + 16 * t + 2 * s, GROUP * g + 16 * t + 2 * s + 1])
 
 
-def fold(sets: np.ndarray) -> np.ndarray:
-    """The 4 chain sets added pairwise in fp32: (s0 + s1) + (s2 + s3)."""
-    return ((sets[0] + sets[1]).astype(np.float32) + (sets[2] + sets[3])).astype(np.float32)
-
-
 def head_model(x: np.ndarray, w: np.ndarray, step: np.ndarray, products: int = 2) -> np.ndarray:
     """The kernel's y [M, N] from x [M, K] and fp32 codes w [N, K] (exact)."""
     m, k = x.shape
@@ -87,22 +81,19 @@ def head_model(x: np.ndarray, w: np.ndarray, step: np.ndarray, products: int = 2
     hi = rna_tf32(xp)
     lo = rna_tf32(xp - hi).astype(np.float64)
     hi = hi.astype(np.float64)
-    # Chain set s // 2 of a group's k-step s, hi and lo products apart.
-    acc_h = np.zeros((SETS, w.shape[0], m), np.float32)
+    acc_h = np.zeros((w.shape[0], m), np.float32)
     acc_l = np.zeros_like(acc_h)
     for kb0 in range(0, kp, BLOCK_K):
-        if kb0:  # a K-block's sums wait in y; the next starts from them in set 0
-            total = (fold(acc_h) + fold(acc_l)).astype(np.float32)
-            acc_h, acc_l = np.zeros_like(acc_h), np.zeros_like(acc_l)
-            acc_h[0] = total
-        for i, cols in enumerate(k_steps(min(BLOCK_K, kp - kb0))):
-            q, cols = (i % 8) // 2, cols + kb0
+        if kb0:  # a K-block's sums wait in y: hi + lo, and lo restarts at 0
+            acc_h, acc_l = (acc_h + acc_l).astype(np.float32), np.zeros_like(acc_l)
+        for cols in k_steps(min(BLOCK_K, kp - kb0)):
+            cols = cols + kb0
             a = wp[:, cols]
             # The 8 products of a k-step are exact; one fp32 rounding per step.
-            acc_h[q] = (acc_h[q] + a @ hi[:, cols].T).astype(np.float32)
+            acc_h = (acc_h + a @ hi[:, cols].T).astype(np.float32)
             if products == 2:
-                acc_l[q] = (acc_l[q] + a @ lo[:, cols].T).astype(np.float32)
-    y = (fold(acc_h) + fold(acc_l)).astype(np.float32) * step[:, None].astype(np.float32)
+                acc_l = (acc_l + a @ lo[:, cols].T).astype(np.float32)
+    y = (acc_h + acc_l).astype(np.float32) * step[:, None].astype(np.float32)
     return y.T
 
 
