@@ -88,7 +88,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import hashlib
 import io
 import json
 import math
@@ -905,21 +904,19 @@ def head_work(m: int, n: int, k: int, width: int) -> tuple[float, tuple[float, s
                             ops_per_s=max(FP32_OPS_PER_S, TF32X2_OPS_PER_S))
 
 
-def baseline_head(torch, source: str, flags=()):
+def baseline_head(torch, source: str):
     """``launch(x, data, step, bits, k) -> y`` through another build of the
     head (``source``: a dequant_matmul.cu with the same C entry point, e.g.
-    the parent commit's, unpacked beside its own common.cuh; ``flags``: extra
-    nvcc flags such as -DHEAD_STAGES=6), for timing it in the same call; its
-    launches are not counted."""
+    the parent commit's, unpacked beside its own common.cuh), for timing it
+    in the same call; its launches are not counted."""
     import ctypes
 
     from repro_torch.kernels import _build
 
-    tag = hashlib.sha256(" ".join([source, *flags]).encode()).hexdigest()[:8]
-    lib_path = _build.BUILD_DIR / f"dequant_matmul-baseline-{tag}.so"
+    lib_path = _build.BUILD_DIR / "dequant_matmul-baseline.so"
     lib_path.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib_path), source],
-                   check=True, capture_output=True)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), source], check=True,
+                   capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
     lib.dequant_matmul_launch.argtypes = list(
         _build.SIGNATURES["dequant_matmul"]["dequant_matmul_launch"])
@@ -983,7 +980,7 @@ def time_head(torch, tables: dict, flush, baseline=None) -> tuple[dict, list[str
     return timings, notes
 
 
-def head_phases(torch, tables: dict, flush, flags=(), how: str = "L2 flushed") -> None:
+def head_phases(torch, tables: dict, flush, how: str = "L2 flushed") -> None:
     """Where one head launch spends its time: the kernel built with
     -DHEAD_PHASES stamps the SM clock in lane 0 of warp 0 of block 0; one
     launch per width at M = 8 over ``tables``, L2 flushed, cycles from the
@@ -994,12 +991,10 @@ def head_phases(torch, tables: dict, flush, flags=(), how: str = "L2 flushed") -
 
     from repro_torch.kernels import _build
 
-    tag = hashlib.sha256(" ".join(flags).encode()).hexdigest()[:8]
-    lib_path = _build.BUILD_DIR / f"dequant_matmul-phases-{tag}.so"
+    lib_path = _build.BUILD_DIR / "dequant_matmul-phases.so"
     lib_path.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-DHEAD_PHASES", *flags, "-o",
-                    str(lib_path), str(_build.CSRC / "dequant_matmul.cu")], check=True,
-                   capture_output=True)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-DHEAD_PHASES", "-o", str(lib_path),
+                    str(_build.CSRC / "dequant_matmul.cu")], check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
     lib.dequant_matmul_launch.argtypes = list(
         _build.SIGNATURES["dequant_matmul"]["dequant_matmul_launch"])
@@ -1025,18 +1020,18 @@ def head_phases(torch, tables: dict, flush, flags=(), how: str = "L2 flushed") -
                 break
             units.append(f"{landed - prev}/{computed - landed}/{done - computed}")
             prev = done
-        log(f"[phases] head bits={bits} M={LM_BATCH} {' '.join(flags)} ({how}), warp 0 of "
-            f"block 0, SM cycles: x landed {at[1]}, split {at[2] - at[1]}; per unit wait/products/write "
+        log(f"[phases] head bits={bits} M={LM_BATCH} ({how}), warp 0 of block 0, SM cycles: "
+            f"x landed {at[1]}, split {at[2] - at[1]}; per unit wait/products/write "
             f"{', '.join(units)}; done {at[3]}")
 
 
-def head_only(baseline: str | None = None, flags=(), clean_flush: bool = False) -> int:
+def head_only(baseline: str | None = None, clean_flush: bool = False) -> int:
     """Build the head kernels, check them as phase 2d does and time them at
     SmolLM's head (random codes at 8 and 4 bits), without the rest of the
-    smoke; ``baseline`` (another dequant_matmul.cu) and ``flags`` (nvcc flags
-    for it, or for this source when ``baseline`` is None) add a second build
-    timed in the same turns; ``clean_flush`` times again with L2 evicted by
-    reading a buffer, so that no dirty line is written back during the call:
+    smoke; ``baseline`` (another dequant_matmul.cu, e.g. the parent
+    commit's) adds a second build timed in the same turns; ``clean_flush``
+    times again with L2 evicted by reading a buffer, so that no dirty line
+    is written back during the call:
     ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.head_only())"``."""
     import torch
 
@@ -1051,10 +1046,9 @@ def head_only(baseline: str | None = None, flags=(), clean_flush: bool = False) 
     t0 = time.perf_counter()
     _build.library("dequant_matmul")
     base = None
-    if baseline is not None or flags:
-        source = baseline or str(_build.CSRC / "dequant_matmul.cu")
-        base = baseline_head(torch, source, flags)
-        log(f"[build] baseline: {source} {' '.join(flags)}")
+    if baseline is not None:
+        base = baseline_head(torch, baseline)
+        log(f"[build] baseline: {baseline}")
     log(f"[build] dequant_matmul{' and the baseline' if base else ''} in "
         f"{time.perf_counter() - t0:.1f}s")
     dev = torch.device("cuda")
@@ -1075,7 +1069,6 @@ def head_only(baseline: str | None = None, flags=(), clean_flush: bool = False) 
     if clean_flush:
         for line in time_head(torch, tables, flush_buf.max, base)[1]:
             log(line.replace("[time]", "[time, L2 evicted by reading]"))
-
     for bits, (codes, _) in tables.items():
         data = codes.data
         log(f"[time] a plain read of the {data.numel()} B of {bits}-bit codes (torch.amax): "
@@ -1083,8 +1076,6 @@ def head_only(baseline: str | None = None, flags=(), clean_flush: bool = False) 
     head_phases(torch, tables, flush_buf.zero_)
     if clean_flush:
         head_phases(torch, tables, flush_buf.max, how="L2 evicted by reading")
-    if flags and baseline is None:
-        head_phases(torch, tables, flush_buf.zero_, flags)
     one = torch.zeros(1, device=dev)
     log(f"[time] the timer's floor, a 1-element add_: "
         f"{time_ms(torch, lambda: one.add_(1), 30, flush_buf.zero_)[0] * 1e3:.2f} us")
