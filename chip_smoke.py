@@ -8,7 +8,10 @@ Phases (each prints its lines; any failure exits non-zero with no result):
   1. build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
   2. hold each kernel bitwise against its plain PyTorch version on the card:
      sr_round at the full Avazu table shape (4,428,281 x 16) and a ragged one,
-     dequant_gather at bits 8, 4 and 2 with d in {16, 15} and repeated ids;
+     dequant_gather(_packed) at bits 8, 4 and 2 on the full Avazu table over a
+     CTR wave of real ids and over 4,096 requests (d = 16, also with the codes
+     one byte off alignment; d = 15) and on SmolLM's table (49,152 x 576)
+     over a decode step's, a prefill's and a training batch's token ids;
   2b. sparse_row_update / sparse_row_update_packed at bits 8, 4, 2 on the
      full Avazu table with its scratch row (4,428,288 x 16) and without it
      (4,428,281 x 16, the sentinel past the table), and on ragged 37 x 13
@@ -73,8 +76,11 @@ Phases (each prints its lines; any failure exits non-zero with no result):
   5. time each kernel at the slices' shapes (median of per-launch CUDA-event
      times after warm-up, device work only) beside its bound, its plain
      version's time and the library's one call where there is one, and the
-     host's enqueue time per call; flash_attention_fwd at every prompt
-     length of phase 7 and at T = 2048 (time_flash, which flash_only runs
+     host's enqueue time per call; the gathers also back to back (256 calls
+     over 32 distinct waves, events around the run) at the CTR wave and at
+     LM decode and prefill (time_gathers, which gather_only runs without
+     the rest, beside other builds of dequant_gather.cu);
+     flash_attention_fwd at every prompt length of phase 7 and at T = 2048 (time_flash, which flash_only runs
      without the rest); the head at M = 1, 8 and 64 with its share of the
      HBM rate (time_head, which head_only runs without the rest, optionally
      beside another build of dequant_matmul.cu); sr_round_seeded beside sr_round with its noise
@@ -1083,6 +1089,401 @@ def head_only(baseline: str | None = None, clean_flush: bool = False) -> int:
     return 0
 
 
+# The gathers (phases 2 and 5, gather_only).  A CTR wave is 1,024 requests x
+# 24 fields at d = 16; SmolLM's token rows are d = 576: 8 per decode step and
+# 157 for the longest prefill.
+LM_GATHER_SHAPES = {"LM decode": LM_BATCH, "LM prefill": max(LM_PROMPTS)}
+GATHER_POOL = 32  # distinct waves the back-to-back timing cycles through
+B2B_CALLS = 256
+# Builds of this checkout's dequant_gather.cu with R (tasks per thread) and
+# the block size fixed, timed beside the source's own choice by gather_only.
+GATHER_PROBES = {"R=1": ("-DGATHER_ROWS=1",), "R=2": ("-DGATHER_ROWS=2",),
+                 "R=4": ("-DGATHER_ROWS=4",),
+                 "128-thread blocks": ("-DGATHER_ROWS=1", "-DGATHER_BLOCK=128"),
+                 "512-thread blocks": ("-DGATHER_ROWS=1", "-DGATHER_BLOCK=512")}
+# Host enqueue of ops.dequant_gather in a checkout (its src on PYTHONPATH),
+# run as a server: it makes the operands of each shape, prints their keys,
+# then for each key read from stdin prints the mean enqueue time of 100
+# calls, the card held busy by a spin.
+HOST_PROBE = f"""
+import json, sys, time
+import torch
+from repro_torch.core.codestore import CodeStore
+from repro_torch.data.ctr_synth import avazu_like
+from repro_torch.kernels import ops
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(0)
+cases = {{}}
+for label, n, d, b in [("CTR wave", avazu_like({SCALE}).n_features, 16, {BATCH * 24}),
+                       ("LM decode", {LM_TABLE[0]}, {LM_TABLE[1]}, {LM_BATCH}),
+                       ("LM prefill", {LM_TABLE[0]}, {LM_TABLE[1]}, {max(LM_PROMPTS)})]:
+    for bits in (8, 4):
+        codes = torch.randint(-8, 8, (n, d), generator=g, device=dev, dtype=torch.int8)
+        case = (CodeStore.from_codes(codes, bits), torch.rand(n, generator=g, device=dev),
+                torch.randint(0, n, (b,), generator=g, device=dev, dtype=torch.int32))
+        for _ in range(20):
+            ops.dequant_gather(*case)
+        cases[f"{{label}} bits={{bits}}"] = case
+torch.cuda.synchronize()
+print(json.dumps(list(cases)), flush=True)
+for line in sys.stdin:
+    case = cases[line.strip()]
+    torch.cuda._sleep({SPIN_CYCLES * 8})
+    t0 = time.perf_counter()
+    for _ in range(100):
+        ops.dequant_gather(*case)
+    print((time.perf_counter() - t0) / 100 * 1e6, flush=True)
+    torch.cuda.synchronize()
+"""
+
+
+def time_b2b(torch, fns: list, calls: int = B2B_CALLS) -> float:
+    """Device ms per call of ``calls`` launches back to back, cycling through
+    ``fns`` (calls on distinct inputs, so that neighbours read other rows):
+    CUDA events around the whole run, over its count.  A spin queued first
+    holds the card while the host enqueues the run, so the events see the
+    kernels back to back and not the host's pace; if the spin ended before
+    the host was done, the run is repeated with a spin twice as long."""
+    for f in fns[:3]:
+        f()
+    torch.cuda.synchronize()
+    spin = SPIN_CYCLES * 8
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for i in range(calls):
+            fns[i % len(fns)]()
+        end.record()
+        late = start.query()  # the spin was over: the card may have waited
+        end.synchronize()
+        if not late:
+            return start.elapsed_time(end) / calls
+        spin *= 2
+    raise SmokeFailure("time_b2b: the host could not enqueue the run within the spin")
+
+
+def in_turns(measure, change, variants: dict):
+    """``measure`` of every variant, of ``change`` twice, then of the variants
+    again in reverse order: (change's two, {label: (first, last)})."""
+    first = {label: measure(f) for label, f in variants.items()}
+    mine = (measure(change), measure(change))
+    last = {label: measure(variants[label]) for label in reversed(variants)}
+    return mine, {label: (first[label], last[label]) for label in variants}
+
+
+def check_gathers(torch, dev, g, err: dict, ctr_sets: list, n: int) -> None:
+    """Phase 2: both gathers bitwise against their plain versions at bits 8,
+    4 and 2: on the full Avazu table (``n`` rows) at d = 16 over
+    ``ctr_sets`` (a CTR wave of real ids and more, each with the first and
+    last rows and repeats added), again with the codes one byte off their
+    alignment (the byte path), at d = 15 (the ragged path), and on SmolLM's
+    table (49,152 x 576) over a decode step's, the longest prefill's and a
+    training batch's token ids."""
+    import dataclasses
+
+    from repro_torch.core import quant
+    from repro_torch.core.codestore import CodeStore
+    from repro_torch.kernels import ops
+
+    edge = torch.tensor([0, n - 1, n - 1], dtype=torch.int32, device=dev)
+    ctr = [torch.cat([ids, edge]) for ids in ctr_sets]
+    vocab, d_lm = LM_TABLE
+    lm = [torch.cat([torch.tensor([vocab - 1, 0], dtype=torch.int32, device=dev),
+                     torch.randint(0, vocab, (b - 2,), generator=g, device=dev,
+                                   dtype=torch.int32)])
+          for b in (*LM_GATHER_SHAPES.values(), LM_TRAIN_BATCH * LM_TRAIN_SEQ)]
+    cases = [(n, 16, ctr, 0), (n, 16, ctr[:1], 1), (n, 15, ctr, 0), (vocab, d_lm, lm, 0)]
+    for bits in (8, 4, 2):
+        kernel = "dequant_gather" if bits == 8 else "dequant_gather_packed"
+        lo, hi = quant.code_bounds(bits)
+        for rows, d, id_sets, offset in cases:
+            codes = torch.randint(lo, hi + 1, (rows, d), generator=g, device=dev,
+                                  dtype=torch.int8)
+            step = torch.rand(rows, generator=g, device=dev) * 0.1 + 1e-3
+            store = CodeStore.from_codes(codes, bits)
+            if offset:
+                buf = torch.empty(store.data.numel() + offset, dtype=store.data.dtype,
+                                  device=dev)
+                data = buf[offset:].view(store.data.shape).copy_(store.data)
+                store = dataclasses.replace(store, data=data)
+            for ids in id_sets:
+                got = ops.dequant_gather(store, step, ids)
+                want = ops.dequant_gather(store, step, ids, use_kernel=False)
+                torch.cuda.synchronize()
+                e = float((got - want).abs().max())
+                err[kernel] = max(err[kernel], e)
+                check(torch.equal(got, want), f"{kernel} bits={bits} {rows}x{d} "
+                      f"b={ids.numel()} offset {offset}: max err {e}")
+    log(f"[check] dequant_gather(_packed) bitwise at bits 8, 4, 2: {n} x 16 over "
+        f"{', '.join(str(i.numel()) for i in ctr)} ids (real Avazu ids, the first and last "
+        f"rows, repeats), also with the codes 1 byte off alignment; {n} x 15; {vocab} x "
+        f"{d_lm} over {', '.join(str(i.numel()) for i in lm)} token ids")
+
+
+def gather_variant(torch, lib):
+    """``run(store, step, ids) -> out`` through another build of the gathers
+    (a ctypes library with the same C entry points); not counted."""
+    from repro_torch.kernels import _build
+
+    def run(store, step, ids):
+        out = torch.empty(ids.numel(), store.d, device=ids.device)
+        args = (store.data.data_ptr(), step.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                store.n, store.d, ids.numel())
+        stream = _build.stream_of(ids.device)
+        err = (lib.dequant_gather_packed_launch(*args, store.bits, stream) if store.packed
+               else lib.dequant_gather_launch(*args, stream))
+        check(err == 0, f"gather variant: launch error {err}")
+        return out
+
+    return run
+
+
+def start_gather_builds(specs: dict) -> dict:
+    """Start one nvcc per ``{label: (source, flags)}``, all at once; pass the
+    result to :func:`gather_libraries`."""
+    from repro_torch.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (label, (source, flags)) in enumerate(specs.items()):
+        path = _build.BUILD_DIR / f"dequant_gather-variant{i}.so"
+        procs[label] = (path, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(path), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def gather_libraries(procs: dict) -> dict:
+    """Wait for :func:`start_gather_builds`; {label: loaded library}."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    libs = {}
+    for label, (path, proc) in procs.items():
+        out, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed for the gather build {label}:\n{out}")
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in _build.SIGNATURES["dequant_gather"].items():
+            getattr(lib, fn).argtypes = list(argtypes)
+        libs[label] = lib
+    return libs
+
+
+def gather_bound(torch, store, ids) -> tuple[float, str]:
+    """Least time of one gather: ids in, each distinct row's codes and Delta
+    in, the fp32 rows out; one Delta multiply per element."""
+    b, d = ids.numel(), store.d
+    uniq = int(torch.unique(ids).numel())
+    return bound_ms(b * 4 + uniq * (store.data.shape[1] + 4) + b * d * 4, b * d)
+
+
+def time_gathers(torch, tables: dict, pools: dict, flush, variants=None):
+    """Both gathers at a CTR wave and at LM decode and prefill: per call (L2
+    flushed; ``time_ms``) and back to back over a pool of distinct waves
+    (``time_b2b``), each beside its bound; the plain version at the CTR wave.
+    ``tables``: {(domain, bits): (CodeStore, step)}, domain "ctr" or "lm",
+    bits 8 and 4; ``pools``: {label: (domain, [ids, ...])}, the first entry
+    of each pool the one timed per call.  ``variants`` ({label: run} from
+    :func:`gather_variant`) are timed in turns with the kernel: variants,
+    kernel, kernel, variants reversed.  Returns the kernels-line rows (the
+    CTR wave) and the ``[time]`` lines."""
+    from repro_torch.kernels import ops
+
+    variants = variants or {}
+    timings, notes = {}, []
+    for label, (domain, pool) in pools.items():
+        for bits in (8, 4):
+            kernel = "dequant_gather" if bits == 8 else "dequant_gather_packed"
+            store, step = tables[(domain, bits)]
+            ids = pool[0]
+            per_call = in_turns(
+                lambda f: time_ms(torch, f, 50, flush),
+                lambda: ops.dequant_gather(store, step, ids),
+                {v: (lambda run=run: run(store, step, ids)) for v, run in variants.items()})
+            b2b = in_turns(
+                lambda fns: time_b2b(torch, fns),
+                [lambda i=i: ops.dequant_gather(store, step, i) for i in pool],
+                {v: [lambda i=i, run=run: run(store, step, i) for i in pool]
+                 for v, run in variants.items()})
+            b_ms, b_by = gather_bound(torch, store, ids)
+            (c0, host_us), (c1, _) = per_call[0]
+            others = "".join(f"; {v} {a[0] * 1e3:.2f}, {z[0] * 1e3:.2f}"
+                             for v, (a, z) in per_call[1].items())
+            others_b2b = "".join(f"; {v} {a * 1e3:.2f}, {z * 1e3:.2f}"
+                                 for v, (a, z) in b2b[1].items())
+            plain = ""
+            if domain == "ctr":
+                plain_ms = time_ms(torch, lambda: ops.dequant_gather(store, step, ids,
+                                                                     use_kernel=False),
+                                   20, flush)[0]
+                plain = f"; plain {plain_ms * 1e3:.2f} us"
+                timings[kernel] = (c0, host_us, plain_ms, b_ms, b_by, None)
+            notes.append(
+                f"[time] {kernel} {label} b={ids.numel()} d={store.d}: per call (L2 flushed) "
+                f"{c0 * 1e3:.2f}, {c1 * 1e3:.2f} us{others}; back to back ({B2B_CALLS} calls "
+                f"over {len(pool)} distinct waves) {b2b[0][0] * 1e3:.2f}, "
+                f"{b2b[0][1] * 1e3:.2f} us{others_b2b}; bound {b_ms * 1e3:.3f} us by {b_by}"
+                f"{plain}; host enqueue {host_us:.1f} us")
+    return timings, notes
+
+
+def host_enqueue(roots: dict, rounds: int = 15) -> dict:
+    """``HOST_PROBE`` in one process per checkout (``roots``: {name: root}),
+    all alive at once and asked in turns, the order reversed every round
+    (A B, B A, ...), so that a change in the host's load reaches both alike:
+    {key: {name: median us per call}}."""
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", HOST_PROBE], cwd=root, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, text=True, env={**os.environ, "PYTHONPATH": str(root / "src")})
+        for name, root in roots.items()}
+    try:
+        keys = [json.loads(p.stdout.readline()) for p in procs.values()][0]
+        got = {key: {name: [] for name in procs} for key in keys}
+        for r in range(rounds):
+            order = list(procs) if r % 2 == 0 else list(reversed(procs))
+            for key in keys:
+                for name in order:
+                    procs[name].stdin.write(key + "\n")
+                    procs[name].stdin.flush()
+                    got[key][name].append(float(procs[name].stdout.readline()))
+    finally:
+        for p in procs.values():
+            p.stdin.close()
+            p.wait(timeout=120)
+    check(all(p.returncode == 0 for p in procs.values()), "a host probe failed")
+    return {key: {name: statistics.median(v) for name, v in by.items()}
+            for key, by in got.items()}
+
+
+def host_breakdown(torch, store, step, ids) -> str:
+    """Where the host's enqueue of one int8 gather goes: the median per-call
+    time of each piece of the path over 15 runs of 100 calls, the card held
+    busy by a spin."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import dequant_gather as wrapper
+
+    dev, b, d = ids.device, ids.numel(), store.d
+    out = torch.empty(b, d, device=dev)
+    parts = {
+        "ops.dequant_gather": lambda: ops.dequant_gather(store, step, ids),
+        "the wrapper": lambda: wrapper.dequant_gather(store.data, step, ids),
+        "its operand checks": lambda: wrapper._check("dequant_gather", "codes", store.data,
+                                                     torch.int8, d, step, ids, d),
+        "torch.empty": lambda: torch.empty((b, d), dtype=torch.float32, device=dev),
+        "device context and stream": lambda: (_build.on_device(dev), _build.stream_of(dev)),
+        "the ctypes launch": lambda: _build.launch(
+            "dequant_gather", "dequant_gather", "dequant_gather_launch", store.data.data_ptr(),
+            step.data_ptr(), ids.data_ptr(), out.data_ptr(), store.n, d, b,
+            _build.stream_of(dev)),
+    }
+    got = {}
+    for label, fn in parts.items():
+        per = []
+        for _ in range(15):
+            torch.cuda._sleep(SPIN_CYCLES * 8)
+            t0 = time.perf_counter()
+            for _ in range(100):
+                fn()
+            per.append((time.perf_counter() - t0) / 100 * 1e6)
+            torch.cuda.synchronize()
+        got[label] = statistics.median(per)
+    return ("[host] where one CTR-wave gather's enqueue goes, us per call: "
+            + ", ".join(f"{label} {us:.2f}" for label, us in got.items()))
+
+
+def gather_only(baseline: str | None = None) -> int:
+    """Build the gathers, check them as phase 2 does, and time them as phase
+    5 does (a CTR wave on the full Avazu table, SmolLM's decode and prefill
+    rows; random codes at 8 and 4 bits), beside builds of the same source
+    with R and the block size fixed (``GATHER_PROBES``), all in turns;
+    then probes: one id, a wave whose rows are hot in L2, the timer's floor.
+    ``baseline`` (another dequant_gather.cu inside a checkout, e.g. the
+    parent commit's: ``git archive HEAD src/repro_torch | tar -x -C
+    build/parent``) is built and timed in the same turns, and the host
+    enqueue per call of that checkout and of this one is measured in a
+    process each, asked in turns (:func:`host_enqueue`):
+    ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.gather_only())"``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[chip_smoke] torch.cuda.is_available() is False: needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.codestore import CodeStore
+    from repro_torch.data.ctr_synth import CTRSynthetic, avazu_like
+    from repro_torch.kernels import _build, ops
+
+    t0 = time.perf_counter()
+    specs = {label: (_build.CSRC / "dequant_gather.cu", flags)
+             for label, flags in GATHER_PROBES.items()}
+    if baseline is not None:
+        specs = {"baseline": (pathlib.Path(baseline).resolve(), ()), **specs}
+    procs = start_gather_builds(specs)
+    _build.library("dequant_gather")
+    variants = {label: gather_variant(torch, lib)
+                for label, lib in gather_libraries(procs).items()}
+    log(f"[build] dequant_gather and {len(variants)} other builds ({', '.join(specs)}) in "
+        f"{time.perf_counter() - t0:.1f}s" + (f"; baseline {baseline}" if baseline else ""))
+    dev = torch.device("cuda")
+    check(_build.stream_of(dev) == torch.cuda.current_stream(dev).cuda_stream,
+          "stream_of differs from the current stream's handle")
+    g = torch.Generator(device=dev).manual_seed(0)
+    data = CTRSynthetic(avazu_like(SCALE))
+    n = data.cfg.n_features
+    pool = [torch.from_numpy(data.batch("test", i, BATCH)[0].reshape(-1)).to(dev)
+            for i in range(GATHER_POOL)]
+    err = {"dequant_gather": 0.0, "dequant_gather_packed": 0.0}
+    check_gathers(torch, dev, g, err, pool[:2], n)
+    log(f"[check] max err vs plain: {err}")
+    tables = {}
+    for domain, (rows, d) in (("ctr", (n, 16)), ("lm", LM_TABLE)):
+        for bits in (8, 4):
+            lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+            codes = torch.randint(lo, hi + 1, (rows, d), generator=g, device=dev,
+                                  dtype=torch.int8)
+            tables[(domain, bits)] = (CodeStore.from_codes(codes, bits),
+                                      torch.rand(rows, generator=g, device=dev) * 0.01 + 1e-4)
+    pools = {"CTR wave": ("ctr", pool)}
+    # Beyond the main path's shapes: a training batch's tokens and the whole
+    # vocabulary (the head's timing reads it so), where R > 1 is chosen.
+    shapes = {**LM_GATHER_SHAPES, "LM batch": LM_TRAIN_BATCH * LM_TRAIN_SEQ,
+              "LM table": LM_TABLE[0]}
+    for label, b in shapes.items():
+        pools[label] = ("lm", [torch.randint(0, LM_TABLE[0], (b,), generator=g, device=dev,
+                                             dtype=torch.int32) for _ in range(GATHER_POOL)])
+    flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    for line in time_gathers(torch, tables, pools, flush_buf.zero_, variants)[1]:
+        log(line)
+    for bits in (8, 4):
+        store, step = tables[("ctr", bits)]
+        one = pool[0][:1]
+        single = time_ms(torch, lambda: ops.dequant_gather(store, step, one), 50,
+                         flush_buf.zero_)
+        hot = time_ms(torch, lambda: ops.dequant_gather(store, step, pool[0]), 50)
+        hot_b2b = time_b2b(torch, [lambda: ops.dequant_gather(store, step, pool[0])])
+        log(f"[probe] bits={bits}: one id (L2 flushed) {single[0] * 1e3:.2f} us, host "
+            f"enqueue {single[1]:.1f} us; the CTR wave with its rows hot in L2 (no flush) "
+            f"{hot[0] * 1e3:.2f} us per call, {hot_b2b * 1e3:.2f} us back to back")
+    log(host_breakdown(torch, *tables[("ctr", 8)], pool[0]))
+    one_el = torch.zeros(1, device=dev)
+    floor = time_ms(torch, lambda: one_el.add_(1), 30, flush_buf.zero_)[0]
+    log(f"[probe] the timer's floor, a 1-element add_: {floor * 1e3:.2f} us per call, "
+        f"{time_b2b(torch, [lambda: one_el.add_(1)]) * 1e3:.2f} us back to back")
+    if baseline is not None:
+        other = pathlib.Path(baseline).resolve().parents[4]
+        check((other / "src" / "repro_torch").is_dir(), f"{other} is not a checkout")
+        for key, us in host_enqueue({"baseline": other, "this checkout": ROOT}).items():
+            log(f"[host] ops.dequant_gather {key}, enqueue per call (median of 15 rounds of "
+                f"100 calls, the two processes in turns): baseline {us['baseline']:.1f} us, "
+                f"this checkout {us['this checkout']:.1f} us")
+    log(card_name())
+    return 0
+
+
 def time_flash(torch, flush) -> tuple[tuple, list[str]]:
     """flash_attention_fwd at SmolLM's prefill (B = 1, 9/3 heads, D = 64,
     causal) at every prompt length of the LM slice and at T = 2048, each
@@ -1543,10 +1944,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import device as device_mod
     from repro_torch.core import quant
-    from repro_torch.core.codestore import CodeStore
     from repro_torch.data.ctr_synth import CTRSynthetic, avazu_like
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels import dequant_gather as gather_kernel
     from repro_torch.kernels import sr_round as sr_kernel
 
     dev = device_mod.resolve("cuda")
@@ -1588,31 +1987,8 @@ def main() -> int:
     log(f"[data] Avazu-shaped synthetic data, {n} features: {REQUESTS} test requests "
         f"in {time.perf_counter() - t0:.1f}s")
     flat = torch.from_numpy(ids.reshape(-1)).to(dev)
-    flat = torch.cat([flat, flat[:100], torch.tensor([0, n - 1, n - 1], dtype=torch.int32,
-                                                     device=dev)])
-    for bits in (8, 4, 2):
-        for d in (16, 15):
-            lo, hi = quant.code_bounds(bits)
-            codes = torch.randint(lo, hi + 1, (n, d), generator=g, device=dev,
-                                  dtype=torch.int8)
-            step = torch.rand(n, generator=g, device=dev) * 0.1 + 1e-3
-            store = CodeStore.from_codes(codes, bits)
-            if store.packed:
-                got = gather_kernel.dequant_gather_packed(store.data, step, flat,
-                                                          bits=bits, d=d)
-                want = ref.dequant_gather_packed_ref(store.data, step, flat, bits=bits, d=d)
-                kernel = "dequant_gather_packed"
-            else:
-                got = gather_kernel.dequant_gather(codes, step, flat)
-                want = ref.dequant_gather_ref(codes, step, flat)
-                kernel = "dequant_gather"
-            torch.cuda.synchronize()
-            e = float((got - want).abs().max())
-            err[kernel] = max(err[kernel], e)
-            check(torch.equal(got, want), f"{kernel} bits={bits} d={d}: max err {e}")
-    log(f"[check] dequant_gather bitwise at bits 8, 4, 2 x d 16, 15 over {n} rows, "
-        f"{flat.numel()} ids with repeats")
-    del codes, step, store, got, want
+    wave = flat[: BATCH * data_cfg.n_fields].contiguous()
+    check_gathers(torch, dev, g, err, [wave, torch.cat([flat, flat[:100]])], n)
 
     # 2b. the row-step kernels over one training wave
     t0 = time.perf_counter()
@@ -1678,21 +2054,18 @@ def main() -> int:
         time_ms(torch, lambda: ref.sr_round_ref(w, step, noise, 8), 20)[0],
         *bound_ms(rows * cols * 9 + rows * 4, rows * cols * 9), None,
     )
-    wave = flat[: BATCH * data_cfg.n_fields].contiguous()
     uniq = int(torch.unique(wave).numel())
-    for bits, kernel in ((8, "dequant_gather"), (4, "dequant_gather_packed")):
-        table = runs[bits]["table"]
-        width = table.codes.data.shape[1]
-        b, d = wave.numel(), table.codes.d
-        # fp32 work: one Delta multiply per element (the packed unpack is
-        # integer work on another pipe).
-        timings[kernel] = (
-            *time_ms(torch, lambda: ops.dequant_gather(table.codes, table.step, wave), 50,
-                     flush),
-            time_ms(torch, lambda: ops.dequant_gather(table.codes, table.step, wave,
-                                                      use_kernel=False), 20, flush)[0],
-            *bound_ms(b * 4 + uniq * (width + 4) + b * d * 4, b * d), None,
-        )
+    tables = {(domain, bits): (r["table"].codes, r["table"].step)
+              for domain, by_bits in (("ctr", runs), ("lm", lm_runs))
+              for bits, r in by_bits.items()}
+    pools = {"CTR wave": ("ctr", [wave] + [
+        torch.from_numpy(data.batch("test", i, BATCH)[0].reshape(-1)).to(dev)
+        for i in range(1, GATHER_POOL)])}
+    for label, b in LM_GATHER_SHAPES.items():
+        pools[label] = ("lm", [torch.randint(0, LM_TABLE[0], (b,), generator=g, device=dev,
+                                             dtype=torch.int32) for _ in range(GATHER_POOL)])
+    gather_rows, gather_notes = time_gathers(torch, tables, pools, flush)
+    timings.update(gather_rows)
     k, distinct = row_ops[8]["uniq"].numel(), row_ops["distinct"]
     for bits, kernel in ((8, "sparse_row_update"), (4, "sparse_row_update_packed")):
         o = row_ops[bits]
@@ -1729,6 +2102,8 @@ def main() -> int:
                               time_ms(torch, lib_opt.step, 50, flush)[0])
     timings.update(time_lm_kernels(torch, lm_runs, flush))
     timings.update(time_write_back(torch, wb_ops, flush))
+    for line in gather_notes:
+        log(line)
     log(f"[time] one wave = {wave.numel()} ids ({uniq} distinct rows); L2 flushed before "
         "each gather and row-step launch; sr_round over the full table; the row step over "
         f"the full padded table at the training wave's {k} slots ({distinct} distinct); "

@@ -10,11 +10,15 @@ seconds; :func:`build` starts one ``nvcc`` per stale source, all at once.
 Every C entry point takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch.  :func:`launch` raises on a
 non-zero return and otherwise adds one to the kernel's launch count — the
-only place the counts grow, so they show which kernels really ran.
+only place the counts grow, so they show which kernels really ran.  The
+helpers a wrapper calls on every launch (:func:`launch`, :func:`check_operand`,
+:func:`stream_of`, :func:`on_device`) keep their common case short: a small
+gather spends more time in them than on the card.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -78,6 +82,8 @@ SIGNATURES = {
 LAUNCHES: collections.Counter = collections.Counter()
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: (source, C function) -> the bound function, filled on first launch.
+_FNS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
 
 
@@ -148,6 +154,9 @@ def library(name: str) -> ctypes.CDLL:
 def check_operand(kernel: str, name: str, t, dtype, shape: tuple, device=None) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of this dtype and shape
     (on ``device`` when given): the kernels take raw pointers and trust them."""
+    if (isinstance(t, torch.Tensor) and t.is_cuda and t.dtype == dtype and t.shape == shape
+            and t.is_contiguous() and (device is None or t.device == device)):
+        return
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{kernel}: {name} must be a CUDA tensor, got "
                          f"{getattr(t, 'device', type(t).__name__)}")
@@ -163,16 +172,31 @@ def check_operand(kernel: str, name: str, t, dtype, shape: tuple, device=None) -
 
 
 def stream_of(device) -> int:
-    """The raw handle of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``device``: read directly
+    where this PyTorch exposes it, without building a ``torch.cuda.Stream``."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return raw(index)
+
+
+def on_device(device):
+    """A context that makes ``device`` current for a launch, or does nothing
+    when it already is (the usual case: one card)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def launch(kernel: str, source: str, fn: str, *args) -> None:
     """Call C entry point ``fn`` of ``source``; raise on a CUDA error, else count."""
-    lib = library(source)
-    err = getattr(lib, fn)(*args)
+    bound = _FNS.get((source, fn))
+    if bound is None:
+        bound = _FNS[(source, fn)] = getattr(library(source), fn)
+    err = bound(*args)
     if err != 0:
-        msg = lib.repro_error_string(err).decode()
+        msg = library(source).repro_error_string(err).decode()
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {err} ({msg})")
     LAUNCHES[kernel] += 1
 

@@ -11,98 +11,208 @@
 // Bound: bytes.  Per id it reads the id (4 B), the row's codes (d B at 8 bits,
 // ceil(d*bits/8) B packed) and Delta (4 B), and writes d fp32 (4d B).  The
 // output dominates: the fp32 table never exists, only the rows asked for.
-// At a serving wave (24,576 ids, d = 16) that is ~2 MB, under a microsecond
-// of HBM time, so a launch is bound by launch latency in practice.
+// At a CTR wave (24,576 ids, d = 16) that is ~2 MB, under a microsecond of
+// HBM time; what a call cannot avoid is two dependent DRAM round trips (the
+// id, then its row and Delta) behind the launch.
 //
 // Design:
-//  * int8, d % 16 == 0 and aligned: one thread per 16-code chunk of a row, one
-//    16-byte load of codes and four 16-byte stores of fp32 (d = 16: exactly
-//    one load per row);
-//  * int8 otherwise: one thread per code;
-//  * packed: one thread per code, which loads its byte, shifts and masks the
-//    code out low-bits-first and sign-extends it in registers.
-// The multiply is a single fp32 op, so the rows equal kernels/ref.py's plain
-// versions bitwise.  An id outside [0, n) writes a NaN row instead of reading
-// outside the table (the serving engine rejects such ids at submit).
+//  * Row groups of lanes.  A row of d outputs is ceil(d/4) lane tasks; task
+//    t = row * lanes + l writes outputs [4l, 4l + 4) of its row.  When
+//    d % 4 == 0 that is the 16 bytes at out + 16t, so the 32 lanes of a warp,
+//    taking 32 consecutive tasks, store 512 contiguous bytes per instruction
+//    (at d = 16: 8 rows of 4 lanes).  A lane reads only the code bytes behind
+//    its four outputs (4 B at 8 bits, 2 B at 4 bits, 1 B at 2 bits); the lanes
+//    of a row read the same id and Delta addresses, which the warp coalesces.
+//  * Several tasks in flight per thread.  A thread takes R tasks 32 apart
+//    (R = 4, 2 or 1, unrolled): first all R id loads, then all code and Delta
+//    loads through the read-only path, then the conversions and stores, so R
+//    independent DRAM chains are in flight instead of one.  R is the largest
+//    that still gives every SM kMinBlocksPerSM blocks of kBlock threads; a CTR
+//    wave (98,304 tasks) runs R = 1 on 384 blocks, never fewer blocks than SMs.
+//    On an H100 at the CTR wave and at LM rows (d = 576), R = 2 or 4 and
+//    blocks of 32 or 128 threads measured no faster (chip_smoke.gather_only).
+//  * 32-bit integer work.  Tasks and rows are uint32 (the wrapper checks that
+//    b * ceil(d/4) < 2^31); row = t / lanes is a multiply-high by a constant
+//    the host computes (FastDiv), never a division in the loop.  Only
+//    id * width is 64-bit.  Packed codes are sign-extended by two shifts and
+//    converted by I2F; the multiply is the only rounding, so the rows equal
+//    kernels/ref.py's plain versions bitwise.
+//  * Ragged or unaligned operands (d % 4 != 0, or codes / out not aligned for
+//    the lane's load and float4 store) take the same map with byte loads that
+//    never read past a row's last byte, and scalar stores of the lane's
+//    min(4, d - 4l) outputs.
+//  * An id outside [0, n) writes a NaN row (its Delta is NaN and no code is
+//    read) instead of reading outside the table (the serving engine rejects
+//    such ids at submit).
+//  * The output is consumed at once by the DCN or the transformer: plain
+//    stores, no evict-first hint.
+// What does not apply: TMA, wgmma and shared-memory staging.  A wave is ~2 MB
+// of scattered 4- to 16-byte row pieces with no reuse inside a block, so a
+// tile copy or a staged transpose only adds a round trip.
 #include "common.cuh"
+
+#ifndef GATHER_BLOCK
+#define GATHER_BLOCK 256
+#endif
 
 namespace {
 
-__device__ __forceinline__ bool in_table(int32_t id, int64_t n) {
-  return id >= 0 && static_cast<int64_t>(id) < n;
+constexpr int kBlock = GATHER_BLOCK;  // threads per block
+constexpr int kSMs = 132;             // H100 SXM
+constexpr int kMinBlocksPerSM = 4;
+constexpr int kMaxBlocks = kSMs * (2048 / kBlock);  // one resident wave; the loop strides
+
+// q = t / divisor for t < 2^31 as (umulhi(t, magic) + t) >> shift
+// (Granlund & Montgomery 1994, Thm 4.2, with a 33-bit multiplier whose top
+// bit is the "+ t"); tests/test_torch_gather_layout.py checks it.
+struct FastDiv {
+  uint32_t magic, shift;
+};
+
+FastDiv fast_div(uint32_t divisor) {
+  uint32_t shift = 0;
+  while ((uint64_t{1} << shift) < divisor) ++shift;
+  const uint64_t magic = (uint64_t{1} << 32) * ((uint64_t{1} << shift) - divisor) / divisor + 1;
+  return {static_cast<uint32_t>(magic), shift};
 }
 
-__device__ __forceinline__ float nan_value() { return __int_as_float(0x7fc00000); }
+struct Params {
+  const uint8_t* codes;
+  const float* step;
+  const int32_t* ids;
+  float* out;
+  uint32_t n_ok;   // rows, capped at 2^31: every int32 id >= 0 is then inside
+  uint32_t d, width, lanes, tasks;
+  FastDiv div;
+};
 
-__global__ void gather_vec16_kernel(const int8_t* __restrict__ codes,
-                                    const float* __restrict__ step,
-                                    const int32_t* __restrict__ ids, float* __restrict__ out,
-                                    int64_t n, int64_t d, int64_t b) {
-  const int64_t chunks = d / 16;
-  const int64_t work = b * chunks;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; t < work;
-       t += stride) {
-    const int64_t r = t / chunks;
-    const int64_t c = t - r * chunks;
-    const int32_t id = ids[r];
-    float4* o = reinterpret_cast<float4*>(out + r * d + c * 16);
-    if (!in_table(id, n)) {
-      const float x = nan_value();
-      for (int k = 0; k < 4; ++k) o[k] = make_float4(x, x, x, x);
-      continue;
-    }
-    const int4 raw = *reinterpret_cast<const int4*>(codes + static_cast<int64_t>(id) * d + c * 16);
-    const float s = step[id];
-    const char4* q = reinterpret_cast<const char4*>(&raw);
+// The BITS/2 code bytes behind a lane's four outputs, as one word.
+template <int BITS>
+__device__ __forceinline__ uint32_t load_word(const uint8_t* src) {
+  if constexpr (BITS == 8) {
+    return __ldg(reinterpret_cast<const unsigned int*>(src));
+  } else if constexpr (BITS == 4) {
+    return __ldg(reinterpret_cast<const unsigned short*>(src));
+  } else {
+    return __ldg(src);
+  }
+}
+
+// The same from single bytes, stopping at the last byte `c` codes need.
+template <int BITS>
+__device__ __forceinline__ uint32_t load_bytes(const uint8_t* src, uint32_t c) {
+  const uint32_t nbytes = (c * BITS + 7) / 8;
+  uint32_t word = 0;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      o[k] = make_float4(static_cast<float>(q[k].x) * s, static_cast<float>(q[k].y) * s,
-                         static_cast<float>(q[k].z) * s, static_cast<float>(q[k].w) * s);
+  for (int k = 0; k < BITS / 2; ++k) {
+    if (static_cast<uint32_t>(k) < nbytes) word |= static_cast<uint32_t>(__ldg(src + k)) << (8 * k);
+  }
+  return word;
+}
+
+// Code k of a word, sign-extended: its field shifted to the top, then back.
+template <int BITS>
+__device__ __forceinline__ int32_t code(uint32_t word, int k) {
+  return static_cast<int32_t>(word << (32 - BITS * (k + 1))) >> (32 - BITS);
+}
+
+template <int BITS, bool VEC, int R>
+__global__ void __launch_bounds__(kBlock) gather_kernel(const Params p) {
+  const uint32_t lane = threadIdx.x & 31;
+  const uint32_t warp = (blockIdx.x * kBlock + threadIdx.x) >> 5;
+  const uint32_t stride = gridDim.x * kBlock * R;
+  for (uint32_t base = warp * (32 * R) + lane; base < p.tasks; base += stride) {
+    uint32_t row[R], l[R];
+    int32_t id[R];
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      const uint32_t t = base + 32 * s;
+      row[s] = (__umulhi(t, p.div.magic) + t) >> p.div.shift;
+      l[s] = t - row[s] * p.lanes;
+      id[s] = t < p.tasks ? __ldg(p.ids + row[s]) : -1;
+    }
+    uint32_t word[R];
+    float delta[R];
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      word[s] = 0;
+      delta[s] = __int_as_float(0x7fc00000);
+      if (static_cast<uint32_t>(id[s]) < p.n_ok) {
+        const uint8_t* src = p.codes + static_cast<int64_t>(id[s]) * p.width + l[s] * (BITS / 2);
+        if constexpr (VEC) {
+          word[s] = load_word<BITS>(src);
+        } else {
+          word[s] = load_bytes<BITS>(src, min(4u, p.d - 4 * l[s]));
+        }
+        delta[s] = __ldg(p.step + id[s]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      const uint32_t t = base + 32 * s;
+      if (t >= p.tasks) break;
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = __fmul_rn(__int2float_rn(code<BITS>(word[s], k)), delta[s]);
+      if constexpr (VEC) {
+        reinterpret_cast<float4*>(p.out)[t] = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+        float* o = p.out + static_cast<int64_t>(row[s]) * p.d + 4 * l[s];
+        const uint32_t c = min(4u, p.d - 4 * l[s]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (static_cast<uint32_t>(k) < c) o[k] = v[k];
+        }
+      }
     }
   }
 }
 
-__global__ void gather_kernel(const int8_t* __restrict__ codes, const float* __restrict__ step,
-                              const int32_t* __restrict__ ids, float* __restrict__ out,
-                              int64_t n, int64_t d, int64_t b) {
-  const int64_t work = b * d;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; t < work;
-       t += stride) {
-    const int64_t r = t / d;
-    const int64_t j = t - r * d;
-    const int32_t id = ids[r];
-    out[t] = in_table(id, n)
-                 ? static_cast<float>(codes[static_cast<int64_t>(id) * d + j]) * step[id]
-                 : nan_value();
+template <int BITS, bool VEC>
+cudaError_t launch_rows(const Params& p, cudaStream_t s) {
+  // The largest R that still fills every SM with kMinBlocksPerSM blocks.
+  auto blocks = [&](int r) { return (int64_t{p.tasks} + kBlock * r - 1) / (kBlock * r); };
+#ifdef GATHER_ROWS  // a fixed R, for timing the choice (chip_smoke.gather_only)
+  const int r = GATHER_ROWS;
+#else
+  const int r = blocks(4) >= kSMs * kMinBlocksPerSM ? 4
+                : blocks(2) >= kSMs * kMinBlocksPerSM ? 2 : 1;
+#endif
+  const unsigned int grid = static_cast<unsigned int>(blocks(r) < kMaxBlocks ? blocks(r)
+                                                                              : kMaxBlocks);
+  if (r == 4) {
+    gather_kernel<BITS, VEC, 4><<<grid, kBlock, 0, s>>>(p);
+  } else if (r == 2) {
+    gather_kernel<BITS, VEC, 2><<<grid, kBlock, 0, s>>>(p);
+  } else {
+    gather_kernel<BITS, VEC, 1><<<grid, kBlock, 0, s>>>(p);
   }
+  return cudaGetLastError();
 }
 
 template <int BITS>
-__global__ void gather_packed_kernel(const uint8_t* __restrict__ packed,
-                                     const float* __restrict__ step,
-                                     const int32_t* __restrict__ ids, float* __restrict__ out,
-                                     int64_t n, int64_t d, int64_t width, int64_t b) {
-  constexpr int kPerByte = 8 / BITS;
-  constexpr int kMask = (1 << BITS) - 1;
-  constexpr int kHalf = 1 << (BITS - 1);
-  const int64_t work = b * d;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; t < work;
-       t += stride) {
-    const int64_t r = t / d;
-    const int64_t j = t - r * d;
-    const int32_t id = ids[r];
-    if (!in_table(id, n)) {
-      out[t] = nan_value();
-      continue;
-    }
-    const int byte = packed[static_cast<int64_t>(id) * width + j / kPerByte];
-    int v = (byte >> ((j % kPerByte) * BITS)) & kMask;
-    v = v >= kHalf ? v - (1 << BITS) : v;
-    out[t] = static_cast<float>(v) * step[id];
+int launch_gather(const void* codes, const void* step, const void* ids, void* out, int64_t n,
+                  int64_t d, int64_t b, void* stream) {
+  if (b * d == 0) return 0;
+  const int64_t lanes = (d + 3) / 4;
+  if (d >= (int64_t{1} << 31) || b * lanes >= (int64_t{1} << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  Params p;
+  p.codes = static_cast<const uint8_t*>(codes);
+  p.step = static_cast<const float*>(step);
+  p.ids = static_cast<const int32_t*>(ids);
+  p.out = static_cast<float*>(out);
+  p.n_ok = static_cast<uint32_t>(n < (int64_t{1} << 31) ? n : int64_t{1} << 31);
+  p.d = static_cast<uint32_t>(d);
+  p.width = static_cast<uint32_t>((d * BITS + 7) / 8);
+  p.lanes = static_cast<uint32_t>(lanes);
+  p.tasks = static_cast<uint32_t>(b * lanes);
+  p.div = fast_div(p.lanes);
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(codes) % (BITS / 2) == 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(vec ? launch_rows<BITS, true>(p, s) : launch_rows<BITS, false>(p, s));
 }
 
 }  // namespace
@@ -111,39 +221,14 @@ __global__ void gather_packed_kernel(const uint8_t* __restrict__ packed,
 // contiguous on the stream's device.  Returns cudaGetLastError().
 extern "C" int dequant_gather_launch(const void* codes, const void* step, const void* ids,
                                      void* out, int64_t n, int64_t d, int64_t b, void* stream) {
-  if (b * d == 0) return 0;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const bool vec = d % 16 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (vec) {
-    gather_vec16_kernel<<<repro::grid_for(b * (d / 16)), repro::kThreads, 0, s>>>(
-        static_cast<const int8_t*>(codes), static_cast<const float*>(step),
-        static_cast<const int32_t*>(ids), static_cast<float*>(out), n, d, b);
-  } else {
-    gather_kernel<<<repro::grid_for(b * d), repro::kThreads, 0, s>>>(
-        static_cast<const int8_t*>(codes), static_cast<const float*>(step),
-        static_cast<const int32_t*>(ids), static_cast<float*>(out), n, d, b);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_gather<8>(codes, step, ids, out, n, d, b, stream);
 }
 
 // packed: uint8 [n, ceil(d*bits/8)]; bits in {2, 4}; otherwise as above.
 extern "C" int dequant_gather_packed_launch(const void* packed, const void* step,
                                             const void* ids, void* out, int64_t n, int64_t d,
                                             int64_t b, int bits, void* stream) {
-  if (b * d == 0) return 0;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const unsigned int grid = repro::grid_for(b * d);
-  const auto* p = static_cast<const uint8_t*>(packed);
-  const auto* st = static_cast<const float*>(step);
-  const auto* ix = static_cast<const int32_t*>(ids);
-  auto* o = static_cast<float*>(out);
-  if (bits == 4) {
-    gather_packed_kernel<4><<<grid, repro::kThreads, 0, s>>>(p, st, ix, o, n, d, (d + 1) / 2, b);
-  } else if (bits == 2) {
-    gather_packed_kernel<2><<<grid, repro::kThreads, 0, s>>>(p, st, ix, o, n, d, (d + 3) / 4, b);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (bits == 4) return launch_gather<4>(packed, step, ids, out, n, d, b, stream);
+  if (bits == 2) return launch_gather<2>(packed, step, ids, out, n, d, b, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

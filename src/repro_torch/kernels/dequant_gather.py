@@ -5,6 +5,11 @@ in ``csrc/dequant_gather.cu``, whose header says what bounds them and how
 they are built for that.  Only the rows the ids select leave the integer
 table: the fp32 table never exists.  Both are bitwise equal to the plain
 versions in :mod:`repro_torch.kernels.ref`.
+
+A gather at a serving wave takes a few microseconds on the card, less than
+its Python wrapper, so the path to the launch is kept short: the operand
+checks return at once when they pass, the bound C function is cached, and
+the device context is entered only when another card is current.
 """
 from __future__ import annotations
 
@@ -13,33 +18,43 @@ import torch
 from repro_torch.core.codestore import is_packable, packed_width
 from repro_torch.kernels import _build
 
+#: The kernel indexes its lane tasks (b rows of ceil(d/4) lanes) in 32 bits.
+MAX_TASKS = 2 ** 31 - 1
 
-def _check_ids(kernel: str, step: torch.Tensor, ids: torch.Tensor, n: int) -> None:
+
+def _check(kernel: str, name: str, table: torch.Tensor, dtype, width: int,
+           step: torch.Tensor, ids: torch.Tensor, d: int) -> int:
+    """Check every operand of a gather over ``table`` [n, width]; returns b."""
+    if table.ndim != 2:
+        raise ValueError(f"{kernel}: {name} must be 2-D, got {tuple(table.shape)}")
+    n = table.shape[0]
     _build.check_operand(kernel, "step", step, torch.float32, (n,))
     if ids.ndim != 1:
         raise ValueError(f"{kernel}: ids must be 1-D, got shape {tuple(ids.shape)}")
-    _build.check_operand(kernel, "ids", ids, torch.int32, tuple(ids.shape), step.device)
+    _build.check_operand(kernel, "ids", ids, torch.int32, ids.shape, step.device)
+    _build.check_operand(kernel, name, table, dtype, (n, width), step.device)
+    b = ids.shape[0]
+    if b * (-(-d // 4)) > MAX_TASKS:
+        raise ValueError(f"{kernel}: {b} ids x {d} columns exceed the kernel's 32-bit "
+                         f"index of {MAX_TASKS} lane tasks")
+    return b
 
 
 def dequant_gather(codes: torch.Tensor, step: torch.Tensor,
                    ids: torch.Tensor) -> torch.Tensor:
     """f32 [b, d] rows ``codes[ids] * step[ids]`` from int8 ``codes`` [n, d],
     f32 ``step`` [n] and int32 ``ids`` [b] on one CUDA device."""
-    if codes.ndim != 2:
-        raise ValueError(f"dequant_gather: codes must be 2-D, got {tuple(codes.shape)}")
-    n, d = codes.shape
-    _check_ids("dequant_gather", step, ids, n)
-    _build.check_operand("dequant_gather", "codes", codes, torch.int8, (n, d), step.device)
-    (b,) = ids.shape
-    out = torch.empty((b, d), dtype=torch.float32, device=codes.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(codes.device):
-        _build.launch(
-            "dequant_gather", "dequant_gather", "dequant_gather_launch",
-            codes.data_ptr(), step.data_ptr(), ids.data_ptr(), out.data_ptr(),
-            n, d, b, _build.stream_of(codes.device),
-        )
+    d = codes.shape[-1] if codes.ndim == 2 else 0
+    b = _check("dequant_gather", "codes", codes, torch.int8, d, step, ids, d)
+    dev = step.device
+    out = torch.empty((b, d), dtype=torch.float32, device=dev)
+    if b and d:
+        with _build.on_device(dev):
+            _build.launch(
+                "dequant_gather", "dequant_gather", "dequant_gather_launch",
+                codes.data_ptr(), step.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                codes.shape[0], d, b, _build.stream_of(dev),
+            )
     return out
 
 
@@ -49,20 +64,15 @@ def dequant_gather_packed(packed: torch.Tensor, step: torch.Tensor, ids: torch.T
     the codes are unpacked and sign-extended in registers."""
     if not is_packable(bits):
         raise ValueError(f"dequant_gather_packed: bits must be 2 or 4, got {bits}")
-    if packed.ndim != 2:
-        raise ValueError(f"dequant_gather_packed: packed must be 2-D, got {tuple(packed.shape)}")
-    n = packed.shape[0]
-    _check_ids("dequant_gather_packed", step, ids, n)
-    _build.check_operand("dequant_gather_packed", "packed", packed, torch.uint8,
-                         (n, packed_width(d, bits)), step.device)
-    (b,) = ids.shape
-    out = torch.empty((b, d), dtype=torch.float32, device=packed.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(packed.device):
-        _build.launch(
-            "dequant_gather_packed", "dequant_gather", "dequant_gather_packed_launch",
-            packed.data_ptr(), step.data_ptr(), ids.data_ptr(), out.data_ptr(),
-            n, d, b, bits, _build.stream_of(packed.device),
-        )
+    b = _check("dequant_gather_packed", "packed", packed, torch.uint8, packed_width(d, bits),
+               step, ids, d)
+    dev = step.device
+    out = torch.empty((b, d), dtype=torch.float32, device=dev)
+    if b and d:
+        with _build.on_device(dev):
+            _build.launch(
+                "dequant_gather_packed", "dequant_gather", "dequant_gather_packed_launch",
+                packed.data_ptr(), step.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                packed.shape[0], d, b, bits, _build.stream_of(dev),
+            )
     return out

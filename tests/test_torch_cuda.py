@@ -7,6 +7,7 @@ PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -17,6 +18,7 @@ from repro_torch.core import lpt, quant
 from repro_torch.core.codestore import CodeStore
 from repro_torch.data.ctr_synth import CTRDatasetConfig, CTRSynthetic
 from repro_torch import configs
+from repro_torch.kernels import _build
 from repro_torch.kernels import adam_update as adam_kernel
 from repro_torch.kernels import dequant_gather as gather_kernel
 from repro_torch.kernels import flash_attention as flash_kernel
@@ -63,24 +65,38 @@ def test_sr_round_kernel_bitwise(cuda, rows, cols, bits):
     assert torch.equal(got, ref.sr_round_ref(w, step, noise, bits))
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("b", [1, 7, 777, 24_576])
 @pytest.mark.parametrize("bits", [8, 4, 2])
-@pytest.mark.parametrize("d", [16, 15, 32])
-def test_dequant_gather_kernels_bitwise(cuda, bits, d):
-    g = _gen(bits * d, cuda)
-    n, b = 1000, 777
+@pytest.mark.parametrize("d", [13, 15, 16, 32, 576])
+def test_dequant_gather_kernels_bitwise(cuda, d, bits, b, offset):
+    # The last row (which ends the table), the first, a repeat and, from 7
+    # ids on, ids outside the table, which give NaN rows.  offset 1 moves
+    # the codes one byte off their alignment, so the word loads and float4
+    # stores cannot be taken.
+    g = _gen(bits * d + b + offset, cuda)
+    n = 1000
     lo, hi = quant.code_bounds(bits)
     codes = torch.randint(lo, hi + 1, (n, d), generator=g, device=cuda, dtype=torch.int8)
     step = torch.rand(n, generator=g, device=cuda) * 0.1 + 1e-3
     ids = torch.randint(0, n, (b,), generator=g, device=cuda, dtype=torch.int32)
-    ids[:4] = torch.tensor([0, n - 1, 3, 3], device=cuda)
+    edge = torch.tensor([n - 1, 0, 3, 3, n, -1, 2 ** 31 - 1], dtype=torch.int32, device=cuda)
+    ids[:min(b, 7)] = edge[:min(b, 7)]
     store = CodeStore.from_codes(codes, bits)
+    if offset:
+        buf = torch.empty(store.data.numel() + offset, dtype=store.data.dtype, device=cuda)
+        store = dataclasses.replace(
+            store, data=buf[offset:].view(store.data.shape).copy_(store.data))
     ops.reset_kernel_calls()
     got = ops.dequant_gather(store, step, ids)
     torch.cuda.synchronize()
     kernel = "dequant_gather_packed" if store.packed else "dequant_gather"
     assert ops.kernel_calls() == {kernel: 1}
-    assert torch.equal(got, ops.dequant_gather(store, step, ids, use_kernel=False))
-    assert torch.equal(got, ref.dequant_gather_ref(codes, step, ids))
+    inside = (ids >= 0) & (ids < n)
+    assert got.shape == (b, d) and torch.isnan(got[~inside]).all()
+    assert torch.equal(got[inside], ops.dequant_gather(store, step, ids[inside],
+                                                       use_kernel=False))
+    assert torch.equal(got[inside], ref.dequant_gather_ref(codes, step, ids[inside]))
 
 
 def test_dequant_gather_out_of_range_ids_give_nan_rows(cuda):
@@ -90,6 +106,26 @@ def test_dequant_gather_out_of_range_ids_give_nan_rows(cuda):
     out = gather_kernel.dequant_gather(codes, step, ids)
     torch.cuda.synchronize()
     assert torch.isnan(out[1:3]).all() and torch.equal(out[[0, 3]], torch.ones(2, 16, device=cuda))
+
+
+def test_gather_wrappers_refuse_more_lane_tasks_than_32_bits_index(cuda):
+    # 65 ids of 2^27 columns are 65 * 2^25 lane tasks, past 2^31 - 1.
+    codes = torch.zeros(1, 2 ** 27, dtype=torch.int8, device=cuda)
+    ids = torch.zeros(65, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="32-bit"):
+        gather_kernel.dequant_gather(codes, torch.ones(1, device=cuda), ids)
+    assert gather_kernel.dequant_gather(codes, torch.ones(1, device=cuda), ids[:1]).shape == (
+        1, 2 ** 27)
+
+
+def test_stream_of_is_the_current_stream(cuda):
+    side = torch.cuda.Stream()
+    assert _build.stream_of(cuda) == torch.cuda.current_stream().cuda_stream
+    with torch.cuda.stream(side):
+        assert _build.stream_of(torch.device("cuda", 0)) == side.cuda_stream
+    # The current card needs no device context around a launch.
+    here = torch.device("cuda", torch.cuda.current_device())
+    assert isinstance(_build.on_device(here), contextlib.nullcontext)
 
 
 def test_wrappers_raise_on_bad_operands(cuda):
