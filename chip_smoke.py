@@ -1097,10 +1097,9 @@ GATHER_POOL = 32  # distinct waves the back-to-back timing cycles through
 B2B_CALLS = 256
 # Builds of this checkout's dequant_gather.cu with R (tasks per thread) and
 # the block size fixed, timed beside the source's own choice by gather_only.
-GATHER_PROBES = {"R=1": ("-DGATHER_ROWS=1",), "R=2": ("-DGATHER_ROWS=2",),
-                 "R=4": ("-DGATHER_ROWS=4",),
-                 "128-thread blocks": ("-DGATHER_ROWS=1", "-DGATHER_BLOCK=128"),
-                 "512-thread blocks": ("-DGATHER_ROWS=1", "-DGATHER_BLOCK=512")}
+GATHER_PROBES = {"R=2": ("-DGATHER_ROWS=2",), "R=4": ("-DGATHER_ROWS=4",),
+                 "128-thread blocks": ("-DGATHER_BLOCK=128",),
+                 "512-thread blocks": ("-DGATHER_BLOCK=512",)}
 # Host enqueue of ops.dequant_gather in a checkout (its src on PYTHONPATH),
 # run as a server: it makes the operands of each shape, prints their keys,
 # then for each key read from stdin prints the mean enqueue time of 100
@@ -1455,6 +1454,16 @@ def gather_only(baseline: str | None = None) -> int:
     for label, b in shapes.items():
         pools[label] = ("lm", [torch.randint(0, LM_TABLE[0], (b,), generator=g, device=dev,
                                              dtype=torch.int32) for _ in range(GATHER_POOL)])
+    for label, run in variants.items():
+        for (domain, bits), (store, step) in tables.items():
+            for ids in ([pool[0]] if domain == "ctr" else
+                        [pools["LM prefill"][1][0], pools["LM batch"][1][0]]):
+                check(torch.equal(run(store, step, ids),
+                                  ops.dequant_gather(store, step, ids, use_kernel=False)),
+                      f"the {label} build differs from the plain gather: bits={bits} "
+                      f"b={ids.numel()} d={store.d}")
+    log(f"[check] the other builds bitwise equal to the plain gathers at bits 8, 4: "
+        f"{', '.join(variants)}")
     flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
     for line in time_gathers(torch, tables, pools, flush_buf.zero_, variants)[1]:
         log(line)

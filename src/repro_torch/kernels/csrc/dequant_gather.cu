@@ -23,14 +23,18 @@
 //    (at d = 16: 8 rows of 4 lanes).  A lane reads only the code bytes behind
 //    its four outputs (4 B at 8 bits, 2 B at 4 bits, 1 B at 2 bits); the lanes
 //    of a row read the same id and Delta addresses, which the warp coalesces.
-//  * Several tasks in flight per thread.  A thread takes R tasks 32 apart
-//    (R = 4, 2 or 1, unrolled): first all R id loads, then all code and Delta
-//    loads through the read-only path, then the conversions and stores, so R
-//    independent DRAM chains are in flight instead of one.  R is the largest
-//    that still gives every SM kMinBlocksPerSM blocks of kBlock threads; a CTR
-//    wave (98,304 tasks) runs R = 1 on 384 blocks, never fewer blocks than SMs.
-//    On an H100 at the CTR wave and at LM rows (d = 576), R = 2 or 4 and
-//    blocks of 32 or 128 threads measured no faster (chip_smoke.gather_only).
+//  * One task per thread on a grid of 256-thread blocks: a CTR wave (98,304
+//    tasks) runs on 384 blocks, ~3 on each of the 132 SMs.  GATHER_ROWS =
+//    R > 1 gives a thread R tasks 32 apart, unrolled (all R id loads, then
+//    all code and Delta loads, then the stores: R independent DRAM chains);
+//    on an H100, R = 2 or 4 measured no faster back to back at any timed
+//    shape, from the CTR wave to all 49,152 rows of SmolLM's table, and per
+//    call R = 4 was up to 0.6 us slower at the serving shapes; only a
+//    4,096-id LM batch, which no serving or training path gathers, ran
+//    0.2-0.3 us faster per call (PERF.md section 6).  One task per thread
+//    already puts a whole wave in flight at once, and past one resident
+//    grid the loop's sweeps keep the memory system as full.
+//    GATHER_ROWS and GATHER_BLOCK are for timing that (chip_smoke.gather_only).
 //  * 32-bit integer work.  Tasks and rows are uint32 (the wrapper checks that
 //    b * ceil(d/4) < 2^31); row = t / lanes is a multiply-high by a constant
 //    the host computes (FastDiv), never a division in the loop.  Only
@@ -54,12 +58,15 @@
 #ifndef GATHER_BLOCK
 #define GATHER_BLOCK 256
 #endif
+#ifndef GATHER_ROWS
+#define GATHER_ROWS 1
+#endif
 
 namespace {
 
 constexpr int kBlock = GATHER_BLOCK;  // threads per block
+constexpr int kRows = GATHER_ROWS;    // tasks per thread
 constexpr int kSMs = 132;             // H100 SXM
-constexpr int kMinBlocksPerSM = 4;
 constexpr int kMaxBlocks = kSMs * (2048 / kBlock);  // one resident wave; the loop strides
 
 // q = t / divisor for t < 2^31 as (umulhi(t, magic) + t) >> shift
@@ -105,7 +112,9 @@ __device__ __forceinline__ uint32_t load_bytes(const uint8_t* src, uint32_t c) {
   uint32_t word = 0;
 #pragma unroll
   for (int k = 0; k < BITS / 2; ++k) {
-    if (static_cast<uint32_t>(k) < nbytes) word |= static_cast<uint32_t>(__ldg(src + k)) << (8 * k);
+    if (static_cast<uint32_t>(k) < nbytes) {
+      word |= static_cast<uint32_t>(__ldg(src + k)) << (8 * k);
+    }
   }
   return word;
 }
@@ -138,7 +147,8 @@ __global__ void __launch_bounds__(kBlock) gather_kernel(const Params p) {
       word[s] = 0;
       delta[s] = __int_as_float(0x7fc00000);
       if (static_cast<uint32_t>(id[s]) < p.n_ok) {
-        const uint8_t* src = p.codes + static_cast<int64_t>(id[s]) * p.width + l[s] * (BITS / 2);
+        const uint8_t* src =
+            p.codes + static_cast<int64_t>(id[s]) * p.width + l[s] * (BITS / 2);
         if constexpr (VEC) {
           word[s] = load_word<BITS>(src);
         } else {
@@ -153,7 +163,9 @@ __global__ void __launch_bounds__(kBlock) gather_kernel(const Params p) {
       if (t >= p.tasks) break;
       float v[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) v[k] = __fmul_rn(__int2float_rn(code<BITS>(word[s], k)), delta[s]);
+      for (int k = 0; k < 4; ++k) {
+        v[k] = __fmul_rn(__int2float_rn(code<BITS>(word[s], k)), delta[s]);
+      }
       if constexpr (VEC) {
         reinterpret_cast<float4*>(p.out)[t] = make_float4(v[0], v[1], v[2], v[3]);
       } else {
@@ -170,23 +182,9 @@ __global__ void __launch_bounds__(kBlock) gather_kernel(const Params p) {
 
 template <int BITS, bool VEC>
 cudaError_t launch_rows(const Params& p, cudaStream_t s) {
-  // The largest R that still fills every SM with kMinBlocksPerSM blocks.
-  auto blocks = [&](int r) { return (int64_t{p.tasks} + kBlock * r - 1) / (kBlock * r); };
-#ifdef GATHER_ROWS  // a fixed R, for timing the choice (chip_smoke.gather_only)
-  const int r = GATHER_ROWS;
-#else
-  const int r = blocks(4) >= kSMs * kMinBlocksPerSM ? 4
-                : blocks(2) >= kSMs * kMinBlocksPerSM ? 2 : 1;
-#endif
-  const unsigned int grid = static_cast<unsigned int>(blocks(r) < kMaxBlocks ? blocks(r)
-                                                                              : kMaxBlocks);
-  if (r == 4) {
-    gather_kernel<BITS, VEC, 4><<<grid, kBlock, 0, s>>>(p);
-  } else if (r == 2) {
-    gather_kernel<BITS, VEC, 2><<<grid, kBlock, 0, s>>>(p);
-  } else {
-    gather_kernel<BITS, VEC, 1><<<grid, kBlock, 0, s>>>(p);
-  }
+  const int64_t blocks = (int64_t{p.tasks} + kBlock * kRows - 1) / (kBlock * kRows);
+  const auto grid = static_cast<unsigned int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+  gather_kernel<BITS, VEC, kRows><<<grid, kBlock, 0, s>>>(p);
   return cudaGetLastError();
 }
 

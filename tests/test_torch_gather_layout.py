@@ -38,8 +38,8 @@ def _const(pattern: str) -> int:
 
 
 BLOCK = _const(r"#define GATHER_BLOCK (\d+)")
+ROWS = _const(r"#define GATHER_ROWS (\d+)")
 SMS = _const(r"kSMs = (\d+);")
-MIN_BLOCKS_PER_SM = _const(r"kMinBlocksPerSM = (\d+);")
 assert "kMaxBlocks = kSMs * (2048 / kBlock);" in SOURCE
 MAX_BLOCKS = SMS * (2048 // BLOCK)
 NAN_BITS = 0x7FC00000
@@ -60,18 +60,14 @@ def divide(t: np.ndarray, magic: int, shift: int) -> np.ndarray:
     return ((hi + t) & np.uint64(0xFFFFFFFF)) >> np.uint64(shift)
 
 
-def plan(d: int, b: int, bits: int, codes_offset: int = 0, out_offset: int = 0):
-    """``launch_gather`` / ``launch_rows``: (lanes, tasks, vec, R, grid)."""
+def plan(d: int, b: int, bits: int, codes_offset: int = 0, out_offset: int = 0,
+         rows: int = ROWS):
+    """``launch_gather`` / ``launch_rows``: (lanes, tasks, vec, R, grid); a
+    build with ``-DGATHER_ROWS=rows`` when ``rows`` is given."""
     lanes = -(-d // 4)
     tasks = b * lanes
     vec = d % 4 == 0 and out_offset % 16 == 0 and codes_offset % (bits // 2) == 0
-
-    def blocks(r):
-        return -(-tasks // (BLOCK * r))
-
-    floor = SMS * MIN_BLOCKS_PER_SM
-    r = 4 if blocks(4) >= floor else 2 if blocks(2) >= floor else 1
-    return lanes, tasks, vec, r, min(blocks(r), MAX_BLOCKS)
+    return lanes, tasks, vec, rows, min(-(-tasks // (BLOCK * rows)), MAX_BLOCKS)
 
 
 def thread_tasks(tasks: int, r: int, grid: int):
@@ -97,12 +93,12 @@ def thread_tasks(tasks: int, r: int, grid: int):
 
 
 def model_gather(table: np.ndarray, step: np.ndarray, ids: np.ndarray, bits: int, d: int,
-                 codes_offset: int = 0, out_offset: int = 0):
+                 codes_offset: int = 0, out_offset: int = 0, rows: int = ROWS):
     """The kernel's output, how often each element was written, and the byte
     offsets (into the table) that its lanes read, with the id of each read."""
     n, width = table.shape
     assert width == -(-d * bits // 8)
-    lanes, tasks, vec, r, grid = plan(d, len(ids), bits, codes_offset, out_offset)
+    lanes, tasks, vec, r, grid = plan(d, len(ids), bits, codes_offset, out_offset, rows)
     magic, shift = fast_div(lanes)
     t = thread_tasks(tasks, r, grid)[:, 3]
     row = divide(t, magic, shift).astype(np.int64)
@@ -246,17 +242,31 @@ def test_a_warp_stores_contiguous_16_byte_chunks(d):
     assert (sizes <= 32).all() and (sizes < 32).sum() <= 1
 
 
-@pytest.mark.parametrize("d,b,rows", [(16, 24_576, 1), (576, 8, 1), (576, 157, 1),
-                                      (576, 4_096, 4), (16, 4_428_281, 4)])
-def test_the_grid_fills_the_card(d, b, rows):
-    # A CTR wave (24,576 ids at d = 16) gives every SM several blocks; LM
-    # decode and prefill are as wide as their tasks allow; large gathers
-    # take four tasks per thread on a capped grid that strides.
-    lanes, tasks, _, r, grid = plan(d, b, 8)
-    assert r == rows
-    assert min(SMS * MIN_BLOCKS_PER_SM, -(-tasks // BLOCK)) <= grid <= MAX_BLOCKS
-    if tasks >= BLOCK * SMS:
+@pytest.mark.parametrize("d,b", [(16, 24_576), (576, 8), (576, 157), (576, 4_096),
+                                 (16, 4_428_281)])
+def test_the_grid_fills_the_card(d, b):
+    # A CTR wave (24,576 ids at d = 16) gives every SM blocks to run; LM
+    # decode and prefill are as wide as their tasks; past one resident grid
+    # the loop strides.
+    lanes, tasks, _, _, grid = plan(d, b, 8)
+    assert grid == min(-(-tasks // (BLOCK * ROWS)), MAX_BLOCKS)
+    if tasks >= BLOCK * ROWS * SMS:
         assert grid >= SMS
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4])
+@pytest.mark.parametrize("bits,d,b", [(8, 16, 24_576), (4, 15, 777), (2, 576, 157),
+                                      (8, 32, 4_429), (4, 32, 70_000)])
+def test_builds_with_more_tasks_per_thread_write_each_output_once(bits, d, b, rows):
+    # The timing builds with -DGATHER_ROWS=2 or 4 (chip_smoke.gather_only)
+    # run the same map with R tasks 32 apart per thread; 70,000 ids of 8
+    # lanes pass one resident grid, so the loop strides.
+    codes, step, ids = _operands(d, b, bits)
+    table = _table(codes, bits)
+    out, count, _, _ = model_gather(table, step, ids, bits, d, rows=rows)
+    assert (count == 1).all()
+    np.testing.assert_array_equal(out.view(np.uint32),
+                                  _reference(codes, step, ids, bits, d).view(np.uint32))
 
 
 @pytest.mark.parametrize("divisors", [range(1, 1025), [144, 4_095, 4_097, 65_535, 65_537,
