@@ -910,22 +910,43 @@ def head_work(m: int, n: int, k: int, width: int) -> tuple[float, tuple[float, s
                             ops_per_s=max(FP32_OPS_PER_S, TF32X2_OPS_PER_S))
 
 
+def other_builds(name: str, specs: dict) -> dict:
+    """Build ``{label: (source, nvcc flags)}``, each a variant of
+    ``csrc/<name>.cu`` with its C entry points (another commit's source
+    unpacked beside its common.cuh, or this one with timing flags), one nvcc
+    each, all at once: {label: the loaded library, entry points bound}.
+    Their launches are not counted."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for label, (source, flags) in specs.items():
+        path = _build.BUILD_DIR / f"{name}-{re.sub(r'[^0-9A-Za-z]+', '-', label)}.so"
+        procs[label] = (path, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(path), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for label, (path, proc) in procs.items():
+        out, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed for {name} {label}:\n{out}")
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in _build.SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = list(argtypes)
+        libs[label] = lib
+    return libs
+
+
 def baseline_head(torch, source: str):
     """``launch(x, data, step, bits, k) -> y`` through another build of the
     head (``source``: a dequant_matmul.cu with the same C entry point, e.g.
     the parent commit's, unpacked beside its own common.cuh), for timing it
     in the same call; its launches are not counted."""
-    import ctypes
-
     from repro_torch.kernels import _build
 
-    lib_path = _build.BUILD_DIR / "dequant_matmul-baseline.so"
-    lib_path.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), source], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
-    lib.dequant_matmul_launch.argtypes = list(
-        _build.SIGNATURES["dequant_matmul"]["dequant_matmul_launch"])
+    lib = other_builds("dequant_matmul", {"baseline": (source, ())})["baseline"]
 
     def launch(x, data, step, bits, k):
         y = torch.empty(x.shape[0], data.shape[0], device=x.device)
@@ -997,13 +1018,8 @@ def head_phases(torch, tables: dict, flush, how: str = "L2 flushed") -> None:
 
     from repro_torch.kernels import _build
 
-    lib_path = _build.BUILD_DIR / "dequant_matmul-phases.so"
-    lib_path.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-DHEAD_PHASES", "-o", str(lib_path),
-                    str(_build.CSRC / "dequant_matmul.cu")], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
-    lib.dequant_matmul_launch.argtypes = list(
-        _build.SIGNATURES["dequant_matmul"]["dequant_matmul_launch"])
+    lib = other_builds("dequant_matmul", {"phases": (_build.CSRC / "dequant_matmul.cu",
+                                                     ("-DHEAD_PHASES",))})["phases"]
     lib.head_phases_read.argtypes = [ctypes.c_void_p]
     g = torch.Generator(device="cuda").manual_seed(8)
     for bits, (codes, step) in tables.items():
@@ -1239,38 +1255,6 @@ def gather_variant(torch, lib):
     return run
 
 
-def start_gather_builds(specs: dict) -> dict:
-    """Start one nvcc per ``{label: (source, flags)}``, all at once; pass the
-    result to :func:`gather_libraries`."""
-    from repro_torch.kernels import _build
-
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (label, (source, flags)) in enumerate(specs.items()):
-        path = _build.BUILD_DIR / f"dequant_gather-variant{i}.so"
-        procs[label] = (path, subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(path), str(source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    return procs
-
-
-def gather_libraries(procs: dict) -> dict:
-    """Wait for :func:`start_gather_builds`; {label: loaded library}."""
-    import ctypes
-
-    from repro_torch.kernels import _build
-
-    libs = {}
-    for label, (path, proc) in procs.items():
-        out, _ = proc.communicate()
-        check(proc.returncode == 0, f"nvcc failed for the gather build {label}:\n{out}")
-        lib = ctypes.CDLL(str(path))
-        for fn, argtypes in _build.SIGNATURES["dequant_gather"].items():
-            getattr(lib, fn).argtypes = list(argtypes)
-        libs[label] = lib
-    return libs
-
-
 def gather_bound(torch, store, ids) -> tuple[float, str]:
     """Least time of one gather: ids in, each distinct row's codes and Delta
     in, the fp32 rows out; one Delta multiply per element."""
@@ -1421,10 +1405,9 @@ def gather_only(baseline: str | None = None) -> int:
              for label, flags in GATHER_PROBES.items()}
     if baseline is not None:
         specs = {"baseline": (pathlib.Path(baseline).resolve(), ()), **specs}
-    procs = start_gather_builds(specs)
     _build.library("dequant_gather")
     variants = {label: gather_variant(torch, lib)
-                for label, lib in gather_libraries(procs).items()}
+                for label, lib in other_builds("dequant_gather", specs).items()}
     log(f"[build] dequant_gather and {len(variants)} other builds ({', '.join(specs)}) in "
         f"{time.perf_counter() - t0:.1f}s" + (f"; baseline {baseline}" if baseline else ""))
     dev = torch.device("cuda")
@@ -1567,13 +1550,8 @@ def flash_phases(torch, flush) -> None:
 
     from repro_torch.kernels import _build
 
-    lib_path = _build.BUILD_DIR / "flash_attention-phases.so"
-    lib_path.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-DFLASH_PHASES", "-o", str(lib_path),
-                    str(_build.CSRC / "flash_attention.cu")], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
-    lib.flash_attention_fwd_launch.argtypes = list(
-        _build.SIGNATURES["flash_attention"]["flash_attention_fwd_launch"])
+    lib = other_builds("flash_attention", {"phases": (_build.CSRC / "flash_attention.cu",
+                                                      ("-DFLASH_PHASES",))})["phases"]
     lib.flash_phases_read.argtypes = [ctypes.c_void_p]
     h, kh, d = 9, 3, 64
     g = torch.Generator(device="cuda").manual_seed(7)

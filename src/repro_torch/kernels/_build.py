@@ -172,13 +172,10 @@ def check_operand(kernel: str, name: str, t, dtype, shape: tuple, device=None) -
 
 
 def stream_of(device) -> int:
-    """The raw handle of PyTorch's current stream on ``device``: read directly
-    where this PyTorch exposes it, without building a ``torch.cuda.Stream``."""
+    """The raw handle of PyTorch's current stream on ``device``, read without
+    building a ``torch.cuda.Stream`` object."""
     index = torch.cuda.current_device() if device.index is None else device.index
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is None:
-        return torch.cuda.current_stream(index).cuda_stream
-    return raw(index)
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def on_device(device):
