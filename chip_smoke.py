@@ -79,11 +79,12 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      host's enqueue time per call; the gathers also back to back (256 calls
      over 32 distinct waves, events around the run) at the CTR wave and at
      LM decode and prefill (time_gathers, which gather_only runs without
-     the rest, beside other builds of dequant_gather.cu);
-     flash_attention_fwd at every prompt length of phase 7 and at T = 2048 (time_flash, which flash_only runs
-     without the rest); the head at M = 1, 8 and 64 with its share of the
-     HBM rate (time_head, which head_only runs without the rest, optionally
-     beside another build of dequant_matmul.cu); sr_round_seeded beside sr_round with its noise
+     the rest, optionally beside another build of dequant_gather.cu);
+     flash_attention_fwd at every prompt length of phase 7 and at T = 2048
+     (time_flash, which flash_only runs without the rest); the head at
+     M = 1, 8 and 64 with its share of the HBM rate (time_head, which
+     head_only runs without the rest, optionally beside another build of
+     dequant_matmul.cu); sr_round_seeded beside sr_round with its noise
      operand at 49,152 x 576, and the training attention's forward +
      backward (plain PyTorch, no bound row).
 The last lines are the kernels JSON, the card's name and power limit, and
@@ -1111,21 +1112,17 @@ def head_only(baseline: str | None = None, clean_flush: bool = False) -> int:
 LM_GATHER_SHAPES = {"LM decode": LM_BATCH, "LM prefill": max(LM_PROMPTS)}
 GATHER_POOL = 32  # distinct waves the back-to-back timing cycles through
 B2B_CALLS = 256
-# Builds of this checkout's dequant_gather.cu with R (tasks per thread) and
-# the block size fixed, timed beside the source's own choice by gather_only.
-GATHER_PROBES = {"R=2": ("-DGATHER_ROWS=2",), "R=4": ("-DGATHER_ROWS=4",),
-                 "128-thread blocks": ("-DGATHER_BLOCK=128",),
-                 "512-thread blocks": ("-DGATHER_BLOCK=512",)}
 # Host enqueue of ops.dequant_gather in a checkout (its src on PYTHONPATH),
 # run as a server: it makes the operands of each shape, prints their keys,
-# then for each key read from stdin prints the mean enqueue time of 100
-# calls, the card held busy by a spin.
+# then for each key read from stdin prints the mean time of 100 calls, the
+# card held busy by a spin.  Beside each shape's gather it times the
+# wrapper's three _build.check_operand calls alone (CTR wave, 8 bits).
 HOST_PROBE = f"""
 import json, sys, time
 import torch
 from repro_torch.core.codestore import CodeStore
 from repro_torch.data.ctr_synth import avazu_like
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 dev = torch.device("cuda")
 g = torch.Generator(device=dev).manual_seed(0)
 cases = {{}}
@@ -1136,17 +1133,27 @@ for label, n, d, b in [("CTR wave", avazu_like({SCALE}).n_features, 16, {BATCH *
         codes = torch.randint(-8, 8, (n, d), generator=g, device=dev, dtype=torch.int8)
         case = (CodeStore.from_codes(codes, bits), torch.rand(n, generator=g, device=dev),
                 torch.randint(0, n, (b,), generator=g, device=dev, dtype=torch.int32))
-        for _ in range(20):
-            ops.dequant_gather(*case)
-        cases[f"{{label}} bits={{bits}}"] = case
+        cases[f"{{label}} bits={{bits}}"] = lambda case=case: ops.dequant_gather(*case)
+        if label == "CTR wave" and bits == 8:
+            store, step, ids = case
+            def checks(store=store, step=step, ids=ids, n=n, d=d):
+                _build.check_operand("dequant_gather", "step", step, torch.float32, (n,))
+                _build.check_operand("dequant_gather", "ids", ids, torch.int32, ids.shape,
+                                     step.device)
+                _build.check_operand("dequant_gather", "codes", store.data, torch.int8,
+                                     (n, d), step.device)
+            cases["CTR wave bits=8: the three operand checks"] = checks
+for fn in cases.values():
+    for _ in range(20):
+        fn()
 torch.cuda.synchronize()
 print(json.dumps(list(cases)), flush=True)
 for line in sys.stdin:
-    case = cases[line.strip()]
+    fn = cases[line.strip()]
     torch.cuda._sleep({SPIN_CYCLES * 8})
     t0 = time.perf_counter()
     for _ in range(100):
-        ops.dequant_gather(*case)
+        fn()
     print((time.perf_counter() - t0) / 100 * 1e6, flush=True)
     torch.cuda.synchronize()
 """
@@ -1341,53 +1348,16 @@ def host_enqueue(roots: dict, rounds: int = 15) -> dict:
             for key, by in got.items()}
 
 
-def host_breakdown(torch, store, step, ids) -> str:
-    """Where the host's enqueue of one int8 gather goes: the median per-call
-    time of each piece of the path over 15 runs of 100 calls, the card held
-    busy by a spin."""
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels import dequant_gather as wrapper
-
-    dev, b, d = ids.device, ids.numel(), store.d
-    out = torch.empty(b, d, device=dev)
-    parts = {
-        "ops.dequant_gather": lambda: ops.dequant_gather(store, step, ids),
-        "the wrapper": lambda: wrapper.dequant_gather(store.data, step, ids),
-        "its operand checks": lambda: wrapper._check("dequant_gather", "codes", store.data,
-                                                     torch.int8, d, step, ids, d),
-        "torch.empty": lambda: torch.empty((b, d), dtype=torch.float32, device=dev),
-        "device context and stream": lambda: (_build.on_device(dev), _build.stream_of(dev)),
-        "the ctypes launch": lambda: _build.launch(
-            "dequant_gather", "dequant_gather", "dequant_gather_launch", store.data.data_ptr(),
-            step.data_ptr(), ids.data_ptr(), out.data_ptr(), store.n, d, b,
-            _build.stream_of(dev)),
-    }
-    got = {}
-    for label, fn in parts.items():
-        per = []
-        for _ in range(15):
-            torch.cuda._sleep(SPIN_CYCLES * 8)
-            t0 = time.perf_counter()
-            for _ in range(100):
-                fn()
-            per.append((time.perf_counter() - t0) / 100 * 1e6)
-            torch.cuda.synchronize()
-        got[label] = statistics.median(per)
-    return ("[host] where one CTR-wave gather's enqueue goes, us per call: "
-            + ", ".join(f"{label} {us:.2f}" for label, us in got.items()))
-
-
 def gather_only(baseline: str | None = None) -> int:
     """Build the gathers, check them as phase 2 does, and time them as phase
     5 does (a CTR wave on the full Avazu table, SmolLM's decode and prefill
-    rows; random codes at 8 and 4 bits), beside builds of the same source
-    with R and the block size fixed (``GATHER_PROBES``), all in turns;
-    then probes: one id, a wave whose rows are hot in L2, the timer's floor.
+    rows; random codes at 8 and 4 bits), and the timer's floor.
     ``baseline`` (another dequant_gather.cu inside a checkout, e.g. the
     parent commit's: ``git archive HEAD src/repro_torch | tar -x -C
-    build/parent``) is built and timed in the same turns, and the host
-    enqueue per call of that checkout and of this one is measured in a
-    process each, asked in turns (:func:`host_enqueue`):
+    build/parent``) is built, checked bitwise and timed in turns with this
+    one (baseline, this, this, baseline), and the host enqueue per call of
+    that checkout and of this one is measured in a process each, asked in
+    turns (:func:`host_enqueue`):
     ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.gather_only())"``."""
     import torch
 
@@ -1401,15 +1371,12 @@ def gather_only(baseline: str | None = None) -> int:
     from repro_torch.kernels import _build, ops
 
     t0 = time.perf_counter()
-    specs = {label: (_build.CSRC / "dequant_gather.cu", flags)
-             for label, flags in GATHER_PROBES.items()}
-    if baseline is not None:
-        specs = {"baseline": (pathlib.Path(baseline).resolve(), ()), **specs}
+    specs = {} if baseline is None else {"baseline": (pathlib.Path(baseline).resolve(), ())}
     _build.library("dequant_gather")
     variants = {label: gather_variant(torch, lib)
                 for label, lib in other_builds("dequant_gather", specs).items()}
-    log(f"[build] dequant_gather and {len(variants)} other builds ({', '.join(specs)}) in "
-        f"{time.perf_counter() - t0:.1f}s" + (f"; baseline {baseline}" if baseline else ""))
+    log(f"[build] dequant_gather in {time.perf_counter() - t0:.1f}s"
+        + (f", with the baseline {baseline}" if baseline else ""))
     dev = torch.device("cuda")
     check(_build.stream_of(dev) == torch.cuda.current_stream(dev).cuda_stream,
           "stream_of differs from the current stream's handle")
@@ -1430,48 +1397,32 @@ def gather_only(baseline: str | None = None) -> int:
             tables[(domain, bits)] = (CodeStore.from_codes(codes, bits),
                                       torch.rand(rows, generator=g, device=dev) * 0.01 + 1e-4)
     pools = {"CTR wave": ("ctr", pool)}
-    # Beyond the main path's shapes: a training batch's tokens and the whole
-    # vocabulary (the head's timing reads it so), where R > 1 is chosen.
-    shapes = {**LM_GATHER_SHAPES, "LM batch": LM_TRAIN_BATCH * LM_TRAIN_SEQ,
-              "LM table": LM_TABLE[0]}
-    for label, b in shapes.items():
+    for label, b in LM_GATHER_SHAPES.items():
         pools[label] = ("lm", [torch.randint(0, LM_TABLE[0], (b,), generator=g, device=dev,
                                              dtype=torch.int32) for _ in range(GATHER_POOL)])
     for label, run in variants.items():
         for (domain, bits), (store, step) in tables.items():
-            for ids in ([pool[0]] if domain == "ctr" else
-                        [pools["LM prefill"][1][0], pools["LM batch"][1][0]]):
+            for ids in [pool[0]] if domain == "ctr" else [pools["LM prefill"][1][0]]:
                 check(torch.equal(run(store, step, ids),
                                   ops.dequant_gather(store, step, ids, use_kernel=False)),
                       f"the {label} build differs from the plain gather: bits={bits} "
                       f"b={ids.numel()} d={store.d}")
-    log(f"[check] the other builds bitwise equal to the plain gathers at bits 8, 4: "
-        f"{', '.join(variants)}")
+    if variants:
+        log("[check] the baseline build bitwise equal to the plain gathers at bits 8, 4")
     flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
     for line in time_gathers(torch, tables, pools, flush_buf.zero_, variants)[1]:
         log(line)
-    for bits in (8, 4):
-        store, step = tables[("ctr", bits)]
-        one = pool[0][:1]
-        single = time_ms(torch, lambda: ops.dequant_gather(store, step, one), 50,
-                         flush_buf.zero_)
-        hot = time_ms(torch, lambda: ops.dequant_gather(store, step, pool[0]), 50)
-        hot_b2b = time_b2b(torch, [lambda: ops.dequant_gather(store, step, pool[0])])
-        log(f"[probe] bits={bits}: one id (L2 flushed) {single[0] * 1e3:.2f} us, host "
-            f"enqueue {single[1]:.1f} us; the CTR wave with its rows hot in L2 (no flush) "
-            f"{hot[0] * 1e3:.2f} us per call, {hot_b2b * 1e3:.2f} us back to back")
-    log(host_breakdown(torch, *tables[("ctr", 8)], pool[0]))
     one_el = torch.zeros(1, device=dev)
     floor = time_ms(torch, lambda: one_el.add_(1), 30, flush_buf.zero_)[0]
-    log(f"[probe] the timer's floor, a 1-element add_: {floor * 1e3:.2f} us per call, "
+    log(f"[time] the timer's floor, a 1-element add_: {floor * 1e3:.2f} us per call, "
         f"{time_b2b(torch, [lambda: one_el.add_(1)]) * 1e3:.2f} us back to back")
     if baseline is not None:
         other = pathlib.Path(baseline).resolve().parents[4]
         check((other / "src" / "repro_torch").is_dir(), f"{other} is not a checkout")
         for key, us in host_enqueue({"baseline": other, "this checkout": ROOT}).items():
-            log(f"[host] ops.dequant_gather {key}, enqueue per call (median of 15 rounds of "
-                f"100 calls, the two processes in turns): baseline {us['baseline']:.1f} us, "
-                f"this checkout {us['this checkout']:.1f} us")
+            log(f"[host] {key}, us per call (median of 15 rounds of 100 calls, the two "
+                f"processes in turns): baseline {us['baseline']:.2f}, this checkout "
+                f"{us['this checkout']:.2f}")
     log(card_name())
     return 0
 

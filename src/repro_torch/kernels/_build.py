@@ -153,22 +153,21 @@ def library(name: str) -> ctypes.CDLL:
 
 def check_operand(kernel: str, name: str, t, dtype, shape: tuple, device=None) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of this dtype and shape
-    (on ``device`` when given): the kernels take raw pointers and trust them."""
-    if (isinstance(t, torch.Tensor) and t.is_cuda and t.dtype == dtype and t.shape == shape
-            and t.is_contiguous() and (device is None or t.device == device)):
+    (on ``device`` when given): the kernels take raw pointers and trust them.
+    Each condition is tested once; a message is built only on failure."""
+    if not isinstance(t, torch.Tensor) or not t.is_cuda:
+        fault = f"must be a CUDA tensor, got {getattr(t, 'device', type(t).__name__)}"
+    elif device is not None and t.device != device:
+        fault = f"is on {t.device}, expected {device}"
+    elif t.dtype != dtype:
+        fault = f"must be {dtype}, got {t.dtype}"
+    elif t.shape != shape:
+        fault = f"must have shape {tuple(shape)}, got {tuple(t.shape)}"
+    elif not t.is_contiguous():
+        fault = "must be contiguous"
+    else:
         return
-    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
-        raise ValueError(f"{kernel}: {name} must be a CUDA tensor, got "
-                         f"{getattr(t, 'device', type(t).__name__)}")
-    if device is not None and t.device != device:
-        raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{kernel}: {name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{kernel}: {name} must be contiguous")
+    raise ValueError(f"{kernel}: {name} {fault}")
 
 
 def stream_of(device) -> int:

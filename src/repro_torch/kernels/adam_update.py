@@ -39,7 +39,7 @@ def adam_update(params, grads, mu, nu, lr: float, bc1: float, bc2: float, *,
     ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
     sizes = (ctypes.c_int64 * count)(*(p.numel() for p in params))
     f = ref.f32
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         _build.launch("adam_update", "adam_update", "adam_update_launch", count, ptrs, sizes,
                       f(lr), f(bc1), f(bc2), f(b1), f(1.0 - b1), f(b2), f(1.0 - b2), f(eps),
                       f(weight_decay), _build.stream_of(dev))

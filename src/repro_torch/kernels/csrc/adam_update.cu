@@ -89,7 +89,7 @@ extern "C" int adam_update_launch(int count, const void* ptrs, const void* sizes
     if (largest == 0) continue;
     // Split the card's blocks between the tensors of the group.
     const unsigned int per = repro::grid_for(largest);
-    const unsigned int share = (132 * 8 + group - 1) / group;
+    const auto share = static_cast<unsigned int>((repro::resident_blocks() + group - 1) / group);
     const dim3 grid(per < share ? per : share, group);
     adam_update_kernel<<<grid, repro::kThreads, 0, strm>>>(t, s);
     const cudaError_t err = cudaGetLastError();

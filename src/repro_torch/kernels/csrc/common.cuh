@@ -15,12 +15,23 @@ namespace repro {
 
 constexpr int kThreads = 256;
 
-// Blocks for a grid-stride loop over `work` items: enough to fill the card
-// (132 SMs x 8 blocks of 256 threads = 2048 resident threads per SM on an
-// H100), never more than the work needs.
+// Streaming multiprocessors of the current device (132 on an H100 SXM).
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// Blocks of kThreads that the current device holds at once (2048 resident
+// threads per SM on an H100).
+inline int64_t resident_blocks() { return int64_t{sm_count()} * (2048 / kThreads); }
+
+// Blocks for a grid-stride loop over `work` items: enough to fill the card,
+// never more than the work needs.
 inline unsigned int grid_for(int64_t work) {
   const int64_t need = (work + kThreads - 1) / kThreads;
-  const int64_t cap = 132 * 8;
+  const int64_t cap = resident_blocks();
   return static_cast<unsigned int>(need < cap ? need : cap);
 }
 

@@ -23,18 +23,15 @@
 //    (at d = 16: 8 rows of 4 lanes).  A lane reads only the code bytes behind
 //    its four outputs (4 B at 8 bits, 2 B at 4 bits, 1 B at 2 bits); the lanes
 //    of a row read the same id and Delta addresses, which the warp coalesces.
-//  * One task per thread on a grid of 256-thread blocks: a CTR wave (98,304
-//    tasks) runs on 384 blocks, ~3 on each of the 132 SMs.  GATHER_ROWS =
-//    R > 1 gives a thread R tasks 32 apart, unrolled (all R id loads, then
-//    all code and Delta loads, then the stores: R independent DRAM chains);
-//    on an H100, R = 2 or 4 measured no faster back to back at any timed
-//    shape, from the CTR wave to all 49,152 rows of SmolLM's table, and per
-//    call R = 4 was up to 0.6 us slower at the serving shapes; only a
-//    4,096-id LM batch, which no serving or training path gathers, ran
-//    0.2-0.3 us faster per call (PERF.md section 6).  One task per thread
-//    already puts a whole wave in flight at once, and past one resident
-//    grid the loop's sweeps keep the memory system as full.
-//    GATHER_ROWS and GATHER_BLOCK are for timing that (chip_smoke.gather_only).
+//  * One task per thread on 256-thread blocks (repro::grid_for): a CTR wave
+//    (98,304 tasks) runs on 384 blocks, ~3 on each of an H100's 132 SMs.
+//    The grid is capped at one resident wave of the card it runs on and
+//    the loop strides past it.  Several tasks per thread (R = 2 or 4,
+//    unrolled, all id loads issued before the row loads) measured no faster
+//    back to back on an H100 at any timed shape and up to 0.6 us slower per
+//    call at the serving shapes, and 128- or 512-thread blocks within
+//    +-0.15 us (PERF.md section 6): one task per thread already puts a whole
+//    wave in flight at once.
 //  * 32-bit integer work.  Tasks and rows are uint32 (the wrapper checks that
 //    b * ceil(d/4) < 2^31); row = t / lanes is a multiply-high by a constant
 //    the host computes (FastDiv), never a division in the loop.  Only
@@ -55,19 +52,7 @@
 // tile copy or a staged transpose only adds a round trip.
 #include "common.cuh"
 
-#ifndef GATHER_BLOCK
-#define GATHER_BLOCK 256
-#endif
-#ifndef GATHER_ROWS
-#define GATHER_ROWS 1
-#endif
-
 namespace {
-
-constexpr int kBlock = GATHER_BLOCK;  // threads per block
-constexpr int kRows = GATHER_ROWS;    // tasks per thread
-constexpr int kSMs = 132;             // H100 SXM
-constexpr int kMaxBlocks = kSMs * (2048 / kBlock);  // one resident wave; the loop strides
 
 // q = t / divisor for t < 2^31 as (umulhi(t, magic) + t) >> shift
 // (Granlund & Montgomery 1994, Thm 4.2, with a 33-bit multiplier whose top
@@ -125,66 +110,45 @@ __device__ __forceinline__ int32_t code(uint32_t word, int k) {
   return static_cast<int32_t>(word << (32 - BITS * (k + 1))) >> (32 - BITS);
 }
 
-template <int BITS, bool VEC, int R>
-__global__ void __launch_bounds__(kBlock) gather_kernel(const Params p) {
-  const uint32_t lane = threadIdx.x & 31;
-  const uint32_t warp = (blockIdx.x * kBlock + threadIdx.x) >> 5;
-  const uint32_t stride = gridDim.x * kBlock * R;
-  for (uint32_t base = warp * (32 * R) + lane; base < p.tasks; base += stride) {
-    uint32_t row[R], l[R];
-    int32_t id[R];
-#pragma unroll
-    for (int s = 0; s < R; ++s) {
-      const uint32_t t = base + 32 * s;
-      row[s] = (__umulhi(t, p.div.magic) + t) >> p.div.shift;
-      l[s] = t - row[s] * p.lanes;
-      id[s] = t < p.tasks ? __ldg(p.ids + row[s]) : -1;
-    }
-    uint32_t word[R];
-    float delta[R];
-#pragma unroll
-    for (int s = 0; s < R; ++s) {
-      word[s] = 0;
-      delta[s] = __int_as_float(0x7fc00000);
-      if (static_cast<uint32_t>(id[s]) < p.n_ok) {
-        const uint8_t* src =
-            p.codes + static_cast<int64_t>(id[s]) * p.width + l[s] * (BITS / 2);
-        if constexpr (VEC) {
-          word[s] = load_word<BITS>(src);
-        } else {
-          word[s] = load_bytes<BITS>(src, min(4u, p.d - 4 * l[s]));
-        }
-        delta[s] = __ldg(p.step + id[s]);
+template <int BITS, bool VEC>
+__global__ void __launch_bounds__(repro::kThreads) gather_kernel(const Params p) {
+  const uint32_t stride = gridDim.x * repro::kThreads;
+  for (uint32_t t = blockIdx.x * repro::kThreads + threadIdx.x; t < p.tasks; t += stride) {
+    const uint32_t row = (__umulhi(t, p.div.magic) + t) >> p.div.shift;
+    const uint32_t l = t - row * p.lanes;
+    const int32_t id = __ldg(p.ids + row);
+    uint32_t word = 0;
+    float delta = __int_as_float(0x7fc00000);
+    if (static_cast<uint32_t>(id) < p.n_ok) {
+      const uint8_t* src = p.codes + static_cast<int64_t>(id) * p.width + l * (BITS / 2);
+      if constexpr (VEC) {
+        word = load_word<BITS>(src);
+      } else {
+        word = load_bytes<BITS>(src, min(4u, p.d - 4 * l));
       }
+      delta = __ldg(p.step + id);
     }
+    float v[4];
 #pragma unroll
-    for (int s = 0; s < R; ++s) {
-      const uint32_t t = base + 32 * s;
-      if (t >= p.tasks) break;
-      float v[4];
+    for (int k = 0; k < 4; ++k) {
+      v[k] = __fmul_rn(__int2float_rn(code<BITS>(word, k)), delta);
+    }
+    if constexpr (VEC) {
+      reinterpret_cast<float4*>(p.out)[t] = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      float* o = p.out + static_cast<int64_t>(row) * p.d + 4 * l;
+      const uint32_t c = min(4u, p.d - 4 * l);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        v[k] = __fmul_rn(__int2float_rn(code<BITS>(word[s], k)), delta[s]);
-      }
-      if constexpr (VEC) {
-        reinterpret_cast<float4*>(p.out)[t] = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-        float* o = p.out + static_cast<int64_t>(row[s]) * p.d + 4 * l[s];
-        const uint32_t c = min(4u, p.d - 4 * l[s]);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (static_cast<uint32_t>(k) < c) o[k] = v[k];
-        }
+        if (static_cast<uint32_t>(k) < c) o[k] = v[k];
       }
     }
   }
 }
 
 template <int BITS, bool VEC>
-cudaError_t launch_rows(const Params& p, cudaStream_t s) {
-  const int64_t blocks = (int64_t{p.tasks} + kBlock * kRows - 1) / (kBlock * kRows);
-  const auto grid = static_cast<unsigned int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
-  gather_kernel<BITS, VEC, kRows><<<grid, kBlock, 0, s>>>(p);
+cudaError_t launch_tasks(const Params& p, cudaStream_t s) {
+  gather_kernel<BITS, VEC><<<repro::grid_for(p.tasks), repro::kThreads, 0, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -210,7 +174,7 @@ int launch_gather(const void* codes, const void* step, const void* ids, void* ou
   const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(codes) % (BITS / 2) == 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(vec ? launch_rows<BITS, true>(p, s) : launch_rows<BITS, false>(p, s));
+  return static_cast<int>(vec ? launch_tasks<BITS, true>(p, s) : launch_tasks<BITS, false>(p, s));
 }
 
 }  // namespace

@@ -81,7 +81,6 @@ constexpr int kBk = 32;      // keys per kv tile
 constexpr int kStages = 2;   // depth of the cp.async ring
 constexpr int kMaxHeads = 8; // query heads per block
 constexpr int kSmemLimit = 232448;  // bytes a block may opt in to on an H100
-constexpr int kSms = 132;           // H100 SXM
 constexpr float kNegInf = -1e30f;
 
 struct Args {
@@ -441,7 +440,7 @@ cudaError_t launch_kd(const Args& a, int B, cudaStream_t s) {
   int keys = a.causal ? min(a.T, a.S) : a.S;
   if (a.causal && a.window > 0) keys = min(keys, a.window + kRows - 1);
   const int tiles = (keys + kBk - 1) / kBk + (a.window > 0 ? 1 : 0);
-  int kvs = blocks >= kSms ? 1 : min(5, tiles);
+  int kvs = blocks >= repro::sm_count() ? 1 : min(5, tiles);
   while (kvs > 1 && (kvs * a.heads * 32 > max_threads<KD>() ||
                      smem_bytes<KD>(a.heads, kvs) > kSmemLimit)) {
     --kvs;

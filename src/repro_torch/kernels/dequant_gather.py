@@ -7,9 +7,8 @@ table: the fp32 table never exists.  Both are bitwise equal to the plain
 versions in :mod:`repro_torch.kernels.ref`.
 
 A gather at a serving wave takes a few microseconds on the card, less than
-its Python wrapper, so the path to the launch is kept short: the operand
-checks return at once when they pass, the bound C function is cached, and
-the device context is entered only when another card is current.
+its Python wrapper, so the path to the launch is kept short (see
+:mod:`repro_torch.kernels._build`).
 """
 from __future__ import annotations
 

@@ -29,7 +29,7 @@ def _launch(kernel: str, x: torch.Tensor, codes: torch.Tensor, step: torch.Tenso
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         _build.launch(
             kernel, "dequant_matmul", "dequant_matmul_launch",
             x.data_ptr(), codes.data_ptr(), step.data_ptr(), out.data_ptr(),

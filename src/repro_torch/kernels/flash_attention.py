@@ -53,7 +53,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(q.device):
+    with _build.on_device(q.device):
         _build.launch(
             kernel, "flash_attention", "flash_attention_fwd_launch",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, s, h, kh, d,

@@ -36,7 +36,7 @@ def _launch(kernel: str, codes: torch.Tensor, step, upd, noise, lr, *, bits: int
     out = torch.empty_like(codes)
     if rows * d == 0:
         return out
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         _build.launch(
             kernel, "lpt_update", "lpt_update_launch",
             codes.data_ptr(), step.data_ptr(), new_step.data_ptr(), upd.data_ptr(),

@@ -39,7 +39,7 @@ def _launch(kernel: str, codes: torch.Tensor, step, mu, nu, uniq, g_sum, noise, 
     if w_new.numel() == 0:
         return w_new
     f = ref.f32
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         _build.launch(
             kernel, "sparse_row_update", "sparse_row_update_launch",
             codes.data_ptr(), step.data_ptr(), mu.data_ptr(), nu.data_ptr(), uniq.data_ptr(),

@@ -34,7 +34,7 @@ def sr_round(w: torch.Tensor, step: torch.Tensor, noise: torch.Tensor,
     if out.numel() == 0:
         return out
     lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
-    with torch.cuda.device(w.device):
+    with _build.on_device(w.device):
         _build.launch(
             "sr_round", "sr_round", "sr_round_launch",
             w.data_ptr(), step.data_ptr(), noise.data_ptr(), out.data_ptr(),
@@ -60,7 +60,7 @@ def sr_round_seeded(w: torch.Tensor, step: torch.Tensor, seed: int, bits: int) -
     if out.numel() == 0:
         return out
     lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
-    with torch.cuda.device(w.device):
+    with _build.on_device(w.device):
         _build.launch(
             "sr_round_seeded", "sr_round", "sr_round_seeded_launch",
             w.data_ptr(), step.data_ptr(), out.data_ptr(), rows, cols, lo, hi,

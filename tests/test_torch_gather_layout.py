@@ -2,7 +2,7 @@
 
 The kernel cannot run on the CPU, so this file models what each of its
 threads does, step by step, and holds the model to the references: the grid
-and rows-per-thread choice of ``launch_rows``, the lane-task map (task t =
+of ``launch_tasks`` (``repro::grid_for``), the lane-task map (task t =
 row * ceil(d/4) + l, row found by ``FastDiv``'s multiply-high), the bytes a
 lane loads (a whole word on the aligned path, single bytes up to the row's
 last needed byte otherwise), the shift pair that sign-extends each code, the
@@ -14,7 +14,8 @@ equal to ``ref.dequant_gather(_packed)_ref`` and to the JAX package's
 ``ops.dequant_gather`` (run with ``use_kernel=True``, as
 tests/test_torch_kernels.py runs it; tolerance 0).
 
-The launch constants are read from the CUDA source, so the model follows it.
+The block size is read from the CUDA source; the card's SM count, which
+caps the grid, is a parameter of the model.
 """
 import pathlib
 import re
@@ -29,19 +30,10 @@ from repro.kernels import ops as jops
 from repro_torch.core import codestore as pcs
 from repro_torch.kernels import ref as pref
 
-SOURCE = (pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels"
-          / "csrc" / "dequant_gather.cu").read_text()
-
-
-def _const(pattern: str) -> int:
-    return int(re.search(pattern, SOURCE).group(1))
-
-
-BLOCK = _const(r"#define GATHER_BLOCK (\d+)")
-ROWS = _const(r"#define GATHER_ROWS (\d+)")
-SMS = _const(r"kSMs = (\d+);")
-assert "kMaxBlocks = kSMs * (2048 / kBlock);" in SOURCE
-MAX_BLOCKS = SMS * (2048 // BLOCK)
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
+BLOCK = int(re.search(r"constexpr int kThreads = (\d+);", (CSRC / "common.cuh").read_text())[1])
+assert "<<<repro::grid_for(p.tasks), repro::kThreads" in (CSRC / "dequant_gather.cu").read_text()
+H100_SMS = 132  # an H100 SXM; other cards hold fewer
 NAN_BITS = 0x7FC00000
 
 
@@ -61,46 +53,40 @@ def divide(t: np.ndarray, magic: int, shift: int) -> np.ndarray:
 
 
 def plan(d: int, b: int, bits: int, codes_offset: int = 0, out_offset: int = 0,
-         rows: int = ROWS):
-    """``launch_gather`` / ``launch_rows``: (lanes, tasks, vec, R, grid); a
-    build with ``-DGATHER_ROWS=rows`` when ``rows`` is given."""
+         sms: int = H100_SMS):
+    """``launch_gather`` / ``launch_tasks`` on a card of ``sms`` SMs:
+    (lanes, tasks, vec, grid), the grid capped at one resident wave of
+    2048 threads per SM (``repro::grid_for``)."""
     lanes = -(-d // 4)
     tasks = b * lanes
     vec = d % 4 == 0 and out_offset % 16 == 0 and codes_offset % (bits // 2) == 0
-    return lanes, tasks, vec, rows, min(-(-tasks // (BLOCK * rows)), MAX_BLOCKS)
+    return lanes, tasks, vec, min(-(-tasks // BLOCK), sms * (2048 // BLOCK))
 
 
-def thread_tasks(tasks: int, r: int, grid: int):
-    """Every (thread, sweep, s) of the grid-stride loop that stores: the
-    global thread index, the sweep, s and its task t."""
+def thread_tasks(tasks: int, grid: int):
+    """Every (thread, sweep) of the grid-stride loop that stores: the global
+    thread index, the sweep and its task t."""
     gtid = np.arange(grid * BLOCK, dtype=np.int64)
-    base0 = (gtid >> 5) * (32 * r) + (gtid & 31)
-    stride = grid * BLOCK * r
+    stride = grid * BLOCK
     out = []
     sweep = 0
-    while True:
-        base = base0 + sweep * stride
-        live = base < tasks
-        if not live.any():
-            break
-        for s in range(r):
-            t = base + 32 * s
-            keep = live & (t < tasks)
-            out.append(np.stack([gtid[keep], np.full(keep.sum(), sweep), np.full(keep.sum(), s),
-                                 t[keep]], axis=1))
+    while sweep * stride < tasks:
+        t = gtid + sweep * stride
+        keep = t < tasks
+        out.append(np.stack([gtid[keep], np.full(keep.sum(), sweep), t[keep]], axis=1))
         sweep += 1
-    return np.concatenate(out) if out else np.zeros((0, 4), np.int64)
+    return np.concatenate(out) if out else np.zeros((0, 3), np.int64)
 
 
 def model_gather(table: np.ndarray, step: np.ndarray, ids: np.ndarray, bits: int, d: int,
-                 codes_offset: int = 0, out_offset: int = 0, rows: int = ROWS):
+                 codes_offset: int = 0, out_offset: int = 0, sms: int = H100_SMS):
     """The kernel's output, how often each element was written, and the byte
     offsets (into the table) that its lanes read, with the id of each read."""
     n, width = table.shape
     assert width == -(-d * bits // 8)
-    lanes, tasks, vec, r, grid = plan(d, len(ids), bits, codes_offset, out_offset, rows)
+    lanes, tasks, vec, grid = plan(d, len(ids), bits, codes_offset, out_offset, sms)
     magic, shift = fast_div(lanes)
-    t = thread_tasks(tasks, r, grid)[:, 3]
+    t = thread_tasks(tasks, grid)[:, 2]
     row = divide(t, magic, shift).astype(np.int64)
     lane = t - row * lanes
     ident = ids[row].astype(np.int64)
@@ -211,7 +197,7 @@ def test_unaligned_operands_take_the_byte_path_with_the_same_rows(d, bits):
 
 
 @pytest.mark.parametrize("bits", [8, 4, 2])
-@pytest.mark.parametrize("d", [13, 16])
+@pytest.mark.parametrize("d", [13, 16, 576])
 def test_out_of_range_ids_give_nan_rows_and_read_nothing(d, bits):
     codes, step, ids = _operands(d, 9, bits, n=50)
     ids[[1, 4, 6]] = [50, -1, 2 ** 31 - 1]
@@ -225,45 +211,33 @@ def test_out_of_range_ids_give_nan_rows_and_read_nothing(d, bits):
     np.testing.assert_array_equal(out[~bad], _reference(codes, step, good, bits, d))
 
 
-@pytest.mark.parametrize("d", [16, 32, 576])
+@pytest.mark.parametrize("d", [4, 8, 16, 32, 576])
 def test_a_warp_stores_contiguous_16_byte_chunks(d):
-    # On the aligned path each store instruction of a warp (one sweep, one
-    # s) writes its lanes' 16 bytes side by side: 512 contiguous bytes.
-    lanes, tasks, vec, r, grid = plan(d, 777, 8)
+    # On the aligned path each store instruction of a warp (one sweep of the
+    # loop) writes its lanes' 16 bytes side by side: 512 contiguous bytes.
+    lanes, tasks, vec, grid = plan(d, 777, 8)
     assert vec
-    work = thread_tasks(tasks, r, grid)
-    warp = work[:, 0] >> 5
-    key = (warp * 64 + work[:, 1]) * 8 + work[:, 2]
+    work = thread_tasks(tasks, grid)
+    key = (work[:, 0] >> 5) * 64 + work[:, 1]
     order = np.lexsort((work[:, 0], key))
-    key, t = key[order], work[order, 3]
+    key, t = key[order], work[order, 2]
     same = key[1:] == key[:-1]
     assert (t[1:][same] - t[:-1][same] == 1).all()
     sizes = np.unique(key, return_counts=True)[1]
     assert (sizes <= 32).all() and (sizes < 32).sum() <= 1
 
 
-@pytest.mark.parametrize("d,b", [(16, 24_576), (576, 8), (576, 157), (576, 4_096),
-                                 (16, 4_428_281)])
-def test_the_grid_fills_the_card(d, b):
-    # A CTR wave (24,576 ids at d = 16) gives every SM blocks to run; LM
-    # decode and prefill are as wide as their tasks; past one resident grid
-    # the loop strides.
-    lanes, tasks, _, _, grid = plan(d, b, 8)
-    assert grid == min(-(-tasks // (BLOCK * ROWS)), MAX_BLOCKS)
-    if tasks >= BLOCK * ROWS * SMS:
-        assert grid >= SMS
-
-
-@pytest.mark.parametrize("rows", [1, 2, 4])
+@pytest.mark.parametrize("sms", [H100_SMS, 114, 16])
 @pytest.mark.parametrize("bits,d,b", [(8, 16, 24_576), (4, 15, 777), (2, 576, 157),
                                       (8, 32, 4_429), (4, 32, 70_000)])
-def test_builds_with_more_tasks_per_thread_write_each_output_once(bits, d, b, rows):
-    # The timing builds with -DGATHER_ROWS=2 or 4 (chip_smoke.gather_only)
-    # run the same map with R tasks 32 apart per thread; 70,000 ids of 8
-    # lanes pass one resident grid, so the loop strides.
+def test_the_grid_stride_loop_writes_each_output_once(bits, d, b, sms):
+    # The grid is capped at one resident wave of the card (132 SMs on an
+    # H100 SXM, 114 on the PCIe card, 16 as a small one); 70,000 ids of 8
+    # lanes pass that cap on each, and on 16 SMs so does the CTR wave, so
+    # the loop strides.
     codes, step, ids = _operands(d, b, bits)
     table = _table(codes, bits)
-    out, count, _, _ = model_gather(table, step, ids, bits, d, rows=rows)
+    out, count, _, _ = model_gather(table, step, ids, bits, d, sms=sms)
     assert (count == 1).all()
     np.testing.assert_array_equal(out.view(np.uint32),
                                   _reference(codes, step, ids, bits, d).view(np.uint32))
