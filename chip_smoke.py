@@ -142,6 +142,15 @@ KERNELS = {
                           "src/repro/kernels/sparse_row_update.py:71"),
     "sparse_row_update_packed": ("src/repro_torch/kernels/csrc/sparse_row_update.cu",
                                  "src/repro/kernels/sparse_row_update.py:139"),
+    # The row step with the duplicate-id sum in front of it folded in: the
+    # CTR training path's form (phases 6, 6b).  The two above, which take the
+    # summed gradients, leave the main path; their launches are phase 2b's.
+    "sparse_row_update_runs": ("src/repro_torch/kernels/csrc/sparse_row_update.cu",
+                               "src/repro/kernels/sparse_row_update.py:71 + "
+                               "src/repro/core/lpt.py:255"),
+    "sparse_row_update_runs_packed": ("src/repro_torch/kernels/csrc/sparse_row_update.cu",
+                                      "src/repro/kernels/sparse_row_update.py:139 + "
+                                      "src/repro/core/lpt.py:255"),
     # A helper of the training step: the reference's dense Adam is jnp that
     # XLA fuses, with no Pallas kernel.
     "adam_update": ("src/repro_torch/kernels/csrc/adam_update.cu",
@@ -344,73 +353,133 @@ def wave_gradients(torch, dev, batch):
     return ids.reshape(-1), g_rows.reshape(-1, spec.d), params, g_dense
 
 
+LONG_RUN = 1_100  # lookups of one id in phase 2b's synthetic wave
+
+
+def row_runs(torch, ids, g_occ, sentinel: int) -> dict:
+    """One wave's row-step operands: its dedup (``uniq``, ``inv``), runs
+    (``order``, ``starts``), per-lookup gradients and their segment sum."""
+    from repro_torch.core import lpt
+
+    k = ids.numel()
+    uniq, inv = lpt.dedup_ids(ids, sentinel)
+    order, starts = lpt.occurrence_runs(inv, k)
+    return {"uniq": uniq, "inv": inv, "order": order, "starts": starts, "g_occ": g_occ,
+            "g_sum": lpt.segment_sum(g_occ, inv, k)}
+
+
+def run_row_step(ops, o: dict, runs: bool, bits: int, wd: float = 5e-8,
+                 use_kernel: bool = True):
+    """One row step over the operands ``o`` (a CodeStore under "codes"): the
+    g_sum form, or the runs form that sums ``g_occ`` itself."""
+    c1, c2 = o.get("c", (0.1, 0.001))
+    if runs:
+        return ops.sparse_row_update_runs(o["codes"], o["step"], o["mu"], o["nu"], o["uniq"],
+                                          o["g_occ"], o["order"], o["starts"], o["noise"], 1e-3,
+                                          c1, c2, bits, weight_decay=wd, use_kernel=use_kernel)
+    return ops.sparse_row_update(o["codes"], o["step"], o["mu"], o["nu"], o["uniq"], o["g_sum"],
+                                 o["noise"], 1e-3, c1, c2, bits, weight_decay=wd,
+                                 use_kernel=use_kernel)
+
+
+def row_bound(o: dict, distinct: int, runs: bool) -> tuple[float, str]:
+    """Least time of one row step over the operands ``o``.  The g_sum form
+    (PR 14's count): per slot the id, g and noise rows in and w_new out; per
+    distinct row and the scratch row the codes in and out, Delta in, mu and
+    nu in and out; ~30 fp32 operations per element (fma counted as 2).  The
+    runs form: the lookups' g_occ rows and int64 order entries, starts and uniq,
+    the live rows' state, the live slots' noise, all of w_new; its
+    operations the live rows' steps and one add per looked-up element."""
+    k, m, d = o["uniq"].numel(), o["g_occ"].shape[0], o["codes"].d
+    width = o["codes"].data.shape[1]
+    if not runs:
+        nbytes = k * (4 + 3 * 4 * d) + (distinct + 1) * (2 * width + 4 + 4 * 4 * d)
+        return bound_ms(nbytes, k * d * 30)
+    nbytes = (m * (4 * d + 8) + 4 * (k + 1) + 4 * k
+              + (distinct + 1) * (2 * width + 4 + 16 * d) + distinct * 4 * d + k * 4 * d)
+    return bound_ms(nbytes, (distinct + 1) * d * 30 + m * d)
+
+
 def check_row_update(torch, dev, g, wave, g_occ, n_live: int, err: dict) -> dict:
-    """Phase 2b: the row-step kernels against their plain versions, bitwise,
-    over one training wave's ids and row gradients, on tables with and
-    without the scratch row; returns the full-table operands for timing."""
+    """Phase 2b: both forms of the row step against their plain versions,
+    bitwise: the g_sum form (``sparse_row_update(_packed)``) and the runs
+    form, which sums each id's lookups itself (``sparse_row_update_runs
+    (_packed)``), over one training wave's ids and DCN row gradients and over
+    that wave with LONG_RUN of its lookups turned into one id, on tables with
+    and without the scratch row and on ragged ones; returns the full-table
+    operands for timing and this phase's launches (the g_sum form's count:
+    it has left the main path)."""
     from repro_torch.core import lpt, quant
     from repro_torch.core.codestore import CodeStore
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import sparse_row_update as row_kernel
+    from repro_torch.kernels import ops
 
+    ops.reset_kernel_calls()
     k = wave.numel()
-    uniq, inv = lpt.dedup_ids(wave, n_live)
-    g_sum = lpt.segment_sum(g_occ, inv, k)
-    check(torch.equal(g_sum, lpt.segment_sum(g_occ, inv, k)), "segment sum differs between calls")
-    check(torch.equal(g_sum.cpu(), lpt.segment_sum(g_occ.cpu(), inv.cpu(), k)),
+    real = row_runs(torch, wave, g_occ, n_live)
+    check(torch.equal(real["g_sum"], lpt.segment_sum(g_occ, real["inv"], k)),
+          "segment sum differs between calls")
+    check(torch.equal(real["g_sum"].cpu(), lpt.segment_sum(g_occ.cpu(), real["inv"].cpu(), k)),
           "segment sum on the card differs from the CPU's in-order sum")
-    distinct = int((uniq < n_live).sum())
+    long_ids = wave.clone()
+    long_ids[torch.randperm(k, generator=g, device=dev)[:LONG_RUN]] = n_live // 3
+    longw = row_runs(torch, long_ids, g_occ, n_live)
+    run_len = longw["starts"][1:] - longw["starts"][:-1]
+    check(int(run_len.max()) >= LONG_RUN, f"the long run has {int(run_len.max())} lookups")
+    distinct = int((real["uniq"] < n_live).sum())
     ragged_live = 36  # a 37 x 13 table has row 36 as its scratch row; 36 x 13 none
     r_ids = (torch.rand(300, generator=g, device=dev) ** 3 * ragged_live).to(torch.int32)
     r_ids[0] = ragged_live - 1  # the last live row is in the wave with the sentinels
-    r_uniq, r_inv = lpt.dedup_ids(r_ids, ragged_live)
-    r_g = lpt.segment_sum(torch.randn(300, 13, generator=g, device=dev) * 0.1, r_inv, 300)
+    ragged = row_runs(torch, r_ids, torch.randn(300, 13, generator=g, device=dev) * 0.1,
+                      ragged_live)
     n_full = -(-(n_live + 1) // 8) * 8
-    # (table rows, live rows, d, uniq, g_sum): the scratch-row tables
-    # (pad_to_tiles) and the paper's tables, whose sentinel lies past the end.
-    cases = [(n_full, n_live, 16, uniq, g_sum), (n_live, n_live, 16, uniq, g_sum),
-             (ragged_live + 1, ragged_live, 13, r_uniq, r_g),
-             (ragged_live, ragged_live, 13, r_uniq, r_g)]
-    c1, c2 = lpt.adam_bias_corrections(3)
+    # (table rows, live rows, d, waves): the scratch-row tables (pad_to_tiles)
+    # and the paper's tables, whose sentinel lies past the end.
+    cases = [(n_full, n_live, 16, {"real": real, "long": longw}),
+             (n_live, n_live, 16, {"real": real, "long": longw}),
+             (ragged_live + 1, ragged_live, 13, {"ragged": ragged}),
+             (ragged_live, ragged_live, 13, {"ragged": ragged})]
+    c = lpt.adam_bias_corrections(3)
     timing = {}
-    for n, live_rows, d, ids, gs in cases:
+    for n, live_rows, d, waves in cases:
         for bits in (8, 4, 2):
             lo, hi = quant.code_bounds(bits)
             codes = torch.randint(lo, hi + 1, (n, d), generator=g, device=dev, dtype=torch.int8)
             step = torch.rand(n, generator=g, device=dev) * 0.01 + 1e-3
             mu = torch.randn(n, d, generator=g, device=dev) * 1e-3
             nu = torch.rand(n, d, generator=g, device=dev) * 1e-5
-            noise = torch.rand(ids.numel(), d, generator=g, device=dev)
-            for wd in (0.0, 5e-8):
-                outs = []
-                for use_kernel in (True, False):
-                    store = CodeStore.from_codes(codes.clone(), bits)
-                    m, v = mu.clone(), nu.clone()
-                    args = (step, m, v, ids, gs, noise, 1e-3, c1, c2, bits)
-                    if store.packed:
-                        fn = row_kernel.sparse_row_update_packed if use_kernel else \
-                            ref.sparse_row_update_packed_ref
-                        w = fn(store.data, *args, d, weight_decay=wd)
-                    else:
-                        fn = row_kernel.sparse_row_update if use_kernel else ref.sparse_row_update_ref
-                        w = fn(store.data, *args, weight_decay=wd)
-                    outs.append((store.data[:live_rows], m[:live_rows], v[:live_rows],
-                                 w[ids < live_rows]))
-                    check(bool(torch.isfinite(w).all()), f"{n}x{d} bits={bits}: w_new not finite")
-                torch.cuda.synchronize()
-                name = "sparse_row_update_packed" if bits < 8 else "sparse_row_update"
-                e = max(float((a.float() - b.float()).abs().max()) for a, b in zip(*outs))
-                err[name] = max(err[name], e)
-                check(all(torch.equal(a, b) for a, b in zip(*outs)),
-                      f"{name} {n}x{d} bits={bits} wd={wd}: max err {e}")
-            if n == n_full and bits in (8, 4):
-                timing[bits] = {"codes": CodeStore.from_codes(codes, bits), "step": step,
-                                "mu": mu, "nu": nu, "uniq": ids, "g_sum": gs, "noise": noise}
-    log(f"[check] sparse_row_update(_packed) bitwise at {n_full}x16 and 37x13 (scratch row) and "
-        f"at {n_live}x16 and 36x13 (sentinel past the table), bits 8, 4, 2, weight decay 0 and "
-        f"5e-8, over one wave of {k} ids ({distinct} distinct + sentinel padding) and its DCN "
-        "row gradients; segment sum equal to the CPU's, twice")
+            for label, w in waves.items():
+                noise = torch.rand(w["uniq"].numel(), d, generator=g, device=dev)
+                for wd in (0.0, 5e-8):
+                    for runs in (False, True):
+                        outs = []
+                        for use_kernel in (True, False):
+                            o = {**w, "codes": CodeStore.from_codes(codes.clone(), bits),
+                                 "step": step, "mu": mu.clone(), "nu": nu.clone(),
+                                 "noise": noise, "c": c}
+                            out = run_row_step(ops, o, runs, bits, wd, use_kernel)
+                            check(bool(torch.isfinite(out).all()),
+                                  f"{n}x{d} bits={bits}: w_new not finite")
+                            outs.append((o["codes"].data[:live_rows], o["mu"][:live_rows],
+                                         o["nu"][:live_rows], out[w["uniq"] < live_rows]))
+                        torch.cuda.synchronize()
+                        name = ("sparse_row_update_runs" if runs else "sparse_row_update") + \
+                            ("_packed" if bits < 8 else "")
+                        e = max(float((a.float() - b.float()).abs().max()) for a, b in zip(*outs))
+                        err[name] = max(err[name], e)
+                        check(all(torch.equal(a, b) for a, b in zip(*outs)),
+                              f"{name} {n}x{d} bits={bits} wd={wd} {label} wave: max err {e}")
+                if n == n_full and bits in (8, 4) and label == "real":
+                    timing[bits] = {**w, "codes": CodeStore.from_codes(codes, bits),
+                                    "step": step, "mu": mu, "nu": nu, "noise": noise}
+    launches = ops.kernel_calls()
+    log(f"[check] sparse_row_update(_packed) and sparse_row_update_runs(_packed) bitwise at "
+        f"{n_full}x16 and 37x13 (scratch row) and at {n_live}x16 and 36x13 (sentinel past the "
+        f"table), bits 8, 4, 2, weight decay 0 and 5e-8, over one wave of {k} ids ({distinct} "
+        f"distinct + sentinel padding; runs up to {int((real['starts'][1:] - real['starts'][:-1]).max())} "
+        f"long) and its DCN row gradients, and over that wave with {LONG_RUN} lookups of one id; "
+        f"segment sum equal to the CPU's, twice; launches {launches}")
     timing["distinct"] = distinct
+    timing["launches"] = launches
     return timing
 
 
@@ -454,8 +523,9 @@ class Batches(list):
 def train_cli(n: int) -> dict:
     """Phase 6b: ``python -m repro_torch.launch.train ctr`` at full width with
     the paper's setup (no scratch row: the dedup sentinel lies past the
-    table), alpt at 8 bits: the row kernel and the dense Adam kernel launch
-    once per step, nothing falls back; returns the run's launches."""
+    table), alpt at 8 bits: the row kernel (the runs form, which sums the
+    gradients itself) and the dense Adam kernel launch once per step, the
+    g_sum form never, nothing falls back; returns the run's launches."""
     from repro_torch.launch import train as train_cli_mod
 
     out = io.StringIO()
@@ -467,7 +537,8 @@ def train_cli(n: int) -> dict:
     check(rc == 0 and bool(lines), f"training CLI exited {rc}")
     r = json.loads(lines[-1])
     launches = r["kernel_launches"]
-    check(launches.get("sparse_row_update") == CLI_STEPS == launches.get("adam_update")
+    check(launches.get("sparse_row_update_runs") == CLI_STEPS == launches.get("adam_update")
+          and "sparse_row_update" not in launches
           and launches.get("dequant_gather", 0) >= CLI_STEPS, f"training CLI launches {launches}")
     check(r["fallbacks"] == [], f"training CLI fallbacks {r['fallbacks']}")
     check(all(math.isfinite(x) for x in r["losses"]), f"training CLI losses {r['losses']}")
@@ -491,7 +562,7 @@ def train(torch, np, dev, bits: int, batches, test_ids) -> dict:
     spec = dataclasses.replace(spec, pad_to_tiles=True)
     cfg = TrainerConfig(spec=spec, dcn=dcn, seed=100 + bits)
     trainer = CTRTrainer(cfg, device=dev)
-    row = "sparse_row_update_packed" if bits < 8 else "sparse_row_update"
+    row = "sparse_row_update_runs_packed" if bits < 8 else "sparse_row_update_runs"
     gather = "dequant_gather_packed" if bits < 8 else "dequant_gather"
 
     ops.reset_kernel_calls()  # the main path starts here ...
@@ -507,6 +578,8 @@ def train(torch, np, dev, bits: int, batches, test_ids) -> dict:
     trained = ops.kernel_calls()
     steps = len(batches)
     check(trained.get(row, 0) == steps, f"bits={bits}: {row} launched {trained.get(row)} times")
+    check(not any(trained.get(k, 0) for k in ("sparse_row_update", "sparse_row_update_packed")),
+          f"bits={bits}: the g_sum form of the row step ran on the main path: {trained}")
     check(trained.get(gather, 0) >= steps, f"bits={bits}: {gather} launched {trained.get(gather)}")
     check(trained.get("sr_round", 0) == steps + 1, f"bits={bits}: sr_round {trained}")
     check(trained.get("adam_update", 0) == steps, f"bits={bits}: adam_update {trained}")
@@ -600,9 +673,11 @@ def profile_window(torch, run, steps: int, label: str) -> None:
         return "; ".join(f"{e.key[:60]} {e.self_device_time_total / steps:.1f}" for e in
                          sorted(events, key=lambda e: -e.self_device_time_total)[:5])
 
+    sums = sum(e.count for e in kernels if "indexing_backward" in e.key) / steps
     log(f"[profile] {label}: {steps} steps in {wall_us / 1e3:.2f} ms (host clock, profiler "
         f"on); kernels busy {busy_us / 1e3:.3f} ms = {busy_us / wall_us:.1%}; "
-        f"{sum(e.count for e in kernels) / steps:.0f} kernels per step; top kernels (us per "
+        f"{sum(e.count for e in kernels) / steps:.0f} kernels per step, {sums:g} of them "
+        f"indexing_backward_kernel (index_put_'s sorted sum); top kernels (us per "
         f"step): {top(kernels)}; top operators by their kernels' time: "
         f"{top([e for e in timed if e not in kernels])}")
 
@@ -935,7 +1010,8 @@ def other_builds(name: str, specs: dict) -> dict:
         check(proc.returncode == 0, f"nvcc failed for {name} {label}:\n{out}")
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in _build.SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = list(argtypes)
+            if hasattr(lib, fn):  # another commit's source may lack an entry point
+                getattr(lib, fn).argtypes = list(argtypes)
         libs[label] = lib
     return libs
 
@@ -1320,13 +1396,13 @@ def time_gathers(torch, tables: dict, pools: dict, flush, variants=None):
     return timings, notes
 
 
-def host_enqueue(roots: dict, rounds: int = 15) -> dict:
-    """``HOST_PROBE`` in one process per checkout (``roots``: {name: root}),
+def host_enqueue(roots: dict, rounds: int = 15, probe: str = HOST_PROBE) -> dict:
+    """``probe`` in one process per checkout (``roots``: {name: root}),
     all alive at once and asked in turns, the order reversed every round
     (A B, B A, ...), so that a change in the host's load reaches both alike:
     {key: {name: median us per call}}."""
     procs = {name: subprocess.Popen(
-        [sys.executable, "-c", HOST_PROBE], cwd=root, stdin=subprocess.PIPE,
+        [sys.executable, "-c", probe], cwd=root, stdin=subprocess.PIPE,
         stdout=subprocess.PIPE, text=True, env={**os.environ, "PYTHONPATH": str(root / "src")})
         for name, root in roots.items()}
     try:
@@ -1423,6 +1499,243 @@ def gather_only(baseline: str | None = None) -> int:
             log(f"[host] {key}, us per call (median of 15 rounds of 100 calls, the two "
                 f"processes in turns): baseline {us['baseline']:.2f}, this checkout "
                 f"{us['this checkout']:.2f}")
+    log(card_name())
+    return 0
+
+
+# The row step alone (row_only).  Host time of lpt.sparse_apply with the
+# kernels on, at the CTR wave on the full padded Avazu table, in a checkout
+# (its src on PYTHONPATH), run as a server in the manner of HOST_PROBE: per
+# key read from stdin, the mean wall time of 50 calls back to back (each
+# call's torch.unique waits for the card, so this is what a training step
+# pays on the host), or the number of aten operations one call dispatches.
+ROW_HOST_PROBE = f"""
+import json, sys, time
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from repro_torch.core import lpt
+from repro_torch.core.codestore import CodeStore
+from repro_torch.data.ctr_synth import CTRSynthetic, avazu_like
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(0)
+data = CTRSynthetic(avazu_like({SCALE}))
+n_live = data.cfg.n_features
+n = -(-(n_live + 1) // 8) * 8
+ids = torch.from_numpy(data.batch("train", 0, {BATCH})[0]).to(dev)
+g_rows = torch.randn(*ids.shape, 16, generator=g, device=dev) * 0.01
+noise = torch.rand(ids.numel(), 16, generator=g, device=dev)
+
+class Count(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {{}}))
+
+cases = {{}}
+for bits in (8, 4):
+    codes = torch.randint(-8, 8, (n, 16), generator=g, device=dev, dtype=torch.int8)
+    table = lpt.LPTTable(codes=CodeStore.from_codes(codes, bits),
+                         step=torch.rand(n, generator=g, device=dev) * 0.01 + 1e-3,
+                         mu=torch.zeros(n, 16, device=dev), nu=torch.zeros(n, 16, device=dev),
+                         count=3)
+    def call(table=table, bits=bits):
+        lpt.sparse_apply(table, ids, g_rows, lr=1e-3, bits=bits, noise=noise,
+                         weight_decay=5e-8, id_space=n_live, use_kernels=True)
+    def ops_per_call(call=call):
+        with Count() as c:
+            call()
+        return c.n
+    cases[f"sparse_apply bits={{bits}}: us per call"] = call
+    cases[f"sparse_apply bits={{bits}}: aten ops per call"] = ops_per_call
+for key, fn in cases.items():
+    for _ in range(5):
+        fn()
+torch.cuda.synchronize()
+print(json.dumps(list(cases)), flush=True)
+for line in sys.stdin:
+    key = line.strip()
+    if key.endswith("aten ops per call"):
+        print(cases[key](), flush=True)
+        continue
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        cases[key]()
+    torch.cuda.synchronize()
+    print((time.perf_counter() - t0) / 50 * 1e6, flush=True)
+"""
+ROW_POOL = 8  # distinct training waves the back-to-back timing cycles through
+
+
+def b2b_or_nan(torch, fns) -> float:
+    """:func:`time_b2b`, or NaN where the calls wait for the card on the
+    host (then there is no back-to-back run to time)."""
+    try:
+        return time_b2b(torch, fns)
+    except SmokeFailure:
+        return float("nan")
+
+
+def row_variant(torch, lib, runs: bool = False):
+    """``run(o, bits, g_sum=None) -> w_new`` through another build's g_sum
+    form (``sparse_row_update_launch``) or, with ``runs``, its runs form
+    (``sparse_row_update_runs_launch``), at run_row_step's scalars; not
+    counted."""
+    from repro_torch.kernels import _build, ref
+
+    def run(o, bits, g_sum=None):
+        codes = o["codes"]
+        k, d = o["uniq"].numel(), codes.d
+        w_new = torch.empty(k, d, device=codes.data.device)
+        head = (codes.data.data_ptr(), o["step"].data_ptr(), o["mu"].data_ptr(),
+                o["nu"].data_ptr(), o["uniq"].data_ptr())
+        tail = (codes.bits if codes.packed else 8, bits, ref.f32(1e-3), ref.f32(0.1),
+                ref.f32(0.001), ref.B1, ref.A1, ref.B2, ref.A2, ref.EPS, ref.f32(5e-8),
+                _build.stream_of(w_new.device))
+        if runs:
+            err = lib.sparse_row_update_runs_launch(
+                *head, o["g_occ"].data_ptr(), o["order"].data_ptr(), o["starts"].data_ptr(),
+                o["noise"].data_ptr(), w_new.data_ptr(), codes.n, d, k, o["g_occ"].shape[0],
+                codes.data.shape[1], *tail)
+        else:
+            g_sum = o["g_sum"] if g_sum is None else g_sum
+            err = lib.sparse_row_update_launch(
+                *head, g_sum.data_ptr(), o["noise"].data_ptr(), w_new.data_ptr(), codes.n, d, k,
+                codes.data.shape[1], *tail)
+        check(err == 0, f"row variant: launch error {err}")
+        return w_new
+
+    return run
+
+
+def row_only(baseline: str | None = None) -> int:
+    """Build the row step, check both forms as phase 2b does, and time them
+    at the CTR wave (1,024 Avazu requests) on the full padded Avazu table at
+    8 and 4 bits: per call (L2 flushed, ``time_ms``) and back to back over
+    ROW_POOL distinct waves (``time_b2b``), beside their bounds, the plain
+    versions and the timer's floor; the g_sum form also built with
+    ROW_TASKS=2.  ``baseline`` (the parent commit's sparse_row_update.cu
+    inside an unpacked checkout: ``git archive HEAD src/repro_torch | tar -x
+    -C build/parent``) is built, checked bitwise and timed in turns with this
+    one (baseline, this, this, baseline): its g_sum kernel against this one's,
+    and the segment sum + its kernel against the runs form; and the host
+    time of ``lpt.sparse_apply`` in that checkout and in this one, in a
+    process each asked in turns (:func:`host_enqueue`):
+    ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.row_only())"``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[chip_smoke] torch.cuda.is_available() is False: needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import lpt
+    from repro_torch.data.ctr_synth import CTRSynthetic, avazu_like
+    from repro_torch.kernels import _build, ops
+
+    t0 = time.perf_counter()
+    here = _build.CSRC / "sparse_row_update.cu"
+    specs = {"2 tasks per thread": (here, ("-DROW_TASKS=2",)),
+             **{f"{t}-slot tiles": (here, (f"-DRUNS_TILE_SLOTS={t}",)) for t in (32, 16, 8, 4)}}
+    runs_labels = tuple(f"{t}-slot tiles" for t in (32, 16, 8, 4))  # the runs form's
+    if baseline is not None:
+        specs["baseline"] = (pathlib.Path(baseline).resolve(), ())
+    _build.library("sparse_row_update")
+    variants = {label: row_variant(torch, lib, label in runs_labels)
+                for label, lib in other_builds("sparse_row_update", specs).items()}
+    log(f"[build] sparse_row_update in {time.perf_counter() - t0:.1f}s, with {list(specs)}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    data = CTRSynthetic(avazu_like(SCALE))
+    n = data.cfg.n_features
+    batches = [data.batch("train", i, BATCH) for i in range(ROW_POOL)]
+    wave, g_occ, _, _ = wave_gradients(torch, dev, batches[0])
+    err = {k: 0.0 for k in KERNELS}
+    row_ops = check_row_update(torch, dev, g, wave, g_occ, n, err)
+    log(f"[check] max err vs plain: " + str({k: v for k, v in err.items() if "row" in k}))
+    distinct = row_ops["distinct"]
+    flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    flush = flush_buf.zero_
+    for bits in (8, 4):
+        o = row_ops[bits]
+        k = o["uniq"].numel()
+        pool = [o] + [{**o, **row_runs(torch, torch.from_numpy(b[0].reshape(-1)).to(dev),
+                                       torch.randn(k, 16, generator=g, device=dev) * 0.01, n),
+                       "noise": torch.rand(k, 16, generator=g, device=dev)}
+                      for b in batches[1:]]
+        for label, run in variants.items():
+            plain = {**o, "mu": o["mu"].clone(), "nu": o["nu"].clone(),
+                     "codes": dataclasses.replace(o["codes"], data=o["codes"].data.clone())}
+            mine = {**plain, "mu": o["mu"].clone(), "nu": o["nu"].clone(),
+                    "codes": dataclasses.replace(o["codes"], data=o["codes"].data.clone())}
+            got = run(mine, bits)
+            want = run_row_step(ops, plain, label in runs_labels, bits, use_kernel=False)
+            live = o["uniq"] < n
+            check(torch.equal(got[live], want[live]) and torch.equal(mine["mu"][:n], plain["mu"][:n])
+                  and torch.equal(mine["nu"][:n], plain["nu"][:n])
+                  and torch.equal(mine["codes"].data[:n], plain["codes"].data[:n]),
+                  f"the {label} build differs from the plain row step: bits={bits}")
+        pair = variants.get("baseline", lambda o, bits, g_sum=None: run_row_step(
+            ops, {**o, "g_sum": o["g_sum"] if g_sum is None else g_sum}, False, bits))
+        pair_label = "baseline" if baseline else "this g_sum form"
+
+        def segsum_pair(o):
+            return pair(o, bits, lpt.segment_sum(o["g_occ"], o["inv"], o["uniq"].numel()))
+
+        def runs_from_inv(o):
+            order, starts = lpt.occurrence_runs(o["inv"], o["uniq"].numel())
+            return run_row_step(ops, {**o, "order": order, "starts": starts}, True, bits)
+
+        forms = {
+            "g_sum form": (lambda o: run_row_step(ops, o, False, bits),
+                           {v: (lambda o, r=r: r(o, bits)) for v, r in variants.items()
+                            if v not in runs_labels}),
+            "runs form": (lambda o: run_row_step(ops, o, True, bits),
+                          {**{v: (lambda o, r=variants[v]: r(o, bits)) for v in runs_labels},
+                           f"segment sum + {pair_label} kernel": segsum_pair,
+                           "occurrence_runs + runs form": runs_from_inv}),
+        }
+        for form, (change, others) in forms.items():
+            per_call = in_turns(lambda f: time_ms(torch, f, 50, flush)[0],
+                                lambda: change(o), {v: (lambda f=f: f(o)) for v, f in others.items()})
+            b2b = in_turns(lambda fns: b2b_or_nan(torch, fns),
+                           [lambda p=p: change(p) for p in pool],
+                           {v: [lambda p=p, f=f: f(p) for p in pool] for v, f in others.items()})
+            plain_ms = time_ms(torch, lambda: run_row_step(ops, o, form == "runs form", bits,
+                                                           use_kernel=False), 10, flush)[0]
+            b_ms, b_by = row_bound(o, distinct, form == "runs form")
+            log(f"[time] row step bits={bits}, {form}, CTR wave ({k} slots, {distinct} distinct): "
+                f"per call (L2 flushed) {per_call[0][0] * 1e3:.2f}, {per_call[0][1] * 1e3:.2f} us"
+                + "".join(f"; {v} {a * 1e3:.2f}, {z * 1e3:.2f}" for v, (a, z) in per_call[1].items())
+                + f"; back to back ({B2B_CALLS} calls over {len(pool)} waves) "
+                f"{b2b[0][0] * 1e3:.2f}, {b2b[0][1] * 1e3:.2f} us"
+                + "".join(f"; {v} {a * 1e3:.2f}, {z * 1e3:.2f}" for v, (a, z) in b2b[1].items())
+                + f"; bound {b_ms * 1e3:.3f} us by {b_by}; plain {plain_ms * 1e3:.2f} us")
+    # What the runs' operands cost on the card, beside the sum they replace.
+    o = row_ops[8]
+    inv, k = o["inv"], o["uniq"].numel()
+    inv32, sorted_inv = inv.to(torch.int32), torch.sort(inv).values
+    parts = {"torch.sort(inv, stable=True), int64 keys": lambda: torch.sort(inv, stable=True),
+             "the same, int32 keys": lambda: torch.sort(inv32, stable=True),
+             "arange + searchsorted": lambda: torch.searchsorted(
+                 sorted_inv, torch.arange(k + 1, device=dev), out_int32=True),
+             "occurrence_runs": lambda: lpt.occurrence_runs(inv, k),
+             "segment_sum (zeros + index_put_)": lambda: lpt.segment_sum(o["g_occ"], inv, k)}
+    log("[time] the runs' operands at the CTR wave, per call (L2 flushed): " + "; ".join(
+        f"{label} {time_ms(torch, fn, 30, flush)[0] * 1e3:.2f} us" for label, fn in parts.items()))
+    one_el = torch.zeros(1, device=dev)
+    floor = time_ms(torch, lambda: one_el.add_(1), 30, flush)[0]
+    log(f"[time] the timer's floor, a 1-element add_: {floor * 1e3:.2f} us per call, "
+        f"{time_b2b(torch, [lambda: one_el.add_(1)]) * 1e3:.2f} us back to back")
+    if baseline is not None:
+        other = pathlib.Path(baseline).resolve().parents[4]
+        check((other / "src" / "repro_torch").is_dir(), f"{other} is not a checkout")
+        for key, v in host_enqueue({"baseline": other, "this checkout": ROOT}, 11,
+                                   ROW_HOST_PROBE).items():
+            log(f"[host] {key} (median of 11 rounds, the two processes in turns): baseline "
+                f"{v['baseline']:.2f}, this checkout {v['this checkout']:.2f}")
     log(card_name())
     return 0
 
@@ -1977,6 +2290,10 @@ def main() -> int:
     # sr_round_seeded has no main path (no caller in the JAX package but its
     # kernel test): its launches are its unbiasedness run's (phase 2e).
     launches["sr_round_seeded"] += wb_ops["seeded_launches"]
+    # The g_sum form of the row step left the main path (the runs form took
+    # it over): its launches are phase 2b's.
+    for kernel in ("sparse_row_update", "sparse_row_update_packed"):
+        launches[kernel] += row_ops["launches"].get(kernel, 0)
 
     # 5. timing at the slice's shapes
     flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
@@ -2004,22 +2321,17 @@ def main() -> int:
                                              dtype=torch.int32) for _ in range(GATHER_POOL)])
     gather_rows, gather_notes = time_gathers(torch, tables, pools, flush)
     timings.update(gather_rows)
-    k, distinct = row_ops[8]["uniq"].numel(), row_ops["distinct"]
-    for bits, kernel in ((8, "sparse_row_update"), (4, "sparse_row_update_packed")):
+    distinct = row_ops["distinct"]
+    for bits in (8, 4):
         o = row_ops[bits]
-        codes, width, d = o["codes"], o["codes"].data.shape[1], o["codes"].d
-        # Per slot: id, g and noise rows in, w_new out.  Per distinct row (and
-        # the scratch row): codes in and out, Delta in, mu and nu in and out.
-        # About 30 fp32 operations per element (fma counted as 2).
-        nbytes = k * (4 + 3 * 4 * d) + (distinct + 1) * (2 * width + 4 + 4 * 4 * d)
-
-        def run(use_kernel, o=o, codes=codes):
-            return ops.sparse_row_update(codes, o["step"], o["mu"], o["nu"], o["uniq"],
-                                         o["g_sum"], o["noise"], 1e-3, 0.1, 0.001, bits,
-                                         weight_decay=5e-8, use_kernel=use_kernel)
-        timings[kernel] = (*time_ms(torch, lambda: run(True), 50, flush),
-                           time_ms(torch, lambda: run(False), 20, flush)[0],
-                           *bound_ms(nbytes, k * d * 30), None)
+        for runs in (False, True):
+            kernel = ("sparse_row_update_runs" if runs else "sparse_row_update") + \
+                ("_packed" if bits < 8 else "")
+            timings[kernel] = (
+                *time_ms(torch, lambda: run_row_step(ops, o, runs, bits), 50, flush),
+                time_ms(torch, lambda: run_row_step(ops, o, runs, bits, use_kernel=False), 20,
+                        flush)[0],
+                *row_bound(o, distinct, runs), None)
     a = adam_ops
     n_el = sum(x.numel() for x in a["params"])
 
@@ -2044,7 +2356,8 @@ def main() -> int:
         log(line)
     log(f"[time] one wave = {wave.numel()} ids ({uniq} distinct rows); L2 flushed before "
         "each gather and row-step launch; sr_round over the full table; the row step over "
-        f"the full padded table at the training wave's {k} slots ({distinct} distinct); "
+        f"the full padded table at the training wave's {row_ops[8]['uniq'].numel()} slots "
+        f"({distinct} distinct); "
         f"adam_update over the DCN's {len(a['params'])} tensors ({n_el} parameters)")
     for bits, r in trains.items():
         log(f"[time] training step, bits={bits}: {r['ms_per_step']:.2f} ms/step on the host "

@@ -9,9 +9,9 @@ re-quantizes with SR or DR (Eq. 8):
 
 Ported: :func:`init_table` (SR through the ``sr_round`` kernel),
 :func:`lookup`, the sparse CTR path :func:`sparse_apply` (ids
-de-duplicated, per-row gradients summed in occurrence order, only those rows
-updated through the ``sparse_row_update`` kernel) and the dense LM path
-:func:`dense_apply` (the whole table's gradient, the optimizer direction
+de-duplicated, only those rows updated, through the ``sparse_row_update_runs``
+kernel, which sums each row's gradients in occurrence order) and the dense
+LM path :func:`dense_apply` (the whole table's gradient, the optimizer direction
 formed in PyTorch, the write-back through the ``lpt_fused_update`` kernel,
 untouched rows kept bit-identical).  Unlike the reference, whose arrays are
 immutable, :func:`sparse_apply` updates the table's tensors **in place** and
@@ -152,21 +152,24 @@ def dedup_ids(ids: torch.Tensor, n_rows: int) -> tuple[torch.Tensor, torch.Tenso
     return uniq, inv.reshape(-1).to(torch.int64)
 
 
-def segment_sum(values: torch.Tensor, inv: torch.Tensor, k: int) -> torch.Tensor:
-    """``out[inv[i]] += values[i]`` into zeros [k, ...], in occurrence order.
+# ``out[inv[i]] += values[i]`` in occurrence order (the plain path's sum and
+# ALPT's Delta-step backward); it lives beside the kernels' plain versions.
+segment_sum = ref.segment_sum
 
-    The reference's ``zeros.at[inv].add(g)`` adds each slot's occurrences in
-    order, one rounding each.  On the CPU ``index_add_`` walks the indices in
-    order.  On the card ``index_add_`` uses atomics, whose order changes from
-    run to run; ``index_put_(accumulate=True)`` instead sorts the indices
-    with a stable radix sort and adds each slot's run sequentially, which is
-    the same order and deterministic (``chip_smoke.py`` holds it bitwise
-    against the CPU).
-    """
-    out = torch.zeros((k, *values.shape[1:]), dtype=values.dtype, device=values.device)
-    if out.device.type == "cpu":
-        return out.index_add_(0, inv, values)
-    return out.index_put_((inv,), values, accumulate=True)
+
+def occurrence_runs(inv: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(order int64 [M], starts int32 [k + 1])`` for the slots ``inv`` [M]
+    that :func:`dedup_ids` gives: ``order`` the lookups grouped by slot, in
+    occurrence order within a slot (a stable sort of ``inv``), and slot s's
+    run ``order[starts[s]:starts[s + 1]]`` (empty for the sentinel padding).
+    The operands of ``ops.sparse_row_update_runs``.  The keys are sorted as
+    int32 (slots < 2^31): a radix sort of half the key bits, 58 against 91 us
+    at a CTR wave on an H100 (``chip_smoke.row_only``); ``order`` stays int64,
+    as the sort gives it."""
+    sorted_inv, order = torch.sort(inv.to(torch.int32), stable=True)
+    starts = torch.searchsorted(sorted_inv, torch.arange(k + 1, dtype=torch.int32,
+                                                         device=inv.device), out_int32=True)
+    return order, starts
 
 
 def set_rows(t: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor) -> None:
@@ -223,11 +226,12 @@ def sparse_apply(table: LPTTable, ids: torch.Tensor, grad_rows: torch.Tensor, *,
     ``id_space`` is the logical id range (``spec.n``), the dedup sentinel:
     on ``pad_to_tiles`` tables it is a dead scratch row below ``n_rows``,
     otherwise it lies past the table and its writes are dropped.
-    ``use_kernels`` takes the fused ``ops.sparse_row_update`` kernel when
-    eligible (SR, row-Adam, no ``new_step``); anything else is a counted
-    fallback (``ops.fallbacks()``) to the plain path below, which is bitwise
-    equal on every live row and real slot (the sentinel's slots and scratch
-    row are unspecified on both).
+    ``use_kernels`` takes the fused ``ops.sparse_row_update_runs`` kernel
+    when eligible (SR, row-Adam, no ``new_step``), which sums each id's
+    gradients itself (:func:`occurrence_runs`); anything else is a counted
+    fallback (``ops.fallbacks()``) to the plain path below, which sums with
+    :func:`segment_sum` and is bitwise equal on every live row and real
+    slot (the sentinel's slots and scratch row are unspecified on both).
 
     With ``return_updated_rows`` the result is ``(table, (uniq, w_new,
     inv))``: the reference's ``(uniq, w_new)`` and each lookup's slot in
@@ -242,7 +246,6 @@ def sparse_apply(table: LPTTable, ids: torch.Tensor, grad_rows: torch.Tensor, *,
         flat_g = torch.nn.functional.pad(flat_g, (0, d - flat_g.shape[-1]))
     uniq, inv = dedup_ids(ids, sentinel)
     k = uniq.numel()
-    g_sum = segment_sum(flat_g, inv, k)
     count = table.count + 1
     if rounding == "sr" and noise is None:
         raise ValueError("SR requires noise")
@@ -258,12 +261,16 @@ def sparse_apply(table: LPTTable, ids: torch.Tensor, grad_rows: torch.Tensor, *,
         else:
             kernel_ok = True
     if kernel_ok:
+        # The kernel sums each slot's run of lookups itself: no g_sum.
         c1, c2 = adam_bias_corrections(count)
-        w_new = ops.sparse_row_update(table.codes, table.step, table.mu, table.nu, uniq, g_sum,
-                                      noise, lr, c1, c2, bits, weight_decay=weight_decay)
+        order, starts = occurrence_runs(inv, k)
+        w_new = ops.sparse_row_update_runs(table.codes, table.step, table.mu, table.nu, uniq,
+                                           flat_g.contiguous(), order, starts, noise, lr, c1, c2,
+                                           bits, weight_decay=weight_decay)
         new_table = table._replace(count=count)
         return (new_table, (uniq, w_new, inv)) if return_updated_rows else new_table
 
+    g_sum = segment_sum(flat_g, inv, k)
     # Gather the current rows and optimizer slots (a sentinel past the table
     # gathers the last row harmlessly; its writes are dropped).
     safe = torch.clamp(uniq, max=n - 1).to(torch.int64)

@@ -57,6 +57,10 @@ SIGNATURES = {
         # container_bits, bits, lr, c1, c2, b1, 1-b1, b2, 1-b2, eps, wd, stream
         "sparse_row_update_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                      _I, _I, *(_F,) * 9, _P),
+        # codes, step, mu, nu, uniq, g_occ, order (int64), starts, noise, w_new,
+        # n, d, k, m, width, container_bits, bits, lr, c1, c2, b1, 1-b1, b2, 1-b2,
+        # eps, wd, stream
+        "sparse_row_update_runs_launch": (*(_P,) * 10, *(_I64,) * 5, _I, _I, *(_F,) * 9, _P),
     },
     "lpt_update": {
         # codes, step, new_step, upd, noise, out, rows, cols, width,

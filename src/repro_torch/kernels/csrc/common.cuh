@@ -35,6 +35,32 @@ inline unsigned int grid_for(int64_t work) {
   return static_cast<unsigned int>(need < cap ? need : cap);
 }
 
+// q = t / divisor for t < 2^31 as (umulhi(t, magic) + t) >> shift
+// (Granlund & Montgomery 1994, Thm 4.2, with a 33-bit multiplier whose top
+// bit is the "+ t"): the lane maps' row = task / lanes without a division.
+// tests/test_torch_gather_layout.py and tests/test_torch_row_layout.py check it.
+struct FastDiv {
+  uint32_t magic, shift;
+};
+
+inline FastDiv fast_div(uint32_t divisor) {
+  uint32_t shift = 0;
+  while ((uint64_t{1} << shift) < divisor) ++shift;
+  const uint64_t magic = (uint64_t{1} << 32) * ((uint64_t{1} << shift) - divisor) / divisor + 1;
+  return {static_cast<uint32_t>(magic), shift};
+}
+
+__device__ __forceinline__ uint32_t divide(uint32_t t, FastDiv div) {
+  return (__umulhi(t, div.magic) + t) >> div.shift;
+}
+
+// Code k of a word of BITS-bit codes packed low bits first, sign-extended:
+// its field shifted to the top, then back.
+template <int BITS>
+__device__ __forceinline__ int32_t code_at(uint32_t word, int k) {
+  return static_cast<int32_t>(word << (32 - BITS * (k + 1))) >> (32 - BITS);
+}
+
 // 16-byte cp.async (L2 only), zero-filled when !valid (rows past the data,
 // columns past a row); `src` must be 16-byte aligned even then.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {

@@ -34,7 +34,7 @@
 //    wave in flight at once.
 //  * 32-bit integer work.  Tasks and rows are uint32 (the wrapper checks that
 //    b * ceil(d/4) < 2^31); row = t / lanes is a multiply-high by a constant
-//    the host computes (FastDiv), never a division in the loop.  Only
+//    the host computes (repro::FastDiv), never a division in the loop.  Only
 //    id * width is 64-bit.  Packed codes are sign-extended by two shifts and
 //    converted by I2F; the multiply is the only rounding, so the rows equal
 //    kernels/ref.py's plain versions bitwise.
@@ -54,20 +54,6 @@
 
 namespace {
 
-// q = t / divisor for t < 2^31 as (umulhi(t, magic) + t) >> shift
-// (Granlund & Montgomery 1994, Thm 4.2, with a 33-bit multiplier whose top
-// bit is the "+ t"); tests/test_torch_gather_layout.py checks it.
-struct FastDiv {
-  uint32_t magic, shift;
-};
-
-FastDiv fast_div(uint32_t divisor) {
-  uint32_t shift = 0;
-  while ((uint64_t{1} << shift) < divisor) ++shift;
-  const uint64_t magic = (uint64_t{1} << 32) * ((uint64_t{1} << shift) - divisor) / divisor + 1;
-  return {static_cast<uint32_t>(magic), shift};
-}
-
 struct Params {
   const uint8_t* codes;
   const float* step;
@@ -75,7 +61,7 @@ struct Params {
   float* out;
   uint32_t n_ok;   // rows, capped at 2^31: every int32 id >= 0 is then inside
   uint32_t d, width, lanes, tasks;
-  FastDiv div;
+  repro::FastDiv div;
 };
 
 // The BITS/2 code bytes behind a lane's four outputs, as one word.
@@ -104,17 +90,11 @@ __device__ __forceinline__ uint32_t load_bytes(const uint8_t* src, uint32_t c) {
   return word;
 }
 
-// Code k of a word, sign-extended: its field shifted to the top, then back.
-template <int BITS>
-__device__ __forceinline__ int32_t code(uint32_t word, int k) {
-  return static_cast<int32_t>(word << (32 - BITS * (k + 1))) >> (32 - BITS);
-}
-
 template <int BITS, bool VEC>
 __global__ void __launch_bounds__(repro::kThreads) gather_kernel(const Params p) {
   const uint32_t stride = gridDim.x * repro::kThreads;
   for (uint32_t t = blockIdx.x * repro::kThreads + threadIdx.x; t < p.tasks; t += stride) {
-    const uint32_t row = (__umulhi(t, p.div.magic) + t) >> p.div.shift;
+    const uint32_t row = repro::divide(t, p.div);
     const uint32_t l = t - row * p.lanes;
     const int32_t id = __ldg(p.ids + row);
     uint32_t word = 0;
@@ -131,7 +111,7 @@ __global__ void __launch_bounds__(repro::kThreads) gather_kernel(const Params p)
     float v[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      v[k] = __fmul_rn(__int2float_rn(code<BITS>(word, k)), delta);
+      v[k] = __fmul_rn(__int2float_rn(repro::code_at<BITS>(word, k)), delta);
     }
     if constexpr (VEC) {
       reinterpret_cast<float4*>(p.out)[t] = make_float4(v[0], v[1], v[2], v[3]);
@@ -170,7 +150,7 @@ int launch_gather(const void* codes, const void* step, const void* ids, void* ou
   p.width = static_cast<uint32_t>((d * BITS + 7) / 8);
   p.lanes = static_cast<uint32_t>(lanes);
   p.tasks = static_cast<uint32_t>(b * lanes);
-  p.div = fast_div(p.lanes);
+  p.div = repro::fast_div(p.lanes);
   const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(codes) % (BITS / 2) == 0;
   const auto s = static_cast<cudaStream_t>(stream);

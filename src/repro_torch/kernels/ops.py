@@ -13,8 +13,10 @@ here falls back.  :func:`kernel_calls` counts real launches per kernel, in
 the shape of the reference's ``fallback_stats()["kernel_calls"]``
 (``ops.py:178`` there: op name -> count); the packed variants have their own
 keys (``dequant_gather_packed``, ``sparse_row_update_packed``,
-``dequant_matmul_packed``, ``lpt_fused_update_packed``) because they are
-their own kernels here, and the dense write-back counts as
+``sparse_row_update_runs_packed``, ``dequant_matmul_packed``,
+``lpt_fused_update_packed``) because they are their own kernels here, the
+row step with the gradient sum folded in counts as
+``sparse_row_update_runs``, and the dense write-back counts as
 ``lpt_fused_update`` (the reference's ``lpt_update``).
 
 The gather, head and attention kernels are forward only: their CUDA
@@ -212,9 +214,10 @@ def sparse_row_update(codes, step: torch.Tensor, mu: torch.Tensor, nu: torch.Ten
     updated float rows ``w_new`` f32 [K, d].  ``codes`` is a
     :class:`CodeStore` (packed stores take the packed kernel) or a raw int8
     [N, d] tensor.  An id outside ``[0, N)`` (the dedup sentinel of a table
-    with no scratch row) steps the clamped row and writes nothing, its
-    ``w_new`` row finite but unspecified.  ``lr``, ``c1 = 1 - b1^t`` and
-    ``c2 = 1 - b2^t`` are float32 host scalars.
+    with no scratch row) writes nothing, its ``w_new`` row finite but
+    unspecified (the kernel writes zeros, the plain version steps the
+    clamped row), as is that of a slot whose id repeats the previous slot's.
+    ``lr``, ``c1 = 1 - b1^t`` and ``c2 = 1 - b2^t`` are float32 host scalars.
     """
     if isinstance(codes, CodeStore) and codes.packed:
         if _plain(step, use_kernel):
@@ -231,6 +234,36 @@ def sparse_row_update(codes, step: torch.Tensor, mu: torch.Tensor, nu: torch.Ten
                                          bits, weight_decay=weight_decay)
     return _row_update.sparse_row_update(codes, step, mu, nu, uniq, g_sum, noise, lr, c1, c2,
                                          bits, weight_decay=weight_decay)
+
+
+def sparse_row_update_runs(codes, step: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                           uniq: torch.Tensor, g_occ: torch.Tensor, order: torch.Tensor,
+                           starts: torch.Tensor, noise: torch.Tensor, lr: float, c1: float,
+                           c2: float, bits: int, *, weight_decay: float = 0.0,
+                           use_kernel: bool = True) -> torch.Tensor:
+    """:func:`sparse_row_update` with the duplicate-id gradient sum folded in:
+    slot s's gradient is the sum, in occurrence order from +0.0, of the
+    per-lookup rows ``g_occ[order[starts[s]:starts[s + 1]]]``
+    (``core.lpt.occurrence_runs``), bitwise what ``core.lpt.segment_sum``
+    gives the ``g_sum`` form.  Counted as ``sparse_row_update_runs`` and, for
+    packed stores, ``sparse_row_update_runs_packed``.
+    """
+    args = (g_occ, order, starts, noise, lr, c1, c2)
+    if isinstance(codes, CodeStore) and codes.packed:
+        if _plain(step, use_kernel):
+            return ref.sparse_row_update_runs_packed_ref(
+                codes.data, step, mu, nu, uniq, *args, codes.bits, codes.d,
+                weight_decay=weight_decay)
+        return _row_update.sparse_row_update_runs_packed(
+            codes.data, step, mu, nu, uniq, *args, codes.bits, codes.d,
+            weight_decay=weight_decay)
+    if isinstance(codes, CodeStore):
+        codes = codes.data
+    if _plain(step, use_kernel):
+        return ref.sparse_row_update_runs_ref(codes, step, mu, nu, uniq, *args, bits,
+                                              weight_decay=weight_decay)
+    return _row_update.sparse_row_update_runs(codes, step, mu, nu, uniq, *args, bits,
+                                              weight_decay=weight_decay)
 
 
 def adam_update(params, grads, mu, nu, lr: float, bc1: float, bc2: float, *,

@@ -313,6 +313,58 @@ def sparse_row_update_packed_ref(packed: torch.Tensor, step: torch.Tensor, mu: t
     return w_new
 
 
+def segment_sum(values: torch.Tensor, inv: torch.Tensor, k: int) -> torch.Tensor:
+    """``out[inv[i]] += values[i]`` into zeros [k, ...], in occurrence order.
+
+    The reference's ``zeros.at[inv].add(g)`` adds each slot's occurrences in
+    order, one rounding each, from +0.0.  On the CPU ``index_add_`` walks the
+    indices in order.  On the card ``index_add_`` uses atomics, whose order
+    changes from run to run; ``index_put_(accumulate=True)`` instead sorts
+    the indices with a stable radix sort and adds each slot's run
+    sequentially, which is the same order and deterministic
+    (``chip_smoke.py`` holds it bitwise against the CPU).
+    """
+    out = torch.zeros((k, *values.shape[1:]), dtype=values.dtype, device=values.device)
+    if out.device.type == "cpu":
+        return out.index_add_(0, inv, values)
+    return out.index_put_((inv,), values, accumulate=True)
+
+
+def runs_sum(g_occ: torch.Tensor, order: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """f32 [k, d] with row s the sum of ``g_occ[order[starts[s]:starts[s + 1]]]``
+    in that order, from +0.0 (an empty run sums to zeros): the sum the runs
+    kernel forms, by :func:`segment_sum` of the lookups in ``order``."""
+    m = order.numel()
+    slot = torch.searchsorted(starts, torch.arange(m, dtype=starts.dtype, device=starts.device),
+                              right=True) - 1
+    return segment_sum(g_occ.index_select(0, order.to(torch.int64)), slot.to(torch.int64),
+                       starts.numel() - 1)
+
+
+def sparse_row_update_runs_ref(codes: torch.Tensor, step: torch.Tensor, mu: torch.Tensor,
+                               nu: torch.Tensor, uniq: torch.Tensor, g_occ: torch.Tensor,
+                               order: torch.Tensor, starts: torch.Tensor, noise: torch.Tensor,
+                               lr: float, c1: float, c2: float, bits: int, *,
+                               weight_decay: float = 0.0) -> torch.Tensor:
+    """:func:`sparse_row_update_ref` of the runs' sums (:func:`runs_sum`):
+    the row step over per-lookup gradients ``g_occ`` [m, d], slot s's run
+    being ``order[starts[s]:starts[s + 1]]``."""
+    return sparse_row_update_ref(codes, step, mu, nu, uniq, runs_sum(g_occ, order, starts),
+                                 noise, lr, c1, c2, bits, weight_decay=weight_decay)
+
+
+def sparse_row_update_runs_packed_ref(packed: torch.Tensor, step: torch.Tensor,
+                                      mu: torch.Tensor, nu: torch.Tensor, uniq: torch.Tensor,
+                                      g_occ: torch.Tensor, order: torch.Tensor,
+                                      starts: torch.Tensor, noise: torch.Tensor, lr: float,
+                                      c1: float, c2: float, bits: int, d: int, *,
+                                      weight_decay: float = 0.0) -> torch.Tensor:
+    """:func:`sparse_row_update_runs_ref` over a packed uint8 container."""
+    return sparse_row_update_packed_ref(packed, step, mu, nu, uniq,
+                                        runs_sum(g_occ, order, starts), noise, lr, c1, c2, bits,
+                                        d, weight_decay=weight_decay)
+
+
 def _clamped(uniq: torch.Tensor, n: int) -> torch.Tensor:
     return torch.clamp(uniq.to(torch.int64), 0, n - 1)
 

@@ -252,9 +252,10 @@ def test_trainer_step_kernels_bitwise_vs_plain(cuda, method, bits):
         state, m = CTRTrainer(c, device=cuda).train_step(clone_state(state0), ids, labels)
         torch.cuda.synchronize()
         launched = ops.kernel_calls()
-        row = "sparse_row_update_packed" if bits < 8 else "sparse_row_update"
+        row = "sparse_row_update_runs_packed" if bits < 8 else "sparse_row_update_runs"
         if use_kernels:
             assert launched[row] == 1 and launched.get("sr_round", 0) == (method == "alpt")
+            assert "sparse_row_update" not in launched
             assert ops.fallbacks() == []
         else:
             assert launched == {}
@@ -294,11 +295,138 @@ def test_sparse_row_update_kernels_drop_a_sentinel_past_the_table(cuda, bits):
     assert torch.equal(kw[real], pw[real]) and bool(torch.isfinite(kw).all())
 
 
+def _runs_operands(g, dev, n_live, d, bits, m, scratch=True, long_run=420):
+    """A table (scratch row or none), one wave of m lookups with zipf repeats
+    and ``long_run`` lookups of one id, its dedup, runs and row gradients
+    (some -0.0)."""
+    n = n_live + 8 if scratch else n_live
+    lo, hi = quant.code_bounds(bits)
+    codes = torch.randint(lo, hi + 1, (n, d), generator=g, device=dev, dtype=torch.int8)
+    step = torch.rand(n, generator=g, device=dev) * 0.05 + 1e-3
+    mu = torch.randn(n, d, generator=g, device=dev) * 0.01
+    nu = torch.rand(n, d, generator=g, device=dev) * 1e-3
+    ids = (torch.rand(m, generator=g, device=dev) ** 4 * n_live).to(torch.int32)
+    ids[:3] = torch.tensor([0, n_live - 1, 0], device=dev)
+    ids[torch.randperm(m - 3, generator=g, device=dev)[:long_run] + 3] = n_live // 2
+    uniq, inv = lpt.dedup_ids(ids, n_live)
+    order, starts = lpt.occurrence_runs(inv, m)
+    g_occ = torch.randn(m, d, generator=g, device=dev) * 0.1
+    g_occ[torch.rand(m, d, generator=g, device=dev) < 0.02] = -0.0
+    noise = torch.rand(m, d, generator=g, device=dev)
+    return codes, step, mu, nu, uniq, inv, g_occ, order, starts, noise
+
+
+def _runs_both(codes, step, mu, nu, uniq, g_occ, order, starts, noise, bits, wd, c1, c2):
+    """The runs form, kernel then plain, each on copies of the table:
+    [(container, mu, nu, w_new, launches)] * 2."""
+    out = []
+    for use_kernel in (True, False):
+        store = CodeStore.from_codes(codes.clone(), bits)
+        m, v = mu.clone(), nu.clone()
+        ops.reset_kernel_calls()
+        w_new = ops.sparse_row_update_runs(store, step, m, v, uniq, g_occ, order, starts, noise,
+                                           0.01, c1, c2, bits, weight_decay=wd,
+                                           use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        out.append((store.data, m, v, w_new, ops.kernel_calls()))
+    return out
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("d", [16, 15, 13])
+@pytest.mark.parametrize("weight_decay", [0.0, 5e-8])
+@pytest.mark.parametrize("scratch", [True, False])
+def test_sparse_row_update_runs_kernels_bitwise(cuda, bits, d, weight_decay, scratch):
+    """The row step with the gradient sum folded in against its plain twin
+    (segment sum in occurrence order, then the row step): live rows and real
+    slots bit for bit, with a run of 420 lookups; w_new finite everywhere."""
+    g = _gen(100 + bits * d, cuda)
+    n_live = 3000
+    codes, step, mu, nu, uniq, _, g_occ, order, starts, noise = _runs_operands(
+        g, cuda, n_live, d, bits, 4096, scratch)
+    c1, c2 = lpt.adam_bias_corrections(9)
+    (kc, km, kv, kw, launched), (pc, pm, pv, pw, plain) = _runs_both(
+        codes, step, mu, nu, uniq, g_occ, order, starts, noise, bits, weight_decay, c1, c2)
+    kernel = "sparse_row_update_runs_packed" if bits < 8 else "sparse_row_update_runs"
+    assert launched == {kernel: 1} and plain == {}
+    live, real = slice(0, n_live), uniq < n_live
+    assert torch.equal(kc[live], pc[live]) and torch.equal(km[live], pm[live])
+    assert torch.equal(kv[live], pv[live]) and torch.equal(kw[real], pw[real])
+    assert bool(torch.isfinite(kw).all())
+    untouched = torch.ones(n_live, dtype=torch.bool, device=cuda)
+    untouched[uniq[real].long()] = False
+    assert torch.equal(km[:n_live][untouched], mu[:n_live][untouched])
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_sparse_row_update_runs_kernels_bitwise_on_an_avazu_wave(cuda, bits):
+    """A real training wave (1,024 Avazu requests: 24,576 lookups, runs up to
+    hundreds long) on the full Avazu table, without and with its scratch row."""
+    from repro_torch.data.ctr_synth import avazu_like
+
+    data = CTRSynthetic(avazu_like(1.0))
+    n_live = data.cfg.n_features
+    ids = torch.from_numpy(data.batch("train", 0, 1024)[0].reshape(-1)).to(cuda)
+    m, d = ids.numel(), 16
+    g = _gen(7 + bits, cuda)
+    uniq, inv = lpt.dedup_ids(ids, n_live)
+    order, starts = lpt.occurrence_runs(inv, m)
+    assert int((starts[1:] - starts[:-1]).max()) >= 300
+    g_occ = torch.randn(m, d, generator=g, device=cuda) * 0.01
+    noise = torch.rand(m, d, generator=g, device=cuda)
+    for n in (n_live + 8, n_live):
+        lo, hi = quant.code_bounds(bits)
+        codes = torch.randint(lo, hi + 1, (n, d), generator=g, device=cuda, dtype=torch.int8)
+        step = torch.rand(n, generator=g, device=cuda) * 0.01 + 1e-3
+        mu = torch.randn(n, d, generator=g, device=cuda) * 1e-3
+        nu = torch.rand(n, d, generator=g, device=cuda) * 1e-5
+        (kc, km, kv, kw, _), (pc, pm, pv, pw, _) = _runs_both(
+            codes, step, mu, nu, uniq, g_occ, order, starts, noise, bits, 5e-8, 0.1, 0.001)
+        real = uniq < n_live
+        assert torch.equal(kc[:n_live], pc[:n_live]) and torch.equal(km[:n_live], pm[:n_live])
+        assert torch.equal(kv[:n_live], pv[:n_live]) and torch.equal(kw[real], pw[real])
+        assert bool(torch.isfinite(kw).all())
+
+
+def test_sparse_row_update_runs_wrapper_raises_on_bad_operands(cuda):
+    g = _gen(3, cuda)
+    codes, step, mu, nu, uniq, _, g_occ, order, starts, noise = _runs_operands(
+        g, cuda, 100, 16, 8, 256, long_run=40)
+
+    def call(**bad):
+        ops_ = dict(g_occ=g_occ, order=order, starts=starts)
+        ops_.update(bad)
+        row_kernel.sparse_row_update_runs(codes, step, mu, nu, uniq, ops_["g_occ"],
+                                          ops_["order"], ops_["starts"], noise, 0.01, 0.1,
+                                          0.001, 8)
+
+    with pytest.raises(ValueError, match="order must be torch.int64"):
+        call(order=order.int())
+    with pytest.raises(ValueError, match="starts must be torch.int32"):
+        call(starts=starts.long())
+    with pytest.raises(ValueError, match="order must have shape"):
+        call(order=order[:-1])
+    with pytest.raises(ValueError, match="starts must have shape"):
+        call(starts=starts[:-1])
+    with pytest.raises(ValueError, match="starts must be a CUDA tensor"):
+        call(starts=starts.cpu())
+    with pytest.raises(ValueError, match="order must be a CUDA tensor"):
+        call(order=order.cpu())
+    with pytest.raises(ValueError, match="g_occ must be contiguous"):
+        call(g_occ=torch.cat([g_occ, g_occ], 1)[:, :16])
+    with pytest.raises(ValueError, match="g_occ must have shape"):
+        call(g_occ=g_occ[:, :15].contiguous())
+    with pytest.raises(ValueError, match="bits"):
+        row_kernel.sparse_row_update_runs_packed(codes.view(torch.uint8), step, mu, nu, uniq,
+                                                 g_occ, order, starts, noise, 0.01, 0.1, 0.001,
+                                                 8, 16)
+
+
 @pytest.mark.parametrize("method,bits", [("alpt", 8), ("alpt", 4)])
 def test_trainer_without_scratch_row_launches_the_row_kernel_every_step(cuda, method, bits):
-    """The paper's setup (pad_to_tiles off): one row-kernel launch and one
-    dense Adam launch per step, no fallbacks, and the same state and losses
-    as the plain path."""
+    """The paper's setup (pad_to_tiles off): one row-kernel launch (the runs
+    form, which sums the gradients itself) and one dense Adam launch per
+    step, no fallbacks, and the same state and losses as the plain path."""
     data = CTRDatasetConfig(name="t", n_fields=6, cardinalities=(40, 9, 300, 17, 5, 1000))
     spec = EmbeddingSpec(method=method, n=data.n_features, d=16, bits=bits)
     assert spec.n_padded == spec.n
@@ -314,7 +442,7 @@ def test_trainer_without_scratch_row_launches_the_row_kernel_every_step(cuda, me
         state, history = CTRTrainer(c, device=cuda).fit(synth, steps=3, batch_size=128,
                                                         state=clone_state(state0))
         launched = ops.kernel_calls()
-        row = "sparse_row_update_packed" if bits < 8 else "sparse_row_update"
+        row = "sparse_row_update_runs_packed" if bits < 8 else "sparse_row_update_runs"
         if use_kernels:
             assert launched[row] == 3 and launched["adam_update"] == 3
         else:
