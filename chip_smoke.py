@@ -12,12 +12,15 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      CTR wave of real ids and over 4,096 requests (d = 16, also with the codes
      one byte off alignment; d = 15) and on SmolLM's table (49,152 x 576)
      over a decode step's, a prefill's and a training batch's token ids;
-  2b. sparse_row_update / sparse_row_update_packed at bits 8, 4, 2 on the
-     full Avazu table with its scratch row (4,428,288 x 16) and without it
-     (4,428,281 x 16, the sentinel past the table), and on ragged 37 x 13
-     and 36 x 13 tables, weight decay 0 and 5e-8, over one training wave's
-     dedup'd ids (1,024 requests) and its DCN row gradients; the segment sum
-     on the card equal to the CPU's, twice;
+  2b. the row step in both forms, sparse_row_update(_packed) (summed
+     gradients) and sparse_row_update_runs(_packed) (per-lookup gradients,
+     each id's run summed in the kernel), at bits 8, 4, 2 on the full Avazu
+     table with its scratch row (4,428,288 x 16) and without it (4,428,281
+     x 16, the sentinel past the table), and on ragged 37 x 13 and 36 x 13
+     tables, weight decay 0 and 5e-8, over one training wave's dedup'd ids
+     (1,024 requests) and its DCN row gradients and over that wave with
+     1,100 of its lookups turned into one id; the segment sum on the card
+     equal to the CPU's, twice; the g_sum form's launches are this phase's;
   2c. adam_update (the dense optimizer's kernel) over the full-width DCN's
      parameters and that wave's gradients, two steps;
   3. serve 4,096 Avazu test requests at full width (24 fields, d=16, DCN
@@ -29,13 +32,14 @@ Phases (each prints its lines; any failure exits non-zero with no result):
   4. the same at 4 bits, packed (dequant_gather_packed);
   6. train ALPT on the full padded Avazu table at full width, 20 steps of
      1,024 at 8 bits and then 20 at 4 bits packed (kernels on): launch
-     counts, no fallbacks, finite losses, untouched rows bit-identical,
+     counts (the runs form once per step, the g_sum form never), no
+     fallbacks, finite losses, untouched rows bit-identical,
      training memory exactly memory_bytes; the first 3 steps again with the
      kernels off from a copy of the initial state must give the same state
      and losses bit for bit; then serve the trained state;
   6b. the training CLI (python -m repro_torch.launch.train ctr) at full
-     width in the paper's setup, without the scratch row, 5 steps: one row
-     kernel and one Adam launch per step, no fallbacks;
+     width in the paper's setup, without the scratch row, 5 steps: one
+     sparse_row_update_runs and one Adam launch per step, no fallbacks;
   2d. dequant_matmul / dequant_matmul_packed (bits 4, 2) at SmolLM's head
      (M in {1, 8}, N = 49,152, K = 576) and ragged shapes against their plain
      versions and a float64 recomputation, each logit within the fp32 error
@@ -85,8 +89,11 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      M = 1, 8 and 64 with its share of the HBM rate (time_head, which
      head_only runs without the rest, optionally beside another build of
      dequant_matmul.cu); sr_round_seeded beside sr_round with its noise
-     operand at 49,152 x 576, and the training attention's forward +
-     backward (plain PyTorch, no bound row).
+     operand at 49,152 x 576, the row step's two forms at a training wave
+     (row_only runs them without the rest, beside another build of
+     sparse_row_update.cu, the segment sum they replace and the host time
+     of lpt.sparse_apply), and the training attention's forward + backward
+     (plain PyTorch, no bound row).
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  Without a GPU, or outside a checkout, it
 exits with code 2 and prints no result.
@@ -472,11 +479,12 @@ def check_row_update(torch, dev, g, wave, g_occ, n_live: int, err: dict) -> dict
                     timing[bits] = {**w, "codes": CodeStore.from_codes(codes, bits),
                                     "step": step, "mu": mu, "nu": nu, "noise": noise}
     launches = ops.kernel_calls()
+    longest = int((real["starts"][1:] - real["starts"][:-1]).max())
     log(f"[check] sparse_row_update(_packed) and sparse_row_update_runs(_packed) bitwise at "
         f"{n_full}x16 and 37x13 (scratch row) and at {n_live}x16 and 36x13 (sentinel past the "
         f"table), bits 8, 4, 2, weight decay 0 and 5e-8, over one wave of {k} ids ({distinct} "
-        f"distinct + sentinel padding; runs up to {int((real['starts'][1:] - real['starts'][:-1]).max())} "
-        f"long) and its DCN row gradients, and over that wave with {LONG_RUN} lookups of one id; "
+        f"distinct + sentinel padding; runs up to {longest} long) and its DCN row gradients,"
+        f" and over that wave with {LONG_RUN} lookups of one id; "
         f"segment sum equal to the CPU's, twice; launches {launches}")
     timing["distinct"] = distinct
     timing["launches"] = launches
@@ -1569,19 +1577,9 @@ for line in sys.stdin:
 ROW_POOL = 8  # distinct training waves the back-to-back timing cycles through
 
 
-def b2b_or_nan(torch, fns) -> float:
-    """:func:`time_b2b`, or NaN where the calls wait for the card on the
-    host (then there is no back-to-back run to time)."""
-    try:
-        return time_b2b(torch, fns)
-    except SmokeFailure:
-        return float("nan")
-
-
-def row_variant(torch, lib, runs: bool = False):
+def row_variant(torch, lib):
     """``run(o, bits, g_sum=None) -> w_new`` through another build's g_sum
-    form (``sparse_row_update_launch``) or, with ``runs``, its runs form
-    (``sparse_row_update_runs_launch``), at run_row_step's scalars; not
+    form (``sparse_row_update_launch``) at run_row_step's scalars; not
     counted."""
     from repro_torch.kernels import _build, ref
 
@@ -1589,21 +1587,13 @@ def row_variant(torch, lib, runs: bool = False):
         codes = o["codes"]
         k, d = o["uniq"].numel(), codes.d
         w_new = torch.empty(k, d, device=codes.data.device)
-        head = (codes.data.data_ptr(), o["step"].data_ptr(), o["mu"].data_ptr(),
-                o["nu"].data_ptr(), o["uniq"].data_ptr())
-        tail = (codes.bits if codes.packed else 8, bits, ref.f32(1e-3), ref.f32(0.1),
-                ref.f32(0.001), ref.B1, ref.A1, ref.B2, ref.A2, ref.EPS, ref.f32(5e-8),
-                _build.stream_of(w_new.device))
-        if runs:
-            err = lib.sparse_row_update_runs_launch(
-                *head, o["g_occ"].data_ptr(), o["order"].data_ptr(), o["starts"].data_ptr(),
-                o["noise"].data_ptr(), w_new.data_ptr(), codes.n, d, k, o["g_occ"].shape[0],
-                codes.data.shape[1], *tail)
-        else:
-            g_sum = o["g_sum"] if g_sum is None else g_sum
-            err = lib.sparse_row_update_launch(
-                *head, g_sum.data_ptr(), o["noise"].data_ptr(), w_new.data_ptr(), codes.n, d, k,
-                codes.data.shape[1], *tail)
+        g_sum = o["g_sum"] if g_sum is None else g_sum
+        err = lib.sparse_row_update_launch(
+            codes.data.data_ptr(), o["step"].data_ptr(), o["mu"].data_ptr(), o["nu"].data_ptr(),
+            o["uniq"].data_ptr(), g_sum.data_ptr(), o["noise"].data_ptr(), w_new.data_ptr(),
+            codes.n, d, k, codes.data.shape[1], codes.bits if codes.packed else 8, bits,
+            ref.f32(1e-3), ref.f32(0.1), ref.f32(0.001), ref.B1, ref.A1, ref.B2, ref.A2, ref.EPS,
+            ref.f32(5e-8), _build.stream_of(w_new.device))
         check(err == 0, f"row variant: launch error {err}")
         return w_new
 
@@ -1615,8 +1605,8 @@ def row_only(baseline: str | None = None) -> int:
     at the CTR wave (1,024 Avazu requests) on the full padded Avazu table at
     8 and 4 bits: per call (L2 flushed, ``time_ms``) and back to back over
     ROW_POOL distinct waves (``time_b2b``), beside their bounds, the plain
-    versions and the timer's floor; the g_sum form also built with
-    ROW_TASKS=2.  ``baseline`` (the parent commit's sparse_row_update.cu
+    versions, what the runs' operands and the segment sum cost, and the
+    timer's floor.  ``baseline`` (the parent commit's sparse_row_update.cu
     inside an unpacked checkout: ``git archive HEAD src/repro_torch | tar -x
     -C build/parent``) is built, checked bitwise and timed in turns with this
     one (baseline, this, this, baseline): its g_sum kernel against this one's,
@@ -1636,16 +1626,12 @@ def row_only(baseline: str | None = None) -> int:
     from repro_torch.kernels import _build, ops
 
     t0 = time.perf_counter()
-    here = _build.CSRC / "sparse_row_update.cu"
-    specs = {"2 tasks per thread": (here, ("-DROW_TASKS=2",)),
-             **{f"{t}-slot tiles": (here, (f"-DRUNS_TILE_SLOTS={t}",)) for t in (32, 16, 8, 4)}}
-    runs_labels = tuple(f"{t}-slot tiles" for t in (32, 16, 8, 4))  # the runs form's
-    if baseline is not None:
-        specs["baseline"] = (pathlib.Path(baseline).resolve(), ())
+    specs = {} if baseline is None else {"baseline": (pathlib.Path(baseline).resolve(), ())}
     _build.library("sparse_row_update")
-    variants = {label: row_variant(torch, lib, label in runs_labels)
+    variants = {label: row_variant(torch, lib)
                 for label, lib in other_builds("sparse_row_update", specs).items()}
-    log(f"[build] sparse_row_update in {time.perf_counter() - t0:.1f}s, with {list(specs)}")
+    log(f"[build] sparse_row_update in {time.perf_counter() - t0:.1f}s"
+        + (f", with the baseline {baseline}" if baseline else ""))
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     data = CTRSynthetic(avazu_like(SCALE))
@@ -1671,9 +1657,10 @@ def row_only(baseline: str | None = None) -> int:
             mine = {**plain, "mu": o["mu"].clone(), "nu": o["nu"].clone(),
                     "codes": dataclasses.replace(o["codes"], data=o["codes"].data.clone())}
             got = run(mine, bits)
-            want = run_row_step(ops, plain, label in runs_labels, bits, use_kernel=False)
+            want = run_row_step(ops, plain, False, bits, use_kernel=False)
             live = o["uniq"] < n
-            check(torch.equal(got[live], want[live]) and torch.equal(mine["mu"][:n], plain["mu"][:n])
+            check(torch.equal(got[live], want[live])
+                  and torch.equal(mine["mu"][:n], plain["mu"][:n])
                   and torch.equal(mine["nu"][:n], plain["nu"][:n])
                   and torch.equal(mine["codes"].data[:n], plain["codes"].data[:n]),
                   f"the {label} build differs from the plain row step: bits={bits}")
@@ -1688,27 +1675,30 @@ def row_only(baseline: str | None = None) -> int:
             order, starts = lpt.occurrence_runs(o["inv"], o["uniq"].numel())
             return run_row_step(ops, {**o, "order": order, "starts": starts}, True, bits)
 
+        # (the change, what it is timed against per call, and whether back
+        # to back too: with the segment sum or occurrence_runs in the calls
+        # the host fell behind every spin of time_b2b on an H100)
         forms = {
             "g_sum form": (lambda o: run_row_step(ops, o, False, bits),
-                           {v: (lambda o, r=r: r(o, bits)) for v, r in variants.items()
-                            if v not in runs_labels}),
+                           {v: (lambda o, r=r: r(o, bits)) for v, r in variants.items()}, True),
             "runs form": (lambda o: run_row_step(ops, o, True, bits),
-                          {**{v: (lambda o, r=variants[v]: r(o, bits)) for v in runs_labels},
-                           f"segment sum + {pair_label} kernel": segsum_pair,
-                           "occurrence_runs + runs form": runs_from_inv}),
+                          {f"segment sum + {pair_label} kernel": segsum_pair,
+                           "occurrence_runs + runs form": runs_from_inv}, False),
         }
-        for form, (change, others) in forms.items():
-            per_call = in_turns(lambda f: time_ms(torch, f, 50, flush)[0],
-                                lambda: change(o), {v: (lambda f=f: f(o)) for v, f in others.items()})
-            b2b = in_turns(lambda fns: b2b_or_nan(torch, fns),
+        for form, (change, others, b2b_others) in forms.items():
+            per_call = in_turns(lambda f: time_ms(torch, f, 50, flush)[0], lambda: change(o),
+                                {v: (lambda f=f: f(o)) for v, f in others.items()})
+            b2b = in_turns(lambda fns: time_b2b(torch, fns),
                            [lambda p=p: change(p) for p in pool],
-                           {v: [lambda p=p, f=f: f(p) for p in pool] for v, f in others.items()})
+                           {v: [lambda p=p, f=f: f(p) for p in pool]
+                            for v, f in others.items() if b2b_others})
             plain_ms = time_ms(torch, lambda: run_row_step(ops, o, form == "runs form", bits,
                                                            use_kernel=False), 10, flush)[0]
             b_ms, b_by = row_bound(o, distinct, form == "runs form")
             log(f"[time] row step bits={bits}, {form}, CTR wave ({k} slots, {distinct} distinct): "
                 f"per call (L2 flushed) {per_call[0][0] * 1e3:.2f}, {per_call[0][1] * 1e3:.2f} us"
-                + "".join(f"; {v} {a * 1e3:.2f}, {z * 1e3:.2f}" for v, (a, z) in per_call[1].items())
+                + "".join(f"; {v} {a * 1e3:.2f}, {z * 1e3:.2f}"
+                          for v, (a, z) in per_call[1].items())
                 + f"; back to back ({B2B_CALLS} calls over {len(pool)} waves) "
                 f"{b2b[0][0] * 1e3:.2f}, {b2b[0][1] * 1e3:.2f} us"
                 + "".join(f"; {v} {a * 1e3:.2f}, {z * 1e3:.2f}" for v, (a, z) in b2b[1].items())

@@ -54,24 +54,28 @@
 //    issued in one trip after it.
 //  * The g_sum form: one task per thread over a grid of one resident wave
 //    at most (repro::grid_for; a CTR wave is 384 blocks of 256, no second
-//    pass).  ROW_TASKS > 1 gives each thread that many tasks, their loads
-//    all issued first (chip_smoke.row_only times a build with 2).
-//  * The runs form: a block owns a tile of 256 / lanes consecutive slots (64
-//    at d = 16; wider rows split the lanes over blockIdx.y).  The tile's
-//    runs are one contiguous range of `order`, since runs follow their
-//    slots.  The block stages that range in chunks of 1,536 16-byte pieces
-//    (384 lookups at d = 16) through two 24 KB buffers: each thread loads 6
-//    order entries at once and issues 6 cp.async copies of g_occ pieces, so
-//    a run of hundreds of lookups (404 in a CTR wave) is fetched by the
-//    whole block in a few round trips, not one per lookup; chunk j + 1's
-//    copies and chunk j + 2's order entries are in flight while chunk j is
-//    added.  Each live lane adds its run's pieces from shared memory in
-//    order, eight loaded at once, four independent column chains per
-//    thread; a run that crosses chunks carries its partial sums in
-//    registers.  There is no threshold: short runs are staged the same way,
-//    in the same trips.  The lane's row state is loaded before the first
-//    chunk, so it is in flight with the staging.  The heaviest tile of a
-//    CTR wave holds ~1,700-1,800 lookups (its fields' most frequent ids).
+//    pass).  Two tasks per thread, their loads issued first, measured the
+//    same per call on an H100 (chip_smoke.row_only, PERF.md section 6).
+//  * The runs form: a block of 256 threads owns a tile of 16 consecutive
+//    slots (64 lanes at d = 16; rows wider than 1,024 split their lanes
+//    over blockIdx.y).  The tile's runs are one contiguous range of
+//    `order`, since runs follow their slots.  All 256 threads stage that
+//    range in chunks of 1,536 16-byte pieces (384 lookups at d = 16)
+//    through two 24 KB buffers: each loads 6 order entries at once and
+//    issues 6 cp.async copies of g_occ pieces, so a run of hundreds of
+//    lookups (404 in a CTR wave) is fetched in a few round trips, not one
+//    per lookup, and chunk j + 1's copies and chunk j + 2's order entries
+//    are in flight while chunk j is added.  Each live lane adds its run's
+//    pieces from shared memory in order, eight loaded at once, four
+//    independent column chains per thread; a run that crosses chunks
+//    carries its partial sums in registers.  There is no threshold: short
+//    runs are staged the same way, in the same trips.  The lane's row state
+//    is loaded before the first chunk, so it is in flight with the staging.
+//    The tile size sets the longest serial chain of chunks: a CTR wave's
+//    heaviest 64-slot tile holds ~1,700-1,800 lookups (its fields' most
+//    frequent ids), its heaviest 16-slot tile ~900-1,000.  On an H100 16
+//    slots took 14.7 us per call against 17.6-18.0 for 64, 32 or 8 and 26.5
+//    for 4 (more tiles, most of them dead, cost more blocks).
 //
 // Numerics: every operation is an explicit round-to-nearest intrinsic, so
 // nvcc can contract nothing.  Where XLA:CPU fuses the reference's
@@ -86,15 +90,9 @@
 
 #include "common.cuh"
 
-#ifndef ROW_TASKS
-#define ROW_TASKS 1
-#endif
-#ifndef RUNS_TILE_SLOTS
-#define RUNS_TILE_SLOTS 256
-#endif
-
 namespace {
 
+constexpr uint32_t kTileSlots = 16;                      // runs form: slots per block
 constexpr uint32_t kStage = 1536;                        // 16-byte pieces per chunk
 constexpr uint32_t kPieces = kStage / repro::kThreads;  // staged by each thread
 
@@ -257,39 +255,24 @@ __device__ __forceinline__ bool live_slot(const Params& p, uint32_t s, int32_t i
   return static_cast<uint32_t>(id) < p.n_ok && (s == 0 || prev != id);
 }
 
-// The g_sum form: task t = slot * lanes + l, R tasks per thread per sweep.
-template <int BITS, bool VEC, int R>
+// The g_sum form: task t = slot * lanes + l, one per thread per sweep.
+template <int BITS, bool VEC>
 __global__ void __launch_bounds__(repro::kThreads) row_kernel(const Params p) {
   const uint32_t stride = gridDim.x * repro::kThreads;
-  for (uint32_t t0 = blockIdx.x * repro::kThreads + threadIdx.x; t0 < p.tasks; t0 += R * stride) {
-    uint32_t s[R], l[R], c[R];
-    int32_t id[R], prev[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const uint32_t t = min(t0 + r * stride, p.tasks - 1);
-      s[r] = repro::divide(t, p.div);
-      l[r] = t - s[r] * p.lanes;
-      c[r] = VEC ? 4 : min(4u, p.d - 4 * l[r]);
-      id[r] = p.uniq[s[r]];
-      prev[r] = s[r] ? p.uniq[s[r] - 1] : id[r];
-    }
-    Lane x[R];
-    float g[R][4];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (live_slot(p, s[r], id[r], prev[r])) {
-        load_lane<BITS, VEC>(p, id[r], s[r], l[r], c[r], x[r]);
-        load4<VEC>(p.g + static_cast<int64_t>(s[r]) * p.d + 4 * l[r], c[r], g[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (t0 + r * stride >= p.tasks) break;
-      if (live_slot(p, s[r], id[r], prev[r])) {
-        step_lane<BITS, VEC>(p, id[r], s[r], l[r], c[r], x[r], g[r]);
-      } else {
-        dead_lane<VEC>(p, s[r], l[r], c[r]);
-      }
+  for (uint32_t t = blockIdx.x * repro::kThreads + threadIdx.x; t < p.tasks; t += stride) {
+    const uint32_t s = repro::divide(t, p.div);
+    const uint32_t l = t - s * p.lanes;
+    const uint32_t c = VEC ? 4 : min(4u, p.d - 4 * l);
+    const int32_t id = p.uniq[s];
+    const int32_t prev = s ? p.uniq[s - 1] : id;
+    if (live_slot(p, s, id, prev)) {
+      Lane x;
+      float g[4];
+      load_lane<BITS, VEC>(p, id, s, l, c, x);
+      load4<VEC>(p.g + static_cast<int64_t>(s) * p.d + 4 * l, c, g);
+      step_lane<BITS, VEC>(p, id, s, l, c, x, g);
+    } else {
+      dead_lane<VEC>(p, s, l, c);
     }
   }
 }
@@ -458,17 +441,14 @@ bool vec_path(const Params& p, int container_bits) {
 
 template <int BITS, bool VEC>
 cudaError_t launch_rows(const Params& p, cudaStream_t strm) {
-  constexpr int R = ROW_TASKS;
-  const unsigned int grid = repro::grid_for((int64_t{p.tasks} + R - 1) / R);
-  row_kernel<BITS, VEC, R><<<grid, repro::kThreads, 0, strm>>>(p);
+  row_kernel<BITS, VEC><<<repro::grid_for(p.tasks), repro::kThreads, 0, strm>>>(p);
   return cudaGetLastError();
 }
 
 template <int BITS, bool VEC>
 cudaError_t launch_runs(Params p, cudaStream_t strm) {
   p.tile_lanes = std::min(p.lanes, static_cast<uint32_t>(repro::kThreads));
-  p.tile_slots = std::min(repro::kThreads / p.tile_lanes,
-                          static_cast<uint32_t>(RUNS_TILE_SLOTS));
+  p.tile_slots = std::min(repro::kThreads / p.tile_lanes, kTileSlots);
   p.div = repro::fast_div(p.tile_lanes);
   const dim3 grid((p.k + p.tile_slots - 1) / p.tile_slots,
                   (p.lanes + p.tile_lanes - 1) / p.tile_lanes);
@@ -508,14 +488,14 @@ int launch(const Params& p, int container_bits, void* stream) {
 // (container_bits 4 or 2, width = ceil(d * bits / 8)); bits: the code range
 // [-2^(bits-1), 2^(bits-1) - 1], 2..8; step: f32 [n]; mu, nu: f32 [n, d] (updated in
 // place, as are the codes); uniq: int32 [k], ids outside [0, n) dropped; g_sum,
-// noise, w_new: f32 [k, d];
-// all contiguous on the stream's device.  Returns cudaGetLastError().
+// noise, w_new: f32 [k, d]; all contiguous on the stream's device.  Returns
+// cudaGetLastError().
 extern "C" int sparse_row_update_launch(void* codes, const void* step, void* mu, void* nu,
                                         const void* uniq, const void* g_sum, const void* noise,
                                         void* w_new, int64_t n, int64_t d, int64_t k,
-                                        int64_t width, int container_bits, int bits, float lr, float c1, float c2,
-                                        float b1, float a1, float b2, float a2, float eps,
-                                        float wd, void* stream) {
+                                        int64_t width, int container_bits, int bits, float lr,
+                                        float c1, float c2, float b1, float a1, float b2,
+                                        float a2, float eps, float wd, void* stream) {
   if (k * d == 0) return 0;
   Params p;
   if (!make_params(p, codes, step, mu, nu, uniq, g_sum, noise, w_new, n, d, k, 0, width, bits,

@@ -5,9 +5,9 @@ parts and against the JAX package.
 The kernels cannot run on the CPU, so this file models what their threads
 do: the g_sum form's lane tasks (task t = slot * ceil(d/4) + l, the slot by
 ``FastDiv``'s multiply-high, one resident wave of blocks at most and a
-grid-stride loop past it) and the runs form's tiles (a block per 256 / lanes
-slots, the tile's range of ``order`` staged in chunks of 2,048 pieces, each
-live lane adding its run from the stage).  For both it checks that every
+grid-stride loop past it) and the runs form's tiles (a block per 16 slots,
+the tile's range of ``order`` staged in chunks of 1,536 pieces, each live
+lane adding its run from the stage).  For both it checks that every
 (live slot, column) is written exactly once, that dead slots (a repeated id
 or one outside the table) read no row state and write a zero ``w_new`` row,
 that each run is walked in occurrence order and each lookup's row staged
@@ -41,8 +41,10 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "ke
 SOURCE = (CSRC / "sparse_row_update.cu").read_text()
 BLOCK = int(re.search(r"constexpr int kThreads = (\d+);", (CSRC / "common.cuh").read_text())[1])
 STAGE = int(re.search(r"constexpr uint32_t kStage = (\d+);", SOURCE)[1])
-TASKS = int(re.search(r"#define ROW_TASKS (\d+)", SOURCE)[1])
+TILE = int(re.search(r"constexpr uint32_t kTileSlots = (\d+);", SOURCE)[1])
 assert "kPieces = kStage / repro::kThreads" in SOURCE and STAGE % BLOCK == 0
+assert "std::min(repro::kThreads / p.tile_lanes, kTileSlots)" in SOURCE
+assert "row_kernel<BITS, VEC><<<repro::grid_for(p.tasks), repro::kThreads" in SOURCE
 H100_SMS = 132
 f32 = np.float32
 
@@ -163,26 +165,21 @@ class Table:
 
 
 def model_rows(codes, step, mu, nu, uniq, g_sum, noise, bits, wd, sms=H100_SMS):
-    """The g_sum form (``row_kernel``): the grid of ``launch_rows`` and its
-    grid-stride loop, ROW_TASKS tasks per thread."""
+    """The g_sum form (``row_kernel``): the grid of ``launch_rows`` (one
+    resident wave at most) and its grid-stride loop, one task per thread."""
     k, d = g_sum.shape
     lanes = -(-d // 4)
     tasks = k * lanes
-    grid = min(-(-(-(-tasks // TASKS)) // BLOCK), sms * (2048 // BLOCK))
-    stride = grid * BLOCK
+    stride = min(-(-tasks // BLOCK), sms * (2048 // BLOCK)) * BLOCK
     magic, shift = fast_div(lanes)
     live = _live(uniq, len(codes))
     stepped = _stepped(codes, step, mu, nu, uniq, g_sum, noise, bits, wd)
     table = Table(codes, mu, nu, bits, k, d)
     for gtid in range(stride):
-        for t0 in range(gtid, tasks, TASKS * stride):
-            for r in range(TASKS):
-                t = t0 + r * stride
-                if t >= tasks:
-                    break
-                s = int(divide(t, magic, shift))
-                assert s == t // lanes
-                table.lane(s, t - s * lanes, live[s], int(uniq[s]), stepped)
+        for t in range(gtid, tasks, stride):
+            s = int(divide(t, magic, shift))
+            assert s == t // lanes
+            table.lane(s, t - s * lanes, live[s], int(uniq[s]), stepped)
     return table
 
 
@@ -195,7 +192,7 @@ def model_runs(codes, step, mu, nu, uniq, g_occ, order, starts, noise, bits, wd)
     m = len(order)
     lanes = -(-d // 4)
     tl = min(lanes, BLOCK)
-    ts = BLOCK // tl
+    ts = min(BLOCK // tl, TILE)
     chunk = STAGE // tl
     magic, shift = fast_div(tl)
     live = _live(uniq, len(codes))
@@ -368,7 +365,8 @@ def test_occurrence_runs_of_a_ctr_wave():
     uniq, inv, order, starts = _dedup(ids, 4000)
     k, distinct = len(uniq), len(np.unique(ids))
     assert order.dtype == np.int64 and starts.dtype == np.int32 and starts.shape == (k + 1,)
-    np.testing.assert_array_equal(np.diff(starts)[:distinct], np.bincount(inv, minlength=k)[:distinct])
+    counts = np.bincount(inv, minlength=k)
+    np.testing.assert_array_equal(np.diff(starts)[:distinct], counts[:distinct])
     assert (np.diff(starts)[distinct:] == 0).all() and starts[0] == 0 and starts[-1] == k
     np.testing.assert_array_equal(order, np.argsort(inv, kind="stable"))
     assert np.diff(starts).max() >= 404
