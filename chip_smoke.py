@@ -391,7 +391,8 @@ def run_row_step(ops, o: dict, runs: bool, bits: int, wd: float = 5e-8,
 
 def row_bound(o: dict, distinct: int, runs: bool) -> tuple[float, str]:
     """Least time of one row step over the operands ``o``.  The g_sum form
-    (PR 14's count): per slot the id, g and noise rows in and w_new out; per
+    (the count of the kernel's first port, kept so that its times compare):
+    per slot the id, g and noise rows in and w_new out; per
     distinct row and the scratch row the codes in and out, Delta in, mu and
     nu in and out; ~30 fp32 operations per element (fma counted as 2).  The
     runs form: the lookups' g_occ rows and int64 order entries, starts and uniq,
