@@ -177,6 +177,9 @@ KERNELS = {
     "sr_round_seeded": ("src/repro_torch/kernels/csrc/sr_round.cu",
                         "src/repro/kernels/sr_round.py:87"),
 }
+# Where a kernel's launch count comes from when it has no main path.
+LAUNCHES_FROM = {"sparse_row_update": "phase 2b check", "sparse_row_update_packed":
+                 "phase 2b check", "sr_round_seeded": "phase 2e unbiasedness run"}
 # LM serving (phase 7): SmolLM-135M at full width.
 LM_ARCH = "smollm-135m"
 LM_REQUESTS, LM_PROMPTS, LM_MAX_NEW, LM_BATCH, LM_MAX_LEN = 16, (64, 100, 128, 157), 32, 8, 192
@@ -364,15 +367,14 @@ LONG_RUN = 1_100  # lookups of one id in phase 2b's synthetic wave
 
 
 def row_runs(torch, ids, g_occ, sentinel: int) -> dict:
-    """One wave's row-step operands: its dedup (``uniq``, ``inv``), runs
-    (``order``, ``starts``), per-lookup gradients and their segment sum."""
+    """One wave's row-step operands: its ids, their dedup (``uniq``,
+    ``inv``) and runs (``order``, ``starts``), per-lookup gradients and
+    their segment sum."""
     from repro_torch.core import lpt
 
-    k = ids.numel()
-    uniq, inv = lpt.dedup_ids(ids, sentinel)
-    order, starts = lpt.occurrence_runs(inv, k)
-    return {"uniq": uniq, "inv": inv, "order": order, "starts": starts, "g_occ": g_occ,
-            "g_sum": lpt.segment_sum(g_occ, inv, k)}
+    uniq, inv, order, starts = lpt.dedup_runs(ids, sentinel)
+    return {"ids": ids, "uniq": uniq, "inv": inv, "order": order, "starts": starts,
+            "g_occ": g_occ, "g_sum": lpt.segment_sum(g_occ, inv, ids.numel())}
 
 
 def run_row_step(ops, o: dict, runs: bool, bits: int, wd: float = 5e-8,
@@ -389,22 +391,27 @@ def run_row_step(ops, o: dict, runs: bool, bits: int, wd: float = 5e-8,
                                  use_kernel=use_kernel)
 
 
-def row_bound(o: dict, distinct: int, runs: bool) -> tuple[float, str]:
-    """Least time of one row step over the operands ``o``.  The g_sum form
-    (the count of the kernel's first port, kept so that its times compare):
-    per slot the id, g and noise rows in and w_new out; per
-    distinct row and the scratch row the codes in and out, Delta in, mu and
-    nu in and out; ~30 fp32 operations per element (fma counted as 2).  The
-    runs form: the lookups' g_occ rows and int64 order entries, starts and uniq,
-    the live rows' state, the live slots' noise, all of w_new; its
-    operations the live rows' steps and one add per looked-up element."""
+def row_bound(o: dict, distinct: int, runs: bool,
+              all_slots: bool = False) -> tuple[float, str]:
+    """Least time of one row step over the operands ``o``: what the function
+    needs.  Both forms: the live rows' state (per distinct row and the
+    scratch row the codes in and out, Delta in, mu and nu in and out), the
+    live slots' noise rows, all of w_new (a dead slot's row is written, its
+    value unspecified); ~30 fp32 operations per element of a live row (fma
+    counted as 2).  The g_sum form adds each slot's id and each live slot's
+    g row; with ``all_slots`` it counts instead what the kernel's first port
+    moved and did, g and noise rows and a step for every slot (a comparison
+    figure for that port's times, not a bound).  The runs form adds the
+    lookups' g_occ rows and int64 order entries, starts and uniq, and one add
+    per looked-up element."""
     k, m, d = o["uniq"].numel(), o["g_occ"].shape[0], o["codes"].d
     width = o["codes"].data.shape[1]
+    state = (distinct + 1) * (2 * width + 4 + 16 * d)
     if not runs:
-        nbytes = k * (4 + 3 * 4 * d) + (distinct + 1) * (2 * width + 4 + 4 * 4 * d)
-        return bound_ms(nbytes, k * d * 30)
-    nbytes = (m * (4 * d + 8) + 4 * (k + 1) + 4 * k
-              + (distinct + 1) * (2 * width + 4 + 16 * d) + distinct * 4 * d + k * 4 * d)
+        read = k if all_slots else distinct  # slots whose g and noise rows are read
+        return bound_ms(k * (4 + 4 * d) + read * 8 * d + state,
+                        (k if all_slots else distinct + 1) * d * 30)
+    nbytes = m * (4 * d + 8) + 4 * (k + 1) + 4 * k + state + distinct * 4 * d + k * 4 * d
     return bound_ms(nbytes, (distinct + 1) * d * 30 + m * d)
 
 
@@ -1515,9 +1522,10 @@ def gather_only(baseline: str | None = None) -> int:
 # The row step alone (row_only).  Host time of lpt.sparse_apply with the
 # kernels on, at the CTR wave on the full padded Avazu table, in a checkout
 # (its src on PYTHONPATH), run as a server in the manner of HOST_PROBE: per
-# key read from stdin, the mean wall time of 50 calls back to back (each
-# call's torch.unique waits for the card, so this is what a training step
-# pays on the host), or the number of aten operations one call dispatches.
+# key read from stdin, the mean wall time of 50 calls back to back ending
+# with a sync (the longer of the host's enqueue and the card's work, and any
+# wait for the card inside a call), or the number of aten operations one
+# call dispatches.
 ROW_HOST_PROBE = f"""
 import json, sys, time
 import torch
@@ -1672,19 +1680,20 @@ def row_only(baseline: str | None = None) -> int:
         def segsum_pair(o):
             return pair(o, bits, lpt.segment_sum(o["g_occ"], o["inv"], o["uniq"].numel()))
 
-        def runs_from_inv(o):
-            order, starts = lpt.occurrence_runs(o["inv"], o["uniq"].numel())
-            return run_row_step(ops, {**o, "order": order, "starts": starts}, True, bits)
+        def runs_from_ids(o):
+            uniq, _, order, starts = lpt.dedup_runs(o["ids"], n)
+            return run_row_step(ops, {**o, "uniq": uniq, "order": order, "starts": starts},
+                                True, bits)
 
         # (the change, what it is timed against per call, and whether back
-        # to back too: with the segment sum or occurrence_runs in the calls
+        # to back too: with the segment sum or the dedup in the calls
         # the host fell behind every spin of time_b2b on an H100)
         forms = {
             "g_sum form": (lambda o: run_row_step(ops, o, False, bits),
                            {v: (lambda o, r=r: r(o, bits)) for v, r in variants.items()}, True),
             "runs form": (lambda o: run_row_step(ops, o, True, bits),
                           {f"segment sum + {pair_label} kernel": segsum_pair,
-                           "occurrence_runs + runs form": runs_from_inv}, False),
+                           "dedup_runs + runs form": runs_from_ids}, False),
         }
         for form, (change, others, b2b_others) in forms.items():
             per_call = in_turns(lambda f: time_ms(torch, f, 50, flush)[0], lambda: change(o),
@@ -1696,6 +1705,8 @@ def row_only(baseline: str | None = None) -> int:
             plain_ms = time_ms(torch, lambda: run_row_step(ops, o, form == "runs form", bits,
                                                            use_kernel=False), 10, flush)[0]
             b_ms, b_by = row_bound(o, distinct, form == "runs form")
+            first_port = ("" if form == "runs form" else "; the first port's byte count "
+                          f"{row_bound(o, distinct, False, all_slots=True)[0] * 1e3:.3f} us")
             log(f"[time] row step bits={bits}, {form}, CTR wave ({k} slots, {distinct} distinct): "
                 f"per call (L2 flushed) {per_call[0][0] * 1e3:.2f}, {per_call[0][1] * 1e3:.2f} us"
                 + "".join(f"; {v} {a * 1e3:.2f}, {z * 1e3:.2f}"
@@ -1703,18 +1714,27 @@ def row_only(baseline: str | None = None) -> int:
                 + f"; back to back ({B2B_CALLS} calls over {len(pool)} waves) "
                 f"{b2b[0][0] * 1e3:.2f}, {b2b[0][1] * 1e3:.2f} us"
                 + "".join(f"; {v} {a * 1e3:.2f}, {z * 1e3:.2f}" for v, (a, z) in b2b[1].items())
-                + f"; bound {b_ms * 1e3:.3f} us by {b_by}; plain {plain_ms * 1e3:.2f} us")
+                + f"; bound {b_ms * 1e3:.3f} us by {b_by}{first_port}; "
+                f"plain {plain_ms * 1e3:.2f} us")
     # What the runs' operands cost on the card, beside the sum they replace.
     o = row_ops[8]
-    inv, k = o["inv"], o["uniq"].numel()
-    inv32, sorted_inv = inv.to(torch.int32), torch.sort(inv).values
-    parts = {"torch.sort(inv, stable=True), int64 keys": lambda: torch.sort(inv, stable=True),
-             "the same, int32 keys": lambda: torch.sort(inv32, stable=True),
-             "arange + searchsorted": lambda: torch.searchsorted(
-                 sorted_inv, torch.arange(k + 1, device=dev), out_int32=True),
-             "occurrence_runs": lambda: lpt.occurrence_runs(inv, k),
+    ids, inv, k = o["ids"], o["inv"], o["uniq"].numel()
+
+    def two_sorts():  # dedup_ids, then a stable sort of its inv for the runs
+        _, slots = lpt.dedup_ids(ids, n)
+        sorted_inv, order = torch.sort(slots.to(torch.int32), stable=True)
+        return order, torch.searchsorted(
+            sorted_inv, torch.arange(k + 1, dtype=torch.int32, device=dev), out_int32=True)
+
+    parts = {"dedup_ids (torch.unique)": lambda: lpt.dedup_ids(ids, n),
+             "dedup_ids + a stable sort of inv + searchsorted": two_sorts,
+             "dedup_runs (one stable sort, no sync)": lambda: lpt.dedup_runs(ids, n),
              "segment_sum (zeros + index_put_)": lambda: lpt.segment_sum(o["g_occ"], inv, k)}
-    log("[time] the runs' operands at the CTR wave, per call (L2 flushed): " + "; ".join(
+    check(all(torch.equal(a, b) for a, b in zip(lpt.dedup_runs(ids, n),
+                                                 (*lpt.dedup_ids(ids, n), *two_sorts()))),
+          "dedup_runs differs from dedup_ids and a stable sort of its inv")
+    log("[time] the runs' operands at the CTR wave, per call (L2 flushed; torch.unique waits "
+        "for the card inside the call, so the host's work after it is in its time): " + "; ".join(
         f"{label} {time_ms(torch, fn, 30, flush)[0] * 1e3:.2f} us" for label, fn in parts.items()))
     one_el = torch.zeros(1, device=dev)
     floor = time_ms(torch, lambda: one_el.add_(1), 30, flush)[0]
@@ -2323,6 +2343,10 @@ def main() -> int:
                 time_ms(torch, lambda: run_row_step(ops, o, runs, bits, use_kernel=False), 20,
                         flush)[0],
                 *row_bound(o, distinct, runs), None)
+        first_port = row_bound(o, distinct, False, all_slots=True)[0]
+        log(f"[time] sparse_row_update bits={bits}: the first port's byte count (g and noise "
+            f"rows and a step for all {o['uniq'].numel()} slots), {first_port * 1e3:.3f} us, "
+            "for comparison with that port's times; the bound counts the live slots only")
     a = adam_ops
     n_el = sum(x.numel() for x in a["params"])
 
@@ -2373,6 +2397,7 @@ def main() -> int:
             "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[kernel], "max_abs_err": err[kernel], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "launches_from": LAUNCHES_FROM.get(kernel, "main path"),
         })
     check(all(r["launches"] > 0 for r in rows_out), f"a kernel never launched: {launches}")
     check(all(math.isfinite(r["ms"]) for r in rows_out), "a timing is not finite")

@@ -157,19 +157,23 @@ def dedup_ids(ids: torch.Tensor, n_rows: int) -> tuple[torch.Tensor, torch.Tenso
 segment_sum = ref.segment_sum
 
 
-def occurrence_runs(inv: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(order int64 [M], starts int32 [k + 1])`` for the slots ``inv`` [M]
-    that :func:`dedup_ids` gives: ``order`` the lookups grouped by slot, in
-    occurrence order within a slot (a stable sort of ``inv``), and slot s's
-    run ``order[starts[s]:starts[s + 1]]`` (empty for the sentinel padding).
-    The operands of ``ops.sparse_row_update_runs``.  The keys are sorted as
-    int32 (slots < 2^31): a radix sort of half the key bits, 58 against 91 us
-    at a CTR wave on an H100 (``chip_smoke.row_only``); ``order`` stays int64,
-    as the sort gives it."""
-    sorted_inv, order = torch.sort(inv.to(torch.int32), stable=True)
-    starts = torch.searchsorted(sorted_inv, torch.arange(k + 1, dtype=torch.int32,
-                                                         device=inv.device), out_int32=True)
-    return order, starts
+def dedup_runs(ids: torch.Tensor, n_rows: int) -> tuple[torch.Tensor, ...]:
+    """``(uniq, inv, order int64 [K], starts int32 [K + 1])`` for the K flat
+    ids from one stable sort and no wait for the card: :func:`dedup_ids`'
+    ``uniq`` and ``inv``, and each slot's run of lookups,
+    ``order[starts[s]:starts[s + 1]]`` in occurrence order (empty for the
+    sentinel padding) -- the operands of ``ops.sparse_row_update_runs``.  A
+    sorted lookup's slot is the number of id changes before it.  The ids are
+    sorted as int32 keys (ids < 2^31, as ``uniq``'s dtype already asks)."""
+    flat = ids.reshape(-1)
+    k = flat.numel()
+    sorted_ids, order = torch.sort(flat.to(torch.int32), stable=True)
+    slot = (torch.diff(sorted_ids, prepend=sorted_ids[:1]) != 0).cumsum(0)
+    uniq = torch.full((k,), n_rows, dtype=torch.int32, device=flat.device)
+    uniq.scatter_(0, slot, sorted_ids)  # a run's lookups write its one id
+    inv = torch.empty_like(order).scatter_(0, order, slot)
+    starts = torch.searchsorted(slot, torch.arange(k + 1, device=flat.device), out_int32=True)
+    return uniq, inv, order, starts
 
 
 def set_rows(t: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor) -> None:
@@ -228,7 +232,7 @@ def sparse_apply(table: LPTTable, ids: torch.Tensor, grad_rows: torch.Tensor, *,
     otherwise it lies past the table and its writes are dropped.
     ``use_kernels`` takes the fused ``ops.sparse_row_update_runs`` kernel
     when eligible (SR, row-Adam, no ``new_step``), which sums each id's
-    gradients itself (:func:`occurrence_runs`); anything else is a counted
+    gradients itself (:func:`dedup_runs`); anything else is a counted
     fallback (``ops.fallbacks()``) to the plain path below, which sums with
     :func:`segment_sum` and is bitwise equal on every live row and real
     slot (the sentinel's slots and scratch row are unspecified on both).
@@ -244,32 +248,33 @@ def sparse_apply(table: LPTTable, ids: torch.Tensor, grad_rows: torch.Tensor, *,
         # Live-width cotangents against a pad_to_tiles table: the tail
         # columns were never looked up, so their gradient is exactly zero.
         flat_g = torch.nn.functional.pad(flat_g, (0, d - flat_g.shape[-1]))
-    uniq, inv = dedup_ids(ids, sentinel)
-    k = uniq.numel()
     count = table.count + 1
     if rounding == "sr" and noise is None:
         raise ValueError("SR requires noise")
 
     kernel_ok = False
     if use_kernels:
+        kernel = "sparse_row_update_runs" + ("_packed" if table.codes.packed else "")
         if rounding != "sr":
-            ops.note_fallback("sparse_row_update", (n, d), "dr rounding")
+            ops.note_fallback(kernel, (n, d), "dr rounding")
         elif optimizer != "adam":
-            ops.note_fallback("sparse_row_update", (n, d), f"row optimizer {optimizer!r}")
+            ops.note_fallback(kernel, (n, d), f"row optimizer {optimizer!r}")
         elif new_step is not None:
-            ops.note_fallback("sparse_row_update", (n, d), "caller-supplied new_step")
+            ops.note_fallback(kernel, (n, d), "caller-supplied new_step")
         else:
             kernel_ok = True
     if kernel_ok:
         # The kernel sums each slot's run of lookups itself: no g_sum.
         c1, c2 = adam_bias_corrections(count)
-        order, starts = occurrence_runs(inv, k)
+        uniq, inv, order, starts = dedup_runs(ids, sentinel)
         w_new = ops.sparse_row_update_runs(table.codes, table.step, table.mu, table.nu, uniq,
                                            flat_g.contiguous(), order, starts, noise, lr, c1, c2,
                                            bits, weight_decay=weight_decay)
         new_table = table._replace(count=count)
         return (new_table, (uniq, w_new, inv)) if return_updated_rows else new_table
 
+    uniq, inv = dedup_ids(ids, sentinel)
+    k = uniq.numel()
     g_sum = segment_sum(flat_g, inv, k)
     # Gather the current rows and optimizer slots (a sentinel past the table
     # gathers the last row harmlessly; its writes are dropped).

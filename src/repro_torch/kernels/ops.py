@@ -244,7 +244,7 @@ def sparse_row_update_runs(codes, step: torch.Tensor, mu: torch.Tensor, nu: torc
     """:func:`sparse_row_update` with the duplicate-id gradient sum folded in:
     slot s's gradient is the sum, in occurrence order from +0.0, of the
     per-lookup rows ``g_occ[order[starts[s]:starts[s + 1]]]``
-    (``core.lpt.occurrence_runs``), bitwise what ``core.lpt.segment_sum``
+    (``core.lpt.dedup_runs``), bitwise what ``core.lpt.segment_sum``
     gives the ``g_sum`` form.  Counted as ``sparse_row_update_runs`` and, for
     packed stores, ``sparse_row_update_runs_packed``.
     """

@@ -111,7 +111,7 @@ def sparse_row_update_runs(codes: torch.Tensor, step: torch.Tensor, mu: torch.Te
     ``g_occ`` f32 [m, d] per lookup, ``order`` int64 [m] (the lookups grouped
     by slot, in occurrence order within a slot) and ``starts`` int32 [k + 1]
     (slot s's run is ``order[starts[s]:starts[s + 1]]``), as
-    :func:`repro_torch.core.lpt.occurrence_runs` makes them."""
+    :func:`repro_torch.core.lpt.dedup_runs` makes them."""
     d = codes.shape[-1] if codes.ndim == 2 else 0
     return _launch("sparse_row_update_runs", codes, step, mu, nu, uniq, g_occ, noise, lr, c1,
                    c2, d=d, container_bits=8, bits=bits, weight_decay=weight_decay,

@@ -308,8 +308,7 @@ def _runs_operands(g, dev, n_live, d, bits, m, scratch=True, long_run=420):
     ids = (torch.rand(m, generator=g, device=dev) ** 4 * n_live).to(torch.int32)
     ids[:3] = torch.tensor([0, n_live - 1, 0], device=dev)
     ids[torch.randperm(m - 3, generator=g, device=dev)[:long_run] + 3] = n_live // 2
-    uniq, inv = lpt.dedup_ids(ids, n_live)
-    order, starts = lpt.occurrence_runs(inv, m)
+    uniq, inv, order, starts = lpt.dedup_runs(ids, n_live)
     g_occ = torch.randn(m, d, generator=g, device=dev) * 0.1
     g_occ[torch.rand(m, d, generator=g, device=dev) < 0.02] = -0.0
     noise = torch.rand(m, d, generator=g, device=dev)
@@ -369,8 +368,7 @@ def test_sparse_row_update_runs_kernels_bitwise_on_an_avazu_wave(cuda, bits):
     ids = torch.from_numpy(data.batch("train", 0, 1024)[0].reshape(-1)).to(cuda)
     m, d = ids.numel(), 16
     g = _gen(7 + bits, cuda)
-    uniq, inv = lpt.dedup_ids(ids, n_live)
-    order, starts = lpt.occurrence_runs(inv, m)
+    uniq, inv, order, starts = lpt.dedup_runs(ids, n_live)
     assert int((starts[1:] - starts[:-1]).max()) >= 300
     g_occ = torch.randn(m, d, generator=g, device=cuda) * 0.01
     noise = torch.rand(m, d, generator=g, device=cuda)

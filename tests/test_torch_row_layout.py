@@ -14,7 +14,7 @@ that each run is walked in occurrence order and each lookup's row staged
 once, that the code bytes (pad bits zero) and the sums are bitwise those of
 the plain versions, and that ``fast_div`` is integer division.
 
-Then, bitwise (tolerance 0): ``occurrence_runs`` + ``sparse_row_update_runs
+Then, bitwise (tolerance 0): ``dedup_runs`` + ``sparse_row_update_runs
 (_packed)_ref`` against ``segment_sum`` + ``sparse_row_update(_packed)_ref``
 over bits, widths, weight decay and both sentinels, with a run of more than
 400 lookups; and the port's ``lpt.sparse_apply`` with ``use_kernels=True``
@@ -95,9 +95,7 @@ def _state(seed: int, n: int, d: int, bits: int, m: int):
 
 
 def _dedup(ids, sentinel):
-    uniq, inv = plpt.dedup_ids(torch.from_numpy(ids), sentinel)
-    order, starts = plpt.occurrence_runs(inv, uniq.numel())
-    return uniq.numpy(), inv.numpy(), order.numpy(), starts.numpy()
+    return tuple(x.numpy() for x in plpt.dedup_runs(torch.from_numpy(ids), sentinel))
 
 
 # ---------------------------------------------------------------------------
@@ -372,6 +370,24 @@ def test_occurrence_runs_of_a_ctr_wave():
     assert np.diff(starts).max() >= 404
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["ctr wave", "one id", "all distinct", "empty"])
+def test_dedup_runs_agrees_with_dedup_ids(dtype, case):
+    """The runs' one sort gives ``dedup_ids``' uniq and inv exactly, with
+    the ids in any shape and either index dtype."""
+    ids = {"ctr wave": _wave(3, 4000, 2048, 300), "one id": np.full(64, 17),
+           "all distinct": np.random.RandomState(4).permutation(500)[:257],
+           "empty": np.zeros(0, np.int64)}[case]
+    t = torch.from_numpy(ids).to(dtype).reshape(-1, 1)
+    uniq, inv, order, starts = plpt.dedup_runs(t, 4000)
+    want_uniq, want_inv = plpt.dedup_ids(t, 4000)
+    assert uniq.dtype == torch.int32 and inv.dtype == torch.int64
+    assert torch.equal(uniq, want_uniq) and torch.equal(inv, want_inv)
+    np.testing.assert_array_equal(order.numpy(), np.argsort(inv.numpy(), kind="stable"))
+    np.testing.assert_array_equal(np.diff(starts.numpy()),
+                                  np.bincount(inv.numpy(), minlength=ids.size))
+
+
 # ---------------------------------------------------------------------------
 # The runs form's plain version against its parts, and against the JAX package.
 # ---------------------------------------------------------------------------
@@ -388,7 +404,7 @@ def test_runs_plain_equals_segment_sum_then_row_step(bits, d, scratch, weight_de
     codes, step, mu, nu, g_occ, noise = _state(bits + 3 * d, n, d, bits, m)
     t = torch.from_numpy
     uniq, inv = plpt.dedup_ids(t(ids), n_live)
-    order, starts = plpt.occurrence_runs(inv, m)
+    _, _, order, starts = plpt.dedup_runs(t(ids), n_live)
     assert int((starts[1:] - starts[:-1]).max()) >= 420
     outs = []
     for runs in (True, False):
