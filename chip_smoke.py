@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of ALPT CTR serving and training, of
-int8-resident LM serving and of LPT/ALPT LM training on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of CTR serving and training (every embedding
+method, DCN and DeepFM), of int8-resident LM serving and of LPT/ALPT LM
+training on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -21,6 +22,10 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      (1,024 requests) and its DCN row gradients and over that wave with
      1,100 of its lookups turned into one id; the segment sum on the card
      equal to the CPU's, twice; the g_sum form's launches are this phase's;
+     the runs form bitwise at the two long-run waves of phase 9's methods:
+     the qr_* remainder (ids % 2 of that wave: two rows, ~12,288 lookups
+     each) and mixed's 8-bit group (82 rows; the other groups' ~21,500
+     lookups one sentinel run on its scratch row);
   2c. adam_update (the dense optimizer's kernel) over the full-width DCN's
      parameters and that wave's gradients, two steps;
   3. serve 4,096 Avazu test requests at full width (24 fields, d=16, DCN
@@ -40,6 +45,21 @@ Phases (each prints its lines; any failure exits non-zero with no result):
   6b. the training CLI (python -m repro_torch.launch.train ctr) at full
      width in the paper's setup, without the scratch row, 5 steps: one
      sparse_row_update_runs and one Adam launch per step, no fallbacks;
+  9. the rest of the paper's methods on the full Avazu table (padded), DCN,
+     batches of 1,024: lsq, pact, prune (its mask refreshed at steps 3, 6
+     and 9), hash, qr_lpt, qr_alpt and mixed (groups at 8, 4 and 2 bits)
+     each train 10 steps kernels on, then the first 3 again kernels off from
+     a copy of the initial state: bitwise equal state, dense params,
+     optimizer states and losses; launches per step as the code implies, no
+     fallbacks, finite losses, the bytes of every tensor of the state
+     (row-Adam slots and prune's bool mask included) exactly
+     memory_bytes(stored=True), prune's sparsity its scheduled ratio; each trained state
+     served (4,096 requests) kernels on and off, bitwise equal, resident
+     bytes exactly memory_bytes(training=False) for lsq, pact, qr_* and
+     mixed; full synthetic Criteo (1,086,878 x 16, DCN depth 5 x 1000,
+     dropout 0.2) ALPT-8 10 steps, 3 replayed kernels off with the same
+     masks, bitwise; DeepFM on Avazu (table width d + 1 = 17) ALPT-8 5 steps,
+     3 replayed, then served; a profiler window of 3 steps for each;
   2d. dequant_matmul / dequant_matmul_packed (bits 4, 2) at SmolLM's head
      (M in {1, 8}, N = 49,152, K = 576) and ragged shapes against their plain
      versions and a float64 recomputation, each logit within the fp32 error
@@ -92,7 +112,8 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      operand at 49,152 x 576, the row step's two forms at a training wave
      (row_only runs them without the rest, beside another build of
      sparse_row_update.cu, the segment sum they replace and the host time
-     of lpt.sparse_apply), and the training attention's forward + backward
+     of lpt.sparse_apply), the runs form at phase 9's two long-run waves
+     beside its bound, and the training attention's forward + backward
      (plain PyTorch, no bound row).
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  Without a GPU, or outside a checkout, it
@@ -100,6 +121,7 @@ exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import io
@@ -659,7 +681,7 @@ def train(torch, np, dev, bits: int, batches, test_ids) -> dict:
                 f"{replay_losses} vs {ref_losses}")
     log(f"[train] bits={bits}: steps 1-3 with the kernels off equal the kernels-on run bit for "
         f"bit (losses {ref_losses})")
-    profile_steps(torch, trainer, replay, batches, bits)
+    profile_steps(torch, trainer, replay, batches, f"bits={bits}")
     return {"launches": launches, "ms_per_step": ms, "first_ms": wall[0], "losses": losses}
 
 
@@ -698,7 +720,7 @@ def profile_window(torch, run, steps: int, label: str) -> None:
         f"{top([e for e in timed if e not in kernels])}")
 
 
-def profile_steps(torch, trainer, state, batches, bits: int) -> None:
+def profile_steps(torch, trainer, state, batches, label: str) -> None:
     """Three more CTR training steps (kernels on, from ``state``) under the
     profiler, after one outside it."""
     state, _ = trainer.fit(batches, steps=1, batch_size=BATCH, state=state)  # warm, outside
@@ -708,7 +730,7 @@ def profile_steps(torch, trainer, state, batches, bits: int) -> None:
         trainer.fit(batches, steps=3, batch_size=BATCH, state=state)
         torch.cuda.synchronize()
 
-    profile_window(torch, run, 3, f"bits={bits}")
+    profile_window(torch, run, 3, label)
 
 
 def head_bound(torch, x, codes, step):
@@ -1649,6 +1671,8 @@ def row_only(baseline: str | None = None) -> int:
     wave, g_occ, _, _ = wave_gradients(torch, dev, batches[0])
     err = {k: 0.0 for k in KERNELS}
     row_ops = check_row_update(torch, dev, g, wave, g_occ, n, err)
+    long_waves = long_run_waves(torch, dev, g, wave, n)
+    check_long_runs(torch, long_waves, err)
     log(f"[check] max err vs plain: " + str({k: v for k, v in err.items() if "row" in k}))
     distinct = row_ops["distinct"]
     flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
@@ -2185,6 +2209,326 @@ def time_write_back(torch, wb: dict, flush) -> dict:
     return timings
 
 
+# Phase 9: the rest of the paper's embedding methods, Criteo with dropout
+# and DeepFM, at full width.
+NEW_METHODS = ("lsq", "pact", "prune", "hash", "qr_lpt", "qr_alpt", "mixed")
+METHOD_STEPS, METHOD_REPLAY, DEEPFM_STEPS = 10, 3, 5
+# Kernel launches of one training step, as the code implies: float leaves
+# take one adam_update over the table's leaves and one over the DCN; qr_*
+# gather both factors once and step each sub-table through the runs form,
+# qr_alpt re-quantizes both through
+# sr_round; mixed gathers and steps its 8-bit, 4-bit and 2-bit groups.
+STEP_LAUNCHES = {
+    **{m: {"adam_update": 2} for m in ("lsq", "pact", "prune", "hash")},
+    "qr_lpt": {"dequant_gather": 2, "sparse_row_update_runs": 2, "adam_update": 1},
+    "qr_alpt": {"dequant_gather": 2, "sparse_row_update_runs": 2, "sr_round": 2,
+                "adam_update": 1},
+    "alpt": {"dequant_gather": 1, "sparse_row_update_runs": 1, "sr_round": 1,
+             "adam_update": 1},
+}
+# Serving launches per wave: QAT's int8 export, both QR factors (mixed: one
+# gather per group).
+WAVE_LAUNCHES = {"lsq": {"dequant_gather": 1}, "pact": {"dequant_gather": 1},
+                 "qr_lpt": {"dequant_gather": 2}, "qr_alpt": {"dequant_gather": 2},
+                 "alpt": {"dequant_gather": 1}, "prune": {}, "hash": {}}
+# Phase 9's own pruning schedule: warmup 2, ratio 0.5 * (1 - 0.5^(k - 2)),
+# the mask recomputed at steps 3, 6 and 9.
+PHASE9_PRUNE = dict(target_sparsity=0.5, damping=0.5, damping_steps=1, warmup_steps=2,
+                    update_every=3)
+
+
+def mixed_launches(spec) -> tuple[dict, dict]:
+    """(per training step, per serving wave) launches of mixed: a gather and
+    a row step per bit-width group (the packed kernels below 8 bits; the
+    full Avazu table has groups at 8, 4 and 2 bits), one adam_update."""
+    from repro_torch.methods.mixed import plan_of
+
+    step, wave = {"adam_update": 1}, {}
+    for bits in plan_of(spec).group_bits:
+        packed = "_packed" if bits < 8 else ""
+        for d, k in ((step, "dequant_gather" + packed), (wave, "dequant_gather" + packed),
+                     (step, "sparse_row_update_runs" + packed)):
+            d[k] = d.get(k, 0) + 1
+    return step, wave
+
+
+def live_parts(state, spec) -> list:
+    """The state's tensors a model can observe: each LPT sub-table's codes,
+    Delta and Adam slots over its live rows (a padded table's scratch row is
+    unspecified), or every tensor of a float-leaf state."""
+    from repro_torch.core import hashing
+    from repro_torch.core.lpt import LPTTable
+    from repro_torch.methods.mixed import plan_of
+
+    if spec.method in ("qr_lpt", "qr_alpt"):
+        tables = zip((state.remainder, state.quotient),
+                     hashing.qr_rows(spec.n, spec.hash_compression))
+    elif spec.method == "mixed":
+        tables = zip(state.subs, plan_of(spec).group_rows)
+    elif isinstance(state, LPTTable):
+        tables = [(state, spec.n)]
+    else:
+        return [v for v in state if hasattr(v, "dtype")]
+    return [t[:live] for table, live in tables
+            for t in (table.codes.data, table.step, table.mu, table.nu)]
+
+
+def held_bytes(state) -> int:
+    """The bytes every tensor of a table state holds on the device: codes,
+    Delta and row-optimizer slots of every sub-table, float leaves, prune's
+    bool mask."""
+    if hasattr(state, "numel"):
+        return state.numel() * state.element_size()
+    if hasattr(state, "packed"):  # a CodeStore
+        return held_bytes(state.data)
+    if isinstance(state, (tuple, list)):
+        return sum(held_bytes(v) for v in state)
+    return 0
+
+
+def scaled(per_step: dict, steps: int) -> dict:
+    return {k: v * steps for k, v in per_step.items()}
+
+
+def train_and_replay(torch, dev, cfg, batches, steps: int, replay: int, label: str):
+    """``steps`` steps with the kernels on (counted from the first step),
+    then the first ``replay`` again with the kernels off from a copy of the
+    initial state (the generator's state included: the same SR noise and
+    dropout masks): bitwise on the live state, the dense params and their
+    optimizer states, and the losses; then a profiler window of 3 steps
+    with the kernels on.  Returns (state, launches, losses, ms per step
+    after the first, init launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.training.ctr_trainer import CTRTrainer, clone_state
+
+    trainer = CTRTrainer(cfg, device=dev)
+    ops.reset_kernel_calls()
+    ops.reset_fallbacks()
+    state = trainer.init_state()
+    init_launches = ops.kernel_calls()
+    state0 = clone_state(state)
+    ops.reset_kernel_calls()
+    state, history = trainer.fit(batches, steps=replay, batch_size=BATCH, state=state)
+    early = clone_state(state)
+    state, rest = trainer.fit(batches, steps=steps - replay, batch_size=BATCH, state=state)
+    history += rest
+    torch.cuda.synchronize()
+    launches = ops.kernel_calls()
+    losses = [h["loss"] for h in history]
+    check(ops.fallbacks() == [], f"{label}: fallbacks {ops.fallbacks()}")
+    check(all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
+
+    plain_cfg = dataclasses.replace(cfg, spec=dataclasses.replace(cfg.spec, use_kernels=False))
+    ops.reset_kernel_calls()
+    again, again_hist = CTRTrainer(plain_cfg, device=dev).fit(batches, steps=replay,
+                                                              batch_size=BATCH, state=state0)
+    torch.cuda.synchronize()
+    check(ops.kernel_calls() == {}, f"{label}: kernels-off run launched {ops.kernel_calls()}")
+    pairs = list(zip(live_parts(early.emb_state, cfg.spec), live_parts(again.emb_state, cfg.spec)))
+    pairs += list(zip(early.dense.parameters(), again.dense.parameters()))
+    for opt_a, opt_b in ((early.dense_opt, again.dense_opt), (early.emb_opt, again.emb_opt)):
+        if opt_a is not None:
+            pairs += list(zip(opt_a.mu + opt_a.nu, opt_b.mu + opt_b.nu))
+    same = [h["loss"] for h in again_hist] == losses[:replay] and all(
+        torch.equal(a, b) for a, b in pairs)
+    check(same, f"{label}: kernels-off steps 1-{replay} differ from kernels-on "
+                f"({[h['loss'] for h in again_hist]} vs {losses[:replay]})")
+    profile_steps(torch, trainer, again, batches, label)
+    ms = statistics.mean(h["ms"] for h in history[1:])
+    return state, launches, losses, ms, init_launches
+
+
+def serve_both(torch, np, state, cfg, test_ids, label: str) -> tuple:
+    """Serve ``test_ids`` from a trained state through CTREngine, kernels on
+    and off: bitwise equal, finite probabilities.  Returns (engine metrics,
+    launches)."""
+    from repro_torch.serving.ctr import CTREngine, CTRRequest
+
+    results = []
+    for use_kernels in (True, False):
+        c = dataclasses.replace(cfg, spec=dataclasses.replace(cfg.spec, use_kernels=use_kernels))
+        engine = CTREngine.from_state(state, c, batch=BATCH)
+        rids = [engine.submit(CTRRequest(ids=r)) for r in test_ids]
+        done = engine.run()
+        results.append(([done[r] for r in rids], engine.metrics()))
+    (on, m), (off, m_off) = results
+    probs = np.array([r["prob"] for r in on])
+    check(bool(np.isfinite(probs).all() and (probs > 0).all() and (probs < 1).all()),
+          f"{label}: served probabilities not finite in (0, 1)")
+    check(on == off and m_off.kernel_launches == {},
+          f"{label}: the kernel engine differs from the plain one")
+    return m, m.kernel_launches
+
+
+def methods_phase(torch, np, dev, batches, test_ids) -> dict:
+    """Phase 9: each of the seven methods on the full Avazu table (padded:
+    the scratch rows take the sentinel runs), DCN, batches of 1,024: 10
+    steps kernels on, the first 3 again kernels off (bitwise), the launches
+    per step, the bytes the state holds, prune's sparsity, then serving the trained
+    state kernels on and off.  Returns this phase's launches."""
+    from repro_torch import methods
+    from repro_torch.core import pruning
+    from repro_torch.launch import train as train_cli_mod
+
+    args = argparse.Namespace(config="avazu", model="dcn", bits=8, scale=SCALE, seed=0)
+    total = {}
+    waves = -(-len(test_ids) // BATCH)
+    for i, name in enumerate(NEW_METHODS):
+        t0 = time.perf_counter()
+        _, cfg = train_cli_mod.build(argparse.Namespace(**{**vars(args), "seed": 900 + i}), name)
+        spec = dataclasses.replace(cfg.spec, pad_to_tiles=True,
+                                   prune=pruning.PruneConfig(**PHASE9_PRUNE))
+        cfg = dataclasses.replace(cfg, spec=spec)
+        method = methods.get(name)
+        state, launches, losses, ms, init = train_and_replay(
+            torch, dev, cfg, batches, METHOD_STEPS, METHOD_REPLAY, name)
+        per_step, per_wave = (mixed_launches(spec) if name == "mixed" else
+                              (STEP_LAUNCHES[name], WAVE_LAUNCHES[name]))
+        want = scaled(per_step, METHOD_STEPS)
+        check(launches == want, f"{name}: launches {launches}, the code implies {want}")
+        held = held_bytes(state.emb_state)
+        stored_b = method.memory_bytes(state.emb_state, spec, stored=True)
+        train_b = method.memory_bytes(state.emb_state, spec, training=True)
+        check(held == stored_b, f"{name}: the state holds {held} B, memory_bytes(stored=True) "
+                                f"{stored_b}")
+        extra = ""
+        if name == "prune":
+            mask = state.emb_state.mask
+            pruned = (mask.numel() - int(mask.sum())) / mask.numel()
+            ratio = pruning.prune_ratio(spec.prune, 9)  # the last refresh: step 9
+            # |w| <= the ratio-quantile: floor(ratio * (N - 1)) + 1 weights, ties aside.
+            check(abs(pruned - ratio) <= 2 / mask.numel(),
+                  f"prune: sparsity {pruned} != ratio {ratio}")
+            extra = f"; sparsity {pruned:.6f} = prune_ratio(step 9) {ratio:.6f}"
+        m, served = serve_both(torch, np, state, cfg, test_ids, name)
+        want_wave = scaled(per_wave, waves)
+        check(served == want_wave, f"{name}: serving launches {served}, expected {want_wave}")
+        inf_b = method.memory_bytes(state.emb_state, spec, training=False)
+        if name not in ("prune", "hash"):  # their export is the fp32 table
+            check(m.int8_resident and m.resident_embedding_bytes == inf_b,
+                  f"{name}: resident {m.resident_embedding_bytes} B != memory_bytes {inf_b}")
+        log(f"[methods] {name}: {METHOD_STEPS} steps of {BATCH} on the full Avazu table "
+            f"(padded), loss {losses[0]:.5f} -> {losses[-1]:.5f}, {ms:.2f} ms/step after the "
+            f"first (host clock); steps 1-{METHOD_REPLAY} kernels off bitwise equal; launches "
+            f"{launches} (init {init}); the state holds {held} B = memory_bytes(stored=True), "
+            f"the paper's training accounting {train_b} B; served "
+            f"{len(test_ids)} requests bitwise equal to the plain engine, resident "
+            f"{m.resident_embedding_bytes} B (memory_bytes(training=False) {inf_b}); "
+            f"launches {served}{extra}; {time.perf_counter() - t0:.1f}s")
+        for launched in (init, launches, served):
+            for k, v in launched.items():
+                total[k] = total.get(k, 0) + v
+        del state
+        torch.cuda.empty_cache()
+    return total
+
+
+def criteo_deepfm_phase(torch, np, dev, avazu_batches, test_ids) -> dict:
+    """Phase 9, continued: Criteo at full width (DCN depth 5 x 1000, dropout
+    0.2) trains ALPT-8 10 steps, the first 3 again kernels off with the same
+    generator state (same masks and noise), bitwise; DeepFM (table width
+    d + 1 = 17, no scratch row) trains ALPT-8 on Avazu 5 steps (3 replayed)
+    and is served.  Returns their launches."""
+    from repro_torch.data.ctr_synth import CTRSynthetic, criteo_like
+    from repro_torch.launch import train as train_cli_mod
+
+    total = {}
+    data = CTRSynthetic(criteo_like(SCALE))
+    criteo_batches = Batches(data.batch("train", i, BATCH) for i in range(METHOD_STEPS))
+    runs = (("criteo", "dcn", criteo_batches, METHOD_STEPS),
+            ("avazu", "deepfm", avazu_batches, DEEPFM_STEPS))
+    for config, model, batches, steps in runs:
+        t0 = time.perf_counter()
+        args = argparse.Namespace(config=config, model=model, bits=8, scale=SCALE, seed=31)
+        _, cfg = train_cli_mod.build(args, "alpt")
+        label = f"{config}/{model}"
+        state, launches, losses, ms, init = train_and_replay(
+            torch, dev, cfg, batches, steps, METHOD_REPLAY, label)
+        want = scaled(STEP_LAUNCHES["alpt"], steps)
+        check(launches == want, f"{label}: launches {launches}, the code implies {want}")
+        line = (f"[{model}] {config} ALPT-8, {cfg.spec.n} x {cfg.spec.d}, "
+                f"{type(state.dense).__name__} dropout {cfg.model_cfg.dropout}: {steps} steps of "
+                f"{BATCH}, loss {losses[0]:.5f} -> {losses[-1]:.5f}, {ms:.2f} ms/step after the "
+                f"first; steps 1-{METHOD_REPLAY} kernels off bitwise equal; launches {launches}")
+        served = {}
+        if model == "deepfm":
+            m, served = serve_both(torch, np, state, cfg, test_ids, label)
+            check(served == scaled(WAVE_LAUNCHES["alpt"], -(-len(test_ids) // BATCH))
+                  and m.resident_embedding_bytes == cfg.spec.n * (17 + 4),
+                  f"{label}: serving launches {served}, resident {m.resident_embedding_bytes}")
+            line += (f"; served {len(test_ids)} requests bitwise equal to the plain engine, "
+                     f"resident {m.resident_embedding_bytes} B")
+        log(f"{line}; {time.perf_counter() - t0:.1f}s")
+        for launched in (init, launches, served):
+            for k, v in launched.items():
+                total[k] = total.get(k, 0) + v
+        del state
+        torch.cuda.empty_cache()
+    return total
+
+
+def long_run_waves(torch, dev, g, wave, n_live: int) -> dict:
+    """The two long-run shapes of the runs form: the qr_* remainder's wave
+    (ids % r over the full Avazu wave, r = 2: two live rows, ~12,288 lookups
+    each, on its padded 8-row table) and mixed's 8-bit group (82 live rows of
+    3 fields; the other groups' ~21,500 lookups are one sentinel run on the
+    scratch row of its padded 88-row table); each with its table, the
+    wave's row gradients and noise.  Returns {label: operands}."""
+    from repro_torch.configs import dcn_ctr
+    from repro_torch.core import hashing
+    from repro_torch.core.codestore import CodeStore
+    from repro_torch.methods import mixed
+    from repro_torch.serving.table import map_field_ids
+
+    data_cfg, spec, _ = dcn_ctr.avazu_setup(method="mixed", bits=8, scale=SCALE)
+    spec = dataclasses.replace(spec, field_cards=tuple(data_cfg.cardinalities))
+    plan = mixed.plan_of(spec)
+    gid, local = map_field_ids(plan.field_offsets, plan.field_group, plan.field_local, wave)
+    r, _ = hashing.qr_rows(n_live)
+    shapes = {"qr remainder (r = 2)": (wave % r, r),
+              "mixed 8-bit group": (torch.where(gid == 0, local, plan.group_rows[0]),
+                                    plan.group_rows[0])}
+    out = {}
+    k, d = wave.numel(), 16
+    for label, (ids, live) in shapes.items():
+        n = -(-(live + 1) // 8) * 8
+        codes = torch.randint(-128, 128, (n, d), generator=g, device=dev, dtype=torch.int8)
+        o = row_runs(torch, ids.to(torch.int32), torch.randn(k, d, generator=g, device=dev) * 0.01,
+                     live)
+        o.update(codes=CodeStore.from_codes(codes, 8),
+                 step=torch.rand(n, generator=g, device=dev) * 0.01 + 1e-3,
+                 mu=torch.randn(n, d, generator=g, device=dev) * 1e-3,
+                 nu=torch.rand(n, d, generator=g, device=dev) * 1e-5,
+                 noise=torch.rand(k, d, generator=g, device=dev), live=live)
+        out[label] = o
+    return out
+
+
+def check_long_runs(torch, long_waves: dict, err: dict) -> None:
+    """The runs form at the two long-run shapes against its plain version:
+    live rows and every slot with a run (the sentinel's run on the scratch
+    row included) bit for bit."""
+    from repro_torch.kernels import ops
+
+    for label, o in long_waves.items():
+        outs = []
+        for use_kernel in (True, False):
+            c = {**o, "codes": dataclasses.replace(o["codes"], data=o["codes"].data.clone()),
+                 "mu": o["mu"].clone(), "nu": o["nu"].clone()}
+            w_new = run_row_step(ops, c, True, 8, use_kernel=use_kernel)
+            outs.append((c["codes"].data[:o["live"]], c["mu"][:o["live"]], c["nu"][:o["live"]],
+                         w_new[o["starts"][1:] > o["starts"][:-1]]))
+        torch.cuda.synchronize()
+        e = max(float((a.float() - b.float()).abs().max()) for a, b in zip(*outs))
+        err["sparse_row_update_runs"] = max(err["sparse_row_update_runs"], e)
+        check(all(torch.equal(a, b) for a, b in zip(*outs)),
+              f"sparse_row_update_runs at the {label} wave: max err {e}")
+        runs = o["starts"][1:] - o["starts"][:-1]
+        log(f"[check] sparse_row_update_runs bitwise at the {label} wave: "
+            f"{o['codes'].n} x 16 table, {int((runs > 0).sum())} runs, the longest "
+            f"{int(runs.max())} lookups")
+
+
 def main() -> int:
     # cuBLAS picks deterministic algorithms only with a fixed workspace; the
     # kernels-on / kernels-off training runs of phase 6 must agree bitwise.
@@ -2258,6 +2602,8 @@ def main() -> int:
     log(f"[data] {TRAIN_STEPS} training batches of {BATCH} in {time.perf_counter() - t0:.1f}s")
     wave, g_occ, dense_params, g_dense = wave_gradients(torch, dev, batches[0])
     row_ops = check_row_update(torch, dev, g, wave, g_occ, n, err)
+    long_waves = long_run_waves(torch, dev, g, wave, n)
+    check_long_runs(torch, long_waves, err)
     adam_ops = check_adam(torch, dense_params, g_dense, err)
     del g_occ
 
@@ -2280,6 +2626,15 @@ def main() -> int:
     # 6b. the training CLI at the paper's setup: no scratch row
     cli = train_cli(n)
     launches = {k: launches[k] + cli.get(k, 0) for k in KERNELS}
+
+    # 9. the other seven methods, Criteo with dropout, DeepFM, at full width
+    t0 = time.perf_counter()
+    phase9 = methods_phase(torch, np, dev, batches, ids)
+    for k, v in criteo_deepfm_phase(torch, np, dev, batches, ids).items():
+        phase9[k] = phase9.get(k, 0) + v
+    check(set(phase9) <= set(KERNELS), f"phase 9 launched {phase9}")
+    log(f"[kernels] launches on phase 9's paths: {phase9}; {time.perf_counter() - t0:.1f}s")
+    launches = {k: launches[k] + phase9.get(k, 0) for k in KERNELS}
 
     # 7. LM serving at full width, 8 bits then 4 bits packed; 7b. its CLI
     lm_runs = {bits: lm_serve(torch, np, dev, bits) for bits in (8, 4)}
@@ -2347,6 +2702,16 @@ def main() -> int:
         log(f"[time] sparse_row_update bits={bits}: the first port's byte count (g and noise "
             f"rows and a step for all {o['uniq'].numel()} slots), {first_port * 1e3:.3f} us, "
             "for comparison with that port's times; the bound counts the live slots only")
+    for label, o in long_waves.items():
+        runs = o["starts"][1:] - o["starts"][:-1]
+        ms_, host_us = time_ms(torch, lambda: run_row_step(ops, o, True, 8), 30, flush)
+        plain_ms = time_ms(torch, lambda: run_row_step(ops, o, True, 8, use_kernel=False), 10,
+                           flush)[0]
+        b_ms, b_by = row_bound(o, int(((o["uniq"] < o["live"]) & (runs > 0)).sum()), True)
+        log(f"[time] sparse_row_update_runs at the {label} wave (bits 8, {o['codes'].n} x 16, "
+            f"the longest run {int(runs.max())} lookups): {ms_ * 1e3:.2f} us on the card "
+            f"(plain {plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us by {b_by}); host "
+            f"enqueue {host_us:.1f} us per call; {card_name()}")
     a = adam_ops
     n_el = sum(x.numel() for x in a["params"])
 

@@ -71,6 +71,12 @@ class _TakeRows(torch.autograd.Function):
         return lpt.segment_sum(g, inv, ctx.k), None
 
 
+def take_rows(rows: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """``rows[inv]`` (int64 ``inv``), its backward the occurrence-order
+    :func:`repro_torch.core.lpt.segment_sum`."""
+    return _TakeRows.apply(rows, inv.to(torch.int64))
+
+
 def alpt_step(table: lpt.LPTTable, ids: torch.Tensor, g_rows: torch.Tensor,
               loss_fn_step2: Callable[[torch.Tensor], torch.Tensor], *, cfg: ALPTConfig,
               lr: float, noise: tuple[torch.Tensor, torch.Tensor], id_space: int | None = None,
@@ -103,7 +109,7 @@ def alpt_step(table: lpt.LPTTable, ids: torch.Tensor, g_rows: torch.Tensor,
     step_vec = step_b.clone().requires_grad_(True)
     with torch.enable_grad():
         rows_q = quant.fake_quant_lsq(w_new.detach(), step_vec, cfg.bits, gscale)
-        occ = _TakeRows.apply(rows_q, inv).reshape(*ids.shape, d)
+        occ = take_rows(rows_q, inv).reshape(*ids.shape, d)
         if d_live != d:
             occ = occ[..., :d_live]
         (g_step,) = torch.autograd.grad(loss_fn_step2(occ), [step_vec])
@@ -164,6 +170,14 @@ def dense_delta_grad(w_new: torch.Tensor, step_vec: torch.Tensor,
     return g_step
 
 
+def delta_step(step: torch.Tensor, g_step: torch.Tensor, cfg: ALPTConfig) -> torch.Tensor:
+    """The Delta update ``max(step - lr_D * (g + wd_D * step), 1e-8)`` as
+    XLA:CPU compiles the reference's, two fused multiply-adds:
+    ``fma(-lr_D, fma(wd_D, step, g), step)``."""
+    inner = ref.fma(ref.f32(cfg.step_weight_decay), step, g_step.to(torch.float32))
+    return torch.clamp_min(ref.fma(-ref.f32(cfg.step_lr), inner, step), 1e-8)
+
+
 def dense_finish(table: lpt.LPTTable, upd: DenseWeightUpdate, g_step: torch.Tensor, *,
                  cfg: ALPTConfig, noise: torch.Tensor) -> lpt.LPTTable:
     """Delta update + SR re-quantization (Algorithm 1 line 5), touched-row
@@ -171,13 +185,9 @@ def dense_finish(table: lpt.LPTTable, upd: DenseWeightUpdate, g_step: torch.Tens
     ``noise`` f32 [n, d] is the reference's ``sr_noise(fold_in(kn, 1), (n, d))``.
     With ``cfg.use_kernels`` and SR the write-back is ``ops.sr_round`` (f32 in,
     codes out); DR takes the plain quantizer, counted as a fallback.
-
-    The Delta step ``step - lr_D * (g + wd_D * step)`` is computed as XLA:CPU
-    compiles the reference's, two fused multiply-adds:
-    ``fma(-lr_D, fma(wd_D, step, g), step)``.
+    The Delta step is :func:`delta_step`.
     """
-    inner = ref.fma(ref.f32(cfg.step_weight_decay), table.step, g_step.to(torch.float32))
-    new_step = torch.clamp_min(ref.fma(-ref.f32(cfg.step_lr), inner, table.step), 1e-8)
+    new_step = delta_step(table.step, g_step, cfg)
     if cfg.step_clamp is not None:
         new_step = torch.clamp_max(new_step, cfg.step_clamp)
     new_step = torch.where(upd.touched, new_step, table.step)

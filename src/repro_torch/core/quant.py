@@ -9,12 +9,13 @@ the port and the reference round identically when handed the same noise).
 Every function keeps the reference's operation order, so given the same
 operands the codes are bitwise equal (tests/test_torch_quant.py).
 :func:`fake_quant_lsq` is the LSQ fake-quantizer ALPT learns Delta through
-(Eq. 6/7); the PACT variant comes with the QAT methods.
+(Eq. 6/7); :func:`fake_quant_pact` is PACT's, with a learned clip alpha.
 """
 from __future__ import annotations
 
 from typing import Literal
 
+import numpy as np
 import torch
 
 Rounding = Literal["dr", "sr"]
@@ -147,3 +148,42 @@ def fake_quant_lsq(w: torch.Tensor, step: torch.Tensor, bits: int,
     ``grad_scale`` for ``step`` (paper §3.2: g = 1/sqrt(b*d*q)), summed over
     the trailing dim when ``step`` is per row."""
     return _FakeQuantLSQ.apply(w, step, bits, grad_scale)
+
+
+class _FakeQuantPACT(torch.autograd.Function):
+    """Forward Q_D(w, alpha / (2^{m-1} - 1)); backward straight-through
+    inside the clip, and ``sign(w)`` for alpha outside it
+    (``repro/core/quant.py:168-200``)."""
+
+    @staticmethod
+    def forward(ctx, w, alpha, bits):
+        ctx.save_for_backward(w, alpha)
+        # The step alpha / p as the jitted reference computes it: XLA:CPU
+        # turns the division by the constant p into a multiply by its
+        # float32 reciprocal.
+        inv_p = float(np.float32(1.0) / np.float32(2 ** (bits - 1) - 1))
+        return quantize(w, _broadcast_step(w, alpha) * inv_p, bits, rounding="dr")
+
+    @staticmethod
+    def backward(ctx, g):
+        w, alpha = ctx.saved_tensors
+        inside = torch.abs(w) < _broadcast_step(w, alpha)
+        dw = (g * inside).to(w.dtype)
+        # Outside the clip: d/dalpha clip(w, -a, a) = sign(w); inside 0 (PACT).
+        dalpha_full = g.to(torch.float32) * torch.where(inside, 0.0, torch.sign(w)).to(
+            torch.float32)
+        if alpha.ndim == 0:
+            dalpha = torch.sum(dalpha_full)
+        elif alpha.ndim == w.ndim - 1:
+            dalpha = torch.sum(dalpha_full, dim=-1)
+        else:
+            dalpha = dalpha_full
+        return dw, dalpha.to(alpha.dtype), None
+
+
+def fake_quant_pact(w: torch.Tensor, alpha: torch.Tensor, bits: int) -> torch.Tensor:
+    """PACT (Choi et al. 2018): forward Q_D(clip(w, -alpha, alpha)) with step
+    alpha / (2^{m-1} - 1) and DR; backward STE for ``w`` inside the clip and
+    ``sign(w)`` for ``alpha`` outside it, summed over the trailing dim when
+    ``alpha`` is per row."""
+    return _FakeQuantPACT.apply(w, alpha, bits)

@@ -1,7 +1,8 @@
 """Serving CLI of the port: CTR scoring and LM decoding.
 
     python -m repro_torch.launch.serve ctr --config avazu --scale 1.0 \\
-        --method alpt --bits 8 --batch 1024 --requests 4096 [--train-steps 20]
+        --method alpt --bits 8 --batch 1024 --requests 4096 [--train-steps 20] \\
+        [--model deepfm]
     python -m repro_torch.launch.serve lm --arch smollm-135m [--smoke] \\
         --batch 4 --prompt-len 32 --gen 16 --requests 8
 
@@ -9,9 +10,12 @@
 ``cuda`` and fails without a GPU.  The state is initialized from ``--seed``
 (table init through the ``sr_round`` kernel), trained ``--train-steps``
 batches of ``--batch`` first (default 0: serve the initial state), served by
-``CTREngine`` (rows through ``dequant_gather``), and the report ends with one
-JSON line of the engine's metrics.  ``lm`` initializes the architecture's
-params and ALPT vocab table from ``--seed`` (``--smoke``: its reduced
+``CTREngine`` (integer tables' rows through ``dequant_gather``, per sub-table
+for qr_* and mixed; lsq / pact through their int8 export; the fp32 export
+of fp, hash and prune), and the report ends with one JSON line of the
+engine's metrics.  ``--method`` and ``--model`` take what ``train`` takes.
+``lm`` initializes the architecture's params and ALPT vocab table from
+``--seed`` (``--smoke``: its reduced
 config), submits ``--requests`` random prompts of ``--prompt-len`` tokens,
 decodes ``--gen`` tokens each greedily in ``LMEngine`` (slot batch
 ``--batch``: token rows through ``dequant_gather``, the tied head through
@@ -52,7 +56,7 @@ def _run_ctr(args) -> int:
     done = engine.run()
     m = engine.metrics()
     print(
-        f"[serve] ctr/{m.embedding_method} {args.config} scale={args.scale} "
+        f"[serve] ctr/{m.embedding_method} {args.model} {args.config} scale={args.scale} "
         f"bits={args.bits} on {device}: {m.requests_completed} requests in "
         f"{m.wall_s:.3f}s; resident embedding bytes {m.resident_embedding_bytes} "
         f"(codes {m.embedding_code_bytes} + scales {m.embedding_scale_bytes}; "
@@ -95,7 +99,6 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="scenario", required=True)
     ctr = sub.add_parser("ctr", help="batched CTR request scoring")
     train_cli.add_model_args(ctr)
-    ctr.add_argument("--method", choices=("lpt", "alpt"), default="alpt")
     ctr.add_argument("--requests", type=int, default=64)
     ctr.add_argument("--train-steps", type=int, default=0,
                      help="train this many batches of --batch before serving")

@@ -1,8 +1,9 @@
-"""Training CLI of the port: sparse CTR training of the paper's DCN, and
-dense LM training with a quantized vocab table.
+"""Training CLI of the port: CTR training of the paper's DCN (or DeepFM) with
+any embedding method, and dense LM training with a quantized vocab table.
 
     python -m repro_torch.launch.train ctr --config avazu --scale 1.0 \\
-        --method alpt --bits 8 --batch 1024 --steps 20
+        --method alpt --bits 8 --batch 1024 --steps 20 [--model deepfm]
+    python -m repro_torch.launch.train ctr --config criteo --method qr_alpt
     python -m repro_torch.launch.train lm --arch smollm-135m --steps 100
 
 ``--device cpu`` runs the plain PyTorch versions on the CPU; the default is
@@ -10,6 +11,9 @@ dense LM training with a quantized vocab table.
 ``--seed`` (``lm``: from seed 0, with the reference's token stream, seed
 17), and the report ends with one JSON line: the losses, host milliseconds
 per step, kernel launches, fallbacks and the table's training memory.
+``--method`` takes any name in ``repro_torch.methods.available()``; mixed
+takes the dataset's field cardinalities, DeepFM a table one column wider
+than its embedding (the first-order weight), Criteo's DCN its dropout 0.2.
 """
 from __future__ import annotations
 
@@ -25,10 +29,10 @@ from repro_torch import configs
 from repro_torch import device as device_mod
 from repro_torch import methods
 from repro_torch.configs import dcn_ctr
-from repro_torch.core import lpt as lpt_core
 from repro_torch.data.ctr_synth import CTRSynthetic
 from repro_torch.data.lm_synth import LMTokenStream
 from repro_torch.kernels import ops
+from repro_torch.models import ctr as ctr_models
 from repro_torch.training import lm_trainer
 from repro_torch.training.ctr_trainer import CTRTrainer, TrainerConfig
 
@@ -38,6 +42,9 @@ SETUPS = {"avazu": dcn_ctr.avazu_setup, "criteo": dcn_ctr.criteo_setup}
 def add_model_args(p: argparse.ArgumentParser) -> None:
     """The configuration flags ``train`` and ``serve`` share."""
     p.add_argument("--config", choices=sorted(SETUPS), default="avazu")
+    p.add_argument("--model", choices=sorted(ctr_models.MODELS), default="dcn",
+                   help="CTR backbone (deepfm: the table is emb_dim + 1 wide)")
+    p.add_argument("--method", choices=methods.available(), default="alpt")
     p.add_argument("--scale", type=float, default=0.01,
                    help="vocabulary scale of the synthetic dataset (1.0 = full)")
     p.add_argument("--bits", type=int, default=8)
@@ -47,9 +54,21 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
 
 
 def build(args, method: str):
-    """``(data, trainer config)`` for the parsed flags."""
+    """``(data, trainer config)`` for the parsed flags (``config``, ``model``,
+    ``bits``, ``scale``, ``seed``): the dataset's setup, mixed's field
+    cardinalities, and for DeepFM its default MLP and the setup's dropout
+    over a table of width d + 1."""
     data_cfg, spec, dcn = SETUPS[args.config](method=method, bits=args.bits, scale=args.scale)
-    return CTRSynthetic(data_cfg), TrainerConfig(spec=spec, dcn=dcn, seed=args.seed)
+    if method == "mixed":
+        spec = dataclasses.replace(spec, field_cards=tuple(data_cfg.cardinalities))
+    model = getattr(args, "model", "dcn")
+    deepfm = None
+    if model == "deepfm":
+        deepfm = ctr_models.DeepFMConfig(n_fields=dcn.n_fields, emb_dim=dcn.emb_dim,
+                                         dropout=dcn.dropout)
+        spec = dataclasses.replace(spec, d=dcn.emb_dim + 1)
+    cfg = TrainerConfig(spec=spec, dcn=dcn, deepfm=deepfm, model=model, seed=args.seed)
+    return CTRSynthetic(data_cfg), cfg
 
 
 def ms_per_step(history) -> float:
@@ -72,19 +91,21 @@ def _run_ctr(args) -> int:
     if device.type == "cuda":
         torch.cuda.synchronize()
     losses, ms = [h["loss"] for h in history], ms_per_step(history)
+    method = methods.get(args.method)
     report = {
-        "method": args.method, "config": args.config, "scale": args.scale, "bits": args.bits,
-        "device": str(device), "steps": args.steps, "batch": args.batch, "losses": losses,
-        "ms_per_step": ms, "kernel_launches": ops.kernel_calls(), "fallbacks": ops.fallbacks(),
-        "embedding_bytes": methods.get(args.method).memory_bytes(state.emb_state, cfg.spec),
+        "method": args.method, "model": args.model, "config": args.config,
+        "scale": args.scale, "bits": args.bits, "device": str(device), "steps": args.steps,
+        "batch": args.batch, "losses": losses, "ms_per_step": ms,
+        "kernel_launches": ops.kernel_calls(), "fallbacks": ops.fallbacks(),
+        "embedding_bytes": method.memory_bytes(state.emb_state, cfg.spec, training=True),
+        "inference_bytes": method.memory_bytes(state.emb_state, cfg.spec, training=False),
+        "training_bytes": method.memory_bytes(state.emb_state, cfg.spec, stored=True),
     }
-    if cfg.spec.is_integer_table:
-        report["training_bytes"] = lpt_core.memory_bytes(state.emb_state, cfg.spec.bits,
-                                                         count_optimizer=True)
     if args.eval_batches:
         report.update(trainer.evaluate(state, data.batches("valid", args.batch,
                                                            args.eval_batches)))
-    print(f"[train] ctr/{args.method} {args.config} scale={args.scale} bits={args.bits} on "
+    print(f"[train] ctr/{args.method} {args.model} {args.config} scale={args.scale} "
+          f"bits={args.bits} on "
           f"{device}: {args.steps} steps of {args.batch}, loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}, {ms:.2f} ms/step (host clock)")
     print(json.dumps(report, sort_keys=True))
@@ -120,10 +141,8 @@ def _run_lm(args) -> int:
         "ms_per_step": sum(ms[1:]) / max(len(ms) - 1, 1) if len(ms) > 1 else ms[0],
         "first_step_ms": ms[0], "kernel_launches": ops.kernel_calls(),
         "fallbacks": ops.fallbacks(), "embedding_bytes": method.memory_bytes(state.table, spec),
+        "training_bytes": method.memory_bytes(state.table, spec, stored=True),
     }
-    if spec.is_integer_table:
-        report["training_bytes"] = lpt_core.memory_bytes(state.table, spec.bits,
-                                                         count_optimizer=True)
     print(f"[train] lm/{spec.method} {cfg.name} bits={spec.bits} on {device}: {args.steps} "
           f"steps of {args.batch} x {args.seq}, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
           f"{report['ms_per_step']:.2f} ms/step after the first (host clock)")
@@ -134,9 +153,8 @@ def _run_lm(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="scenario", required=True)
-    ctr = sub.add_parser("ctr", help="sparse CTR training of the DCN")
+    ctr = sub.add_parser("ctr", help="CTR training of the DCN or DeepFM")
     add_model_args(ctr)
-    ctr.add_argument("--method", choices=methods.available(), default="alpt")
     ctr.add_argument("--steps", type=int, default=20)
     ctr.add_argument("--lr", type=float, default=1e-3)
     ctr.add_argument("--log-every", type=int, default=0)

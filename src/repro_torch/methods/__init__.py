@@ -1,6 +1,7 @@
 """Embedding-method protocol + registry (see :mod:`repro_torch.methods.base`).
 
-Importing this package registers every ported method (fp, lpt, alpt).
+Importing this package registers every method of the reference: fp, lpt,
+alpt, lsq, pact, hash, prune, qr_lpt, qr_alpt and mixed.
 """
 from repro_torch.methods.base import (  # noqa: F401
     EmbeddingMethod,
@@ -12,7 +13,16 @@ from repro_torch.methods.base import (  # noqa: F401
 )
 
 # Importing an implementation module registers its method.
-from repro_torch.methods import alpt, fp, lpt  # noqa: E402,F401
+from repro_torch.methods import (  # noqa: E402,F401
+    alpt,
+    fp,
+    lpt,
+    mixed,
+    prune,
+    qat,
+    qr_hash,
+    qr_lpt,
+)
 
 __all__ = [
     "EmbeddingMethod",

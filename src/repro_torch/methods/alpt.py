@@ -21,8 +21,10 @@ from repro_torch.methods.lpt import LPTMethod
 class ALPTMethod(LPTMethod):
     # ALPT learns Delta from the LSQ-style init; the clip knob is LPT-only.
     _clip_value_of = staticmethod(lambda spec: None)
-    noise_draws = 2  # step 1's write-back and line 5's re-quantize
     has_learned_step = True
+
+    def noise_draws(self, spec):
+        return 2  # step 1's write-back and line 5's re-quantize
 
     @staticmethod
     def _acfg(spec, weight_decay) -> alpt_core.ALPTConfig:

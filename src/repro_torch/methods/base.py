@@ -1,12 +1,15 @@
 """The `EmbeddingMethod` protocol + registry (port of repro/methods/base.py).
 
-Every consumer dispatches on ``spec.method`` through :func:`get`.  Ported
-for ``fp``, ``lpt`` and ``alpt``: the serving surface (``init`` / ``lookup``
-/ ``memory_bytes`` / ``serving_state``), the float-leaf formulation
-(``trainable_params`` / ``with_params``), the sparse row formulation
-(``sparse_apply`` / ``fused_row_step``, the CTR path) and the dense
-formulation (``dense_params`` / ``dense_table_from`` / ``dense_update`` /
-``dense_delta_grad``, the LM path: the gradient of the whole [n, d] table).
+Every consumer dispatches on ``spec.method`` through :func:`get`; every
+method of the reference is ported.  A method bundles the serving surface
+(``init`` / ``lookup`` / ``memory_bytes`` / ``serving_state``), the
+float-leaf formulation (``trainable_params`` / ``with_params``: fp, lsq,
+pact, hash, prune), the sparse row formulation of integer tables
+(``sparse_apply`` / ``fused_row_step``, the CTR path: lpt, alpt, qr_lpt,
+qr_alpt, mixed), the dense formulation (``dense_params`` /
+``dense_table_from`` / ``dense_update`` / ``dense_delta_grad``, the LM path:
+the gradient of the whole [n, d] table), and the host-side refresh hook
+(``host_sync`` / ``host_refresh`` / ``refresh_every``: prune's mask).
 """
 from __future__ import annotations
 
@@ -16,8 +19,10 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core import quant
 from repro_torch.core.alpt import ALPTConfig
-from repro_torch.optim import adam_update
+from repro_torch.core.pruning import PruneConfig
+from repro_torch.optim import adam_update, tree_leaves, tree_like
 from repro_torch.serving import table as serving_tbl
 
 #: Row/width multiple of ``pad_to_tiles``: the reference's sublane multiple,
@@ -52,6 +57,12 @@ class EmbeddingSpec:
     pad_to_tiles: bool = False
     # Pack sub-byte codes (bits in {2, 4}) into uint8; False keeps a byte each.
     packed: bool = True
+    hash_compression: float = 2.0  # hash / qr_*: (r + n/r) ~= n / compression
+    prune: PruneConfig = PruneConfig()
+    # mixed: cardinalities of the CTR fields the table spans (sum == n), and
+    # optionally a bit width per field; None leaves one group at ``bits``.
+    field_cards: tuple[int, ...] | None = None
+    field_bits: tuple[int, ...] | None = None
 
     @property
     def is_integer_table(self) -> bool:
@@ -77,24 +88,39 @@ class EmbeddingMethod(abc.ABC):
     #: Learns its step size Delta through a second fake-quant forward (ALPT
     #: Algorithm 1 line 4): the dense trainer supplies a delta-grad closure.
     has_learned_step: bool = False
-    #: SR noise tensors [K, d] one ``fused_row_step`` consumes.
-    noise_draws: int = 0
+    #: Needs a host-side state refresh between steps (DeepLight's mask
+    #: recomputation): the trainer wraps its step with ``host_refresh``.
+    has_host_refresh: bool = False
+
+    def noise_draws(self, spec: EmbeddingSpec) -> int:
+        """SR noise tensors [K, d_alloc] one ``fused_row_step`` consumes."""
+        return 0
 
     @abc.abstractmethod
     def init(self, generator: torch.Generator, spec: EmbeddingSpec) -> Any:
         """Initialize the table state on ``generator.device``."""
 
     @abc.abstractmethod
-    def lookup(self, state: Any, ids: torch.Tensor, spec: EmbeddingSpec) -> torch.Tensor:
-        """De-quantized rows [..., d] for ``ids``."""
+    def lookup(self, state: Any, ids: torch.Tensor, spec: EmbeddingSpec,
+               grad_scale: float = 1.0) -> torch.Tensor:
+        """De-quantized / fake-quantized / masked rows [..., d] for ``ids``
+        (``grad_scale``: LSQ's step-gradient scale, QAT only)."""
 
     @abc.abstractmethod
-    def memory_bytes(self, state: Any, spec: EmbeddingSpec) -> int:
-        """Embedding bytes the state holds (container-actual for codes)."""
+    def memory_bytes(self, state: Any, spec: EmbeddingSpec, *, training: bool = True,
+                     stored: bool = False) -> int:
+        """Embedding bytes (paper Table 1's compression columns): in training,
+        or (``training=False``) what inference ships; container-actual for
+        codes.  ``stored`` (training only) counts every tensor of the state
+        as the device holds it: the row-optimizer slots of integer tables,
+        and prune's bool mask at one byte per weight where the paper counts
+        one bit."""
 
     def serving_state(self, state: Any, spec: EmbeddingSpec):
-        """What a serving Engine keeps resident: the fp table by default."""
-        return serving_tbl.FloatTable(state)
+        """What a serving Engine keeps resident: the fp32 export of the
+        evaluation table by default (optimizer and mask state dropped)."""
+        with torch.no_grad():
+            return serving_tbl.FloatTable(self.eval_table(state, spec))
 
     @abc.abstractmethod
     def trainable_params(self, state: Any, spec: EmbeddingSpec) -> Any:
@@ -110,10 +136,10 @@ class EmbeddingMethod(abc.ABC):
         """The tensor the dense (LM) backward differentiates w.r.t."""
         return self.trainable_params(state, spec)
 
-    @abc.abstractmethod
-    def dense_table_from(self, state: Any, params: torch.Tensor,
-                         spec: EmbeddingSpec) -> torch.Tensor:
+    def dense_table_from(self, state: Any, params: Any, spec: EmbeddingSpec) -> torch.Tensor:
         """Full [n, d] float table, differentiable in ``params``."""
+        ids = torch.arange(spec.n, device=tree_leaves(params)[0].device)
+        return self.lookup(self.with_params(state, params, spec), ids, spec)
 
     def eval_table(self, state: Any, spec: EmbeddingSpec) -> torch.Tensor:
         """The [n, d] table evaluation forwards read (training semantics)."""
@@ -125,14 +151,34 @@ class EmbeddingMethod(abc.ABC):
         """Consume the dense gradient -> ``(new_state, new_opt, aux)``.
 
         The float-leaf rule: AdamW over ``trainable_params`` with decoupled
-        weight decay (``opt`` the caller-held ``OptState`` over that one
-        tensor; the ``adam_update`` kernel on the card).  ``noise`` is the
-        step's SR draw of an integer table; ``delta_grad(w_new, step_vec,
-        gscale) -> g_step`` and ``batch_rows`` (the paper's b) serve methods
-        that learn Delta."""
-        (new,), new_opt = adam_update([grads], opt, [self.trainable_params(state, spec)], lr,
-                                      weight_decay=weight_decay, use_kernel=spec.use_kernels)
-        return self.with_params(state, new, spec), new_opt, {}
+        weight decay (``grads`` laid out as those params; ``opt`` the
+        caller-held ``OptState`` over their ``tree_leaves``, the reference's
+        pytree order; one ``adam_update`` launch on the card).  ``noise`` is
+        the step's SR draw of an integer table (one tensor per sub-table of
+        a composed one); ``delta_grad(w_new, step_vec, gscale) -> g_step``
+        and ``batch_rows`` (the paper's b) serve methods that learn Delta."""
+        params = self.trainable_params(state, spec)
+        new, new_opt = adam_update(tree_leaves(grads), opt, tree_leaves(params), lr,
+                                   weight_decay=weight_decay, use_kernel=spec.use_kernels)
+        return self.with_params(state, tree_like(params, new), spec), new_opt, {}
+
+    def dense_noise(self, generator: torch.Generator, state: Any, spec: EmbeddingSpec):
+        """The SR draw ``dense_update`` consumes, from ``generator``: None
+        for float leaves; an integer table's [n_alloc, d_alloc] draw."""
+        return None
+
+    # ---------------------------------------------------- host-side refresh
+
+    def host_sync(self, state: Any, step: int, spec: EmbeddingSpec) -> Any:
+        """Cheap host-side per-step state sync (the schedule clock)."""
+        return state
+
+    def host_refresh(self, state: Any, spec: EmbeddingSpec) -> Any:
+        """Periodic refresh (DeepLight's mask recomputation)."""
+        raise NotImplementedError(f"{self.name!r} has no host refresh")
+
+    def refresh_every(self, spec: EmbeddingSpec) -> int:
+        raise NotImplementedError(f"{self.name!r} has no host refresh")
 
     def dense_delta_grad(self, w_new, step_vec, loss_fn_q, *, spec: EmbeddingSpec,
                          weight_decay: float, gscale: float) -> torch.Tensor:
@@ -147,7 +193,7 @@ class EmbeddingMethod(abc.ABC):
         ``loss_from_rows(rows) -> scalar`` closes over the batch and reads
         the dense model's *current* parameters ``dense_params``;
         ``update_dense(grads)`` steps them in place.  ``noise`` holds
-        ``noise_draws`` SR draws [K, d].  Returns ``(new_state, metrics)``.
+        ``noise_draws(spec)`` SR draws [K, d].  Returns ``(new_state, metrics)``.
         """
         raise NotImplementedError(
             f"{self.name!r} has no row formulation; use the float-leaf path")
@@ -162,7 +208,12 @@ class IntegerTableMethod(EmbeddingMethod):
     """
 
     is_integer_table = True
-    noise_draws = 1
+
+    def noise_draws(self, spec):
+        return 1
+
+    def dense_noise(self, generator, state, spec):
+        return quant.sr_noise(generator, tuple(state.codes.shape))
 
     def trainable_params(self, state, spec):
         return None
@@ -184,7 +235,8 @@ class IntegerTableMethod(EmbeddingMethod):
     def sparse_apply(self, state: Any, ids: torch.Tensor, g_rows: torch.Tensor, *,
                      spec: EmbeddingSpec, lr: float, weight_decay: float,
                      noise: torch.Tensor) -> Any:
-        """Row update from per-occurrence cotangents (paper Eq. 8), in place."""
+        """Row update from per-occurrence cotangents (paper Eq. 8), in place;
+        ``noise`` is :meth:`sparse_noise` of the step's draws."""
 
     def row_grads(self, state, ids, *, spec, loss_from_rows, dense_params):
         """``(loss, g_rows, g_dense)``: one forward/backward at the batch's rows."""
@@ -201,8 +253,14 @@ class IntegerTableMethod(EmbeddingMethod):
                                                dense_params=dense_params)
         update_dense(g_dense)
         new_state = self.sparse_apply(state, ids, g_rows, spec=spec, lr=lr,
-                                      weight_decay=weight_decay, noise=noise[0])
+                                      weight_decay=weight_decay,
+                                      noise=self.sparse_noise(noise))
         return new_state, {"loss": loss}
+
+    def sparse_noise(self, noise: list):
+        """What ``sparse_apply`` takes of the step's draws: a single table's
+        one tensor (composed tables take the list, one per sub-table)."""
+        return noise[0]
 
     def serving_state(self, state, spec):
         """int8-resident serving export: the codes + per-row Delta as they are.

@@ -12,10 +12,10 @@ class FPMethod(EmbeddingMethod):
         return torch.randn((spec.n, spec.d), generator=generator, dtype=torch.float32,
                            device=generator.device) * spec.init_scale
 
-    def lookup(self, state, ids, spec):
+    def lookup(self, state, ids, spec, grad_scale=1.0):
         return state[ids]
 
-    def memory_bytes(self, state, spec):
+    def memory_bytes(self, state, spec, *, training=True, stored=False):
         return spec.n * spec.d * 4
 
     def trainable_params(self, state, spec):

@@ -25,13 +25,13 @@ class LPTMethod(IntegerTableMethod):
             packed=spec.packed,
         )
 
-    def lookup(self, state, ids, spec):
+    def lookup(self, state, ids, spec, grad_scale=1.0):
         return lpt_core.lookup(state, ids, use_kernels=spec.use_kernels, out_dim=spec.d)
 
-    def memory_bytes(self, state, spec):
+    def memory_bytes(self, state, spec, *, training=True, stored=False):
         # Container-actual code bytes (packed widths are ceil(d*bits/8) per
-        # row) + the per-row fp32 Delta.
-        return state.codes.resident_bytes + spec.n_padded * 4
+        # row) + the per-row fp32 Delta (+ the row-optimizer slots).
+        return lpt_core.memory_bytes(state, spec.bits, count_optimizer=stored and training)
 
     def sparse_apply(self, state, ids, g_rows, *, spec, lr, weight_decay, noise):
         return lpt_core.sparse_apply(

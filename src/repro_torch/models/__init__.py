@@ -1,1 +1,1 @@
-"""CTR backbones of the port (DCN)."""
+"""Models of the port: the CTR backbones (DCN, DeepFM), the LM transformer."""

@@ -1,4 +1,5 @@
-"""DCN CTR backbone (port of repro/models/ctr.py; DeepFM comes later).
+"""CTR backbones: DCN (paper §4.1, Wang et al. 2017) and DeepFM (Guo et al.
+2017), port of repro/models/ctr.py.
 
 The model takes already-looked-up embedding rows [B, F, d], so the same
 forward serves every embedding method.  Parameters keep the reference's
@@ -8,8 +9,12 @@ without a transpose.  The matmuls are plain PyTorch, as they are plain XLA
 in the reference; entry points turn TF32 off (:mod:`repro_torch.device`).
 
 Paper Appendix B: DCN with cross/deep depth 3 (widths 1024/512/256) for
-Avazu, depth 5 (width 1000) for Criteo.  Dropout is a training concern and
-comes with the training slice; the forward here is the inference forward.
+Avazu, depth 5 (width 1000) and dropout 0.2 on the MLP for Criteo.  Dropout
+masks are an operand of the forward (``masks``: one bool keep-mask per MLP
+layer, drawn by :func:`dropout_masks` from a generator, or the reference's
+``bernoulli`` draws in a test); without masks the forward is the inference
+forward.  DeepFM reads a [B, F, d + 1] lookup whose last column is the
+first-order weight.
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ import math
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.kernels import ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,8 +63,9 @@ class DCN(nn.Module):
         self.out_w = vec(d0 + widths[-1])
         self.out_b = vec(())
 
-    def forward(self, rows: torch.Tensor) -> torch.Tensor:
-        """Logits [B] from embedding rows [B, F, d]."""
+    def forward(self, rows: torch.Tensor, masks=None) -> torch.Tensor:
+        """Logits [B] from embedding rows [B, F, d]; ``masks``: the MLP's
+        dropout keep-masks (training with ``cfg.dropout`` > 0), else None."""
         b = rows.shape[0]
         x0 = rows.reshape(b, -1)
         # Cross network: x_{l+1} = x0 * (x_l . w_l) + b_l + x_l
@@ -65,9 +73,7 @@ class DCN(nn.Module):
         for w, bias in zip(self.cross_w, self.cross_b):
             xw = x @ w
             x = x0 * xw[:, None] + bias[None, :] + x
-        h = x0
-        for w, bias in zip(self.mlp_w, self.mlp_b):
-            h = torch.relu(h @ w + bias)
+        h = _mlp(x0, self.mlp_w, self.mlp_b, self.cfg.dropout, masks)
         return torch.cat([x, h], dim=-1) @ self.out_w + self.out_b
 
     @torch.no_grad()
@@ -75,23 +81,17 @@ class DCN(nn.Module):
         """Copy in the reference's parameter pytree (``init_dcn``'s layout:
         ``cross_w``/``cross_b`` lists, ``mlp`` list of ``{"w", "b"}``,
         ``out_w``, ``out_b``), leaves as numpy arrays."""
-        def put(dst: torch.Tensor, src) -> None:
-            src = torch.from_numpy(np.array(src, dtype=np.float32))
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(f"parameter shape {tuple(src.shape)} != {tuple(dst.shape)}")
-            dst.copy_(src)
-
         if len(params["cross_w"]) != len(self.cross_w) or len(params["mlp"]) != len(self.mlp_w):
             raise ValueError("parameter pytree depth does not match the DCNConfig")
         for dst, src in zip(self.cross_w, params["cross_w"]):
-            put(dst, src)
+            _put(dst, src)
         for dst, src in zip(self.cross_b, params["cross_b"]):
-            put(dst, src)
+            _put(dst, src)
         for w, b, layer in zip(self.mlp_w, self.mlp_b, params["mlp"]):
-            put(w, layer["w"])
-            put(b, layer["b"])
-        put(self.out_w, params["out_w"])
-        put(self.out_b, params["out_b"])
+            _put(w, layer["w"])
+            _put(b, layer["b"])
+        _put(self.out_w, params["out_w"])
+        _put(self.out_b, params["out_b"])
         return self
 
     @torch.no_grad()
@@ -107,6 +107,28 @@ class DCN(nn.Module):
             "out_w": cpu(self.out_w),
             "out_b": cpu(self.out_b),
         }
+
+
+def _mlp(h, ws, bs, dropout: float, masks) -> torch.Tensor:
+    """ReLU layers ``h @ w + b``; with ``masks`` (one bool [B, width] keep-mask
+    per layer) inverted dropout after each, ``where(keep, h / (1 - p), 0)``."""
+    keep_p = ref.f32(1.0 - dropout)
+    for i, (w, bias) in enumerate(zip(ws, bs)):
+        h = torch.relu(h @ w + bias)
+        if dropout > 0.0 and masks is not None:
+            h = torch.where(masks[i], h / ref.scalar(keep_p, h), 0.0)
+    return h
+
+
+def dropout_masks(cfg, generator: torch.Generator, batch: int) -> list | None:
+    """The MLP's keep-masks for one training forward of ``batch`` rows: bool
+    [batch, width] per layer, ``uniform < 1 - p`` (the reference's
+    ``bernoulli``) from ``generator``; None when ``cfg.dropout`` is 0."""
+    if not cfg.dropout > 0.0:
+        return None
+    keep_p = ref.f32(1.0 - cfg.dropout)
+    return [torch.rand((batch, w), generator=generator, dtype=torch.float32,
+                       device=generator.device) < keep_p for w in cfg.mlp_widths]
 
 
 @torch.no_grad()
@@ -129,11 +151,101 @@ def init_dcn(cfg: DCNConfig, generator: torch.Generator) -> DCN:
     return model
 
 
-def logits_from_rows(model: DCN, rows: torch.Tensor) -> torch.Tensor:
-    """One entry point from looked-up rows [B, F, d] to logits [B], shared by
-    serving (which reads the rows straight off the int8 codes) and, later,
-    the trainer."""
-    return model(rows)
+@dataclasses.dataclass(frozen=True)
+class DeepFMConfig:
+    n_fields: int
+    emb_dim: int  # the FM / deep width; the table is emb_dim + 1 wide
+    mlp_widths: tuple[int, ...] = (400, 400, 400)
+    dropout: float = 0.0
+
+    @property
+    def input_dim(self) -> int:
+        return self.n_fields * self.emb_dim
+
+
+class DeepFM(nn.Module):
+    """DeepFM: FM first and second order beside an MLP over the shared rows."""
+
+    def __init__(self, cfg: DeepFMConfig, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        widths = (cfg.input_dim, *cfg.mlp_widths)
+        self.mlp_w = nn.ParameterList([
+            nn.Parameter(torch.zeros(i, o, dtype=torch.float32, device=device))
+            for i, o in zip(widths[:-1], widths[1:])
+        ])
+        self.mlp_b = nn.ParameterList([
+            nn.Parameter(torch.zeros(o, dtype=torch.float32, device=device))
+            for o in cfg.mlp_widths])
+        self.out_w = nn.Parameter(torch.zeros(widths[-1], dtype=torch.float32, device=device))
+        self.out_b = nn.Parameter(torch.zeros((), dtype=torch.float32, device=device))
+
+    def forward(self, rows: torch.Tensor, masks=None) -> torch.Tensor:
+        """Logits [B] from rows [B, F, d + 1]: the last column is the
+        first-order weight, the rest the shared FM / deep embedding."""
+        r, first = rows[..., :-1], rows[..., -1]
+        b = r.shape[0]
+        # FM second order: 0.5 * ((sum v)^2 - sum v^2).
+        s = r.sum(dim=1)
+        fm2 = 0.5 * ((s * s).sum(dim=-1) - (r * r).sum(dim=(1, 2)))
+        fm1 = first.sum(dim=1)
+        h = _mlp(r.reshape(b, -1), self.mlp_w, self.mlp_b, self.cfg.dropout, masks)
+        return fm1 + fm2 + (h @ self.out_w + self.out_b)
+
+    @torch.no_grad()
+    def load_jax_params(self, params: dict) -> "DeepFM":
+        """Copy in the reference's pytree (``init_deepfm``'s layout: ``mlp``
+        list of ``{"w", "b"}``, ``out_w``, ``out_b``), numpy leaves."""
+        if len(params["mlp"]) != len(self.mlp_w):
+            raise ValueError("parameter pytree depth does not match the DeepFMConfig")
+        for w, b, layer in zip(self.mlp_w, self.mlp_b, params["mlp"]):
+            _put(w, layer["w"])
+            _put(b, layer["b"])
+        _put(self.out_w, params["out_w"])
+        _put(self.out_b, params["out_b"])
+        return self
+
+    @torch.no_grad()
+    def jax_params(self) -> dict:
+        def cpu(t):
+            return t.detach().cpu().numpy()
+
+        return {"mlp": [{"w": cpu(w), "b": cpu(b)} for w, b in zip(self.mlp_w, self.mlp_b)],
+                "out_w": cpu(self.out_w), "out_b": cpu(self.out_b)}
+
+
+def _put(dst: torch.Tensor, src) -> None:
+    src = torch.from_numpy(np.array(src, dtype=np.float32))
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"parameter shape {tuple(src.shape)} != {tuple(dst.shape)}")
+    dst.copy_(src)
+
+
+@torch.no_grad()
+def init_deepfm(cfg: DeepFMConfig, generator: torch.Generator) -> DeepFM:
+    """Random DeepFM on ``generator.device`` with the reference's
+    distributions: He-normal MLP weights, output N(0, 1/fan_in), zero biases
+    (``repro/models/ctr.py:99``; torch's stream, not JAX's)."""
+    model = DeepFM(cfg, device=generator.device)
+    for w in model.mlp_w:
+        w.copy_(torch.randn(w.shape, generator=generator, dtype=torch.float32,
+                            device=generator.device) * math.sqrt(2.0 / w.shape[0]))
+    n = model.out_w.shape[0]
+    model.out_w.copy_(torch.randn((n,), generator=generator, dtype=torch.float32,
+                                  device=generator.device) / math.sqrt(n))
+    return model
+
+
+#: Backbone name -> (config class, module, init).
+MODELS = {"dcn": (DCNConfig, DCN, init_dcn), "deepfm": (DeepFMConfig, DeepFM, init_deepfm)}
+
+
+def logits_from_rows(model: nn.Module, rows: torch.Tensor, masks=None) -> torch.Tensor:
+    """One entry point from looked-up rows to logits [B] for every backbone
+    (DCN: [B, F, d]; DeepFM: [B, F, d + 1]), shared by serving, which reads
+    the rows straight off the codes, and the trainer, which passes the
+    step's dropout ``masks``."""
+    return model(rows, masks)
 
 
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

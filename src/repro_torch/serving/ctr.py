@@ -4,10 +4,11 @@ repro/serving/ctr.py).
 Requests (one [n_fields] vector of global feature ids each) are admitted in
 waves of up to ``batch`` and padded to the fixed [batch, n_fields] geometry;
 pad rows repeat the wave's first request and their outputs are discarded.
-Each wave reads its rows straight off the resident codes through
-``ops.dequant_gather`` and runs the DCN forward, then the sigmoid.  Scores
-are per-row independent, so a request's result does not depend on the wave
-it lands in.  Hot/cold tiers come later.
+Each wave reads its rows straight off the resident table (integer codes
+through ``ops.dequant_gather``, per sub-table for the composed methods; the
+fp32 export of float-leaf methods) and runs the backbone's forward (DCN or
+DeepFM), then the sigmoid.  Scores are per-row independent, so a request's
+result does not depend on the wave it lands in.  Hot/cold tiers come later.
 """
 from __future__ import annotations
 
@@ -31,9 +32,8 @@ class CTRRequest:
 class CTREngine(Engine):
     scenario = "ctr"
 
-    def __init__(self, dense: ctr_models.DCN, serving_table: serving_tbl.ServingTable,
-                 model_cfg: ctr_models.DCNConfig, spec: methods.EmbeddingSpec, *,
-                 batch: int):
+    def __init__(self, dense: torch.nn.Module, serving_table: serving_tbl.ServingTable,
+                 model_cfg, spec: methods.EmbeddingSpec, *, batch: int):
         super().__init__(serving_table=serving_table, spec=spec)
         if batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
@@ -51,7 +51,7 @@ class CTREngine(Engine):
     def from_state(cls, state, cfg, *, batch: int) -> "CTREngine":
         """Build from a ``training.ctr_trainer.TrainState`` + its ``TrainerConfig``."""
         table = cls.build_serving_state(state.emb_state, cfg.spec)
-        return cls(state.dense, table, cfg.dcn, cfg.spec, batch=batch)
+        return cls(state.dense, table, cfg.model_cfg, cfg.spec, batch=batch)
 
     def submit(self, request: CTRRequest) -> int:
         ids = np.asarray(request.ids)

@@ -3,7 +3,12 @@
 * :class:`QuantTable` — codes (int8, or packed 2/4-bit) + per-row Delta.
   Rows are read through ``ops.dequant_gather`` and the tied LM head
   contracts through ``ops.dequant_matmul``; the fp32 table never exists.
-* :class:`FloatTable` — the fp32 export of float-leaf methods (``fp``).
+* :class:`QRQuantTable` — qr_lpt / qr_alpt: two ``QuantTable`` factors,
+  virtual row ``i`` = ``remainder[i % r] * quotient[i // r]``.
+* :class:`MixedQuantTable` — mixed: one ``QuantTable`` per bit-width group
+  and the static field maps that route a global id to its group's row.
+* :class:`FloatTable` — the fp32 export of float-leaf methods (fp, hash,
+  prune; lsq and pact serve their int8 export as a ``QuantTable``).
 
 The module-level :func:`rows` and :func:`head_logits` also take a raw fp32
 [n, d] tensor (an untied head, a float table), as the reference's do.
@@ -94,7 +99,100 @@ class QuantTable:
         return (self.codes.data, self.step)
 
 
-ServingTable = FloatTable | QuantTable
+@dataclasses.dataclass(frozen=True)
+class QRQuantTable:
+    """Quotient-remainder composition of two integer-resident sub-tables:
+    virtual row ``i`` is ``remainder[i % r] * quotient[i // r]``, each factor
+    with its own learned per-row Delta."""
+
+    remainder: QuantTable
+    quotient: QuantTable
+    r: int  # remainder modulus
+    n: int
+    d: int
+
+    def rows(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.remainder.rows(ids % self.r) * self.quotient.rows(
+            torch.div(ids, self.r, rounding_mode="floor"))
+
+    def head_logits(self, h: torch.Tensor) -> torch.Tensor:
+        # The product head is not one matmul over codes: the virtual rows
+        # are composed from the two gathers (a transient [n, d]).
+        ids = torch.arange(self.n, dtype=torch.int32, device=h.device)
+        return _matmul_head(self.rows(ids), h)
+
+    def code_bytes(self) -> int:
+        return self.remainder.code_bytes() + self.quotient.code_bytes()
+
+    def scale_bytes(self) -> int:
+        return self.remainder.scale_bytes() + self.quotient.scale_bytes()
+
+    def live_rows(self) -> int:
+        return self.n
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return self.remainder.tensors() + self.quotient.tensors()
+
+
+def map_field_ids(field_offsets, field_group, field_local, ids: torch.Tensor):
+    """Global ids -> (group index, local row), both int32, through a per-field
+    composition's static maps (``searchsorted`` over the fields' start rows)."""
+    dev = ids.device
+    offs = torch.tensor(field_offsets, dtype=torch.int64, device=dev)
+    ids64 = ids.to(torch.int64)
+    fid = torch.searchsorted(offs, ids64, right=True) - 1
+    local = ids64 - offs[fid] + torch.tensor(field_local, dtype=torch.int64, device=dev)[fid]
+    gid = torch.tensor(field_group, dtype=torch.int64, device=dev)[fid]
+    return gid.to(torch.int32), local.to(torch.int32)
+
+
+def masked_sum(gid: torch.Tensor, local: torch.Tensor, d: int, reads) -> torch.Tensor:
+    """``sum_g where(gid == g, reads[g](where(gid == g, local, 0)), 0)`` over
+    the groups in order, from zeros: the composition the mixed method's
+    training lookup and :class:`MixedQuantTable` share, so they agree bit
+    for bit."""
+    out = torch.zeros((*gid.shape, d), dtype=torch.float32, device=gid.device)
+    for g, read in enumerate(reads):
+        mask = gid == g
+        out = out + torch.where(mask[..., None], read(torch.where(mask, local, 0)), 0.0)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class MixedQuantTable:
+    """Per-field mixed-precision composition of integer-resident sub-tables:
+    global id ``i`` of field ``f`` (``field_offsets``) is row ``i -
+    field_offsets[f] + field_local[f]`` of sub-table ``field_group[f]``."""
+
+    subs: tuple[QuantTable, ...]
+    field_offsets: tuple[int, ...]  # [F] global start row per field
+    field_group: tuple[int, ...]  # [F] sub-table index per field
+    field_local: tuple[int, ...]  # [F] local start row inside the sub
+    n: int
+    d: int
+
+    def rows(self, ids: torch.Tensor) -> torch.Tensor:
+        gid, local = map_field_ids(self.field_offsets, self.field_group, self.field_local, ids)
+        return masked_sum(gid, local, self.d, [sub.rows for sub in self.subs])
+
+    def head_logits(self, h: torch.Tensor) -> torch.Tensor:
+        ids = torch.arange(self.n, dtype=torch.int32, device=h.device)
+        return _matmul_head(self.rows(ids), h)
+
+    def code_bytes(self) -> int:
+        return sum(sub.code_bytes() for sub in self.subs)
+
+    def scale_bytes(self) -> int:
+        return sum(sub.scale_bytes() for sub in self.subs)
+
+    def live_rows(self) -> int:
+        return self.n
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return tuple(t for sub in self.subs for t in sub.tensors())
+
+
+ServingTable = FloatTable | QuantTable | QRQuantTable | MixedQuantTable
 
 
 def _matmul_head(w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -103,7 +201,7 @@ def _matmul_head(w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 
 def is_serving_table(table) -> bool:
-    return isinstance(table, (FloatTable, QuantTable))
+    return isinstance(table, (FloatTable, QuantTable, QRQuantTable, MixedQuantTable))
 
 
 def rows(table, ids: torch.Tensor) -> torch.Tensor:
@@ -124,9 +222,10 @@ def head_logits(table, h: torch.Tensor) -> torch.Tensor:
 
 def is_integer_resident(table: ServingTable) -> bool:
     """True when the resident bytes are integer codes (+ scales), not fp32."""
-    return isinstance(table, QuantTable)
+    return isinstance(table, (QuantTable, QRQuantTable, MixedQuantTable))
 
 
 def resident_bytes(table: ServingTable) -> int:
     """Bytes the table keeps resident, summed over its tensors."""
     return sum(t.numel() * t.element_size() for t in table.tensors())
+

@@ -1,19 +1,23 @@
-"""End-to-end CTR training for fp, lpt and alpt on DCN (port of
-repro/training/ctr_trainer.py).
+"""End-to-end CTR training for every registered embedding method on DCN or
+DeepFM (port of repro/training/ctr_trainer.py).
 
-One trainer, any ported method; the trainer never names a method.  It keys
-off two capability surfaces:
+One trainer, any method; the trainer never names a method.  It keys off
+the capability surfaces:
 
-  float-leaf methods    : joint Adam over (embedding leaves, dense params)
+  float-leaf methods    : Adam over the method's leaves (one ``adam_update``
+                          over them, with decoupled weight decay) beside
+                          Adam over the dense params
   integer-table methods : the method's ``fused_row_step`` (Eq. 8 for LPT,
-                          Algorithm 1 for ALPT)
+                          Algorithm 1 for ALPT, product-rule row steps for
+                          qr_*, one row step per bit-width group for mixed)
+  host refresh          : ``wrap_host_refresh`` (prune's DeepLight mask)
 
 The paper's protocol (§4.1): Adam lr 1e-3, tenfold decay boundaries,
-decoupled weight decay on embeddings, Delta lr 2e-5.  Every SR draw comes
-from the state's ``torch.Generator``; :meth:`CTRTrainer.train_step` takes
-``noise=`` so a test can hand in the reference's draws instead.  The hot-row
-cache, the non-finite guard, DeepFM, dropout and the data-parallel hooks are
-not ported yet.
+decoupled weight decay on embeddings, Delta lr 2e-5.  Every SR draw and
+dropout mask comes from the state's ``torch.Generator``;
+:meth:`CTRTrainer.train_step` takes ``noise=`` and ``masks=`` so a test can
+hand in the reference's draws instead.  The hot-row cache, the non-finite
+guard and the data-parallel hooks are not ported yet.
 """
 from __future__ import annotations
 
@@ -28,56 +32,70 @@ from repro_torch import device as device_mod
 from repro_torch import methods, metrics
 from repro_torch.core import quant
 from repro_torch.models import ctr as ctr_models
-from repro_torch.optim import OptState, adam_init, adam_update
+from repro_torch.optim import OptState, adam_init, adam_update, tree_leaves, tree_like
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     spec: methods.EmbeddingSpec
-    dcn: ctr_models.DCNConfig
+    dcn: ctr_models.DCNConfig | None = None
     seed: int = 0
     lr: float = 1e-3
     emb_weight_decay: float = 5e-8
     lr_boundaries: tuple[int, ...] = ()  # steps at which lr /= 10
+    model: str = "dcn"  # 'dcn' | 'deepfm' (spec.d = deepfm.emb_dim + 1)
+    deepfm: ctr_models.DeepFMConfig | None = None
+
+    @property
+    def model_cfg(self):
+        """The backbone's config: ``dcn`` or ``deepfm`` as ``model`` says."""
+        if self.model not in ctr_models.MODELS:
+            raise ValueError(f"unknown CTR model {self.model!r}; have {sorted(ctr_models.MODELS)}")
+        cfg = getattr(self, self.model)
+        if cfg is None:
+            raise ValueError(f"model={self.model!r} needs TrainerConfig.{self.model}")
+        return cfg
 
 
 class TrainState(NamedTuple):
-    emb_state: Any  # the method's table state (an LPTTable for lpt/alpt)
-    dense: ctr_models.DCN
+    emb_state: Any  # the method's table state
+    dense: torch.nn.Module  # the backbone (DCN or DeepFM)
     step: int
     dense_opt: OptState | None = None  # Adam over dense.parameters()
-    emb_opt: OptState | None = None  # Adam over float embedding leaves (fp)
-    generator: torch.Generator | None = None  # SR noise of the train steps
+    emb_opt: OptState | None = None  # Adam over the float embedding leaves
+    generator: torch.Generator | None = None  # SR noise and dropout masks of the steps
 
 
 def init_state(cfg: TrainerConfig, *, device: str | torch.device = "cuda") -> TrainState:
-    """Embedding table then DCN params, both drawn from one generator seeded
-    with ``cfg.seed`` on ``device`` (``cuda`` unless the caller asks for the
-    CPU; raises if CUDA is asked for and absent).  The same generator then
-    draws the training steps' SR noise."""
+    """Embedding table then the backbone's params, both drawn from one
+    generator seeded with ``cfg.seed`` on ``device`` (``cuda`` unless the
+    caller asks for the CPU; raises if CUDA is asked for and absent).  The
+    same generator then draws the training steps' SR noise and dropout."""
     dev = device_mod.resolve(device)
     generator = torch.Generator(device=dev)
     generator.manual_seed(cfg.seed)
     method = methods.get(cfg.spec.method)
     emb_state = method.init(generator, cfg.spec)
-    dense = ctr_models.init_dcn(cfg.dcn, generator)
+    dense = ctr_models.MODELS[cfg.model][2](cfg.model_cfg, generator)
     emb_params = method.trainable_params(emb_state, cfg.spec)
     return TrainState(
         emb_state=emb_state, dense=dense, step=0,
         dense_opt=adam_init(list(dense.parameters())),
-        emb_opt=None if emb_params is None else adam_init([emb_params]),
+        emb_opt=None if emb_params is None else adam_init(tree_leaves(emb_params)),
         generator=generator,
     )
 
 
 class CTRTrainer:
     def __init__(self, cfg: TrainerConfig, *, device: str | torch.device = "cuda"):
-        if cfg.dcn.dropout:
-            raise NotImplementedError("dropout in training is not ported yet")
         self.cfg = cfg
         self.spec = cfg.spec
+        self.model_cfg = cfg.model_cfg
         self.method = methods.get(cfg.spec.method)
         self.device = device_mod.resolve(device)
+        self._step = self._train_step
+        if self.method.has_host_refresh:
+            self._step = self.wrap_host_refresh(self._step)
 
     def init_state(self) -> TrainState:
         return init_state(self.cfg, device=self.device)
@@ -94,27 +112,34 @@ class CTRTrainer:
         labels = torch.as_tensor(np.asarray(labels, np.float32), device=self.device)
         return ids, labels
 
-    def train_step(self, state: TrainState, ids, labels, *, noise=None):
+    def train_step(self, state: TrainState, ids, labels, *, noise=None, masks=None):
         """One step on a batch (ids int32 [B, F], labels [B]) -> ``(state, metrics)``.
 
         Integer tables are updated in place; the returned state shares their
         tensors.  ``noise`` overrides the generator's SR draws: a sequence of
-        ``method.noise_draws`` tensors [B*F, d_alloc].
+        ``method.noise_draws(spec)`` tensors [B*F, d_alloc].  ``masks``
+        overrides the dropout keep-masks (``models.ctr.dropout_masks``).
         """
+        return self._step(state, ids, labels, noise=noise, masks=masks)
+
+    def _train_step(self, state: TrainState, ids, labels, *, noise=None, masks=None):
         lr = self._lr_at(state.step)
         ids, labels = self._batch(ids, labels)
         dense = state.dense
         dense_params = list(dense.parameters())
+        if masks is None:
+            masks = ctr_models.dropout_masks(self.model_cfg, state.generator, ids.shape[0])
 
         def loss_from_rows(rows):
-            return ctr_models.bce_loss(ctr_models.logits_from_rows(dense, rows), labels)
+            return ctr_models.bce_loss(ctr_models.logits_from_rows(dense, rows, masks), labels)
 
         if not self.method.is_integer_table:
             return self._float_leaf_step(state, ids, lr, loss_from_rows, dense_params)
 
         if noise is None:
             shape = (ids.numel(), self.spec.d_padded)
-            noise = [quant.sr_noise(state.generator, shape) for _ in range(self.method.noise_draws)]
+            noise = [quant.sr_noise(state.generator, shape)
+                     for _ in range(self.method.noise_draws(self.spec))]
         dense_opt = state.dense_opt
 
         def update_dense(grads):
@@ -135,23 +160,45 @@ class CTRTrainer:
         return new_state, {"lr": lr, **m}
 
     def _float_leaf_step(self, state, ids, lr, loss_from_rows, dense_params):
+        """Adam over the method's leaves (in the reference's pytree order) and
+        over the dense params, from one backward."""
         spec, method = self.spec, self.method
-        emb = method.trainable_params(state.emb_state, spec).detach().requires_grad_(True)
+        params = method.trainable_params(state.emb_state, spec)
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
         with torch.enable_grad():
-            rows = method.lookup(method.with_params(state.emb_state, emb, spec), ids, spec)
-            loss = loss_from_rows(rows)
-            g_emb, *g_dense = torch.autograd.grad(loss, [emb, *dense_params])
+            emb_state = method.with_params(state.emb_state, tree_like(params, leaves), spec)
+            loss = loss_from_rows(method.lookup(emb_state, ids, spec))
+            grads = torch.autograd.grad(loss, [*leaves, *dense_params])
+        g_emb, g_dense = grads[: len(leaves)], grads[len(leaves):]
         new_dense, dense_opt = adam_update(g_dense, state.dense_opt, dense_params, lr,
                                            use_kernel=spec.use_kernels)
-        (new_emb,), emb_opt = adam_update([g_emb], state.emb_opt, [emb.detach()], lr,
+        new_leaves, emb_opt = adam_update(g_emb, state.emb_opt, [t.detach() for t in leaves], lr,
                                           weight_decay=self.cfg.emb_weight_decay,
                                           use_kernel=spec.use_kernels)
         with torch.no_grad():
             for p, new in zip(dense_params, new_dense):
                 p.copy_(new)
-        new_state = state._replace(emb_state=method.with_params(state.emb_state, new_emb, spec),
-                                   step=state.step + 1, dense_opt=dense_opt, emb_opt=emb_opt)
+        emb_state = method.with_params(state.emb_state, tree_like(params, new_leaves), spec)
+        new_state = state._replace(emb_state=emb_state, step=state.step + 1,
+                                   dense_opt=dense_opt, emb_opt=emb_opt)
         return new_state, {"loss": loss.detach(), "lr": lr}
+
+    def wrap_host_refresh(self, step_fn):
+        """Host-side periodic refresh around a step function (prune's
+        DeepLight mask): after each step the method's schedule clock is
+        synced to the step count, and every ``refresh_every`` steps the
+        state is refreshed."""
+        spec, method = self.spec, self.method
+        every = method.refresh_every(spec)
+
+        def step_with_refresh(state, ids, labels, **kw):
+            state, m = step_fn(state, ids, labels, **kw)
+            emb = method.host_sync(state.emb_state, state.step, spec)
+            if state.step % every == 0:
+                emb = method.host_refresh(emb, spec)
+            return state._replace(emb_state=emb), m
+
+        return step_with_refresh
 
     @torch.no_grad()
     def _logits(self, state: TrainState, ids) -> torch.Tensor:
@@ -208,7 +255,7 @@ def clone_state(state: TrainState) -> TrainState:
                                              for f in dataclasses.fields(x)})
         return x
 
-    dense = ctr_models.DCN(state.dense.cfg, device=next(state.dense.parameters()).device)
+    dense = type(state.dense)(state.dense.cfg, device=next(state.dense.parameters()).device)
     dense.load_state_dict(state.dense.state_dict())
     gen = None
     if state.generator is not None:

@@ -33,7 +33,6 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch import methods
-from repro_torch.core import quant
 from repro_torch.core.alpt import ALPTConfig
 from repro_torch.core.codestore import CodeStore
 from repro_torch.models import transformer as tfm
@@ -100,7 +99,7 @@ def init_state(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None = None, *, see
     table = method.init(generator, spec)
     emb = method.trainable_params(table, spec)
     return LMTrainState(params=params, opt=adam_init(tree_leaves(params)), table=table,
-                        table_opt=None if emb is None else adam_init([emb]), step=0,
+                        table_opt=None if emb is None else adam_init(tree_leaves(emb)), step=0,
                         generator=generator)
 
 
@@ -140,14 +139,16 @@ def make_grad_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
     method = methods.get(spec.method)
 
     def grad_fn(state: LMTrainState, batch: dict):
-        emb = method.dense_params(state.table, spec).detach().requires_grad_(True)
+        dense = method.dense_params(state.table, spec)
+        emb = [t.detach().requires_grad_(True) for t in tree_leaves(dense)]
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(state.params)]
         params = tree_like(state.params, leaves)
         with torch.enable_grad():
-            table_fp = method.dense_table_from(state.table, emb, spec)
+            table_fp = method.dense_table_from(state.table, tree_like(dense, emb), spec)
             loss, aux = tfm.loss_fn(params, table_fp, batch, cfg)
-            g_emb, *g_params = torch.autograd.grad(loss, [emb, *leaves])
-        return (loss.detach(), aux.detach()), (g_emb, g_params)
+            grads = torch.autograd.grad(loss, [*emb, *leaves])
+        g_emb = tree_like(dense, list(grads[: len(emb)]))
+        return (loss.detach(), aux.detach()), (g_emb, list(grads[len(emb):]))
 
     return grad_fn
 
@@ -214,20 +215,24 @@ def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
     """``train_step(state, batch, noise=None) -> (state, metrics)``.
 
     ``batch`` holds int32 ``tokens`` and ``labels`` [B, T] on the state's
-    device.  ``noise`` f32 [n, d] (the table's allocated shape) is the SR
-    draw of the write-back; by default it comes from ``state.generator``.
+    device.  ``noise`` f32 [n, d] (the table's allocated shape; a composed
+    table's, one per sub-table) is the SR draw of the write-back; by default
+    it comes from ``state.generator`` (``method.dense_noise``).
     """
     tfm.check_supported(cfg)
     spec = embedding_spec_of(cfg, tcfg)
     method = methods.get(spec.method)
+    if method.has_host_refresh:
+        raise ValueError(f"embedding method {spec.method!r} needs the LM trainer's host "
+                         "refresh (wrap_host_refresh), which is not ported yet")
     lr_at = make_lr_fn(tcfg)
     grad_fn = make_grad_fn(cfg, tcfg)
     apply_fn = make_apply_fn(cfg, tcfg)
     delta_fn = make_delta_grad_fn(cfg, tcfg) if method.has_learned_step else None
 
     def train_step(state: LMTrainState, batch: dict, noise: torch.Tensor | None = None):
-        if noise is None and spec.is_integer_table:
-            noise = quant.sr_noise(state.generator, tuple(state.table.codes.shape))
+        if noise is None:
+            noise = method.dense_noise(state.generator, state.table, spec)
         loss_aux, grads = grad_fn(state, batch)
         delta_grad = None
         if delta_fn is not None:

@@ -754,3 +754,107 @@ def test_lm_train_step_kernels_bitwise_vs_plain(cuda, method, bits):
         assert torch.equal(getattr(on.table, name), getattr(off.table, name)), name
     for a, b in zip(tree_leaves(on.params), tree_leaves(off.params)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("on_scratch", [False, True])
+def test_sparse_row_update_runs_kernels_bitwise_with_a_21500_long_run(cuda, bits, on_scratch):
+    """A wave of 24,576 lookups, 21,500 of them one id: a live row (as a qr_*
+    remainder row at r = 2 takes ~12,288) or the scratch row, where mixed's
+    sentinel run lands on a padded group.  Live rows and the slots with a
+    run bit for bit, the run summed in occurrence order."""
+    g = _gen(200 + bits, cuda)
+    n_live, m, d, long_run = 3000, 24_576, 16, 21_500
+    codes, step, mu, nu, uniq, _, g_occ, order, starts, noise = _runs_operands(
+        g, cuda, n_live, d, bits, m, long_run=long_run)
+    if on_scratch:  # the long run's id becomes the sentinel: the scratch row
+        ids = torch.empty(m, dtype=torch.int32, device=cuda)
+        ids[order] = torch.repeat_interleave(uniq, (starts[1:] - starts[:-1]).long())
+        ids[ids == n_live // 2] = n_live
+        uniq, _, order, starts = lpt.dedup_runs(ids, n_live)
+    runs = starts[1:] - starts[:-1]
+    assert int(runs.max()) >= long_run
+    (kc, km, kv, kw, launched), (pc, pm, pv, pw, _) = _runs_both(
+        codes, step, mu, nu, uniq, g_occ, order, starts, noise, bits, 5e-8, 0.1, 0.001)
+    assert sum(launched.values()) == 1
+    live, ran = slice(0, n_live), runs > 0
+    assert torch.equal(kc[live], pc[live]) and torch.equal(km[live], pm[live])
+    assert torch.equal(kv[live], pv[live]) and torch.equal(kw[ran], pw[ran])
+    assert bool(torch.isfinite(kw).all())
+
+
+def _small_ctr(method, *, model="dcn", dropout=0.0, pad=True, use_kernels=True):
+    data = CTRDatasetConfig(name="t", n_fields=6, cardinalities=(40, 9, 300, 17, 5, 5000))
+    d = 16 + (model == "deepfm")
+    from repro_torch.models.ctr import DeepFMConfig
+
+    spec = EmbeddingSpec(method=method, n=data.n_features, d=d, bits=8, pad_to_tiles=pad,
+                         use_kernels=use_kernels, field_cards=data.cardinalities)
+    cfg = TrainerConfig(spec=spec, model=model,
+                        dcn=DCNConfig(n_fields=6, emb_dim=16, cross_depth=2, mlp_widths=(64, 32),
+                                      dropout=dropout),
+                        deepfm=DeepFMConfig(n_fields=6, emb_dim=16, mlp_widths=(64, 32),
+                                            dropout=dropout))
+    return CTRSynthetic(data), cfg
+
+
+@pytest.mark.parametrize("method,model,dropout", [
+    ("mixed", "dcn", 0.0), ("qr_lpt", "dcn", 0.0), ("qr_alpt", "dcn", 0.0),
+    ("lsq", "dcn", 0.0), ("pact", "dcn", 0.0), ("hash", "dcn", 0.0), ("prune", "dcn", 0.0),
+    ("alpt", "deepfm", 0.0), ("alpt", "dcn", 0.2)])
+def test_every_method_trains_and_serves_kernels_vs_plain(cuda, method, model, dropout):
+    """3 steps kernels on and off from one initial state (the same dropout
+    draws): bitwise state and losses, the composed methods' kernels
+    launched, nothing falling back; then the trained state served through
+    CTREngine, bitwise against the plain gathers."""
+    synth, cfg = _small_ctr(method, model=model, dropout=dropout)
+    state0 = init_state(cfg, device=cuda)
+    runs = []
+    for use_kernels in (True, False):
+        c = dataclasses.replace(cfg, spec=dataclasses.replace(cfg.spec, use_kernels=use_kernels))
+        ops.reset_kernel_calls()
+        ops.reset_fallbacks()
+        state, history = CTRTrainer(c, device=cuda).fit(synth, steps=3, batch_size=128,
+                                                        state=clone_state(state0))
+        torch.cuda.synchronize()
+        runs.append((state, [h["loss"] for h in history], ops.kernel_calls(), c))
+        assert ops.fallbacks() == []
+    (a, la, launched, c_on), (b, lb, plain, c_off) = runs
+    assert la == lb and all(np.isfinite(la)) and plain == {}
+    assert launched["adam_update"] == 3 * (1 + (not cfg.spec.is_integer_table))
+    if method == "mixed":  # groups at 8, 4 and 2 bits
+        assert launched["sparse_row_update_runs"] == 3
+        assert launched["sparse_row_update_runs_packed"] == 6
+    if method.startswith("qr_"):
+        assert launched["sparse_row_update_runs"] == 6
+        assert launched.get("sr_round", 0) == 6 * (method == "qr_alpt")
+    for x, y in zip(_live(a.emb_state, cfg.spec), _live(b.emb_state, cfg.spec), strict=True):
+        assert torch.equal(x, y)
+    assert all(torch.equal(p, q) for p, q in zip(a.dense.parameters(), b.dense.parameters()))
+    ids, _ = synth.batch("test", 0, 200)
+    served = []
+    for c in (c_on, c_off):
+        engine = CTREngine.from_state(a, c, batch=64)
+        rids = [engine.submit(CTRRequest(ids=r)) for r in ids]
+        done = engine.run()
+        served.append([done[r]["logit"] for r in rids])
+    assert served[0] == served[1] and all(np.isfinite(served[0]))
+
+
+def _live(state, spec):
+    """A table state's tensors over its live rows: each LPT sub-table's
+    codes, Delta and slots up to its id space (a padded table's scratch row
+    takes the sentinel runs and is unspecified), every float leaf whole."""
+    from repro_torch.core.hashing import qr_rows
+    from repro_torch.methods.mixed import plan_of
+
+    if spec.method in ("qr_lpt", "qr_alpt"):
+        tables = zip((state.remainder, state.quotient), qr_rows(spec.n))
+    elif spec.method == "mixed":
+        tables = zip(state.subs, plan_of(spec).group_rows)
+    elif isinstance(state, lpt.LPTTable):
+        tables = [(state, spec.n)]
+    else:
+        return [v for v in state if isinstance(v, torch.Tensor)]
+    return [t[:n] for table, n in tables for t in (table.codes.data, table.step, table.mu,
+                                                     table.nu)]

@@ -222,7 +222,7 @@ def test_trainer_losses_match_reference_over_10_steps(method, bits, pad):
         ids, labels = DATA.batch("train", i, 64)
         noise = _reference_noise(js, ids.size, d)
         js, jm = jt.train_step(js, ids, labels)
-        ps, pm = pt.train_step(ps, ids, labels, noise=noise[: pt.method.noise_draws])
+        ps, pm = pt.train_step(ps, ids, labels, noise=noise[: pt.method.noise_draws(pt.spec)])
         jl.append(float(jm["loss"]))
         pl.append(float(pm["loss"]))
         assert pm["lr"] == float(jm["lr"])
