@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of CTR serving and training (every embedding
-method, DCN and DeepFM), of int8-resident LM serving and of LPT/ALPT LM
-training on one NVIDIA GPU.
+method, DCN and DeepFM), of int8-resident LM serving, of LPT/ALPT LM
+training and of checkpoints (resume, serving from a checkpoint) on one
+NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -97,6 +98,30 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      window of 3 steps;
   8b. the training CLI (python -m repro_torch.launch.train lm --arch
      smollm-135m --steps 5) at its defaults, as a subprocess;
+  10. checkpoints (repro_torch.checkpoint), in a temporary directory
+     removed at the end: 10a. on the full padded Avazu table (DCN
+     1024/512/256, batches of 1,024) ALPT-8, qr_alpt-4 (packed sub-tables)
+     and prune (bool mask, host clock; refreshed at steps 3 and 6) train 6
+     steps in one run and, from the same seed, 3 steps, a save through
+     CheckpointManager, every tensor dropped and the cache emptied, a fresh
+     trainer's restore and 3 more steps: every leaf of both states (codes,
+     Delta, mu, nu, count, float leaves, dense params, both Adam states, the
+     generator's state) and the 6 losses equal bit for bit; launches per
+     step as STEP_LAUNCHES implies, none in a restore; 10b. the table's
+     arrays of every saved step exactly memory_bytes(stored=True), one
+     flipped byte in the newest step's leaf makes restore() fall back to the
+     previous step and record the refused one; save / restore seconds and
+     bytes written (host clock); 10c. serving checkpoints of the trained
+     ALPT-8 and qr_alpt-4 states and of an unpadded ALPT-4 table (table
+     leaves exactly memory_bytes(training=False), codes + Delta only):
+     CTREngine.from_checkpoint serves phase 3's 4,096 requests bitwise equal
+     to CTREngine.from_state; 10d. SmolLM-135M's ALPT-8 serving state saved
+     and restored with LMEngine.from_checkpoint: 4 of phase 7's prompts x 32
+     tokens equal to the engine built from the state; then the train lm CLI
+     --steps 2 --ckpt-every 1 and --steps 4 as subprocesses: the second
+     resumes from step 2, its losses equal phase 8b's steps 3-4.  The step
+     counts (6, split at 3; 2 + 2 LM steps) are phase 10's cut: its time
+     goes to the two train lm processes and the disk, not the steps;
   5. time each kernel at the slices' shapes (median of per-launch CUDA-event
      times after warm-up, device work only) beside its bound, its plain
      version's time and the library's one call where there is one, and the
@@ -953,7 +978,7 @@ def lm_serve(torch, np, dev, bits: int) -> dict:
     log(f"[lm] bits={bits}: the {LM_REQUESTS} requests in reverse order give every request "
         "the same tokens")
     return {"launches": launches, "state": state, "table": engine.table, "cfg": cfg,
-            "decode_ms": decode_ms, "prefill_ms": prefill}
+            "decode_ms": decode_ms, "prefill_ms": prefill, "prompts": prompts}
 
 
 def profile_decode(torch, engine, bits: int, steps: int = 5) -> None:
@@ -2128,7 +2153,7 @@ def lm_train(torch, dev, method: str, bits: int, batches: list) -> dict:
 
 def lm_train_cli() -> dict:
     """Phase 8b: ``python -m repro_torch.launch.train lm --arch smollm-135m
-    --steps 5`` at its defaults in a subprocess; returns its launches."""
+    --steps 5`` at its defaults in a subprocess; returns its report."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "lm", "--arch",
                            LM_ARCH, "--steps", "5"], capture_output=True, text=True, cwd=ROOT,
@@ -2144,7 +2169,7 @@ def lm_train_cli() -> dict:
     check(r["fallbacks"] == [] and r["training_bytes"] == EXPECTED_LM_TRAIN_BYTES[8],
           f"train lm CLI fallbacks {r['fallbacks']}, memory {r['training_bytes']}")
     log(f"[train-cli] {lines[-2]}; launches {launches}; no fallbacks")
-    return launches
+    return r
 
 
 def time_write_back(torch, wb: dict, flush) -> dict:
@@ -2467,6 +2492,337 @@ def criteo_deepfm_phase(torch, np, dev, avazu_batches, test_ids) -> dict:
     return total
 
 
+# Phase 10 (checkpoints): the configs resumed bitwise, their step counts.
+CKPT_RUNS = (("alpt", 8), ("qr_alpt", 4), ("prune", 8))
+CKPT_STEPS, CKPT_SPLIT = 6, 3
+LM_CKPT_PROMPTS = 4
+
+
+def packed_names(launches: dict, bits: int) -> dict:
+    """Launches of a step at ``bits``: below 8 bits the gathers and the row
+    step take their packed kernels."""
+    if bits >= 8:
+        return dict(launches)
+    return {(k + "_packed" if k in ("dequant_gather", "sparse_row_update_runs") else k): v
+            for k, v in launches.items()}
+
+
+def added(*counts: dict) -> dict:
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def same_tree(torch, a, b) -> bool:
+    """Two checkpoint trees equal leaf for leaf, bit for bit (paths, dtypes,
+    values; the generator's state included)."""
+    from repro_torch.checkpoint import manager as ckpt
+
+    fa, fb = ckpt.flatten(a), ckpt.flatten(b)
+    if [p for p, _ in fa] != [p for p, _ in fb]:
+        return False
+    for (_, x), (_, y) in zip(fa, fb):
+        x = x.detach() if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+        y = y.detach() if isinstance(y, torch.Tensor) else torch.as_tensor(y)
+        if x.dtype != y.dtype or not torch.equal(x.cpu(), y.cpu()):
+            return False
+    return True
+
+
+def step_files(directory: pathlib.Path, step: int) -> tuple[int, dict]:
+    """(bytes on disk, manifest) of a saved step."""
+    d = directory / f"step_{step:09d}"
+    return (sum(f.stat().st_size for f in d.iterdir()),
+            json.loads((d / "manifest.json").read_text()))
+
+
+def leaf_bytes(manifest: dict, prefix: str) -> int:
+    """Bytes of the manifest's array leaves under ``prefix`` (a table's 0-d
+    counters aside)."""
+    import numpy as np
+
+    return sum(math.prod(e["shape"]) * np.dtype(e["dtype"]).itemsize
+               for e in manifest["leaves"] if e["path"].startswith(prefix) and e["shape"])
+
+
+def ckpt_resume(torch, dev, name: str, bits: int, batches, root: pathlib.Path, seed: int):
+    """10a / 10b for one config on the full padded Avazu table: 6 steps in
+    one run; in a second from the same seed, 3 steps, a save through
+    CheckpointManager (cadence 3), every tensor of the state dropped and
+    the cache emptied, a fresh trainer's restore, 3 more steps and the save
+    at 6: both runs equal bit for bit (every leaf of the checkpoint tree:
+    codes, Delta, mu, nu, count, the float leaves and prune's mask and
+    clock, dense params, both Adam states, the generator's state) and their
+    losses; launches per step as the code implies, none in the restore; the
+    table's arrays in each saved step exactly memory_bytes(stored=True)."""
+    import gc
+
+    from repro_torch import methods
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import pruning
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli_mod
+    from repro_torch.training.ctr_trainer import CTRTrainer, checkpoint_tree
+
+    args = argparse.Namespace(config="avazu", model="dcn", bits=bits, scale=SCALE, seed=seed)
+    _, cfg = train_cli_mod.build(args, name)
+    spec = dataclasses.replace(cfg.spec, pad_to_tiles=True,
+                               prune=pruning.PruneConfig(**PHASE9_PRUNE))
+    cfg = dataclasses.replace(cfg, spec=spec)
+    method = methods.get(name)
+    label = f"{name}-{bits}"
+    per_step = packed_names(STEP_LAUNCHES[name], bits)
+
+    ops.reset_kernel_calls()
+    ops.reset_fallbacks()
+    trainer = CTRTrainer(cfg, device=dev)
+    straight = trainer.init_state()
+    init = ops.kernel_calls()
+    straight, h_straight = trainer.fit(batches, steps=CKPT_STEPS, batch_size=BATCH, state=straight)
+    torch.cuda.synchronize()
+    want = added(init, scaled(per_step, CKPT_STEPS))
+    check(ops.kernel_calls() == want, f"{label}: launches {ops.kernel_calls()}, the code "
+                                      f"implies {want}")
+
+    ops.reset_kernel_calls()
+    manager = CheckpointManager(root / label, keep=3, save_every=CKPT_SPLIT)
+    state, h1 = trainer.fit(batches, steps=CKPT_SPLIT, batch_size=BATCH)
+    t0 = time.perf_counter()
+    check(trainer.save(manager, state), f"{label}: no save at step {CKPT_SPLIT}")
+    save_s = [time.perf_counter() - t0]
+    stored = method.memory_bytes(state.emb_state, spec, stored=True)
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = ops.kernel_calls()
+    fresh = CTRTrainer(cfg, device=dev)
+    t0 = time.perf_counter()
+    state = fresh.restore(manager)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(ops.kernel_calls() == before, f"{label}: the restore launched a kernel")
+    check(state.step == CKPT_SPLIT and state.emb_state is not None, f"{label}: restored step")
+    state, h2 = fresh.fit(batches, steps=CKPT_STEPS - CKPT_SPLIT, batch_size=BATCH, state=state)
+    t0 = time.perf_counter()
+    check(fresh.save(manager, state), f"{label}: no save at step {CKPT_STEPS}")
+    save_s.append(time.perf_counter() - t0)
+    resumed = ops.kernel_calls()
+    check(resumed == want, f"{label}: resumed run launched {resumed}, the code implies {want}")
+    check(ops.fallbacks() == [], f"{label}: fallbacks {ops.fallbacks()}")
+    losses = [h["loss"] for h in h1 + h2]
+    check(losses == [h["loss"] for h in h_straight],
+          f"{label}: resumed losses {losses} != {[h['loss'] for h in h_straight]}")
+    check(same_tree(torch, checkpoint_tree(cfg, state), checkpoint_tree(cfg, straight)),
+          f"{label}: the resumed state differs from the uninterrupted run")
+    written = []
+    for step in (CKPT_SPLIT, CKPT_STEPS):
+        nbytes, manifest = step_files(manager.directory, step)
+        emb = leaf_bytes(manifest, ".emb_state")
+        check(emb == stored, f"{label} step {step}: the table's saved arrays {emb} B != "
+                             f"memory_bytes(stored=True) {stored}")
+        written.append(nbytes)
+    log(f"[ckpt] {label}: {CKPT_STEPS} steps straight == {CKPT_SPLIT} + save + restore into a "
+        f"fresh trainer + {CKPT_STEPS - CKPT_SPLIT}, bit for bit (every leaf, the generator, "
+        f"losses {losses[0]:.5f} -> {losses[-1]:.5f}); launches {resumed} (init {init}), none "
+        f"in the restore; the table's arrays {stored} B = memory_bytes(stored=True); save "
+        f"{save_s[0]:.3f} / {save_s[1]:.3f} s for {written[0]} / {written[1]} B on disk "
+        f"({save_s[0] / written[0] * 1e9:.3f} / {save_s[1] / written[1] * 1e9:.3f} s per GB), "
+        f"restore {restore_s:.3f} s ({restore_s / written[0] * 1e9:.3f} s per GB; host clock)")
+    return {"launches": added(want, resumed), "cfg": cfg, "state": state, "manager": manager,
+            "save_s": save_s, "restore_s": restore_s, "bytes": written}
+
+
+def flip_and_fall_back(torch, dev, manager) -> float:
+    """10b: one byte of a leaf file of the newest step flipped: restore()
+    falls back to the previous committed step and records the refused one."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    leaf = manager.directory / f"step_{CKPT_STEPS:09d}" / "leaf_00000.npy"
+    raw = bytearray(leaf.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    leaf.write_bytes(bytes(raw))
+    again = CheckpointManager(manager.directory)
+    t0 = time.perf_counter()
+    tree, manifest = again.restore(device=dev)
+    elapsed = time.perf_counter() - t0
+    check(manifest["step"] == CKPT_SPLIT and again.corrupt_steps == [CKPT_STEPS],
+          f"corrupted step {CKPT_STEPS}: restored {manifest['step']}, refused "
+          f"{again.corrupt_steps}")
+    del tree
+    log(f"[ckpt] a flipped byte in step {CKPT_STEPS}'s {leaf.name}: restore() refused it "
+        f"(corrupt_steps {again.corrupt_steps}) and fell back to step {manifest['step']} in "
+        f"{elapsed:.3f} s")
+    return elapsed
+
+
+def serve_from_checkpoint(torch, np, dev, cfg, state, test_ids, directory, label: str,
+                          expect: int | None = None) -> dict:
+    """10c: a serving checkpoint of ``state`` (params + the serving-resident
+    table): its table leaves exactly memory_bytes(training=False) (and
+    ``expect`` where given), codes and Delta only; CTREngine.from_checkpoint
+    on the card serves ``test_ids`` bitwise equal to CTREngine.from_state.
+    Returns the two engines' launches."""
+    from repro_torch import methods
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.kernels import ops
+    from repro_torch.serving.ctr import CTREngine, CTRRequest
+
+    spec = cfg.spec
+    t0 = time.perf_counter()
+    ckpt.save_serving_checkpoint(directory, step=state.step, params=state.dense.param_tree(),
+                                 table=state.emb_state, spec=spec)
+    save_s = time.perf_counter() - t0
+    nbytes, manifest = step_files(pathlib.Path(directory), state.step)
+    table = [e for e in manifest["leaves"] if e["path"].startswith("['table']")]
+    inference = methods.get(spec.method).memory_bytes(state.emb_state, spec, training=False)
+    held = leaf_bytes(manifest, "['table']")
+    check(held == inference and all(e["dtype"] in ("int8", "uint8") or len(e["shape"]) == 1
+                                    for e in table),
+          f"{label}: serving table leaves {held} B ({table}) != memory_bytes(training=False) "
+          f"{inference}")
+    check(expect is None or held == expect, f"{label}: serving table leaves {held} != {expect}")
+    ops.reset_kernel_calls()
+    results = []
+    t0 = time.perf_counter()
+    engine = CTREngine.from_checkpoint(directory, cfg, batch=BATCH, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    for e in (CTREngine.from_state(state, cfg, batch=BATCH), engine):
+        rids = [e.submit(CTRRequest(ids=r)) for r in test_ids]
+        done = e.run()
+        results.append([done[r] for r in rids])
+    launches = ops.kernel_calls()
+    check(results[0] == results[1], f"{label}: from_checkpoint scores differ from from_state")
+    check(engine.resident_embedding_bytes == inference,
+          f"{label}: resident {engine.resident_embedding_bytes} B != {inference}")
+    log(f"[ckpt] {label}: serving checkpoint {nbytes} B on disk (table leaves {held} B = "
+        f"memory_bytes(training=False), codes + Delta only) saved in {save_s:.3f} s "
+        f"({save_s / nbytes * 1e9:.3f} s per GB); "
+        f"CTREngine.from_checkpoint in {restore_s:.3f} s served {len(test_ids)} requests "
+        f"bitwise equal to from_state; launches {launches}")
+    return launches
+
+
+def lm_from_checkpoint(torch, dev, lm_run: dict, directory) -> dict:
+    """10d: SmolLM-135M's ALPT-8 serving state at full width saved as a
+    serving checkpoint (table leaves exactly its resident bytes) and
+    restored with LMEngine.from_checkpoint: 4 of phase 7's prompts, 32 new
+    tokens each, the same tokens as the engine built from the state."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.kernels import ops
+    from repro_torch.serving.lm import LMEngine, LMRequest
+    from repro_torch.training import lm_trainer
+
+    state, cfg = lm_run["state"], lm_run["cfg"]
+    spec = lm_trainer.embedding_spec_of(cfg)
+    t0 = time.perf_counter()
+    ckpt.save_serving_checkpoint(directory, step=0, params=state.params, table=state.table,
+                                 spec=spec)
+    save_s = time.perf_counter() - t0
+    nbytes, manifest = step_files(pathlib.Path(directory), 0)
+    held = leaf_bytes(manifest, "['table']")
+    check(held == EXPECTED_LM_RESIDENT[8], f"LM serving table leaves {held} B")
+    ops.reset_kernel_calls()
+    t0 = time.perf_counter()
+    restored = LMEngine.from_checkpoint(directory, cfg, batch=LM_BATCH, max_len=LM_MAX_LEN,
+                                        device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    outs = []
+    for engine in (LMEngine.from_state(state, cfg, batch=LM_BATCH, max_len=LM_MAX_LEN),
+                   restored):
+        for i, p in enumerate(lm_run["prompts"][:LM_CKPT_PROMPTS]):
+            engine.submit(LMRequest(prompt=p, max_new=LM_MAX_NEW, rid=i))
+        outs.append(engine.run())
+        check(engine.metrics().kernel_launches.get("flash_attention_fwd") ==
+              LM_CKPT_PROMPTS * cfg.n_layers, f"LM engine launches {engine.metrics()}")
+    launches = ops.kernel_calls()
+    check(outs[0] == outs[1] and all(len(t) == LM_MAX_NEW for t in outs[1].values()),
+          "LMEngine.from_checkpoint gives other tokens than from_state")
+    check(restored.resident_embedding_bytes == EXPECTED_LM_RESIDENT[8],
+          f"restored LM resident bytes {restored.resident_embedding_bytes}")
+    log(f"[ckpt] lm: serving checkpoint {nbytes} B on disk (table leaves {held} B) saved in "
+        f"{save_s:.3f} s ({save_s / nbytes * 1e9:.3f} s per GB); LMEngine.from_checkpoint "
+        f"in {restore_s:.3f} s: {LM_CKPT_PROMPTS} prompts x {LM_MAX_NEW} tokens equal to from_state's; launches {launches}")
+    return launches
+
+
+def lm_resume_cli(directory, straight_losses: list) -> dict:
+    """10d: ``train lm --steps 2 --ckpt-every 1`` then ``--steps 4`` on the same
+    directory, as subprocesses: the second resumes from step 2 and its
+    losses continue phase 8b's uninterrupted run bit for bit; launches as
+    the code implies (the resumed run inits nothing)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    reports, times = [], []
+    for extra in (["--steps", "2", "--ckpt-every", "1"], ["--steps", "4"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "lm", "--arch",
+                               LM_ARCH, "--ckpt-dir", str(directory), *extra],
+                              capture_output=True, text=True, cwd=ROOT, env=env, timeout=600)
+        times.append(time.perf_counter() - t0)
+        lines = proc.stdout.strip().splitlines()
+        check(proc.returncode == 0 and bool(lines),
+              f"train lm {extra} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        reports.append((lines, json.loads(lines[-1])))
+    (_, first), (lines, second) = reports
+    check("[train] resumed from step 2" in lines, f"train lm --steps 4 did not resume: {lines}")
+    check(first["kernel_launches"] == {"sr_round": 3, "adam_update": 2}
+          and second["kernel_launches"] == {"sr_round": 2, "adam_update": 2},
+          f"train lm resume launches {first['kernel_launches']}, {second['kernel_launches']}")
+    losses = first["losses"] + second["losses"]
+    check(losses == straight_losses[:4],
+          f"train lm resumed losses {losses} != the uninterrupted run's {straight_losses[:4]}")
+    log(f"[ckpt] train lm: --steps 2 --ckpt-every 1 ({times[0]:.1f} s), then --steps 4 "
+        f"({times[1]:.1f} s) resumed from step 2; losses {losses} equal phase 8b's first 4")
+    return added(first["kernel_launches"], second["kernel_launches"])
+
+
+def checkpoint_phase(torch, np, dev, batches, test_ids, lm_run: dict,
+                     lm_cli_losses: list) -> dict:
+    """Phase 10, in a temporary directory removed at the end.  Returns its
+    launches."""
+    import tempfile
+
+    from repro_torch.configs import dcn_ctr
+    from repro_torch.kernels import ops
+    from repro_torch.training.ctr_trainer import TrainerConfig, init_state
+
+    t_phase = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        root = pathlib.Path(tmp)
+        runs = {}
+        for i, (name, bits) in enumerate(CKPT_RUNS):
+            runs[name] = ckpt_resume(torch, dev, name, bits, batches, root, seed=700 + i)
+            total = added(total, runs[name]["launches"])
+            if name == "prune":
+                del runs[name]["state"]
+        flip_and_fall_back(torch, dev, runs["alpt"]["manager"])
+        served = [(runs["alpt"]["cfg"], runs["alpt"]["state"], "alpt-8 (padded, trained)"),
+                  (runs["qr_alpt"]["cfg"], runs["qr_alpt"]["state"],
+                   "qr_alpt-4 (padded, trained)")]
+        _, spec4, dcn = dcn_ctr.avazu_setup(method="alpt", bits=4, scale=SCALE)
+        cfg4 = TrainerConfig(spec=spec4, dcn=dcn, seed=704)
+        ops.reset_kernel_calls()
+        state4 = init_state(cfg4, device=dev)
+        total = added(total, ops.kernel_calls())
+        served.append((cfg4, state4, "alpt-4 (unpadded)"))
+        for i, (cfg, state, label) in enumerate(served):
+            launched = serve_from_checkpoint(
+                torch, np, dev, cfg, state, test_ids, root / f"serve_{i}", label,
+                expect=EXPECTED_RESIDENT[4] if state is state4 else None)
+            total = added(total, launched)
+        del runs, served, state4
+        torch.cuda.empty_cache()
+        total = added(total, lm_from_checkpoint(torch, dev, lm_run, root / "lm_serve"))
+        total = added(total, lm_resume_cli(root / "lm_train", lm_cli_losses))
+    log(f"[ckpt] phase 10: launches {total}; {time.perf_counter() - t_phase:.1f}s; "
+        f"{card_name()}")
+    return total
+
+
 def long_run_waves(torch, dev, g, wave, n_live: int) -> dict:
     """The two long-run shapes of the runs form: the qr_* remainder's wave
     (ids % r over the full Avazu wave, r = 2: two live rows, ~12,288 lookups
@@ -2651,8 +3007,16 @@ def main() -> int:
     lm_trains = {run: lm_train(torch, dev, *run, lm_data) for run in LM_TRAIN_RUNS}
     trained = {k: sum(r["launches"].get(k, 0) for r in lm_trains.values()) for k in KERNELS}
     log(f"[kernels] launches on the LM training path: {trained}")
-    cli = lm_train_cli()
+    lm_cli_report = lm_train_cli()
+    cli = lm_cli_report["kernel_launches"]
     launches = {k: launches[k] + trained[k] + cli.get(k, 0) for k in KERNELS}
+
+    # 10. checkpoints: CTR resume bitwise, the layout, both engines from
+    # serving checkpoints, the LM CLI's resume
+    phase10 = checkpoint_phase(torch, np, dev, batches, ids, lm_runs[8],
+                               lm_cli_report["losses"])
+    check(set(phase10) <= set(KERNELS), f"phase 10 launched {phase10}")
+    launches = {k: launches[k] + phase10.get(k, 0) for k in KERNELS}
     # sr_round_seeded has no main path (no caller in the JAX package but its
     # kernel test): its launches are its unbiasedness run's (phase 2e).
     launches["sr_round_seeded"] += wb_ops["seeded_launches"]

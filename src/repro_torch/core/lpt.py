@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import quant
-from repro_torch.core.codestore import CodeStore, in_range_rows
+from repro_torch.core.codestore import CodeStore, in_range_rows, is_packable, packed_width
 from repro_torch.kernels import ops, ref
 
 
@@ -97,6 +97,19 @@ def table_from_init(w: torch.Tensor, noise: torch.Tensor, bits: int, *,
     mu = torch.zeros(slot_shape, dtype=torch.float32, device=w.device)
     nu = torch.zeros(slot_shape, dtype=torch.float32, device=w.device)
     return LPTTable(codes=codes, step=step, mu=mu, nu=nu, count=0)
+
+
+def schema(n: int, d: int, bits: int, *, optimizer: str = "adam", packed: bool | None = None,
+           prefix: str = "") -> dict:
+    """Leaf path -> ``{shape, dtype}`` of the table :func:`table_from_init`
+    builds (paths under ``prefix``): the code container's bytes, Delta, the
+    row-optimizer slots and the int32 count."""
+    do_pack = is_packable(bits) and packed is not False
+    codes = ([n, packed_width(d, bits)], "uint8") if do_pack else ([n, d], "int8")
+    slot = [n, d] if optimizer == "adam" else [n]
+    leaves = {".codes.data": codes, ".step": ([n], "float32"), ".mu": (slot, "float32"),
+              ".nu": (slot, "float32"), ".count": ([], "int32")}
+    return {prefix + k: {"shape": shape, "dtype": dtype} for k, (shape, dtype) in leaves.items()}
 
 
 def lookup(table: LPTTable, ids: torch.Tensor, *, use_kernels: bool = False,

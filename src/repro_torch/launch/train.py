@@ -14,12 +14,21 @@ per step, kernel launches, fallbacks and the table's training memory.
 ``--method`` takes any name in ``repro_torch.methods.available()``; mixed
 takes the dataset's field cardinalities, DeepFM a table one column wider
 than its embedding (the first-order weight), Criteo's DCN its dropout 0.2.
+
+Checkpoints (both scenarios, as in the reference's CLI): ``--ckpt-dir``
+resumes from the newest committed checkpoint that passes verification
+(printing ``resumed from step N``; refused steps are listed as
+``corrupt_checkpoints`` in the JSON line), saves every ``--ckpt-every``
+steps (keeping 3) and at the end; SIGTERM / SIGINT finishes the step in
+flight, saves and exits 75 so a scheduler requeues the job.  The data are
+indexed by step, so a resumed run replays exactly the batches it missed.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import signal
 import sys
 import time
 
@@ -28,6 +37,8 @@ import torch
 from repro_torch import configs
 from repro_torch import device as device_mod
 from repro_torch import methods
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint.manager import check_embedding_manifest, config_hash
 from repro_torch.configs import dcn_ctr
 from repro_torch.data.ctr_synth import CTRSynthetic
 from repro_torch.data.lm_synth import LMTokenStream
@@ -76,38 +87,124 @@ def ms_per_step(history) -> float:
     return sum(h["ms"] for h in history) / max(len(history), 1)
 
 
+class GracefulShutdown:
+    """Latches SIGTERM / SIGINT while a run is in flight (a context manager
+    that puts the previous handlers back on exit): the loop finishes the
+    step, checkpoints and exits 75."""
+
+    def __init__(self):
+        self.requested = False
+        self._previous = {}
+
+    def __enter__(self) -> "GracefulShutdown":
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            self._previous[sig] = signal.signal(sig, self._handler)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for sig, handler in self._previous.items():
+            signal.signal(sig, handler)
+
+    def _handler(self, signum, frame) -> None:
+        self.requested = True
+
+
+def _resume(manager, cfg, spec, restore):
+    """``restore()`` of the newest good checkpoint in ``manager``, or None
+    when there is none; a method, schema, packing or config mismatch is
+    printed before the restore."""
+    latest = manager.latest_step() if manager else None
+    if latest is None:
+        return None
+    manifest = manager.read_manifest(latest)
+    for problem in check_embedding_manifest(manifest, spec):
+        print(f"[train] WARNING: {problem}")
+    if manifest.get("config_hash") != config_hash(cfg):
+        print("[train] WARNING: config hash mismatch on resume")
+    return restore()
+
+
+def _loop(state, steps: int, one_step, save, saved: bool):
+    """Steps from ``state.step`` up to ``steps``, ``save(state, force)``
+    after each (at the manager's cadence), and at the end unless that step
+    is saved already -> ``(state, losses, ms per step, preempted)``.  A
+    SIGTERM / SIGINT finishes the step in flight and saves."""
+    losses, ms = [], []
+    with GracefulShutdown() as shutdown:
+        while state.step < steps:
+            state, loss, t = one_step(state)
+            losses.append(loss)
+            ms.append(t)
+            saved = save(state, False)
+            if shutdown.requested:
+                if not saved:
+                    save(state, True)
+                print(f"[train] preempted at step {state.step}; checkpointed; exiting 75 "
+                      "for requeue")
+                return state, losses, ms, True
+    if not saved:
+        save(state, True)
+    return state, losses, ms, False
+
+
+def _manager(args):
+    if not args.ckpt_dir:
+        return None
+    return CheckpointManager(args.ckpt_dir, keep=3, save_every=args.ckpt_every)
+
+
 def _run_ctr(args) -> int:
     device = device_mod.resolve(args.device)
     data, cfg = build(args, args.method)
-    trainer = CTRTrainer(dataclasses.replace(cfg, lr=args.lr), device=device)
+    cfg = dataclasses.replace(cfg, lr=args.lr)
+    trainer = CTRTrainer(cfg, device=device)
+    manager = _manager(args)
     ops.reset_kernel_calls()
     ops.reset_fallbacks()
+    state = _resume(manager, cfg, cfg.spec, lambda: trainer.restore(manager))
+    resumed = state is not None
+    if resumed:
+        print(f"[train] ctr resumed from step {state.step}")
+    else:
+        state = trainer.init_state()
 
     def log(h):
         if args.log_every and h["step"] % args.log_every == 0:
             print(f"[train] step {h['step']}: loss {h['loss']:.6f}")
 
-    state, history = trainer.fit(data, steps=args.steps, batch_size=args.batch, log=log)
+    def one_step(state):
+        state, (h,) = trainer.fit(data, steps=1, batch_size=args.batch, state=state, log=log)
+        return state, h["loss"], h["ms"]
+
+    def save(state, force):
+        return bool(manager) and trainer.save(manager, state, force=force)
+
+    start = state.step
+    state, losses, ms_list, preempted = _loop(state, args.steps, one_step, save, resumed)
+    if preempted:
+        return 75
     if device.type == "cuda":
         torch.cuda.synchronize()
-    losses, ms = [h["loss"] for h in history], ms_per_step(history)
+    ms = sum(ms_list) / max(len(ms_list), 1)
     method = methods.get(args.method)
     report = {
         "method": args.method, "model": args.model, "config": args.config,
         "scale": args.scale, "bits": args.bits, "device": str(device), "steps": args.steps,
-        "batch": args.batch, "losses": losses, "ms_per_step": ms,
+        "start_step": start, "batch": args.batch, "losses": losses, "ms_per_step": ms,
         "kernel_launches": ops.kernel_calls(), "fallbacks": ops.fallbacks(),
         "embedding_bytes": method.memory_bytes(state.emb_state, cfg.spec, training=True),
         "inference_bytes": method.memory_bytes(state.emb_state, cfg.spec, training=False),
         "training_bytes": method.memory_bytes(state.emb_state, cfg.spec, stored=True),
     }
+    if manager and manager.corrupt_steps:
+        report["corrupt_checkpoints"] = manager.corrupt_steps
     if args.eval_batches:
         report.update(trainer.evaluate(state, data.batches("valid", args.batch,
                                                            args.eval_batches)))
+    loss_note = f", loss {losses[0]:.4f} -> {losses[-1]:.4f}" if losses else ""
     print(f"[train] ctr/{args.method} {args.model} {args.config} scale={args.scale} "
-          f"bits={args.bits} on "
-          f"{device}: {args.steps} steps of {args.batch}, loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}, {ms:.2f} ms/step (host clock)")
+          f"bits={args.bits} on {device}: steps {start + 1}-{args.steps} of {args.batch}"
+          f"{loss_note}, {ms:.2f} ms/step (host clock)")
     print(json.dumps(report, sort_keys=True))
     return 0
 
@@ -120,34 +217,60 @@ def _run_lm(args) -> int:
     tcfg = lm_trainer.LMTrainerConfig(lr=args.lr, use_kernels=not args.no_kernels)
     spec = lm_trainer.embedding_spec_of(cfg, tcfg)
     data = LMTokenStream(cfg.vocab_size, args.seq, seed=17)
+    manager = _manager(args)
     ops.reset_kernel_calls()
     ops.reset_fallbacks()
-    state = lm_trainer.init_state(cfg, tcfg, seed=0, device=device)
+    state = _resume(manager, cfg, spec,
+                    lambda: lm_trainer.restore(manager, cfg, tcfg, device=device))
+    resumed = state is not None
+    if resumed:
+        print(f"[train] resumed from step {state.step}")
+    else:
+        state = lm_trainer.init_state(cfg, tcfg, seed=0, device=device)
     step_fn = lm_trainer.make_train_step(cfg, tcfg)
-    losses, ms = [], []
-    for step in range(args.steps):
-        full = torch.from_numpy(data.batch(step, args.batch)).to(device)
+
+    def one_step(state):
+        full = torch.from_numpy(data.batch(state.step, args.batch)).to(device)
         batch = {"tokens": full[:, :-1], "labels": full[:, 1:]}
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
-        losses.append(float(metrics["loss"]))  # waits for the step
-        ms.append((time.perf_counter() - t0) * 1e3)
-        if args.log_every and (step + 1) % args.log_every == 0:
-            print(f"[train] step {step + 1} loss {losses[-1]:.4f} {ms[-1]:.0f}ms")
+        loss = float(metrics["loss"])  # waits for the step
+        ms = (time.perf_counter() - t0) * 1e3
+        if args.log_every and state.step % args.log_every == 0:
+            print(f"[train] step {state.step} loss {loss:.4f} {ms:.0f}ms")
+        return state, loss, ms
+
+    def save(state, force):
+        return bool(manager) and lm_trainer.save(manager, cfg, state, tcfg, force=force)
+
+    start = state.step
+    state, losses, ms, preempted = _loop(state, args.steps, one_step, save, resumed)
+    if preempted:
+        return 75
     method = methods.get(spec.method)
     report = {
         "arch": cfg.name, "method": spec.method, "bits": spec.bits, "device": str(device),
-        "steps": args.steps, "batch": args.batch, "seq": args.seq, "losses": losses,
-        "ms_per_step": sum(ms[1:]) / max(len(ms) - 1, 1) if len(ms) > 1 else ms[0],
-        "first_step_ms": ms[0], "kernel_launches": ops.kernel_calls(),
+        "steps": args.steps, "start_step": start, "batch": args.batch, "seq": args.seq,
+        "losses": losses,
+        "ms_per_step": sum(ms[1:]) / (len(ms) - 1) if len(ms) > 1 else sum(ms),
+        "first_step_ms": ms[0] if ms else None, "kernel_launches": ops.kernel_calls(),
         "fallbacks": ops.fallbacks(), "embedding_bytes": method.memory_bytes(state.table, spec),
         "training_bytes": method.memory_bytes(state.table, spec, stored=True),
     }
-    print(f"[train] lm/{spec.method} {cfg.name} bits={spec.bits} on {device}: {args.steps} "
-          f"steps of {args.batch} x {args.seq}, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+    if manager and manager.corrupt_steps:
+        report["corrupt_checkpoints"] = manager.corrupt_steps
+    loss_note = f", loss {losses[0]:.4f} -> {losses[-1]:.4f}" if losses else ""
+    print(f"[train] lm/{spec.method} {cfg.name} bits={spec.bits} on {device}: steps "
+          f"{start + 1}-{args.steps} of {args.batch} x {args.seq}{loss_note}, "
           f"{report['ms_per_step']:.2f} ms/step after the first (host clock)")
     print(json.dumps(report, sort_keys=True))
     return 0
+
+
+def add_ckpt_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--ckpt-dir", default=None,
+                   help="checkpoint directory: resume from it, save into it")
+    p.add_argument("--ckpt-every", type=int, default=50, help="steps between checkpoints")
 
 
 def main(argv=None) -> int:
@@ -160,6 +283,7 @@ def main(argv=None) -> int:
     ctr.add_argument("--log-every", type=int, default=0)
     ctr.add_argument("--eval-batches", type=int, default=0,
                      help="validation batches for AUC / logloss at the end (0 = none)")
+    add_ckpt_args(ctr)
     lm = sub.add_parser("lm", help="dense LM training with a quantized vocab table")
     lm.add_argument("--arch", choices=sorted(configs.ARCHS), default="smollm-135m")
     lm.add_argument("--smoke", action="store_true", help="the reduced config of --arch")
@@ -173,6 +297,7 @@ def main(argv=None) -> int:
                     help="the plain PyTorch versions on any device")
     lm.add_argument("--log-every", type=int, default=10)
     lm.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_ckpt_args(lm)
     args = ap.parse_args(argv)
     return _run_lm(args) if args.scenario == "lm" else _run_ctr(args)
 

@@ -19,6 +19,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core import lpt as lpt_core
 from repro_torch.core import quant
 from repro_torch.core.alpt import ALPTConfig
 from repro_torch.core.pruning import PruneConfig
@@ -96,9 +97,24 @@ class EmbeddingMethod(abc.ABC):
         """SR noise tensors [K, d_alloc] one ``fused_row_step`` consumes."""
         return 0
 
+    def capabilities(self) -> dict[str, bool]:
+        """The capability flags a checkpoint manifest records."""
+        return {
+            "is_integer_table": self.is_integer_table,
+            "has_learned_step": self.has_learned_step,
+            "has_host_refresh": self.has_host_refresh,
+        }
+
     @abc.abstractmethod
     def init(self, generator: torch.Generator, spec: EmbeddingSpec) -> Any:
         """Initialize the table state on ``generator.device``."""
+
+    def checkpoint_schema(self, spec: EmbeddingSpec) -> dict:
+        """Leaf path -> ``{shape, dtype}`` of the state :meth:`init` builds for
+        ``spec`` (paths as a checkpoint spells them, a code container as its
+        ``.data`` bytes, Python ints as int32), without building it: what a
+        manifest records so that a restore refuses another geometry first."""
+        raise NotImplementedError(f"{self.name!r} has no checkpoint schema")
 
     @abc.abstractmethod
     def lookup(self, state: Any, ids: torch.Tensor, spec: EmbeddingSpec,
@@ -220,6 +236,10 @@ class IntegerTableMethod(EmbeddingMethod):
 
     def with_params(self, state, params, spec):
         return state
+
+    def checkpoint_schema(self, spec):
+        return lpt_core.schema(spec.n_padded, spec.d_padded, spec.bits,
+                               optimizer=spec.row_optimizer, packed=spec.packed)
 
     @abc.abstractmethod
     def dense_table(self, state: Any, spec: EmbeddingSpec) -> torch.Tensor:

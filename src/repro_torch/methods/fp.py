@@ -18,6 +18,9 @@ class FPMethod(EmbeddingMethod):
     def memory_bytes(self, state, spec, *, training=True, stored=False):
         return spec.n * spec.d * 4
 
+    def checkpoint_schema(self, spec):
+        return {"": {"shape": [spec.n, spec.d], "dtype": "float32"}}
+
     def trainable_params(self, state, spec):
         return state
 

@@ -138,6 +138,16 @@ class MixedMethod(IntegerTableMethod):
         return self.lookup(state, torch.arange(spec.n, dtype=torch.int32,
                                                device=state.subs[0].step.device), spec)
 
+    def checkpoint_schema(self, spec):
+        plan = plan_of(spec)
+        out = {}
+        for g, bits_g in enumerate(plan.group_bits):
+            rows = plan.group_rows[g]
+            out.update(lpt_core.schema(_round_up(rows + 1, TILE) if spec.pad_to_tiles else rows,
+                                       spec.d_padded, bits_g, optimizer=spec.row_optimizer,
+                                       packed=spec.packed, prefix=f".subs[{g}]"))
+        return out
+
     def memory_bytes(self, state, spec, *, training=True, stored=False):
         # Container-actual per group (packed sub-byte groups really hold
         # ceil(d * bits / 8) bytes per row) + the per-row Delta (+ the

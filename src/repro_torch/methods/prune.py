@@ -23,6 +23,11 @@ class PruneMethod(EmbeddingMethod):
     def with_params(self, state, params, spec):
         return state._replace(weights=params["weights"])
 
+    def checkpoint_schema(self, spec):
+        return {".weights": {"shape": [spec.n, spec.d], "dtype": "float32"},
+                ".mask": {"shape": [spec.n, spec.d], "dtype": "bool"},
+                ".step": {"shape": [], "dtype": "int32"}}
+
     def memory_bytes(self, state, spec, *, training=True, stored=False):
         fp = spec.n * spec.d * 4
         if training:

@@ -28,6 +28,10 @@ class _QATMethod(EmbeddingMethod):
     def with_params(self, state, params, spec):
         return qat_core.QATTable(weights=params["weights"], scale=params["scale"])
 
+    def checkpoint_schema(self, spec):
+        return {".weights": {"shape": [spec.n, spec.d], "dtype": "float32"},
+                ".scale": {"shape": [spec.n], "dtype": "float32"}}
+
     def memory_bytes(self, state, spec, *, training=True, stored=False):
         # Training keeps the fp master copy; inference ships codes + step.
         fp = spec.n * spec.d * 4

@@ -23,5 +23,11 @@ class QRHashMethod(EmbeddingMethod):
         return hashing.QRTable(remainder=params["remainder"], quotient=params["quotient"],
                                r=state.r)
 
+    def checkpoint_schema(self, spec):
+        r, q_rows = hashing.qr_rows(spec.n, spec.hash_compression)
+        return {".remainder": {"shape": [r, spec.d], "dtype": "float32"},
+                ".quotient": {"shape": [q_rows, spec.d], "dtype": "float32"},
+                ".r": {"shape": [], "dtype": "int32"}}
+
     def memory_bytes(self, state, spec, *, training=True, stored=False):
         return hashing.qr_memory_bytes(state)

@@ -78,6 +78,15 @@ class QRLPTMethod(IntegerTableMethod):
         return self.lookup(state, torch.arange(spec.n, dtype=torch.int32,
                                                device=state.remainder.step.device), spec)
 
+    def checkpoint_schema(self, spec):
+        r, q_rows = hashing.qr_rows(spec.n, spec.hash_compression)
+        kw = dict(optimizer=spec.row_optimizer, packed=spec.packed)
+        return {**lpt_core.schema(_pad_rows(r, spec), spec.d_padded, spec.bits,
+                                  prefix=".remainder", **kw),
+                **lpt_core.schema(_pad_rows(q_rows, spec), spec.d_padded, spec.bits,
+                                  prefix=".quotient", **kw),
+                ".r": {"shape": [], "dtype": "int32"}}
+
     def memory_bytes(self, state, spec, *, training=True, stored=False):
         # Container-actual codes of both sub-tables + their per-row Delta
         # (+ their row-optimizer slots).

@@ -80,7 +80,7 @@ class DCN(nn.Module):
     def load_jax_params(self, params: dict) -> "DCN":
         """Copy in the reference's parameter pytree (``init_dcn``'s layout:
         ``cross_w``/``cross_b`` lists, ``mlp`` list of ``{"w", "b"}``,
-        ``out_w``, ``out_b``), leaves as numpy arrays."""
+        ``out_w``, ``out_b``), leaves numpy arrays or tensors."""
         if len(params["cross_w"]) != len(self.cross_w) or len(params["mlp"]) != len(self.mlp_w):
             raise ValueError("parameter pytree depth does not match the DCNConfig")
         for dst, src in zip(self.cross_w, params["cross_w"]):
@@ -94,19 +94,19 @@ class DCN(nn.Module):
         _put(self.out_b, params["out_b"])
         return self
 
-    @torch.no_grad()
+    def param_tree(self) -> dict:
+        """The parameters themselves in the reference's pytree layout."""
+        return {
+            "cross_w": list(self.cross_w),
+            "cross_b": list(self.cross_b),
+            "mlp": [{"w": w, "b": b} for w, b in zip(self.mlp_w, self.mlp_b)],
+            "out_w": self.out_w,
+            "out_b": self.out_b,
+        }
+
     def jax_params(self) -> dict:
         """The parameters as the reference's pytree of numpy arrays."""
-        def cpu(t):
-            return t.detach().cpu().numpy()
-
-        return {
-            "cross_w": [cpu(t) for t in self.cross_w],
-            "cross_b": [cpu(t) for t in self.cross_b],
-            "mlp": [{"w": cpu(w), "b": cpu(b)} for w, b in zip(self.mlp_w, self.mlp_b)],
-            "out_w": cpu(self.out_w),
-            "out_b": cpu(self.out_b),
-        }
+        return _numpy_tree(self.param_tree())
 
 
 def _mlp(h, ws, bs, dropout: float, masks) -> torch.Tensor:
@@ -195,7 +195,7 @@ class DeepFM(nn.Module):
     @torch.no_grad()
     def load_jax_params(self, params: dict) -> "DeepFM":
         """Copy in the reference's pytree (``init_deepfm``'s layout: ``mlp``
-        list of ``{"w", "b"}``, ``out_w``, ``out_b``), numpy leaves."""
+        list of ``{"w", "b"}``, ``out_w``, ``out_b``), numpy or tensor leaves."""
         if len(params["mlp"]) != len(self.mlp_w):
             raise ValueError("parameter pytree depth does not match the DeepFMConfig")
         for w, b, layer in zip(self.mlp_w, self.mlp_b, params["mlp"]):
@@ -205,17 +205,41 @@ class DeepFM(nn.Module):
         _put(self.out_b, params["out_b"])
         return self
 
-    @torch.no_grad()
-    def jax_params(self) -> dict:
-        def cpu(t):
-            return t.detach().cpu().numpy()
+    def param_tree(self) -> dict:
+        return {"mlp": [{"w": w, "b": b} for w, b in zip(self.mlp_w, self.mlp_b)],
+                "out_w": self.out_w, "out_b": self.out_b}
 
-        return {"mlp": [{"w": cpu(w), "b": cpu(b)} for w, b in zip(self.mlp_w, self.mlp_b)],
-                "out_w": cpu(self.out_w), "out_b": cpu(self.out_b)}
+    def jax_params(self) -> dict:
+        return _numpy_tree(self.param_tree())
+
+
+def params_like(module: nn.Module, tensors) -> dict:
+    """``tensors`` (in ``module.parameters()`` order: an Adam moment, say) in
+    the module's reference pytree layout (its ``param_tree``)."""
+    pos = {id(p): i for i, p in enumerate(module.parameters())}
+
+    def put(x):
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [put(v) for v in x]
+        return tensors[pos[id(x)]]
+
+    return put(module.param_tree())
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy_tree(v) for v in tree]
+    return tree.detach().cpu().numpy()
 
 
 def _put(dst: torch.Tensor, src) -> None:
-    src = torch.from_numpy(np.array(src, dtype=np.float32))
+    """Copy ``src`` (a numpy array or a tensor on any device) into ``dst``."""
+    if not isinstance(src, torch.Tensor):
+        src = torch.from_numpy(np.array(src, dtype=np.float32))
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"parameter shape {tuple(src.shape)} != {tuple(dst.shape)}")
     dst.copy_(src)

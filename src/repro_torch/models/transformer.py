@@ -31,9 +31,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import device as device_mod
 from repro_torch.models import layers as L
 from repro_torch.serving import table as serving_tbl
 
@@ -172,6 +174,37 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> dict[str, Any]:
     if not cfg.tie_embeddings:
         params["head"] = L.dense_init(generator, (cfg.vocab_size, cfg.d_model),
                                       fan_in=cfg.d_model, dtype=cfg.param_dtype)
+    return params
+
+
+def params_from_numpy(cfg: ModelConfig, tree: dict, *, device: str | torch.device = "cuda"
+                      ) -> dict[str, Any]:
+    """The reference's params (``repro.models.transformer.init_params``'s
+    layout, numpy or tensor leaves: ``blocks`` a list per period position,
+    each leaf stacked ``[n_groups, ...]``; weights ``[in, out]``) as fp32
+    params on ``device``, their structure checked against ``cfg``."""
+    dev = device_mod.resolve(device)
+    check_supported(cfg)
+    if len(tree["blocks"]) != cfg.period:
+        raise ValueError(f"{len(tree['blocks'])} block positions != period {cfg.period}")
+
+    def convert(x):
+        if isinstance(x, dict):
+            return {k: convert(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [convert(v) for v in x]
+        if isinstance(x, torch.Tensor):
+            return x.to(device=dev, dtype=torch.float32)
+        return torch.as_tensor(np.array(x), dtype=torch.float32).to(dev)
+
+    params = convert(tree)
+    for block in params["blocks"]:
+        leaves = [block["attn"]["wq"], block["norm1"]]
+        if any(t.shape[0] != cfg.n_groups for t in leaves):
+            raise ValueError(f"block leaves must be stacked over {cfg.n_groups} groups")
+    if cfg.tie_embeddings == ("head" in params):
+        raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings} but the params "
+                         f"{'hold' if 'head' in params else 'lack'} a head")
     return params
 
 

@@ -8,7 +8,8 @@ Each wave reads its rows straight off the resident table (integer codes
 through ``ops.dequant_gather``, per sub-table for the composed methods; the
 fp32 export of float-leaf methods) and runs the backbone's forward (DCN or
 DeepFM), then the sigmoid.  Scores are per-row independent, so a request's
-result does not depend on the wave it lands in.  Hot/cold tiers come later.
+result does not depend on the wave it lands in.  ``from_checkpoint`` serves
+a serving checkpoint.  Hot/cold tiers come later.
 """
 from __future__ import annotations
 
@@ -17,7 +18,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import device as device_mod
 from repro_torch import methods
+from repro_torch.checkpoint import manager as ckpt
 from repro_torch.models import ctr as ctr_models
 from repro_torch.serving import table as serving_tbl
 from repro_torch.serving.engine import Engine
@@ -52,6 +55,19 @@ class CTREngine(Engine):
         """Build from a ``training.ctr_trainer.TrainState`` + its ``TrainerConfig``."""
         table = cls.build_serving_state(state.emb_state, cfg.spec)
         return cls(state.dense, table, cfg.model_cfg, cfg.spec, batch=batch)
+
+    @classmethod
+    def from_checkpoint(cls, directory, cfg, *, batch: int, step: int | None = None,
+                        device: str | torch.device = "cuda") -> "CTREngine":
+        """Build from a serving checkpoint (``checkpoint.save_serving_checkpoint``
+        of the backbone's ``param_tree()`` and the table): the backbone from
+        ``cfg``, its params and the serving-resident table restored onto
+        ``device``; codes restore as codes, straight into residency."""
+        dev = device_mod.resolve(device)
+        params, table, _ = ckpt.restore_serving_checkpoint(directory, cfg.spec, step=step,
+                                                           device=dev)
+        dense = ctr_models.MODELS[cfg.model][1](cfg.model_cfg, device=dev)
+        return cls(dense.load_jax_params(params), table, cfg.model_cfg, cfg.spec, batch=batch)
 
     def submit(self, request: CTRRequest) -> int:
         ids = np.asarray(request.ids)

@@ -28,9 +28,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import device as device_mod
 from repro_torch import methods
+from repro_torch.checkpoint import manager as ckpt
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.engine import Engine
+from repro_torch.training import lm_trainer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,11 +70,25 @@ class LMEngine(Engine):
     def from_state(cls, state, cfg: tfm.ModelConfig, tcfg=None, *, batch: int,
                    max_len: int) -> "LMEngine":
         """Build from an ``lm_trainer.LMTrainState`` (params + table state)."""
-        from repro_torch.training import lm_trainer
-
         spec = lm_trainer.embedding_spec_of(cfg, tcfg)
         table = cls.build_serving_state(state.table, spec)
         return cls(state.params, table, cfg, spec, batch=batch, max_len=max_len)
+
+    @classmethod
+    def from_checkpoint(cls, directory, cfg: tfm.ModelConfig, tcfg=None, *, batch: int,
+                        max_len: int, step: int | None = None,
+                        device: str | torch.device = "cuda") -> "LMEngine":
+        """Restore params + table from a serving checkpoint
+        (``checkpoint.save_serving_checkpoint``) onto ``device``: the artifact
+        holds the serving-resident table itself, so codes restore as codes
+        and go straight into residency, with no fp32 table and no training
+        leaf on the way."""
+        dev = device_mod.resolve(device)
+        spec = lm_trainer.embedding_spec_of(cfg, tcfg)
+        params, table, _ = ckpt.restore_serving_checkpoint(directory, spec, step=step,
+                                                           device=dev)
+        params = tfm.params_from_numpy(cfg, params, device=dev)
+        return cls(params, table, cfg, spec, batch=batch, max_len=max_len)
 
     # ------------------------------------------------------------ scheduler
 

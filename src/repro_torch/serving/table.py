@@ -12,6 +12,11 @@
 
 The module-level :func:`rows` and :func:`head_logits` also take a raw fp32
 [n, d] tensor (an untied head, a float table), as the reference's do.
+
+Each table names its children for a checkpoint as the reference's pytree
+registry does (``tree_children``: tensors, a ``CodeStore``, sub-tables), and
+``from_tree`` reads a restored node into a template of the same config
+(static fields kept, leaves replaced).
 """
 from __future__ import annotations
 
@@ -46,6 +51,12 @@ class FloatTable:
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
         return (self.table,)
+
+    def tree_children(self) -> tuple:
+        return (self.table,)
+
+    def from_tree(self, node, *, use_kernels: bool) -> "FloatTable":
+        return FloatTable(node[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +109,14 @@ class QuantTable:
     def tensors(self) -> tuple[torch.Tensor, ...]:
         return (self.codes.data, self.step)
 
+    def tree_children(self) -> tuple:
+        return (self.codes, self.step)
+
+    def from_tree(self, node, *, use_kernels: bool) -> "QuantTable":
+        codes, step = node
+        return dataclasses.replace(self, codes=dataclasses.replace(self.codes, data=codes["data"]),
+                                   step=step, use_kernels=use_kernels)
+
 
 @dataclasses.dataclass(frozen=True)
 class QRQuantTable:
@@ -132,6 +151,14 @@ class QRQuantTable:
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
         return self.remainder.tensors() + self.quotient.tensors()
+
+    def tree_children(self) -> tuple:
+        return (self.remainder, self.quotient)
+
+    def from_tree(self, node, *, use_kernels: bool) -> "QRQuantTable":
+        return dataclasses.replace(
+            self, remainder=self.remainder.from_tree(node[0], use_kernels=use_kernels),
+            quotient=self.quotient.from_tree(node[1], use_kernels=use_kernels))
 
 
 def map_field_ids(field_offsets, field_group, field_local, ids: torch.Tensor):
@@ -190,6 +217,14 @@ class MixedQuantTable:
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
         return tuple(t for sub in self.subs for t in sub.tensors())
+
+    def tree_children(self) -> tuple:
+        return (self.subs,)
+
+    def from_tree(self, node, *, use_kernels: bool) -> "MixedQuantTable":
+        subs = tuple(sub.from_tree(child, use_kernels=use_kernels)
+                     for sub, child in zip(self.subs, node[0]))
+        return dataclasses.replace(self, subs=subs)
 
 
 ServingTable = FloatTable | QuantTable | QRQuantTable | MixedQuantTable

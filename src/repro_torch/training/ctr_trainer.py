@@ -16,8 +16,10 @@ The paper's protocol (§4.1): Adam lr 1e-3, tenfold decay boundaries,
 decoupled weight decay on embeddings, Delta lr 2e-5.  Every SR draw and
 dropout mask comes from the state's ``torch.Generator``;
 :meth:`CTRTrainer.train_step` takes ``noise=`` and ``masks=`` so a test can
-hand in the reference's draws instead.  The hot-row cache, the non-finite
-guard and the data-parallel hooks are not ported yet.
+hand in the reference's draws instead.  :meth:`CTRTrainer.save` /
+:meth:`CTRTrainer.restore` checkpoint a state (``repro_torch.checkpoint``).
+The hot-row cache, the non-finite guard and the data-parallel hooks are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -30,7 +32,9 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch import methods, metrics
+from repro_torch.checkpoint import manager as ckpt
 from repro_torch.core import quant
+from repro_torch.methods import layout
 from repro_torch.models import ctr as ctr_models
 from repro_torch.optim import OptState, adam_init, adam_update, tree_leaves, tree_like
 
@@ -86,6 +90,65 @@ def init_state(cfg: TrainerConfig, *, device: str | torch.device = "cuda") -> Tr
     )
 
 
+class CTRCheckpoint(NamedTuple):
+    """A CTR training state as a checkpoint tree: the reference's
+    ``TrainState`` fields and leaves, with the port's generator state (a
+    uint8 tensor) where the reference keeps its threefry ``rng``."""
+
+    emb_state: Any
+    dense_params: Any
+    dense_opt: Any
+    emb_opt: Any
+    step: Any
+    generator: Any
+
+
+def checkpoint_tree(cfg: TrainerConfig, state: TrainState) -> CTRCheckpoint:
+    """The checkpoint tree of a CTR training state: the table state as the
+    reference's (a code container as its bytes), the backbone's params and
+    their Adam state in the reference's pytree, a float-leaf method's Adam
+    state laid out as its params, the step, and the generator's state.
+    Leaves are the state's own tensors: nothing is copied here."""
+    params = methods.get(cfg.spec.method).trainable_params(state.emb_state, cfg.spec)
+    return CTRCheckpoint(
+        emb_state=state.emb_state, dense_params=state.dense.param_tree(),
+        dense_opt=ckpt.opt_tree(state.dense_opt,
+                                lambda leaves: ctr_models.params_like(state.dense, leaves)),
+        emb_opt=ckpt.opt_tree(state.emb_opt, params), step=state.step,
+        generator=state.generator.get_state())
+
+
+def state_from_checkpoint(cfg: TrainerConfig, tree, *,
+                          device: str | torch.device = "cuda") -> TrainState:
+    """The ``TrainState`` of a restored checkpoint tree (the nested tree
+    ``CheckpointManager.restore`` returns, of a port or a reference
+    checkpoint: the table in ``methods.layout``'s layout, the backbone's
+    params and ``dense_opt`` in the reference's pytree), its leaves on
+    ``device``; a missing optimizer state loads as zeros.  The generator is
+    the saved one, or for a reference checkpoint
+    ``checkpoint.manager.reference_generator_seed`` of ``cfg.seed`` and
+    the step."""
+    dev = device_mod.resolve(device)
+    spec = cfg.spec
+    backbone = ctr_models.MODELS[cfg.model][1]
+
+    def dense_moments(t):  # a reference pytree -> tensors in parameters() order
+        module = backbone(cfg.model_cfg, device=dev).load_jax_params(t)
+        return [p.detach().clone() for p in module.parameters()]
+
+    table = layout.emb_state_from_numpy(spec, tree["emb_state"], device=dev)
+    dense = backbone(cfg.model_cfg, device=dev).load_jax_params(tree["dense_params"])
+    params = methods.get(spec.method).trainable_params(table, spec)
+    step = int(tree["step"])
+    return TrainState(
+        emb_state=table, dense=dense, step=step,
+        dense_opt=ckpt.opt_from_tree(tree.get("dense_opt"), list(dense.parameters()),
+                                     dense_moments),
+        emb_opt=None if params is None else ckpt.opt_from_tree(
+            tree.get("emb_opt"), tree_leaves(params), lambda t: ckpt.float_leaves(t, dev)),
+        generator=ckpt.generator_from_tree(tree, cfg.seed, step, dev))
+
+
 class CTRTrainer:
     def __init__(self, cfg: TrainerConfig, *, device: str | torch.device = "cuda"):
         self.cfg = cfg
@@ -99,6 +162,28 @@ class CTRTrainer:
 
     def init_state(self) -> TrainState:
         return init_state(self.cfg, device=self.device)
+
+    def save(self, manager: ckpt.CheckpointManager, state: TrainState, *,
+             force: bool = False) -> bool:
+        """Checkpoint ``state`` at its step through ``manager`` when its
+        cadence says so, or when ``force``d: the reference's ``TrainState``
+        leaves (:func:`checkpoint_tree`), the generator's state, and a
+        manifest with the embedding metadata and the config's hash.
+        Returns whether it saved."""
+        meta = {"config_hash": ckpt.config_hash(self.cfg), **ckpt.embedding_manifest(self.spec)}
+        return manager.maybe_save(checkpoint_tree(self.cfg, state), state.step,
+                                  force=force, extra_meta=meta)
+
+    def restore(self, manager: ckpt.CheckpointManager, *,
+                step: int | None = None) -> TrainState:
+        """The state of ``step`` (default: the newest committed checkpoint
+        that passes verification) on this trainer's device; a reference
+        checkpoint loads too (:func:`state_from_checkpoint`).  Another
+        config's table (method, schema, bits or packing in the manifest, or
+        the leaves themselves) raises ``ValueError``."""
+        tree, _ = manager.restore(step=step, device=self.device, spec=self.spec)
+        ckpt.check_table(tree["emb_state"], self.spec)
+        return state_from_checkpoint(self.cfg, tree, device=self.device)
 
     def _lr_at(self, step: int) -> float:
         """The reference's ``_lr_at`` in float32: lr times 0.1 per boundary passed."""

@@ -21,7 +21,8 @@ the reference's draw instead (``quant.sr_noise(kn, (n, d))`` for LPT,
 ``sr_noise(fold_in(kn, 1), (n, d))`` for ALPT).  The reference's guard,
 prune refresh, compressed data-parallel sync, ``alpt_every`` and
 ``pad_to_tiles`` are not ported: their settings come with the slices whose
-code reads them.
+code reads them.  :func:`save` / :func:`restore` checkpoint a state
+(``repro_torch.checkpoint``).
 """
 from __future__ import annotations
 
@@ -33,8 +34,10 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch import methods
+from repro_torch.checkpoint import manager as ckpt
 from repro_torch.core.alpt import ALPTConfig
 from repro_torch.core.codestore import CodeStore
+from repro_torch.methods import layout
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adam_init, adam_update, clip_by_global_norm, tree_leaves, tree_like
 
@@ -121,6 +124,85 @@ def clone_state(state: LMTrainState) -> LMTrainState:
     generator = torch.Generator(device=state.generator.device)
     generator.set_state(state.generator.get_state())
     return copy(state._replace(generator=None))._replace(generator=generator)
+
+
+class LMCheckpoint(NamedTuple):
+    """An LM training state as a checkpoint tree: the reference's
+    ``LMTrainState`` fields, the generator's state for its ``rng``."""
+
+    params: Any
+    opt: Any
+    table: Any
+    table_opt: Any
+    step: Any
+    generator: Any
+
+
+def checkpoint_tree(cfg: tfm.ModelConfig, state: LMTrainState,
+                    tcfg: LMTrainerConfig | None = None) -> LMCheckpoint:
+    """The checkpoint tree of an LM training state (the reference's
+    ``LMTrainState`` leaves, the generator's state for ``rng``); leaves are
+    the state's own tensors."""
+    spec = embedding_spec_of(cfg, tcfg)
+    params = methods.get(spec.method).trainable_params(state.table, spec)
+    return LMCheckpoint(params=state.params, opt=ckpt.opt_tree(state.opt, state.params),
+                        table=state.table, table_opt=ckpt.opt_tree(state.table_opt, params),
+                        step=state.step, generator=state.generator.get_state())
+
+
+def state_from_checkpoint(cfg: tfm.ModelConfig, tree, tcfg: LMTrainerConfig | None = None, *,
+                          seed: int = 0, device: str | torch.device = "cuda") -> LMTrainState:
+    """The ``LMTrainState`` of a restored checkpoint tree (port or
+    reference: the reference's param tree, its ``OptState`` with ``mu`` /
+    ``nu`` laid out as the params, the table in ``methods.layout``'s layout
+    with a float-leaf method's ``table_opt``), its leaves on ``device``; a
+    missing optimizer state loads as zeros.  A reference checkpoint's
+    generator is seeded with ``checkpoint.manager.reference_generator_seed``
+    of ``seed`` and the step."""
+    dev = device_mod.resolve(device)
+    spec = embedding_spec_of(cfg, tcfg)
+
+    def param_moments(t):
+        return tree_leaves(tfm.params_from_numpy(cfg, t, device=dev))
+
+    params = tfm.params_from_numpy(cfg, tree["params"], device=dev)
+    table = layout.emb_state_from_numpy(spec, tree["table"], device=dev)
+    emb = methods.get(spec.method).trainable_params(table, spec)
+    step = int(tree["step"])
+    return LMTrainState(
+        params=params, opt=ckpt.opt_from_tree(tree.get("opt"), tree_leaves(params), param_moments),
+        table=table, table_opt=None if emb is None else ckpt.opt_from_tree(
+            tree.get("table_opt"), tree_leaves(emb), lambda t: ckpt.float_leaves(t, dev)),
+        step=step, generator=ckpt.generator_from_tree(tree, seed, step, dev))
+
+
+def save(manager: ckpt.CheckpointManager, cfg: tfm.ModelConfig, state: LMTrainState,
+         tcfg: LMTrainerConfig | None = None, *, force: bool = False) -> bool:
+    """Checkpoint ``state`` at its step through ``manager`` when its cadence
+    says so, or when ``force``d: the reference's ``LMTrainState`` leaves
+    (:func:`checkpoint_tree`), the generator's state, and a manifest with
+    the config's hash and the embedding metadata.  Returns whether it
+    saved."""
+    meta = {"config_hash": ckpt.config_hash(cfg),
+            **ckpt.embedding_manifest(embedding_spec_of(cfg, tcfg))}
+    return manager.maybe_save(checkpoint_tree(cfg, state, tcfg), state.step,
+                              force=force, extra_meta=meta)
+
+
+def restore(manager: ckpt.CheckpointManager, cfg: tfm.ModelConfig,
+            tcfg: LMTrainerConfig | None = None, *, step: int | None = None,
+            device: str | torch.device = "cuda") -> LMTrainState:
+    """The state of ``step`` (default: the newest committed checkpoint that
+    passes verification) on ``device``; a reference checkpoint loads too
+    (:func:`state_from_checkpoint`, its generator seeded from
+    :func:`init_state`'s default seed and the step).  Another config's
+    table (method, schema, bits or packing in the manifest, or the leaves
+    themselves) raises ``ValueError``."""
+    dev = device_mod.resolve(device)
+    spec = embedding_spec_of(cfg, tcfg)
+    tree, _ = manager.restore(step=step, device=dev, spec=spec)
+    ckpt.check_table(tree["table"], spec)
+    return state_from_checkpoint(cfg, tree, tcfg, device=dev)
 
 
 def table_fp_of(state: LMTrainState, cfg: tfm.ModelConfig,

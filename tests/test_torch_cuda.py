@@ -858,3 +858,40 @@ def _live(state, spec):
         return [v for v in state if isinstance(v, torch.Tensor)]
     return [t[:n] for table, n in tables for t in (table.codes.data, table.step, table.mu,
                                                      table.nu)]
+
+
+@pytest.mark.parametrize("model,dropout", [("dcn", 0.0), ("dcn", 0.2)])
+def test_ctr_resume_on_the_card_is_bitwise(cuda, tmp_path, model, dropout):
+    """ALPT-8: 6 steps straight on the card against 3 steps, a save through
+    ``CheckpointManager`` (tensors copied off the card), a fresh trainer's
+    restore onto the card and 3 more: the same losses, table, dense params,
+    optimizer state and generator state, bit for bit; the kernels launch
+    on both halves."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.training.ctr_trainer import checkpoint_tree
+
+    synth, cfg = _small_ctr("alpt", model=model, dropout=dropout)
+    trainer = CTRTrainer(cfg, device=cuda)
+    straight, h_straight = trainer.fit(synth, steps=6, batch_size=128)
+    manager = CheckpointManager(tmp_path)
+    state, h1 = trainer.fit(synth, steps=3, batch_size=128)
+    assert trainer.save(manager, state, force=True)
+    del state
+    torch.cuda.empty_cache()
+    ops.reset_kernel_calls()
+    fresh = CTRTrainer(cfg, device=cuda)
+    state = fresh.restore(manager)
+    assert state.emb_state.codes.data.is_cuda and state.emb_state.codes.data.dtype == torch.int8
+    state, h2 = fresh.fit(synth, steps=3, batch_size=128, state=state)
+    torch.cuda.synchronize()
+    assert ops.kernel_calls()["sparse_row_update_runs"] == 3
+    assert [h["loss"] for h in h1 + h2] == [h["loss"] for h in h_straight]
+    for (p, a), (q, b) in zip(ckpt.flatten(checkpoint_tree(cfg, state)),
+                              ckpt.flatten(checkpoint_tree(cfg, straight)),
+                              strict=True):
+        assert p == q
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a.detach().cpu(), b.detach().cpu()), p
+        else:
+            assert a == b, p
