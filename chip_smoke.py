@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of CTR serving and training (every embedding
 method, DCN and DeepFM), of int8-resident LM serving, of LPT/ALPT LM
-training and of checkpoints (resume, serving from a checkpoint) on one
-NVIDIA GPU.
+training, of checkpoints (resume, serving from a checkpoint) and of the
+storage tiers (hot-row cache, host-memory cold tier) on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -122,6 +122,29 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      resumes from step 2, its losses equal phase 8b's steps 3-4.  The step
      counts (6, split at 3; 2 + 2 LM steps) are phase 10's cut: its time
      goes to the two train lm processes and the disk, not the steps;
+  11. storage tiers (repro_torch.storage) on the full padded Avazu table:
+     11a. ALPT-8, ALPT-4 packed, qr_alpt-4 and mixed train 10 steps of 1,024
+     cache off, then with a hot-row cache of 4,096 rows per slot (below a
+     wave's ~5,712 distinct ids: every wave evicts and writes back): losses
+     and every leaf of the exported state bitwise the cache-off run's,
+     launches as the step implies (the routed gathers and runs form only,
+     no untiered one, no fallback), evictions, write-backs and hits on the
+     largest slot; ALPT-8 saved both ways (the leaf files byte for byte
+     equal) and the cache-on checkpoint restored into a cache-on trainer;
+     11b. the trained ALPT-8 and ALPT-4 states serve phase 3's 4,096
+     requests in waves of 1,024 through a hot tier of 65,536 rows
+     warm-started from the training ids' counts, a cold tier (65,536 hot
+     rows, a device budget one byte under the codes) and no cache:
+     probabilities bitwise equal, the cold ALPT-8 device bytes exactly
+     Delta + hot rows (18,761,728), prefetch hits on every wave but the
+     first, an over-budget hot tier refused; the rows the cold tier copied
+     to the card (only a wave's distinct uncached rows travel); host clock
+     per step and wave (the first wave apart) with and without the cache,
+     the policy's host time (cold_only times the cold waves part by part,
+     optionally for another checkout's repro_torch); 11c. the four
+     routed kernels against their plain versions at the CTR wave (half of
+     its distinct rows cached), bitwise, and timed (storage_only runs the
+     phase without the rest);
   5. time each kernel at the slices' shapes (median of per-launch CUDA-event
      times after warm-up, device work only) beside its bound, its plain
      version's time and the library's one call where there is one, and the
@@ -223,6 +246,24 @@ KERNELS = {
     # those of phase 2e's 64-seed unbiasedness run.
     "sr_round_seeded": ("src/repro_torch/kernels/csrc/sr_round.cu",
                         "src/repro/kernels/sr_round.py:87"),
+    # The gathers and the runs form over a table behind a hot-row cache
+    # (phase 11): the row's address routed through the hot tier.  The
+    # reference routes the gather in jnp around its kernel (ops.py:418) and
+    # takes a jnp fallback for the row step (core/lpt.py:263).
+    "dequant_gather_routed": ("src/repro_torch/kernels/csrc/dequant_gather.cu",
+                              "src/repro/kernels/dequant_gather.py:42 (routed as "
+                              "src/repro/kernels/ops.py:418)"),
+    "dequant_gather_packed_routed": ("src/repro_torch/kernels/csrc/dequant_gather.cu",
+                                     "src/repro/kernels/dequant_gather.py:78 (routed as "
+                                     "src/repro/kernels/ops.py:418)"),
+    "sparse_row_update_runs_routed": ("src/repro_torch/kernels/csrc/sparse_row_update.cu",
+                                      "src/repro/kernels/sparse_row_update.py:71 + "
+                                      "src/repro/core/lpt.py:255 (tiered: "
+                                      "src/repro/core/lpt.py:263)"),
+    "sparse_row_update_runs_packed_routed": (
+        "src/repro_torch/kernels/csrc/sparse_row_update.cu",
+        "src/repro/kernels/sparse_row_update.py:139 + src/repro/core/lpt.py:255 (tiered: "
+        "src/repro/core/lpt.py:263)"),
 }
 # Where a kernel's launch count comes from when it has no main path.
 LAUNCHES_FROM = {"sparse_row_update": "phase 2b check", "sparse_row_update_packed":
@@ -438,8 +479,8 @@ def run_row_step(ops, o: dict, runs: bool, bits: int, wd: float = 5e-8,
                                  use_kernel=use_kernel)
 
 
-def row_bound(o: dict, distinct: int, runs: bool,
-              all_slots: bool = False) -> tuple[float, str]:
+def row_bound(o: dict, distinct: int, runs: bool, all_slots: bool = False,
+              map_bytes: int = 0) -> tuple[float, str]:
     """Least time of one row step over the operands ``o``: what the function
     needs.  Both forms: the live rows' state (per distinct row and the
     scratch row the codes in and out, Delta in, mu and nu in and out), the
@@ -450,7 +491,7 @@ def row_bound(o: dict, distinct: int, runs: bool,
     moved and did, g and noise rows and a step for every slot (a comparison
     figure for that port's times, not a bound).  The runs form adds the
     lookups' g_occ rows and int64 order entries, starts and uniq, and one add
-    per looked-up element."""
+    per looked-up element; ``map_bytes`` the routed form's slot reads."""
     k, m, d = o["uniq"].numel(), o["g_occ"].shape[0], o["codes"].d
     width = o["codes"].data.shape[1]
     state = (distinct + 1) * (2 * width + 4 + 16 * d)
@@ -459,7 +500,7 @@ def row_bound(o: dict, distinct: int, runs: bool,
         return bound_ms(k * (4 + 4 * d) + read * 8 * d + state,
                         (k if all_slots else distinct + 1) * d * 30)
     nbytes = m * (4 * d + 8) + 4 * (k + 1) + 4 * k + state + distinct * 4 * d + k * 4 * d
-    return bound_ms(nbytes, (distinct + 1) * d * 30 + m * d)
+    return bound_ms(nbytes + map_bytes, (distinct + 1) * d * 30 + m * d)
 
 
 def check_row_update(torch, dev, g, wave, g_occ, n_live: int, err: dict) -> dict:
@@ -1401,12 +1442,15 @@ def gather_variant(torch, lib):
     return run
 
 
-def gather_bound(torch, store, ids) -> tuple[float, str]:
+def gather_bound(torch, store, ids, routed: bool = False) -> tuple[float, str]:
     """Least time of one gather: ids in, each distinct row's codes and Delta
-    in, the fp32 rows out; one Delta multiply per element."""
+    in, the fp32 rows out; one Delta multiply per element.  ``routed``: also
+    each distinct id's 4-byte ``slot_of_id`` entry (the routed gather's map
+    read)."""
     b, d = ids.numel(), store.d
     uniq = int(torch.unique(ids).numel())
-    return bound_ms(b * 4 + uniq * (store.data.shape[1] + 4) + b * d * 4, b * d)
+    row_bytes = store.data.shape[1] + 4 + (4 if routed else 0)
+    return bound_ms(b * 4 + uniq * row_bytes + b * d * 4, b * d)
 
 
 def time_gathers(torch, tables: dict, pools: dict, flush, variants=None):
@@ -2885,6 +2929,444 @@ def check_long_runs(torch, long_waves: dict, err: dict) -> None:
             f"{int(runs.max())} lookups")
 
 
+# Phase 11: storage tiers on the full padded Avazu table.
+STORAGE_RUNS = (("alpt", 8), ("alpt", 4), ("qr_alpt", 4), ("mixed", 8))
+STORAGE_STEPS = 10
+STORAGE_CACHE_ROWS = 4_096  # per slot: below a wave's ~5,712 distinct ids
+SERVE_CACHE_ROWS = 65_536
+# The cold ALPT-8 engine's device bytes: Delta of the padded table (4,428,288
+# x 4 B) + 65,536 hot rows of 16 B.
+EXPECTED_COLD_DEVICE = 4_428_288 * 4 + SERVE_CACHE_ROWS * 16
+
+
+def routed_names(launches: dict) -> dict:
+    """A step's launches over tiered tables: the gathers and the runs form
+    take their routed kernels."""
+    return {(k + "_routed" if k.startswith(("dequant_gather", "sparse_row_update_runs")) else k): v
+            for k, v in launches.items()}
+
+
+def leaf_files(directory: pathlib.Path, step: int) -> dict:
+    """{file name: bytes} of a saved step's leaves (the manifest aside)."""
+    d = directory / f"step_{step:09d}"
+    return {f.name: f.read_bytes() for f in sorted(d.iterdir()) if f.name != "manifest.json"}
+
+
+def storage_train(torch, dev, name: str, bits: int, batches, root: pathlib.Path):
+    """11a: one config trained STORAGE_STEPS steps cache off, then with a hot
+    tier of STORAGE_CACHE_ROWS rows per slot (kernels on both times): the
+    losses and every leaf of export_state bitwise the cache-off run's,
+    launches as the step implies (routed kernels only under the cache),
+    evictions, write-backs and hits on the largest slot; for ALPT-8 a save
+    of both and a restore of the cache-on checkpoint.  Returns (cache-off
+    state, cfg, launches)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli_mod
+    from repro_torch.training.ctr_trainer import CTRTrainer, checkpoint_tree
+
+    args = argparse.Namespace(config="avazu", model="dcn", bits=bits, scale=SCALE,
+                              seed=1100 + bits)
+    _, cfg = train_cli_mod.build(args, name)
+    cfg = dataclasses.replace(cfg, spec=dataclasses.replace(cfg.spec, pad_to_tiles=True))
+    label = f"{name}-{bits}"
+    per_step = (mixed_launches(cfg.spec)[0] if name == "mixed"
+                else packed_names(STEP_LAUNCHES[name], bits))
+    runs, total = {}, {}
+    for cache_rows in (0, STORAGE_CACHE_ROWS):
+        c = dataclasses.replace(cfg, cache_rows=cache_rows)
+        trainer = CTRTrainer(c, device=dev)
+        ops.reset_kernel_calls()
+        ops.reset_fallbacks()
+        state = trainer.init_state()
+        init = ops.kernel_calls()
+        ops.reset_kernel_calls()
+        state, hist = trainer.fit(batches, steps=STORAGE_STEPS, batch_size=BATCH, state=state)
+        torch.cuda.synchronize()
+        launched = ops.kernel_calls()
+        want = scaled(routed_names(per_step) if cache_rows else per_step, STORAGE_STEPS)
+        check(launched == want, f"{label} cache_rows={cache_rows}: launches {launched}, the "
+                                f"step implies {want}")
+        check(ops.fallbacks() == [], f"{label}: fallbacks {ops.fallbacks()}")
+        total = added(total, init, launched)
+        policy_s = sum(cache.policy_s for _, cache in trainer.caches)
+        runs[cache_rows] = (trainer, state, hist, policy_s)
+    (_, off, h_off, _), (tr_on, on, h_on, policy_s) = runs[0], runs[STORAGE_CACHE_ROWS]
+    losses = [h["loss"] for h in h_on]
+    check(losses == [h["loss"] for h in h_off],
+          f"{label}: cache-on losses {losses} != cache-off {[h['loss'] for h in h_off]}")
+    exported = tr_on.export_state(on)
+    check(same_tree(torch, checkpoint_tree(cfg, exported), checkpoint_tree(cfg, off)),
+          f"{label}: the cache-on run's exported state differs from the cache-off run")
+    stats = tr_on.cache_stats()
+    big = max(stats, key=lambda st: st["capacity"])
+    check(big["evictions"] > 0 and big["writebacks"] > 0 and big["hits"] > 0,
+          f"{label}: slot {big['name']} saw no eviction, write-back or hit: {big}")
+    ms = {k: statistics.mean(h["ms"] for h in r[2][1:]) for k, r in runs.items()}
+    if (name, bits) == ("alpt", 8):
+        managers = {}
+        for cache_rows, (trainer, state, _, _) in runs.items():
+            managers[cache_rows] = CheckpointManager(root / f"storage_{cache_rows}", keep=1)
+            check(trainer.save(managers[cache_rows], state, force=True), f"{label}: no save")
+        files = [leaf_files(m.directory, STORAGE_STEPS) for m in managers.values()]
+        check(files[0] == files[1] and len(files[0]) > 1,
+              f"{label}: the cache-on checkpoint's leaf files differ from the cache-off run's")
+        fresh = CTRTrainer(dataclasses.replace(cfg, cache_rows=STORAGE_CACHE_ROWS), device=dev)
+        restored = fresh.restore(managers[STORAGE_CACHE_ROWS])
+        check(all(st["rows_cached"] == 0 for st in fresh.cache_stats())
+              and same_tree(torch, checkpoint_tree(cfg, fresh.export_state(restored)),
+                            checkpoint_tree(cfg, off)),
+              f"{label}: the restored cache-on checkpoint differs from the cache-off state")
+        log(f"[storage] {label}: the cache-on checkpoint's {len(files[0])} leaf files equal the "
+            "cache-off run's byte for byte; restored into a cache-on trainer (caches empty), "
+            "its export equals the cache-off state")
+    slots = ", ".join(f"{st['name']}: cap {st['capacity']}, hits {st['hits']}, misses "
+                      f"{st['misses']}, evictions {st['evictions']}, write-backs "
+                      f"{st['writebacks']}" for st in stats)
+    log(f"[storage] {label}: {STORAGE_STEPS} steps of {BATCH} on the padded Avazu table, cache "
+        f"on == cache off bit for bit (losses {losses[0]:.5f} -> {losses[-1]:.5f}, every leaf of "
+        f"export_state); launches per step {routed_names(per_step)}; host clock "
+        f"{ms[0]:.2f} ms/step off, {ms[STORAGE_CACHE_ROWS]:.2f} on (steps 2-{STORAGE_STEPS}); "
+        f"policy {policy_s / STORAGE_STEPS * 1e3:.2f} ms/step; {slots}")
+    del runs, exported, tr_on, on
+    torch.cuda.empty_cache()
+    return off, cfg, total
+
+
+def storage_serve(torch, np, state, cfg, bits: int, test_ids, batches) -> dict:
+    """11b: the trained state served three ways, phase 3's requests in waves
+    of BATCH: a hot tier of SERVE_CACHE_ROWS rows warm-started from the
+    training ids' counts, a cold tier (SERVE_CACHE_ROWS hot rows, a budget
+    one byte under the codes) and no cache; probabilities bitwise equal,
+    routed gathers only under a tier, the cold device bytes exactly Delta +
+    hot rows (ALPT-8), prefetch hits >= waves - 1, an over-budget hot tier
+    refused.  Returns the launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.ctr import CTREngine, CTRRequest
+
+    gather = "dequant_gather" + ("_packed" if bits < 8 else "")
+    waves = -(-len(test_ids) // BATCH)
+    freqs = np.bincount(np.concatenate([b[0].reshape(-1) for b in batches[:STORAGE_STEPS]]),
+                        minlength=cfg.spec.n_padded)
+    plain = CTREngine.from_state(state, cfg, batch=BATCH)
+    code_bytes = plain.embedding_code_bytes
+    engines = {
+        "hot": CTREngine.from_state(state, cfg, batch=BATCH, cache_rows=SERVE_CACHE_ROWS),
+        "cold": CTREngine.from_state(state, cfg, batch=BATCH, cache_rows=SERVE_CACHE_ROWS,
+                                     cold_tier=True, device_budget_bytes=code_bytes - 1),
+        "off": plain,
+    }
+    engines["hot"].warm_start(freqs)
+    total, probs, m, wave_ms = {}, {}, {}, {}
+    for label, engine in engines.items():
+        rids = [engine.submit(CTRRequest(ids=r)) for r in test_ids]
+        wave_ms[label] = []
+        while True:  # each wave timed: a process's first wave pays one-time costs
+            t0 = time.perf_counter()
+            if not engine.step():
+                break
+            wave_ms[label].append((time.perf_counter() - t0) * 1e3)
+        done = engine.run()
+        torch.cuda.synchronize()
+        probs[label] = [done[r]["prob"] for r in rids]
+        m[label] = engine.metrics()
+        want = {gather + ("_routed" if label != "off" else ""): waves}
+        check(m[label].kernel_launches == want,
+              f"bits={bits} {label}: serving launches {m[label].kernel_launches}, expected {want}")
+        total = added(total, m[label].kernel_launches)
+    check(probs["hot"] == probs["off"] and probs["cold"] == probs["off"],
+          f"bits={bits}: tiered probabilities differ from the uncached engine's")
+    cold = engines["cold"].cold
+    cm = m["cold"]
+    check(cm.resident_embedding_bytes == cold.device_bytes <= code_bytes - 1,
+          f"bits={bits}: cold device bytes {cm.resident_embedding_bytes}")
+    if bits == 8:
+        check(cold.device_bytes == EXPECTED_COLD_DEVICE,
+              f"cold ALPT-8 device bytes {cold.device_bytes} != {EXPECTED_COLD_DEVICE}")
+    check(cold.prefetch_hits >= waves - 1 and cold.prefetch_hits + cold.demand_puts == waves,
+          f"bits={bits}: prefetch hits {cold.prefetch_hits}, demand puts {cold.demand_puts}")
+    try:
+        CTREngine.from_state(state, cfg, batch=BATCH, cache_rows=SERVE_CACHE_ROWS,
+                             device_budget_bytes=SERVE_CACHE_ROWS)
+        refused = False
+    except ValueError as exc:
+        refused = "budget" in str(exc)
+    check(refused, f"bits={bits}: an over-budget hot tier was not refused")
+    policy_ms = {k: sum(c.policy_s for c in engines[k].policies) / waves * 1e3
+                 for k in ("hot", "cold")}
+    hot = ", ".join(f"{c.name} {c.hit_rate:.4f}" for c in m["hot"].caches)
+    log(f"[storage] serving bits={bits}: {len(test_ids)} requests in {waves} waves of {BATCH}, "
+        f"hot tier ({SERVE_CACHE_ROWS} rows, warm-started; hit rate {hot}), cold tier (hit "
+        f"rate {cm.caches[0].hit_rate:.4f}; {cold.prefetch_hits} prefetch hits, "
+        f"{cold.demand_puts} demand puts; {cold.copied_rows} rows copied to the card, "
+        f"{cold.topup_rows} of them topped up, against {waves * BATCH * plain.n_fields} "
+        f"lookups) and no cache: probabilities bitwise equal; device "
+        f"bytes cold {cold.device_bytes} (Delta + hot rows; host {cold.host_bytes}), hot "
+        f"{m['hot'].resident_embedding_bytes}, uncached {m['off'].resident_embedding_bytes}; "
+        f"an over-budget hot tier refused; host clock per wave "
+        + ", ".join(f"{k} {m[k].wall_s / m[k].steps * 1e3:.2f} ms (waves 2-{waves} "
+                    f"{sum(wave_ms[k][1:]) / max(1, waves - 1):.2f}, the first "
+                    f"{wave_ms[k][0]:.2f})" for k in m)
+        + f"; policy per wave hot {policy_ms['hot']:.2f} ms, cold {policy_ms['cold']:.2f} ms")
+    del engines
+    return total
+
+
+def storage_kernels(torch, wave, o: dict, row_o4: dict, n_live: int, distinct: int,
+                    err: dict, flush) -> dict:
+    """11c: the four routed kernels against their plain versions at the CTR
+    wave, bitwise (the gathers at a serving wave over a padded Avazu-sized
+    table, through the map and staged; the runs form at phase 2b's training
+    wave on its full padded table, ``o`` / ``row_o4`` at bits 8 / 4), about
+    half of the wave's distinct rows cached; then each timed as phase 5 times
+    the untiered ones (L2 flushed), beside its bound (the map reads
+    counted).  Returns the kernels-line rows."""
+    from repro_torch.core.codestore import CodeStore
+    from repro_torch.kernels import ops
+    from repro_torch.storage.tiered import HotRowCache
+
+    timings = {}
+    n = o["codes"].n
+    for bits, ro in ((8, o), (4, row_o4)):
+        live = ro["uniq"] < n_live
+        packed = "_packed" if bits < 8 else ""
+        base = ro["codes"]
+
+        def tiered_copy(ids):
+            cache = HotRowCache(STORAGE_CACHE_ROWS, n)
+            t = cache.wrap(dataclasses.replace(base, data=base.data.clone()))
+            uniq = torch.unique(ids)
+            return cache.observe_apply(t, uniq[uniq < n_live][::2].cpu().numpy())
+
+        # The gathers: a serving wave over the table, through the map and staged.
+        kernel = "dequant_gather" + packed + "_routed"
+        t = tiered_copy(wave)
+        step = ro["step"]
+        slot = t.slot_of_id[wave.long()]
+        miss = slot < 0  # staged as the cold tier stages: the distinct uncached rows
+        need, inv = torch.unique(wave[miss], return_inverse=True)
+        slot[miss] = (-1 - inv).to(torch.int32)
+        staged = (t.backing.data[need.long()].contiguous(), t.hot.data, slot, step, wave)
+        kw = dict(bits=t.bits, d=t.d, packed=t.packed)
+        got = [ops.dequant_gather(t, step, wave), ops.dequant_gather_staged(*staged, **kw)]
+        want = [ops.dequant_gather(t, step, wave, use_kernel=False),
+                ops.dequant_gather_staged(*staged, **kw, use_kernel=False),
+                ops.dequant_gather(base, step, wave)]
+        torch.cuda.synchronize()
+        e = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        err[kernel] = max(err[kernel], e)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+              and torch.equal(got[0], want[2]),
+              f"{kernel} at the CTR wave: max err {e} (against the untiered gather: "
+              f"{torch.equal(got[0], want[2])})")
+        cached = int((slot >= 0).sum())
+        b_ms, b_by = gather_bound(torch, base, wave, routed=True)
+        timings[kernel] = (*time_ms(torch, lambda: ops.dequant_gather(t, step, wave), 50, flush),
+                           time_ms(torch, lambda: ops.dequant_gather(t, step, wave,
+                                                                     use_kernel=False),
+                                   20, flush)[0], b_ms, b_by, None)
+        staged_ms = time_ms(torch, lambda: ops.dequant_gather_staged(*staged, **kw), 50, flush)[0]
+        flat_ms = time_ms(torch, lambda: ops.dequant_gather(base, step, wave), 50, flush)[0]
+        log(f"[check] {kernel} bitwise at the CTR wave ({wave.numel()} ids, {cached} lookups "
+            f"cached) through the map and staged, and equal to the untiered gather; per call (L2 "
+            f"flushed) the map route {timings[kernel][0] * 1e3:.2f} us, the staged route "
+            f"{staged_ms * 1e3:.2f} us, the untiered gather {flat_ms * 1e3:.2f} us; "
+            f"{card_name()}")
+        del t, staged
+
+        # The runs form: phase 2b's training wave, half of its distinct rows cached.
+        kernel = "sparse_row_update_runs" + packed + "_routed"
+        outs = []
+        for use_kernel in (True, False):
+            t = tiered_copy(ro["ids"])
+            mu, nu = ro["mu"].clone(), ro["nu"].clone()
+            w = ops.sparse_row_update_runs(t, ro["step"], mu, nu, ro["uniq"], ro["g_occ"],
+                                           ro["order"], ro["starts"], ro["noise"], 1e-3, 0.1,
+                                           0.001, bits, weight_decay=5e-8, use_kernel=use_kernel)
+            outs.append((t.backing.data[:n_live], t.hot.data, mu[:n_live], nu[:n_live],
+                         w[live]))
+        torch.cuda.synchronize()
+        e = max(float((a.float() - b.float()).abs().max()) for a, b in zip(*outs))
+        err[kernel] = max(err[kernel], e)
+        check(all(torch.equal(a, b) for a, b in zip(*outs)),
+              f"{kernel} at the training wave: max err {e}")
+        del outs, mu, nu
+        t = tiered_copy(ro["ids"])
+        cached = int((t.slots_for(ro["uniq"][live]) >= 0).sum())
+        tmp = {**ro, "codes": t}
+
+        def step_fn(use_kernel=True):
+            return ops.sparse_row_update_runs(t, tmp["step"], tmp["mu"], tmp["nu"], tmp["uniq"],
+                                              tmp["g_occ"], tmp["order"], tmp["starts"],
+                                              tmp["noise"], 1e-3, 0.1, 0.001, bits,
+                                              weight_decay=5e-8, use_kernel=use_kernel)
+        bound = row_bound({**ro}, distinct, True, map_bytes=distinct * 4)
+        timings[kernel] = (*time_ms(torch, step_fn, 50, flush),
+                           time_ms(torch, lambda: step_fn(False), 20, flush)[0], *bound, None)
+        flat_ms = time_ms(torch, lambda: run_row_step(ops, ro, True, bits), 50, flush)[0]
+        log(f"[check] {kernel} bitwise at the training wave ({ro['uniq'].numel()} slots, "
+            f"{distinct} distinct, {cached} of them cached) on the full padded table: both tiers, "
+            f"mu, nu and w_new; per call (L2 flushed) {timings[kernel][0] * 1e3:.2f} us, the "
+            f"untiered runs form {flat_ms * 1e3:.2f} us; {card_name()}")
+        del t, tmp
+        torch.cuda.empty_cache()
+    return timings
+
+
+def storage_phase(torch, np, dev, batches, test_ids, wave, row_ops: dict, n_live: int,
+                  err: dict, flush) -> tuple[dict, dict]:
+    """Phase 11, in a temporary directory removed at the end.  Returns (its
+    launches, the routed kernels' timings)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    total, states = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_storage_") as tmp:
+        for name, bits in STORAGE_RUNS:
+            state, cfg, launched = storage_train(torch, dev, name, bits, batches,
+                                                 pathlib.Path(tmp))
+            total = added(total, launched)
+            if name == "alpt":
+                states[bits] = (state, cfg)
+            del state
+    for bits, (state, cfg) in states.items():
+        total = added(total, storage_serve(torch, np, state, cfg, bits, test_ids, batches))
+    del states
+    torch.cuda.empty_cache()
+    timings = storage_kernels(torch, wave, row_ops[8], row_ops[4], n_live, row_ops["distinct"],
+                              err, flush)
+    log(f"[storage] phase 11: launches {total}; {time.perf_counter() - t_phase:.1f}s; "
+        f"{card_name()}")
+    return total, timings
+
+
+def storage_only() -> int:
+    """Phase 11 alone, with what it takes of phase 2b (one training wave's
+    row-step operands, checked), then the routed kernels' rows:
+    ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.storage_only())"``."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[chip_smoke] needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import device as device_mod
+    from repro_torch.data.ctr_synth import CTRSynthetic, avazu_like
+    from repro_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    dev = device_mod.resolve("cuda")
+    for lib in _build.build():
+        _build.library(lib)
+    data_cfg = avazu_like(SCALE)
+    n = data_cfg.n_features
+    data = CTRSynthetic(data_cfg)
+    ids, _ = data.batch("test", 0, REQUESTS)
+    batches = Batches(data.batch("train", i, BATCH) for i in range(STORAGE_STEPS))
+    g = torch.Generator(device=dev).manual_seed(0)
+    wave, g_occ, _, _ = wave_gradients(torch, dev, batches[0])
+    err = {k: 0.0 for k in KERNELS}
+    row_ops = check_row_update(torch, dev, g, wave, g_occ, n, err)
+    del g_occ
+    flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    launches, timings = storage_phase(torch, np, dev, batches, ids, wave, row_ops, n, err,
+                                      flush_buf.zero_)
+    for kernel, (ms, host_us, plain_ms, b_ms, b_by, _) in timings.items():
+        log(f"[time] {kernel}: {ms * 1e3:.2f} us on the card (plain {plain_ms * 1e3:.2f} us, "
+            f"bound {b_ms * 1e3:.3f} us by {b_by}); host enqueue {host_us:.1f} us per call; "
+            f"max abs err {err[kernel]}; launches {launches.get(kernel, 0)}; {card_name()}")
+    log(f"[chip_smoke] phase 11 alone in {time.perf_counter() - t_start:.1f}s")
+    return 0
+
+
+def cold_only(root: str | None = None, reps: int = 5) -> int:
+    """The cold tier's serving waves on the host clock, part by part: a
+    fresh ALPT init on the padded full Avazu table (8 and 4 bits), phase 3's
+    requests in waves of BATCH through a SERVE_CACHE_ROWS-row cold tier,
+    ``reps`` engines each (the first pays the process's one-time costs and
+    is left out of the medians).  ``root``: another checkout whose
+    ``repro_torch`` is timed instead (e.g. a parent unpacked under build/),
+    so that two designs run in turns, a process each:
+    ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.cold_only('build/parent'))"``."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[chip_smoke] needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    tree = pathlib.Path(root).resolve() if root else ROOT
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.data.ctr_synth import CTRSynthetic, avazu_like
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as train_cli_mod
+    from repro_torch.serving.ctr import CTREngine, CTRRequest
+    from repro_torch.storage import cold as cold_mod
+    from repro_torch.training.ctr_trainer import CTRTrainer
+
+    for lib in _build.build():
+        _build.library(lib)
+    dev = torch.device("cuda")
+    ids, _ = CTRSynthetic(avazu_like(SCALE)).batch("test", 0, REQUESTS)
+    parts: dict = {}
+
+    def timed(name, fn):
+        def wrap(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                parts.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return wrap
+
+    for name in ("admit", "rows", "stage"):
+        setattr(cold_mod.ColdStore, name, timed(name, getattr(cold_mod.ColdStore, name)))
+    summary: dict = {}
+    for bits in (8, 4):
+        args = argparse.Namespace(config="avazu", model="dcn", bits=bits, scale=SCALE,
+                                  seed=1100 + bits)
+        _, cfg = train_cli_mod.build(args, "alpt")
+        cfg = dataclasses.replace(cfg, spec=dataclasses.replace(cfg.spec, pad_to_tiles=True))
+        state = CTRTrainer(cfg, device=dev).init_state()
+        budget = CTREngine.from_state(state, cfg, batch=BATCH).embedding_code_bytes - 1
+        for rep in range(reps):
+            eng = CTREngine.from_state(state, cfg, batch=BATCH, cache_rows=SERVE_CACHE_ROWS,
+                                       cold_tier=True, device_budget_bytes=budget)
+            for r in ids:
+                eng.submit(CTRRequest(ids=r))
+            parts.clear()
+            waves = []
+            while True:
+                t0 = time.perf_counter()
+                if not eng.step():
+                    break
+                waves.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            cold = eng.cold
+            policy = cold.cache.policy_s * 1e3
+            copied = getattr(cold, "copied_rows", None)
+            log(f"[cold] {tree.name} bits={bits} engine {rep}: waves ms "
+                + " ".join(f"{w:.2f}" for w in waves) + "; "
+                + "; ".join(f"{k} " + " ".join(f"{v:.2f}" for v in vs) for k, vs in parts.items())
+                + f"; policy {policy:.2f} ms in all; rows copied {copied}")
+            if rep:
+                got = summary.setdefault(bits, {"first wave": [], "waves 2+": [], "stage": [],
+                                                "rows": [], "admit": [], "policy": []})
+                got["first wave"].append(waves[0])
+                got["waves 2+"] += waves[1:]
+                got["policy"].append(policy / len(waves))
+                for k in ("stage", "rows", "admit"):
+                    got[k] += parts[k]
+            del eng
+        del state
+    for bits, got in summary.items():
+        log(f"[cold] {tree.name} bits={bits}: medians over engines 1-{reps - 1} (ms): "
+            + ", ".join(f"{k} {statistics.median(v):.2f}" for k, v in got.items())
+            + f"; {card_name()}")
+    return 0
+
+
 def main() -> int:
     # cuBLAS picks deterministic algorithms only with a fixed workspace; the
     # kernels-on / kernels-off training runs of phase 6 must agree bitwise.
@@ -3017,6 +3499,17 @@ def main() -> int:
                                lm_cli_report["losses"])
     check(set(phase10) <= set(KERNELS), f"phase 10 launched {phase10}")
     launches = {k: launches[k] + phase10.get(k, 0) for k in KERNELS}
+    # 11. storage tiers: cache on == cache off in training, hot and cold tiers
+    # in serving, the routed kernels checked and timed
+    flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    phase11, routed_timings = storage_phase(torch, np, dev, batches, ids, wave, row_ops, n,
+                                            err, flush)
+    check(set(phase11) <= set(KERNELS), f"phase 11 launched {phase11}")
+    launches = {k: launches[k] + phase11.get(k, 0) for k in KERNELS}
     # sr_round_seeded has no main path (no caller in the JAX package but its
     # kernel test): its launches are its unbiasedness run's (phase 2e).
     launches["sr_round_seeded"] += wb_ops["seeded_launches"]
@@ -3025,13 +3518,8 @@ def main() -> int:
     for kernel in ("sparse_row_update", "sparse_row_update_packed"):
         launches[kernel] += row_ops["launches"].get(kernel, 0)
 
-    # 5. timing at the slice's shapes
-    flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
-
-    def flush():
-        flush_buf.zero_()
-
-    timings = {}
+    # 5. timing at the slice's shapes (the routed kernels: phase 11's)
+    timings = dict(routed_timings)
     w, step, noise = full["w"], full["step"], full["noise"]
     rows, cols = w.shape
     timings["sr_round"] = (

@@ -532,10 +532,14 @@ class CheckpointManager:
         # Steps refused by restore verification (newest-first fallback walk).
         self.corrupt_steps: list[int] = []
 
+    def should_save(self, step: int) -> bool:
+        """Whether the cadence saves ``step``: every ``save_every``-th, never 0."""
+        return step != 0 and step % self.save_every == 0
+
     def maybe_save(self, tree, step: int, *, force: bool = False,
                    extra_meta: dict | None = None) -> bool:
         """Save at every ``save_every``-th step (never step 0) or when forced."""
-        if not force and (step == 0 or step % self.save_every != 0):
+        if not (force or self.should_save(step)):
             return False
         save_pytree(tree, self.directory, step=step, extra_meta=extra_meta)
         self._gc()

@@ -102,6 +102,9 @@ class CodeStore:
         """Actual container bytes: ``ceil(d * bits / 8)`` per row if packed."""
         return self.data.numel() * self.data.element_size()
 
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return (self.data,)
+
     def unpack(self) -> torch.Tensor:
         """The full logical int8 ``[n, d]`` view (a copy when packed)."""
         if self.packed:

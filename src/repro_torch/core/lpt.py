@@ -16,6 +16,14 @@ formed in PyTorch, the write-back through the ``lpt_fused_update`` kernel,
 untouched rows kept bit-identical).  Unlike the reference, whose arrays are
 immutable, :func:`sparse_apply` updates the table's tensors **in place** and
 returns a table that shares them; :func:`dense_apply` returns new tensors.
+
+The codes may sit behind a hot-row cache (``repro_torch.core.tiered
+.TieredCodes``; only the codes are tiered, Delta and the Adam slots stay
+full-size tensors indexed by id): :func:`lookup` and :func:`sparse_apply`
+then take the routed gather and the routed runs form, bitwise what the
+uncached table gives.  Unlike the reference (``repro/core/lpt.py:263``),
+the cache is no reason to fall back, and on the card there is no fallback
+for it at all: an ineligible step over a cached table there raises.
 """
 from __future__ import annotations
 
@@ -26,13 +34,14 @@ import torch
 
 from repro_torch.core import quant
 from repro_torch.core.codestore import CodeStore, in_range_rows, is_packable, packed_width
+from repro_torch.core.tiered import TieredCodes
 from repro_torch.kernels import ops, ref
 
 
 class LPTTable(NamedTuple):
     """Quantized embedding table + per-row step + row optimizer state."""
 
-    codes: CodeStore  # packed uint8 at bits in {2, 4}, int8 otherwise
+    codes: CodeStore | TieredCodes  # packed uint8 at bits in {2, 4}, int8 otherwise
     step: torch.Tensor  # f32 [n] (feature-wise Delta; ALPT learns it)
     mu: torch.Tensor  # f32 [n, d] (adam) | [n] zeros (adagrad/sgd)
     nu: torch.Tensor  # f32 [n, d] (adam) | [n] (adagrad accumulator) | [n] zeros
@@ -267,15 +276,23 @@ def sparse_apply(table: LPTTable, ids: torch.Tensor, grad_rows: torch.Tensor, *,
 
     kernel_ok = False
     if use_kernels:
-        kernel = "sparse_row_update_runs" + ("_packed" if table.codes.packed else "")
+        tiered = isinstance(table.codes, TieredCodes)
+        kernel = ("sparse_row_update_runs" + ("_packed" if table.codes.packed else "")
+                  + ("_routed" if tiered else ""))
+        reason = None
         if rounding != "sr":
-            ops.note_fallback(kernel, (n, d), "dr rounding")
+            reason = "dr rounding"
         elif optimizer != "adam":
-            ops.note_fallback(kernel, (n, d), f"row optimizer {optimizer!r}")
+            reason = f"row optimizer {optimizer!r}"
         elif new_step is not None:
-            ops.note_fallback(kernel, (n, d), "caller-supplied new_step")
-        else:
+            reason = "caller-supplied new_step"
+        if reason is None:
             kernel_ok = True
+        elif tiered and table.step.device.type != "cpu":
+            raise ValueError(f"core.lpt.sparse_apply: {kernel} takes no {reason}, and a table "
+                             "behind a hot-row cache has no plain path on the card")
+        else:
+            ops.note_fallback(kernel, (n, d), reason)
     if kernel_ok:
         # The kernel sums each slot's run of lookups itself: no g_sum.
         c1, c2 = adam_bias_corrections(count)

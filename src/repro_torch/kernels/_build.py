@@ -51,6 +51,8 @@ SIGNATURES = {
         "dequant_gather_launch": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
         # packed, step, ids, out, n, d, b, bits, stream
         "dequant_gather_packed_launch": (_P, _P, _P, _P, _I64, _I64, _I64, _I, _P),
+        # codes, hot, slots, step, ids, out, n, d, b, bits, staged, stream
+        "dequant_gather_routed_launch": (*(_P,) * 6, _I64, _I64, _I64, _I, _I, _P),
     },
     "sparse_row_update": {
         # codes, step, mu, nu, uniq, g_sum, noise, w_new, n, d, k, width,
@@ -61,6 +63,9 @@ SIGNATURES = {
         # n, d, k, m, width, container_bits, bits, lr, c1, c2, b1, 1-b1, b2, 1-b2,
         # eps, wd, stream
         "sparse_row_update_runs_launch": (*(_P,) * 10, *(_I64,) * 5, _I, _I, *(_F,) * 9, _P),
+        # codes (the backing), hot, slot_of_id, then as the runs form from step
+        "sparse_row_update_runs_routed_launch": (*(_P,) * 12, *(_I64,) * 5, _I, _I, *(_F,) * 9,
+                                                 _P),
     },
     "lpt_update": {
         # codes, step, new_step, upd, noise, out, rows, cols, width,

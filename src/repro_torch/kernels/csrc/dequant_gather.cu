@@ -47,6 +47,18 @@
 //    such ids at submit).
 //  * The output is consumed at once by the DCN or the transformer: plain
 //    stores, no evict-first hint.
+//  * Routed (dequant_gather_routed_launch), for a table behind a hot-row
+//    cache (repro_torch/storage): a lookup's code row is hot[slot] when
+//    slot >= 0, else a row of the backing; its Delta is always Delta[id].
+//    Two routes: through the map (TieredCodes), slot = slot_of_id[id] read
+//    here and the backing row is id's; staged (the cold tier's wave),
+//    slot is the lookup's own entry of a per-lookup array, and a slot < 0
+//    names row -1 - slot of the staged rows [k, width] (the rows of the
+//    wave's distinct ids that were not cached when it was staged).  The
+//    route is a template parameter: the direct instantiations are the code
+//    the untiered launchers always ran.  The map route adds one dependent
+//    4-byte read (the slot) between the id and the row; the staged route's
+//    slot read does not depend on the id.
 // What does not apply: TMA, wgmma and shared-memory staging.  A wave is ~2 MB
 // of scattered 4- to 16-byte row pieces with no reuse inside a block, so a
 // tile copy or a staged transpose only adds a round trip.
@@ -54,8 +66,13 @@
 
 namespace {
 
+// Where a lookup's code row comes from (a template parameter).
+enum Route : int { kDirect = 0, kMap = 1, kStaged = 2 };
+
 struct Params {
-  const uint8_t* codes;
+  const uint8_t* codes;  // the table, the backing (kMap) or the staged wave (kStaged)
+  const uint8_t* hot;    // routed: the hot tier [cap, width]
+  const int32_t* slots;  // kMap: slot_of_id [n]; kStaged: one slot per lookup [b]
   const float* step;
   const int32_t* ids;
   float* out;
@@ -90,7 +107,24 @@ __device__ __forceinline__ uint32_t load_bytes(const uint8_t* src, uint32_t c) {
   return word;
 }
 
-template <int BITS, bool VEC>
+// The code row of lookup `row` (id in [0, n)): the table's, or routed to
+// the hot tier or the backing.
+template <int ROUTE>
+__device__ __forceinline__ const uint8_t* code_row(const Params& p, uint32_t row, int32_t id) {
+  if constexpr (ROUTE == kDirect) {
+    return p.codes + static_cast<int64_t>(id) * p.width;
+  } else if constexpr (ROUTE == kMap) {
+    const int32_t slot = __ldg(p.slots + id);
+    return slot >= 0 ? p.hot + static_cast<int64_t>(slot) * p.width
+                     : p.codes + static_cast<int64_t>(id) * p.width;
+  } else {
+    const int32_t slot = __ldg(p.slots + row);
+    return slot >= 0 ? p.hot + static_cast<int64_t>(slot) * p.width
+                     : p.codes + static_cast<int64_t>(-1 - slot) * p.width;
+  }
+}
+
+template <int BITS, bool VEC, int ROUTE>
 __global__ void __launch_bounds__(repro::kThreads) gather_kernel(const Params p) {
   const uint32_t stride = gridDim.x * repro::kThreads;
   for (uint32_t t = blockIdx.x * repro::kThreads + threadIdx.x; t < p.tasks; t += stride) {
@@ -100,7 +134,7 @@ __global__ void __launch_bounds__(repro::kThreads) gather_kernel(const Params p)
     uint32_t word = 0;
     float delta = __int_as_float(0x7fc00000);
     if (static_cast<uint32_t>(id) < p.n_ok) {
-      const uint8_t* src = p.codes + static_cast<int64_t>(id) * p.width + l * (BITS / 2);
+      const uint8_t* src = code_row<ROUTE>(p, row, id) + l * (BITS / 2);
       if constexpr (VEC) {
         word = load_word<BITS>(src);
       } else {
@@ -126,15 +160,16 @@ __global__ void __launch_bounds__(repro::kThreads) gather_kernel(const Params p)
   }
 }
 
-template <int BITS, bool VEC>
+template <int BITS, bool VEC, int ROUTE>
 cudaError_t launch_tasks(const Params& p, cudaStream_t s) {
-  gather_kernel<BITS, VEC><<<repro::grid_for(p.tasks), repro::kThreads, 0, s>>>(p);
+  gather_kernel<BITS, VEC, ROUTE><<<repro::grid_for(p.tasks), repro::kThreads, 0, s>>>(p);
   return cudaGetLastError();
 }
 
-template <int BITS>
+template <int BITS, int ROUTE = kDirect>
 int launch_gather(const void* codes, const void* step, const void* ids, void* out, int64_t n,
-                  int64_t d, int64_t b, void* stream) {
+                  int64_t d, int64_t b, void* stream, const void* hot = nullptr,
+                  const void* slots = nullptr) {
   if (b * d == 0) return 0;
   const int64_t lanes = (d + 3) / 4;
   if (d >= (int64_t{1} << 31) || b * lanes >= (int64_t{1} << 31)) {
@@ -142,6 +177,8 @@ int launch_gather(const void* codes, const void* step, const void* ids, void* ou
   }
   Params p;
   p.codes = static_cast<const uint8_t*>(codes);
+  p.hot = static_cast<const uint8_t*>(hot);
+  p.slots = static_cast<const int32_t*>(slots);
   p.step = static_cast<const float*>(step);
   p.ids = static_cast<const int32_t*>(ids);
   p.out = static_cast<float*>(out);
@@ -152,9 +189,19 @@ int launch_gather(const void* codes, const void* step, const void* ids, void* ou
   p.tasks = static_cast<uint32_t>(b * lanes);
   p.div = repro::fast_div(p.lanes);
   const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(codes) % (BITS / 2) == 0;
+                   reinterpret_cast<uintptr_t>(codes) % (BITS / 2) == 0 &&
+                   reinterpret_cast<uintptr_t>(hot) % (BITS / 2) == 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(vec ? launch_tasks<BITS, true>(p, s) : launch_tasks<BITS, false>(p, s));
+  return static_cast<int>(vec ? launch_tasks<BITS, true, ROUTE>(p, s)
+                              : launch_tasks<BITS, false, ROUTE>(p, s));
+}
+
+template <int BITS>
+int launch_routed(const void* codes, const void* hot, const void* slots, const void* step,
+                  const void* ids, void* out, int64_t n, int64_t d, int64_t b, int staged,
+                  void* stream) {
+  return staged ? launch_gather<BITS, kStaged>(codes, step, ids, out, n, d, b, stream, hot, slots)
+                : launch_gather<BITS, kMap>(codes, step, ids, out, n, d, b, stream, hot, slots);
 }
 
 }  // namespace
@@ -172,5 +219,22 @@ extern "C" int dequant_gather_packed_launch(const void* packed, const void* step
                                             int64_t b, int bits, void* stream) {
   if (bits == 4) return launch_gather<4>(packed, step, ids, out, n, d, b, stream);
   if (bits == 2) return launch_gather<2>(packed, step, ids, out, n, d, b, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The gathers routed through a hot tier.  hot: [cap, width] in the table's
+// layout (bits 8: int8 codes; 4, 2: packed uint8); step: f32 [n]; ids: int32
+// [b]; out: f32 [b, d].  staged == 0: codes is the backing [n, width] and
+// slots is slot_of_id int32 [n] (-1: not cached); staged != 0: codes is the
+// wave's staged rows [k, width] and slots int32 [b], one per lookup: a hot
+// slot, or -1 - r for staged row r.
+// Returns cudaGetLastError().
+extern "C" int dequant_gather_routed_launch(const void* codes, const void* hot,
+                                            const void* slots, const void* step,
+                                            const void* ids, void* out, int64_t n, int64_t d,
+                                            int64_t b, int bits, int staged, void* stream) {
+  if (bits == 8) return launch_routed<8>(codes, hot, slots, step, ids, out, n, d, b, staged, stream);
+  if (bits == 4) return launch_routed<4>(codes, hot, slots, step, ids, out, n, d, b, staged, stream);
+  if (bits == 2) return launch_routed<2>(codes, hot, slots, step, ids, out, n, d, b, staged, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -77,6 +77,16 @@
 //    slots took 14.7 us per call against 17.6-18.0 for 64, 32 or 8 and 26.5
 //    for 4 (more tiles, most of them dead, cost more blocks).
 //
+// Routed (sparse_row_update_runs_routed_launch), for a table behind a
+// hot-row cache (repro_torch/storage/tiered.py): a live slot reads
+// slot_of_id[id] and then reads and writes its codes at hot + slot * width
+// when the row is cached, at codes + id * width (the backing) otherwise;
+// mu, nu, Delta, noise and w_new are addressed as above.  Only a live slot
+// reads the map (a sentinel past the table lies past its end too).  Routing
+// is a template parameter: the untiered instantiations are the code timed
+// before it.  The row step of one wave writes each id to one tier: the
+// maps do not change during a step.
+//
 // Numerics: every operation is an explicit round-to-nearest intrinsic, so
 // nvcc can contract nothing.  Where XLA:CPU fuses the reference's
 // multiply-adds (it does, and that is where the reference's numbers come
@@ -101,7 +111,9 @@ struct Scalars {
 };
 
 struct Params {
-  uint8_t* codes;
+  uint8_t* codes;              // the table, or the backing when routed
+  uint8_t* hot;                // routed: the hot tier [cap, width]
+  const int32_t* slot_of_id;   // routed: int32 [n], -1 = not cached
   const float* step;
   float* mu;
   float* nu;
@@ -211,21 +223,33 @@ struct Lane {
   float st;
 };
 
+// The code row of a live slot's id: the table's, or routed through the map.
+template <bool ROUTED>
+__device__ __forceinline__ uint8_t* code_row(const Params& p, int32_t id) {
+  if constexpr (ROUTED) {
+    const int32_t slot = p.slot_of_id[id];
+    return slot >= 0 ? p.hot + static_cast<int64_t>(slot) * p.width
+                     : p.codes + static_cast<int64_t>(id) * p.width;
+  } else {
+    return p.codes + static_cast<int64_t>(id) * p.width;
+  }
+}
+
 template <int BITS, bool VEC>
-__device__ __forceinline__ void load_lane(const Params& p, int32_t id, uint32_t s, uint32_t l,
-                                          uint32_t c, Lane& x) {
+__device__ __forceinline__ void load_lane(const Params& p, const uint8_t* row, int32_t id,
+                                          uint32_t s, uint32_t l, uint32_t c, Lane& x) {
   const int64_t at = static_cast<int64_t>(id) * p.d + 4 * l;
   load4<VEC>(p.mu + at, c, x.mu);
   load4<VEC>(p.nu + at, c, x.nu);
   load4<VEC>(p.noise + static_cast<int64_t>(s) * p.d + 4 * l, c, x.u);
-  x.word = load_codes<BITS, VEC>(p.codes + static_cast<int64_t>(id) * p.width + l * (BITS / 2), c);
+  x.word = load_codes<BITS, VEC>(row + l * (BITS / 2), c);
   x.st = p.step[id];
 }
 
 // Steps a live lane with its gradient g; writes its codes, mu, nu and w_new.
 template <int BITS, bool VEC>
-__device__ __forceinline__ void step_lane(const Params& p, int32_t id, uint32_t s, uint32_t l,
-                                          uint32_t c, Lane& x, const float (&g)[4]) {
+__device__ __forceinline__ void step_lane(const Params& p, uint8_t* row, int32_t id, uint32_t s,
+                                          uint32_t l, uint32_t c, Lane& x, const float (&g)[4]) {
   float wn[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   uint32_t word = 0;
 #pragma unroll
@@ -239,7 +263,7 @@ __device__ __forceinline__ void step_lane(const Params& p, int32_t id, uint32_t 
   const int64_t at = static_cast<int64_t>(id) * p.d + 4 * l;
   store4<VEC>(p.mu + at, c, x.mu);
   store4<VEC>(p.nu + at, c, x.nu);
-  store_codes<BITS, VEC>(p.codes + static_cast<int64_t>(id) * p.width + l * (BITS / 2), c, word);
+  store_codes<BITS, VEC>(row + l * (BITS / 2), c, word);
   store4<VEC>(p.w_new + static_cast<int64_t>(s) * p.d + 4 * l, c, wn);
 }
 
@@ -268,9 +292,10 @@ __global__ void __launch_bounds__(repro::kThreads) row_kernel(const Params p) {
     if (live_slot(p, s, id, prev)) {
       Lane x;
       float g[4];
-      load_lane<BITS, VEC>(p, id, s, l, c, x);
+      uint8_t* row = code_row<false>(p, id);
+      load_lane<BITS, VEC>(p, row, id, s, l, c, x);
       load4<VEC>(p.g + static_cast<int64_t>(s) * p.d + 4 * l, c, g);
-      step_lane<BITS, VEC>(p, id, s, l, c, x, g);
+      step_lane<BITS, VEC>(p, row, id, s, l, c, x, g);
     } else {
       dead_lane<VEC>(p, s, l, c);
     }
@@ -311,7 +336,7 @@ __device__ __forceinline__ void chunk_copy(const Params& p, const int64_t (&row)
 }
 
 // The runs form: one block per tile of slots (and of lanes, blockIdx.y).
-template <int BITS, bool VEC>
+template <int BITS, bool VEC, bool ROUTED>
 __global__ void __launch_bounds__(repro::kThreads) runs_kernel(const Params p) {
   __shared__ float4 stage[2][kStage];
   const uint32_t tl = p.tile_lanes;
@@ -337,7 +362,11 @@ __global__ void __launch_bounds__(repro::kThreads) runs_kernel(const Params p) {
   const uint32_t end = min(static_cast<uint32_t>(p.starts[s_end]), p.m);
   const bool live = active && live_slot(p, s, id, prev);
   Lane x;
-  if (live) load_lane<BITS, VEC>(p, id, s, l, c, x);
+  uint8_t* row_codes = nullptr;
+  if (live) {
+    row_codes = code_row<ROUTED>(p, id);
+    load_lane<BITS, VEC>(p, row_codes, id, s, l, c, x);
+  }
   float g[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   // Two buffers: chunk j + 1's copies are in flight while chunk j is added,
   // and chunk j + 2's order entries while chunk j + 1 lands.
@@ -387,7 +416,7 @@ __global__ void __launch_bounds__(repro::kThreads) runs_kernel(const Params p) {
     __syncthreads();  // the buffer is free for chunk j + 2
   }
   if (live) {
-    step_lane<BITS, VEC>(p, id, s, l, c, x, g);
+    step_lane<BITS, VEC>(p, row_codes, id, s, l, c, x, g);
   } else if (active) {
     dead_lane<VEC>(p, s, l, c);
   }
@@ -407,6 +436,8 @@ bool make_params(Params& p, void* codes, const void* step, void* mu, void* nu, c
     return false;
   }
   p.codes = static_cast<uint8_t*>(codes);
+  p.hot = nullptr;
+  p.slot_of_id = nullptr;
   p.step = static_cast<const float*>(step);
   p.mu = static_cast<float*>(mu);
   p.nu = static_cast<float*>(nu);
@@ -436,7 +467,8 @@ bool make_params(Params& p, void* codes, const void* step, void* mu, void* nu, c
 bool vec_path(const Params& p, int container_bits) {
   return p.d % 4 == 0 && aligned16(p.mu) && aligned16(p.nu) && aligned16(p.g) &&
          aligned16(p.noise) && aligned16(p.w_new) &&
-         reinterpret_cast<uintptr_t>(p.codes) % (container_bits / 2) == 0;
+         reinterpret_cast<uintptr_t>(p.codes) % (container_bits / 2) == 0 &&
+         reinterpret_cast<uintptr_t>(p.hot) % (container_bits / 2) == 0;
 }
 
 template <int BITS, bool VEC>
@@ -445,27 +477,30 @@ cudaError_t launch_rows(const Params& p, cudaStream_t strm) {
   return cudaGetLastError();
 }
 
-template <int BITS, bool VEC>
+template <int BITS, bool VEC, bool ROUTED>
 cudaError_t launch_runs(Params p, cudaStream_t strm) {
   p.tile_lanes = std::min(p.lanes, static_cast<uint32_t>(repro::kThreads));
   p.tile_slots = std::min(repro::kThreads / p.tile_lanes, kTileSlots);
   p.div = repro::fast_div(p.tile_lanes);
   const dim3 grid((p.k + p.tile_slots - 1) / p.tile_slots,
                   (p.lanes + p.tile_lanes - 1) / p.tile_lanes);
-  runs_kernel<BITS, VEC><<<grid, repro::kThreads, 0, strm>>>(p);
+  runs_kernel<BITS, VEC, ROUTED><<<grid, repro::kThreads, 0, strm>>>(p);
   return cudaGetLastError();
 }
 
-template <bool RUNS, int BITS>
+// RUNS: 0 the g_sum form, 1 the runs form, 2 the runs form routed.
+template <int RUNS, int BITS>
 cudaError_t launch_bits(const Params& p, bool vec, cudaStream_t strm) {
-  if constexpr (RUNS) {
-    return vec ? launch_runs<BITS, true>(p, strm) : launch_runs<BITS, false>(p, strm);
+  if constexpr (RUNS == 2) {
+    return vec ? launch_runs<BITS, true, true>(p, strm) : launch_runs<BITS, false, true>(p, strm);
+  } else if constexpr (RUNS == 1) {
+    return vec ? launch_runs<BITS, true, false>(p, strm) : launch_runs<BITS, false, false>(p, strm);
   } else {
     return vec ? launch_rows<BITS, true>(p, strm) : launch_rows<BITS, false>(p, strm);
   }
 }
 
-template <bool RUNS>
+template <int RUNS>
 int launch(const Params& p, int container_bits, void* stream) {
   const auto strm = static_cast<cudaStream_t>(stream);
   const bool vec = vec_path(p, container_bits);
@@ -502,7 +537,7 @@ extern "C" int sparse_row_update_launch(void* codes, const void* step, void* mu,
                    lr, c1, c2, b1, a1, b2, a2, eps, wd)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch<false>(p, container_bits, stream);
+  return launch<0>(p, container_bits, stream);
 }
 
 // As above with the gradient summed here: g_occ f32 [m, d] per lookup;
@@ -525,5 +560,28 @@ extern "C" int sparse_row_update_runs_launch(void* codes, const void* step, void
   }
   p.order = static_cast<const int64_t*>(order);
   p.starts = static_cast<const int32_t*>(starts);
-  return launch<true>(p, container_bits, stream);
+  return launch<1>(p, container_bits, stream);
+}
+
+// The runs form over a table behind a hot-row cache: codes is the backing
+// [n, width], hot the hot tier [cap, width] in the same layout, slot_of_id
+// int32 [n] (-1: not cached; a cached row's codes are read and written in
+// the hot tier only); otherwise as above.  Returns cudaGetLastError().
+extern "C" int sparse_row_update_runs_routed_launch(
+    void* codes, void* hot, const void* slot_of_id, const void* step, void* mu, void* nu,
+    const void* uniq, const void* g_occ, const void* order, const void* starts,
+    const void* noise, void* w_new, int64_t n, int64_t d, int64_t k, int64_t m, int64_t width,
+    int container_bits, int bits, float lr, float c1, float c2, float b1, float a1, float b2,
+    float a2, float eps, float wd, void* stream) {
+  if (k * d == 0) return 0;
+  Params p;
+  if (!make_params(p, codes, step, mu, nu, uniq, g_occ, noise, w_new, n, d, k, m, width, bits,
+                   lr, c1, c2, b1, a1, b2, a2, eps, wd)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.hot = static_cast<uint8_t*>(hot);
+  p.slot_of_id = static_cast<const int32_t*>(slot_of_id);
+  p.order = static_cast<const int64_t*>(order);
+  p.starts = static_cast<const int32_t*>(starts);
+  return launch<2>(p, container_bits, stream);
 }

@@ -30,6 +30,18 @@ A caller that decides *before* a wrapper not to use a kernel (the
 eligibility gate of ``core.lpt.sparse_apply``) records that choice with
 :func:`note_fallback`, keyed ``(op, shape, reason)`` as the reference's
 ``ops.py:141``; :func:`fallbacks` lists them, so the choice is never silent.
+
+A table behind a hot-row cache (:class:`repro_torch.core.tiered.TieredCodes`)
+takes routed kernels, counted under their own names: the gathers
+(``dequant_gather_routed``, ``dequant_gather_packed_routed``; the reference
+routes them at ``ops.py:418``, as a where-merge in jnp) and the runs form
+of the row step (``sparse_row_update_runs_routed`` and ``_packed_routed``;
+the reference takes a counted jnp fallback there, ``core/lpt.py:263``).
+The cold tier's wave gather (:func:`dequant_gather_staged`) is the routed
+gather's staged route and counts under the same names.  No other kernel
+takes a ``TieredCodes``: :func:`lpt_update`, :func:`dequant_matmul` and the
+g_sum form raise on one (no path reaches them with one, the reference has
+no LM cache).
 """
 from __future__ import annotations
 
@@ -40,6 +52,7 @@ import logging
 import torch
 
 from repro_torch.core.codestore import CodeStore
+from repro_torch.core.tiered import TieredCodes
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import adam_update as _adam
 from repro_torch.kernels import dequant_gather as _gather
@@ -88,6 +101,14 @@ def _plain(t: torch.Tensor, use_kernel: bool) -> bool:
     return not use_kernel or t.device.type == "cpu"
 
 
+def _untiered(op: str, codes) -> None:
+    """Raise if ``codes`` is a table behind a hot-row cache: ``op`` has no
+    routed kernel and no path reaches it with one."""
+    if isinstance(codes, TieredCodes):
+        raise TypeError(f"ops.{op} takes no TieredCodes (no routed kernel); pass the backing "
+                        "with the cache folded in (HotRowCache.unwrap)")
+
+
 def _forward_only(op: str, *tensors) -> None:
     """Raise if ``op``, whose kernel has no backward, would be differentiated."""
     if torch.is_grad_enabled() and any(
@@ -127,6 +148,7 @@ def lpt_update(codes, step: torch.Tensor, upd: torch.Tensor, noise: torch.Tensor
     ``lpt_fused_update_packed``) or a raw int8 [R, C] tensor (returns int8).
     ``lr`` and ``weight_decay`` are float32 values.
     """
+    _untiered("lpt_update", codes)
     kw = dict(new_step=new_step, weight_decay=weight_decay)
     if isinstance(codes, CodeStore):
         if codes.packed:
@@ -148,10 +170,21 @@ def dequant_gather(codes, step: torch.Tensor, ids: torch.Tensor, *,
                    use_kernel: bool = True) -> torch.Tensor:
     """f32 [b, d] de-quantized rows for flat int32 ``ids`` [b].
 
-    ``codes`` is a :class:`CodeStore` (packed stores take the packed kernel)
-    or a raw int8 [n, d] tensor.  Forward only (:func:`_forward_only`).
+    ``codes`` is a :class:`CodeStore` (packed stores take the packed kernel),
+    a raw int8 [n, d] tensor, or a :class:`TieredCodes` (the routed kernels:
+    a cached row is read from the hot tier).  Forward only
+    (:func:`_forward_only`).
     """
     _forward_only("dequant_gather", step)
+    if isinstance(codes, TieredCodes):
+        args = (codes.backing.data, codes.hot.data, codes.slot_of_id, step, ids)
+        if codes.packed:
+            if _plain(step, use_kernel):
+                return ref.dequant_gather_packed_routed_ref(*args, bits=codes.bits, d=codes.d)
+            return _gather.dequant_gather_packed_routed(*args, bits=codes.bits, d=codes.d)
+        if _plain(step, use_kernel):
+            return ref.dequant_gather_routed_ref(*args)
+        return _gather.dequant_gather_routed(*args)
     if isinstance(codes, CodeStore) and codes.packed:
         if _plain(step, use_kernel):
             return ref.dequant_gather_packed_ref(codes.data, step, ids,
@@ -165,6 +198,24 @@ def dequant_gather(codes, step: torch.Tensor, ids: torch.Tensor, *,
     return _gather.dequant_gather(codes, step, ids)
 
 
+def dequant_gather_staged(rows: torch.Tensor, hot: torch.Tensor, slot: torch.Tensor,
+                          step: torch.Tensor, ids: torch.Tensor, *, bits: int, d: int,
+                          packed: bool, use_kernel: bool = True) -> torch.Tensor:
+    """The cold tier's wave gather, f32 [b, d]: lookup i's container row is
+    ``hot[slot[i]]`` when ``slot[i] >= 0``, else the staged
+    ``rows[-1 - slot[i]]``, scaled by ``step[ids[i]]``; the routed gathers'
+    staged route."""
+    _forward_only("dequant_gather_staged", step)
+    args = (rows, hot, slot, step, ids)
+    if packed:
+        if _plain(step, use_kernel):
+            return ref.dequant_gather_packed_routed_ref(*args, bits=bits, d=d, staged=True)
+        return _gather.dequant_gather_packed_routed(*args, bits=bits, d=d, staged=True)
+    if _plain(step, use_kernel):
+        return ref.dequant_gather_routed_ref(*args, staged=True)
+    return _gather.dequant_gather_routed(*args, staged=True)
+
+
 def dequant_matmul(x: torch.Tensor, codes, step: torch.Tensor, *,
                    use_kernel: bool = True) -> torch.Tensor:
     """The quantized LM head: f32 [M, N] ``x @ (step[:, None] * codes).T``
@@ -175,6 +226,7 @@ def dequant_matmul(x: torch.Tensor, codes, step: torch.Tensor, *,
     Forward only (:func:`_forward_only`).
     """
     _forward_only("dequant_matmul", x, step)
+    _untiered("dequant_matmul", codes)
     if isinstance(codes, CodeStore) and codes.packed:
         if _plain(x, use_kernel):
             return ref.dequant_matmul_packed_ref(x, codes.data, step, bits=codes.bits,
@@ -219,6 +271,7 @@ def sparse_row_update(codes, step: torch.Tensor, mu: torch.Tensor, nu: torch.Ten
     clamped row), as is that of a slot whose id repeats the previous slot's.
     ``lr``, ``c1 = 1 - b1^t`` and ``c2 = 1 - b2^t`` are float32 host scalars.
     """
+    _untiered("sparse_row_update", codes)
     if isinstance(codes, CodeStore) and codes.packed:
         if _plain(step, use_kernel):
             return ref.sparse_row_update_packed_ref(
@@ -246,9 +299,24 @@ def sparse_row_update_runs(codes, step: torch.Tensor, mu: torch.Tensor, nu: torc
     per-lookup rows ``g_occ[order[starts[s]:starts[s + 1]]]``
     (``core.lpt.dedup_runs``), bitwise what ``core.lpt.segment_sum``
     gives the ``g_sum`` form.  Counted as ``sparse_row_update_runs`` and, for
-    packed stores, ``sparse_row_update_runs_packed``.
+    packed stores, ``sparse_row_update_runs_packed``.  A :class:`TieredCodes`
+    takes the routed kernel (``..._routed``): a cached row's codes are read
+    and written in the hot tier, the others in the backing.
     """
     args = (g_occ, order, starts, noise, lr, c1, c2)
+    if isinstance(codes, TieredCodes):
+        tiers = (codes.backing.data, codes.hot.data, codes.slot_of_id, step, mu, nu, uniq)
+        if codes.packed:
+            if _plain(step, use_kernel):
+                return ref.sparse_row_update_runs_routed_ref(
+                    *tiers, *args, codes.bits, packed_d=codes.d, weight_decay=weight_decay)
+            return _row_update.sparse_row_update_runs_packed_routed(
+                *tiers, *args, codes.bits, codes.d, weight_decay=weight_decay)
+        if _plain(step, use_kernel):
+            return ref.sparse_row_update_runs_routed_ref(*tiers, *args, bits,
+                                                         weight_decay=weight_decay)
+        return _row_update.sparse_row_update_runs_routed(*tiers, *args, bits,
+                                                         weight_decay=weight_decay)
     if isinstance(codes, CodeStore) and codes.packed:
         if _plain(step, use_kernel):
             return ref.sparse_row_update_runs_packed_ref(

@@ -81,6 +81,45 @@ def dequant_gather_packed_ref(packed: torch.Tensor, step: torch.Tensor,
     return rows * step.index_select(0, ids)[:, None]
 
 
+def routed_rows(backing: torch.Tensor, hot: torch.Tensor, slot: torch.Tensor,
+                row: torch.Tensor) -> torch.Tensor:
+    """Container rows ``hot[slot]`` where ``slot >= 0``, else ``backing[row]``:
+    how a table behind a hot-row cache (``repro_torch.storage``) addresses a
+    row (the reference's where-merge, ``repro/storage/tiered.py:107``)."""
+    hot_rows = hot.index_select(0, torch.clamp(slot.to(torch.int64), min=0))
+    if not backing.shape[0]:  # a staged wave that missed nothing
+        return hot_rows
+    return torch.where((slot >= 0)[:, None], hot_rows,
+                       backing.index_select(0, row.to(torch.int64)))
+
+
+def _route(slots: torch.Tensor, ids: torch.Tensor, staged: bool):
+    """(slot, backing row) per lookup: through the map, or staged (a slot
+    < 0 names staged row ``-1 - slot``)."""
+    if staged:
+        return slots, torch.clamp(-1 - slots.to(torch.int64), min=0)
+    return slots.index_select(0, ids.to(torch.int64)), ids
+
+
+def dequant_gather_routed_ref(backing: torch.Tensor, hot: torch.Tensor, slots: torch.Tensor,
+                              step: torch.Tensor, ids: torch.Tensor, *,
+                              staged: bool = False) -> torch.Tensor:
+    """:func:`dequant_gather_ref` of the rows :func:`routed_rows` addresses:
+    through the map ``slots`` = ``slot_of_id`` [n] (backing row = id), or
+    ``staged`` (``slots`` one per lookup; backing row ``-1 - slot`` of the
+    staged rows where ``slot < 0``)."""
+    rows = routed_rows(backing, hot, *_route(slots, ids, staged)).to(torch.float32)
+    return rows * step.index_select(0, ids)[:, None]
+
+
+def dequant_gather_packed_routed_ref(backing: torch.Tensor, hot: torch.Tensor,
+                                     slots: torch.Tensor, step: torch.Tensor, ids: torch.Tensor,
+                                     *, bits: int, d: int, staged: bool = False) -> torch.Tensor:
+    """The same over packed uint8 containers."""
+    rows = unpack_codes(routed_rows(backing, hot, *_route(slots, ids, staged)), bits, d)
+    return rows.to(torch.float32) * step.index_select(0, ids)[:, None]
+
+
 def dequant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
                        step: torch.Tensor) -> torch.Tensor:
     """``x @ (f32(codes) * step[:, None]).T`` -> f32 [M, N] (the LM head over
@@ -363,6 +402,39 @@ def sparse_row_update_runs_packed_ref(packed: torch.Tensor, step: torch.Tensor,
     return sparse_row_update_packed_ref(packed, step, mu, nu, uniq,
                                         runs_sum(g_occ, order, starts), noise, lr, c1, c2, bits,
                                         d, weight_decay=weight_decay)
+
+
+def sparse_row_update_runs_routed_ref(backing: torch.Tensor, hot: torch.Tensor,
+                                      slot_of_id: torch.Tensor, step: torch.Tensor,
+                                      mu: torch.Tensor, nu: torch.Tensor, uniq: torch.Tensor,
+                                      g_occ: torch.Tensor, order: torch.Tensor,
+                                      starts: torch.Tensor, noise: torch.Tensor, lr: float,
+                                      c1: float, c2: float, bits: int, *,
+                                      packed_d: int | None = None,
+                                      weight_decay: float = 0.0) -> torch.Tensor:
+    """:func:`sparse_row_update_runs_ref` over a table behind a hot tier: the
+    codes of id are ``hot[slot_of_id[id]]`` when cached, ``backing[id]``
+    otherwise, read and written there; mu, nu and Delta are indexed by id.
+    ``packed_d`` (the logical width) marks packed uint8 containers."""
+    n = backing.shape[0]
+    safe = _clamped(uniq, n)
+    slot = slot_of_id.index_select(0, safe)
+    rows = routed_rows(backing, hot, slot, safe)
+    if packed_d is not None:
+        rows = unpack_codes(rows, bits, packed_d)
+    w_new, codes_rows, mu_rows, nu_rows = _row_step(
+        rows, step, mu, nu, safe, runs_sum(g_occ, order, starts), noise, lr, c1, c2, bits,
+        weight_decay)
+    if packed_d is not None:
+        codes_rows = pack_codes(codes_rows, bits)
+    keep = (uniq >= 0) & (uniq < n)
+    cached = keep & (slot >= 0)
+    hot.index_copy_(0, slot[cached].to(torch.int64), codes_rows[cached])
+    back = keep & (slot < 0)
+    backing.index_copy_(0, uniq[back].to(torch.int64), codes_rows[back])
+    for t, r in ((mu, mu_rows), (nu, nu_rows)):
+        t.index_copy_(0, *in_range_rows(uniq, r, n))
+    return w_new
 
 
 def _clamped(uniq: torch.Tensor, n: int) -> torch.Tensor:

@@ -21,6 +21,14 @@ decodes ``--gen`` tokens each greedily in ``LMEngine`` (slot batch
 ``--batch``: token rows through ``dequant_gather``, the tied head through
 ``dequant_matmul``, prefill attention through ``flash_attention_fwd``) and
 ends with the same JSON line.
+
+Storage tiers (``ctr``): ``--zipf`` serves the reference's Zipf(1.1)
+fixture (``train.CTR_ZIPF_DATA``); ``--cache-rows`` composes a device
+hot-row cache over every cacheable sub-table, and with ``--cold-tier`` the
+code container moves to host memory (a plain integer table only) and the
+device keeps Delta and ``--cache-rows`` hot rows; ``--device-budget-bytes``
+refuses a tier that would hold more.  A ``[serve] hot tier`` or ``cold
+tier`` line reports each slot's hit rate and bytes.
 """
 from __future__ import annotations
 
@@ -50,18 +58,27 @@ def _run_ctr(args) -> int:
               "(host clock)")
     else:
         state = init_state(cfg, device=device)
-    engine = CTREngine.from_state(state, cfg, batch=args.batch)
+    engine = CTREngine.from_state(state, cfg, batch=args.batch, cache_rows=args.cache_rows,
+                                  cold_tier=args.cold_tier,
+                                  device_budget_bytes=args.device_budget_bytes)
     ids, _ = data.batch("test", 0, args.requests)
     rids = [engine.submit(CTRRequest(ids=row)) for row in ids]
     done = engine.run()
     m = engine.metrics()
     print(
-        f"[serve] ctr/{m.embedding_method} {args.model} {args.config} scale={args.scale} "
+        f"[serve] ctr/{m.embedding_method} {args.model} {train_cli.data_label(args)} "
         f"bits={args.bits} on {device}: {m.requests_completed} requests in "
         f"{m.wall_s:.3f}s; resident embedding bytes {m.resident_embedding_bytes} "
         f"(codes {m.embedding_code_bytes} + scales {m.embedding_scale_bytes}; "
         f"int8_resident={m.int8_resident}); kernel launches {m.kernel_launches}"
     )
+    for c in m.caches:
+        print(f"[serve] {c.tier} tier '{c.name}': {c.rows_cached}/{c.capacity} rows, hit rate "
+              f"{c.hit_rate:.3f} ({c.hits} hits / {c.misses} misses), {c.hot_bytes} B of rows + "
+              f"{c.metadata_bytes} B of maps and policy state")
+    if m.caches:
+        cold = f"; cold host bytes {engine.cold_host_bytes}" if args.cold_tier else ""
+        print(f"[serve] aggregate cache hit rate {m.cache_hit_rate:.3f}{cold}")
     print(f"  first probs: {[round(done[r]['prob'], 4) for r in rids[:4]]}")
     print(json.dumps(m.to_json(), sort_keys=True))
     return 0
@@ -102,6 +119,13 @@ def main(argv=None) -> int:
     ctr.add_argument("--requests", type=int, default=64)
     ctr.add_argument("--train-steps", type=int, default=0,
                      help="train this many batches of --batch before serving")
+    ctr.add_argument("--cache-rows", type=int, default=0,
+                     help="device hot-row cache capacity per storage slot (0 = off); "
+                          "bitwise the uncached engine")
+    ctr.add_argument("--cold-tier", action="store_true",
+                     help="codes in host memory; the device keeps Delta + --cache-rows hot rows")
+    ctr.add_argument("--device-budget-bytes", type=int, default=None,
+                     help="refuse a hot or cold tier whose device bytes exceed this")
     lm = sub.add_parser("lm", help="continuous-batch LM decode")
     lm.add_argument("--arch", choices=sorted(configs.ARCHS), required=True)
     lm.add_argument("--smoke", action="store_true", help="the arch's reduced config")

@@ -22,6 +22,13 @@ resumes from the newest committed checkpoint that passes verification
 steps (keeping 3) and at the end; SIGTERM / SIGINT finishes the step in
 flight, saves and exits 75 so a scheduler requeues the job.  The data are
 indexed by step, so a resumed run replays exactly the batches it missed.
+
+Storage tiers (``ctr``): ``--zipf`` trains on the reference's Zipf(1.1)
+skewed-traffic fixture (:data:`CTR_ZIPF_DATA`: 8 fields, 4,092 rows) in
+place of the dataset, with the config's model; ``--cache-rows`` composes a
+device hot-row cache of that many rows over every cacheable sub-table
+(bitwise the uncached run; checkpoints hold the exported state) and
+prints each slot's hits, evictions and write-backs at the end.
 """
 from __future__ import annotations
 
@@ -40,7 +47,7 @@ from repro_torch import methods
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.manager import check_embedding_manifest, config_hash
 from repro_torch.configs import dcn_ctr
-from repro_torch.data.ctr_synth import CTRSynthetic
+from repro_torch.data.ctr_synth import CTRDatasetConfig, CTRSynthetic
 from repro_torch.data.lm_synth import LMTokenStream
 from repro_torch.kernels import ops
 from repro_torch.models import ctr as ctr_models
@@ -48,6 +55,15 @@ from repro_torch.training import lm_trainer
 from repro_torch.training.ctr_trainer import CTRTrainer, TrainerConfig
 
 SETUPS = {"avazu": dcn_ctr.avazu_setup, "criteo": dcn_ctr.criteo_setup}
+
+# The reference's skewed-traffic fixture for the storage tiers
+# (repro/launch/serve.py:53): Zipf(1.1) ids over a 4,092-row vocabulary, so
+# a hot tier of ~10% of the rows catches most lookups.
+CTR_ZIPF_DATA = CTRDatasetConfig(
+    name="serve-zipf", n_fields=8,
+    cardinalities=(4, 8, 12, 24, 48, 96, 1400, 2500),
+    teacher_rank=4, zipf_a=1.1, seed=0,
+)
 
 
 def add_model_args(p: argparse.ArgumentParser) -> None:
@@ -62,14 +78,21 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--zipf", action="store_true",
+                   help="the Zipf(1.1) skewed-traffic fixture in place of the dataset")
 
 
 def build(args, method: str):
     """``(data, trainer config)`` for the parsed flags (``config``, ``model``,
-    ``bits``, ``scale``, ``seed``): the dataset's setup, mixed's field
+    ``bits``, ``scale``, ``seed``, ``zipf``): the dataset's setup (with
+    ``zipf``, its model over :data:`CTR_ZIPF_DATA`), mixed's field
     cardinalities, and for DeepFM its default MLP and the setup's dropout
     over a table of width d + 1."""
     data_cfg, spec, dcn = SETUPS[args.config](method=method, bits=args.bits, scale=args.scale)
+    if getattr(args, "zipf", False):
+        data_cfg = CTR_ZIPF_DATA
+        spec = dataclasses.replace(spec, n=data_cfg.n_features)
+        dcn = dataclasses.replace(dcn, n_fields=data_cfg.n_fields)
     if method == "mixed":
         spec = dataclasses.replace(spec, field_cards=tuple(data_cfg.cardinalities))
     model = getattr(args, "model", "dcn")
@@ -80,6 +103,11 @@ def build(args, method: str):
         spec = dataclasses.replace(spec, d=dcn.emb_dim + 1)
     cfg = TrainerConfig(spec=spec, dcn=dcn, deepfm=deepfm, model=model, seed=args.seed)
     return CTRSynthetic(data_cfg), cfg
+
+
+def data_label(args) -> str:
+    """The data a CTR run took, for its report line."""
+    return "zipf fixture" if args.zipf else f"{args.config} scale={args.scale}"
 
 
 def ms_per_step(history) -> float:
@@ -156,7 +184,7 @@ def _manager(args):
 def _run_ctr(args) -> int:
     device = device_mod.resolve(args.device)
     data, cfg = build(args, args.method)
-    cfg = dataclasses.replace(cfg, lr=args.lr)
+    cfg = dataclasses.replace(cfg, lr=args.lr, cache_rows=args.cache_rows)
     trainer = CTRTrainer(cfg, device=device)
     manager = _manager(args)
     ops.reset_kernel_calls()
@@ -198,13 +226,19 @@ def _run_ctr(args) -> int:
     }
     if manager and manager.corrupt_steps:
         report["corrupt_checkpoints"] = manager.corrupt_steps
+    if trainer.caches:
+        report["caches"] = trainer.cache_stats()
     if args.eval_batches:
         report.update(trainer.evaluate(state, data.batches("valid", args.batch,
                                                            args.eval_batches)))
     loss_note = f", loss {losses[0]:.4f} -> {losses[-1]:.4f}" if losses else ""
-    print(f"[train] ctr/{args.method} {args.model} {args.config} scale={args.scale} "
+    print(f"[train] ctr/{args.method} {args.model} {data_label(args)} "
           f"bits={args.bits} on {device}: steps {start + 1}-{args.steps} of {args.batch}"
           f"{loss_note}, {ms:.2f} ms/step (host clock)")
+    for st in trainer.cache_stats():
+        print(f"[train] hot tier '{st['name']}': {st['rows_cached']}/{st['capacity']} rows, hit "
+              f"rate {st['hit_rate']:.3f}, {st['evictions']} evictions, {st['writebacks']} "
+              "write-backs")
     print(json.dumps(report, sort_keys=True))
     return 0
 
@@ -283,6 +317,9 @@ def main(argv=None) -> int:
     ctr.add_argument("--log-every", type=int, default=0)
     ctr.add_argument("--eval-batches", type=int, default=0,
                      help="validation batches for AUC / logloss at the end (0 = none)")
+    ctr.add_argument("--cache-rows", type=int, default=0,
+                     help="device hot-row cache capacity per storage slot (0 = off); "
+                          "bitwise the uncached run")
     add_ckpt_args(ctr)
     lm = sub.add_parser("lm", help="dense LM training with a quantized vocab table")
     lm.add_argument("--arch", choices=sorted(configs.ARCHS), default="smollm-135m")

@@ -9,7 +9,8 @@ pact, hash, prune), the sparse row formulation of integer tables
 qr_alpt, mixed), the dense formulation (``dense_params`` /
 ``dense_table_from`` / ``dense_update`` / ``dense_delta_grad``, the LM path:
 the gradient of the whole [n, d] table), and the host-side refresh hook
-(``host_sync`` / ``host_refresh`` / ``refresh_every``: prune's mask).
+(``host_sync`` / ``host_refresh`` / ``refresh_every``: prune's mask),
+and the tiered-storage hook ``storage_spec`` (the cacheable sub-tables).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import abc
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core import lpt as lpt_core
@@ -25,6 +27,7 @@ from repro_torch.core.alpt import ALPTConfig
 from repro_torch.core.pruning import PruneConfig
 from repro_torch.optim import adam_update, tree_leaves, tree_like
 from repro_torch.serving import table as serving_tbl
+from repro_torch.storage.base import CacheSlot
 
 #: Row/width multiple of ``pad_to_tiles``: the reference's sublane multiple,
 #: kept so a padded reference state loads into the port with its geometry.
@@ -200,6 +203,12 @@ class EmbeddingMethod(abc.ABC):
                          weight_decay: float, gscale: float) -> torch.Tensor:
         raise NotImplementedError(f"{self.name!r} has no learned step size")
 
+    def storage_spec(self, spec: EmbeddingSpec) -> tuple[CacheSlot, ...]:
+        """The cacheable sub-tables of the training state (the hot-row cache
+        hook, :mod:`repro_torch.storage`): one :class:`CacheSlot` per table of
+        integer codes inside the state.  Float-leaf methods have none."""
+        return ()
+
     def fused_row_step(self, state: Any, ids: torch.Tensor, *, spec: EmbeddingSpec,
                        loss_from_rows: Callable, dense_params: list,
                        update_dense: Callable, lr: float, weight_decay: float,
@@ -276,6 +285,12 @@ class IntegerTableMethod(EmbeddingMethod):
                                       weight_decay=weight_decay,
                                       noise=self.sparse_noise(noise))
         return new_state, {"loss": loss}
+
+    def storage_spec(self, spec):
+        """The identity slot of a state that *is* one ``LPTTable`` (lpt,
+        alpt); the composed methods override it."""
+        return (CacheSlot(name="table", rows=spec.n, get=lambda s: s, put=lambda s, t: t,
+                          local_ids=np.asarray),)
 
     def sparse_noise(self, noise: list):
         """What ``sparse_apply`` takes of the step's draws: a single table's

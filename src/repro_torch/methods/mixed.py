@@ -28,12 +28,14 @@ import dataclasses
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import lpt as lpt_core
 from repro_torch.core import quant
 from repro_torch.methods.base import TILE, IntegerTableMethod, _round_up, register
 from repro_torch.serving import table as serving_tbl
+from repro_torch.storage.base import CacheSlot
 
 
 class MixedTable(NamedTuple):
@@ -173,6 +175,16 @@ class MixedMethod(IntegerTableMethod):
 
     def dense_noise(self, generator, state, spec):
         return [quant.sr_noise(generator, tuple(sub.codes.shape)) for sub in state.subs]
+
+    def storage_spec(self, spec):
+        """One slot per bit-width group; global ids reach a group's rows
+        through the lookups' field maps (other groups' ids -> -1, which the
+        cache policy ignores)."""
+        plan = plan_of(spec)
+        return serving_tbl.group_slots(
+            plan.field_offsets, plan.field_group, plan.field_local, plan.group_rows,
+            get=lambda s, g: s.subs[g],
+            put=lambda s, g, t: MixedTable(subs=s.subs[:g] + (t,) + s.subs[g + 1:]))
 
     def dense_update(self, state, opt, grads, *, spec, lr, weight_decay, noise=None,
                      delta_grad=None, batch_rows=None):

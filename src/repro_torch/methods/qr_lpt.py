@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import alpt as alpt_core
@@ -29,6 +30,7 @@ from repro_torch.core import quant
 from repro_torch.kernels import ops
 from repro_torch.methods.base import TILE, IntegerTableMethod, _round_up, register
 from repro_torch.serving import table as serving_tbl
+from repro_torch.storage.base import CacheSlot
 
 
 class QRLPTTable(NamedTuple):
@@ -92,6 +94,19 @@ class QRLPTMethod(IntegerTableMethod):
         # (+ their row-optimizer slots).
         return sum(lpt_core.memory_bytes(t, spec.bits, count_optimizer=stored and training)
                    for t in (state.remainder, state.quotient))
+
+    def storage_spec(self, spec):
+        """Two slots, each sub-table cached on its own; global ids reach a
+        sub-table by the lookups' ``% r`` / ``// r``."""
+        r, q_rows = hashing.qr_rows(spec.n, spec.hash_compression)
+        return (
+            CacheSlot(name="remainder", rows=r, get=lambda s: s.remainder,
+                      put=lambda s, t: s._replace(remainder=t),
+                      local_ids=lambda ids: np.asarray(ids) % r),
+            CacheSlot(name="quotient", rows=q_rows, get=lambda s: s.quotient,
+                      put=lambda s, t: s._replace(quotient=t),
+                      local_ids=lambda ids: np.asarray(ids) // r),
+        )
 
     def _sub_kw(self, spec, lr, weight_decay):
         return dict(lr=lr, bits=spec.bits, rounding=spec.alpt.rounding,

@@ -6,7 +6,11 @@ of work, ``poll`` returns a finished request's result, ``run`` drains the
 queue, ``metrics`` snapshots the counters.  Besides the reference's
 resident-bytes accounting, the metrics count the kernel launches the
 engine's own steps made, so a run shows that it went through the kernels.
-Hot/cold storage tiers, fault injection and tracing are not ported yet.
+With a storage tier (``CTREngine``'s hot-row cache or cold tier) they also
+carry one :class:`CacheMetrics` per tier and slot, in the reference's
+schema.  Fault injection, tracing and the fault counters the reference
+keeps in ``CacheMetrics`` (``admission_oom``, ``prefetch_dropped``,
+``corruption_detected``: 0 here) are not ported yet.
 """
 from __future__ import annotations
 
@@ -18,6 +22,29 @@ from typing import Any
 from repro_torch import methods
 from repro_torch.kernels import ops
 from repro_torch.serving import table as serving_tbl
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheMetrics:
+    """One cache tier's snapshot (a hot-row cache slot or the cold tier)."""
+
+    tier: str  # 'hot' (device hot-row cache) | 'cold' (host-backed)
+    name: str  # slot name ('table', 'remainder', 'group0', ...)
+    capacity: int  # rows the tier can hold
+    rows_cached: int
+    hits: int
+    misses: int
+    evictions: int
+    writebacks: int
+    hit_rate: float
+    hot_bytes: int  # device bytes of the cached rows
+    metadata_bytes: int  # id maps (device) + the policy's host state
+    admission_oom: int = 0
+    prefetch_dropped: int = 0
+    corruption_detected: int = 0
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,15 +63,27 @@ class EngineMetrics:
     int8_resident: bool
     kernel_launches: dict[str, int]
     tokens_generated: int = 0  # LM only
+    caches: tuple[CacheMetrics, ...] = ()
+    cache_hit_rate: float | None = None
+    cache_budget_bytes: int | None = None
+    prefetch_depth: int = 0
 
     def to_json(self) -> dict:
-        out = dataclasses.asdict(self)
+        """The schema: ``us_per_request`` once requests completed,
+        ``tokens_generated`` / ``us_per_token`` for a token scenario, the
+        cache keys only when a tier is on (as the reference's)."""
+        out = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
         if self.requests_completed:
             out["us_per_request"] = self.wall_s / self.requests_completed * 1e6
         if self.tokens_generated:
             out["us_per_token"] = self.wall_s / self.tokens_generated * 1e6
         else:
             del out["tokens_generated"]
+        if self.caches:
+            out["caches"] = [c.to_json() for c in self.caches]
+        else:
+            for key in ("caches", "cache_hit_rate", "cache_budget_bytes", "prefetch_depth"):
+                del out[key]
         return out
 
 
@@ -67,6 +106,10 @@ class Engine:
         self._wall_s = 0.0
         self._tokens = 0  # generated tokens (LM only)
         self._launches: collections.Counter = collections.Counter()
+        #: The storage tiers' device-bytes ceiling, when a frontend set one.
+        self.cache_budget_bytes: int | None = None
+        #: Waves staged ahead of the one being scored (the cold tier: 1).
+        self.prefetch_depth = 0
 
     @staticmethod
     def build_serving_state(table_state, spec: methods.EmbeddingSpec):
@@ -140,7 +183,17 @@ class Engine:
     def int8_resident(self) -> bool:
         return serving_tbl.is_integer_resident(self.table)
 
+    def cache_metrics(self) -> tuple[CacheMetrics, ...]:
+        """Per-tier cache snapshots; () when no tier is composed in."""
+        return ()
+
     def metrics(self) -> EngineMetrics:
+        caches = self.cache_metrics()
+        hit_rate = None
+        if caches:
+            hits = sum(c.hits for c in caches)
+            total = hits + sum(c.misses for c in caches)
+            hit_rate = hits / total if total else 0.0
         return EngineMetrics(
             scenario=self.scenario,
             embedding_method=self.spec.method,
@@ -154,4 +207,8 @@ class Engine:
             int8_resident=self.int8_resident,
             kernel_launches={k: v for k, v in self._launches.items() if v},
             tokens_generated=self._tokens,
+            caches=caches,
+            cache_hit_rate=hit_rate,
+            cache_budget_bytes=self.cache_budget_bytes,
+            prefetch_depth=self.prefetch_depth,
         )

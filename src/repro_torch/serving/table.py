@@ -17,15 +17,23 @@ Each table names its children for a checkpoint as the reference's pytree
 registry does (``tree_children``: tensors, a ``CodeStore``, sub-tables), and
 ``from_tree`` reads a restored node into a template of the same config
 (static fields kept, leaves replaced).
+
+``cache_slots()`` names the tables a hot-row cache can wrap (one per
+``QuantTable``; none in a ``FloatTable``): a ``QuantTable``'s codes may then
+be a :class:`repro_torch.core.tiered.TieredCodes`, read through the
+routed gathers.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core.codestore import CodeStore
+from repro_torch.core.tiered import TieredCodes
 from repro_torch.kernels import ops
+from repro_torch.storage.base import CacheSlot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +66,9 @@ class FloatTable:
     def from_tree(self, node, *, use_kernels: bool) -> "FloatTable":
         return FloatTable(node[0])
 
+    def cache_slots(self) -> tuple[CacheSlot, ...]:
+        return ()
+
 
 @dataclasses.dataclass(frozen=True)
 class QuantTable:
@@ -67,7 +78,7 @@ class QuantTable:
     is larger and reads are sliced back to ``d``.
     """
 
-    codes: CodeStore
+    codes: CodeStore | TieredCodes
     step: torch.Tensor  # f32 [N_alloc]
     n: int  # live id space (ids must be < n)
     d: int  # live embedding width
@@ -107,7 +118,7 @@ class QuantTable:
         return self.n
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
-        return (self.codes.data, self.step)
+        return (*self.codes.tensors(), self.step)
 
     def tree_children(self) -> tuple:
         return (self.codes, self.step)
@@ -116,6 +127,10 @@ class QuantTable:
         codes, step = node
         return dataclasses.replace(self, codes=dataclasses.replace(self.codes, data=codes["data"]),
                                    step=step, use_kernels=use_kernels)
+
+    def cache_slots(self) -> tuple[CacheSlot, ...]:
+        return (CacheSlot(name="table", rows=self.n, get=lambda t: t, put=lambda t, sub: sub,
+                          local_ids=np.asarray),)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,6 +175,17 @@ class QRQuantTable:
             self, remainder=self.remainder.from_tree(node[0], use_kernels=use_kernels),
             quotient=self.quotient.from_tree(node[1], use_kernels=use_kernels))
 
+    def cache_slots(self) -> tuple[CacheSlot, ...]:
+        r = self.r
+        return (
+            CacheSlot(name="remainder", rows=self.remainder.n, get=lambda t: t.remainder,
+                      put=lambda t, sub: dataclasses.replace(t, remainder=sub),
+                      local_ids=lambda ids: np.asarray(ids) % r),
+            CacheSlot(name="quotient", rows=self.quotient.n, get=lambda t: t.quotient,
+                      put=lambda t, sub: dataclasses.replace(t, quotient=sub),
+                      local_ids=lambda ids: np.asarray(ids) // r),
+        )
+
 
 def map_field_ids(field_offsets, field_group, field_local, ids: torch.Tensor):
     """Global ids -> (group index, local row), both int32, through a per-field
@@ -171,6 +197,27 @@ def map_field_ids(field_offsets, field_group, field_local, ids: torch.Tensor):
     local = ids64 - offs[fid] + torch.tensor(field_local, dtype=torch.int64, device=dev)[fid]
     gid = torch.tensor(field_group, dtype=torch.int64, device=dev)[fid]
     return gid.to(torch.int32), local.to(torch.int32)
+
+
+def group_slots(field_offsets, field_group, field_local, group_rows, *, get,
+                put) -> tuple[CacheSlot, ...]:
+    """One :class:`CacheSlot` per bit-width group of a per-field composition
+    (``get(state, g)``, ``put(state, g, sub)``): a global id maps through the
+    field maps to its group's local row, and to -1 in every other group."""
+    starts = np.asarray(field_offsets, np.int64)
+    group = np.asarray(field_group, np.int64)
+    local = np.asarray(field_local, np.int64)
+
+    def local_ids(g):
+        def f(ids):
+            ids = np.asarray(ids, np.int64)
+            fid = np.searchsorted(starts, ids, side="right") - 1
+            return np.where(group[fid] == g, ids - starts[fid] + local[fid], -1)
+        return f
+
+    return tuple(CacheSlot(name=f"group{g}", rows=int(rows), get=lambda s, g=g: get(s, g),
+                           put=lambda s, t, g=g: put(s, g, t), local_ids=local_ids(g))
+                 for g, rows in enumerate(group_rows))
 
 
 def masked_sum(gid: torch.Tensor, local: torch.Tensor, d: int, reads) -> torch.Tensor:
@@ -226,6 +273,13 @@ class MixedQuantTable:
                      for sub, child in zip(self.subs, node[0]))
         return dataclasses.replace(self, subs=subs)
 
+    def cache_slots(self) -> tuple[CacheSlot, ...]:
+        return group_slots(
+            self.field_offsets, self.field_group, self.field_local,
+            [sub.n for sub in self.subs], get=lambda t, g: t.subs[g],
+            put=lambda t, g, sub: dataclasses.replace(
+                t, subs=t.subs[:g] + (sub,) + t.subs[g + 1:]))
+
 
 ServingTable = FloatTable | QuantTable | QRQuantTable | MixedQuantTable
 
@@ -237,6 +291,11 @@ def _matmul_head(w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 def is_serving_table(table) -> bool:
     return isinstance(table, (FloatTable, QuantTable, QRQuantTable, MixedQuantTable))
+
+
+def cache_slots(table) -> tuple[CacheSlot, ...]:
+    """The cacheable :class:`QuantTable` slots inside a serving table."""
+    return table.cache_slots() if is_serving_table(table) else ()
 
 
 def rows(table, ids: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,15 @@ dropout mask comes from the state's ``torch.Generator``;
 :meth:`CTRTrainer.train_step` takes ``noise=`` and ``masks=`` so a test can
 hand in the reference's draws instead.  :meth:`CTRTrainer.save` /
 :meth:`CTRTrainer.restore` checkpoint a state (``repro_torch.checkpoint``).
-The hot-row cache, the non-finite guard and the data-parallel hooks are not
+
+``TrainerConfig.cache_rows`` composes a device hot-row cache
+(:mod:`repro_torch.storage.tiered`) over every cacheable sub-table of an
+integer table (``method.storage_spec``): the step's gathers and row steps
+take the routed kernels, and after each step the policy observes the
+batch's ids (``write=True``: the step wrote cached rows to the hot tier
+only) and applies its moves.  Cache-on is bitwise cache-off:
+:meth:`CTRTrainer.export_state` folds the dirty rows back, and checkpoints
+hold that state.  The non-finite guard and the data-parallel hooks are not
 ported yet.
 """
 from __future__ import annotations
@@ -37,6 +45,7 @@ from repro_torch.core import quant
 from repro_torch.methods import layout
 from repro_torch.models import ctr as ctr_models
 from repro_torch.optim import OptState, adam_init, adam_update, tree_leaves, tree_like
+from repro_torch.storage.tiered import HotRowCache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +58,9 @@ class TrainerConfig:
     lr_boundaries: tuple[int, ...] = ()  # steps at which lr /= 10
     model: str = "dcn"  # 'dcn' | 'deepfm' (spec.d = deepfm.emb_dim + 1)
     deepfm: ctr_models.DeepFMConfig | None = None
+    # > 0: a device hot-row cache of this many rows over every cacheable
+    # sub-table of the table (capped at its rows); integer tables only.
+    cache_rows: int = 0
 
     @property
     def model_cfg(self):
@@ -159,9 +171,61 @@ class CTRTrainer:
         self._step = self._train_step
         if self.method.has_host_refresh:
             self._step = self.wrap_host_refresh(self._step)
+        self._caches: list = []  # [(CacheSlot, HotRowCache)]
+        self._slots = self.method.storage_spec(self.spec) if cfg.cache_rows else ()
+        if cfg.cache_rows and not self._slots:
+            raise ValueError(f"cache_rows > 0 but method {self.spec.method!r} exposes no "
+                             "cacheable storage slots (integer-table methods only)")
 
     def init_state(self) -> TrainState:
-        return init_state(self.cfg, device=self.device)
+        return self.import_state(init_state(self.cfg, device=self.device))
+
+    # ------------------------------------------------------------ cache
+
+    def _install_caches(self, emb_state):
+        """An empty hot-row cache over each cacheable slot of the table."""
+        self._caches = []
+        for slot in self._slots:
+            sub = slot.get(emb_state)
+            cache = HotRowCache(max(1, min(int(self.cfg.cache_rows), slot.rows)),
+                                sub.codes.shape[0], name=slot.name)
+            emb_state = slot.put(emb_state, sub._replace(codes=cache.wrap(sub.codes)))
+            self._caches.append((slot, cache))
+        return emb_state
+
+    def _maintain_caches(self, state: TrainState, ids) -> None:
+        """After a step: each slot's policy observes the batch's ids
+        (``write=True``) and its moves are applied, in place."""
+        flat = np.asarray(ids.cpu() if isinstance(ids, torch.Tensor) else ids).reshape(-1)
+        for slot, cache in self._caches:
+            cache.observe_apply(slot.get(state.emb_state).codes, slot.local_ids(flat),
+                                write=True)
+
+    def export_state(self, state: TrainState) -> TrainState:
+        """The cache-off state: each slot's backing with its dirty hot rows
+        folded in (a copy; the live state trains on), bitwise what an
+        uncached run holds.  What checkpoints and serving exports take."""
+        emb_state = state.emb_state
+        for slot, cache in self._caches:
+            sub = slot.get(emb_state)
+            emb_state = slot.put(emb_state, sub._replace(codes=cache.unwrap(sub.codes)))
+        return state._replace(emb_state=emb_state)
+
+    def import_state(self, state: TrainState) -> TrainState:
+        """``state`` (cache-off, e.g. restored) with empty caches installed
+        when ``cache_rows`` asks for them; membership restarts cold, which
+        the training math never sees."""
+        if not self.cfg.cache_rows:
+            return state
+        return state._replace(emb_state=self._install_caches(state.emb_state))
+
+    def cache_stats(self) -> list[dict]:
+        return [cache.stats() for _, cache in self._caches]
+
+    @property
+    def caches(self) -> list:
+        """``[(CacheSlot, HotRowCache)]`` of the state last installed."""
+        return list(self._caches)
 
     def save(self, manager: ckpt.CheckpointManager, state: TrainState, *,
              force: bool = False) -> bool:
@@ -169,10 +233,13 @@ class CTRTrainer:
         cadence says so, or when ``force``d: the reference's ``TrainState``
         leaves (:func:`checkpoint_tree`), the generator's state, and a
         manifest with the embedding metadata and the config's hash.
-        Returns whether it saved."""
+        Returns whether it saved.  Under a cache it saves :meth:`export_state`:
+        the files are those of a run without one."""
+        if not (force or manager.should_save(state.step)):
+            return False
         meta = {"config_hash": ckpt.config_hash(self.cfg), **ckpt.embedding_manifest(self.spec)}
-        return manager.maybe_save(checkpoint_tree(self.cfg, state), state.step,
-                                  force=force, extra_meta=meta)
+        return manager.maybe_save(checkpoint_tree(self.cfg, self.export_state(state)),
+                                  state.step, force=force, extra_meta=meta)
 
     def restore(self, manager: ckpt.CheckpointManager, *,
                 step: int | None = None) -> TrainState:
@@ -180,10 +247,11 @@ class CTRTrainer:
         that passes verification) on this trainer's device; a reference
         checkpoint loads too (:func:`state_from_checkpoint`).  Another
         config's table (method, schema, bits or packing in the manifest, or
-        the leaves themselves) raises ``ValueError``."""
+        the leaves themselves) raises ``ValueError``.  Under a cache the
+        caches are installed anew, empty (:meth:`import_state`)."""
         tree, _ = manager.restore(step=step, device=self.device, spec=self.spec)
         ckpt.check_table(tree["emb_state"], self.spec)
-        return state_from_checkpoint(self.cfg, tree, device=self.device)
+        return self.import_state(state_from_checkpoint(self.cfg, tree, device=self.device))
 
     def _lr_at(self, step: int) -> float:
         """The reference's ``_lr_at`` in float32: lr times 0.1 per boundary passed."""
@@ -204,8 +272,11 @@ class CTRTrainer:
         tensors.  ``noise`` overrides the generator's SR draws: a sequence of
         ``method.noise_draws(spec)`` tensors [B*F, d_alloc].  ``masks``
         overrides the dropout keep-masks (``models.ctr.dropout_masks``).
+        Under a cache, the policy then observes ``ids`` and moves rows.
         """
-        return self._step(state, ids, labels, noise=noise, masks=masks)
+        state, m = self._step(state, ids, labels, noise=noise, masks=masks)
+        self._maintain_caches(state, ids)
+        return state, m
 
     def _train_step(self, state: TrainState, ids, labels, *, noise=None, masks=None):
         lr = self._lr_at(state.step)

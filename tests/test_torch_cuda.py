@@ -895,3 +895,205 @@ def test_ctr_resume_on_the_card_is_bitwise(cuda, tmp_path, model, dropout):
             assert torch.equal(a.detach().cpu(), b.detach().cpu()), p
         else:
             assert a == b, p
+
+
+# ------------------------------------------------------------------ storage tiers
+
+
+def _tiered_table(g, dev, n, d, bits, cap, cached_ids, *, consistent=True):
+    """A CodeStore [n, d] behind a hot tier of ``cap`` rows holding
+    ``cached_ids`` (their backing rows, or with ``consistent=False`` other
+    codes, so a wrong route shows)."""
+    from repro_torch.storage.tiered import HotRowCache
+
+    lo, hi = quant.code_bounds(bits)
+    codes = torch.randint(lo, hi + 1, (n, d), generator=g, device=dev, dtype=torch.int8)
+    cache = HotRowCache(cap, n)
+    tiered = cache.observe_apply(cache.wrap(CodeStore.from_codes(codes, bits)),
+                                 cached_ids.cpu().numpy())
+    if not consistent:
+        other = torch.randint(lo, hi + 1, (cap, d), generator=g, device=dev, dtype=torch.int8)
+        tiered.hot.data.copy_(CodeStore.from_codes(other, bits).data)
+    return tiered
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("d", [13, 15, 16])
+def test_routed_gathers_bitwise(cuda, d, bits, staged):
+    """The routed gathers (through the map, and staged as the cold tier
+    reads) against their plain versions, bitwise, with hot rows that differ
+    from the backing; with a consistent hot tier, equal to the untiered
+    gather over the logical table."""
+    g = _gen(500 + d * bits + staged, cuda)
+    n, b = 1000, 777
+    ids = (torch.rand(b, generator=g, device=cuda) ** 3 * n).to(torch.int32)
+    ids[:2] = torch.tensor([n - 1, 0], dtype=torch.int32, device=cuda)
+    step = torch.rand(n, generator=g, device=cuda) * 0.1 + 1e-3
+    kernel = "dequant_gather_packed_routed" if bits < 8 else "dequant_gather_routed"
+    for consistent in (False, True):
+        tiered = _tiered_table(g, cuda, n, d, bits, 64, torch.unique(ids)[::2], consistent=consistent)
+        if staged:  # as the cold tier stages: the distinct uncached rows
+            slot = tiered.slot_of_id[ids.long()]
+            miss = slot < 0
+            need, inv = torch.unique(ids[miss], return_inverse=True)
+            slot[miss] = (-1 - inv).to(torch.int32)
+            args = (tiered.backing.data[need.long()].contiguous(), tiered.hot.data, slot, step, ids)
+            kw = dict(bits=bits, d=d, packed=tiered.packed)
+            ops.reset_kernel_calls()
+            got = ops.dequant_gather_staged(*args, **kw)
+            want = ops.dequant_gather_staged(*args, **kw, use_kernel=False)
+        else:
+            ops.reset_kernel_calls()
+            got = ops.dequant_gather(tiered, step, ids)
+            want = ops.dequant_gather(tiered, step, ids, use_kernel=False)
+        torch.cuda.synchronize()
+        assert ops.kernel_calls() == {kernel: 1}
+        assert bool((tiered.slots_for(ids) >= 0).any()) and torch.equal(got, want)
+        if consistent:
+            logical = CodeStore.from_codes(tiered.unpack(), bits)
+            assert torch.equal(got, ops.dequant_gather(logical, step, ids))
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("d", [16, 15, 13])
+@pytest.mark.parametrize("scratch", [True, False])
+def test_routed_runs_form_bitwise(cuda, bits, d, scratch):
+    """The runs form routed through a hot tier holding half of the wave's
+    rows: both tiers, mu, nu and w_new bitwise against the plain routed
+    version, and the logical table after the step equal to the untiered
+    kernel's on the same operands."""
+    from repro_torch.storage.tiered import HotRowCache
+
+    g = _gen(700 + bits * d + scratch, cuda)
+    n_live = 3000
+    codes, step, mu, nu, uniq, _, g_occ, order, starts, noise = _runs_operands(
+        g, cuda, n_live, d, bits, 4096, scratch)
+    c1, c2 = lpt.adam_bias_corrections(5)
+    live_ids = uniq[uniq < n_live]
+    out = []
+    for use_kernel in (True, False):
+        cache = HotRowCache(1024, codes.shape[0])
+        tiered = cache.observe_apply(cache.wrap(CodeStore.from_codes(codes.clone(), bits)),
+                                     live_ids[::2].cpu().numpy())
+        m, v = mu.clone(), nu.clone()
+        ops.reset_kernel_calls()
+        w_new = ops.sparse_row_update_runs(tiered, step, m, v, uniq, g_occ, order, starts, noise,
+                                           0.01, c1, c2, bits, weight_decay=5e-8,
+                                           use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        out.append((tiered, m, v, w_new, ops.kernel_calls()))
+    (kt, km, kv, kw, launched), (pt, pm, pv, pw, plain) = out
+    kernel = "sparse_row_update_runs" + ("_packed" if bits < 8 else "") + "_routed"
+    assert launched == {kernel: 1} and plain == {}
+    live, real = slice(0, n_live), uniq < n_live
+    assert int((kt.slots_for(live_ids) >= 0).sum()) == -(-live_ids.numel() // 2)
+    assert torch.equal(kt.backing.data[live], pt.backing.data[live])
+    assert torch.equal(kt.hot.data, pt.hot.data)
+    assert torch.equal(km[live], pm[live]) and torch.equal(kv[live], pv[live])
+    assert torch.equal(kw[real], pw[real])
+    (uc, um, uv, uw, _), _ = _runs_both(codes, step, mu, nu, uniq, g_occ, order, starts, noise,
+                                       bits, 5e-8, c1, c2)
+    assert torch.equal(CodeStore.from_codes(kt.unpack(), bits).data[live], uc[live])
+    assert torch.equal(km[live], um[live]) and torch.equal(kw[real], uw[real])
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cold_tier_stages_only_the_misses_on_the_card(cuda, bits):
+    """The cold tier on the card (pinned host rows, the side stream, the
+    staging events): only the distinct uncached rows staged, admissions
+    copied from them, a row evicted by its own wave topped up, a wave of
+    hits with nothing staged; every read bitwise the warm gather's."""
+    from repro_torch.storage.cold import ColdStore
+
+    g = _gen(40 + bits, cuda)
+    n, d = 40, 13
+    lo, hi = quant.code_bounds(bits)
+    codes = torch.randint(lo, hi + 1, (n, d), generator=g, device=cuda, dtype=torch.int8)
+    step = torch.rand(n, generator=g, device=cuda) * 0.05 + 1e-3
+    warm = CodeStore.from_codes(codes, bits)
+    cold = ColdStore(warm, step, cache_rows=2)
+    freqs = np.zeros(n, np.int64)
+    freqs[[3, 5]] = 1
+    cold.warm_start(freqs)
+    kernel = "dequant_gather_packed_routed" if bits < 8 else "dequant_gather_routed"
+    waves = [np.array([3, 7, 7, 7, 9, 9, 9, 9, 9, 11]), np.array([7, 9, 9, 7, 7, 9, 9, 7, 9, 7]),
+             np.array([20, 21, 21, 7, 9, 30, 31, 32, 33, 34])]
+    cold.stage(waves[0])
+    for i, wave in enumerate(waves):
+        cold.admit(wave)
+        ops.reset_kernel_calls()
+        got = cold.rows(wave)
+        if i + 1 < len(waves):
+            cold.stage(waves[i + 1])
+        want = ops.dequant_gather(warm, step, torch.from_numpy(wave.astype(np.int32)).to(cuda),
+                                  use_kernel=False)
+        torch.cuda.synchronize()
+        assert ops.kernel_calls() == {kernel: 1} and torch.equal(got, want), i
+    assert cold.topup_rows == 1 and cold.prefetch_hits == 3 and cold.demand_puts == 0
+    # warm 2, wave 0 staged 3 (+1 topped up), wave 1 none, wave 2 its 7 new ids
+    assert cold.copied_rows == 2 + 3 + 1 + 0 + 7
+
+
+def test_cuda_tiered_table_without_a_kernel_raises(cuda):
+    """A table behind a hot-row cache on the card has no plain path: the
+    kernels without a routed form refuse it, and a row step the runs form
+    cannot take (DR rounding) raises instead of falling back."""
+    g = _gen(9, cuda)
+    tiered = _tiered_table(g, cuda, 64, 16, 8, 8, torch.arange(4, device=cuda))
+    step = torch.full((64,), 0.01, device=cuda)
+    with pytest.raises(TypeError, match="TieredCodes"):
+        ops.lpt_update(tiered, step, torch.zeros(64, 16, device=cuda),
+                       torch.rand(64, 16, device=cuda), 0.01, 8)
+    with pytest.raises(TypeError, match="TieredCodes"):
+        ops.dequant_matmul(torch.zeros(2, 16, device=cuda), tiered, step)
+    table = lpt.LPTTable(codes=tiered, step=step, mu=torch.zeros(64, 16, device=cuda),
+                         nu=torch.zeros(64, 16, device=cuda), count=0)
+    ids = torch.arange(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="no plain path on the card"):
+        lpt.sparse_apply(table, ids, torch.ones(8, 16, device=cuda), lr=0.01, bits=8,
+                         rounding="dr", use_kernels=True)
+
+
+@pytest.mark.parametrize("method,bits", [("alpt", 8), ("alpt", 4), ("qr_alpt", 4),
+                                         ("mixed", 8)])
+def test_cache_on_training_and_serving_equal_cache_off_on_the_card(cuda, method, bits):
+    """Cache-on training (a hot tier of 64 rows: evictions and dirty
+    write-backs every step) through the routed kernels only, bitwise the
+    cache-off run; its export served warm, through a hot tier and (lpt /
+    alpt) through the cold tier, bitwise the uncached engine."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.training.ctr_trainer import checkpoint_tree
+
+    synth, cfg = _small_ctr(method)
+    cfg = dataclasses.replace(cfg, spec=dataclasses.replace(cfg.spec, bits=bits))
+    runs = []
+    for cache_rows in (0, 64):
+        c = dataclasses.replace(cfg, cache_rows=cache_rows)
+        trainer = CTRTrainer(c, device=cuda)
+        ops.reset_kernel_calls()
+        state, hist = trainer.fit(synth, steps=5, batch_size=128)
+        torch.cuda.synchronize()
+        runs.append((trainer, trainer.export_state(state), hist, ops.kernel_calls()))
+    (_, off, h_off, k_off), (tr_on, on, h_on, k_on) = runs
+    assert [h["loss"] for h in h_on] == [h["loss"] for h in h_off]
+    for (p, a), (q, b) in zip(ckpt.flatten(checkpoint_tree(cfg, on)),
+                              ckpt.flatten(checkpoint_tree(cfg, off)), strict=True):
+        assert p == q and (torch.equal(a.cpu(), b.cpu()) if isinstance(a, torch.Tensor)
+                           else a == b), p
+    assert not any(k.endswith("_routed") for k in k_off)
+    assert not any(k.startswith(("dequant_gather", "sparse_row_update")) and
+                   not k.endswith("_routed") for k in k_on)
+    stats = tr_on.cache_stats()
+    assert sum(s["evictions"] for s in stats) > 0 and sum(s["hits"] for s in stats) > 0
+    ids, _ = synth.batch("test", 0, 300)
+    scores = []
+    for kw in ({}, {"cache_rows": 64}) + (({"cold_tier": True, "cache_rows": 64},)
+                                         if method == "alpt" else ()):
+        engine = CTREngine.from_state(off, cfg, batch=128, **kw)
+        rids = [engine.submit(CTRRequest(ids=r)) for r in ids]
+        done = engine.run()
+        scores.append([done[r]["prob"] for r in rids])
+        launched = engine.metrics().kernel_launches
+        assert all(k.endswith("_routed") for k in launched) == bool(kw), launched
+    assert all(s == scores[0] for s in scores[1:])
