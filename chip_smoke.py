@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of CTR serving and training (every embedding
 method, DCN and DeepFM), of int8-resident LM serving, of LPT/ALPT LM
-training, of checkpoints (resume, serving from a checkpoint) and of the
-storage tiers (hot-row cache, host-memory cold tier) on one NVIDIA GPU.
+training, of checkpoints (resume, serving from a checkpoint), of the
+storage tiers (hot-row cache, host-memory cold tier) and of data-parallel
+training (exact and SR-compressed gradient sync) on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -145,6 +146,28 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      routed kernels against their plain versions at the CTR wave (half of
      its distinct rows cached), bitwise, and timed (storage_only runs the
      phase without the rest);
+  12. data parallel (repro_torch.training.data_parallel over
+     repro_torch.dist.collectives), in a temporary directory removed at the
+     end (dp_only runs the phase without the rest): 12a. the microbatched
+     CTR twin on the full padded Avazu table, a global batch of 4,096 as 4
+     shards of 1,024, 5 steps each of ALPT-8 at sync 32, 8 and 4, LPT-8 at
+     8, ALPT-4 packed at 2 and fp at 32, kernels on and again kernels off
+     from the same seed: losses and every leaf of the state (the generator
+     included) bitwise; launches exactly what the step implies (a gather per
+     shard, an sr_round per gradient leaf per rank at a compressed width,
+     ALPT's Delta gradient and line 5), no fallback; wire bytes per step
+     against fp32; the twin's sync alone at 32, 8, 4 and 2 bits; 12b.
+     make_ctr_dp_step (ALPT-8, sync 8, 4,096 a step) and make_lm_dp_step
+     (SmolLM-135M at full width, ALPT-8, sync 8, phase 8's batches of 4 x
+     1,024 tokens), 3 steps each through a one-rank NCCL group, bitwise
+     their twins with n_shards = 1, sr_round launched on every sync leaf;
+     12c. two processes on the one card over gloo (CUDA tensors), each
+     holding the full ALPT-8 state, 3 steps of 2 x 1,024 at sync 8 and 32:
+     every rank's state digest and losses equal the twin's with n_shards =
+     2; 12d. python -m repro_torch.launch.train lm --mesh-data 1
+     --dp-compress-bits 8 --steps 3 --ckpt-every 1 as a subprocess (its
+     wire-bytes line), then its step 3 removed and the command again:
+     resumed from step 2, step 3's loss bitwise the first run's;
   5. time each kernel at the slices' shapes (median of per-launch CUDA-event
      times after warm-up, device work only) beside its bound, its plain
      version's time and the library's one call where there is one, and the
@@ -177,6 +200,7 @@ import json
 import math
 import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3367,6 +3391,516 @@ def cold_only(root: str | None = None, reps: int = 5) -> int:
     return 0
 
 
+# Phase 12: data parallel (training/data_parallel.py, dist/collectives.py).
+# (method, table bits, sync bits) of the microbatched twins at full width.
+DP_RUNS = (("alpt", 8, 32), ("alpt", 8, 8), ("alpt", 8, 4), ("lpt", 8, 8), ("alpt", 4, 2),
+           ("fp", 8, 32))
+DP_SHARDS, DP_STEPS = 4, 5  # a global batch of 4 x BATCH = 4,096, 5 steps a run
+DP_NCCL_STEPS = 3  # 12b: the DP step through a one-rank NCCL group, CTR and LM
+DP_RANKS, DP_RANK_STEPS, DP_RANK_SYNC = 2, 3, (8, 32)  # 12c: gloo ranks on the card
+DP_SYNC_TIMING = (32, 8, 4, 2)
+DP_CLI_STEPS = 3
+
+
+def dp_trainer(dev, method: str, bits: int, sync: int, *, use_kernels: bool = True):
+    """A CTR trainer on the full Avazu table (padded for integer tables) with
+    the sync width ``sync``; every rank and twin of phase 12 builds this one."""
+    from repro_torch.configs import dcn_ctr
+    from repro_torch.training.ctr_trainer import CTRTrainer, TrainerConfig
+
+    _, spec, dcn = dcn_ctr.avazu_setup(method=method, bits=bits, scale=SCALE)
+    spec = dataclasses.replace(spec, pad_to_tiles=spec.is_integer_table, use_kernels=use_kernels)
+    cfg = TrainerConfig(spec=spec, dcn=dcn, seed=1200 + bits, dp_sync_bits=sync)
+    return CTRTrainer(cfg, device=dev), cfg
+
+
+def dp_launches(method: str, bits: int, sync: int, leaves: int, ranks: int, steps: int,
+                init: bool = True) -> dict:
+    """Launches of ``steps`` data-parallel CTR steps over ``ranks`` shards
+    (all of them, as the one-process twin launches them): a gather per shard
+    (integer tables), an ``sr_round`` per gradient leaf per rank at a
+    compressed width, and for ALPT the Delta gradient's (one leaf) and line
+    5's; the dense Adam, and for fp the table's; LPT's write-back."""
+    gather = "dequant_gather_packed" if bits < 8 else "dequant_gather"
+    compressed = sync < 32
+    per_step_sr = (leaves * ranks if compressed else 0) + (
+        (ranks if compressed else 0) + 1 if method == "alpt" else 0)
+    want = {"adam_update": steps * (2 if method == "fp" else 1)}
+    if method != "fp":
+        want[gather] = ranks * steps
+    sr = (1 if init and method != "fp" else 0) + steps * per_step_sr
+    if sr:
+        want["sr_round"] = sr
+    if method == "lpt":
+        want["lpt_fused_update"] = steps
+    return want
+
+
+def tree_digest(torch, tree) -> str:
+    """sha256 over a checkpoint tree's paths, dtypes and bytes."""
+    import hashlib
+
+    from repro_torch.checkpoint import manager as ckpt
+
+    h = hashlib.sha256()
+    for path, leaf in ckpt.flatten(tree):
+        t = leaf.detach() if isinstance(leaf, torch.Tensor) else torch.as_tensor(leaf)
+        h.update(f"{path}:{t.dtype}".encode())
+        h.update(t.cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sync_ms(torch, sync, leaves, step: int, stacked: bool, reps: int = 5) -> float:
+    """Host ms of one gradient sync (``GradSync.tree``), the card synchronised:
+    the median of ``reps`` after a warm-up."""
+    times = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sync.tree(leaves, step, stacked=stacked)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del out
+    return statistics.median(times[1:])
+
+
+def ctr_shard_grads(torch, trainer, state, ids, labels, shards: int) -> list:
+    """The per-shard gradient leaves of one step (the leaves a sync takes)."""
+    from repro_torch.training import data_parallel as dpm
+
+    grad_fn = trainer.build_grad_fn()
+    ids, labels = trainer._batch(ids, labels)
+    leaves_of = dpm.CTRGradLeaves(state.dense)
+    return [leaves_of.flat(grad_fn(state, i, y)[1])
+            for i, y in zip(ids.chunk(shards), labels.chunk(shards))]
+
+
+def dp_twins(torch, dev, batches) -> dict:
+    """12a: the microbatched CTR twin at full width (4 shards of BATCH): each
+    DP_RUNS config DP_STEPS steps kernels on, then again kernels off from the
+    same seed: the losses and every leaf of the state (codes, Delta, row-Adam
+    slots, dense params, both Adam states, the generator) bitwise; launches
+    exactly ``dp_launches`` (every sync leaf through sr_round), no fallback.
+    Then the sync alone at every width.  Returns the kernels-on launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.training import ctr_trainer
+    from repro_torch.training import data_parallel as dpm
+
+    total = {}
+    for method, bits, sync in DP_RUNS:
+        label = f"dp-twin {method}-{bits} sync={sync}"
+        runs = {}
+        for use_kernels in (True, False):
+            trainer, cfg = dp_trainer(dev, method, bits, sync, use_kernels=use_kernels)
+            step = dpm.make_ctr_microbatch_step(
+                trainer, DP_SHARDS, dpm.DPConfig(sync_bits=sync, use_kernels=use_kernels))
+            ops.reset_kernel_calls()  # the main path (kernels on) starts here ...
+            ops.reset_fallbacks()
+            state = trainer.init_state()
+            losses, wall = [], []
+            for ids, labels in batches[:DP_STEPS]:
+                t0 = time.perf_counter()
+                state, m = step(state, ids, labels)
+                losses.append(float(m["loss"]))  # the host waits for the step
+                wall.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            runs[use_kernels] = dict(tree=ctr_trainer.checkpoint_tree(cfg, state),
+                                     losses=losses, wall=wall, launches=ops.kernel_calls(),
+                                     fallbacks=ops.fallbacks(), trainer=trainer, state=state)
+        on, off = runs[True], runs[False]
+        shapes = dpm.ctr_grad_shapes(on["trainer"], on["state"])
+        want = dp_launches(method, bits, sync, len(shapes), DP_SHARDS, DP_STEPS)
+        check(on["launches"] == want, f"{label}: launches {on['launches']}, expected {want}")
+        check(on["fallbacks"] == [], f"{label}: fallbacks {on['fallbacks']}")
+        check(off["launches"] == {}, f"{label}: the kernels-off run launched {off['launches']}")
+        check(all(math.isfinite(x) for x in on["losses"]), f"{label}: losses {on['losses']}")
+        check(on["losses"] == off["losses"] and same_tree(torch, on["tree"], off["tree"]),
+              f"{label}: kernels on and off differ: {on['losses']} vs {off['losses']}")
+        wire = dpm.wire_report(shapes, sync)
+        log(f"[dp] 12a {label}: {DP_STEPS} steps of {DP_SHARDS} x {BATCH} on the full table, "
+            f"kernels on == off bitwise (losses {on['losses'][0]:.6f} -> {on['losses'][-1]:.6f}, "
+            f"every leaf); wire {wire['wire_bytes_per_step']} B/step per rank against "
+            f"{wire['fp32_wire_bytes_per_step']} at fp32 ({wire['compression_ratio']:.2f}x); "
+            f"host clock {statistics.mean(on['wall'][1:]):.2f} ms/step (first "
+            f"{on['wall'][0]:.1f}); launches {on['launches']}")
+        total = added(total, on["launches"])
+        del runs, on, off
+        torch.cuda.empty_cache()
+
+    # The sync alone at every width (the twin's, 4 ranks in one process).
+    trainer, _ = dp_trainer(dev, "alpt", 8, 32)
+    state = trainer.init_state()
+    per_leaf = list(zip(*ctr_shard_grads(torch, trainer, state, *batches[0], DP_SHARDS)))
+    stacks = [list(x) for x in per_leaf]
+    times = {bits: sync_ms(torch, dpm.GradSync(dpm.DPConfig(sync_bits=bits)), stacks, 0, True)
+             for bits in DP_SYNC_TIMING}
+    log(f"[dp] 12a the twin's sync of one ALPT-8 step ({DP_SHARDS} ranks' gradients, "
+        f"{len(stacks)} leaves, the table's {list(stacks[0][0].shape)}), host clock: " + ", ".join(
+            f"{b} bits {ms:.2f} ms" for b, ms in times.items()) + f"; {card_name()}")
+    del per_leaf, stacks, state, trainer
+    torch.cuda.empty_cache()
+    return total
+
+
+def dp_nccl(torch, dev, batches, lm_data) -> tuple[dict, dict]:
+    """12b: ``make_ctr_dp_step`` (ALPT-8, sync 8, a global batch of
+    DP_SHARDS x BATCH) and ``make_lm_dp_step`` (SmolLM-135M at full width,
+    ALPT-8, sync 8, phase 8's batches of 4 x 1,024 tokens) through a one-rank
+    NCCL group, DP_NCCL_STEPS steps each, bitwise their twins with
+    ``n_shards = 1``; ``sr_round`` launched once per sync leaf.  Returns the
+    DP steps' launches and what 12d checks against (the LM's leaf count)."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.training import ctr_trainer, lm_trainer
+    from repro_torch.training import data_parallel as dpm
+
+    total = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        trainer, cfg = dp_trainer(dev, "alpt", 8, 8)
+        trees = {}
+        for name in ("dp", "twin"):
+            step = (dpm.make_ctr_dp_step(trainer) if name == "dp"
+                    else dpm.make_ctr_microbatch_step(trainer, 1))
+            ops.reset_kernel_calls()
+            ops.reset_fallbacks()
+            state = trainer.init_state()
+            losses = []
+            for ids, labels in batches[:DP_NCCL_STEPS]:
+                state, m = step(state, ids, labels)
+                losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            trees[name] = (ctr_trainer.checkpoint_tree(cfg, state), losses, ops.kernel_calls(),
+                           ops.fallbacks())
+        leaves = len(dpm.ctr_grad_shapes(trainer, state))
+        want = dp_launches("alpt", 8, 8, leaves, 1, DP_NCCL_STEPS)
+        (tree, losses, launched, fallbacks), (t_tree, t_losses, _, _) = trees["dp"], trees["twin"]
+        check(launched == want and fallbacks == [],
+              f"12b CTR DP step launches {launched} (expected {want}), fallbacks {fallbacks}")
+        check(losses == t_losses and same_tree(torch, tree, t_tree),
+              f"12b CTR DP step over NCCL differs from its twin: {losses} vs {t_losses}")
+        total = added(total, launched)
+        grads = ctr_shard_grads(torch, trainer, state, *batches[0], 1)[0]
+        times = {bits: sync_ms(torch, dpm.GradSync(dpm.DPConfig(sync_bits=bits)), grads, 0,
+                               False) for bits in DP_SYNC_TIMING}
+        log(f"[dp] 12b CTR ALPT-8 sync=8 through a one-rank NCCL group: {DP_NCCL_STEPS} steps "
+            f"of {DP_SHARDS * BATCH}, bitwise its twin (losses {losses}); sr_round "
+            f"{launched.get('sr_round')} = 1 init + {DP_NCCL_STEPS} x ({leaves} leaves + Delta + "
+            "line 5); the one-rank sync alone, host clock: " + ", ".join(
+                f"{b} bits {ms:.2f} ms" for b, ms in times.items()))
+        del trees, tree, t_tree, state, grads
+        torch.cuda.empty_cache()
+
+        lm_cfg = configs.full_config(LM_ARCH, embedding_method="alpt", embedding_bits=8)
+        tcfg = lm_trainer.LMTrainerConfig(dp_sync_bits=8)
+        runs = {}
+        for name in ("dp", "twin"):
+            step = (dpm.make_lm_dp_step(lm_cfg, tcfg) if name == "dp"
+                    else dpm.make_lm_microbatch_step(lm_cfg, tcfg, 1))
+            ops.reset_kernel_calls()
+            ops.reset_fallbacks()
+            state = lm_trainer.init_state(lm_cfg, tcfg, seed=31, device=dev)
+            losses, wall = [], []
+            for batch in lm_data[:DP_NCCL_STEPS]:
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                wall.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            runs[name] = (lm_trainer.checkpoint_tree(lm_cfg, state, tcfg), losses,
+                          ops.kernel_calls(), ops.fallbacks(), wall)
+        lm_leaves = len(dpm.lm_grad_shapes(lm_cfg, tcfg, state))
+        (tree, losses, launched, fallbacks, wall), (t_tree, t_losses, _, _, _) = (
+            runs["dp"], runs["twin"])
+        want = {"sr_round": 1 + DP_NCCL_STEPS * (lm_leaves + 2), "adam_update": DP_NCCL_STEPS}
+        check(launched == want and fallbacks == [],
+              f"12b LM DP step launches {launched} (expected {want}), fallbacks {fallbacks}")
+        check(losses == t_losses and same_tree(torch, tree, t_tree),
+              f"12b LM DP step over NCCL differs from its twin: {losses} vs {t_losses}")
+        wire = dpm.wire_report(dpm.lm_grad_shapes(lm_cfg, tcfg, state), 8)
+        log(f"[dp] 12b SmolLM-135M ALPT-8 sync=8 through a one-rank NCCL group: "
+            f"{DP_NCCL_STEPS} steps of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens, bitwise its "
+            f"twin (losses {losses}); {lm_leaves} gradient leaves; wire "
+            f"{wire['wire_bytes_per_step']} B/step ({wire['compression_ratio']:.2f}x vs fp32); "
+            f"host clock {statistics.mean(wall[1:]):.1f} ms/step; launches {launched}")
+        total = added(total, launched)
+        del runs, tree, t_tree, state
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return total, {"lm_leaves": lm_leaves, "lm_wire": wire}
+
+
+def dp_rank(rank: int, world: int, directory: str) -> int:
+    """One gloo rank of 12c (a process of its own, on the one card): the CTR
+    DP step at full width (ALPT-8, DP_RANK_STEPS steps of a global batch of
+    ``world`` x BATCH) at each DP_RANK_SYNC width; writes its state's digest,
+    losses, host times, launches and the sync's time to
+    ``directory/rank<r>.json``."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import device as device_mod
+    from repro_torch.data.ctr_synth import CTRSynthetic, avazu_like
+    from repro_torch.kernels import ops
+    from repro_torch.training import ctr_trainer
+    from repro_torch.training import data_parallel as dpm
+
+    dev = device_mod.resolve("cuda")
+    dist.init_process_group("gloo", init_method=f"file://{directory}/init", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        data = CTRSynthetic(avazu_like(SCALE))
+        batches = [data.batch("train", i, world * BATCH) for i in range(DP_RANK_STEPS)]
+        out = {}
+        for sync in DP_RANK_SYNC:
+            trainer, cfg = dp_trainer(dev, "alpt", 8, sync)
+            step = dpm.make_ctr_dp_step(trainer)
+            ops.reset_kernel_calls()
+            ops.reset_fallbacks()
+            state = trainer.init_state()
+            losses, wall = [], []
+            for ids, labels in batches:
+                t0 = time.perf_counter()
+                state, m = step(state, ids, labels)
+                losses.append(float(m["loss"]))
+                wall.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            launched, fallbacks = ops.kernel_calls(), ops.fallbacks()
+            ids, labels = batches[0]
+            grads = ctr_shard_grads(torch, trainer, state, ids, labels, world)[rank]
+            ms = sync_ms(torch, dpm.GradSync(dpm.DPConfig(sync_bits=sync)), grads, 0, False, 3)
+            out[str(sync)] = {"digest": tree_digest(torch, ctr_trainer.checkpoint_tree(cfg, state)),
+                              "losses": losses, "wall": wall, "launches": launched,
+                              "fallbacks": fallbacks, "sync_ms": ms,
+                              "leaves": len(dpm.ctr_grad_shapes(trainer, state))}
+            del state, grads
+            torch.cuda.empty_cache()
+        (pathlib.Path(directory) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dp_gloo(torch, dev, directory: pathlib.Path) -> dict:
+    """12c: DP_RANKS processes on the one card over gloo (CUDA tensors), each
+    holding the full-width ALPT-8 state (``dp_rank``), against the twin with
+    ``n_shards = DP_RANKS`` in this process: every rank's state digest and
+    losses equal the twin's at each DP_RANK_SYNC width.  Returns the ranks'
+    launches."""
+    from repro_torch.data.ctr_synth import CTRSynthetic, avazu_like
+    from repro_torch.training import ctr_trainer
+    from repro_torch.training import data_parallel as dpm
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke, sys; "
+         f"sys.exit(chip_smoke.dp_rank({r}, {DP_RANKS}, {str(directory)!r}))"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(DP_RANKS)]
+    try:
+        for r, p in enumerate(procs):
+            _, err_text = p.communicate(timeout=600)
+            check(p.returncode == 0, f"12c rank {r} exited {p.returncode}: {err_text[-2000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = [json.loads((directory / f"rank{r}.json").read_text()) for r in range(DP_RANKS)]
+    ranks_s = time.perf_counter() - t0
+    data = CTRSynthetic(avazu_like(SCALE))
+    batches = [data.batch("train", i, DP_RANKS * BATCH) for i in range(DP_RANK_STEPS)]
+    total = {}
+    for sync in DP_RANK_SYNC:
+        trainer, cfg = dp_trainer(dev, "alpt", 8, sync)
+        twin = dpm.make_ctr_microbatch_step(trainer, DP_RANKS)
+        state = trainer.init_state()
+        losses = []
+        for ids, labels in batches:
+            state, m = twin(state, ids, labels)
+            losses.append(float(m["loss"]))
+        digest = tree_digest(torch, ctr_trainer.checkpoint_tree(cfg, state))
+        for r, out in enumerate(ranks):
+            o = out[str(sync)]
+            want = dp_launches("alpt", 8, sync, o["leaves"], 1, DP_RANK_STEPS)
+            check(o["digest"] == digest and o["losses"] == losses,
+                  f"12c sync={sync}: rank {r} differs from the twin: {o['losses']} vs {losses}")
+            check(o["launches"] == want and o["fallbacks"] == [],
+                  f"12c sync={sync} rank {r}: launches {o['launches']} (expected {want}), "
+                  f"fallbacks {o['fallbacks']}")
+            total = added(total, o["launches"])
+        o = ranks[0][str(sync)]
+        log(f"[dp] 12c ALPT-8 sync={sync}: {DP_RANKS} gloo ranks on one card, each the full "
+            f"state, {DP_RANK_STEPS} steps of {DP_RANKS} x {BATCH}: every rank's state and "
+            f"losses {losses} bitwise the twin with n_shards = {DP_RANKS}; rank 0 host clock "
+            f"{statistics.mean(o['wall'][1:]):.1f} ms/step (first {o['wall'][0]:.1f}), the sync "
+            f"alone {o['sync_ms']:.1f} ms; launches per rank {o['launches']}")
+        del state
+        torch.cuda.empty_cache()
+    log(f"[dp] 12c: the ranks' processes {ranks_s:.1f}s; {card_name()}")
+    return total
+
+
+def dp_cli(directory: pathlib.Path, lm_leaves: int, lm_wire: dict) -> dict:
+    """12d: ``train lm --arch smollm-135m --mesh-data 1 --dp-compress-bits 8
+    --steps 3`` (a one-rank NCCL group it makes itself) with ``--ckpt-dir``
+    and ``--ckpt-every 1``, its wire-bytes line and launches; then its step 3
+    removed and the same command again: resumed from step 2, its step 3's
+    loss the first run's bit for bit."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "lm", "--arch", LM_ARCH,
+           "--mesh-data", "1", "--dp-compress-bits", "8", "--steps", str(DP_CLI_STEPS),
+           "--ckpt-dir", str(directory), "--ckpt-every", "1"]
+    reports, times = [], []
+    for attempt in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT, env=env, timeout=600)
+        times.append(time.perf_counter() - t0)
+        lines = proc.stdout.strip().splitlines()
+        check(proc.returncode == 0 and bool(lines),
+              f"12d train lm --mesh-data 1 exited {proc.returncode}: {proc.stderr[-2000:]}")
+        reports.append((lines, json.loads(lines[-1])))
+        if attempt == 0:
+            last = f"step_{DP_CLI_STEPS:09d}"
+            (directory / f"{last}.COMMITTED").unlink()
+            shutil.rmtree(directory / last)
+    (lines, first), (lines2, second) = reports
+    wire_line = (f"[train] dp sync_bits=8 wire_bytes/step={lm_wire['wire_bytes_per_step']} "
+                 f"({lm_wire['compression_ratio']:.2f}x vs fp32)")
+    check(wire_line in lines and wire_line in lines2, f"12d wire line missing: {lines[:6]}")
+    check(first["mesh_data"] == 1 and first["wire_bytes_per_step"]
+          == lm_wire["wire_bytes_per_step"], f"12d report {first}")
+    per_step = lm_leaves + 2
+    check(first["kernel_launches"] == {"sr_round": 1 + DP_CLI_STEPS * per_step,
+                                       "adam_update": DP_CLI_STEPS}
+          and second["kernel_launches"] == {"sr_round": per_step, "adam_update": 1}
+          and first["fallbacks"] == second["fallbacks"] == [],
+          f"12d launches {first['kernel_launches']}, {second['kernel_launches']}")
+    check(f"[train] resumed from step {DP_CLI_STEPS - 1}" in lines2,
+          f"12d the second run did not resume: {lines2[:6]}")
+    check(second["losses"] == first["losses"][-1:],
+          f"12d resumed step {DP_CLI_STEPS}: {second['losses']} != {first['losses'][-1:]}")
+    log(f"[dp] 12d {wire_line!r}; {DP_CLI_STEPS} steps ({times[0]:.1f} s), losses "
+        f"{first['losses']}; step {DP_CLI_STEPS} removed and the command again ({times[1]:.1f} "
+        f"s): resumed from step {DP_CLI_STEPS - 1}, its loss bitwise the first run's")
+    return {k: first["kernel_launches"].get(k, 0) + second["kernel_launches"].get(k, 0)
+            for k in set(first["kernel_launches"]) | set(second["kernel_launches"])}
+
+
+def dp_phase(torch, dev, lm_data) -> dict:
+    """Phase 12 (12a-12d), in a temporary directory removed at the end.
+    Returns its launches (12a's kernels-on twins, 12b's and 12c's DP steps,
+    12d's CLI runs)."""
+    import tempfile
+
+    from repro_torch.data.ctr_synth import CTRSynthetic, avazu_like
+
+    t_phase = time.perf_counter()
+    data = CTRSynthetic(avazu_like(SCALE))
+    batches = Batches(data.batch("train", i, DP_SHARDS * BATCH) for i in range(DP_STEPS))
+    total = dp_twins(torch, dev, batches)
+    log(f"[dp] 12a: {time.perf_counter() - t_phase:.1f}s")
+    nccl, lm = dp_nccl(torch, dev, batches, lm_data)
+    total = added(total, nccl)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        root = pathlib.Path(tmp)
+        (root / "gloo").mkdir()
+        total = added(total, dp_gloo(torch, dev, root / "gloo"))
+        total = added(total, dp_cli(root / "cli", lm["lm_leaves"], lm["lm_wire"]))
+    log(f"[dp] phase 12: launches {total}; {time.perf_counter() - t_phase:.1f}s; {card_name()}")
+    return total
+
+
+def gloo_probe_rank(rank: int, world: int, directory: str) -> int:
+    """One rank of ``gloo_probe``: each collective phase 12 takes, on CUDA
+    tensors over gloo, its result printed; then one table-sized all_gather
+    (float32) and all_reduce (int32 SUM) timed on the host clock."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{directory}/init", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    dev = torch.device("cuda", 0)
+    try:
+        out = {}
+        for dtype in (torch.float32, torch.uint8):
+            t = (torch.arange(6, device=dev) + 10 * rank).to(dtype)
+            parts = [torch.empty_like(t) for _ in range(world)]
+            dist.all_gather(parts, t)
+            out[f"all_gather {dtype}"] = [p.tolist() for p in parts]
+        for dtype, op in ((torch.float32, dist.ReduceOp.MAX), (torch.int32, dist.ReduceOp.SUM)):
+            t = (torch.arange(4, device=dev) * (rank + 1)).to(dtype)
+            dist.all_reduce(t, op=op)
+            out[f"all_reduce {op} {dtype}"] = t.tolist()
+        for name, t in (("all_gather", torch.full((4_428_288 * 16,), float(rank), device=dev)),
+                        ("all_reduce", torch.full((4_428_288 * 16,), rank + 1, device=dev,
+                                                  dtype=torch.int32))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "all_gather":
+                dist.all_gather([torch.empty_like(t) for _ in range(world)], t)
+            else:
+                dist.all_reduce(t)
+            torch.cuda.synchronize()
+            out[f"{name} of {t.numel() * 4} B, s"] = time.perf_counter() - t0
+        print(f"[probe] rank {rank}: {json.dumps(out)}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def gloo_probe() -> int:
+    """Whether this torch build's gloo takes CUDA tensors for the collectives
+    of phase 12 (two ranks on the one card), and what a table-sized payload
+    costs: ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.gloo_probe())"``."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_probe_") as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke, sys; "
+             f"sys.exit(chip_smoke.gloo_probe_rank({r}, 2, {tmp!r}))"], cwd=ROOT)
+            for r in range(2)]
+        codes = [p.wait(timeout=300) for p in procs]
+    log(f"[probe] ranks exited {codes}; {card_name()}")
+    return max(codes)
+
+
+def dp_only() -> int:
+    """Phase 12 alone (with phase 8's LM batches):
+    ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.dp_only())"``."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[chip_smoke] needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import device as device_mod
+    from repro_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    dev = device_mod.resolve("cuda")
+    for lib in _build.build():
+        _build.library(lib)
+    log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}; build "
+        f"{time.perf_counter() - t_start:.1f}s")
+    launches = dp_phase(torch, dev, lm_batches(torch, dev, LM_TABLE[0]))
+    check(set(launches) <= set(KERNELS), f"phase 12 launched {launches}")
+    log(f"[chip_smoke] phase 12 alone in {time.perf_counter() - t_start:.1f}s")
+    return 0
+
+
 def main() -> int:
     # cuBLAS picks deterministic algorithms only with a fixed workspace; the
     # kernels-on / kernels-off training runs of phase 6 must agree bitwise.
@@ -3510,6 +4044,12 @@ def main() -> int:
                                             err, flush)
     check(set(phase11) <= set(KERNELS), f"phase 11 launched {phase11}")
     launches = {k: launches[k] + phase11.get(k, 0) for k in KERNELS}
+    # 12. data parallel: the microbatched twins at full width kernels on ==
+    # off, the DP steps through a one-rank NCCL group and over two gloo ranks
+    # on the card bitwise their twins, the train lm CLI's --mesh-data
+    phase12 = dp_phase(torch, dev, lm_data)
+    check(set(phase12) <= set(KERNELS), f"phase 12 launched {phase12}")
+    launches = {k: launches[k] + phase12.get(k, 0) for k in KERNELS}
     # sr_round_seeded has no main path (no caller in the JAX package but its
     # kernel test): its launches are its unbiasedness run's (phase 2e).
     launches["sr_round_seeded"] += wb_ops["seeded_launches"]

@@ -23,6 +23,22 @@ steps (keeping 3) and at the end; SIGTERM / SIGINT finishes the step in
 flight, saves and exits 75 so a scheduler requeues the job.  The data are
 indexed by step, so a resumed run replays exactly the batches it missed.
 
+Data parallel (``lm``, port of the reference's ``--dp-compress-bits``
+mode): ``--dp-compress-bits B`` replicates the state over ``--mesh-data N``
+ranks, each training on its slice of the global ``--batch``, and syncs the
+gradients at B bits (32: the exact fp32 mean; 2..8: SR-compressed codes;
+``repro_torch.training.data_parallel``).  N processes come from
+``python -m torch.distributed.run --standalone --nproc-per-node N -m
+repro_torch.launch.train lm ...``: each joins the group from the
+environment (NCCL on ``cuda``, one card per local rank; gloo on ``cpu``)
+and ``--mesh-data`` must equal ``WORLD_SIZE``.  ``--mesh-data 1`` without
+``torchrun`` makes a one-rank group itself.  Rank 0 logs and saves; every
+rank restores the same checkpoint (the state is replicated, so a checkpoint
+of one ``--mesh-data`` resumes at another); on SIGTERM the ranks agree on
+the step to stop at before rank 0 saves and all exit 75.  ``--mesh-model``
+other than 1 and ``--mesh-data`` > 1 without ``--dp-compress-bits`` are the
+reference's GSPMD sharding path (ROADMAP A13b), refused here.
+
 Storage tiers (``ctr``): ``--zipf`` trains on the reference's Zipf(1.1)
 skewed-traffic fixture (:data:`CTR_ZIPF_DATA`: 8 fields, 4,092 rows) in
 place of the dataset, with the config's model; ``--cache-rows`` composes a
@@ -35,11 +51,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import signal
 import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch import device as device_mod
@@ -51,7 +69,7 @@ from repro_torch.data.ctr_synth import CTRDatasetConfig, CTRSynthetic
 from repro_torch.data.lm_synth import LMTokenStream
 from repro_torch.kernels import ops
 from repro_torch.models import ctr as ctr_models
-from repro_torch.training import lm_trainer
+from repro_torch.training import data_parallel, lm_trainer
 from repro_torch.training.ctr_trainer import CTRTrainer, TrainerConfig
 
 SETUPS = {"avazu": dcn_ctr.avazu_setup, "criteo": dcn_ctr.criteo_setup}
@@ -137,26 +155,27 @@ class GracefulShutdown:
         self.requested = True
 
 
-def _resume(manager, cfg, spec, restore):
+def _resume(manager, cfg, spec, restore, say=print):
     """``restore()`` of the newest good checkpoint in ``manager``, or None
     when there is none; a method, schema, packing or config mismatch is
-    printed before the restore."""
+    reported through ``say`` before the restore."""
     latest = manager.latest_step() if manager else None
     if latest is None:
         return None
     manifest = manager.read_manifest(latest)
     for problem in check_embedding_manifest(manifest, spec):
-        print(f"[train] WARNING: {problem}")
+        say(f"[train] WARNING: {problem}")
     if manifest.get("config_hash") != config_hash(cfg):
-        print("[train] WARNING: config hash mismatch on resume")
+        say("[train] WARNING: config hash mismatch on resume")
     return restore()
 
 
-def _loop(state, steps: int, one_step, save, saved: bool):
+def _loop(state, steps: int, one_step, save, saved: bool, agree=bool, say=print):
     """Steps from ``state.step`` up to ``steps``, ``save(state, force)``
     after each (at the manager's cadence), and at the end unless that step
     is saved already -> ``(state, losses, ms per step, preempted)``.  A
-    SIGTERM / SIGINT finishes the step in flight and saves."""
+    SIGTERM / SIGINT finishes the step in flight and saves; ``agree(flag)``
+    turns this process's latched flag into the ranks' common decision."""
     losses, ms = [], []
     with GracefulShutdown() as shutdown:
         while state.step < steps:
@@ -164,11 +183,11 @@ def _loop(state, steps: int, one_step, save, saved: bool):
             losses.append(loss)
             ms.append(t)
             saved = save(state, False)
-            if shutdown.requested:
+            if agree(shutdown.requested):
                 if not saved:
                     save(state, True)
-                print(f"[train] preempted at step {state.step}; checkpointed; exiting 75 "
-                      "for requeue")
+                say(f"[train] preempted at step {state.step}; checkpointed; exiting 75 "
+                    "for requeue")
                 return state, losses, ms, True
     if not saved:
         save(state, True)
@@ -243,25 +262,107 @@ def _run_ctr(args) -> int:
     return 0
 
 
+def check_mesh(parser: argparse.ArgumentParser, args) -> None:
+    """The reference's checks of the mesh flags (``repro/launch/train.py:298``),
+    and the port's: the sharded (GSPMD) path is ROADMAP A13b, and N ranks
+    are N processes under ``torch.distributed.run``."""
+    dp_mode = args.dp_compress_bits is not None
+    if args.mesh_model != 1:
+        if dp_mode:
+            parser.error("--dp-compress-bits is pure data parallelism; use --mesh-model 1")
+        parser.error("--mesh-model > 1 is the reference's GSPMD sharding policy, not ported "
+                     "(ROADMAP A13b)")
+    if args.mesh_data < 1:
+        parser.error(f"--mesh-data must be >= 1, got {args.mesh_data}")
+    if args.mesh_data > 1 and not dp_mode:
+        parser.error("--mesh-data > 1 without --dp-compress-bits is the reference's GSPMD "
+                     "sharding policy, not ported (ROADMAP A13b); pass --dp-compress-bits 32 "
+                     "for exact data parallelism")
+    if dp_mode and args.dp_compress_bits != 32 and not 2 <= args.dp_compress_bits <= 8:
+        parser.error("--dp-compress-bits must be 32 (exact) or in [2, 8] (SR-compressed), "
+                     f"got {args.dp_compress_bits}")
+    world = os.environ.get("WORLD_SIZE")
+    if dp_mode and world is not None and int(world) != args.mesh_data:
+        parser.error(f"--mesh-data {args.mesh_data} != WORLD_SIZE {world} of torch.distributed.run")
+    if dp_mode and world is None and args.mesh_data > 1:
+        parser.error(f"--mesh-data {args.mesh_data} takes {args.mesh_data} processes: run under "
+                     f"python -m torch.distributed.run --standalone --nproc-per-node "
+                     f"{args.mesh_data}")
+    if dp_mode and args.batch % args.mesh_data:
+        parser.error(f"--batch {args.batch} is not a multiple of --mesh-data {args.mesh_data}")
+
+
+def _join_group(device: torch.device) -> torch.device:
+    """Join the data-parallel group -> this rank's device: from the
+    environment under ``torch.distributed.run`` (a CUDA rank on the card of
+    its local rank), else a one-rank group of this process; a process that
+    is in a default group already (a launcher that made it) keeps it.
+    NCCL on ``cuda``, gloo on ``cpu``."""
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    kw = {"device_id": device} if device.type == "cuda" else {}
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if dist.is_initialized():
+        return device
+    if "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, init_method="env://", **kw)
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1, **kw)
+    return device
+
+
 def _run_lm(args) -> int:
     device = device_mod.resolve(args.device)
+    if args.dp_compress_bits is None:
+        return _train_lm(args, device)
+    if args.mesh_data == 1 and args.dp_compress_bits != 32:
+        print("[train] WARNING: --dp-compress-bits < 32 with --mesh-data 1 injects "
+              "quantization noise with nothing to communicate")
+    device = _join_group(device)
+    try:
+        return _train_lm(args, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_lm(args, device: torch.device) -> int:
+    dp_mode = args.dp_compress_bits is not None
+    rank = dist.get_rank() if dp_mode else 0
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = configs.smoke_config(args.arch) if args.smoke else configs.full_config(args.arch)
     if args.embedding_method:
         cfg = dataclasses.replace(cfg, embedding_method=args.embedding_method)
-    tcfg = lm_trainer.LMTrainerConfig(lr=args.lr, use_kernels=not args.no_kernels)
+    tcfg = lm_trainer.LMTrainerConfig(lr=args.lr, use_kernels=not args.no_kernels,
+                                      dp_sync_bits=args.dp_compress_bits if dp_mode else 32)
     spec = lm_trainer.embedding_spec_of(cfg, tcfg)
     data = LMTokenStream(cfg.vocab_size, args.seq, seed=17)
     manager = _manager(args)
     ops.reset_kernel_calls()
     ops.reset_fallbacks()
     state = _resume(manager, cfg, spec,
-                    lambda: lm_trainer.restore(manager, cfg, tcfg, device=device))
+                    lambda: lm_trainer.restore(manager, cfg, tcfg, device=device), say)
     resumed = state is not None
     if resumed:
-        print(f"[train] resumed from step {state.step}")
+        say(f"[train] resumed from step {state.step}")
     else:
         state = lm_trainer.init_state(cfg, tcfg, seed=0, device=device)
-    step_fn = lm_trainer.make_train_step(cfg, tcfg)
+    agree = bool
+    wire = None
+    if dp_mode:
+        step_fn = data_parallel.make_lm_dp_step(cfg, tcfg)
+        wire = data_parallel.wire_report(data_parallel.lm_grad_shapes(cfg, tcfg, state),
+                                         tcfg.dp_sync_bits)
+        say(f"[train] dp sync_bits={tcfg.dp_sync_bits} "
+            f"wire_bytes/step={wire['wire_bytes_per_step']} "
+            f"({wire['compression_ratio']:.2f}x vs fp32)")
+
+        def agree(flag: bool) -> bool:  # the ranks stop at the same step
+            t = torch.tensor([int(flag)], device=device)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX)
+            return bool(t.item())
+    else:
+        step_fn = lm_trainer.make_train_step(cfg, tcfg)
 
     def one_step(state):
         full = torch.from_numpy(data.batch(state.step, args.batch)).to(device)
@@ -271,14 +372,16 @@ def _run_lm(args) -> int:
         loss = float(metrics["loss"])  # waits for the step
         ms = (time.perf_counter() - t0) * 1e3
         if args.log_every and state.step % args.log_every == 0:
-            print(f"[train] step {state.step} loss {loss:.4f} {ms:.0f}ms")
+            say(f"[train] step {state.step} loss {loss:.4f} {ms:.0f}ms")
         return state, loss, ms
 
     def save(state, force):
-        return bool(manager) and lm_trainer.save(manager, cfg, state, tcfg, force=force)
+        return (bool(manager) and rank == 0
+                and lm_trainer.save(manager, cfg, state, tcfg, force=force))
 
     start = state.step
-    state, losses, ms, preempted = _loop(state, args.steps, one_step, save, resumed)
+    state, losses, ms, preempted = _loop(state, args.steps, one_step, save, resumed,
+                                         agree=agree, say=say)
     if preempted:
         return 75
     method = methods.get(spec.method)
@@ -291,13 +394,15 @@ def _run_lm(args) -> int:
         "fallbacks": ops.fallbacks(), "embedding_bytes": method.memory_bytes(state.table, spec),
         "training_bytes": method.memory_bytes(state.table, spec, stored=True),
     }
+    if wire is not None:
+        report.update(mesh_data=dist.get_world_size(), **wire)
     if manager and manager.corrupt_steps:
         report["corrupt_checkpoints"] = manager.corrupt_steps
     loss_note = f", loss {losses[0]:.4f} -> {losses[-1]:.4f}" if losses else ""
-    print(f"[train] lm/{spec.method} {cfg.name} bits={spec.bits} on {device}: steps "
-          f"{start + 1}-{args.steps} of {args.batch} x {args.seq}{loss_note}, "
-          f"{report['ms_per_step']:.2f} ms/step after the first (host clock)")
-    print(json.dumps(report, sort_keys=True))
+    say(f"[train] lm/{spec.method} {cfg.name} bits={spec.bits} on {device}: steps "
+        f"{start + 1}-{args.steps} of {args.batch} x {args.seq}{loss_note}, "
+        f"{report['ms_per_step']:.2f} ms/step after the first (host clock)")
+    say(json.dumps(report, sort_keys=True))
     return 0
 
 
@@ -334,9 +439,21 @@ def main(argv=None) -> int:
                     help="the plain PyTorch versions on any device")
     lm.add_argument("--log-every", type=int, default=10)
     lm.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    lm.add_argument("--mesh-data", type=int, default=1,
+                    help="data-parallel ranks (with --dp-compress-bits; N > 1 under "
+                         "torch.distributed.run)")
+    lm.add_argument("--mesh-model", type=int, default=1,
+                    help="tensor-parallel ranks: only 1 (the sharded path is not ported)")
+    lm.add_argument("--dp-compress-bits", type=int, default=None, metavar="BITS",
+                    help="data-parallel mode: replicate the state over --mesh-data ranks and "
+                         "sync gradients at this width (32 = exact fp32 mean, 2..8 = "
+                         "SR-compressed codes); requires --mesh-model 1")
     add_ckpt_args(lm)
     args = ap.parse_args(argv)
-    return _run_lm(args) if args.scenario == "lm" else _run_ctr(args)
+    if args.scenario == "lm":
+        check_mesh(lm, args)
+        return _run_lm(args)
+    return _run_ctr(args)
 
 
 if __name__ == "__main__":

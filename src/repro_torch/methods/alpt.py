@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import alpt as alpt_core
-from repro_torch.methods.base import register
+from repro_torch.methods.base import pad_grads, register
 from repro_torch.methods.lpt import LPTMethod
 
 
@@ -53,10 +53,14 @@ class ALPTMethod(LPTMethod):
     def dense_update(self, state, opt, grads, *, spec, lr, weight_decay, noise=None,
                      delta_grad=None, batch_rows=None):
         acfg = self._acfg(spec, weight_decay)
-        upd = alpt_core.dense_weight_update(state, grads, cfg=acfg, lr=lr)
+        upd = alpt_core.dense_weight_update(state, pad_grads(grads, state), cfg=acfg, lr=lr)
         gscale = alpt_core.grad_scale_factor(acfg, batch_rows=int(batch_rows), dim=spec.d)
-        # Algorithm 1 line 4 at the caller's UPDATED dense params.
-        g_step = delta_grad(upd.w_new, state.step, gscale)
+        # Algorithm 1 line 4 at the caller's UPDATED dense params, on the
+        # live (n, d) table; a padded table's Delta gradient is zero-padded
+        # back (its scratch rows are untouched).
+        g_step = delta_grad(upd.w_new[: spec.n, : spec.d], state.step[: spec.n], gscale)
+        if g_step.shape != state.step.shape:
+            g_step = torch.nn.functional.pad(g_step, (0, state.step.shape[0] - g_step.shape[0]))
         new_state = alpt_core.dense_finish(state, upd, g_step, cfg=acfg, noise=noise)
         aux = {"step_grad_norm": torch.linalg.vector_norm(g_step),
                "mean_step": torch.mean(new_state.step)}

@@ -25,6 +25,7 @@ from repro_torch.core import lpt as lpt_core
 from repro_torch.core import quant
 from repro_torch.core.alpt import ALPTConfig
 from repro_torch.core.pruning import PruneConfig
+from repro_torch.kernels import ref
 from repro_torch.optim import adam_update, tree_leaves, tree_like
 from repro_torch.serving import table as serving_tbl
 from repro_torch.storage.base import CacheSlot
@@ -36,6 +37,17 @@ TILE = 8
 
 def _round_up(x: int, mult: int) -> int:
     return -(-x // mult) * mult
+
+
+def pad_grads(grads: torch.Tensor, table) -> torch.Tensor:
+    """A dense gradient zero-padded to ``table``'s allocated [rows, width]
+    (a ``pad_to_tiles`` table's scratch rows and columns are never looked
+    up, so their gradient is exactly zero)."""
+    n_alloc, d_alloc = table.codes.shape
+    n, d = grads.shape
+    if (n, d) == (n_alloc, d_alloc):
+        return grads
+    return torch.nn.functional.pad(grads, (0, d_alloc - d, 0, n_alloc - n))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,8 +164,14 @@ class EmbeddingMethod(abc.ABC):
     # ---------------------------------------------------- dense formulation
 
     def dense_params(self, state: Any, spec: EmbeddingSpec) -> torch.Tensor:
-        """The tensor the dense (LM) backward differentiates w.r.t."""
+        """The tensor the dense (LM, data-parallel) backward differentiates w.r.t."""
         return self.trainable_params(state, spec)
+
+    def dense_lookup(self, state: Any, params: Any, ids: torch.Tensor,
+                     spec: EmbeddingSpec) -> torch.Tensor:
+        """Rows for ``ids``, differentiable in ``params`` (laid out as
+        :meth:`dense_params`)."""
+        return self.lookup(self.with_params(state, params, spec), ids, spec)
 
     def dense_table_from(self, state: Any, params: Any, spec: EmbeddingSpec) -> torch.Tensor:
         """Full [n, d] float table, differentiable in ``params``."""
@@ -257,6 +275,19 @@ class IntegerTableMethod(EmbeddingMethod):
     def dense_params(self, state, spec):
         return self.dense_table(state, spec)
 
+    def dense_lookup(self, state, params, ids, spec):
+        """Rows for ``ids``, differentiable in the dense [n, d] ``params``.
+
+        The forward reads the codes through :meth:`lookup` (with kernels on,
+        ``dequant_gather`` at one byte a code in place of the fp32 table),
+        bitwise ``params[ids]`` since ``params`` is the de-quantized table;
+        the backward is the exact transpose of the take, the occurrence-order
+        ``segment_sum`` into zeros of ``params``' shape (the reference's
+        custom VJP, ``repro/methods/base.py:354``).  ``index_add_`` on the
+        card would add in no fixed order.
+        """
+        return _DenseLookup.apply(params, self, state, ids, spec)
+
     def dense_table_from(self, state, params, spec):
         return params
 
@@ -307,6 +338,26 @@ class IntegerTableMethod(EmbeddingMethod):
             codes=state.codes, step=state.step, n=spec.n, d=spec.d,
             use_kernels=spec.use_kernels,
         )
+
+
+class _DenseLookup(torch.autograd.Function):
+    """``method.lookup(state, ids)`` as a function of the dense table
+    ``params`` (it equals ``params[ids]``); backward: ``segment_sum``."""
+
+    @staticmethod
+    def forward(ctx, params, method, state, ids, spec):
+        ctx.save_for_backward(ids)
+        ctx.n = params.shape[0]
+        if not spec.use_kernels:
+            return params[ids.to(torch.int64)]
+        return method.lookup(state, ids, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1).to(torch.int64)
+        g_table = ref.segment_sum(g.reshape(flat.numel(), -1), flat, ctx.n)
+        return g_table, None, None, None, None
 
 
 _REGISTRY: dict[str, EmbeddingMethod] = {}

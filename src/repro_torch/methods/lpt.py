@@ -9,7 +9,7 @@ hands codes + Delta to the serving Engine as they are.
 from __future__ import annotations
 
 from repro_torch.core import lpt as lpt_core
-from repro_torch.methods.base import IntegerTableMethod, register
+from repro_torch.methods.base import IntegerTableMethod, pad_grads, register
 
 
 @register("lpt")
@@ -41,12 +41,12 @@ class LPTMethod(IntegerTableMethod):
         )
 
     def dense_table(self, state, spec):
-        return lpt_core.dense_table(state)
+        return lpt_core.dense_table(state)[: spec.n, : spec.d]
 
     def dense_update(self, state, opt, grads, *, spec, lr, weight_decay, noise=None,
                      delta_grad=None, batch_rows=None):
         new_state = lpt_core.dense_apply(
-            state, grads, lr=lr, bits=spec.bits,
+            state, pad_grads(grads, state), lr=lr, bits=spec.bits,
             rounding=spec.alpt.rounding, noise=noise, optimizer=spec.row_optimizer,
             weight_decay=weight_decay, use_kernels=spec.use_kernels,
         )

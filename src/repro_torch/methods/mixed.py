@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.core import lpt as lpt_core
 from repro_torch.core import quant
-from repro_torch.methods.base import TILE, IntegerTableMethod, _round_up, register
+from repro_torch.methods.base import TILE, IntegerTableMethod, _round_up, pad_grads, register
 from repro_torch.serving import table as serving_tbl
 from repro_torch.storage.base import CacheSlot
 
@@ -195,11 +195,8 @@ class MixedMethod(IntegerTableMethod):
             # Re-lay the global [n, d] gradient in this group's row order.
             gg = torch.cat([grads[plan.field_offsets[f]: plan.field_offsets[f] + cards[f]]
                             for f in plan.group_fields[g]], 0)
-            n_alloc, d_alloc = sub.codes.shape
-            gg = torch.nn.functional.pad(gg, (0, d_alloc - gg.shape[1], 0,
-                                              n_alloc - gg.shape[0]))
             subs.append(lpt_core.dense_apply(
-                sub, gg, lr=lr, bits=plan.group_bits[g], rounding=spec.alpt.rounding,
+                sub, pad_grads(gg, sub), lr=lr, bits=plan.group_bits[g], rounding=spec.alpt.rounding,
                 noise=None if noise is None else noise[g], optimizer=spec.row_optimizer,
                 weight_decay=weight_decay, use_kernels=spec.use_kernels))
         return MixedTable(subs=tuple(subs)), None, {}

@@ -28,7 +28,7 @@ from repro_torch.core import hashing
 from repro_torch.core import lpt as lpt_core
 from repro_torch.core import quant
 from repro_torch.kernels import ops
-from repro_torch.methods.base import TILE, IntegerTableMethod, _round_up, register
+from repro_torch.methods.base import TILE, IntegerTableMethod, _round_up, pad_grads, register
 from repro_torch.serving import table as serving_tbl
 from repro_torch.storage.base import CacheSlot
 
@@ -162,11 +162,7 @@ class QRLPTMethod(IntegerTableMethod):
         rem, quo = self._factors(state, rid, qid, spec)
         g_rem = lpt_core.segment_sum(grads * quo, rid.to(torch.int64), state.remainder.n_rows)
         g_quo = lpt_core.segment_sum(grads * rem, qid.to(torch.int64), state.quotient.n_rows)
-        d_pad = state.remainder.dim - spec.d
-        if d_pad:
-            g_rem = torch.nn.functional.pad(g_rem, (0, d_pad))
-            g_quo = torch.nn.functional.pad(g_quo, (0, d_pad))
-        return g_rem, g_quo
+        return pad_grads(g_rem, state.remainder), pad_grads(g_quo, state.quotient)
 
     def dense_noise(self, generator, state, spec):
         return [quant.sr_noise(generator, tuple(t.codes.shape))

@@ -26,8 +26,14 @@ take the routed kernels, and after each step the policy observes the
 batch's ids (``write=True``: the step wrote cached rows to the hot tier
 only) and applies its moves.  Cache-on is bitwise cache-off:
 :meth:`CTRTrainer.export_state` folds the dirty rows back, and checkpoints
-hold that state.  The non-finite guard and the data-parallel hooks are not
-ported yet.
+hold that state.
+
+The data-parallel hooks (:meth:`CTRTrainer.build_grad_fn`,
+:meth:`~CTRTrainer.build_apply_fn`, :meth:`~CTRTrainer.build_delta_grad_fn`)
+split the step at the gradient sync on the method's *dense* formulation,
+the [n, d] table's gradient every rank shares
+(:mod:`repro_torch.training.data_parallel`); ``TrainerConfig.dp_sync_bits``
+is its sync width.  The non-finite guard is not ported yet.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch import methods, metrics
 from repro_torch.checkpoint import manager as ckpt
+from repro_torch.core import alpt as alpt_core
 from repro_torch.core import quant
 from repro_torch.methods import layout
 from repro_torch.models import ctr as ctr_models
@@ -61,6 +68,9 @@ class TrainerConfig:
     # > 0: a device hot-row cache of this many rows over every cacheable
     # sub-table of the table (capped at its rows); integer tables only.
     cache_rows: int = 0
+    # Gradient-sync width of data-parallel training
+    # (repro_torch.training.data_parallel): 32 = exact fp32, 2..8 = SR codes.
+    dp_sync_bits: int = 32
 
     @property
     def model_cfg(self):
@@ -338,6 +348,95 @@ class CTRTrainer:
         new_state = state._replace(emb_state=emb_state, step=state.step + 1,
                                    dense_opt=dense_opt, emb_opt=emb_opt)
         return new_state, {"loss": loss.detach(), "lr": lr}
+
+    # ------------------------------------------- grad/apply split (DP hooks)
+    #
+    # The fused step above is the single-device path (sparse row steps for
+    # integer tables).  Data parallelism syncs the gradients *between*
+    # backward and update, so the same math is also a (grad_fn, apply_fn)
+    # pair on the method's dense formulation (``dense_params`` /
+    # ``dense_lookup`` / ``dense_update``): the shape that is the same on
+    # every rank.  Dropout masks and SR draws are operands, as in
+    # :meth:`train_step`.
+
+    def build_grad_fn(self):
+        """Backward of one (micro)batch: ``grad_fn(state, ids, labels, masks)
+        -> (loss, (g_emb, g_dense))``.  ``g_emb`` is laid out as the method's
+        ``dense_params`` (the trainable leaves of a float-leaf method, the
+        live [n, d] de-quantized table of an integer one), ``g_dense`` a list
+        in ``state.dense.parameters()`` order; ``masks`` are the dropout
+        keep-masks (``models.ctr.dropout_masks``) or None."""
+        spec, method = self.spec, self.method
+
+        def grad_fn(state: TrainState, ids, labels, masks=None):
+            dense = method.dense_params(state.emb_state, spec)
+            emb = [t.detach().requires_grad_(True) for t in tree_leaves(dense)]
+            dense_params = list(state.dense.parameters())
+            with torch.enable_grad():
+                rows = method.dense_lookup(state.emb_state, tree_like(dense, emb), ids, spec)
+                loss = ctr_models.bce_loss(
+                    ctr_models.logits_from_rows(state.dense, rows, masks), labels)
+                grads = torch.autograd.grad(loss, [*emb, *dense_params])
+            g_emb = tree_like(dense, list(grads[: len(emb)]))
+            return loss.detach(), (g_emb, list(grads[len(emb):]))
+
+        return grad_fn
+
+    def build_apply_fn(self):
+        """The update after the sync: ``apply_fn(state, loss, grads, *, lr,
+        noise=None, delta_grad=None, batch_rows=None) -> (state, metrics)``.
+
+        Adam over the dense params (in place), then the method's
+        ``dense_update`` of the table.  ``noise`` is the table's SR draw
+        (``method.dense_noise``); ``delta_grad(w_new, step_vec, dense,
+        gscale) -> g_step`` supplies the (synced) ALPT Delta gradient at the
+        *updated* backbone ``dense``; ``batch_rows`` is the paper's b, the
+        GLOBAL batch's table lookups, so the Delta gradient's scale does not
+        change with the number of ranks."""
+        spec, method = self.spec, self.method
+        wd = self.cfg.emb_weight_decay
+
+        def apply_fn(state: TrainState, loss, grads, *, lr, noise=None, delta_grad=None,
+                     batch_rows=None):
+            g_emb, g_dense = grads
+            dense_params = list(state.dense.parameters())
+            new_dense, dense_opt = adam_update(g_dense, state.dense_opt, dense_params, lr,
+                                               use_kernel=spec.use_kernels)
+            with torch.no_grad():
+                for p, new in zip(dense_params, new_dense):
+                    p.copy_(new)
+            wrapped = None
+            if delta_grad is not None:
+                def wrapped(w_new, step_vec, gscale):  # line 4 at the UPDATED params
+                    return delta_grad(w_new, step_vec, state.dense, gscale)
+
+            emb_state, emb_opt, aux = method.dense_update(
+                state.emb_state, state.emb_opt, g_emb, spec=spec, lr=lr, weight_decay=wd,
+                noise=noise, delta_grad=wrapped, batch_rows=batch_rows)
+            new_state = state._replace(emb_state=emb_state, step=state.step + 1,
+                                       dense_opt=dense_opt, emb_opt=emb_opt)
+            return new_state, {"loss": loss, "lr": lr, **aux}
+
+        return apply_fn
+
+    def build_delta_grad_fn(self):
+        """ALPT's Delta gradient of one (micro)batch on the dense formulation:
+        ``delta_fn(w_new, step_vec, dense, ids, labels, masks, gscale) ->
+        g_step``; the rows are taken from the fake-quantized table with the
+        occurrence-order transpose (``core.alpt.take_rows``)."""
+        spec, method = self.spec, self.method
+        wd = self.cfg.emb_weight_decay
+
+        def delta_fn(w_new, step_vec, dense, ids, labels, masks, gscale):
+            def loss_fn_q(table_q):
+                rows = alpt_core.take_rows(table_q, ids.reshape(-1)).reshape(*ids.shape, -1)
+                return ctr_models.bce_loss(ctr_models.logits_from_rows(dense, rows, masks),
+                                           labels)
+
+            return method.dense_delta_grad(w_new, step_vec, loss_fn_q, spec=spec,
+                                           weight_decay=wd, gscale=gscale)
+
+        return delta_fn
 
     def wrap_host_refresh(self, step_fn):
         """Host-side periodic refresh around a step function (prune's

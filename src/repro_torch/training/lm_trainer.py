@@ -18,8 +18,10 @@ The embedding method comes from ``repro_torch.methods``
 The SR noise of a step is drawn from the state's ``torch.Generator`` on its
 device; :func:`make_train_step`'s ``noise`` operand lets a parity test pass
 the reference's draw instead (``quant.sr_noise(kn, (n, d))`` for LPT,
-``sr_noise(fold_in(kn, 1), (n, d))`` for ALPT).  The reference's guard,
-prune refresh, compressed data-parallel sync, ``alpt_every`` and
+``sr_noise(fold_in(kn, 1), (n, d))`` for ALPT).  :func:`make_train_step`'s
+``grad_sync`` / ``step_grad_sync`` / ``dp_size`` are the data-parallel hooks
+(:mod:`repro_torch.training.data_parallel` fills them; ``dp_sync_bits`` is
+the sync width).  The reference's guard, prune refresh, ``alpt_every`` and
 ``pad_to_tiles`` are not ported: their settings come with the slices whose
 code reads them.  :func:`save` / :func:`restore` checkpoint a state
 (``repro_torch.checkpoint``).
@@ -59,6 +61,9 @@ class LMTrainerConfig:
     grad_clip: float = 1.0
     row_optimizer: str = "adam"
     alpt_step_lr: float = 2e-5
+    # Gradient-sync width of data-parallel training
+    # (repro_torch.training.data_parallel): 32 = exact fp32, 2..8 = SR codes.
+    dp_sync_bits: int = 32
     # Route the integer table's write-back and the dense Adam through the
     # CUDA kernels; False asks for the plain versions on any device.
     use_kernels: bool = True
@@ -293,20 +298,33 @@ def make_lr_fn(tcfg: LMTrainerConfig):
     return lr_at
 
 
-def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
+def check_trainable(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig) -> None:
+    """Raise for a model or method the LM trainer cannot train yet."""
+    tfm.check_supported(cfg)
+    method = cfg.embedding_method
+    if methods.get(method).has_host_refresh:
+        raise ValueError(f"embedding method {method!r} needs the LM trainer's host "
+                         "refresh (wrap_host_refresh), which is not ported yet")
+
+
+def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, grad_sync=None,
+                    step_grad_sync=None, dp_size: int = 1):
     """``train_step(state, batch, noise=None) -> (state, metrics)``.
 
     ``batch`` holds int32 ``tokens`` and ``labels`` [B, T] on the state's
     device.  ``noise`` f32 [n, d] (the table's allocated shape; a composed
     table's, one per sub-table) is the SR draw of the write-back; by default
     it comes from ``state.generator`` (``method.dense_noise``).
+
+    ``grad_sync(grads, step) -> grads`` and ``step_grad_sync(g_step, step)
+    -> g_step`` are the data-parallel all-reduces (identity when None),
+    applied between backward and update and to ALPT's Delta gradient.
+    ``dp_size`` is the number of ranks, so that the paper's b (the Delta
+    gradient's scale) counts the GLOBAL batch's token lookups.
     """
-    tfm.check_supported(cfg)
+    check_trainable(cfg, tcfg)
     spec = embedding_spec_of(cfg, tcfg)
     method = methods.get(spec.method)
-    if method.has_host_refresh:
-        raise ValueError(f"embedding method {spec.method!r} needs the LM trainer's host "
-                         "refresh (wrap_host_refresh), which is not ported yet")
     lr_at = make_lr_fn(tcfg)
     grad_fn = make_grad_fn(cfg, tcfg)
     apply_fn = make_apply_fn(cfg, tcfg)
@@ -316,13 +334,19 @@ def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
         if noise is None:
             noise = method.dense_noise(state.generator, state.table, spec)
         loss_aux, grads = grad_fn(state, batch)
+        if grad_sync is not None:
+            grads = grad_sync(grads, state.step)
         delta_grad = None
         if delta_fn is not None:
             def delta_grad(w_new, step_vec, new_params, gscale):
-                return delta_fn(w_new, step_vec, new_params, batch, gscale)
+                g_step = delta_fn(w_new, step_vec, new_params, batch, gscale)
+                if step_grad_sync is not None:
+                    g_step = step_grad_sync(g_step, state.step)
+                return g_step
 
         return apply_fn(state, loss_aux, grads, lr=lr_at(state.step), noise=noise,
-                        delta_grad=delta_grad, batch_rows=int(batch["labels"].numel()))
+                        delta_grad=delta_grad,
+                        batch_rows=int(batch["labels"].numel()) * dp_size)
 
     return train_step
 

@@ -1097,3 +1097,116 @@ def test_cache_on_training_and_serving_equal_cache_off_on_the_card(cuda, method,
         launched = engine.metrics().kernel_launches
         assert all(k.endswith("_routed") for k in launched) == bool(kw), launched
     assert all(s == scores[0] for s in scores[1:])
+
+
+# ------------------------------------------------------------ data parallel
+
+
+@pytest.mark.parametrize("bits", [8, 4, 3, 2])
+@pytest.mark.parametrize("shape", [(4096, 16), (33,), ()])
+def test_compressed_sync_twins_kernel_vs_plain_on_the_card(cuda, shape, bits):
+    """Every rank's codes through sr_round (the scalar step expanded to the
+    leaf's rows), bitwise the plain quantizer, at a table, a bias and a
+    scalar leaf."""
+    from repro_torch.dist import collectives
+
+    g = _gen(bits + len(shape), cuda)
+    stack = torch.randn((3, *shape), generator=g, device=cuda) * 0.01
+    noise = [quant.sr_noise(g, shape) for _ in range(3)]
+    ops.reset_kernel_calls()
+    got = collectives.compressed_pmean_stacked(stack, noise, bits, use_kernels=True)
+    torch.cuda.synchronize()
+    assert ops.kernel_calls() == {"sr_round": 3}
+    assert torch.equal(got, collectives.compressed_pmean_stacked(stack, noise, bits))
+    assert torch.equal(collectives.exact_pmean_stacked(stack),
+                       collectives.exact_pmean_stacked(stack.cpu()).to(cuda))
+
+
+@pytest.mark.parametrize("method,sync", [
+    ("alpt", 8), ("alpt", 32), ("alpt", 2), ("lpt", 4), ("qr_alpt", 8), ("qr_lpt", 8),
+    ("mixed", 8), ("fp", 8), ("lsq", 4), ("pact", 8), ("hash", 8), ("prune", 8)])
+def test_dp_microbatched_ctr_step_kernels_vs_plain(cuda, method, sync):
+    """The twin (2 shards, 2 steps, dropout 0.2) kernels on and off from one
+    seed: losses and every leaf bitwise; every sync leaf through sr_round,
+    the dense lookups through the gathers, nothing falling back."""
+    from repro_torch.training import ctr_trainer
+    from repro_torch.training import data_parallel as dpm
+
+    synth, cfg = _small_ctr(method, dropout=0.2)
+    runs = []
+    for use_kernels in (True, False):
+        c = dataclasses.replace(cfg, spec=dataclasses.replace(cfg.spec, use_kernels=use_kernels))
+        trainer = CTRTrainer(c, device=cuda)
+        step = dpm.make_ctr_microbatch_step(trainer, 2, dpm.DPConfig(sync_bits=sync,
+                                                                      use_kernels=use_kernels))
+        ops.reset_kernel_calls()
+        ops.reset_fallbacks()
+        state = trainer.init_state()
+        losses = []
+        for i in range(2):
+            state, m = step(state, *synth.batch("train", i, 128))
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        assert ops.fallbacks() == []
+        runs.append((ctr_trainer.checkpoint_tree(c, state), losses, ops.kernel_calls(),
+                     len(dpm.ctr_grad_shapes(trainer, state))))
+    (a, la, launched, leaves), (b, lb, plain, _) = runs
+    assert la == lb and all(np.isfinite(la)) and plain == {}
+    from repro_torch.checkpoint import manager as ckpt
+
+    for (pa, x), (pb, y) in zip(ckpt.flatten(a), ckpt.flatten(b), strict=True):
+        assert pa == pb and torch.equal(torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu()), pa
+    m = cfg.spec
+    sync_sr = 2 * leaves * 2 * (sync < 32)
+    learned = {"alpt": 1, "qr_alpt": 2}.get(method, 0)  # Delta leaves
+    delta_sr = 2 * learned * 2 * (sync < 32) + 2 * learned  # synced, then line 5
+    init_sr = {"alpt": 1, "lpt": 1, "qr_alpt": 2, "qr_lpt": 2, "mixed": 3}.get(method, 0)
+    assert launched.get("sr_round", 0) == init_sr + sync_sr + delta_sr, launched
+    if m.is_integer_table:
+        assert launched.get("dequant_gather", 0) + launched.get("dequant_gather_packed", 0) >= 4
+
+
+def test_dp_steps_through_a_one_rank_nccl_group_equal_their_twins(cuda):
+    """``make_ctr_dp_step`` and ``make_lm_dp_step`` over a one-rank NCCL group
+    bitwise their ``n_shards = 1`` twins (3 steps, sync 8)."""
+    import torch.distributed as dist
+
+    from repro_torch.training import ctr_trainer
+    from repro_torch.training import data_parallel as dpm
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        synth, cfg = _small_ctr("alpt")
+        trainer = CTRTrainer(dataclasses.replace(cfg, dp_sync_bits=8), device=cuda)
+        trees = []
+        for step in (dpm.make_ctr_dp_step(trainer), dpm.make_ctr_microbatch_step(trainer, 1)):
+            state, losses = trainer.init_state(), []
+            for i in range(3):
+                state, m = step(state, *synth.batch("train", i, 128))
+                losses.append(float(m["loss"]))
+            trees.append((ctr_trainer.checkpoint_tree(trainer.cfg, state), losses))
+        from repro_torch.checkpoint import manager as ckpt
+
+        (a, la), (b, lb) = trees
+        assert la == lb
+        for (_, x), (_, y) in zip(ckpt.flatten(a), ckpt.flatten(b), strict=True):
+            assert torch.equal(torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu())
+        lm_cfg = dataclasses.replace(configs.smoke_config("smollm-135m"), embedding_method="alpt")
+        tcfg = lm_trainer.LMTrainerConfig(dp_sync_bits=8)
+        out = []
+        for step in (dpm.make_lm_dp_step(lm_cfg, tcfg), dpm.make_lm_microbatch_step(lm_cfg,
+                                                                                      tcfg, 1)):
+            state, losses = lm_trainer.init_state(lm_cfg, tcfg, device=cuda), []
+            for i in range(3):
+                full = torch.from_numpy(LMTokenStream(lm_cfg.vocab_size, 33, seed=17).batch(
+                    i, 4)).to(cuda)
+                state, m = step(state, {"tokens": full[:, :-1], "labels": full[:, 1:]})
+                losses.append(float(m["loss"]))
+            out.append((losses, [t.clone() for t in tree_leaves(state.params)],
+                        state.table.codes.data.clone(), state.table.step.clone()))
+        (la, pa, ca, sa), (lb, pb, cb, sb) = out
+        assert la == lb and torch.equal(ca, cb) and torch.equal(sa, sb)
+        assert all(torch.equal(x, y) for x, y in zip(pa, pb, strict=True))
+    finally:
+        dist.destroy_process_group()

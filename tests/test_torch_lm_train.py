@@ -251,13 +251,14 @@ def test_lm_state_round_trips_through_numpy():
 
 
 def test_trainer_refuses_what_later_slices_bring():
-    """The reference's guard, DP sync, alpt_every and pad_to_tiles settings
-    are not fields of the port's config; a prune table and an unported
-    architecture are refused by name."""
-    for field, value in (("guard", True), ("dp_sync_bits", 8), ("alpt_every", 2),
-                         ("pad_to_tiles", True)):
+    """The reference's guard, alpt_every and pad_to_tiles settings are not
+    fields of the port's config (its DP sync width is, since data
+    parallelism is ported); a prune table and an unported architecture are
+    refused by name."""
+    for field, value in (("guard", True), ("alpt_every", 2), ("pad_to_tiles", True)):
         with pytest.raises(TypeError, match=field):
             lm_trainer.LMTrainerConfig(**{field: value})
+    assert lm_trainer.LMTrainerConfig(dp_sync_bits=8).dp_sync_bits == 8
     cfg = configs.smoke_config("smollm-135m")
     with pytest.raises(ValueError, match="prune"):
         lm_trainer.make_train_step(dataclasses.replace(cfg, embedding_method="prune"),
