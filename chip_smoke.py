@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port of CTR serving and training (every embedding
 method, DCN and DeepFM), of int8-resident LM serving, of LPT/ALPT LM
 training, of checkpoints (resume, serving from a checkpoint), of the
-storage tiers (hot-row cache, host-memory cold tier) and of data-parallel
-training (exact and SR-compressed gradient sync) on one NVIDIA GPU.
+storage tiers (hot-row cache, host-memory cold tier), of data-parallel
+training (exact and SR-compressed gradient sync) and of the SSM and MoE LM
+families (mamba2-370m, deepseek-moe-16b) on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -88,7 +89,7 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      same Philox words) for 3 seeds, repeatable, within one lattice step, and
      unbiased over 64 seeds at 1,000 sampled elements;
   8. train SmolLM-135M at full width and depth (random weights from a seed,
-     LMTokenStream batches of 4 x 1,024 tokens) for 20 steps each: ALPT at 8
+     LMTokenStream batches of 4 x 1,024 tokens) for 10 steps each: ALPT at 8
      bits (Delta's second forward/backward, write-back through sr_round), LPT
      at 8 bits (lpt_fused_update) and LPT at 4 bits packed
      (lpt_fused_update_packed): one write-back and one adam_update launch per
@@ -168,6 +169,23 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      --dp-compress-bits 8 --steps 3 --ckpt-every 1 as a subprocess (its
      wire-bytes line), then its step 3 removed and the command again:
      resumed from step 2, step 3's loss bitwise the first run's;
+  13. the SSM and MoE LM families at full width (families_only runs the
+     phase without the rest, with its timings): 13a. mamba2-370m (48 mamba
+     layers, d = 1,024, tied vocabulary of 50,280) served at 8 and 4 bits
+     packed (16 requests, prompts of 64/100/128 tokens and one of 256, 32
+     new tokens each, slot batch 8: token rows through dequant_gather, the
+     tied head through dequant_matmul), launches exactly one gather and one
+     head per prefill and decode step; the plain path (use_kernel=False)
+     teacher-forced on the engine's tokens within the LM tolerance; then
+     trained ALPT-8 and LPT-4 packed, 5 steps of 4 x 1,024 tokens each, the
+     first 3 replayed kernels off from the same seed with equal checksums of
+     every tensor of the state and equal losses, losses and gradient norms
+     finite; 13b. deepseek-moe-16b at full width with 2 of its 28 layers (16
+     MHA heads at D = 128, 64 routed experts top-6 and 2 shared, untied
+     vocabulary of 102,400) served at 8 bits the same way (prefill attention
+     through flash_attention_fwd, once per attention layer and request) and
+     trained ALPT-8 for 3 steps, replayed likewise, its aux loss printed;
+     each run's launches and peak memory printed;
   5. time each kernel at the slices' shapes (median of per-launch CUDA-event
      times after warm-up, device work only) beside its bound, its plain
      version's time and the library's one call where there is one, and the
@@ -185,7 +203,10 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      sparse_row_update.cu, the segment sum they replace and the host time
      of lpt.sparse_apply), the runs form at phase 9's two long-run waves
      beside its bound, and the training attention's forward + backward
-     (plain PyTorch, no bound row).
+     (plain PyTorch, no bound row); the head at mamba2-370m's table (N =
+     50,280, K = 1,024) and flash at deepseek-moe-16b's prefill (16/16
+     heads, D = 128, causal, T = 64, 100, 128 and 256), each beside its
+     bound, its plain version and the library's call (time_families).
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  Without a GPU, or outside a checkout, it
 exits with code 2 and prints no result.
@@ -312,9 +333,10 @@ FLASH_CASES = [(1, 157, 157, 9, 3, 64, True, None), (2, 96, 96, 4, 2, 80, True, 
 # exp and sums in another order, online rescaling.
 FLASH_ATOL = 1e-4
 # LM training (phase 8): SmolLM-135M, batches of 4 x 1,024 tokens (the CE in
-# two chunks of 512), 20 steps per run, the first 3 replayed kernels-off.
+# two chunks of 512), 10 steps per run (cut from 20 to make room for phase
+# 13), the first 3 replayed kernels-off.
 LM_TRAIN_RUNS = (("alpt", 8), ("lpt", 8), ("lpt", 4))
-LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_REPLAY = 20, 4, 1024, 3
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_REPLAY = 10, 4, 1024, 3
 # The table's training tensors: codes (1 B per code at 8 bits, 288 B per
 # packed 4-bit row) + fp32 Delta + the row-Adam mu and nu (fp32 [V, d] each).
 EXPECTED_LM_TRAIN_BYTES = {8: 255_000_576, 4: 240_844_800}
@@ -924,6 +946,56 @@ def lm_engine_class():
     return RecordingEngine
 
 
+def teacher_forced(torch, engine, params, plain, cfg, prompts, done: dict, max_new: int,
+                   max_len: int, label: str) -> str:
+    """The plain path (``plain``, the engine's table with its kernels off,
+    and ``use_kernel=False``) fed the engine's tokens: each prompt prefilled
+    alone at its exact length and spliced into its own slot of one cache,
+    then ``max_new - 1`` decode steps over all the requests at once.  Each
+    step's logits within LM_LOGIT_ATOL of those the engine chose from, and
+    the plain pick the engine's wherever its top-2 margin exceeds ten times
+    that; returns the summary for the log."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.lm import splice
+
+    dev = params["final_norm"].device
+    n = len(prompts)
+    worst, agree, held = 0.0, 0, 0
+    with torch.inference_mode():
+        cache = tfm.init_cache(cfg, n, max_len, device=dev)
+        firsts = []
+        for r, prompt in enumerate(prompts):
+            logits, one = tfm.prefill(params, plain, torch.from_numpy(prompt).to(dev)[None], cfg,
+                                      max_len, use_kernel=False)
+            splice(cache, one, r)
+            firsts.append(logits[0])
+            del one
+        ref_rows = torch.stack(firsts)
+        start = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+        for i in range(max_new):
+            if i:
+                toks = torch.tensor([done[r][i - 1] for r in range(n)], dtype=torch.int32,
+                                    device=dev)
+                ref_rows, cache = tfm.decode_step(params, plain, toks, cache, start + i - 1, cfg,
+                                                  use_kernel=False)
+            got = torch.stack([engine.logits[r][i] for r in range(n)])
+            e = float((ref_rows - got).abs().max())
+            worst = max(worst, e)
+            check(e <= LM_LOGIT_ATOL, f"{label}: step {i}: kernel logits differ from the plain "
+                                      f"path by {e}")
+            picks = torch.tensor([done[r][i] for r in range(n)], device=dev)
+            same = ref_rows.argmax(-1) == picks
+            top2 = torch.topk(ref_rows, 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 10 * LM_LOGIT_ATOL
+            check(bool(same[clear].all()), f"{label}: step {i}: the plain path picks another "
+                                           "token at a clear margin")
+            agree += int(same.sum())
+            held += int(clear.sum())
+    return (f"within {worst:.3g} of the kernel logits (tolerance {LM_LOGIT_ATOL}); greedy tokens "
+            f"agree at {agree}/{n * max_new} steps, {held} of them held at a top-2 margin > "
+            f"{10 * LM_LOGIT_ATOL}")
+
+
 def lm_serve(torch, np, dev, bits: int) -> dict:
     """Phase 7: LM serving at full width (the main path), then its checks."""
     from repro_torch import configs
@@ -983,35 +1055,9 @@ def lm_serve(torch, np, dev, bits: int) -> dict:
 
     # The plain path, teacher-forced on the engine's tokens.
     plain = dataclasses.replace(engine.table, use_kernels=False)
-    worst, agree, held, total = 0.0, 0, 0, 0
-    with torch.inference_mode():
-        for rid, prompt in enumerate(prompts):
-            tokens = done[rid]
-            p = torch.from_numpy(prompt).to(dev)
-            logits, cache = tfm.prefill(state.params, plain, p[None], cfg, LM_MAX_LEN,
-                                        use_kernel=False)
-            for i, tok in enumerate(tokens):
-                if i:
-                    logits, cache = tfm.decode_step(
-                        state.params, plain, torch.tensor([tokens[i - 1]], device=dev), cache,
-                        len(prompt) + i - 1, cfg, use_kernel=False)
-                ref_row, got_row = logits[0], engine.logits[rid][i]
-                e = float((ref_row - got_row).abs().max())
-                worst = max(worst, e)
-                check(e <= LM_LOGIT_ATOL, f"lm bits={bits}: request {rid} step {i}: kernel "
-                                          f"logits differ from the plain path by {e}")
-                top2 = torch.topk(ref_row, 2).values
-                total += 1
-                agree += int(int(torch.argmax(ref_row)) == tok)
-                if float(top2[0] - top2[1]) > 10 * LM_LOGIT_ATOL:
-                    held += 1
-                    check(int(torch.argmax(ref_row)) == tok,
-                          f"lm bits={bits}: request {rid} step {i}: the plain path picks "
-                          f"another token at margin {float(top2[0] - top2[1])}")
-    log(f"[lm] bits={bits}: teacher-forced plain path (use_kernel=False) within "
-        f"{worst:.3g} of the kernel logits (tolerance {LM_LOGIT_ATOL}); greedy tokens agree at "
-        f"{agree}/{total} steps, {held} of them held at a top-2 margin > "
-        f"{10 * LM_LOGIT_ATOL}")
+    summary = teacher_forced(torch, engine, state.params, plain, cfg, prompts, done,
+                             LM_MAX_NEW, LM_MAX_LEN, f"lm bits={bits}")
+    log(f"[lm] bits={bits}: teacher-forced plain path (use_kernel=False) {summary}")
 
     # Peak memory over one decode step: the head never builds the fp32 table.
     def decode_peak(table, use_kernel):
@@ -1868,19 +1914,21 @@ def row_only(baseline: str | None = None) -> int:
     return 0
 
 
-def time_flash(torch, flush) -> tuple[tuple, list[str]]:
-    """flash_attention_fwd at SmolLM's prefill (B = 1, 9/3 heads, D = 64,
-    causal) at every prompt length of the LM slice and at T = 2048, each
-    beside its bound, its plain version and SDPA's one call.  Returns the
-    kernels-line row (the longest prompt) and the ``[time]`` lines."""
+def time_flash(torch, flush, heads=(9, 3, 64), lengths=(*LM_PROMPTS, 2048)
+               ) -> tuple[tuple, list[str]]:
+    """flash_attention_fwd at a causal prefill (B = 1; by default SmolLM's
+    9/3 heads at D = 64 at every prompt length of the LM slice and at T =
+    2048), each beside its bound, its plain version and SDPA's one call.
+    Returns the kernels-line row (the longest prompt of phase 7, when timed)
+    and the ``[time]`` lines."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
 
     g = torch.Generator(device="cuda").manual_seed(6)
     row, notes = None, []
-    h, kh, d = 9, 3, 64
-    for t in (*LM_PROMPTS, 2048):
+    h, kh, d = heads
+    for t in lengths:
         q = torch.randn(1, t, h, d, generator=g, device="cuda")
         k = torch.randn(1, t, kh, d, generator=g, device="cuda")
         v = torch.randn(1, t, kh, d, generator=g, device="cuda")
@@ -3901,6 +3949,285 @@ def dp_only() -> int:
     return 0
 
 
+# Phase 13: the SSM and MoE LM families at full width (random weights from a
+# seed).  mamba2-370m runs at full depth; deepseek-moe-16b's depth is cut
+# from 28 layers to 2 so that one card holds its training state (params,
+# gradients and two Adam moments of ~1.39 B fp32 parameters, ~25 GB, and the
+# out-of-place AdamW's new copies).
+FAMILY_DEPTH = {"mamba2-370m": None, "deepseek-moe-16b": 2}
+# Prompts of at most one SSD chunk (128) or a multiple of it: an SSM
+# prefills at exact length.  The last request's prompt is two chunks.
+FAMILY_PROMPTS, FAMILY_LONG_PROMPT = (64, 100, 128), 256
+FAMILY_REQUESTS, FAMILY_MAX_NEW, FAMILY_BATCH = 16, 32, 8
+FAMILY_MAX_LEN = FAMILY_LONG_PROMPT + FAMILY_MAX_NEW
+FAMILY_SERVE = (("mamba2-370m", 8), ("mamba2-370m", 4), ("deepseek-moe-16b", 8))
+# (arch, method, bits, steps); the first LM_REPLAY steps replayed kernels off.
+FAMILY_TRAIN = (("mamba2-370m", "alpt", 8, 5), ("mamba2-370m", "lpt", 4, 5),
+                ("deepseek-moe-16b", "alpt", 8, 3))
+
+CHECKSUM_CHUNK = 1 << 26
+
+
+def family_config(arch: str, **overrides):
+    """The full config of ``arch``, at phase 13's depth."""
+    from repro_torch import configs
+
+    depth = FAMILY_DEPTH[arch]
+    return configs.full_config(arch, **overrides, **({"n_layers": depth} if depth else {}))
+
+
+def checksum(torch, t) -> int:
+    """A position-weighted sum of a tensor's bit patterns, on the card (int64,
+    wrapping): equal tensors give equal sums, and a flipped bit or two
+    swapped elements change it."""
+    flat = t.detach().reshape(-1)
+    if flat.dtype == torch.float32:
+        flat = flat.view(torch.int32)
+    total = 0
+    for c0 in range(0, flat.numel(), CHECKSUM_CHUNK):
+        x = flat[c0:c0 + CHECKSUM_CHUNK].to(torch.int64)
+        w = torch.arange(c0, c0 + x.numel(), device=x.device, dtype=torch.int64) % 65521 + 1
+        total += int((x * w).sum())
+    return total
+
+
+def state_checksums(torch, state) -> list:
+    """Every tensor of an LM training state (params, Adam moments, codes,
+    Delta, row-Adam slots) as :func:`checksum`, the step, the table's count
+    and the generator's state."""
+    from repro_torch.optim import tree_leaves
+
+    t = state.table
+    tensors = [*tree_leaves(state.params), *state.opt.mu, *state.opt.nu, t.codes.data, t.step,
+               t.mu, t.nu]
+    return [state.step, int(t.count), state.generator.get_state().tolist(),
+            *(checksum(torch, x) for x in tensors)]
+
+
+def family_serve(torch, np, dev, arch: str, bits: int) -> dict:
+    """13a / 13b serving: ``arch`` at full width behind ``LMEngine`` (the main
+    path), then the plain path teacher-forced on its tokens."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.lm import LMRequest
+    from repro_torch.training import lm_trainer
+
+    cfg = family_config(arch, embedding_bits=bits)
+    label = f"{arch} bits={bits}"
+    rng = np.random.RandomState(30 + bits)
+    lens = [FAMILY_PROMPTS[i % len(FAMILY_PROMPTS)] for i in range(FAMILY_REQUESTS - 1)]
+    prompts = [rng.randint(0, cfg.vocab_size, t).astype(np.int32)
+               for t in (*lens, FAMILY_LONG_PROMPT)]
+    gather = "dequant_gather_packed" if bits < 8 else "dequant_gather"
+    head = "dequant_matmul_packed" if bits < 8 else "dequant_matmul"
+    attn_layers = cfg.n_groups * cfg.layer_types.count("attn")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_kernel_calls()  # the main path starts here ...
+    ops.reset_fallbacks()
+    t0 = time.perf_counter()
+    state = lm_trainer.init_state(cfg, seed=40 + bits, device=dev)
+    engine = lm_engine_class().from_state(state, cfg, batch=FAMILY_BATCH, max_len=FAMILY_MAX_LEN)
+    for i, p in enumerate(prompts):
+        engine.submit(LMRequest(prompt=p, max_new=FAMILY_MAX_NEW, rid=i))
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.kernel_calls()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+    reads = FAMILY_REQUESTS + len(engine.decode_ms)  # one per prefill and decode step
+    want = {"sr_round": 1, gather: reads}
+    if cfg.tie_embeddings:
+        want[head] = reads
+    if attn_layers:
+        want["flash_attention_fwd"] = FAMILY_REQUESTS * attn_layers
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+    check(ops.fallbacks() == [], f"{label}: fallbacks {ops.fallbacks()}")
+    m = engine.metrics()
+    check(len(done) == FAMILY_REQUESTS and all(len(done[i]) == FAMILY_MAX_NEW for i in done),
+          f"{label}: requests lost or short")
+    check(all(0 <= t < cfg.vocab_size for toks in done.values() for t in toks),
+          f"{label}: tokens outside the vocabulary")
+    resident = cfg.vocab_size * (-(-cfg.d_model * bits // 8) + 4)
+    check(m.int8_resident and m.resident_embedding_bytes == resident,
+          f"{label}: resident bytes {m.resident_embedding_bytes} != {resident}")
+    for rid, rows in engine.logits.items():
+        check(len(rows) == FAMILY_MAX_NEW and all(bool(torch.isfinite(r).all()) for r in rows),
+              f"{label}: request {rid} logits not finite or missing")
+    prefill = {n: statistics.mean(ms for t, ms in engine.prefill_ms[1:] if t == n)
+               for n in sorted(set(map(len, prompts)))}  # the first one warms up
+    decode_ms = statistics.mean(engine.decode_ms[1:])
+    log(f"[family] {label}: {cfg.n_layers} layers, d={cfg.d_model}, vocab {cfg.vocab_size}; "
+        f"{FAMILY_REQUESTS} requests x {FAMILY_MAX_NEW} tokens, slot batch {FAMILY_BATCH}: "
+        f"init+serve {wall:.2f}s (host clock), per decode step {decode_ms:.2f} ms, per "
+        "prefill " + ", ".join(f"T={n}: {ms:.2f} ms" for n, ms in prefill.items())
+        + f"; resident {m.resident_embedding_bytes} B; peak memory {peak} B; launches "
+        f"{launches}; {card_name()}")
+
+    plain = dataclasses.replace(engine.table, use_kernels=False)
+    summary = teacher_forced(torch, engine, state.params, plain, cfg, prompts, done,
+                             FAMILY_MAX_NEW, FAMILY_MAX_LEN, label)
+    log(f"[family] {label}: teacher-forced plain path {summary}; "
+        f"{time.perf_counter() - t0:.1f}s with the serving")
+    if arch == "mamba2-370m" and bits == 8:
+        profile_decode(torch, engine, bits)
+    return {"launches": launches, "table": (engine.table.codes, engine.table.step),
+            "peak": peak, "prompts": sorted(set(map(len, prompts)))}
+
+
+def family_train(torch, dev, arch: str, method: str, bits: int, steps: int) -> dict:
+    """13a / 13b training: ``arch`` at full width (the main path), then the
+    first LM_REPLAY steps again with the kernels off from the same seed."""
+    from repro_torch.core import lpt as lpt_core
+    from repro_torch.data.lm_synth import LMTokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.training import lm_trainer
+
+    cfg = family_config(arch, embedding_method=method, embedding_bits=bits)
+    tcfg = lm_trainer.LMTrainerConfig()
+    label = f"{arch} {method} bits={bits}"
+    write_back = "sr_round" if method == "alpt" else (
+        "lpt_fused_update_packed" if bits < 8 else "lpt_fused_update")
+    stream = LMTokenStream(cfg.vocab_size, LM_TRAIN_SEQ, seed=17)
+    batches = []
+    for i in range(steps):
+        full = torch.from_numpy(stream.batch(i, LM_TRAIN_BATCH)).to(dev)
+        batches.append({"tokens": full[:, :-1], "labels": full[:, 1:]})
+    train_step = lm_trainer.make_train_step(cfg, tcfg)
+    seed = 50 + bits
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_run = time.perf_counter()
+    ops.reset_kernel_calls()  # the main path starts here ...
+    ops.reset_fallbacks()
+    state = lm_trainer.init_state(cfg, tcfg, seed=seed, device=dev)
+    losses, aux, norms, wall = [], [], [], []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch)
+        losses.append(float(m["loss"]))  # the host waits for the step
+        wall.append((time.perf_counter() - t0) * 1e3)
+        aux.append(float(m["aux_loss"]))
+        norms.append([float(m["grad_norm"])] + ([float(m["step_grad_norm"])]
+                                                if method == "alpt" else []))
+        if i + 1 == LM_REPLAY:
+            early = (state_checksums(torch, state), list(losses))
+    torch.cuda.synchronize()
+    launches = ops.kernel_calls()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"sr_round": 1, "adam_update": steps}  # sr_round: the table's init
+    want[write_back] = want.get(write_back, 0) + steps
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+    check(ops.fallbacks() == [], f"{label}: fallbacks {ops.fallbacks()}")
+    check(all(math.isfinite(x) for x in losses + aux + sum(norms, [])),
+          f"{label}: losses {losses}, aux {aux}, gradient norms {norms}")
+    t = state.table
+    held_bytes = sum(x.numel() * x.element_size() for x in (t.codes.data, t.step, t.mu, t.nu))
+    v, d = cfg.vocab_size, cfg.d_model
+    expected = v * -(-d * bits // 8) + 4 * v + 8 * v * d
+    check(held_bytes == lpt_core.memory_bytes(t, bits, count_optimizer=True) == expected,
+          f"{label}: table training bytes {held_bytes} != {expected}")
+    ms = statistics.mean(wall[1:])
+    log(f"[family-train] {label}: {cfg.n_layers} layers, d={d}; {steps} steps of "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens, loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+        + (f", aux {aux}" if cfg.moe is not None else "")
+        + f", gradient norms {norms}; host clock: first step {wall[0]:.1f} ms, then "
+        f"{ms:.2f} ms/step; table training tensors {held_bytes} B; peak memory {peak} B; "
+        f"launches {launches}; {time.perf_counter() - t_run:.1f}s; {card_name()}")
+    del state
+    torch.cuda.empty_cache()
+
+    # The first LM_REPLAY steps again with the kernels off, from the same seed.
+    replay = lm_trainer.init_state(cfg, tcfg, seed=seed, device=dev)
+    off_step = lm_trainer.make_train_step(cfg, dataclasses.replace(tcfg, use_kernels=False))
+    ops.reset_kernel_calls()
+    replay_losses = []
+    for batch in batches[:LM_REPLAY]:
+        replay, m = off_step(replay, batch)
+        replay_losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    check(ops.kernel_calls() == {}, f"{label}: kernels-off run launched {ops.kernel_calls()}")
+    same = (state_checksums(torch, replay), replay_losses) == early
+    check(same, f"{label}: kernels-off steps 1-{LM_REPLAY} differ from kernels-on: "
+                f"{replay_losses} vs {early[1]}")
+    log(f"[family-train] {label}: steps 1-{LM_REPLAY} with the kernels off equal the kernels-on "
+        f"run (losses {early[1]}; the checksums of every param, Adam moment, code, Delta and "
+        f"row-Adam slot, the step, count and generator state); {time.perf_counter() - t_run:.1f}s "
+        "with the replay")
+    del replay
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms, "first_ms": wall[0], "peak": peak}
+
+
+def families_phase(torch, np, dev) -> tuple[dict, dict]:
+    """Phase 13: mamba2-370m (13a) and deepseek-moe-16b (13b) served and
+    trained at full width through the port's entry points.  Returns the
+    phase's launches and the served tables ({(arch, bits): (codes, step)})."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    log(f"[family] phase 13 starts with {torch.cuda.memory_allocated(dev)} B allocated")
+    total, tables = {}, {}
+    for arch in FAMILY_DEPTH:
+        for a, bits in FAMILY_SERVE:
+            if a == arch:
+                r = family_serve(torch, np, dev, arch, bits)
+                total = added(total, r["launches"])
+                tables[(arch, bits)] = r["table"]
+        for a, method, bits, steps in FAMILY_TRAIN:
+            if a == arch:
+                r = family_train(torch, dev, arch, method, bits, steps)
+                total = added(total, r["launches"])
+        log(f"[family] {arch}: {time.perf_counter() - t_phase:.1f}s into phase 13")
+    log(f"[family] phase 13: launches {total}; {time.perf_counter() - t_phase:.1f}s; "
+        f"{card_name()}")
+    return total, tables
+
+
+def time_families(torch, tables: dict, flush) -> None:
+    """Phase 5 for phase 13's shapes: the head at mamba2-370m's tied table
+    (N = 50,280, K = 1,024) and flash at deepseek-moe-16b's prefill (16/16
+    heads, D = 128, causal) at phase 13's prompt lengths, each beside its
+    bound, its plain version and the library's one call."""
+    _, notes = time_head(torch, {bits: tables[("mamba2-370m", bits)] for bits in (8, 4)}, flush)
+    _, flash_notes = time_flash(torch, flush, heads=(16, 16, 128),
+                                lengths=(*FAMILY_PROMPTS, FAMILY_LONG_PROMPT))
+    for line in notes + flash_notes:
+        log(f"{line}; {card_name()}")
+
+
+def families_only() -> int:
+    """Phase 13 alone, with its timings:
+    ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.families_only())"``."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[chip_smoke] needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import device as device_mod
+    from repro_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    dev = device_mod.resolve("cuda")
+    for lib in _build.build():
+        _build.library(lib)
+    log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}; build "
+        f"{time.perf_counter() - t_start:.1f}s")
+    launches, tables = families_phase(torch, np, dev)
+    check(set(launches) <= set(KERNELS), f"phase 13 launched {launches}")
+    flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    time_families(torch, tables, flush_buf.zero_)
+    log(f"[chip_smoke] phase 13 alone in {time.perf_counter() - t_start:.1f}s")
+    return 0
+
+
 def main() -> int:
     # cuBLAS picks deterministic algorithms only with a fixed workspace; the
     # kernels-on / kernels-off training runs of phase 6 must agree bitwise.
@@ -4050,6 +4377,14 @@ def main() -> int:
     phase12 = dp_phase(torch, dev, lm_data)
     check(set(phase12) <= set(KERNELS), f"phase 12 launched {phase12}")
     launches = {k: launches[k] + phase12.get(k, 0) for k in KERNELS}
+    # 13. the SSM and MoE families: mamba2-370m at full width and depth,
+    # deepseek-moe-16b at full width with 2 layers, served and trained.  The
+    # SmolLM states of phase 7 go first (their tables stay for the timing).
+    for r in lm_runs.values():
+        r.pop("state", None)
+    phase13, family_tables = families_phase(torch, np, dev)
+    check(set(phase13) <= set(KERNELS), f"phase 13 launched {phase13}")
+    launches = {k: launches[k] + phase13.get(k, 0) for k in KERNELS}
     # sr_round_seeded has no main path (no caller in the JAX package but its
     # kernel test): its launches are its unbiasedness run's (phase 2e).
     launches["sr_round_seeded"] += wb_ops["seeded_launches"]
@@ -4123,6 +4458,7 @@ def main() -> int:
                               *bound_ms(n_el * 28, n_el * 15),
                               time_ms(torch, lib_opt.step, 50, flush)[0])
     timings.update(time_lm_kernels(torch, lm_runs, flush))
+    time_families(torch, family_tables, flush)
     timings.update(time_write_back(torch, wb_ops, flush))
     for line in gather_notes:
         log(line)

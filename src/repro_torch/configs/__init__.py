@@ -1,15 +1,21 @@
 """Configurations of the port: the paper's DCN setups (``dcn_ctr``) and the
 LM architecture registry (port of repro/configs/__init__.py).
 
-``--arch <id>`` resolves here.  The registry holds only the architectures
-the port runs: dense attention-only stacks.  The MoE, SSM, encoder-only and
-M-RoPE architectures of the reference come with their slices.
+``--arch <id>`` resolves here.  The registry holds the architectures the
+port runs: the dense attention-only stacks, mamba2 (SSM), the MoE stacks
+and Jamba's hybrid.  The encoder-only, M-RoPE and remat architectures of
+the reference (hubert-xlarge, qwen2-vl-7b, deepseek-67b) come with their
+slices.
 """
 from __future__ import annotations
 
 import importlib
 
 ARCHS = {
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "qwen3-1.7b": "repro_torch.configs.qwen3_1p7b",
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1p8b",

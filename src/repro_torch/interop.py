@@ -13,7 +13,9 @@ mixed table's ``subs`` a list; :func:`emb_state_from_numpy`).
 trained state against the reference's.
 
 For the LM slice, :func:`lm_params_from_numpy` carries the reference's
-transformer params (``repro.models.transformer.init_params``, numpy leaves)
+transformer params (``repro.models.transformer.init_params``, numpy leaves;
+attention, ``mamba`` and ``moe`` blocks alike, their structure checked
+against the config)
 and :func:`quant_table_from_numpy` its serving table (codes + Delta, int8 or
 packed) into the port's layouts; :func:`lm_state_from_numpy` its whole
 ``LMTrainState`` (params, their Adam state, the table with its row-Adam

@@ -38,11 +38,39 @@ def scalar(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
+#: Elements per pass of the float64 helpers over a large operand: their
+#: temporaries are float64 and several, so a table-sized operand (an LM
+#: vocab table, an MoE expert stack) goes in chunks of this many.
+_CHUNK = 1 << 24
+
+
+def _chunked(fn, *operands) -> torch.Tensor:
+    """``fn(*operands)``, an elementwise float32 function, over chunks of
+    :data:`_CHUNK` elements when the tensor operands share one shape larger
+    than that (elementwise, so the same bits); whole otherwise (scalars and
+    broadcasts)."""
+    tensors = [x for x in operands if isinstance(x, torch.Tensor)]
+    shape = tensors[0].shape
+    if tensors[0].numel() <= _CHUNK or any(x.shape != shape for x in tensors):
+        return fn(*operands)
+    out = torch.empty(shape, dtype=torch.float32, device=tensors[0].device)
+    flat = out.view(-1)
+    parts = [x.reshape(-1) if isinstance(x, torch.Tensor) else x for x in operands]
+    for i in range(0, flat.numel(), _CHUNK):
+        flat[i:i + _CHUNK] = fn(*(x[i:i + _CHUNK] if isinstance(x, torch.Tensor) else x
+                                  for x in parts))
+    return out
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root (``__fsqrt_rn``).  PyTorch's CPU
     ``sqrt`` on float32 can miss by an ulp; the square root of the float64
     value, rounded to float32, cannot."""
-    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+    return _chunked(_sqrt_rn, x)
 
 
 def fma(a, b, c) -> torch.Tensor:
@@ -53,6 +81,10 @@ def fma(a, b, c) -> torch.Tensor:
     exact by TwoSum and rounded to odd, so the final rounding to float32 is
     the only one that counts.  Scalars must already be float32 values.
     """
+    return _chunked(_fma, a, b, c)
+
+
+def _fma(a, b, c) -> torch.Tensor:
     t = next(x for x in (a, b, c) if isinstance(x, torch.Tensor))
     a, b, c = (torch.as_tensor(x, dtype=torch.float64, device=t.device)
                if not isinstance(x, torch.Tensor) else x.to(torch.float64)

@@ -1,10 +1,12 @@
 """Training CLI of the port: CTR training of the paper's DCN (or DeepFM) with
-any embedding method, and dense LM training with a quantized vocab table.
+any embedding method, and LM training (dense, SSM, MoE and hybrid stacks)
+with a quantized vocab table.
 
     python -m repro_torch.launch.train ctr --config avazu --scale 1.0 \\
         --method alpt --bits 8 --batch 1024 --steps 20 [--model deepfm]
     python -m repro_torch.launch.train ctr --config criteo --method qr_alpt
     python -m repro_torch.launch.train lm --arch smollm-135m --steps 100
+    python -m repro_torch.launch.train lm --arch mamba2-370m --embedding-method prune
 
 ``--device cpu`` runs the plain PyTorch versions on the CPU; the default is
 ``cuda`` and fails without a GPU.  The state is initialized from
@@ -334,7 +336,8 @@ def _train_lm(args, device: torch.device) -> int:
     if args.embedding_method:
         cfg = dataclasses.replace(cfg, embedding_method=args.embedding_method)
     tcfg = lm_trainer.LMTrainerConfig(lr=args.lr, use_kernels=not args.no_kernels,
-                                      dp_sync_bits=args.dp_compress_bits if dp_mode else 32)
+                                      dp_sync_bits=args.dp_compress_bits if dp_mode else 32,
+                                      pad_to_tiles=args.pad_to_tiles)
     spec = lm_trainer.embedding_spec_of(cfg, tcfg)
     data = LMTokenStream(cfg.vocab_size, args.seq, seed=17)
     manager = _manager(args)
@@ -362,7 +365,8 @@ def _train_lm(args, device: torch.device) -> int:
             dist.all_reduce(t, op=dist.ReduceOp.MAX)
             return bool(t.item())
     else:
-        step_fn = lm_trainer.make_train_step(cfg, tcfg)
+        # The host-side refresh (prune's mask); the identity for other methods.
+        step_fn = lm_trainer.wrap_host_refresh(lm_trainer.make_train_step(cfg, tcfg), cfg, tcfg)
 
     def one_step(state):
         full = torch.from_numpy(data.batch(state.step, args.batch)).to(device)
@@ -393,6 +397,7 @@ def _train_lm(args, device: torch.device) -> int:
         "first_step_ms": ms[0] if ms else None, "kernel_launches": ops.kernel_calls(),
         "fallbacks": ops.fallbacks(), "embedding_bytes": method.memory_bytes(state.table, spec),
         "training_bytes": method.memory_bytes(state.table, spec, stored=True),
+        "table_shape": [spec.n_padded, spec.d_padded],
     }
     if wire is not None:
         report.update(mesh_data=dist.get_world_size(), **wire)
@@ -426,7 +431,7 @@ def main(argv=None) -> int:
                      help="device hot-row cache capacity per storage slot (0 = off); "
                           "bitwise the uncached run")
     add_ckpt_args(ctr)
-    lm = sub.add_parser("lm", help="dense LM training with a quantized vocab table")
+    lm = sub.add_parser("lm", help="LM training (dense, SSM, MoE) with a quantized vocab table")
     lm.add_argument("--arch", choices=sorted(configs.ARCHS), default="smollm-135m")
     lm.add_argument("--smoke", action="store_true", help="the reduced config of --arch")
     lm.add_argument("--steps", type=int, default=100)
@@ -435,6 +440,9 @@ def main(argv=None) -> int:
     lm.add_argument("--lr", type=float, default=3e-4)
     lm.add_argument("--embedding-method", choices=methods.available(), default=None,
                     help="override the config's method")
+    lm.add_argument("--pad-to-tiles", action="store_true",
+                    help="pad the vocab table to the reference's tile geometry (a scratch "
+                         "row; rows and width rounded up to 8)")
     lm.add_argument("--no-kernels", action="store_true",
                     help="the plain PyTorch versions on any device")
     lm.add_argument("--log-every", type=int, default=10)

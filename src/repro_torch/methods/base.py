@@ -217,6 +217,16 @@ class EmbeddingMethod(abc.ABC):
     def refresh_every(self, spec: EmbeddingSpec) -> int:
         raise NotImplementedError(f"{self.name!r} has no host refresh")
 
+    def after_step(self, state: Any, step: int, spec: EmbeddingSpec) -> Any:
+        """What a trainer's host does after its step ``step`` (the count of
+        steps taken) for a ``has_host_refresh`` method: :meth:`host_sync`
+        the clock, then :meth:`host_refresh` every :meth:`refresh_every`
+        steps (both trainers' ``wrap_host_refresh``)."""
+        state = self.host_sync(state, step, spec)
+        if step % self.refresh_every(spec) == 0:
+            state = self.host_refresh(state, spec)
+        return state
+
     def dense_delta_grad(self, w_new, step_vec, loss_fn_q, *, spec: EmbeddingSpec,
                          weight_decay: float, gscale: float) -> torch.Tensor:
         raise NotImplementedError(f"{self.name!r} has no learned step size")

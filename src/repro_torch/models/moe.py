@@ -1,0 +1,139 @@
+"""Mixture-of-Experts: top-k routing with per-sample capacity dispatch (port
+of repro/models/moe.py).
+
+The dispatch buffer keeps the batch dim leading, ``[B, E, C, d]`` with
+capacity ``C = int(S * k * capacity_factor / E) + 1`` per *sample*; the
+(token, slot) pairs are taken token-major (slot order inside a token), each
+pair's place in its expert is an exclusive running count per sample, so
+token order decides the drops, and a dropped pair passes nothing (the
+residual carries its token).  Shared experts (DeepSeek-MoE: always-on,
+added to the routed output) and the load-balance auxiliary loss are as the
+reference's.  Everything here is plain PyTorch: the reference's expert
+products are plain jnp einsums, outside any Pallas kernel.
+
+Where the reference differs only by its framework:
+
+* ``jax.lax.top_k`` puts the lower expert index first on a tie, and
+  ``torch.topk`` promises no order; the selection here is a stable
+  descending sort, whose order on ties is the reference's.
+* The reference scatters dropped pairs to index ``C`` and lets
+  ``.at[].add(mode="drop")`` discard them; here only the kept pairs are
+  written (``index_put`` raises on an out-of-range index).  Kept pairs hold
+  distinct slots, so writing them equals adding them into zeros.
+
+Expert parallelism (the reference's ``moe_forward_ep``) comes with GSPMD
+sharding (ROADMAP A13b).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_model: int
+    d_ff: int  # per-expert hidden dim
+    n_shared_experts: int = 0
+    shared_d_ff: int | None = None  # defaults to d_ff * n_shared
+    capacity_factor: float = 1.25
+    normalize_gates: bool = True  # renormalize top-k probs (Mixtral-style)
+    aux_loss_coef: float = 0.01
+
+    @property
+    def shared_hidden(self) -> int:
+        if self.n_shared_experts == 0:
+            return 0
+        return self.shared_d_ff or self.d_ff * self.n_shared_experts
+
+
+def init_moe(generator: torch.Generator, cfg: MoEConfig, dtype=torch.float32) -> dict[str, Any]:
+    """Router, experts and shared experts drawn from ``generator`` on its
+    device, in the reference's layout and scales (the draws are torch's)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dev = generator.device
+
+    def normal(shape, scale, dt=dtype):
+        return (torch.randn(shape, generator=generator, device=dev) * scale).to(dt)
+
+    scale_in, scale_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    params = {
+        "router": normal((d, e), scale_in, torch.float32),
+        "w_gate": normal((e, d, f), scale_in),
+        "w_up": normal((e, d, f), scale_in),
+        "w_down": normal((e, f, d), scale_out),
+    }
+    if cfg.n_shared_experts:
+        fs = cfg.shared_hidden
+        params["shared"] = {"w_gate": normal((d, fs), scale_in),
+                            "w_up": normal((d, fs), scale_in),
+                            "w_down": normal((fs, d), scale_out)}
+    return params
+
+
+def capacity(cfg: MoEConfig, seq_len: int) -> int:
+    c = int(seq_len * cfg.top_k * cfg.capacity_factor / cfg.n_experts) + 1
+    return max(c, 1)
+
+
+def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(values, indices)`` of the ``k`` largest entries of the last dim,
+    largest first and the lower index first on a tie (``jax.lax.top_k``'s
+    order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_forward(params: dict[str, Any], x: torch.Tensor, cfg: MoEConfig
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, d] -> ``(y [B, S, d], aux_loss scalar)``."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    c = capacity(cfg, s)
+
+    logits = x.to(torch.float32) @ params["router"]  # [B, S, E]
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = top_k(probs, k)  # [B, S, k]
+    if cfg.normalize_gates:
+        gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(dim=-1, keepdim=True), 1e-9)
+
+    # Place of each (token, slot) pair within its expert, per sample.
+    flat_e = expert_ids.reshape(b, s * k)
+    oh = F.one_hot(flat_e, e)  # [B, S*k, E]
+    pos = torch.cumsum(oh, dim=1) - oh  # exclusive prefix count
+    flat_p = (pos * oh).sum(-1)  # [B, S*k]
+    keep = flat_p < c
+
+    # Dispatch the kept pairs into [B, E, C, d].
+    x_rep = x[:, :, None, :].expand(b, s, k, d).reshape(b, s * k, d)
+    bidx = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
+    buf = x.new_zeros((b, e, c, d)).index_put(
+        (bidx[keep], flat_e[keep], flat_p[keep]), x_rep[keep])
+
+    # Per-expert SwiGLU.
+    h = F.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"]))
+    h = h * torch.einsum("becd,edf->becf", buf, params["w_up"])
+    y_buf = torch.einsum("becf,efd->becd", h, params["w_down"])  # [B, E, C, d]
+
+    # Gather back (dropped pairs read a clamped slot and weigh 0) and combine.
+    y_tok = y_buf[bidx, flat_e, torch.clamp_max(flat_p, c - 1)]  # [B, S*k, d]
+    y_tok = y_tok * (keep[..., None] * gate_vals.reshape(b, s * k, 1)).to(y_tok.dtype)
+    y = y_tok.reshape(b, s, k, d).sum(dim=2)
+
+    if cfg.n_shared_experts:
+        sh = params["shared"]
+        y = y + (F.silu(x @ sh["w_gate"]) * (x @ sh["w_up"])) @ sh["w_down"]
+
+    # Load-balance loss (Switch/Mixtral form): E * sum_e f_e * P_e, with f_e
+    # the share of tokens routed to e before any drop.
+    routed = oh.reshape(b, s, k, e).sum(dim=2) > 0
+    frac_tokens = torch.mean(routed.to(torch.float32), dim=(0, 1))  # [E]
+    mean_probs = torch.mean(probs, dim=(0, 1))
+    aux = cfg.aux_loss_coef * e * torch.sum(frac_tokens * mean_probs)
+    return y.to(x.dtype), aux

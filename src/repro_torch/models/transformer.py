@@ -1,18 +1,24 @@
-"""Dense attention-only LM backbone (port of repro/models/transformer.py).
+"""The unified LM backbone (port of repro/models/transformer.py): dense
+llama-family stacks, Mamba2 (SSD) mixers, routed MoE with shared experts,
+and hybrid period patterns (Jamba).
 
-The serving half of the reference's unified backbone for the dense
-llama-family architectures (SmolLM, Qwen3, H2O-Danube): GQA attention with
-optional QK-RMSNorm, QKV bias and a sliding window (a window-sized ring
-buffer at decode), SwiGLU MLPs, a tied or untied head.  MoE, Mamba layers,
-the ``embeds`` / ``mixed`` input modes and M-RoPE raise
-``NotImplementedError``: they come with the slices that port them.
+GQA attention with optional QK-RMSNorm, QKV bias and a sliding window (a
+window-sized ring buffer at decode), SwiGLU MLPs or MoE layers
+(:mod:`repro_torch.models.moe`, whose load-balance loss :func:`backbone`
+sums), mamba mixers (:mod:`repro_torch.models.ssm`; a pure-mamba block with
+``d_ff == 0`` has no MLP and no ``norm2``), a tied or untied head.  The
+``embeds`` / ``mixed`` input modes, M-RoPE, the gelu MLP and ``remat``
+raise ``NotImplementedError`` (:func:`check_supported`): they come with the
+slices that port them.
 
 Parameters are plain dicts of tensors in the reference's layout, so a
 reference state crosses over leaf for leaf (``repro_torch.interop``):
 ``blocks`` is a list over the period positions, each leaf stacked
 ``[n_groups, ...]``; weights are ``[in, out]``.  A Python loop over the
-groups replaces ``lax.scan``.  The decode cache has the same layout: one
-``{"k", "v"}`` per period position, ``[n_groups, B, kv_len, KH, D]``.
+groups replaces ``lax.scan``.  The decode cache has the same layout: per
+period position, ``{"k", "v"}`` ``[n_groups, B, kv_len, KH, D]`` for an
+attention layer or the SSM cache ``{"conv_x", "conv_B", "conv_C", "ssm"}``
+``[n_groups, B, ...]`` for a mamba layer.
 
 The embedding table is not in the params: it is a serving table
 (``repro_torch.serving.table``) passed to the forward.  An int8-resident
@@ -37,6 +43,9 @@ import torch.utils.checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.optim import tree_leaves
 from repro_torch.serving import table as serving_tbl
 
 
@@ -53,8 +62,8 @@ class ModelConfig:
     # Period pattern: layer l has type layer_types[l % period].
     layer_types: tuple[str, ...] = ("attn",)  # 'attn' | 'mamba'
     moe_pattern: tuple[bool, ...] = (False,)  # per period position: routed MoE?
-    moe: Any = None  # the reference's MoEConfig; not ported yet
-    ssm: Any = None  # the reference's SSMConfig; not ported yet
+    moe: moe_mod.MoEConfig | None = None
+    ssm: ssm_mod.SSMConfig | None = None
     # Attention flavor.
     qk_norm: bool = False
     attn_bias: bool = False
@@ -103,19 +112,33 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the dense slice does not port."""
+    """Raise ``NotImplementedError``, naming it, for what the port does not
+    run yet: the ``embeds`` / ``mixed`` input modes, M-RoPE, the gelu MLP
+    and ``remat``; ``ValueError`` for a malformed layer pattern."""
     if cfg.input_mode != "tokens":
         raise NotImplementedError(
             f"{cfg.name}: input_mode {cfg.input_mode!r} comes with the encoder / VLM slice")
     if cfg.mrope_sections is not None:
         raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the VLM slice")
-    if any(t != "attn" for t in cfg.layer_types):
-        raise NotImplementedError(f"{cfg.name}: mamba layers come with the SSM slice")
-    if cfg.moe is not None and any(cfg.moe_pattern):
-        raise NotImplementedError(f"{cfg.name}: MoE layers come with the MoE slice")
     if cfg.d_ff > 0 and cfg.mlp_type != "swiglu":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.mlp_type} MLP comes with the encoder slice")
+    if cfg.remat:
+        raise NotImplementedError(f"{cfg.name}: remat (activation checkpointing per group) "
+                                  "comes with the configs that set it")
+    for kind in cfg.layer_types:
+        if kind not in ("attn", "mamba"):
+            raise ValueError(f"{cfg.name}: unknown layer type {kind!r}")
+    if "mamba" in cfg.layer_types and cfg.ssm is None:
+        raise ValueError(f"{cfg.name}: mamba layers need an SSMConfig")
+
+
+def _has_attention(cfg: ModelConfig) -> bool:
+    return "attn" in cfg.layer_types
+
+
+def _has_mamba(cfg: ModelConfig) -> bool:
+    return "mamba" in cfg.layer_types
 
 
 # --------------------------------------------------------------------- init
@@ -139,12 +162,30 @@ def _init_attn(g: torch.Generator, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     return p
 
 
-def _init_block(g: torch.Generator, cfg: ModelConfig) -> dict[str, Any]:
+def _block_keys(cfg: ModelConfig, pos: int) -> set[str]:
+    """The keys of the block at period position ``pos``: its norms, its mixer
+    and its MLP or MoE (a pure-mamba block with ``d_ff == 0`` has neither, and
+    no ``norm2``)."""
+    keys = {"norm1", "attn" if cfg.layer_type(pos) == "attn" else "mamba"}
+    if cfg.is_moe(pos):
+        keys |= {"norm2", "moe"}
+    elif cfg.d_ff > 0:
+        keys |= {"norm2", "mlp"}
+    return keys
+
+
+def _init_block(g: torch.Generator, cfg: ModelConfig, pos: int) -> dict[str, Any]:
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
-    p: dict[str, Any] = {"norm1": torch.ones((d,), dtype=dt, device=g.device),
-                         "attn": _init_attn(g, cfg)}
-    if f > 0:
+    p: dict[str, Any] = {"norm1": torch.ones((d,), dtype=dt, device=g.device)}
+    if cfg.layer_type(pos) == "attn":
+        p["attn"] = _init_attn(g, cfg)
+    else:
+        p["mamba"] = ssm_mod.init_ssm(g, cfg.ssm, dtype=dt)
+    if cfg.is_moe(pos) or f > 0:
         p["norm2"] = torch.ones((d,), dtype=dt, device=g.device)
+    if cfg.is_moe(pos):
+        p["moe"] = moe_mod.init_moe(g, cfg.moe, dtype=dt)
+    elif f > 0:
         p["mlp"] = {"w_gate": L.dense_init(g, (d, f), dtype=dt),
                     "w_up": L.dense_init(g, (d, f), dtype=dt),
                     "w_down": L.dense_init(g, (f, d), dtype=dt)}
@@ -164,8 +205,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> dict[str, Any]:
     embedding table is not here (see ``training.lm_trainer.init_state``);
     untied archs get a float ``head`` [V, d]."""
     check_supported(cfg)
-    blocks = [_stack([_init_block(generator, cfg) for _ in range(cfg.n_groups)])
-              for _ in range(cfg.period)]
+    blocks = [_stack([_init_block(generator, cfg, pos) for _ in range(cfg.n_groups)])
+              for pos in range(cfg.period)]
     params: dict[str, Any] = {
         "blocks": blocks,
         "final_norm": torch.ones((cfg.d_model,), dtype=cfg.param_dtype,
@@ -198,9 +239,12 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, *, device: str | torch.devic
         return torch.as_tensor(np.array(x), dtype=torch.float32).to(dev)
 
     params = convert(tree)
-    for block in params["blocks"]:
-        leaves = [block["attn"]["wq"], block["norm1"]]
-        if any(t.shape[0] != cfg.n_groups for t in leaves):
+    for pos, block in enumerate(params["blocks"]):
+        want = _block_keys(cfg, pos)
+        if set(block) != want:
+            raise ValueError(f"{cfg.name}: block position {pos} holds {sorted(block)}, "
+                             f"the config needs {sorted(want)}")
+        if any(t.shape[0] != cfg.n_groups for t in tree_leaves(block)):
             raise ValueError(f"block leaves must be stacked over {cfg.n_groups} groups")
     if cfg.tie_embeddings == ("head" in params):
         raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings} but the params "
@@ -209,13 +253,7 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, *, device: str | torch.devic
 
 
 def param_count(params) -> int:
-    def count(x):
-        if isinstance(x, dict):
-            return sum(count(v) for v in x.values())
-        if isinstance(x, (list, tuple)):
-            return sum(count(v) for v in x)
-        return x.numel()
-    return count(params)
+    return sum(t.numel() for t in tree_leaves(params))
 
 
 def _group(tree: Any, i: int) -> Any:
@@ -288,11 +326,27 @@ def _attn_block(p, x, cfg: ModelConfig, *, rope, cache=None, slots=None,
     return x + o, new_kv
 
 
-def _mlp_block(p, x, cfg: ModelConfig):
-    if cfg.d_ff == 0:
-        return x
+def _mamba_block(p, x, cfg: ModelConfig, *, cache=None, return_cache: bool = False):
+    """Pre-norm mamba mixer over the full sequence (``return_cache``: with its
+    decode cache), or one recurrent step against ``cache`` -> ``(x, cache)``."""
+    y = L.rms_norm(x, p["norm1"])
+    if cache is None:
+        out, c = ssm_mod.ssm_forward(p["mamba"], y, cfg.ssm, return_cache=return_cache)
+        return x + out, c
+    out, new_cache = ssm_mod.ssm_decode_step(p["mamba"], y, cfg.ssm, cache)
+    return x + out, new_cache
+
+
+def _mlp_block(p, x, cfg: ModelConfig, pos: int):
+    """The MLP or MoE sub-layer -> ``(x, aux)``, ``aux`` the MoE's
+    load-balance loss or None where there is no MoE."""
+    if not cfg.is_moe(pos) and cfg.d_ff == 0:
+        return x, None
     y = L.rms_norm(x, p["norm2"])
-    return x + L.swiglu(y, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    if cfg.is_moe(pos):
+        out, aux = moe_mod.moe_forward(p["moe"], y, cfg.moe)
+        return x + out, aux
+    return x + L.swiglu(y, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"]), None
 
 
 # --------------------------------------------------------------------- fwd
@@ -300,22 +354,29 @@ def _mlp_block(p, x, cfg: ModelConfig):
 
 def backbone(params: dict[str, Any], embeds: torch.Tensor, cfg: ModelConfig,
              positions: torch.Tensor, *, use_kernel: bool = True,
-             train: bool = False) -> torch.Tensor:
-    """Hidden states [B, T, d] after the final norm (no MoE: no aux loss);
+             train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hidden [B, T, d] after the final norm, MoE aux loss)``, the aux summed
+    per group and then over the groups as the reference's scan does;
     ``train`` runs the differentiable training attention instead of the
     forward-only kernel."""
     check_supported(cfg)
-    if train and cfg.remat:
-        raise NotImplementedError(f"{cfg.name}: remat (activation checkpointing per group) "
-                                  "comes with the configs that set it")
     x = embeds.to(cfg.dtype)
-    rope = L.rope_angles(positions, cfg.hd, cfg.rope_base)
+    rope = L.rope_angles(positions, cfg.hd, cfg.rope_base) if _has_attention(cfg) else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi in range(cfg.n_groups):
+        group_aux = None
         for pos in range(cfg.period):
             p = _group(params["blocks"][pos], gi)
-            x, _ = _attn_block(p, x, cfg, rope=rope, use_kernel=use_kernel, train=train)
-            x = _mlp_block(p, x, cfg)
-    return L.rms_norm(x, params["final_norm"])
+            if cfg.layer_type(pos) == "attn":
+                x, _ = _attn_block(p, x, cfg, rope=rope, use_kernel=use_kernel, train=train)
+            else:
+                x, _ = _mamba_block(p, x, cfg)
+            x, a = _mlp_block(p, x, cfg, pos)
+            if a is not None:
+                group_aux = a if group_aux is None else group_aux + a
+        if group_aux is not None:
+            aux = aux + group_aux
+    return L.rms_norm(x, params["final_norm"]), aux
 
 
 def embed_tokens(table, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -372,14 +433,13 @@ def assemble_embeds(table_fp: torch.Tensor, batch: dict, cfg: ModelConfig) -> to
 def loss_fn(params: dict[str, Any], table_fp: torch.Tensor, batch: dict,
             cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Training loss ``(ce + aux, aux)`` from the dense fp32 table [V, d]
-    (``aux`` is the MoE balance loss: 0 for the dense stacks ported)."""
+    (``aux`` is the MoE load-balance loss, 0 without MoE layers)."""
     embeds = assemble_embeds(table_fp, batch, cfg)
     b, t, _ = embeds.shape
     positions = batch.get("positions")
     if positions is None:
         positions = default_positions(b, t, cfg, device=embeds.device)
-    h = backbone(params, embeds, cfg, positions, train=True)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    h, aux = backbone(params, embeds, cfg, positions, train=True)
     return chunked_ce_loss(params, table_fp, h, batch["labels"], cfg) + aux, aux
 
 
@@ -398,16 +458,33 @@ def cache_len_for(cfg: ModelConfig, max_len: int) -> int:
     return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
 
 
+def check_prompt_len(cfg: ModelConfig, t: int) -> None:
+    """Raise ``ValueError`` for a prompt an exact-length prefill cannot take:
+    a mamba layer's chunked SSD needs a prompt of at most one chunk or a
+    multiple of it, and at least its conv window (``ssm.check_prefill_len``)."""
+    if _has_mamba(cfg):
+        ssm_mod.check_prefill_len(cfg.ssm, t)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: str | torch.device = "cuda") -> list:
-    """Decode cache: one ``{"k", "v"}`` per period position, each
-    ``[n_groups, batch, kv_len, KH, D]`` zeros, the reference's layout."""
+    """Decode cache, one entry per period position stacked over groups, the
+    reference's layout: ``{"k", "v"}`` ``[n_groups, batch, kv_len, KH, D]``
+    zeros for an attention layer, the SSM cache ``[n_groups, batch, ...]``
+    zeros for a mamba layer."""
     check_supported(cfg)
     _, kv = cfg.padded_heads
-    shape = (cfg.n_groups, batch, cache_len_for(cfg, max_len), kv, cfg.hd)
-    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
-            for _ in range(cfg.period)]
+    g = cfg.n_groups
+    caches = []
+    for pos in range(cfg.period):
+        if cfg.layer_type(pos) == "attn":
+            shape = (g, batch, cache_len_for(cfg, max_len), kv, cfg.hd)
+            caches.append({"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                           "v": torch.zeros(shape, dtype=cfg.dtype, device=device)})
+        else:
+            one = ssm_mod.init_ssm_cache(cfg.ssm, batch, cfg.dtype, device=device)
+            caches.append({k: v.new_zeros((g, *v.shape)) for k, v in one.items()})
+    return caches
 
 
 def decode_step(params, table, token: torch.Tensor, cache: list, cache_len,
@@ -416,23 +493,32 @@ def decode_step(params, table, token: torch.Tensor, cache: list, cache_len,
     place** (the reference donates it) and returned.
 
     ``cache_len`` is an int or a per-slot int [B] tensor: the tokens already
-    in each slot's cache, and the RoPE position of its new token.
+    in each slot's cache, and the RoPE position of its new token.  A mamba
+    layer steps its recurrent state whatever the length.
     """
     check_supported(cfg)
     b = token.shape[0]
     x = embed_tokens(table, token[:, None], cfg)
-    cl = torch.as_tensor(cache_len, dtype=torch.int32, device=token.device)
-    offset = cl[:, None] if cl.ndim == 1 else cl
-    positions = default_positions(b, 1, cfg, device=token.device) + offset
-    rope = L.rope_angles(positions, cfg.hd, cfg.rope_base)
-    slots = _decode_slots(cfg, cache[0]["k"].shape[2], cl, b)
+    rope = slots = None
+    if _has_attention(cfg):
+        cl = torch.as_tensor(cache_len, dtype=torch.int32, device=token.device)
+        offset = cl[:, None] if cl.ndim == 1 else cl
+        positions = default_positions(b, 1, cfg, device=token.device) + offset
+        rope = L.rope_angles(positions, cfg.hd, cfg.rope_base)
+        first = cfg.layer_types.index("attn")
+        slots = _decode_slots(cfg, cache[first]["k"].shape[2], cl, b)
     for gi in range(cfg.n_groups):
         for pos in range(cfg.period):
             p = _group(params["blocks"][pos], gi)
-            layer_cache = {"k": cache[pos]["k"][gi], "v": cache[pos]["v"][gi]}
-            x, _ = _attn_block(p, x, cfg, rope=rope, cache=layer_cache, slots=slots,
-                               use_kernel=use_kernel)
-            x = _mlp_block(p, x, cfg)
+            layer_cache = _group(cache[pos], gi)
+            if cfg.layer_type(pos) == "attn":
+                x, _ = _attn_block(p, x, cfg, rope=rope, cache=layer_cache, slots=slots,
+                                   use_kernel=use_kernel)
+            else:
+                x, new = _mamba_block(p, x, cfg, cache=layer_cache)
+                for key, t in new.items():
+                    layer_cache[key].copy_(t)
+            x, _ = _mlp_block(p, x, cfg, pos)
     h = L.rms_norm(x, params["final_norm"])
     return head_logits(params, table, h[:, 0], cfg), cache
 
@@ -446,25 +532,37 @@ def prefill(params, table, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
     masks the padding exactly, but the padded length changes the reduction
     shapes, so that path matches an exact-length prefill to an ulp, not
     bitwise; the serving engine prefills each request at its exact length.
+    A mamba layer's state would run through the padding, so a stack with
+    one refuses ``lens``, and its prompt must pass :func:`check_prompt_len`.
     """
     check_supported(cfg)
     b, t = tokens.shape
+    if lens is not None and _has_mamba(cfg):
+        raise ValueError(f"{cfg.name}: a right-padded prefill (lens) would run the SSM state "
+                         "through the padding; prefill each prompt at its exact length")
     x = embed_tokens(table, tokens, cfg)
-    positions = default_positions(b, t, cfg, device=tokens.device)
     kv_len = cache_len_for(cfg, max_len)
     # Ring layout: position p lives in slot p % kv_len; only the last kv_len
     # positions survive.
     n_keep = min(t, kv_len)
     slots = torch.arange(t - n_keep, t, device=tokens.device) % kv_len
     cache = init_cache(cfg, b, max_len, device=tokens.device)
-    rope = L.rope_angles(positions, cfg.hd, cfg.rope_base)
+    rope = None
+    if _has_attention(cfg):
+        positions = default_positions(b, t, cfg, device=tokens.device)
+        rope = L.rope_angles(positions, cfg.hd, cfg.rope_base)
     for gi in range(cfg.n_groups):
         for pos in range(cfg.period):
             p = _group(params["blocks"][pos], gi)
-            x, (k, v) = _attn_block(p, x, cfg, rope=rope, use_kernel=use_kernel)
-            cache[pos]["k"][gi][:, slots] = k[:, t - n_keep:]
-            cache[pos]["v"][gi][:, slots] = v[:, t - n_keep:]
-            x = _mlp_block(p, x, cfg)
+            if cfg.layer_type(pos) == "attn":
+                x, (k, v) = _attn_block(p, x, cfg, rope=rope, use_kernel=use_kernel)
+                cache[pos]["k"][gi][:, slots] = k[:, t - n_keep:]
+                cache[pos]["v"][gi][:, slots] = v[:, t - n_keep:]
+            else:
+                x, c = _mamba_block(p, x, cfg, return_cache=True)
+                for key, val in c.items():
+                    cache[pos][key][gi].copy_(val)
+            x, _ = _mlp_block(p, x, cfg, pos)
     h_final = L.rms_norm(x, params["final_norm"])
     if lens is None:
         h_last = h_final[:, -1]

@@ -2,8 +2,9 @@
 repro/serving/lm.py).
 
 * one ``prefill`` per request at its exact length (batch 1), so its result
-  does not depend on whatever else is in flight; its cache is copied into a
-  free slot;
+  does not depend on whatever else is in flight and a mamba layer's state
+  sees no padding; its cache (attention's K/V ring, a mamba layer's conv
+  windows and SSD state) is copied into a free slot whole (:func:`splice`);
 * one ``decode_step`` over the fixed slot batch with a **per-slot**
   ``cache_len`` vector, so a freshly refilled slot decodes next to slots deep
   into generation; the cache is updated in place;
@@ -11,8 +12,9 @@ repro/serving/lm.py).
 
 Per-request determinism (the slot-refill contract): every per-row op of the
 decode step is independent of the other rows — the cuBLAS projections run at
-the one fixed slot batch, decode attention is per row, and the head kernel
-sums each logit in a fixed order whatever the batch — and prefill is per
+the one fixed slot batch, decode attention and the SSM step are per row, MoE
+routing and capacity are per sample, and the head kernel sums each logit in
+a fixed order whatever the batch — and prefill is per
 request, so a request's tokens are bitwise identical whatever the arrival
 order or slot.
 
@@ -41,6 +43,16 @@ class LMRequest:
     prompt: np.ndarray  # [T] int32 token ids
     max_new: int
     rid: int | None = None
+
+
+def splice(cache: list, cache_one: list, slot: int) -> None:
+    """Copy a batch-1 prefilled cache into batch slot ``slot`` of ``cache``,
+    in place: every leaf of every period position's entry (laid out
+    ``[n_groups, batch, ...]``), so a refilled slot keeps nothing of its
+    previous request."""
+    for full, one in zip(cache, cache_one):
+        for key, leaf in full.items():
+            leaf[:, slot] = one[key][:, 0]
 
 
 class LMEngine(Engine):
@@ -105,6 +117,9 @@ class LMEngine(Engine):
         if prompt.size and (prompt.min() < 0 or prompt.max() >= vocab):
             raise ValueError(f"prompt tokens must lie in [0, {vocab}); got "
                              f"[{prompt.min()}, {prompt.max()}]")
+        # A mamba layer's chunked SSD takes a prompt of at most one chunk or a
+        # multiple of it (the reference's engine raises at prefill instead).
+        tfm.check_prompt_len(self.cfg, len(prompt))
         return super().submit(request)
 
     def _has_work(self) -> bool:
@@ -144,9 +159,7 @@ class LMEngine(Engine):
                 self._finish(req.rid, [first])  # done at prefill; no slot used
                 continue
             slot = free.pop(0)
-            for full, one in zip(self._cache, cache_one):
-                full["k"][:, slot] = one["k"][:, 0]
-                full["v"][:, slot] = one["v"][:, 0]
+            splice(self._cache, cache_one, slot)
             self._slot_rid[slot] = req.rid
             self._slot_budget[slot] = req.max_new
             self._slot_out[slot] = [first]

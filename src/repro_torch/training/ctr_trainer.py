@@ -444,14 +444,11 @@ class CTRTrainer:
         synced to the step count, and every ``refresh_every`` steps the
         state is refreshed."""
         spec, method = self.spec, self.method
-        every = method.refresh_every(spec)
 
         def step_with_refresh(state, ids, labels, **kw):
             state, m = step_fn(state, ids, labels, **kw)
-            emb = method.host_sync(state.emb_state, state.step, spec)
-            if state.step % every == 0:
-                emb = method.host_refresh(emb, spec)
-            return state._replace(emb_state=emb), m
+            return state._replace(emb_state=method.after_step(state.emb_state, state.step,
+                                                              spec)), m
 
         return step_with_refresh
 

@@ -41,7 +41,11 @@ transformer's ``tree_leaves`` order (LM), so a leaf has the reference's
 index.  Embedding methods sync their dense formulation: the trainable
 leaves of a float-leaf method, the [n, d] de-quantized table of an integer
 one (plus ALPT's synced Delta gradient), the only shape every rank shares.
-The wrapper never names a method; it keys off the capability flags.
+The wrapper never names a method; it keys off the capability flags (a
+``has_host_refresh`` method's state is refreshed on the host after the
+step, as the reference's ``make_*_step`` functions wrap theirs).  The LM
+leaves follow the parameter tree, so the SSM and MoE families sync their
+own leaves.
 """
 from __future__ import annotations
 
@@ -331,7 +335,7 @@ def make_lm_dp_step(cfg, tcfg, group=None, dp: DPConfig | None = None, *,
         metrics["aux_loss"] = collectives.exact_pmean_local(metrics["aux_loss"], sync.group)
         return new_state, metrics
 
-    return step
+    return lm_trainer.wrap_host_refresh(step, cfg, tcfg)
 
 
 def make_lm_microbatch_step(cfg, tcfg, n_shards: int, dp: DPConfig | None = None, *,
@@ -373,7 +377,7 @@ def make_lm_microbatch_step(cfg, tcfg, n_shards: int, dp: DPConfig | None = None
                         noise=noise, delta_grad=delta_grad,
                         batch_rows=int(batch["labels"].numel()))
 
-    return step
+    return lm_trainer.wrap_host_refresh(step, cfg, tcfg)
 
 
 # ------------------------------------------------------- wire-byte reporting

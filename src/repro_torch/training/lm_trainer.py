@@ -21,10 +21,12 @@ the reference's draw instead (``quant.sr_noise(kn, (n, d))`` for LPT,
 ``sr_noise(fold_in(kn, 1), (n, d))`` for ALPT).  :func:`make_train_step`'s
 ``grad_sync`` / ``step_grad_sync`` / ``dp_size`` are the data-parallel hooks
 (:mod:`repro_torch.training.data_parallel` fills them; ``dp_sync_bits`` is
-the sync width).  The reference's guard, prune refresh, ``alpt_every`` and
-``pad_to_tiles`` are not ported: their settings come with the slices whose
-code reads them.  :func:`save` / :func:`restore` checkpoint a state
-(``repro_torch.checkpoint``).
+the sync width).  :func:`wrap_host_refresh` wraps a step with prune's
+host-side mask refresh (``LMTrainerConfig.prune`` is its schedule);
+``LMTrainerConfig.pad_to_tiles`` allocates the table at the reference's
+padded geometry.  The reference's guard and ``alpt_every`` are not ported:
+their settings come with the slices whose code reads them.  :func:`save` /
+:func:`restore` checkpoint a state (``repro_torch.checkpoint``).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from repro_torch import methods
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.core.alpt import ALPTConfig
 from repro_torch.core.codestore import CodeStore
+from repro_torch.core.pruning import PruneConfig
 from repro_torch.methods import layout
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adam_init, adam_update, clip_by_global_norm, tree_leaves, tree_like
@@ -61,12 +64,17 @@ class LMTrainerConfig:
     grad_clip: float = 1.0
     row_optimizer: str = "adam"
     alpt_step_lr: float = 2e-5
+    # DeepLight schedule for method='prune' (host-side mask refresh).
+    prune: PruneConfig = PruneConfig()
     # Gradient-sync width of data-parallel training
     # (repro_torch.training.data_parallel): 32 = exact fp32, 2..8 = SR codes.
     dp_sync_bits: int = 32
     # Route the integer table's write-back and the dense Adam through the
     # CUDA kernels; False asks for the plain versions on any device.
     use_kernels: bool = True
+    # Pad the vocab table to the reference's tile geometry
+    # (EmbeddingSpec.pad_to_tiles: a scratch row, rows and width rounded).
+    pad_to_tiles: bool = False
 
 
 def embedding_spec_of(cfg: tfm.ModelConfig,
@@ -87,7 +95,9 @@ def embedding_spec_of(cfg: tfm.ModelConfig,
             weight_decay=tcfg.emb_weight_decay,
             step_lr=tcfg.alpt_step_lr,
         ),
+        prune=tcfg.prune,
         use_kernels=tcfg.use_kernels,
+        pad_to_tiles=tcfg.pad_to_tiles,
     )
 
 
@@ -299,12 +309,8 @@ def make_lr_fn(tcfg: LMTrainerConfig):
 
 
 def check_trainable(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig) -> None:
-    """Raise for a model or method the LM trainer cannot train yet."""
+    """Raise for a model the LM trainer cannot train yet."""
     tfm.check_supported(cfg)
-    method = cfg.embedding_method
-    if methods.get(method).has_host_refresh:
-        raise ValueError(f"embedding method {method!r} needs the LM trainer's host "
-                         "refresh (wrap_host_refresh), which is not ported yet")
 
 
 def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, grad_sync=None,
@@ -349,6 +355,25 @@ def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, grad_sync=No
                         batch_rows=int(batch["labels"].numel()) * dp_size)
 
     return train_step
+
+
+def wrap_host_refresh(step_fn, cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
+    """Host-side periodic table refresh around an LM step, for
+    ``method.has_host_refresh`` (prune's DeepLight mask): after each step the
+    schedule clock is synced to the step count and every ``refresh_every``
+    steps the mask is recomputed (``EmbeddingMethod.after_step``).  The
+    identity for every other method, so a training loop applies it
+    unconditionally, as the reference's does."""
+    spec = embedding_spec_of(cfg, tcfg)
+    method = methods.get(spec.method)
+    if not method.has_host_refresh:
+        return step_fn
+
+    def step_with_refresh(state: LMTrainState, batch: dict, *args, **kwargs):
+        state, m = step_fn(state, batch, *args, **kwargs)
+        return state._replace(table=method.after_step(state.table, state.step, spec)), m
+
+    return step_with_refresh
 
 
 def make_eval_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None = None):

@@ -590,20 +590,27 @@ def test_flash_attention_wrapper_raises_on_bad_operands(cuda):
 
 
 @pytest.mark.parametrize("arch,bits", [("smollm-135m", 8), ("smollm-135m", 4),
-                                       ("qwen3-1.7b", 8), ("h2o-danube-1.8b", 8)])
+                                       ("qwen3-1.7b", 8), ("h2o-danube-1.8b", 8),
+                                       ("mamba2-370m", 8), ("mamba2-370m", 4),
+                                       ("deepseek-moe-16b", 8), ("mixtral-8x7b", 8),
+                                       ("jamba-v0.1-52b", 8)])
 def test_lm_engine_kernels_vs_plain_teacher_forced(cuda, arch, bits):
     """Smoke configs on the card: the kernels launch (the head kernel only
-    for a tied table: Danube's head is a float matmul), the plain path fed
-    the kernel engine's tokens agrees within 1e-4 at every step (another
-    summation order in the head, the attention and cuBLAS at batch 1), and
-    the requests in reverse order give the same tokens."""
+    for a tied table: Danube's and the MoE stacks' heads are float matmuls;
+    flash once per attention layer and request, never for mamba2), the
+    plain path fed the kernel engine's tokens agrees within 1e-4 at every
+    step (another summation order in the head, the attention and cuBLAS at
+    batch 1), and the requests in reverse order give the same tokens.  An
+    SSM stack's prompts are at most one chunk (32) or a multiple of it."""
     import dataclasses as dc
 
     cfg = dc.replace(configs.smoke_config(arch), embedding_bits=bits)
     state = lm_trainer.init_state(cfg, seed=1, device=cuda)
     rng = np.random.RandomState(0)
-    reqs = [(rng.randint(0, cfg.vocab_size, n).astype(np.int32), m)
-            for n, m in [(40, 6), (17, 3), (33, 5), (9, 1), (25, 4)]]
+    lens = [(32, 6), (17, 3), (24, 5), (9, 1), (25, 4)] if cfg.ssm else [
+        (40, 6), (17, 3), (33, 5), (9, 1), (25, 4)]
+    reqs = [(rng.randint(0, cfg.vocab_size, n).astype(np.int32), m) for n, m in lens]
+    attn_layers = cfg.n_groups * cfg.layer_types.count("attn")
     runs = []
     for order in (range(len(reqs)), reversed(range(len(reqs)))):
         engine = LMEngine.from_state(state, cfg, batch=2, max_len=48)
@@ -613,7 +620,7 @@ def test_lm_engine_kernels_vs_plain_teacher_forced(cuda, arch, bits):
         launched = engine.metrics().kernel_launches
         head = "dequant_matmul_packed" if bits < 8 else "dequant_matmul"
         assert (launched.get(head, 0) > 0) == cfg.tie_embeddings
-        assert launched.get("flash_attention_fwd") == 5 * cfg.n_layers
+        assert launched.get("flash_attention_fwd", 0) == 5 * attn_layers
     assert runs[0] == runs[1]
     plain = dc.replace(engine.table, use_kernels=False)
     for i, (prompt, _) in enumerate(reqs):
@@ -753,6 +760,44 @@ def test_lm_train_step_kernels_bitwise_vs_plain(cuda, method, bits):
     for name in ("step", "mu", "nu"):
         assert torch.equal(getattr(on.table, name), getattr(off.table, name)), name
     for a, b in zip(tree_leaves(on.params), tree_leaves(off.params)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("method,bits", [("alpt", 8), ("lpt", 4)])
+def test_mamba2_train_step_kernels_bitwise_vs_plain(cuda, method, bits):
+    """mamba2's smoke config (4 mamba layers, tied head): two steps with the
+    kernels on and off from one state: the write-back and ``adam_update``
+    launch once per step, and losses, gradient norms, params, Adam moments
+    and table agree bit for bit (the SSD, the conv and the projections are
+    the same PyTorch on both sides)."""
+    cfg = dataclasses.replace(configs.smoke_config("mamba2-370m"), embedding_method=method,
+                              embedding_bits=bits)
+    stream = LMTokenStream(cfg.vocab_size, 64, seed=17)
+    batches = [{"tokens": torch.from_numpy(b[:, :-1]).to(cuda),
+                "labels": torch.from_numpy(b[:, 1:]).to(cuda)}
+               for b in (stream.batch(i, 4) for i in range(2))]
+    runs = []
+    for use_kernels in (True, False):
+        tcfg = lm_trainer.LMTrainerConfig(use_kernels=use_kernels)
+        state = lm_trainer.init_state(cfg, tcfg, seed=3, device=cuda)
+        step = lm_trainer.make_train_step(cfg, tcfg)
+        ops.reset_kernel_calls()
+        ops.reset_fallbacks()
+        metrics = []
+        for batch in batches:
+            state, m = step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs.append((state, metrics, ops.kernel_calls()))
+        assert ops.fallbacks() == []
+    (on, on_metrics, launches), (off, off_metrics, none) = runs
+    write_back = "sr_round" if method == "alpt" else "lpt_fused_update_packed"
+    assert launches == {write_back: 2, "adam_update": 2} and none == {}
+    assert on_metrics == off_metrics and all(np.isfinite(on_metrics).ravel())
+    assert torch.equal(on.table.codes.data, off.table.codes.data)
+    for name in ("step", "mu", "nu"):
+        assert torch.equal(getattr(on.table, name), getattr(off.table, name)), name
+    for a, b in zip(tree_leaves(on.params) + on.opt.mu + on.opt.nu,
+                    tree_leaves(off.params) + off.opt.mu + off.opt.nu):
         assert torch.equal(a, b)
 
 

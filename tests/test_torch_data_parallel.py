@@ -151,8 +151,8 @@ def test_dp_builders_refuse_what_they_cannot_train():
     with pytest.raises(ValueError, match="not divisible"):
         dpm.make_ctr_microbatch_step(uncached, 3)(uncached.init_state(),
                                                   *DATA.batch("train", 0, BATCH))
-    cfg = dataclasses.replace(configs.smoke_config("smollm-135m"), embedding_method="prune")
-    with pytest.raises(ValueError, match="host"):
+    cfg = dataclasses.replace(configs.smoke_config("smollm-135m"), remat=True)
+    with pytest.raises(NotImplementedError, match="remat"):
         dpm.make_lm_microbatch_step(cfg, lm_trainer.LMTrainerConfig(), 2)
 
 

@@ -251,20 +251,20 @@ def test_lm_state_round_trips_through_numpy():
 
 
 def test_trainer_refuses_what_later_slices_bring():
-    """The reference's guard, alpt_every and pad_to_tiles settings are not
-    fields of the port's config (its DP sync width is, since data
-    parallelism is ported); a prune table and an unported architecture are
-    refused by name."""
-    for field, value in (("guard", True), ("alpt_every", 2), ("pad_to_tiles", True)):
+    """The reference's guard and alpt_every settings are not fields of the
+    port's config (its DP sync width, prune schedule and pad_to_tiles are,
+    since their slices are ported); an unported architecture is refused by
+    name."""
+    for field, value in (("guard", True), ("alpt_every", 2)):
         with pytest.raises(TypeError, match=field):
             lm_trainer.LMTrainerConfig(**{field: value})
     assert lm_trainer.LMTrainerConfig(dp_sync_bits=8).dp_sync_bits == 8
+    assert lm_trainer.LMTrainerConfig(pad_to_tiles=True).pad_to_tiles
     cfg = configs.smoke_config("smollm-135m")
-    with pytest.raises(ValueError, match="prune"):
-        lm_trainer.make_train_step(dataclasses.replace(cfg, embedding_method="prune"),
-                                   lm_trainer.LMTrainerConfig())
-    with pytest.raises(NotImplementedError, match="SSM slice"):
-        lm_trainer.make_train_step(dataclasses.replace(cfg, layer_types=("mamba",)),
+    lm_trainer.make_train_step(dataclasses.replace(cfg, embedding_method="prune"),
+                               lm_trainer.LMTrainerConfig())
+    with pytest.raises(NotImplementedError, match="remat"):
+        lm_trainer.make_train_step(dataclasses.replace(cfg, remat=True),
                                    lm_trainer.LMTrainerConfig())
 
 
