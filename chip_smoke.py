@@ -3,8 +3,9 @@
 method, DCN and DeepFM), of int8-resident LM serving, of LPT/ALPT LM
 training, of checkpoints (resume, serving from a checkpoint), of the
 storage tiers (hot-row cache, host-memory cold tier), of data-parallel
-training (exact and SR-compressed gradient sync) and of the SSM and MoE LM
-families (mamba2-370m, deepseek-moe-16b) on one NVIDIA GPU.
+training (exact and SR-compressed gradient sync), of the SSM and MoE LM
+families (mamba2-370m, deepseek-moe-16b) and of observability (spans,
+counters, latency quantiles, --trace-out) on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -186,6 +187,36 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      through flash_attention_fwd, once per attention layer and request) and
      trained ALPT-8 for 3 steps, replayed likewise, its aux loss printed;
      each run's launches and peak memory printed;
+  14. observability (repro_torch.obs; obs_only runs the phase without the
+     rest), after phase 12: 14a. ALPT-8 on the full padded Avazu table, 3
+     steps from copies of one initial state untraced, traced, traced,
+     untraced (in turns): losses and every leaf of the checkpoint tree (the
+     generator's state included) bitwise equal, exactly 3 train.step and 3
+     train.writeback spans in each traced run, each
+     train.step span at least the card time of its step's kernels (CUDA
+     events around the step function, inside the span: the fence waited;
+     slack 0.1% for the two clocks), the host ms per step traced and
+     untraced printed (steps 2-3 of each run: a smoke number, not
+     gated); 14b. the trained state
+     serving phase 3's 4,096 requests in waves of 1,024, untraced and
+     traced: probabilities bitwise equal, 4 engine.wave and 4 engine.score
+     spans and 4,096 request b / e pairs, latency_us p50 <= p95 <= p99 for
+     waves and requests, the registry's engine.* diff equal to
+     EngineMetrics; 14c. the same requests through the cold tier (65,536
+     hot rows) while traced, bitwise 14b: storage.cold.prefetch and
+     storage.cold.fetch spans, the registry's prefetch_hits / demand_puts
+     diff equal to the ColdStore's counts; then a cached ALPT-8 run (4,096
+     rows, 10 steps, as phase 11's, which evicts dirty rows) traced:
+     storage.writeback_rows equal to the cache's write-backs and to the
+     spans' rows; 14d. SmolLM-135M at 8 bits (phase 7's state and prompts,
+     8 new tokens each) untraced and traced: greedy tokens equal, one
+     engine.prefill span per request and one engine.decode span per decode
+     step; over 14a-d a launch scope equal to the registry's
+     kernels.kernel_calls diff, no fallback; 14e. train ctr at full width (5
+     steps) and serve lm --arch smollm-135m, in this process, with
+     --trace-out: Chrome traces that load, step_time_us / latency_us and
+     kernel_fallbacks 0 in the reports, the train report's launches equal
+     to ops.kernel_calls() and the registry's;
   5. time each kernel at the slices' shapes (median of per-launch CUDA-event
      times after warm-up, device work only) beside its bound, its plain
      version's time and the library's one call where there is one, and the
@@ -4228,6 +4259,362 @@ def families_only() -> int:
     return 0
 
 
+OBS_STEPS = 3  # 14a: ALPT-8 steps, untraced and traced
+OBS_CACHED_STEPS = STORAGE_STEPS  # 14c: a cached ALPT-8 run, traced (phase 11's: it writes back)
+OBS_LM_NEW = 8  # 14d: new tokens per request
+OBS_SLACK = 0.999  # 14a: a span's host clock against its events' card clock
+
+
+def span_names(events) -> dict:
+    """{(ph, name): count} of a trace's events."""
+    out = {}
+    for e in events:
+        out[(e["ph"], e["name"])] = out.get((e["ph"], e["name"]), 0) + 1
+    return out
+
+
+def traced_run(run):
+    """``run()`` with the port's tracer armed -> (its result, the events);
+    the tracer is disarmed and cleared after."""
+    from repro_torch.obs.trace import tracer
+
+    tr = tracer()
+    tr.clear()
+    tr.enable()
+    try:
+        return run(), tr.events
+    finally:
+        tr.disable()
+        tr.clear()
+
+
+def obs_train(torch, dev, batches) -> dict:
+    """14a: ALPT-8 on the full padded Avazu table, OBS_STEPS steps from
+    copies of one initial state (generator included), untraced, traced,
+    traced, untraced (in turns, for the host-clock comparison): losses and
+    every leaf of the checkpoint tree bitwise equal in all four; exactly
+    OBS_STEPS train.step and train.writeback spans in each traced run, each
+    train.step at least as long as the card time of its step's kernels (CUDA
+    events around the step function, inside the span), so the fence
+    waited."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import dcn_ctr
+    from repro_torch.training.ctr_trainer import (CTRTrainer, TrainerConfig, checkpoint_tree,
+                                                  clone_state)
+
+    _, spec, dcn = dcn_ctr.avazu_setup(method="alpt", bits=8, scale=SCALE)
+    cfg = TrainerConfig(spec=dataclasses.replace(spec, pad_to_tiles=True), dcn=dcn, seed=1400)
+    trainer = CTRTrainer(cfg, device=dev)
+    state0 = trainer.init_state()
+    step_fn, card = trainer._step, []
+
+    def timed_step(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step_fn(*args, **kwargs)
+        end.record()
+        card.append((start, end))
+        return out
+
+    def run():
+        card.clear()
+        state, losses, host_ms = clone_state(state0), [], []
+        for ids, labels in batches[:OBS_STEPS]:
+            t0 = time.perf_counter()
+            state, m = trainer.train_step(state, ids, labels)
+            losses.append(float(m["loss"]))  # waits for the step
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return state, losses, host_ms
+
+    trainer._step = timed_step
+    first, ms = None, {False: [], True: []}
+    for traced in (False, True, True, False):
+        if traced:
+            (state, losses, host_ms), events = traced_run(run)
+        else:
+            state, losses, host_ms = run()
+        ms[traced].append(host_ms)
+        leaves = ckpt.flatten(checkpoint_tree(cfg, state))
+        if first is None:
+            first = (losses, leaves)
+            continue
+        check(losses == first[0], f"14a: losses {losses} (traced {traced}) != {first[0]}")
+        check(all(pa == pb and torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+                  for (pa, a), (pb, b) in zip(leaves, first[1], strict=True)),
+              f"14a: a leaf of the state (traced {traced}: codes, Delta, moments, dense "
+              "params, Adam, generator) differs from the first untraced run's")
+        if not traced:
+            continue
+        card_us = [start.elapsed_time(end) * 1e3 for start, end in card]
+        names = span_names(events)
+        check(names.get(("X", "train.step")) == OBS_STEPS == names.get(("X", "train.writeback")),
+              f"14a: spans {names}")
+        spans = [e["dur"] for e in events if e["name"] == "train.step"]
+        check(all(dur >= OBS_SLACK * c for dur, c in zip(spans, card_us, strict=True)),
+              f"14a: a train.step span ({spans} us) is shorter than its kernels' card time "
+              f"({card_us} us)")
+        log(f"[obs] 14a: train.step spans {[round(d, 1) for d in spans]} us >= the steps' card "
+            f"time {[round(c, 1) for c in card_us]} us")
+    trainer._step = step_fn
+    log(f"[obs] 14a: ALPT-8 on {cfg.spec.n_padded} rows, {OBS_STEPS} steps untraced, traced, "
+        f"traced, untraced: all bitwise equal ({len(first[1])} leaves, losses {first[0]}); "
+        f"host ms per step untraced {[[round(x, 3) for x in r] for r in ms[False]]}, traced "
+        f"{[[round(x, 3) for x in r] for r in ms[True]]}")
+    return {"cfg": cfg, "state": state, "ms": ms}
+
+
+def obs_serve(torch, np, cfg, state, test_ids) -> list:
+    """14b: the CTR engine, the test requests in waves of BATCH, untraced and
+    traced: probabilities bitwise equal, a wave span and a score span per
+    wave, a b / e pair per request, latency quantiles ordered, the
+    registry's engine.* diff equal to EngineMetrics.  Returns the probs."""
+    from repro_torch.obs import counters as obs_counters
+    from repro_torch.serving.ctr import CTREngine, CTRRequest
+
+    reg = obs_counters.registry()
+
+    def run():
+        engine = CTREngine.from_state(state, cfg, batch=BATCH)
+        before = reg.snapshot()
+        rids = [engine.submit(CTRRequest(ids=r)) for r in test_ids]
+        done = engine.run()
+        m = engine.metrics()
+        return [done[r]["prob"] for r in rids], m, reg.snapshot().diff(before)
+
+    plain, _, _ = run()
+    (probs, m, delta), events = traced_run(run)
+    check(probs == plain, "14b: traced probabilities differ from untraced")
+    waves, n = -(-len(test_ids) // BATCH), len(test_ids)
+    names = span_names(events)
+    check(names.get(("X", "engine.wave")) == waves == names.get(("X", "engine.score"))
+          and names.get(("b", "engine.request")) == n == names.get(("e", "engine.request")),
+          f"14b: spans {names}")
+    lat = m.latency_us
+    for which, count in (("wave", waves), ("request", n)):
+        q = lat[which]
+        check(q["count"] == count and q["p50"] <= q["p95"] <= q["p99"],
+              f"14b: latency_us[{which}] {q}")
+    got = {k: delta.value(f"engine.{k}", "ctr")
+           for k in ("requests_submitted", "requests_completed", "waves")}
+    check(got == {"requests_submitted": m.requests_submitted,
+                  "requests_completed": m.requests_completed, "waves": m.steps},
+          f"14b: registry engine.* {got} != metrics {m.to_json()}")
+    log(f"[obs] 14b: {n} requests in {waves} waves traced == untraced bitwise; latency_us "
+        f"wave {lat['wave']}, request {lat['request']} (host clock); registry engine.* "
+        f"{got}")
+    return probs
+
+
+def obs_tiers(torch, dev, cfg, state, test_ids, batches, probs) -> None:
+    """14c: the trained state served through the cold tier while traced
+    (bitwise 14b's probabilities; prefetch and fetch spans; the registry's
+    prefetch_hits / demand_puts diff equal to the ColdStore's own counts),
+    then a cached ALPT-8 run of OBS_CACHED_STEPS steps, traced, whose
+    storage.writeback_rows diff equals the cache's write-backs."""
+    from repro_torch.obs import counters as obs_counters
+    from repro_torch.serving.ctr import CTREngine, CTRRequest
+    from repro_torch.training.ctr_trainer import CTRTrainer
+
+    reg = obs_counters.registry()
+
+    def serve_cold():
+        engine = CTREngine.from_state(state, cfg, batch=BATCH, cache_rows=SERVE_CACHE_ROWS,
+                                      cold_tier=True)
+        before = reg.snapshot()
+        rids = [engine.submit(CTRRequest(ids=r)) for r in test_ids]
+        done = engine.run()
+        return [done[r]["prob"] for r in rids], engine.cold, reg.snapshot().diff(before)
+
+    (cold_probs, store, delta), events = traced_run(serve_cold)
+    names = span_names(events)
+    hits, puts = (delta.value("storage.cold.prefetch_hits"),
+                  delta.value("storage.cold.demand_puts"))
+    check(cold_probs == probs, "14c: the cold tier's probabilities differ from 14b's")
+    check(names.get(("X", "storage.cold.prefetch"), 0) > 0
+          and names.get(("X", "storage.cold.fetch"), 0) > 0
+          and (hits, puts) == (store.prefetch_hits, store.demand_puts),
+          f"14c: spans {names}, registry ({hits}, {puts}) != the store's "
+          f"({store.prefetch_hits}, {store.demand_puts})")
+    del store
+
+    trainer = CTRTrainer(dataclasses.replace(cfg, cache_rows=STORAGE_CACHE_ROWS), device=dev)
+
+    def train_cached():
+        s = trainer.init_state()
+        before = reg.snapshot()
+        for ids, labels in batches[:OBS_CACHED_STEPS]:
+            s, m = trainer.train_step(s, ids, labels)
+            float(m["loss"])
+        return reg.snapshot().diff(before).value("storage.writeback_rows")
+
+    rows, events = traced_run(train_cached)
+    written = sum(st["writebacks"] for st in trainer.cache_stats())
+    spans = [e["args"]["rows"] for e in events if e["name"] == "storage.writeback"]
+    check(rows == written > 0 and sum(spans) == rows,
+          f"14c: storage.writeback_rows {rows}, the cache's write-backs {written}, the "
+          f"spans' rows {sum(spans)}")
+    log(f"[obs] 14c: the cold tier served {len(test_ids)} requests traced, bitwise 14b "
+        f"({names.get(('X', 'storage.cold.prefetch'))} prefetch spans, "
+        f"{names.get(('X', 'storage.cold.fetch'))} fetch spans; registry prefetch_hits {hits}, "
+        f"demand_puts {puts}); a cached ALPT-8 run ({STORAGE_CACHE_ROWS} rows, "
+        f"{OBS_CACHED_STEPS} steps): storage.writeback_rows {rows} == the cache's write-backs "
+        f"over {len(spans)} storage.writeback spans")
+
+
+def obs_lm(torch, lm_run: dict) -> None:
+    """14d: SmolLM-135M at 8 bits (phase 7's state and prompts), its
+    requests untraced and traced: greedy tokens equal, one engine.prefill
+    per request and one engine.decode per decode step."""
+    from repro_torch.serving.lm import LMRequest
+
+    engine_cls = lm_engine_class()
+
+    def run():
+        engine = engine_cls.from_state(lm_run["state"], lm_run["cfg"], batch=LM_BATCH,
+                                       max_len=LM_MAX_LEN)
+        for i, p in enumerate(lm_run["prompts"]):
+            engine.submit(LMRequest(prompt=p, max_new=OBS_LM_NEW, rid=i))
+        return engine.run(), len(engine.prefill_ms), len(engine.decode_ms)
+
+    plain, _, _ = run()
+    (done, prefills, decodes), events = traced_run(run)
+    names = span_names(events)
+    check(done == plain, "14d: traced greedy tokens differ from untraced")
+    check(names.get(("X", "engine.prefill")) == prefills == len(lm_run["prompts"])
+          and names.get(("X", "engine.decode")) == decodes > 0, f"14d: spans {names}")
+    log(f"[obs] 14d: SmolLM-135M 8 bits, {prefills} requests x {OBS_LM_NEW} tokens traced == "
+        f"untraced; {prefills} engine.prefill and {decodes} engine.decode spans")
+
+
+def obs_clis(directory: pathlib.Path) -> dict:
+    """14e: ``train ctr`` at full width (CLI_STEPS steps) and ``serve lm
+    --arch smollm-135m`` at its defaults, in this process, each with
+    --trace-out: the Chrome traces load, the reports hold step_time_us /
+    latency_us and kernel_fallbacks 0, and the train report's launches are
+    the registry's.  Returns the two runs' launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.obs import counters as obs_counters
+
+    total = {}
+    for label, main, argv, span in (
+            ("train ctr", train_mod.main,
+             ["ctr", "--config", "avazu", "--scale", str(SCALE), "--method", "alpt", "--bits",
+              "8", "--batch", str(BATCH), "--steps", str(CLI_STEPS), "--seed", "3"],
+             "train.step"),
+            ("serve lm", serve_mod.main, ["lm", "--arch", LM_ARCH], "engine.prefill")):
+        path = directory / f"{label.replace(' ', '_')}.json"
+        out, err = io.StringIO(), io.StringIO()
+        ops.reset_kernel_calls()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(argv + ["--trace-out", str(path)])
+        lines = out.getvalue().strip().splitlines()
+        check(rc == 0 and bool(lines), f"14e: {label} exited {rc}: {err.getvalue()[-2000:]}")
+        r = json.loads(lines[-1])
+        names = span_names(json.loads(path.read_text())["traceEvents"])
+        cells = obs_counters.registry().snapshot().values.get("kernels.kernel_calls", {})
+        registry = {op: int(v) for (op,), v in cells.items()}
+        launches = r["kernel_launches"]
+        # The train report counts the whole run; the engine's, its waves
+        # (the state's init launched sr_round once before them).
+        served = {k: v for k, v in registry.items() if k != "sr_round"}
+        check(r.get("kernel_fallbacks") == 0 and names.get(("X", span), 0) > 0
+              and registry == ops.kernel_calls()
+              and launches == (registry if label == "train ctr" else served),
+              f"14e: {label}: kernel_fallbacks {r.get('kernel_fallbacks')}, spans {names}, "
+              f"launches {launches} / {ops.kernel_calls()} / registry {registry}")
+        if label == "train ctr":
+            q = r["step_time_us"]
+            check(q["count"] == CLI_STEPS == names.get(("X", "train.step")),
+                  f"14e: train ctr step_time_us {q}")
+        else:
+            q = r["latency_us"]["request"]
+            check(q["count"] == r["requests_completed"] and q["p50"] <= q["p95"] <= q["p99"],
+                  f"14e: serve lm latency_us {r['latency_us']}")
+        log(f"[obs] 14e: {label} --trace-out: {sum(names.values())} events, {path.stat().st_size}"
+            f" B; {'step_time_us' if label == 'train ctr' else 'latency_us.request'} {q}; "
+            f"launches {launches}; ops.kernel_calls() == the registry's {registry}")
+        total = added(total, registry)
+    return total
+
+
+def obs_phase(torch, np, dev, batches, test_ids, lm_run: dict) -> dict:
+    """Phase 14: observability on the card (obs_only runs it without the
+    rest).  Returns its launches: 14a-d's through a scope held over them
+    (checked against the registry's diff), 14e's from the CLIs' reports."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.obs import counters as obs_counters
+
+    t_phase = time.perf_counter()
+    reg = obs_counters.registry()
+    before = reg.snapshot()
+    with ops.fallback_scope() as scope:
+        a = obs_train(torch, dev, batches)
+        probs = obs_serve(torch, np, a["cfg"], a["state"], test_ids)
+        obs_tiers(torch, dev, a["cfg"], a["state"], test_ids, batches, probs)
+        del a["state"]
+        torch.cuda.empty_cache()
+        obs_lm(torch, lm_run)
+    cells = reg.snapshot().diff(before).values.get("kernels.kernel_calls", {})
+    window = {op: int(v) for (op,), v in cells.items()}
+    check(window == dict(scope.kernel_calls) and scope.stats()["total_fallbacks"] == 0,
+          f"14: the registry's kernels.kernel_calls diff {window} != the scope's "
+          f"{dict(scope.kernel_calls)}, or a fallback: {scope.stats()['fallbacks']}")
+    total = dict(scope.kernel_calls)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
+        total = added(total, obs_clis(pathlib.Path(tmp)))
+    plain, traced = (statistics.mean(x for r in a["ms"][t] for x in r[1:]) for t in (False, True))
+    log(f"[obs] 14a overhead (smoke number, host clock, steps 2-{OBS_STEPS} of the two runs "
+        f"each): {plain:.3f} ms per step untraced, {traced:.3f} traced "
+        f"({traced / plain - 1:+.1%}); {card_name()}")
+    log(f"[obs] phase 14: launches {total}; {time.perf_counter() - t_phase:.1f}s; "
+        f"{card_name()}")
+    return total
+
+
+def obs_only() -> int:
+    """Phase 14 alone (phase 7's SmolLM state and prompts made as phase 7
+    makes them):
+    ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.obs_only())"``."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[chip_smoke] needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch import device as device_mod
+    from repro_torch.data.ctr_synth import CTRSynthetic, avazu_like
+    from repro_torch.kernels import _build
+    from repro_torch.training import lm_trainer
+
+    t_start = time.perf_counter()
+    dev = device_mod.resolve("cuda")
+    for lib in _build.build():
+        _build.library(lib)
+    log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}; build "
+        f"{time.perf_counter() - t_start:.1f}s")
+    data = CTRSynthetic(avazu_like(SCALE))
+    ids, _ = data.batch("test", 0, REQUESTS)
+    batches = Batches(data.batch("train", i, BATCH) for i in range(OBS_CACHED_STEPS))
+    cfg = configs.full_config(LM_ARCH, embedding_bits=8)
+    rng = np.random.RandomState(8)
+    prompts = [rng.randint(0, cfg.vocab_size, LM_PROMPTS[i % len(LM_PROMPTS)]).astype(np.int32)
+               for i in range(LM_REQUESTS)]
+    lm_run = {"cfg": cfg, "prompts": prompts,
+              "state": lm_trainer.init_state(cfg, seed=8, device=dev)}
+    launches = obs_phase(torch, np, dev, batches, ids, lm_run)
+    check(set(launches) <= set(KERNELS), f"phase 14 launched {launches}")
+    log(f"[chip_smoke] phase 14 alone in {time.perf_counter() - t_start:.1f}s")
+    return 0
+
+
 def main() -> int:
     # cuBLAS picks deterministic algorithms only with a fixed workspace; the
     # kernels-on / kernels-off training runs of phase 6 must agree bitwise.
@@ -4377,6 +4764,12 @@ def main() -> int:
     phase12 = dp_phase(torch, dev, lm_data)
     check(set(phase12) <= set(KERNELS), f"phase 12 launched {phase12}")
     launches = {k: launches[k] + phase12.get(k, 0) for k in KERNELS}
+    # 14. observability: traced == untraced bitwise in training, CTR and LM
+    # serving; spans, counters and the CLIs' --trace-out (phase 7's SmolLM
+    # state still alive)
+    phase14 = obs_phase(torch, np, dev, batches, ids, lm_runs[8])
+    check(set(phase14) <= set(KERNELS), f"phase 14 launched {phase14}")
+    launches = {k: launches[k] + phase14.get(k, 0) for k in KERNELS}
     # 13. the SSM and MoE families: mamba2-370m at full width and depth,
     # deepseek-moe-16b at full width with 2 layers, served and trained.  The
     # SmolLM states of phase 7 go first (their tables stay for the timing).

@@ -28,6 +28,11 @@ any array loads.
 
 Single card, single process: elastic re-sharding (``shardings=``) comes with
 data parallelism.
+
+Observability, as the reference's: a save is one ``ckpt.save`` span and a
+restore one ``ckpt.restore`` span; the registry counts ``ckpt.saves``,
+``ckpt.restores`` and ``ckpt.corrupt_refused`` (a restore refused on
+verification).
 """
 from __future__ import annotations
 
@@ -51,12 +56,19 @@ from repro_torch import device as device_mod
 from repro_torch import methods
 from repro_torch.core import codestore
 from repro_torch.methods import layout
+from repro_torch.obs import counters as obs_counters
+from repro_torch.obs.trace import tracer
 from repro_torch.optim import OptState, adam_init, tree_leaves, tree_like
 from repro_torch.serving import table as serving_tbl
 
 
 #: Bytes that hold any ``.npy`` header the port writes (format 1.0 allows 64 KiB).
 _HEADER_MAX = 1 << 17
+
+_REG = obs_counters.registry()
+_MET_SAVES = _REG.counter("ckpt.saves", "checkpoints written")
+_MET_RESTORES = _REG.counter("ckpt.restores", "checkpoints restored")
+_MET_CORRUPT = _REG.counter("ckpt.corrupt_refused", "restores refused on verification failure")
 
 
 class CorruptCheckpointError(RuntimeError):
@@ -313,7 +325,14 @@ def _write_leaf(path: pathlib.Path, arr: np.ndarray) -> int:
 def save_pytree(tree, directory: str | os.PathLike, *, step: int,
                 extra_meta: dict | None = None) -> pathlib.Path:
     """Atomic save: write to a temp dir, fsync, rename, then the marker."""
-    # The reference's ckpt.save span and ckpt.saves counter go here, with obs/.
+    with tracer().span("ckpt.save", step=step):
+        out = _save_pytree(tree, directory, step=step, extra_meta=extra_meta)
+    _MET_SAVES.inc()
+    return out
+
+
+def _save_pytree(tree, directory: str | os.PathLike, *, step: int,
+                 extra_meta: dict | None) -> pathlib.Path:
     directory = pathlib.Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:09d}"
@@ -381,8 +400,17 @@ def load_pytree(directory: str | os.PathLike, *, step: int | None = None,
     disagrees with it (:func:`check_embedding_manifest`) raises
     ``ValueError`` before any array loads.
     """
-    # The reference's ckpt.restore span and ckpt.restores / ckpt.corrupt_refused
-    # counters go here, with obs/.
+    with tracer().span("ckpt.restore", step=-1 if step is None else step):
+        try:
+            out = _load_pytree(directory, step=step, device=device, verify=verify, spec=spec)
+        except CorruptCheckpointError:
+            _MET_CORRUPT.inc()
+            raise
+    _MET_RESTORES.inc()
+    return out
+
+
+def _load_pytree(directory, *, step: int | None, device, verify: bool, spec: Any):
     dev = device_mod.resolve(device)
     directory = pathlib.Path(directory)
     if step is None:

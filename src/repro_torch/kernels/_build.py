@@ -9,15 +9,16 @@ seconds; :func:`build` starts one ``nvcc`` per stale source, all at once.
 
 Every C entry point takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch.  :func:`launch` raises on a
-non-zero return and otherwise adds one to the kernel's launch count — the
-only place the counts grow, so they show which kernels really ran.  The
+non-zero return and otherwise adds one to the kernel's launch count, the
+obs registry's ``kernels.kernel_calls`` (label ``op``), and to that of
+every open ``ops.fallback_scope``: the only place the counts grow, so they
+show which kernels really ran.  The
 helpers a wrapper calls on every launch (:func:`launch`, :func:`check_operand`,
 :func:`stream_of`, :func:`on_device`) keep their common case short: a small
 gather spends more time in them than on the card.
 """
 from __future__ import annotations
 
-import collections
 import contextlib
 import ctypes
 import hashlib
@@ -28,6 +29,8 @@ import subprocess
 import threading
 
 import torch
+
+from repro_torch.obs import counters as obs_counters
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -87,8 +90,12 @@ SIGNATURES = {
     },
 }
 
-#: Launches per kernel since the last :func:`reset_launches`.
-LAUNCHES: collections.Counter = collections.Counter()
+#: Launches per kernel (label ``op``): the one count, read through
+#: ``ops.kernel_calls`` and reset by ``ops.reset_kernel_calls``.
+KERNEL_CALLS = obs_counters.registry().counter("kernels.kernel_calls", "kernel launches",
+                                               labels=("op",))
+#: The open ``ops.FallbackScope``s: each also counts the launches made while open.
+SCOPES: list = []
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: (source, C function) -> the bound function, filled on first launch.
@@ -203,8 +210,6 @@ def launch(kernel: str, source: str, fn: str, *args) -> None:
     if err != 0:
         msg = library(source).repro_error_string(err).decode()
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {err} ({msg})")
-    LAUNCHES[kernel] += 1
-
-
-def reset_launches() -> None:
-    LAUNCHES.clear()
+    KERNEL_CALLS.inc(1, kernel)
+    for scope in SCOPES:
+        scope.kernel_calls[kernel] += 1

@@ -11,7 +11,9 @@ Unlike the reference, which falls back (counted) to its jnp oracle on shapes
 that are not multiples of 8, the CUDA kernels take every shape, so nothing
 here falls back.  :func:`kernel_calls` counts real launches per kernel, in
 the shape of the reference's ``fallback_stats()["kernel_calls"]``
-(``ops.py:178`` there: op name -> count); the packed variants have their own
+(``ops.py:178`` there: op name -> count), read from the obs registry's
+``kernels.kernel_calls`` (label ``op``), which ``_build.launch`` increments;
+the packed variants have their own
 keys (``dequant_gather_packed``, ``sparse_row_update_packed``,
 ``sparse_row_update_runs_packed``, ``dequant_matmul_packed``,
 ``lpt_fused_update_packed``) because they are their own kernels here, the
@@ -29,7 +31,11 @@ its gradient on the card.  Serving runs them under ``inference_mode``.
 A caller that decides *before* a wrapper not to use a kernel (the
 eligibility gate of ``core.lpt.sparse_apply``) records that choice with
 :func:`note_fallback`, keyed ``(op, shape, reason)`` as the reference's
-``ops.py:141``; :func:`fallbacks` lists them, so the choice is never silent.
+``ops.py:141``, in the registry's ``kernels.fallbacks``; :func:`fallbacks`
+lists them, so the choice is never silent.  :func:`fallback_stats` gives
+both tallies in the reference's legacy schema, and :func:`fallback_scope`
+collects them for one ``with`` block (the engine's report), as the
+reference's.
 
 A table behind a hot-row cache (:class:`repro_torch.core.tiered.TieredCodes`)
 takes routed kernels, counted under their own names: the gathers
@@ -46,6 +52,7 @@ no LM cache).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 
@@ -61,40 +68,90 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import lpt_update as _lpt
 from repro_torch.kernels import sparse_row_update as _row_update
 from repro_torch.kernels import sr_round as _sr_round
+from repro_torch.obs import counters as obs_counters
 
 logger = logging.getLogger(__name__)
 
 #: Counted kernels-on dispatches that took the plain path, by (op, shape, reason).
-_FALLBACKS: collections.Counter = collections.Counter()
+_MET_FALLBACKS = obs_counters.registry().counter(
+    "kernels.fallbacks", "kernels-on dispatches routed to the plain path",
+    labels=("op", "shape", "reason"))
+
+
+class FallbackScope:
+    """Launches and noted fallbacks made while the scope is open
+    (:func:`fallback_scope`), kept apart from the process-wide tally."""
+
+    def __init__(self) -> None:
+        self.kernel_calls: collections.Counter = collections.Counter()
+        self.fallbacks: collections.Counter = collections.Counter()
+
+    def stats(self) -> dict:
+        return _stats_of(self.kernel_calls, self.fallbacks)
+
+
+@contextlib.contextmanager
+def fallback_scope(scope: FallbackScope | None = None):
+    """Collect launches and noted fallbacks for the duration of a ``with``
+    block; yields the :class:`FallbackScope` (pass one to re-enter it: the
+    engine keeps one across its steps).  Neither clears nor reads the
+    process-wide tally."""
+    scope = FallbackScope() if scope is None else scope
+    _build.SCOPES.append(scope)
+    try:
+        yield scope
+    finally:
+        _build.SCOPES.remove(scope)
+
+
+def _stats_of(kernel_calls, fallback_counts) -> dict:
+    return {
+        "kernel_calls": dict(kernel_calls),
+        "fallbacks": [{"op": op, "shape": shape, "reason": reason, "count": int(c)}
+                      for (op, shape, reason), c in sorted(fallback_counts.items())],
+        "total_fallbacks": int(sum(fallback_counts.values())),
+    }
 
 
 def kernel_calls() -> dict[str, int]:
     """Kernel launches since the last :func:`reset_kernel_calls`, by kernel."""
-    return dict(_build.LAUNCHES)
+    return {op: int(c) for (op,), c in _build.KERNEL_CALLS.cells().items()}
 
 
 def reset_kernel_calls() -> None:
-    _build.reset_launches()
+    _build.KERNEL_CALLS.reset()
 
 
 def note_fallback(op: str, shape, reason: str) -> None:
     """Count a kernels-on dispatch that a caller routed to the plain path;
     warns once per key."""
     key = (op, str(tuple(shape)), reason)
-    if not _FALLBACKS[key]:
+    if not _MET_FALLBACKS.value(*key):
         logger.warning("kernels.%s: shape %s takes the plain path (%s)", op, tuple(shape), reason)
-    _FALLBACKS[key] += 1
+    _MET_FALLBACKS.inc(1, *key)
+    for scope in _build.SCOPES:
+        scope.fallbacks[key] += 1
 
 
 def fallbacks() -> list[dict]:
     """Counted fallbacks since the last :func:`reset_fallbacks`, in the
     reference's ``fallback_stats()["fallbacks"]`` schema."""
-    return [{"op": op, "shape": shape, "reason": reason, "count": int(c)}
-            for (op, shape, reason), c in sorted(_FALLBACKS.items())]
+    return _stats_of({}, _MET_FALLBACKS.cells())["fallbacks"]
 
 
 def reset_fallbacks() -> None:
-    _FALLBACKS.clear()
+    _MET_FALLBACKS.reset()
+
+
+def fallback_stats() -> dict:
+    """Launches and noted fallbacks since the last resets, in the reference's
+    legacy schema: ``{kernel_calls, fallbacks, total_fallbacks}``."""
+    return _stats_of(kernel_calls(), _MET_FALLBACKS.cells())
+
+
+def reset_fallback_stats() -> None:
+    reset_kernel_calls()
+    reset_fallbacks()
 
 
 def _plain(t: torch.Tensor, use_kernel: bool) -> bool:

@@ -29,6 +29,11 @@ code container moves to host memory (a plain integer table only) and the
 device keeps Delta and ``--cache-rows`` hot rows; ``--device-budget-bytes``
 refuses a tier that would hold more.  A ``[serve] hot tier`` or ``cold
 tier`` line reports each slot's hit rate and bytes.
+
+The JSON line carries ``latency_us`` (wave and request quantiles on the
+host clock) and ``kernel_fallbacks``.  ``--trace-out PATH`` (both
+scenarios) arms the span tracer and writes a Chrome trace to PATH at exit
+(``train.run_traced``).
 """
 from __future__ import annotations
 
@@ -135,8 +140,11 @@ def main(argv=None) -> int:
     lm.add_argument("--requests", type=int, default=8)
     lm.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     lm.add_argument("--seed", type=int, default=0)
+    for p in (ctr, lm):
+        train_cli.add_trace_arg(p)
     args = ap.parse_args(argv)
-    return _run_lm(args) if args.scenario == "lm" else _run_ctr(args)
+    run = _run_lm if args.scenario == "lm" else _run_ctr
+    return train_cli.run_traced(args.trace_out, "serve", lambda: run(args))
 
 
 if __name__ == "__main__":

@@ -47,6 +47,16 @@ place of the dataset, with the config's model; ``--cache-rows`` composes a
 device hot-row cache of that many rows over every cacheable sub-table
 (bitwise the uncached run; checkpoints hold the exported state) and
 prints each slot's hits, evictions and write-backs at the end.
+
+Observability (:mod:`repro_torch.obs`, as the reference's CLI): the JSON
+line carries ``step_time_us`` (P² quantiles of each step's host µs) and
+``kernel_fallbacks`` (``lm``: unless ``--no-kernels``), and ``lm`` also
+``straggler_steps``: a step slower than 2.5 x the EWMA of the steps before
+it, after 5 warm-up steps, is flagged (``train.straggler_warnings``, the
+instant ``train.straggler``).  ``--trace-out PATH`` arms the span tracer
+and writes a Chrome trace (``chrome://tracing``, https://ui.perfetto.dev)
+to PATH at exit, also after an error; with several ranks only rank 0
+writes it.  Tracing fences the card at span edges and changes no result.
 """
 from __future__ import annotations
 
@@ -71,10 +81,17 @@ from repro_torch.data.ctr_synth import CTRDatasetConfig, CTRSynthetic
 from repro_torch.data.lm_synth import LMTokenStream
 from repro_torch.kernels import ops
 from repro_torch.models import ctr as ctr_models
+from repro_torch.obs import counters as obs_counters
+from repro_torch.obs.stats import StreamingQuantiles
+from repro_torch.obs.trace import tracer
 from repro_torch.training import data_parallel, lm_trainer
 from repro_torch.training.ctr_trainer import CTRTrainer, TrainerConfig
 
 SETUPS = {"avazu": dcn_ctr.avazu_setup, "criteo": dcn_ctr.criteo_setup}
+
+# Steps the straggler watchdog flagged, in this process.
+_MET_STRAGGLERS = obs_counters.registry().counter("train.straggler_warnings",
+                                                  "steps flagged slow by the watchdog")
 
 # The reference's skewed-traffic fixture for the storage tiers
 # (repro/launch/serve.py:53): Zipf(1.1) ids over a 4,092-row vocabulary, so
@@ -133,6 +150,65 @@ def data_label(args) -> str:
 def ms_per_step(history) -> float:
     """Mean host milliseconds per step of a ``CTRTrainer.fit`` history."""
     return sum(h["ms"] for h in history) / max(len(history), 1)
+
+
+class StragglerWatchdog:
+    """Flags a step slower than ``factor`` x the EWMA of the steps before it,
+    once ``warmup`` steps are in (the reference's ``launch/train.py:69``)."""
+
+    def __init__(self, factor: float = 2.5, warmup: int = 5):
+        self.factor = factor
+        self.warmup = warmup
+        self.ewma = None
+        self.n = 0
+        self.flagged = 0
+
+    def observe(self, dt: float) -> bool:
+        """``dt``: a step's host seconds; True when it is flagged."""
+        self.n += 1
+        if self.ewma is None:
+            self.ewma = dt
+            return False
+        slow = self.n > self.warmup and dt > self.factor * self.ewma
+        if slow:
+            self.flagged += 1
+            _MET_STRAGGLERS.inc()
+            tracer().instant("train.straggler", step=self.n, dt_ms=dt * 1e3)
+        # A slow step does not poison the EWMA.
+        self.ewma = 0.9 * self.ewma + 0.1 * min(dt, 2 * self.ewma)
+        return slow
+
+
+def step_quantiles(ms) -> dict:
+    """``StreamingQuantiles.to_json()`` of step times given in ms, in µs."""
+    q = StreamingQuantiles()
+    for t in ms:
+        q.add(t * 1e3)
+    return q.to_json()
+
+
+def run_traced(trace_out: str | None, tag: str, run) -> int:
+    """``run()``, with the span tracer armed when ``trace_out`` names a file:
+    the Chrome trace is written there at exit, also after an error, by
+    rank 0 only under torch.distributed (``RANK``), and the tracer is then
+    disarmed.  The note that it was written goes to stderr, so that the
+    report's JSON line stays the last line of stdout."""
+    if not trace_out:
+        return run()
+    rank0 = int(os.environ.get("RANK", "0")) == 0
+    tr = tracer()
+    tr.clear()
+    tr.enable(trace_out)
+    if rank0:
+        print(f"[{tag}] tracing armed -> {trace_out}")
+    try:
+        return run()
+    finally:
+        tr.disable()
+        if rank0 and tr.export():
+            print(f"[{tag}] trace written: {trace_out} ({len(tr.events)} events)",
+                  file=sys.stderr)
+        tr.clear()
 
 
 class GracefulShutdown:
@@ -241,6 +317,8 @@ def _run_ctr(args) -> int:
         "scale": args.scale, "bits": args.bits, "device": str(device), "steps": args.steps,
         "start_step": start, "batch": args.batch, "losses": losses, "ms_per_step": ms,
         "kernel_launches": ops.kernel_calls(), "fallbacks": ops.fallbacks(),
+        "kernel_fallbacks": ops.fallback_stats()["total_fallbacks"],
+        "step_time_us": step_quantiles(ms_list),
         "embedding_bytes": method.memory_bytes(state.emb_state, cfg.spec, training=True),
         "inference_bytes": method.memory_bytes(state.emb_state, cfg.spec, training=False),
         "training_bytes": method.memory_bytes(state.emb_state, cfg.spec, stored=True),
@@ -368,16 +446,21 @@ def _train_lm(args, device: torch.device) -> int:
         # The host-side refresh (prune's mask); the identity for other methods.
         step_fn = lm_trainer.wrap_host_refresh(lm_trainer.make_train_step(cfg, tcfg), cfg, tcfg)
 
+    watchdog = StragglerWatchdog()
+
     def one_step(state):
         full = torch.from_numpy(data.batch(state.step, args.batch)).to(device)
         batch = {"tokens": full[:, :-1], "labels": full[:, 1:]}
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])  # waits for the step
-        ms = (time.perf_counter() - t0) * 1e3
+        with tracer().span("train.step", step=state.step):
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])  # waits for the step
+        dt = time.perf_counter() - t0
+        slow = watchdog.observe(dt)
         if args.log_every and state.step % args.log_every == 0:
-            say(f"[train] step {state.step} loss {loss:.4f} {ms:.0f}ms")
-        return state, loss, ms
+            say(f"[train] step {state.step} loss {loss:.4f} {dt * 1e3:.0f}ms"
+                f"{' STRAGGLER' if slow else ''}")
+        return state, loss, dt * 1e3
 
     def save(state, force):
         return (bool(manager) and rank == 0
@@ -398,7 +481,10 @@ def _train_lm(args, device: torch.device) -> int:
         "fallbacks": ops.fallbacks(), "embedding_bytes": method.memory_bytes(state.table, spec),
         "training_bytes": method.memory_bytes(state.table, spec, stored=True),
         "table_shape": [spec.n_padded, spec.d_padded],
+        "straggler_steps": watchdog.flagged, "step_time_us": step_quantiles(ms),
     }
+    if not args.no_kernels:
+        report["kernel_fallbacks"] = ops.fallback_stats()["total_fallbacks"]
     if wire is not None:
         report.update(mesh_data=dist.get_world_size(), **wire)
     if manager and manager.corrupt_steps:
@@ -417,6 +503,12 @@ def add_ckpt_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--ckpt-every", type=int, default=50, help="steps between checkpoints")
 
 
+def add_trace_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="arm the span tracer and write a Chrome-trace JSON "
+                        "(chrome://tracing / ui.perfetto.dev) to PATH at exit")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="scenario", required=True)
@@ -431,6 +523,7 @@ def main(argv=None) -> int:
                      help="device hot-row cache capacity per storage slot (0 = off); "
                           "bitwise the uncached run")
     add_ckpt_args(ctr)
+    add_trace_arg(ctr)
     lm = sub.add_parser("lm", help="LM training (dense, SSM, MoE) with a quantized vocab table")
     lm.add_argument("--arch", choices=sorted(configs.ARCHS), default="smollm-135m")
     lm.add_argument("--smoke", action="store_true", help="the reduced config of --arch")
@@ -457,11 +550,12 @@ def main(argv=None) -> int:
                          "sync gradients at this width (32 = exact fp32 mean, 2..8 = "
                          "SR-compressed codes); requires --mesh-model 1")
     add_ckpt_args(lm)
+    add_trace_arg(lm)
     args = ap.parse_args(argv)
     if args.scenario == "lm":
         check_mesh(lm, args)
-        return _run_lm(args)
-    return _run_ctr(args)
+    run = _run_lm if args.scenario == "lm" else _run_ctr
+    return run_traced(args.trace_out, "train", lambda: run(args))
 
 
 if __name__ == "__main__":

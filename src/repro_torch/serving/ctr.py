@@ -26,9 +26,10 @@ Storage tiers (:mod:`repro_torch.storage`), as the reference's:
   by the routed gather's staged route.  For tables larger than
   ``device_budget_bytes``.
 
-A tier over ``device_budget_bytes`` raises, as in the reference.  The
-reference's fault seams, retries and spans around the tiers wait for the
-faults and observability slice.
+A tier over ``device_budget_bytes`` raises, as in the reference.  Each
+wave's scoring is one ``engine.score`` span (``tier="cold"`` on the cold
+path), fenced on the probabilities while tracing.  The reference's fault
+seams and retries around the tiers wait for the faults slice.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from repro_torch import device as device_mod
 from repro_torch import methods
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.models import ctr as ctr_models
+from repro_torch.obs.trace import tracer
 from repro_torch.serving import table as serving_tbl
 from repro_torch.serving.engine import CacheMetrics, Engine
 from repro_torch.storage.cold import ColdStore
@@ -190,6 +192,12 @@ class CTREngine(Engine):
                 metadata_bytes=tiered.metadata_bytes + cache.host_metadata_bytes))
         return tuple(out)
 
+    def _reset_cache_counters(self) -> None:
+        if self._cold is not None:
+            self._cold.reset_counters()
+        for _, cache in self._caches:
+            cache.reset_counters()
+
     # ------------------------------------------------------------ bytes
 
     @property
@@ -244,16 +252,21 @@ class CTREngine(Engine):
     def _advance(self) -> None:
         wave = [self._queue.popleft() for _ in range(min(self.batch, len(self._queue)))]
         ids_np = self._padded_wave_ids(wave)
+        tr = tracer()
         with torch.inference_mode():
             if self._cold is not None:
                 self._cold.admit(ids_np[: len(wave)].reshape(-1))
                 d = self._d_live
                 rows = self._cold.rows(ids_np.reshape(-1))[:, :d].reshape(*ids_np.shape, d)
+                with tr.span("engine.score", wave=len(wave), tier="cold"):
+                    logits = ctr_models.logits_from_rows(self.dense, rows)
+                    probs = tr.fence(torch.sigmoid(logits))
             else:
                 self._maintain_caches(ids_np[: len(wave)])
-                rows = self.table.rows(torch.from_numpy(ids_np).to(self.device))
-            logits = ctr_models.logits_from_rows(self.dense, rows)
-            probs = torch.sigmoid(logits)
+                with tr.span("engine.score", wave=len(wave)):
+                    rows = self.table.rows(torch.from_numpy(ids_np).to(self.device))
+                    logits = ctr_models.logits_from_rows(self.dense, rows)
+                    probs = tr.fence(torch.sigmoid(logits))
         if self._cold is not None:
             # Stage the next wave's rows while this wave is scored.
             nxt = list(itertools.islice(self._queue, self.batch))

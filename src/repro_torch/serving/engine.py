@@ -8,9 +8,18 @@ resident-bytes accounting, the metrics count the kernel launches the
 engine's own steps made, so a run shows that it went through the kernels.
 With a storage tier (``CTREngine``'s hot-row cache or cold tier) they also
 carry one :class:`CacheMetrics` per tier and slot, in the reference's
-schema.  Fault injection, tracing and the fault counters the reference
-keeps in ``CacheMetrics`` (``admission_oom``, ``prefetch_dropped``,
-``corruption_detected``: 0 here) are not ported yet.
+schema, mirrored into the obs registry's ``cache.*`` gauges.
+
+Observability (:mod:`repro_torch.obs`), as the reference's: the registry's
+``engine.requests_submitted`` / ``requests_completed`` / ``waves``
+counters, labelled by scenario; one ``engine.wave`` span per step and one
+async ``engine.request`` span per request, from submit to finish; wave and
+request latency quantiles on the host clock (``EngineMetrics.latency_us``);
+the kernel fallbacks the engine's steps noted (``fallback_report``).  Fault
+injection, and the fault counters the reference keeps
+(``engine.deadline_misses`` and ``engine.served_degraded`` are registered
+and stay 0; ``CacheMetrics.admission_oom``, ``prefetch_dropped`` and
+``corruption_detected`` read 0), are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,7 +30,33 @@ from typing import Any
 
 from repro_torch import methods
 from repro_torch.kernels import ops
+from repro_torch.obs import counters as obs_counters
+from repro_torch.obs import stats as obs_stats
+from repro_torch.obs.trace import tracer
 from repro_torch.serving import table as serving_tbl
+
+# Engine counters, labelled by scenario so that CTR and LM engines in one
+# process keep their tallies apart.  Observational: no computation reads them.
+_REG = obs_counters.registry()
+_MET_SUBMITTED = _REG.counter("engine.requests_submitted", "requests enqueued",
+                              labels=("scenario",))
+_MET_COMPLETED = _REG.counter("engine.requests_completed", "requests finished",
+                              labels=("scenario",))
+_MET_WAVES = _REG.counter("engine.waves", "scheduler steps taken", labels=("scenario",))
+_REG.counter("engine.deadline_misses", "waves over the per-wave deadline", labels=("scenario",))
+_REG.counter("engine.served_degraded", "waves served degraded off the warm tier",
+             labels=("scenario",))
+_CACHE_FIELDS = ("capacity", "rows_cached", "hits", "misses", "evictions", "writebacks",
+                 "hit_rate", "hot_bytes", "metadata_bytes", "admission_oom", "prefetch_dropped",
+                 "corruption_detected")
+
+
+def _publish_cache_metrics(caches) -> None:
+    """Mirror per-tier cache snapshots into the ``cache.*`` registry gauges."""
+    for c in caches:
+        for field in _CACHE_FIELDS:
+            _REG.gauge(f"cache.{field}", labels=("tier", "name")).set(getattr(c, field), c.tier,
+                                                                      c.name)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,17 +97,25 @@ class EngineMetrics:
     embedding_scale_bytes: int
     int8_resident: bool
     kernel_launches: dict[str, int]
+    kernel_fallbacks: int  # noted by this engine's steps, since it was built
     tokens_generated: int = 0  # LM only
     caches: tuple[CacheMetrics, ...] = ()
     cache_hit_rate: float | None = None
     cache_budget_bytes: int | None = None
     prefetch_depth: int = 0
+    #: Host-clock latency in µs, ``{"wave": {...}, "request": {...}}`` (each
+    #: ``StreamingQuantiles.to_json()``); None until a wave ran, ``request``
+    #: once a request finished.
+    latency_us: dict | None = None
 
     def to_json(self) -> dict:
         """The schema: ``us_per_request`` once requests completed,
         ``tokens_generated`` / ``us_per_token`` for a token scenario, the
-        cache keys only when a tier is on (as the reference's)."""
+        cache keys only when a tier is on, ``latency_us`` once a wave ran (as
+        the reference's)."""
         out = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        if self.latency_us is None:
+            del out["latency_us"]
         if self.requests_completed:
             out["us_per_request"] = self.wall_s / self.requests_completed * 1e6
         if self.tokens_generated:
@@ -106,6 +149,12 @@ class Engine:
         self._wall_s = 0.0
         self._tokens = 0  # generated tokens (LM only)
         self._launches: collections.Counter = collections.Counter()
+        # The launches and fallbacks of every step, over the engine's life.
+        self._fallbacks = ops.FallbackScope()
+        # Host-clock latency (µs) per wave and per request, submit to finish.
+        self._wave_latency = obs_stats.StreamingQuantiles()
+        self._request_latency = obs_stats.StreamingQuantiles()
+        self._submit_ns: dict[int, int] = {}
         #: The storage tiers' device-bytes ceiling, when a frontend set one.
         self.cache_budget_bytes: int | None = None
         #: Waves staged ahead of the one being scored (the cold tier: 1).
@@ -125,6 +174,9 @@ class Engine:
         self._next_rid = max(self._next_rid, rid + 1)
         self._queue.append(request)
         self._submitted += 1
+        _MET_SUBMITTED.inc(1, self.scenario)
+        self._submit_ns[rid] = time.perf_counter_ns()
+        tracer().async_begin("engine.request", rid, scenario=self.scenario)
         return rid
 
     def poll(self, rid: int):
@@ -140,13 +192,16 @@ class Engine:
         """Advance the scheduler by one unit of work; False once idle."""
         if not self._has_work():
             return False
-        before = ops.kernel_calls()
         t0 = time.perf_counter()
-        self._advance()
-        self._wall_s += time.perf_counter() - t0
+        with tracer().span("engine.wave", scenario=self.scenario):
+            with ops.fallback_scope(self._fallbacks), ops.fallback_scope() as wave:
+                self._advance()
+        dt = time.perf_counter() - t0
+        self._wall_s += dt
         self._steps += 1
-        for kernel, count in ops.kernel_calls().items():
-            self._launches[kernel] += count - before.get(kernel, 0)
+        self._launches.update(wave.kernel_calls)
+        self._wave_latency.add(dt * 1e6)
+        _MET_WAVES.inc(1, self.scenario)
         return True
 
     def run(self) -> dict[int, Any]:
@@ -165,6 +220,11 @@ class Engine:
     def _finish(self, rid: int, result) -> None:
         self._done[rid] = result
         self._completed += 1
+        _MET_COMPLETED.inc(1, self.scenario)
+        t0 = self._submit_ns.pop(rid, None)
+        if t0 is not None:
+            self._request_latency.add((time.perf_counter_ns() - t0) / 1e3)
+        tracer().async_end("engine.request", rid)
 
     @property
     def resident_embedding_bytes(self) -> int:
@@ -187,13 +247,38 @@ class Engine:
         """Per-tier cache snapshots; () when no tier is composed in."""
         return ()
 
+    def fallback_report(self) -> dict:
+        """Launches and noted fallbacks of this engine's steps, over its life,
+        in ``ops.fallback_stats``'s schema."""
+        return self._fallbacks.stats()
+
+    def _reset_cache_counters(self) -> None:
+        """Frontends with cache tiers zero their traffic counters here."""
+
+    def reset_metrics(self) -> None:
+        """Zero the counters, launches and latencies (warm up, then measure).
+        Finished results, cache membership and the fallback report are kept;
+        the caches' traffic counters restart with the window."""
+        self._submitted = self._completed = self._steps = self._tokens = 0
+        self._wall_s = 0.0
+        self._launches = collections.Counter()
+        self._wave_latency = obs_stats.StreamingQuantiles()
+        self._request_latency = obs_stats.StreamingQuantiles()
+        self._reset_cache_counters()
+
     def metrics(self) -> EngineMetrics:
         caches = self.cache_metrics()
+        _publish_cache_metrics(caches)
         hit_rate = None
         if caches:
             hits = sum(c.hits for c in caches)
             total = hits + sum(c.misses for c in caches)
             hit_rate = hits / total if total else 0.0
+        latency = None
+        if self._wave_latency.count:
+            latency = {"wave": self._wave_latency.to_json()}
+            if self._request_latency.count:
+                latency["request"] = self._request_latency.to_json()
         return EngineMetrics(
             scenario=self.scenario,
             embedding_method=self.spec.method,
@@ -206,9 +291,11 @@ class Engine:
             embedding_scale_bytes=self.embedding_scale_bytes,
             int8_resident=self.int8_resident,
             kernel_launches={k: v for k, v in self._launches.items() if v},
+            kernel_fallbacks=self.fallback_report()["total_fallbacks"],
             tokens_generated=self._tokens,
             caches=caches,
             cache_hit_rate=hit_rate,
             cache_budget_bytes=self.cache_budget_bytes,
             prefetch_depth=self.prefetch_depth,
+            latency_us=latency,
         )

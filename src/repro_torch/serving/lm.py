@@ -22,6 +22,8 @@ The embedding table stays int8-resident end to end: token rows read through
 ``ops.dequant_gather``, the tied head contracts through
 ``ops.dequant_matmul``, prefill attention runs ``ops.flash_attention_fwd``
 (``spec.use_kernels=False`` asks for the plain versions of all three).
+Each prefill is one ``engine.prefill`` span and each decode step one
+``engine.decode`` span, fenced on their logits while tracing.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from repro_torch import device as device_mod
 from repro_torch import methods
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.models import transformer as tfm
+from repro_torch.obs.trace import tracer
 from repro_torch.serving.engine import Engine
 from repro_torch.training import lm_trainer
 
@@ -151,8 +154,10 @@ class LMEngine(Engine):
             if req.max_new <= 0:
                 self._finish(req.rid, [])  # zero generation budget
                 continue
-            with torch.inference_mode():
-                logits, cache_one = self._prefill(req)
+            with tracer().span("engine.prefill", rid=req.rid, prompt_len=len(req.prompt)):
+                with torch.inference_mode():
+                    logits, cache_one = self._prefill(req)
+                tracer().fence(logits)
             first = int(torch.argmax(logits[0]))
             self._tokens += 1
             if req.max_new <= 1:
@@ -171,8 +176,10 @@ class LMEngine(Engine):
         active = [i for i, rid in enumerate(self._slot_rid) if rid is not None]
         if not active:
             return
-        with torch.inference_mode():
-            logits = self._decode()
+        with tracer().span("engine.decode", active=len(active)):
+            with torch.inference_mode():
+                logits = self._decode()
+            tracer().fence(logits)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         self._cache_len += 1
         for slot in active:

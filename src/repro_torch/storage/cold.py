@@ -31,9 +31,17 @@ only after the reads of it (an event on the scoring stream), and the
 scoring stream waits on the copy's event before it reads.  Routing happens
 on the host (the policy's map): the device holds no map in cold mode.  The
 store is read-only, so nothing is ever dirty.  The staging buffers are not
-counted in ``device_bytes``, as the reference counts none.  The
-reference's fault seams (``cold.fetch``, ``cold.prefetch_loss``,
-``codestore.corrupt``) and retries are not ported.
+counted in ``device_bytes``, as the reference counts none.
+
+Observability, as the reference's: :meth:`ColdStore.stage` is one
+``storage.cold.prefetch`` span and a demand fetch in :meth:`ColdStore.rows`
+one ``storage.cold.fetch`` span (``rows``: the wave's lookups), neither
+fenced (the copies stay ordered by their events alone); the registry's
+``storage.cold.prefetch_hits`` / ``demand_puts`` grow with the attributes
+of those names.  The reference's fault seams (``cold.fetch``,
+``cold.prefetch_loss``, ``codestore.corrupt``) and retries are not ported:
+``storage.cold.prefetch_dropped`` and ``corruption_detected`` are
+registered and stay 0.
 """
 from __future__ import annotations
 
@@ -42,9 +50,20 @@ import torch
 
 from repro_torch.core.codestore import CodeStore
 from repro_torch.kernels import ops
+from repro_torch.obs import counters as obs_counters
+from repro_torch.obs.trace import tracer
 from repro_torch.storage.tiered import HotRowCache
 
 __all__ = ["ColdStore"]
+
+# Cold-tier traffic in the registry (process-wide, across stores; the
+# per-store counts stay on the ColdStore attributes the engines report).
+_REG = obs_counters.registry()
+_MET_PREFETCH_HITS = _REG.counter("storage.cold.prefetch_hits",
+                                  "waves served from the staged prefetch")
+_MET_DEMAND_PUTS = _REG.counter("storage.cold.demand_puts", "waves demand-fetched host->device")
+_REG.counter("storage.cold.prefetch_dropped", "staged prefetches lost (re-fetched)")
+_REG.counter("storage.cold.corruption_detected", "staged bytes failing crc")
 
 
 class _Stage:
@@ -157,14 +176,15 @@ class ColdStore:
         key = flat_ids.tobytes()
         if self._staged is not None and self._staged[0] == key:
             return
-        need, _ = self._distinct(safe[self.cache.slot_of_arr[safe] < 0])
-        stage = self._next_stage(flat_ids.size)
-        self._fill(stage, need)
-        if self._side is not None:
-            with torch.cuda.stream(self._side):
-                self._side.wait_event(stage.read)
-                stage.dev[: need.size].copy_(stage.host[: need.size], non_blocking=True)
-                stage.copied.record(self._side)
+        with tracer().span("storage.cold.prefetch", rows=int(flat_ids.size)):
+            need, _ = self._distinct(safe[self.cache.slot_of_arr[safe] < 0])
+            stage = self._next_stage(flat_ids.size)
+            self._fill(stage, need)
+            if self._side is not None:
+                with torch.cuda.stream(self._side):
+                    self._side.wait_event(stage.read)
+                    stage.dev[: need.size].copy_(stage.host[: need.size], non_blocking=True)
+                    stage.copied.record(self._side)
         self._staged = (key, stage, need)
 
     # ------------------------------------------------------------ serving
@@ -223,14 +243,17 @@ class ColdStore:
                 need = np.concatenate([need, extra])
                 self.topup_rows += int(extra.size)
             self.prefetch_hits += 1
+            _MET_PREFETCH_HITS.inc()
         else:
-            stage = self._next_stage(flat_ids.size)
-            need, pos = self._distinct(missed)
-            self._fill(stage, need)
-            if stage.copied is not None:
-                stage.dev[: need.size].copy_(stage.host[: need.size], non_blocking=True)
-                stage.copied.record()
+            with tracer().span("storage.cold.fetch", rows=int(flat_ids.size)):
+                stage = self._next_stage(flat_ids.size)
+                need, pos = self._distinct(missed)
+                self._fill(stage, need)
+                if stage.copied is not None:
+                    stage.dev[: need.size].copy_(stage.host[: need.size], non_blocking=True)
+                    stage.copied.record()
             self.demand_puts += 1
+            _MET_DEMAND_PUTS.inc()
         slot[miss] = -1 - pos
         slot_ids = torch.from_numpy(np.stack([slot, flat_ids.astype(np.int32)])).to(self.device)
         out = ops.dequant_gather_staged(stage.dev[: need.size], self.hot, slot_ids[0], self.step,
@@ -239,6 +262,11 @@ class ColdStore:
         if stage.read is not None:
             stage.read.record()
         return out
+
+    def reset_counters(self) -> None:
+        """Zero the traffic counters (the policy's too); membership persists."""
+        self.cache.reset_counters()
+        self.prefetch_hits = self.demand_puts = self.topup_rows = self.copied_rows = 0
 
     def warm_start(self, freqs) -> None:
         """Admit the top rows by frequency (a restarted server's warm cache)."""

@@ -13,9 +13,13 @@ for move, ties included, without the reference's O(capacity) scan per miss:
 see :meth:`HotRowCache.observe`.
 
 The cache holds *codes only*: Delta and the optimizer slots stay full-size
-tensors indexed by id, which the routed paths read as before.  The
-reference's fault seams and spans around the policy (admission OOM,
-write-back retries) are not ported: their counters read 0.
+tensors indexed by id, which the routed paths read as before.  A move set
+that writes dirty rows back, and a :meth:`HotRowCache.flush`, is one
+``storage.writeback`` span (``rows``, ``store``); the registry's
+``storage.writeback_rows`` grows wherever ``writebacks`` does, so over any
+window it equals the sum of the caches' ``writebacks``.  The reference's
+fault seams around the policy (admission OOM, write-back retries) are not
+ported: their counters read 0.
 """
 from __future__ import annotations
 
@@ -26,8 +30,13 @@ import numpy as np
 
 from repro_torch.core.codestore import CodeStore
 from repro_torch.core.tiered import TieredCodes, apply_moves, wrap_codes, write_back
+from repro_torch.obs import counters as obs_counters
+from repro_torch.obs.trace import tracer
 
 __all__ = ["HotRowCache"]
+
+_MET_WRITEBACK_ROWS = obs_counters.registry().counter(
+    "storage.writeback_rows", "dirty hot rows written back to the backing tier")
 
 
 class HotRowCache:
@@ -153,7 +162,7 @@ class HotRowCache:
         dirty = self.dirty[victims].copy()
         ev.append((victims, vid, dirty))
         self.evictions += int(victims.size)
-        self.writebacks += int(dirty.sum())
+        self._count_writebacks(int(dirty.sum()))
         self.slot_of_arr[vid] = -1
         self._admit(ids, victims)
         adm_slots.append(victims)
@@ -182,9 +191,18 @@ class HotRowCache:
 
     # ------------------------------------------------------------ device
 
+    def _count_writebacks(self, rows: int) -> None:
+        if rows:
+            self.writebacks += rows
+            _MET_WRITEBACK_ROWS.inc(rows)
+
     def apply(self, tiered: TieredCodes, moves) -> TieredCodes:
         """Execute ``observe``'s moves on the device container, in place."""
-        return apply_moves(tiered, moves)
+        rows = int(np.count_nonzero(moves[2]))
+        if not rows:
+            return apply_moves(tiered, moves)
+        with tracer().span("storage.writeback", rows=rows, store=self.name):
+            return apply_moves(tiered, moves)
 
     def observe_apply(self, tiered: TieredCodes, ids, *, write: bool = False) -> TieredCodes:
         moves = self.observe(ids, write=write)
@@ -200,9 +218,10 @@ class HotRowCache:
         cache)."""
         slots, ids = self._dirty()
         if slots.size:
-            write_back(tiered, slots, ids, tiered.backing.data)
+            with tracer().span("storage.writeback", rows=int(slots.size), store=self.name):
+                write_back(tiered, slots, ids, tiered.backing.data)
             self.dirty[:] = False
-            self.writebacks += int(slots.size)
+            self._count_writebacks(int(slots.size))
         return tiered
 
     def unwrap(self, tiered: TieredCodes) -> CodeStore:
@@ -262,6 +281,12 @@ class HotRowCache:
         """Host bytes of the policy state (id map, recency and frequency)."""
         return int(self.slot_of_arr.nbytes + self.slot_ids.nbytes + self.freq.nbytes
                    + self.last_used.nbytes + self.dirty.nbytes)
+
+    def reset_counters(self) -> None:
+        """Zero the traffic counters (and the policy's host seconds);
+        membership and policy state persist."""
+        self.hits = self.misses = self.evictions = self.writebacks = 0
+        self.policy_s = 0.0
 
     def stats(self) -> dict:
         """The reference's keys; ``admission_oom`` and ``writeback_retries``

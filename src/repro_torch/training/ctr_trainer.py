@@ -51,6 +51,7 @@ from repro_torch.core import alpt as alpt_core
 from repro_torch.core import quant
 from repro_torch.methods import layout
 from repro_torch.models import ctr as ctr_models
+from repro_torch.obs.trace import tracer
 from repro_torch.optim import OptState, adam_init, adam_update, tree_leaves, tree_like
 from repro_torch.storage.tiered import HotRowCache
 
@@ -283,9 +284,18 @@ class CTRTrainer:
         ``method.noise_draws(spec)`` tensors [B*F, d_alloc].  ``masks``
         overrides the dropout keep-masks (``models.ctr.dropout_masks``).
         Under a cache, the policy then observes ``ids`` and moves rows.
+
+        Traced (:mod:`repro_torch.obs`), the step is one ``train.step`` span
+        fenced on its metrics and the cache maintenance one
+        ``train.writeback`` span, as the reference's; untraced, both are the
+        shared null context and the fence passes through.
         """
-        state, m = self._step(state, ids, labels, noise=noise, masks=masks)
-        self._maintain_caches(state, ids)
+        tr = tracer()
+        with tr.span("train.step", step=state.step):
+            state, m = self._step(state, ids, labels, noise=noise, masks=masks)
+            tr.fence(m)
+        with tr.span("train.writeback"):
+            self._maintain_caches(state, ids)
         return state, m
 
     def _train_step(self, state: TrainState, ids, labels, *, noise=None, masks=None):
@@ -447,8 +457,9 @@ class CTRTrainer:
 
         def step_with_refresh(state, ids, labels, **kw):
             state, m = step_fn(state, ids, labels, **kw)
-            return state._replace(emb_state=method.after_step(state.emb_state, state.step,
-                                                              spec)), m
+            with tracer().span("train.refresh", step=state.step):
+                emb_state = method.after_step(state.emb_state, state.step, spec)
+            return state._replace(emb_state=emb_state), m
 
         return step_with_refresh
 

@@ -7,8 +7,10 @@ PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
+import collections
 import contextlib
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -1255,3 +1257,80 @@ def test_dp_steps_through_a_one_rank_nccl_group_equal_their_twins(cuda):
         assert all(torch.equal(x, y) for x, y in zip(pa, pb, strict=True))
     finally:
         dist.destroy_process_group()
+
+
+def test_fence_waits_for_the_card_only_while_tracing(cuda):
+    """Disabled, the fence passes its value through and the host runs ahead
+    of a ~10 ms kernel; enabled, a span fenced on a CUDA tensor lasts at
+    least that kernel's event-timed duration."""
+    from repro_torch.obs.trace import Tracer
+
+    x = torch.zeros(1, device=cuda)
+    cycles = 20_000_000
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    t = Tracer()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    assert t.fence({"loss": x}) is not None
+    host_us = (time.perf_counter() - t0) * 1e6
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    assert host_us < start.elapsed_time(end) * 1e3 / 2
+    t.enable()
+    with t.span("train.step", step=0):
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        m = {"loss": x, "lr": 1e-3}
+        assert t.fence(m) is m
+    torch.cuda.synchronize()
+    (ev,) = t.events
+    kernel_us = start.elapsed_time(end) * 1e3
+    assert kernel_us > 1000 and ev["dur"] >= kernel_us * 0.999
+
+
+def test_traced_equals_untraced_on_the_card(cuda):
+    """3 CTR steps (ALPT-8, kernels on) and one engine wave, traced and
+    untraced from copies of one state: losses, every state tensor, the
+    generator and the probabilities bitwise equal; the trace holds the
+    spans."""
+    from repro_torch.obs.trace import tracer
+
+    data = CTRDatasetConfig(name="t", n_fields=6, cardinalities=(40, 9, 300, 17, 5, 1000))
+    spec = EmbeddingSpec(method="alpt", n=data.n_features, d=16, bits=8, pad_to_tiles=True)
+    cfg = TrainerConfig(spec=spec, dcn=DCNConfig(n_fields=6, emb_dim=16, cross_depth=2,
+                                                 mlp_widths=(64, 32)))
+    synth = CTRSynthetic(data)
+    batches = [synth.batch("train", i, 128) for i in range(3)]
+    test_ids = synth.batch("test", 0, 64)[0]
+    state0 = init_state(cfg, device=cuda)
+    runs = []
+    for traced in (False, True):
+        if traced:
+            tracer().enable()
+        try:
+            trainer = CTRTrainer(cfg, device=cuda)
+            state, losses = clone_state(state0), []
+            for ids, labels in batches:
+                state, m = trainer.train_step(state, ids, labels)
+                losses.append(float(m["loss"]))
+            engine = CTREngine.from_state(state, cfg, batch=64)
+            rids = [engine.submit(CTRRequest(ids=row)) for row in test_ids]
+            done = engine.run()
+            events = tracer().events
+        finally:
+            tracer().disable()
+            tracer().clear()
+        t = state.emb_state
+        runs.append((losses, [t.codes.data, t.step, t.mu, t.nu, *state.dense.parameters()],
+                     state.generator.get_state(), [done[r]["prob"] for r in rids], events))
+    (la, ta, ga, pa, ea), (lb, tb, gb, pb, eb) = runs
+    assert la == lb and pa == pb and torch.equal(ga, gb) and ea == []
+    assert all(torch.equal(x, y) for x, y in zip(ta, tb, strict=True))
+    names = collections.Counter(e["name"] for e in eb)
+    assert (names["train.step"], names["train.writeback"], names["engine.wave"],
+            names["engine.score"]) == (3, 3, 1, 1)
