@@ -4,8 +4,9 @@ method, DCN and DeepFM), of int8-resident LM serving, of LPT/ALPT LM
 training, of checkpoints (resume, serving from a checkpoint), of the
 storage tiers (hot-row cache, host-memory cold tier), of data-parallel
 training (exact and SR-compressed gradient sync), of the SSM and MoE LM
-families (mamba2-370m, deepseek-moe-16b) and of observability (spans,
-counters, latency quantiles, --trace-out) on one NVIDIA GPU.
+families (mamba2-370m, deepseek-moe-16b), of observability (spans,
+counters, latency quantiles, --trace-out) and of faults and recovery (the
+fault plan's seams, bounded retry, the non-finite guard) on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -217,6 +218,32 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      --trace-out: Chrome traces that load, step_time_us / latency_us and
      kernel_fallbacks 0 in the reports, the train report's launches equal
      to ops.kernel_calls() and the registry's;
+  15. faults and recovery (repro_torch.faults; faults_only runs the phase
+     without the rest), after phase 14: 15a. ALPT-8 on the full padded
+     Avazu table, 6 steps of 1,024 from copies of one state, unguarded and
+     guarded without a plan in turns: losses, every leaf, the generator and
+     the launches bitwise equal, host ms per step both ways (the loss read
+     each step, and back to back); guarded with trainer.nonfinite at steps
+     1 and 3: each fired step leaves every leaf as before it, the generator
+     where the unguarded run has it, 2 skips; alpt.delta (inf) at step 2:
+     one skip, every leaf finite; the guard's snapshot bytes; 15b. phase
+     3's 4,096 requests through the cold tier (65,536 hot rows) with
+     codestore.corrupt, cold.fetch (2 failures) and cold.prefetch_loss on
+     the staged waves 1-3: probabilities bitwise the fault-free run's and
+     the uncached engine's, each seam counted once (store and registry),
+     health ready; cold.fetch past its attempts raises RetryError and
+     health reports no_retry_exhaustion False; 15c. 15a's steps through a
+     4,096-row cache with admissions refused at waves 2 and 4 and the
+     closing flush failing twice: bitwise 15a's uncached run; a hot-tier
+     engine refusing 2 waves: bitwise, served_degraded 2; 15d.
+     kernels.force_fallback over 15a's first 3 steps: bitwise, every forced
+     dispatch counted fault-injected, launches lower by exactly those, none
+     after uninstall(); 15e. train ctr preempted at step 3 (exit 75), its
+     resume bitwise the uninterrupted run, then a corrupted newest step
+     skipped (corrupt_checkpoints); train lm --arch smollm-135m --guard with
+     trainer.nonfinite at step 1 (4 x 1,024 tokens, 3 steps): one skip, and
+     in process the guarded step leaves the state as before it; serve ctr
+     --deadline-ms 0.001: deadline_misses == waves;
   5. time each kernel at the slices' shapes (median of per-launch CUDA-event
      times after warm-up, device work only) beside its bound, its plain
      version's time and the library's one call where there is one, and the
@@ -4615,6 +4642,527 @@ def obs_only() -> int:
     return 0
 
 
+FAULT_STEPS = 6  # 15a: ALPT-8 steps of BATCH on the padded Avazu table
+FAULT_TIMED = 24  # 15a: steps of each trainer timed step by step in turns
+FAULT_PART_CALLS = 50  # 15a: calls timed of each part of the guard
+FAULT_NONFINITE = (1, 3)  # 15a: the steps trainer.nonfinite fires on
+FAULT_DELTA = 2  # 15a: the step alpt.delta (scale inf) fires on
+FAULT_FORCED_STEPS = 3  # 15d: 15a's first steps under kernels.force_fallback
+FAULT_ADMISSION = (2, 4)  # 15c: the training waves whose admissions are refused
+FAULT_SERVE_ADMISSION = (1, 3)  # 15c: the serving waves whose admissions are refused
+FAULT_PREEMPT, FAULT_CLI_STEPS = 3, 5  # 15e: train ctr preempted at step 3 of 5
+FAULT_LM_STEPS, FAULT_LM_FIRED = 3, 1  # 15e: train lm --guard, trainer.nonfinite at step 1
+
+
+def fault_plan(*specs):
+    """A ``repro_torch.faults.FaultPlan`` of ``(site, steps, always, params)``."""
+    from repro_torch import faults
+
+    return faults.FaultPlan(specs=tuple(faults.FaultSpec(site=s, steps=st, always=a,
+                                                         params=p or {})
+                                        for s, st, a, p in specs))
+
+
+@contextlib.contextmanager
+def plan_installed(plan):
+    """``plan`` installed for the block (None: no plan), uninstalled after."""
+    from repro_torch import faults
+
+    faults.install(plan)
+    try:
+        yield plan
+    finally:
+        faults.uninstall()
+
+
+def changed_leaves(torch, cfg, a, b) -> set:
+    """Paths of the checkpoint-tree leaves of two CTR states that differ
+    (dtype or bits; compared where they lie)."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.training.ctr_trainer import checkpoint_tree
+
+    fa = ckpt.flatten(checkpoint_tree(cfg, a))
+    fb = ckpt.flatten(checkpoint_tree(cfg, b))
+    check([p for p, _ in fa] == [p for p, _ in fb], "two states of one config differ in paths")
+    return {pa for (pa, x), (_, y) in zip(fa, fb)
+            if not torch.equal(torch.as_tensor(x).detach(), torch.as_tensor(y).detach())}
+
+
+def finite_leaves(torch, tree) -> bool:
+    from repro_torch.checkpoint import manager as ckpt
+
+    return all(bool(torch.isfinite(x).all()) for _, x in ckpt.flatten(tree)
+               if isinstance(x, torch.Tensor) and x.is_floating_point())
+
+
+def faults_train(torch, dev, batches) -> dict:
+    """15a: ALPT-8 on the full padded Avazu table, FAULT_STEPS steps of BATCH
+    from copies of one initial state: unguarded, guarded without a plan
+    (bitwise: losses, every leaf, the generator, the launches), each twice in
+    turns with the host ms per step (the loss read each step, and back to
+    back with one wait at the end); guarded with trainer.nonfinite at
+    FAULT_NONFINITE (each fired step leaves every leaf as before it, the
+    generator where the unguarded run has it; skipped == fired == 2); with
+    alpt.delta (inf) at FAULT_DELTA (one skip, every leaf finite).  The
+    snapshot's bytes per step.  Returns the configs, the initial and the
+    unguarded final state."""
+    from repro_torch.configs import dcn_ctr
+    from repro_torch.faults import guards
+    from repro_torch.kernels import ops
+    from repro_torch.training.ctr_trainer import (CTRTrainer, TrainerConfig, checkpoint_tree,
+                                                  clone_state)
+
+    _, spec, dcn = dcn_ctr.avazu_setup(method="alpt", bits=8, scale=SCALE)
+    cfg = TrainerConfig(spec=dataclasses.replace(spec, pad_to_tiles=True), dcn=dcn, seed=1500)
+    state0 = CTRTrainer(cfg, device=dev).init_state()
+    batches = batches[:FAULT_STEPS]
+
+    def run(guard, plan=None, each=True, watch=(), gens=None):
+        """One run from a copy of state0: ``each`` reads the loss after each
+        step (else once, at the end); the steps in ``watch`` are checked to
+        leave every leaf as before them, the generator at ``gens[i]``."""
+        with plan_installed(plan):
+            trainer = CTRTrainer(dataclasses.replace(cfg, guard=guard), device=dev)
+            state, losses, ms, states = clone_state(state0), [], [], []
+            ops.reset_kernel_calls()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, (ids, labels) in enumerate(batches):
+                before = clone_state(state) if i in watch else None
+                t = time.perf_counter()
+                state, m = trainer.train_step(state, ids, labels)
+                losses.append(float(m["loss"]) if each else m["loss"])
+                ms.append((time.perf_counter() - t) * 1e3)
+                states.append(state.generator.get_state())
+                if before is not None:
+                    diff = changed_leaves(torch, cfg, before, state)
+                    check(diff == {".step", ".generator"},
+                          f"15a: fired step {i} changed {sorted(diff)} (only .step and "
+                          ".generator may)")
+                    check(torch.equal(states[-1], gens[i]), f"15a: fired step {i}: the "
+                          "generator is not where the unguarded run has it")
+                    del before
+            losses = [float(x) for x in losses]
+            torch.cuda.synchronize()
+            per_step = (time.perf_counter() - t0) * 1e3 / len(batches)
+        return {"state": state, "losses": losses, "ms": ms, "per_step": per_step,
+                "gens": states, "launches": ops.kernel_calls(), "stats": trainer.guard_stats}
+
+    first, ms, b2b = None, {False: [], True: []}, {False: [], True: []}
+    for guard in (False, True, True, False):
+        r = run(guard)
+        first = first or r
+        ms[guard].append(r["ms"])
+        check(r["losses"] == first["losses"] and r["launches"] == first["launches"]
+              and not changed_leaves(torch, cfg, r["state"], first["state"]),
+              f"15a: guard={guard} (no plan) differs from the unguarded run: losses "
+              f"{r['losses']} vs {first['losses']}, launches {r['launches']} vs "
+              f"{first['launches']}")
+        check(r["stats"] is None or r["stats"].skipped == 0, "15a: a step skipped without a plan")
+        del r
+    for guard in (False, True, True, False):
+        b2b[guard].append(run(guard, each=False)["per_step"])
+    # Step by step in turns (host noise drifts slower than a step): two
+    # trainers from copies of state0, FAULT_TIMED steps each over the batches
+    # again and again, the loss read after each.
+    trainers = {g: CTRTrainer(dataclasses.replace(cfg, guard=g), device=dev)
+                for g in (False, True)}
+    states = {g: clone_state(state0) for g in trainers}
+    turns = {False: [], True: []}
+    for i in range(FAULT_TIMED):
+        ids, labels = batches[i % len(batches)]
+        for g in ((False, True) if i % 2 else (True, False)):
+            t = time.perf_counter()
+            states[g], m = trainers[g].train_step(states[g], ids, labels)
+            float(m["loss"])
+            turns[g].append((time.perf_counter() - t) * 1e3)
+    del states, trainers
+    gens = first["gens"]
+    stats = run(True, fault_plan(("trainer.nonfinite", FAULT_NONFINITE, False, None)),
+                watch=FAULT_NONFINITE, gens=gens)["stats"]
+    check(stats.skipped == stats.nonfinite_fired == len(FAULT_NONFINITE),
+          f"15a: trainer.nonfinite {stats.to_json()}")
+    r = run(True, fault_plan(("alpt.delta", (FAULT_DELTA,), False, None)), watch=(FAULT_DELTA,),
+            gens=gens)
+    dstats = r["stats"]
+    check(dstats.skipped == dstats.delta_fired == 1
+          and finite_leaves(torch, checkpoint_tree(cfg, r["state"])),
+          f"15a: alpt.delta {dstats.to_json()}")
+    del r
+    ids = batches[0][0]
+    slots = CTRTrainer(cfg, device=dev).method.storage_spec(cfg.spec)
+    snap = {whole: sum(s.nbytes for s in guards.ctr_snapshot(state0, ids, slots,
+                                                             whole_delta=whole))
+            for whole in (False, True)}
+    # The guard's two parts alone, host clock per call, the queue drained
+    # before each: the snapshot (upload of the rows included) and the check
+    # with its one read of the verdict.
+    loss = torch.ones((), device=dev)
+    parts = {}
+    for name, fn in (("snapshot", lambda: guards.ctr_snapshot(state0, ids, slots)),
+                     ("check", lambda: bool(guards._all_finite(loss,
+                                                               state0.dense.parameters())))):
+        t = []
+        for _ in range(FAULT_PART_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            t.append((time.perf_counter() - t0) * 1e6)
+        parts[name] = statistics.median(t[5:])
+    per = {g: statistics.mean(x for r in ms[g] for x in r[1:]) for g in ms}
+    per_b2b = {g: statistics.mean(b2b[g]) for g in b2b}
+    med = {g: statistics.median(turns[g][2:]) for g in turns}
+    log(f"[faults] 15a: ALPT-8 on {cfg.spec.n_padded} rows, {FAULT_STEPS} steps of {BATCH}: "
+        f"guarded without a plan == unguarded bitwise (losses, every leaf, the generator, "
+        f"launches {first['launches']}); trainer.nonfinite at {FAULT_NONFINITE}: "
+        f"{stats.to_json()}, each fired step's leaves as before it, the generator as unguarded; "
+        f"alpt.delta (inf) at step {FAULT_DELTA}: {dstats.to_json()}, every leaf finite")
+    log(f"[faults] 15a cost (host clock): step by step in turns, {FAULT_TIMED} steps each, "
+        f"median of steps 3-{FAULT_TIMED} {med[False]:.3f} ms unguarded, {med[True]:.3f} guarded "
+        f"({med[True] - med[False]:+.3f} ms); runs in turns (steps 2-{FAULT_STEPS}, loss read "
+        f"each step) {per[False]:.3f} vs {per[True]:.3f} ms/step ({per[True] - per[False]:+.3f}); "
+        f"back to back {per_b2b[False]:.3f} vs {per_b2b[True]:.3f} ms/step "
+        f"({per_b2b[True] - per_b2b[False]:+.3f}); alone, the snapshot {parts['snapshot']:.1f} "
+        f"us and the check {parts['check']:.1f} us a call (medians); snapshot "
+        f"{snap[False]} B per step ({snap[True]} B on an alpt.delta step, the whole Delta); "
+        f"{card_name()}")
+    return {"cfg": cfg, "state0": state0, "state": first["state"], "losses": first["losses"]}
+
+
+def faults_cold(torch, np, cfg, state, test_ids) -> list:
+    """15b: the test requests through the cold tier (SERVE_CACHE_ROWS hot rows)
+    with codestore.corrupt, cold.fetch (fails 2) and cold.prefetch_loss on
+    the staged waves 1, 2 and 3: probabilities bitwise the fault-free cold
+    run's and the uncached engine's; each seam counted once (the store, the
+    registry's diff), two retries, none exhausted, health ready.  Then
+    cold.fetch failing past its attempts: RetryError, and health reports
+    no_retry_exhaustion False.  Returns the uncached probabilities."""
+    from repro_torch import faults
+    from repro_torch.obs import counters as obs_counters
+    from repro_torch.serving.ctr import CTREngine, CTRRequest
+
+    reg = obs_counters.registry()
+
+    def serve(plan, **kw):
+        with plan_installed(plan):
+            engine = CTREngine.from_state(state, cfg, batch=BATCH, **kw)
+            before = reg.snapshot()
+            rids = [engine.submit(CTRRequest(ids=r)) for r in test_ids]
+            done = engine.run()
+            torch.cuda.synchronize()
+            return [done[r]["prob"] for r in rids], engine, reg.snapshot().diff(before)
+
+    cold_kw = dict(cache_rows=SERVE_CACHE_ROWS, cold_tier=True)
+    uncached, _, _ = serve(None)
+    plain, _, _ = serve(None, **cold_kw)
+    seams = fault_plan(("codestore.corrupt", (1,), False, None),
+                       ("cold.fetch", (2,), False, {"fails": 2}),
+                       ("cold.prefetch_loss", (3,), False, None))
+    probs, engine, delta = serve(seams, **cold_kw)
+    cold = engine.cold
+    check(plain == uncached and probs == plain,
+          "15b: the cold tier's probabilities under the seams differ from the fault-free run's")
+    got = (cold.corruption_detected, cold.prefetch_dropped, cold.retry_stats.retries,
+           cold.retry_stats.failures)
+    reg_got = (delta.value("storage.cold.corruption_detected"),
+               delta.value("storage.cold.prefetch_dropped"),
+               delta.value("faults.retries", "cold.fetch"),
+               delta.value("faults.retry_failures", "cold.fetch"))
+    health = engine.health()
+    check(got == reg_got == (1, 1, 2, 0) and health["ready"],
+          f"15b: (corrupt, dropped, retries, failures) store {got}, registry {reg_got}, "
+          f"health {health}")
+    calls = cold.retry_stats.calls
+    with plan_installed(fault_plan(("cold.fetch", (1,), False, {"fails": 5, "attempts": 2}))):
+        broken = CTREngine.from_state(state, cfg, batch=BATCH, **cold_kw)
+        for r in test_ids:
+            broken.submit(CTRRequest(ids=r))
+        try:
+            broken.run()
+            raised = "nothing"
+        except faults.RetryError as exc:
+            raised = str(exc)
+    bh = broken.health()
+    check(raised.startswith("cold.fetch") and not bh["checks"]["no_retry_exhaustion"]
+          and not bh["ready"] and broken.pending == len(test_ids),
+          f"15b: exhaustion raised {raised!r}, health {bh}, pending {broken.pending}")
+    log(f"[faults] 15b: {len(test_ids)} requests through the cold tier with codestore.corrupt, "
+        f"cold.fetch (fails 2) and cold.prefetch_loss on staged waves 1-3: bitwise the "
+        f"fault-free run and the uncached engine; corrupt / dropped / retries / failures "
+        f"{got} (registry {reg_got}), {calls} host fetches, health ready; cold.fetch past its "
+        f"attempts raised {raised!r}, health {bh['checks']}")
+    del engine, broken
+    return uncached
+
+
+def faults_cached(torch, dev, cfg, state0, straight, losses, probs, test_ids, batches) -> None:
+    """15c: phase 11's cached ALPT-8 training (STORAGE_CACHE_ROWS rows) over
+    15a's steps with cache.admission at FAULT_ADMISSION and
+    tiered.writeback (fails 2) on the closing flush: losses and the
+    exported state bitwise 15a's uncached run, the refusals and retries
+    counted; a hot-cache engine (SERVE_CACHE_ROWS rows) refusing waves
+    FAULT_SERVE_ADMISSION: probabilities bitwise the uncached engine's,
+    served_degraded once per refused wave."""
+    from repro_torch.serving.ctr import CTREngine, CTRRequest
+    from repro_torch.training.ctr_trainer import CTRTrainer, checkpoint_tree, clone_state
+
+    plan = fault_plan(("cache.admission", FAULT_ADMISSION, False, None),
+                      ("tiered.writeback", (0,), False, {"fails": 2}))
+    with plan_installed(plan):
+        trainer = CTRTrainer(dataclasses.replace(cfg, cache_rows=STORAGE_CACHE_ROWS), device=dev)
+        state, hist = trainer.fit(batches, steps=FAULT_STEPS, batch_size=BATCH,
+                                  state=trainer.import_state(clone_state(state0)))
+        for slot, cache in trainer.caches:
+            cache.flush(slot.get(state.emb_state).codes)
+        torch.cuda.synchronize()
+    stats = trainer.cache_stats()
+    check([h["loss"] for h in hist] == losses
+          and same_tree(torch, checkpoint_tree(cfg, trainer.export_state(state)),
+                        checkpoint_tree(cfg, straight)),
+          "15c: the cached run under the seams differs from the uncached run")
+    check(stats[0]["admission_oom"] == len(FAULT_ADMISSION) and stats[0]["writeback_retries"] == 2
+          and stats[0]["writebacks"] > 0 and not any(c.dirty.any() for _, c in trainer.caches),
+          f"15c: cache stats {stats}")
+    del state, trainer
+    with plan_installed(fault_plan(("cache.admission", FAULT_SERVE_ADMISSION, False, None))):
+        engine = CTREngine.from_state(straight, cfg, batch=BATCH, cache_rows=SERVE_CACHE_ROWS)
+        rids = [engine.submit(CTRRequest(ids=r)) for r in test_ids]
+        done = engine.run()
+        torch.cuda.synchronize()
+    m = engine.metrics()
+    check([done[r]["prob"] for r in rids] == probs
+          and m.served_degraded == len(FAULT_SERVE_ADMISSION) == m.caches[0].admission_oom
+          and engine.health()["ready"],
+          f"15c: hot-cache engine under refusals: served_degraded {m.served_degraded}, "
+          f"admission_oom {[c.admission_oom for c in m.caches]}")
+    log(f"[faults] 15c: cached ALPT-8 ({STORAGE_CACHE_ROWS} rows) with admissions refused at "
+        f"waves {FAULT_ADMISSION} and the closing flush failing twice: bitwise the uncached run; "
+        f"{stats[0]}; a hot-cache engine refusing waves {FAULT_SERVE_ADMISSION}: bitwise, "
+        f"served_degraded {m.served_degraded}")
+
+
+def faults_fallback(torch, dev, cfg, state0, batches) -> None:
+    """15d: kernels.force_fallback over 15a's first FAULT_FORCED_STEPS steps:
+    the state of the kernels-on run bit for bit, each forced dispatch counted
+    with reason fault-injected, the launches lower by exactly those
+    dispatches; after uninstall() the same steps fall back nowhere."""
+    from repro_torch.kernels import ops
+    from repro_torch.training.ctr_trainer import CTRTrainer, checkpoint_tree, clone_state
+
+    def run(plan):
+        with plan_installed(plan):
+            trainer = CTRTrainer(cfg, device=dev)
+            state, losses = clone_state(state0), []
+            ops.reset_kernel_calls()
+            with ops.fallback_scope() as scope:
+                for ids, labels in batches[:FAULT_FORCED_STEPS]:
+                    state, m = trainer.train_step(state, ids, labels)
+                    losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            return state, losses, ops.kernel_calls(), scope.stats()
+
+    on, l_on, launched, st_on = run(None)
+    forced, l_forced, launched_f, st_f = run(fault_plan(("kernels.force_fallback", (), True,
+                                                         None)))
+    after, l_after, launched_a, st_a = run(None)
+    counts = {f["op"]: f["count"] for f in st_f["fallbacks"]}
+    drop = sum(launched.values()) - sum(launched_f.values())
+    # The scratch row takes the dedup sentinel's run: unspecified between a
+    # kernel and its plain version, so the table is compared over its live rows.
+    check(l_on == l_forced == l_after
+          and all(torch.equal(x, y) for x, y in zip(live_parts(on.emb_state, cfg.spec),
+                                                    live_parts(forced.emb_state, cfg.spec),
+                                                    strict=True))
+          and same_tree(torch, checkpoint_tree(cfg, on._replace(emb_state=None)),
+                        checkpoint_tree(cfg, forced._replace(emb_state=None))),
+          "15d: the forced run differs from the kernels-on run")
+    check({f["reason"] for f in st_f["fallbacks"]} == {"fault-injected"}
+          and st_f["total_fallbacks"] == drop == sum(launched.values()) and launched_f == {},
+          f"15d: forced fallbacks {counts}, launches {launched} -> {launched_f}")
+    check(st_on["total_fallbacks"] == st_a["total_fallbacks"] == 0 and launched_a == launched,
+          f"15d: after uninstall: fallbacks {st_a['fallbacks']}, launches {launched_a}")
+    log(f"[faults] 15d: kernels.force_fallback over {FAULT_FORCED_STEPS} ALPT-8 steps: bitwise "
+        f"the kernels-on run; forced dispatches {counts} (fault-injected), launches {launched} -> "
+        f"{launched_f or '{}'}; after uninstall() no fallback, launches {launched_a}")
+
+
+def cli_json(main, argv) -> tuple[int, dict | None, str]:
+    """(rc, the report's JSON line or None, stderr) of a CLI run in this process."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    lines = out.getvalue().strip().splitlines()
+    report = json.loads(lines[-1]) if rc == 0 and lines else None
+    return rc, report, err.getvalue()
+
+
+def faults_clis(torch, dev, directory: pathlib.Path, lm_data) -> dict:
+    """15e: the CLIs at full width.  train ctr with train.preempt at
+    FAULT_PREEMPT exits 75; its requeue resumes there, losses bitwise the
+    uninterrupted run's; corrupt_checkpoint_leaf on the newest step makes the
+    next resume fall back and report corrupt_checkpoints.  train lm
+    --guard with trainer.nonfinite at FAULT_LM_FIRED (4 x 1,024 tokens,
+    FAULT_LM_STEPS steps): one skip; the same guarded step in this process
+    returns the state bitwise as before the fired step, the generator where
+    the unguarded step leaves it.  serve ctr --deadline-ms below one wave:
+    deadline_misses == waves.  Returns the CLIs' launches."""
+    from repro_torch import configs, faults
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.training import lm_trainer
+
+    total = {}
+    ck = directory / "ck"
+    preempt = directory / "preempt.json"
+    fault_plan(("train.preempt", (FAULT_PREEMPT,), False, None)).save(preempt)
+    base = ["ctr", "--config", "avazu", "--scale", str(SCALE), "--method", "alpt", "--bits", "8",
+            "--batch", str(BATCH), "--seed", "5", "--ckpt-every", "100"]
+    rc, _, err = cli_json(train_mod.main, base + ["--steps", str(FAULT_CLI_STEPS), "--ckpt-dir",
+                                                  str(ck), "--fault-plan", str(preempt)])
+    check(rc == 75 and faults.active_plan() is None, f"15e: preempted train ctr exited {rc}: "
+                                                     f"{err[-2000:]}")
+    rc, resumed, err = cli_json(train_mod.main, base + ["--steps", str(FAULT_CLI_STEPS),
+                                                        "--ckpt-dir", str(ck)])
+    check(rc == 0, f"15e: the requeued train ctr exited {rc}: {err[-2000:]}")
+    rc, ref, err = cli_json(train_mod.main, base + ["--steps", str(FAULT_CLI_STEPS + 1)])
+    check(rc == 0, f"15e: the uninterrupted train ctr exited {rc}: {err[-2000:]}")
+    check(resumed["start_step"] == FAULT_PREEMPT
+          and resumed["losses"] == ref["losses"][FAULT_PREEMPT:FAULT_CLI_STEPS],
+          f"15e: resumed losses {resumed['losses']} != {ref['losses'][FAULT_PREEMPT:]}")
+    faults.corrupt_checkpoint_leaf(ck, FAULT_CLI_STEPS)
+    rc, again, err = cli_json(train_mod.main, base + ["--steps", str(FAULT_CLI_STEPS + 1),
+                                                      "--ckpt-dir", str(ck)])
+    check(rc == 0 and again.get("corrupt_checkpoints") == [FAULT_CLI_STEPS]
+          and again["start_step"] == FAULT_PREEMPT
+          and again["losses"] == ref["losses"][FAULT_PREEMPT:],
+          f"15e: after corrupting step {FAULT_CLI_STEPS}: rc {rc}, "
+          f"{ {k: (again or {}).get(k) for k in ('corrupt_checkpoints', 'start_step')} }")
+    for r in (resumed, ref, again):
+        total = added(total, r["kernel_launches"])
+    log(f"[faults] 15e: train ctr preempted at step {FAULT_PREEMPT} (exit 75), requeued: losses "
+        f"{resumed['losses']} == the uninterrupted run's; step {FAULT_CLI_STEPS} corrupted: "
+        f"the resume fell back to step {again['start_step']}, corrupt_checkpoints "
+        f"{again['corrupt_checkpoints']}")
+
+    nf = directory / "nonfinite.json"
+    fault_plan(("trainer.nonfinite", (FAULT_LM_FIRED,), False, None)).save(nf)
+    rc, lm_report, err = cli_json(train_mod.main, [
+        "lm", "--arch", LM_ARCH, "--steps", str(FAULT_LM_STEPS), "--batch", str(LM_TRAIN_BATCH),
+        "--seq", str(LM_TRAIN_SEQ), "--guard", "--fault-plan", str(nf), "--log-every", "0"])
+    g = (lm_report or {}).get("guard", {})
+    check(rc == 0 and g.get("skipped") == g.get("nonfinite_fired") == 1
+          and lm_report.get("kernel_fallbacks") == 0,
+          f"15e: train lm --guard: rc {rc}, guard {g}: {err[-2000:]}")
+    total = added(total, lm_report["kernel_launches"])
+    cfg = configs.full_config(LM_ARCH)  # as the CLI builds it
+    steps = {}
+    for guard in (False, True):
+        tcfg = lm_trainer.LMTrainerConfig(guard=guard)
+        plan = fault_plan(("trainer.nonfinite", (FAULT_LM_FIRED,), False, None)) if guard else None
+        with plan_installed(plan):
+            step = lm_trainer.make_train_step(cfg, tcfg)
+        state = lm_trainer.init_state(cfg, tcfg, seed=0, device=dev)
+        for i in range(FAULT_LM_FIRED):
+            state, _ = step(state, lm_data[i])
+        before = lm_trainer.clone_state(state)
+        state, m = step(state, lm_data[FAULT_LM_FIRED])
+        steps[guard] = (state, before, m)
+    (plain, _, _), (state, before, m) = steps[False], steps[True]
+    check(m["guard_skipped"] == 1 and lm_same(torch, cfg, state, before, skip_clock=True)
+          and torch.equal(state.generator.get_state(), plain.generator.get_state()),
+          "15e: the guarded SmolLM step did not return the state before it")
+    log(f"[faults] 15e: train lm --arch {LM_ARCH} --guard, {FAULT_LM_STEPS} steps of "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, trainer.nonfinite at step {FAULT_LM_FIRED}: guard "
+        f"{g}; in process the fired step left params, their Adam state and the table bitwise "
+        "as before it, the generator as the unguarded step's")
+    del steps, state, before, plain
+    torch.cuda.empty_cache()
+
+    rc, served, err = cli_json(serve_mod.main, [
+        "ctr", "--config", "avazu", "--scale", str(SCALE), "--method", "alpt", "--bits", "8",
+        "--batch", str(BATCH), "--requests", str(REQUESTS), "--deadline-ms", "0.001"])
+    waves = -(-REQUESTS // BATCH)
+    check(rc == 0 and served["deadline_misses"] == served["steps"] == waves
+          and served["health"]["ready"] and "[serve] health: READY" in err,
+          f"15e: serve ctr --deadline-ms: rc {rc}, {({k: (served or {}).get(k) for k in ('deadline_misses', 'steps', 'health')})}")
+    total = added(total, served["kernel_launches"])
+    log(f"[faults] 15e: serve ctr --deadline-ms 0.001: deadline_misses {served['deadline_misses']} "
+        f"of {waves} waves, health {served['health']['checks']}; JSON line last on stdout, the "
+        "recovery lines on stderr")
+    return total
+
+
+def lm_same(torch, cfg, a, b, skip_clock: bool = False) -> bool:
+    """Two LM states' checkpoint trees equal leaf for leaf (``skip_clock``:
+    the step counter and the generator aside)."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.training import lm_trainer
+
+    fa = ckpt.flatten(lm_trainer.checkpoint_tree(cfg, a))
+    fb = ckpt.flatten(lm_trainer.checkpoint_tree(cfg, b))
+    return [p for p, _ in fa] == [p for p, _ in fb] and all(
+        torch.equal(torch.as_tensor(x).detach().cpu(), torch.as_tensor(y).detach().cpu())
+        for (p, x), (_, y) in zip(fa, fb) if not (skip_clock and p in (".step", ".generator")))
+
+
+def faults_phase(torch, np, dev, batches, test_ids, lm_data) -> dict:
+    """Phase 15: faults and recovery on the card (faults_only runs it without
+    the rest).  Returns its launches (one scope over 15a-d, the CLIs'
+    reports for 15e)."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    with ops.fallback_scope() as scope:
+        a = faults_train(torch, dev, batches)
+        probs = faults_cold(torch, np, a["cfg"], a["state"], test_ids)
+        faults_cached(torch, dev, a["cfg"], a["state0"], a["state"], a["losses"], probs,
+                      test_ids, batches)
+        faults_fallback(torch, dev, a["cfg"], a["state0"], batches)
+    del a
+    torch.cuda.empty_cache()
+    st = scope.stats()
+    check({f["reason"] for f in st["fallbacks"]} <= {"fault-injected"},
+          f"15: a fallback not asked for by a plan: {st['fallbacks']}")
+    total = dict(scope.kernel_calls)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_faults_") as tmp:
+        total = added(total, faults_clis(torch, dev, pathlib.Path(tmp), lm_data))
+    log(f"[faults] phase 15: launches {total}; {time.perf_counter() - t_phase:.1f}s; "
+        f"{card_name()}")
+    return total
+
+
+def faults_only() -> int:
+    """Phase 15 alone:
+    ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.faults_only())"``."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[chip_smoke] needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import device as device_mod
+    from repro_torch.data.ctr_synth import CTRSynthetic, avazu_like
+    from repro_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    dev = device_mod.resolve("cuda")
+    for lib in _build.build():
+        _build.library(lib)
+    log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}; build "
+        f"{time.perf_counter() - t_start:.1f}s")
+    data = CTRSynthetic(avazu_like(SCALE))
+    ids, _ = data.batch("test", 0, REQUESTS)
+    batches = Batches(data.batch("train", i, BATCH) for i in range(FAULT_STEPS))
+    launches = faults_phase(torch, np, dev, batches, ids, lm_batches(torch, dev, LM_TABLE[0]))
+    check(set(launches) <= set(KERNELS), f"phase 15 launched {launches}")
+    log(f"[chip_smoke] phase 15 alone in {time.perf_counter() - t_start:.1f}s")
+    return 0
+
+
 def main() -> int:
     # cuBLAS picks deterministic algorithms only with a fixed workspace; the
     # kernels-on / kernels-off training runs of phase 6 must agree bitwise.
@@ -4770,6 +5318,11 @@ def main() -> int:
     phase14 = obs_phase(torch, np, dev, batches, ids, lm_runs[8])
     check(set(phase14) <= set(KERNELS), f"phase 14 launched {phase14}")
     launches = {k: launches[k] + phase14.get(k, 0) for k in KERNELS}
+    # 15. faults and recovery: the guard, the storage and serving seams, forced
+    # fallbacks and the CLIs' preemption, corruption, guard and deadline
+    phase15 = faults_phase(torch, np, dev, batches, ids, lm_data)
+    check(set(phase15) <= set(KERNELS), f"phase 15 launched {phase15}")
+    launches = {k: launches[k] + phase15.get(k, 0) for k in KERNELS}
     # 13. the SSM and MoE families: mamba2-370m at full width and depth,
     # deepseek-moe-16b at full width with 2 layers, served and trained.  The
     # SmolLM states of phase 7 go first (their tables stay for the timing).

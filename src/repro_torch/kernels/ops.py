@@ -9,7 +9,12 @@ reference — and is how ``chip_smoke.py`` builds its comparison engine.
 
 Unlike the reference, which falls back (counted) to its jnp oracle on shapes
 that are not multiples of 8, the CUDA kernels take every shape, so nothing
-here falls back.  :func:`kernel_calls` counts real launches per kernel, in
+here falls back on its own.  The one exception is asked for: while a fault
+plan (:mod:`repro_torch.faults`) naming ``kernels.force_fallback`` is
+installed, each dispatcher whose name (or the reference's name for it) is
+in the spec's ``ops`` param, all of them when it has none, takes the plain
+version on any device, counted with reason ``fault-injected``
+(:func:`_fault_forced`); without a plan nothing changes.  :func:`kernel_calls` counts real launches per kernel, in
 the shape of the reference's ``fallback_stats()["kernel_calls"]``
 (``ops.py:178`` there: op name -> count), read from the obs registry's
 ``kernels.kernel_calls`` (label ``op``), which ``_build.launch`` increments;
@@ -60,6 +65,7 @@ import torch
 
 from repro_torch.core.codestore import CodeStore
 from repro_torch.core.tiered import TieredCodes
+from repro_torch.faults import plan as faultplan
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import adam_update as _adam
 from repro_torch.kernels import dequant_gather as _gather
@@ -154,8 +160,33 @@ def reset_fallback_stats() -> None:
     reset_fallbacks()
 
 
-def _plain(t: torch.Tensor, use_kernel: bool) -> bool:
-    return not use_kernel or t.device.type == "cpu"
+#: The reference's op name for a dispatcher it has under another name, so a
+#: ``kernels.force_fallback`` plan written for the reference forces it too.
+_REFERENCE_OP = {"sparse_row_update_runs": "sparse_row_update",
+                 "dequant_gather_staged": "dequant_gather", "sr_round_seeded": "sr_round"}
+
+
+def _fault_forced(op: str, shape) -> bool:
+    """Whether an installed fault plan forces ``op`` onto its plain version
+    (the ``kernels.force_fallback`` seam, the reference's ``_fault_forced``):
+    every dispatch while the plan is installed, narrowed to the ops its
+    ``ops`` param names (dispatcher names, or the reference's).  Counted
+    through :func:`note_fallback` with reason ``fault-injected``.  The
+    reference consults the plan at trace time; the port, per dispatch."""
+    spec = faultplan.lookup("kernels.force_fallback")
+    if spec is None:
+        return False
+    sel = spec.param("ops")
+    if sel is not None and op not in sel and _REFERENCE_OP.get(op) not in sel:
+        return False
+    note_fallback(op, shape, "fault-injected")
+    return True
+
+
+def _plain(t: torch.Tensor, use_kernel: bool, op: str, shape) -> bool:
+    """Take the plain version: asked for (``use_kernel=False``), forced by a
+    fault plan (on any device), or a CPU tensor."""
+    return not use_kernel or _fault_forced(op, shape) or t.device.type == "cpu"
 
 
 def _untiered(op: str, codes) -> None:
@@ -180,7 +211,7 @@ def _forward_only(op: str, *tensors) -> None:
 def sr_round(w: torch.Tensor, step: torch.Tensor, noise: torch.Tensor, bits: int = 8,
              *, use_kernel: bool = True) -> torch.Tensor:
     """Fused clip + stochastic round to int8 codes (Eq. 1/4)."""
-    if _plain(w, use_kernel):
+    if _plain(w, use_kernel, "sr_round", w.shape):
         return ref.sr_round_ref(w, step, noise, bits)
     return _sr_round.sr_round(w, step, noise, bits)
 
@@ -189,7 +220,7 @@ def sr_round_seeded(w: torch.Tensor, step: torch.Tensor, seed: int, bits: int = 
                     use_kernel: bool = True) -> torch.Tensor:
     """:func:`sr_round` with the uniforms drawn from Philox4x32-10 keyed by the
     int32 ``seed`` (``ref.philox_uniform``), on the card inside the kernel."""
-    if _plain(w, use_kernel):
+    if _plain(w, use_kernel, "sr_round_seeded", w.shape):
         return ref.sr_round_seeded_ref(w, step, seed, bits)
     return _sr_round.sr_round_seeded(w, step, seed, bits)
 
@@ -209,7 +240,7 @@ def lpt_update(codes, step: torch.Tensor, upd: torch.Tensor, noise: torch.Tensor
     kw = dict(new_step=new_step, weight_decay=weight_decay)
     if isinstance(codes, CodeStore):
         if codes.packed:
-            if _plain(step, use_kernel):
+            if _plain(step, use_kernel, "lpt_update", codes.shape):
                 data = ref.lpt_fused_update_packed_ref(codes.data, step, upd, noise, lr, bits,
                                                        codes.d, **kw)
             else:
@@ -218,7 +249,7 @@ def lpt_update(codes, step: torch.Tensor, upd: torch.Tensor, noise: torch.Tensor
         else:
             data = lpt_update(codes.data, step, upd, noise, lr, bits, use_kernel=use_kernel, **kw)
         return dataclasses.replace(codes, data=data)
-    if _plain(step, use_kernel):
+    if _plain(step, use_kernel, "lpt_update", codes.shape):
         return ref.lpt_fused_update_ref(codes, step, upd, noise, lr, bits, **kw)
     return _lpt.lpt_fused_update(codes, step, upd, noise, lr, bits, **kw)
 
@@ -233,24 +264,25 @@ def dequant_gather(codes, step: torch.Tensor, ids: torch.Tensor, *,
     (:func:`_forward_only`).
     """
     _forward_only("dequant_gather", step)
+    plain = _plain(step, use_kernel, "dequant_gather", codes.shape)
     if isinstance(codes, TieredCodes):
         args = (codes.backing.data, codes.hot.data, codes.slot_of_id, step, ids)
         if codes.packed:
-            if _plain(step, use_kernel):
+            if plain:
                 return ref.dequant_gather_packed_routed_ref(*args, bits=codes.bits, d=codes.d)
             return _gather.dequant_gather_packed_routed(*args, bits=codes.bits, d=codes.d)
-        if _plain(step, use_kernel):
+        if plain:
             return ref.dequant_gather_routed_ref(*args)
         return _gather.dequant_gather_routed(*args)
     if isinstance(codes, CodeStore) and codes.packed:
-        if _plain(step, use_kernel):
+        if plain:
             return ref.dequant_gather_packed_ref(codes.data, step, ids,
                                                  bits=codes.bits, d=codes.d)
         return _gather.dequant_gather_packed(codes.data, step, ids,
                                              bits=codes.bits, d=codes.d)
     if isinstance(codes, CodeStore):
         codes = codes.data
-    if _plain(step, use_kernel):
+    if plain:
         return ref.dequant_gather_ref(codes, step, ids)
     return _gather.dequant_gather(codes, step, ids)
 
@@ -264,11 +296,12 @@ def dequant_gather_staged(rows: torch.Tensor, hot: torch.Tensor, slot: torch.Ten
     staged route."""
     _forward_only("dequant_gather_staged", step)
     args = (rows, hot, slot, step, ids)
+    plain = _plain(step, use_kernel, "dequant_gather_staged", (step.shape[0], d))
     if packed:
-        if _plain(step, use_kernel):
+        if plain:
             return ref.dequant_gather_packed_routed_ref(*args, bits=bits, d=d, staged=True)
         return _gather.dequant_gather_packed_routed(*args, bits=bits, d=d, staged=True)
-    if _plain(step, use_kernel):
+    if plain:
         return ref.dequant_gather_routed_ref(*args, staged=True)
     return _gather.dequant_gather_routed(*args, staged=True)
 
@@ -284,14 +317,15 @@ def dequant_matmul(x: torch.Tensor, codes, step: torch.Tensor, *,
     """
     _forward_only("dequant_matmul", x, step)
     _untiered("dequant_matmul", codes)
+    plain = _plain(x, use_kernel, "dequant_matmul", (x.shape[0], *codes.shape))
     if isinstance(codes, CodeStore) and codes.packed:
-        if _plain(x, use_kernel):
+        if plain:
             return ref.dequant_matmul_packed_ref(x, codes.data, step, bits=codes.bits,
                                                  k=codes.d)
         return _matmul.dequant_matmul_packed(x, codes.data, step, bits=codes.bits, k=codes.d)
     if isinstance(codes, CodeStore):
         codes = codes.data
-    if _plain(x, use_kernel):
+    if plain:
         return ref.dequant_matmul_ref(x, codes, step)
     return _matmul.dequant_matmul(x, codes, step)
 
@@ -305,7 +339,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (:func:`_forward_only`): training attention is
     ``models.layers.flash_attention_train``."""
     _forward_only("flash_attention_fwd", q, k, v)
-    if _plain(q, use_kernel):
+    if _plain(q, use_kernel, "flash_attention_fwd", q.shape):
         return ref.flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
                                            softmax_scale=softmax_scale)
     return _flash.flash_attention_fwd(q, k, v, causal=causal, window=window,
@@ -329,8 +363,9 @@ def sparse_row_update(codes, step: torch.Tensor, mu: torch.Tensor, nu: torch.Ten
     ``lr``, ``c1 = 1 - b1^t`` and ``c2 = 1 - b2^t`` are float32 host scalars.
     """
     _untiered("sparse_row_update", codes)
+    plain = _plain(step, use_kernel, "sparse_row_update", codes.shape)
     if isinstance(codes, CodeStore) and codes.packed:
-        if _plain(step, use_kernel):
+        if plain:
             return ref.sparse_row_update_packed_ref(
                 codes.data, step, mu, nu, uniq, g_sum, noise, lr, c1, c2, codes.bits, codes.d,
                 weight_decay=weight_decay)
@@ -339,7 +374,7 @@ def sparse_row_update(codes, step: torch.Tensor, mu: torch.Tensor, nu: torch.Ten
             weight_decay=weight_decay)
     if isinstance(codes, CodeStore):
         codes = codes.data
-    if _plain(step, use_kernel):
+    if plain:
         return ref.sparse_row_update_ref(codes, step, mu, nu, uniq, g_sum, noise, lr, c1, c2,
                                          bits, weight_decay=weight_decay)
     return _row_update.sparse_row_update(codes, step, mu, nu, uniq, g_sum, noise, lr, c1, c2,
@@ -361,21 +396,22 @@ def sparse_row_update_runs(codes, step: torch.Tensor, mu: torch.Tensor, nu: torc
     and written in the hot tier, the others in the backing.
     """
     args = (g_occ, order, starts, noise, lr, c1, c2)
+    plain = _plain(step, use_kernel, "sparse_row_update_runs", codes.shape)
     if isinstance(codes, TieredCodes):
         tiers = (codes.backing.data, codes.hot.data, codes.slot_of_id, step, mu, nu, uniq)
         if codes.packed:
-            if _plain(step, use_kernel):
+            if plain:
                 return ref.sparse_row_update_runs_routed_ref(
                     *tiers, *args, codes.bits, packed_d=codes.d, weight_decay=weight_decay)
             return _row_update.sparse_row_update_runs_packed_routed(
                 *tiers, *args, codes.bits, codes.d, weight_decay=weight_decay)
-        if _plain(step, use_kernel):
+        if plain:
             return ref.sparse_row_update_runs_routed_ref(*tiers, *args, bits,
                                                          weight_decay=weight_decay)
         return _row_update.sparse_row_update_runs_routed(*tiers, *args, bits,
                                                          weight_decay=weight_decay)
     if isinstance(codes, CodeStore) and codes.packed:
-        if _plain(step, use_kernel):
+        if plain:
             return ref.sparse_row_update_runs_packed_ref(
                 codes.data, step, mu, nu, uniq, *args, codes.bits, codes.d,
                 weight_decay=weight_decay)
@@ -384,7 +420,7 @@ def sparse_row_update_runs(codes, step: torch.Tensor, mu: torch.Tensor, nu: torc
             weight_decay=weight_decay)
     if isinstance(codes, CodeStore):
         codes = codes.data
-    if _plain(step, use_kernel):
+    if plain:
         return ref.sparse_row_update_runs_ref(codes, step, mu, nu, uniq, *args, bits,
                                               weight_decay=weight_decay)
     return _row_update.sparse_row_update_runs(codes, step, mu, nu, uniq, *args, bits,
@@ -396,7 +432,8 @@ def adam_update(params, grads, mu, nu, lr: float, bc1: float, bc2: float, *,
                 weight_decay: float = 0.0, use_kernel: bool = True):
     """One AdamW step over lists of tensors -> ``(new_params, new_mu, new_nu)``
     (the dense optimizer; one launch for the whole list on the card)."""
-    if not params or _plain(params[0], use_kernel):
+    if not params or _plain(params[0], use_kernel, "adam_update",
+                            (sum(p.numel() for p in params),)):
         return ref.adam_update_ref(params, grads, mu, nu, lr, bc1, bc2, b1=b1, b2=b2, eps=eps,
                                    weight_decay=weight_decay)
     return _adam.adam_update(params, grads, mu, nu, lr, bc1, bc2, b1=b1, b2=b2, eps=eps,

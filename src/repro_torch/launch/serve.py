@@ -34,6 +34,15 @@ The JSON line carries ``latency_us`` (wave and request quantiles on the
 host clock) and ``kernel_fallbacks``.  ``--trace-out PATH`` (both
 scenarios) arms the span tracer and writes a Chrome trace to PATH at exit
 (``train.run_traced``).
+
+Faults (:mod:`repro_torch.faults`, both scenarios, as the reference's CLI):
+``--fault-plan JSON`` installs a ``FaultPlan`` for the run (uninstalled
+when it ends); ``--deadline-ms`` sets the engine's per-wave deadline
+(observed, not enforced).  The JSON line carries ``served_degraded``,
+``deadline_misses``, ``wave_retries``, ``retry_failures`` and ``health``
+(``Engine.health()``); the recovery lines (the tiers' refusals, lost and
+corrupted prefetches, retries, and the readiness) go to stderr, so the JSON
+line stays the last line of stdout.
 """
 from __future__ import annotations
 
@@ -52,6 +61,25 @@ from repro_torch.training import lm_trainer
 from repro_torch.training.ctr_trainer import CTRTrainer, init_state
 
 
+def _report(engine, m) -> str:
+    """The recovery lines (to stderr) and the JSON line of a served run."""
+    for c in m.caches:
+        if c.admission_oom or c.prefetch_dropped or c.corruption_detected:
+            print(f"[serve] {c.tier} tier '{c.name}' recovery: {c.admission_oom} admission "
+                  f"refusals, {c.prefetch_dropped} prefetch losses, {c.corruption_detected} "
+                  "corrupted prefetches re-fetched", file=sys.stderr)
+    print(f"[serve] recovery: {m.served_degraded} degraded waves, {m.deadline_misses} deadline "
+          f"misses, {m.wave_retries} wave retries, {m.retry_failures} retry exhaustions",
+          file=sys.stderr)
+    for name, stats in engine._tier_retry_stats():
+        print(f"[serve] {name} tier retries: {json.dumps(stats.to_json())}", file=sys.stderr)
+    health = engine.health()
+    failed = [k for k, ok in health["checks"].items() if not ok]
+    print(f"[serve] health: {'READY' if health['ready'] else 'NOT READY'}"
+          + (f" (failing: {', '.join(failed)})" if failed else ""), file=sys.stderr)
+    return json.dumps({**m.to_json(), "health": health}, sort_keys=True)
+
+
 def _run_ctr(args) -> int:
     device = device_mod.resolve(args.device)
     data, cfg = train_cli.build(args, args.method)
@@ -66,6 +94,8 @@ def _run_ctr(args) -> int:
     engine = CTREngine.from_state(state, cfg, batch=args.batch, cache_rows=args.cache_rows,
                                   cold_tier=args.cold_tier,
                                   device_budget_bytes=args.device_budget_bytes)
+    if args.deadline_ms is not None:
+        engine.deadline_s = args.deadline_ms / 1e3
     ids, _ = data.batch("test", 0, args.requests)
     rids = [engine.submit(CTRRequest(ids=row)) for row in ids]
     done = engine.run()
@@ -85,7 +115,7 @@ def _run_ctr(args) -> int:
         cold = f"; cold host bytes {engine.cold_host_bytes}" if args.cold_tier else ""
         print(f"[serve] aggregate cache hit rate {m.cache_hit_rate:.3f}{cold}")
     print(f"  first probs: {[round(done[r]['prob'], 4) for r in rids[:4]]}")
-    print(json.dumps(m.to_json(), sort_keys=True))
+    print(_report(engine, m))
     return 0
 
 
@@ -95,6 +125,8 @@ def _run_lm(args) -> int:
     state = lm_trainer.init_state(cfg, seed=args.seed, device=device)
     engine = LMEngine.from_state(state, cfg, batch=args.batch,
                                  max_len=args.prompt_len + args.gen)
+    if args.deadline_ms is not None:
+        engine.deadline_s = args.deadline_ms / 1e3
     rng = np.random.RandomState(args.seed)
     for _ in range(args.requests):
         engine.submit(LMRequest(
@@ -112,7 +144,7 @@ def _run_lm(args) -> int:
     )
     for rid in sorted(done)[:2]:
         print(f"  rid={rid} tokens={done[rid][:8]}...")
-    print(json.dumps(m.to_json(), sort_keys=True))
+    print(_report(engine, m))
     return 0
 
 
@@ -142,9 +174,15 @@ def main(argv=None) -> int:
     lm.add_argument("--seed", type=int, default=0)
     for p in (ctr, lm):
         train_cli.add_trace_arg(p)
+        train_cli.add_fault_arg(p)
+        p.add_argument("--deadline-ms", type=float, default=None,
+                       help="per-wave deadline: waves over it tick deadline_misses (observed, "
+                            "not enforced)")
     args = ap.parse_args(argv)
     run = _run_lm if args.scenario == "lm" else _run_ctr
-    return train_cli.run_traced(args.trace_out, "serve", lambda: run(args))
+    plan = train_cli.load_fault_plan(args.fault_plan, "serve")
+    return train_cli.run_with_plan(
+        plan, lambda: train_cli.run_traced(args.trace_out, "serve", lambda: run(args)))
 
 
 if __name__ == "__main__":

@@ -57,6 +57,16 @@ instant ``train.straggler``).  ``--trace-out PATH`` arms the span tracer
 and writes a Chrome trace (``chrome://tracing``, https://ui.perfetto.dev)
 to PATH at exit, also after an error; with several ranks only rank 0
 writes it.  Tracing fences the card at span edges and changes no result.
+
+Faults (:mod:`repro_torch.faults`, both scenarios, as the reference's CLI):
+``--fault-plan JSON`` installs a ``FaultPlan`` for the run (its sites are
+printed; it is uninstalled when the run ends).  ``train.preempt`` requests
+the graceful shutdown after its step: the checkpoint, then exit 75.
+``--guard`` turns on the non-finite skip-step guard, and a plan naming
+``trainer.nonfinite`` or ``alpt.delta`` turns it on by itself; the JSON
+line then carries ``guard`` (skipped steps, fired seams, clamped Delta
+rows).  ``--guard`` is single-program only: ``--dp-compress-bits`` refuses
+it, since each rank would judge its own loss before the sync.
 """
 from __future__ import annotations
 
@@ -73,7 +83,7 @@ import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch import device as device_mod
-from repro_torch import methods
+from repro_torch import faults, methods
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.manager import check_embedding_manifest, config_hash
 from repro_torch.configs import dcn_ctr
@@ -211,6 +221,39 @@ def run_traced(trace_out: str | None, tag: str, run) -> int:
         tr.clear()
 
 
+def load_fault_plan(path: str | None, tag: str) -> faults.FaultPlan | None:
+    """The ``--fault-plan`` file's plan (None without one), its sites printed."""
+    if not path:
+        return None
+    plan = faults.FaultPlan.load(path)
+    if int(os.environ.get("RANK", "0")) == 0:
+        print(f"[{tag}] fault plan installed: sites {sorted(plan.sites())}")
+    return plan
+
+
+def run_with_plan(plan: faults.FaultPlan | None, run) -> int:
+    """``run()`` with ``plan`` installed process-wide (when given), and
+    uninstalled when the run ends, also after an error."""
+    if plan is None:
+        return run()
+    faults.install(plan)
+    try:
+        return run()
+    finally:
+        faults.uninstall()
+
+
+def guard_report(stats: faults.GuardStats, say=print) -> dict:
+    """The guard's totals for the JSON line (published to the registry's
+    ``faults.guard.*`` gauges), and their line."""
+    stats.publish()
+    g = stats.to_json()
+    say(f"[train] guard: {g['skipped']} skipped steps ({g['nonfinite_fired']} injected "
+        f"non-finite, {g['delta_fired']} injected Delta blowups, {g['delta_clamped']} Delta "
+        "rows clamped)")
+    return g
+
+
 class GracefulShutdown:
     """Latches SIGTERM / SIGINT while a run is in flight (a context manager
     that puts the previous handlers back on exit): the loop finishes the
@@ -261,6 +304,9 @@ def _loop(state, steps: int, one_step, save, saved: bool, agree=bool, say=print)
             losses.append(loss)
             ms.append(t)
             saved = save(state, False)
+            if faults.fires("train.preempt", state.step):
+                say(f"[train] injected preemption at step {state.step}")
+                shutdown.requested = True
             if agree(shutdown.requested):
                 if not saved:
                     save(state, True)
@@ -281,7 +327,7 @@ def _manager(args):
 def _run_ctr(args) -> int:
     device = device_mod.resolve(args.device)
     data, cfg = build(args, args.method)
-    cfg = dataclasses.replace(cfg, lr=args.lr, cache_rows=args.cache_rows)
+    cfg = dataclasses.replace(cfg, lr=args.lr, cache_rows=args.cache_rows, guard=args.guard)
     trainer = CTRTrainer(cfg, device=device)
     manager = _manager(args)
     ops.reset_kernel_calls()
@@ -327,6 +373,8 @@ def _run_ctr(args) -> int:
         report["corrupt_checkpoints"] = manager.corrupt_steps
     if trainer.caches:
         report["caches"] = trainer.cache_stats()
+    if trainer.guard_stats is not None:
+        report["guard"] = guard_report(trainer.guard_stats)
     if args.eval_batches:
         report.update(trainer.evaluate(state, data.batches("valid", args.batch,
                                                            args.eval_batches)))
@@ -337,7 +385,8 @@ def _run_ctr(args) -> int:
     for st in trainer.cache_stats():
         print(f"[train] hot tier '{st['name']}': {st['rows_cached']}/{st['capacity']} rows, hit "
               f"rate {st['hit_rate']:.3f}, {st['evictions']} evictions, {st['writebacks']} "
-              "write-backs")
+              f"write-backs, {st['writeback_retries']} write-back retries, "
+              f"{st['admission_oom']} admission refusals")
     print(json.dumps(report, sort_keys=True))
     return 0
 
@@ -415,7 +464,7 @@ def _train_lm(args, device: torch.device) -> int:
         cfg = dataclasses.replace(cfg, embedding_method=args.embedding_method)
     tcfg = lm_trainer.LMTrainerConfig(lr=args.lr, use_kernels=not args.no_kernels,
                                       dp_sync_bits=args.dp_compress_bits if dp_mode else 32,
-                                      pad_to_tiles=args.pad_to_tiles)
+                                      pad_to_tiles=args.pad_to_tiles, guard=args.guard)
     spec = lm_trainer.embedding_spec_of(cfg, tcfg)
     data = LMTokenStream(cfg.vocab_size, args.seq, seed=17)
     manager = _manager(args)
@@ -447,6 +496,7 @@ def _train_lm(args, device: torch.device) -> int:
         step_fn = lm_trainer.wrap_host_refresh(lm_trainer.make_train_step(cfg, tcfg), cfg, tcfg)
 
     watchdog = StragglerWatchdog()
+    guard_stats = faults.GuardStats() if args.guard else None
 
     def one_step(state):
         full = torch.from_numpy(data.batch(state.step, args.batch)).to(device)
@@ -456,6 +506,8 @@ def _train_lm(args, device: torch.device) -> int:
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])  # waits for the step
         dt = time.perf_counter() - t0
+        if guard_stats is not None:
+            guard_stats.observe(metrics)
         slow = watchdog.observe(dt)
         if args.log_every and state.step % args.log_every == 0:
             say(f"[train] step {state.step} loss {loss:.4f} {dt * 1e3:.0f}ms"
@@ -489,6 +541,8 @@ def _train_lm(args, device: torch.device) -> int:
         report.update(mesh_data=dist.get_world_size(), **wire)
     if manager and manager.corrupt_steps:
         report["corrupt_checkpoints"] = manager.corrupt_steps
+    if guard_stats is not None:
+        report["guard"] = guard_report(guard_stats, say)
     loss_note = f", loss {losses[0]:.4f} -> {losses[-1]:.4f}" if losses else ""
     say(f"[train] lm/{spec.method} {cfg.name} bits={spec.bits} on {device}: steps "
         f"{start + 1}-{args.steps} of {args.batch} x {args.seq}{loss_note}, "
@@ -509,6 +563,18 @@ def add_trace_arg(p: argparse.ArgumentParser) -> None:
                         "(chrome://tracing / ui.perfetto.dev) to PATH at exit")
 
 
+def add_fault_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--fault-plan", default=None, metavar="JSON",
+                   help="install a repro_torch.faults FaultPlan (JSON file) for the run; see "
+                        "the seam catalog in repro_torch/faults/__init__.py")
+
+
+def add_guard_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--guard", action="store_true",
+                   help="the non-finite skip-step guard (repro_torch.faults.guards); on by "
+                        "itself when --fault-plan schedules a trainer seam")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="scenario", required=True)
@@ -524,6 +590,8 @@ def main(argv=None) -> int:
                           "bitwise the uncached run")
     add_ckpt_args(ctr)
     add_trace_arg(ctr)
+    add_fault_arg(ctr)
+    add_guard_arg(ctr)
     lm = sub.add_parser("lm", help="LM training (dense, SSM, MoE) with a quantized vocab table")
     lm.add_argument("--arch", choices=sorted(configs.ARCHS), default="smollm-135m")
     lm.add_argument("--smoke", action="store_true", help="the reduced config of --arch")
@@ -551,11 +619,21 @@ def main(argv=None) -> int:
                          "SR-compressed codes); requires --mesh-model 1")
     add_ckpt_args(lm)
     add_trace_arg(lm)
+    add_fault_arg(lm)
+    add_guard_arg(lm)
     args = ap.parse_args(argv)
+    plan = load_fault_plan(args.fault_plan, "train")
+    seams = sorted({"trainer.nonfinite", "alpt.delta"} & set(plan.sites() if plan else ()))
+    if seams and not args.guard:
+        print(f"[train] plan schedules {seams}; enabling --guard")
+        args.guard = True
     if args.scenario == "lm":
+        if args.guard and args.dp_compress_bits is not None:
+            lm.error("--guard is single-program only (each rank would judge its own loss "
+                     "before the sync); drop --dp-compress-bits")
         check_mesh(lm, args)
     run = _run_lm if args.scenario == "lm" else _run_ctr
-    return run_traced(args.trace_out, "train", lambda: run(args))
+    return run_with_plan(plan, lambda: run_traced(args.trace_out, "train", lambda: run(args)))
 
 
 if __name__ == "__main__":

@@ -28,8 +28,15 @@ Storage tiers (:mod:`repro_torch.storage`), as the reference's:
 
 A tier over ``device_budget_bytes`` raises, as in the reference.  Each
 wave's scoring is one ``engine.score`` span (``tier="cold"`` on the cold
-path), fenced on the probabilities while tracing.  The reference's fault
-seams and retries around the tiers wait for the faults slice.
+path), fenced on the probabilities while tracing.
+
+Faults (:mod:`repro_torch.faults`), as the reference's: a wave that fails
+goes back to the front of the queue, so the engine's wave retry (under a
+fault plan) or the caller sees the same requests again
+(``_wave_retry_safe``); the tiers' seams (``cache.admission``, the cold
+tier's ``cold.fetch`` / ``cold.prefetch_loss`` / ``codestore.corrupt``)
+report in ``CacheMetrics`` and the cold tier's ``retry_stats``
+(``_tier_retry_stats``, read by ``health()``).
 """
 from __future__ import annotations
 
@@ -58,6 +65,9 @@ class CTRRequest:
 
 class CTREngine(Engine):
     scenario = "ctr"
+    # _advance puts a failed wave back at the front of the queue, so the
+    # engine's wave retry is safe here.
+    _wave_retry_safe = True
 
     def __init__(self, dense: torch.nn.Module, serving_table: serving_tbl.ServingTable,
                  model_cfg, spec: methods.EmbeddingSpec, *, batch: int, cache_rows: int = 0,
@@ -180,7 +190,9 @@ class CTREngine(Engine):
                 tier="cold", name=c.name, capacity=c.capacity, rows_cached=c.rows_cached,
                 hits=c.hits, misses=c.misses, evictions=c.evictions, writebacks=c.writebacks,
                 hit_rate=c.hit_rate, hot_bytes=self._cold.hot_device_bytes,
-                metadata_bytes=c.host_metadata_bytes),)
+                metadata_bytes=c.host_metadata_bytes, admission_oom=c.admission_oom,
+                prefetch_dropped=self._cold.prefetch_dropped,
+                corruption_detected=self._cold.corruption_detected),)
         out = []
         for slot, cache in self._caches:
             tiered = self._tiered(slot)
@@ -189,8 +201,12 @@ class CTREngine(Engine):
                 rows_cached=cache.rows_cached, hits=cache.hits, misses=cache.misses,
                 evictions=cache.evictions, writebacks=cache.writebacks,
                 hit_rate=cache.hit_rate, hot_bytes=tiered.hot_bytes,
-                metadata_bytes=tiered.metadata_bytes + cache.host_metadata_bytes))
+                metadata_bytes=tiered.metadata_bytes + cache.host_metadata_bytes,
+                admission_oom=cache.admission_oom))
         return tuple(out)
+
+    def _tier_retry_stats(self):
+        return [] if self._cold is None else [("cold", self._cold.retry_stats)]
 
     def _reset_cache_counters(self) -> None:
         if self._cold is not None:
@@ -251,6 +267,20 @@ class CTREngine(Engine):
 
     def _advance(self) -> None:
         wave = [self._queue.popleft() for _ in range(min(self.batch, len(self._queue)))]
+        try:
+            logits, probs = self._score_wave(wave)
+        except BaseException:
+            # Back to the front of the queue: a retry (the engine's, under a
+            # fault plan, or the caller's) sees the same requests; a
+            # transient tier failure loses no work.
+            self._queue.extendleft(reversed(wave))
+            raise
+        for i, req in enumerate(wave):
+            self._finish(req.rid, {"logit": logits[i], "prob": probs[i]})
+
+    def _score_wave(self, wave) -> tuple[list, list]:
+        """``(logits, probs)`` of one wave's requests, as host lists (the
+        cold tier stages the next wave's rows before returning)."""
         ids_np = self._padded_wave_ids(wave)
         tr = tracer()
         with torch.inference_mode():
@@ -272,7 +302,4 @@ class CTREngine(Engine):
             nxt = list(itertools.islice(self._queue, self.batch))
             if nxt:
                 self._cold.stage(self._padded_wave_ids(nxt).reshape(-1))
-        logits = logits.cpu().tolist()
-        probs = probs.cpu().tolist()
-        for i, req in enumerate(wave):
-            self._finish(req.rid, {"logit": logits[i], "prob": probs[i]})
+        return logits.cpu().tolist(), probs.cpu().tolist()

@@ -15,11 +15,25 @@ Observability (:mod:`repro_torch.obs`), as the reference's: the registry's
 counters, labelled by scenario; one ``engine.wave`` span per step and one
 async ``engine.request`` span per request, from submit to finish; wave and
 request latency quantiles on the host clock (``EngineMetrics.latency_us``);
-the kernel fallbacks the engine's steps noted (``fallback_report``).  Fault
-injection, and the fault counters the reference keeps
-(``engine.deadline_misses`` and ``engine.served_degraded`` are registered
-and stay 0; ``CacheMetrics.admission_oom``, ``prefetch_dropped`` and
-``corruption_detected`` read 0), are not ported yet.
+the kernel fallbacks the engine's steps noted (``fallback_report``).
+
+Faults and recovery (:mod:`repro_torch.faults`), as the reference's:
+
+* ``deadline_s``: a wave whose host time exceeds it ticks
+  ``deadline_misses`` (``engine.deadline_misses``); the deadline is
+  observed, not enforced;
+* with a fault plan installed, a frontend whose ``_advance`` puts a failed
+  wave back at the front of the queue (``_wave_retry_safe``: the CTR
+  engine) runs each wave behind :func:`~repro_torch.faults.recovery
+  .retry_with_backoff`, ``wave_attempts`` tries (``wave_retries``,
+  ``retry_failures``); the final failure propagates;
+* with ``cache.admission`` in the plan, a wave during which a tier refused
+  admissions ticks ``served_degraded`` (``engine.served_degraded``);
+* :meth:`Engine.health`: ready unless retries were exhausted (the waves' or
+  a tier's fetches, ``_tier_retry_stats``), the residency is not integer, or
+  a tier is over its budget; recovered degradation keeps it ready.
+
+Without a plan a wave runs exactly as before, the deadline check aside.
 """
 from __future__ import annotations
 
@@ -29,6 +43,8 @@ import time
 from typing import Any
 
 from repro_torch import methods
+from repro_torch.faults import plan as faultplan
+from repro_torch.faults.recovery import RetryStats, retry_with_backoff
 from repro_torch.kernels import ops
 from repro_torch.obs import counters as obs_counters
 from repro_torch.obs import stats as obs_stats
@@ -43,9 +59,10 @@ _MET_SUBMITTED = _REG.counter("engine.requests_submitted", "requests enqueued",
 _MET_COMPLETED = _REG.counter("engine.requests_completed", "requests finished",
                               labels=("scenario",))
 _MET_WAVES = _REG.counter("engine.waves", "scheduler steps taken", labels=("scenario",))
-_REG.counter("engine.deadline_misses", "waves over the per-wave deadline", labels=("scenario",))
-_REG.counter("engine.served_degraded", "waves served degraded off the warm tier",
-             labels=("scenario",))
+_MET_DEADLINE = _REG.counter("engine.deadline_misses", "waves over the per-wave deadline",
+                             labels=("scenario",))
+_MET_DEGRADED = _REG.counter("engine.served_degraded", "waves served degraded off the warm tier",
+                             labels=("scenario",))
 _CACHE_FIELDS = ("capacity", "rows_cached", "hits", "misses", "evictions", "writebacks",
                  "hit_rate", "hot_bytes", "metadata_bytes", "admission_oom", "prefetch_dropped",
                  "corruption_detected")
@@ -103,6 +120,10 @@ class EngineMetrics:
     cache_hit_rate: float | None = None
     cache_budget_bytes: int | None = None
     prefetch_depth: int = 0
+    served_degraded: int = 0  # waves during which a tier refused admissions
+    deadline_misses: int = 0  # waves over ``deadline_s``
+    wave_retries: int = 0  # wave-level retries (a tier's own are in its RetryStats)
+    retry_failures: int = 0  # waves that exhausted their attempts
     #: Host-clock latency in µs, ``{"wave": {...}, "request": {...}}`` (each
     #: ``StreamingQuantiles.to_json()``); None until a wave ran, ``request``
     #: once a request finished.
@@ -136,6 +157,10 @@ class Engine:
     #: Scenario tag frontends set; shows up in metrics.
     scenario: str = "?"
 
+    #: Frontends whose ``_advance`` puts a failed wave back at the front of
+    #: the queue (so a retry sees the same requests) opt in to wave retry.
+    _wave_retry_safe: bool = False
+
     def __init__(self, *, serving_table: serving_tbl.ServingTable,
                  spec: methods.EmbeddingSpec):
         self.table = serving_table
@@ -159,6 +184,15 @@ class Engine:
         self.cache_budget_bytes: int | None = None
         #: Waves staged ahead of the one being scored (the cold tier: 1).
         self.prefetch_depth = 0
+        #: Per-wave deadline (seconds, host clock): a wave over it ticks
+        #: ``deadline_misses`` (observed, not enforced).
+        self.deadline_s: float | None = None
+        #: Tries per wave under a fault plan (``_wave_retry_safe`` frontends).
+        self.wave_attempts = 2
+        #: Wave-level retry counters (a cold tier's fetch retries are its own).
+        self.retry_stats = RetryStats()
+        self._served_degraded = 0
+        self._deadline_misses = 0
 
     @staticmethod
     def build_serving_state(table_state, spec: methods.EmbeddingSpec):
@@ -192,16 +226,30 @@ class Engine:
         """Advance the scheduler by one unit of work; False once idle."""
         if not self._has_work():
             return False
+        # Degraded waves are watched only while the plan schedules refusals.
+        watch_oom = faultplan.lookup("cache.admission") is not None
+        oom_before = self._admission_oom_total() if watch_oom else 0
         t0 = time.perf_counter()
         with tracer().span("engine.wave", scenario=self.scenario):
             with ops.fallback_scope(self._fallbacks), ops.fallback_scope() as wave:
-                self._advance()
+                if faultplan.active_plan() is None or not self._wave_retry_safe:
+                    self._advance()
+                else:
+                    retry_with_backoff(self._advance, op=f"{self.scenario}.wave",
+                                       attempts=self.wave_attempts, base_s=0.002,
+                                       stats=self.retry_stats)
         dt = time.perf_counter() - t0
         self._wall_s += dt
         self._steps += 1
         self._launches.update(wave.kernel_calls)
         self._wave_latency.add(dt * 1e6)
         _MET_WAVES.inc(1, self.scenario)
+        if self.deadline_s is not None and dt > self.deadline_s:
+            self._deadline_misses += 1
+            _MET_DEADLINE.inc(1, self.scenario)
+        if watch_oom and self._admission_oom_total() > oom_before:
+            self._served_degraded += 1
+            _MET_DEGRADED.inc(1, self.scenario)
         return True
 
     def run(self) -> dict[int, Any]:
@@ -247,6 +295,39 @@ class Engine:
         """Per-tier cache snapshots; () when no tier is composed in."""
         return ()
 
+    def _admission_oom_total(self) -> int:
+        return sum(c.admission_oom for c in self.cache_metrics())
+
+    def _tier_retry_stats(self) -> list[tuple[str, RetryStats]]:
+        """``(name, RetryStats)`` of each storage tier with a retried fetch."""
+        return []
+
+    def health(self) -> dict:
+        """Readiness: is this engine fit to take traffic, and why.
+
+        ``ready`` holds through *recovered* degradation (waves off the warm
+        tier, retried fetches: the outputs are still bitwise right) and drops
+        on what loses work or breaks the residency contract: exhausted
+        retries, a non-integer residency, a tier over its budget.
+        """
+        retry_failures = self.retry_stats.failures + sum(
+            s.failures for _, s in self._tier_retry_stats())
+        checks = {
+            "int8_resident": self.int8_resident,
+            "within_budget": (self.cache_budget_bytes is None
+                              or self.resident_embedding_bytes <= self.cache_budget_bytes),
+            "no_retry_exhaustion": retry_failures == 0,
+        }
+        return {
+            "ready": all(checks.values()),
+            "checks": checks,
+            "queue_depth": self.pending,
+            "served_degraded": self._served_degraded,
+            "deadline_misses": self._deadline_misses,
+            "wave_retries": self.retry_stats.retries,
+            "kernel_fallbacks": self.fallback_report()["total_fallbacks"],
+        }
+
     def fallback_report(self) -> dict:
         """Launches and noted fallbacks of this engine's steps, over its life,
         in ``ops.fallback_stats``'s schema."""
@@ -260,7 +341,9 @@ class Engine:
         Finished results, cache membership and the fallback report are kept;
         the caches' traffic counters restart with the window."""
         self._submitted = self._completed = self._steps = self._tokens = 0
+        self._served_degraded = self._deadline_misses = 0
         self._wall_s = 0.0
+        self.retry_stats = RetryStats()
         self._launches = collections.Counter()
         self._wave_latency = obs_stats.StreamingQuantiles()
         self._request_latency = obs_stats.StreamingQuantiles()
@@ -297,5 +380,9 @@ class Engine:
             cache_hit_rate=hit_rate,
             cache_budget_bytes=self.cache_budget_bytes,
             prefetch_depth=self.prefetch_depth,
+            served_degraded=self._served_degraded,
+            deadline_misses=self._deadline_misses,
+            wave_retries=self.retry_stats.retries,
+            retry_failures=self.retry_stats.failures,
             latency_us=latency,
         )

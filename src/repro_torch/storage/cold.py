@@ -38,17 +38,36 @@ Observability, as the reference's: :meth:`ColdStore.stage` is one
 one ``storage.cold.fetch`` span (``rows``: the wave's lookups), neither
 fenced (the copies stay ordered by their events alone); the registry's
 ``storage.cold.prefetch_hits`` / ``demand_puts`` grow with the attributes
-of those names.  The reference's fault seams (``cold.fetch``,
-``cold.prefetch_loss``, ``codestore.corrupt``) and retries are not ported:
-``storage.cold.prefetch_dropped`` and ``corruption_detected`` are
-registered and stay 0.
+of those names.
+
+Fault seams (:mod:`repro_torch.faults`), as the reference's, each on the
+store's wave index (``wave``: the waves read so far).  Every host gather
+(the staging, a top-up, a demand fetch, admitted rows not staged) runs
+behind :func:`~repro_torch.faults.recovery.retry_with_backoff`
+(``retry_stats``): ``cold.fetch`` stalls it ``stall_s`` and fails it
+``fails`` times in its wave, and exhaustion raises ``RetryError``.  With
+``codestore.corrupt`` in the plan, :meth:`ColdStore.stage` records the
+crc32 of the rows it gathered, and on its waves flips one byte of the
+staged copy (the reference's position rule over the port's staged rows);
+:meth:`ColdStore.rows` checks the card's copy against that crc before use
+and, on a mismatch, fetches again on demand (``corruption_detected``, a
+``storage.cold.fetch`` span with ``reason="corrupt-staged"``).
+``cold.prefetch_loss`` drops the staged copy and the wave is fetched on
+demand (``prefetch_dropped``, ``reason="prefetch-lost"``).  The registry's
+``storage.cold.prefetch_dropped`` / ``corruption_detected`` grow with the
+attributes.  Without a plan the crc is never taken.
 """
 from __future__ import annotations
+
+import time
+import zlib
 
 import numpy as np
 import torch
 
 from repro_torch.core.codestore import CodeStore
+from repro_torch.faults import plan as faultplan
+from repro_torch.faults.recovery import RetryStats, retry_with_backoff
 from repro_torch.kernels import ops
 from repro_torch.obs import counters as obs_counters
 from repro_torch.obs.trace import tracer
@@ -62,8 +81,9 @@ _REG = obs_counters.registry()
 _MET_PREFETCH_HITS = _REG.counter("storage.cold.prefetch_hits",
                                   "waves served from the staged prefetch")
 _MET_DEMAND_PUTS = _REG.counter("storage.cold.demand_puts", "waves demand-fetched host->device")
-_REG.counter("storage.cold.prefetch_dropped", "staged prefetches lost (re-fetched)")
-_REG.counter("storage.cold.corruption_detected", "staged bytes failing crc")
+_MET_PREFETCH_DROPPED = _REG.counter("storage.cold.prefetch_dropped",
+                                     "staged prefetches lost (re-fetched)")
+_MET_CORRUPTION = _REG.counter("storage.cold.corruption_detected", "staged bytes failing crc")
 
 
 class _Stage:
@@ -109,6 +129,15 @@ class ColdStore:
         self.demand_puts = 0
         self.topup_rows = 0
         self.copied_rows = 0
+        # Recovery: every host gather is retried (retry_stats); the fault
+        # seams' counters and their schedule's basis, the wave index.
+        self.retry_stats = RetryStats()
+        self.prefetch_dropped = 0
+        self.corruption_detected = 0
+        self.wave = 0
+        self._staged_crc: int | None = None  # crc32 of the staged rows (codestore.corrupt)
+        self._fails_armed = 0  # cold.fetch: injected failures left in this wave
+        self._armed_wave = -1
 
     # ------------------------------------------------------------ bytes
 
@@ -143,10 +172,50 @@ class ColdStore:
             stage.copied.synchronize()
         return stage
 
+    def _fetch(self, gather):
+        """``gather()``, a host gather, behind bounded retry + backoff (the
+        ``cold.fetch`` seam stalls it or fails it ``fails`` times in its
+        wave; exhaustion raises ``RetryError``)."""
+        spec = faultplan.lookup("cold.fetch")
+        armed = spec is not None and spec.fires(self.wave)
+        if armed and self._armed_wave != self.wave:
+            self._armed_wave = self.wave
+            self._fails_armed = int(spec.param("fails", 1))
+
+        def attempt():
+            if armed:
+                stall = float(spec.param("stall_s", 0.0))
+                if stall:
+                    time.sleep(stall)
+                if self._fails_armed > 0:
+                    self._fails_armed -= 1
+                    raise faultplan.TransientFault(f"cold.fetch injected failure (wave {self.wave})")
+            return gather()
+
+        attempts = int(spec.param("attempts", 4)) if spec is not None else 4
+        return retry_with_backoff(attempt, op="cold.fetch", attempts=attempts, base_s=0.002,
+                                  stats=self.retry_stats)
+
     def _fill(self, stage: _Stage, ids: np.ndarray, at: int = 0) -> None:
         """Gather the host rows ``ids`` into ``stage.host[at:]``."""
-        np.take(self.host_np, ids, axis=0, out=stage.host_np[at: at + ids.size])
+        self._fetch(lambda: np.take(self.host_np, ids, axis=0,
+                                    out=stage.host_np[at: at + ids.size]))
         self.copied_rows += int(ids.size)
+
+    def _corrupt(self, stage: _Stage, rows: int) -> int | None:
+        """The ``codestore.corrupt`` seam on the rows just staged: their
+        crc32 when the plan names the site (None otherwise), and on its
+        waves one byte of the staged copy flipped at the reference's
+        position, ``crc32(f"{seed}:{wave}") % bytes``."""
+        spec = faultplan.lookup("codestore.corrupt")
+        if spec is None:
+            return None
+        staged = stage.host_np[:rows].reshape(-1).view(np.uint8)
+        crc = zlib.crc32(staged.tobytes())
+        if spec.fires(self.wave) and staged.size:
+            seed = int(spec.param("seed", 0))
+            staged[zlib.crc32(f"{seed}:{self.wave}".encode()) % staged.size] ^= 0xFF
+        return crc
 
     def _distinct(self, ids: np.ndarray, at: int = 0) -> tuple[np.ndarray, np.ndarray]:
         """``(need, rows)``: the distinct ids of ``ids`` and each one's row
@@ -180,6 +249,7 @@ class ColdStore:
             need, _ = self._distinct(safe[self.cache.slot_of_arr[safe] < 0])
             stage = self._next_stage(flat_ids.size)
             self._fill(stage, need)
+            self._staged_crc = self._corrupt(stage, need.size)
             if self._side is not None:
                 with torch.cuda.stream(self._side):
                     self._side.wait_event(stage.read)
@@ -192,14 +262,16 @@ class ColdStore:
     def admit(self, flat_ids: np.ndarray) -> None:
         """Run the policy over a wave's real ids; copy the admitted rows to the
         hot tier on the current stream, from the staged rows when they hold
-        them, else from host memory."""
+        them (and need no check), else from host memory."""
         moves = self.cache.observe(np.asarray(flat_ids, np.int64))
         if moves is None:
             return
         adm_slots, adm_ids = moves[3], moves[4]
         k = int((adm_ids >= 0).sum())
         adm_ids = adm_ids[:k].astype(np.int64)
-        if self._staged is not None:
+        # Staged rows not yet verified (codestore.corrupt in the plan) are
+        # not copied to the hot tier: admissions then come from host memory.
+        if self._staged is not None and self._staged_crc is None:
             _, stage, need = self._staged
             pos, found = self._staged_rows(need, adm_ids)
             if found.all():
@@ -211,7 +283,7 @@ class ColdStore:
                 if stage.read is not None:
                     stage.read.record()
                 return
-        rows = torch.from_numpy(self.host_np[adm_ids]).to(self.device)
+        rows = torch.from_numpy(self._fetch(lambda: self.host_np[adm_ids])).to(self.device)
         slots = torch.from_numpy(adm_slots[:k].astype(np.int64)).to(self.device)
         self.hot.index_copy_(0, slots, rows)
         self.copied_rows += k
@@ -226,11 +298,27 @@ class ColdStore:
         miss = slot < 0
         missed = safe[miss]
         staged, self._staged = self._staged, None
-        if staged is not None and staged[0] == flat_ids.tobytes():
+        crc, self._staged_crc = self._staged_crc, None
+        reason = None
+        spec = faultplan.lookup("cold.prefetch_loss")
+        if spec is not None and spec.fires(self.wave) and staged is not None:
+            # The staged copy is lost: the demand fetch below reads the host.
+            staged, reason = None, "prefetch-lost"
+            self.prefetch_dropped += 1
+            _MET_PREFETCH_DROPPED.inc()
+        if staged is not None and staged[0] != flat_ids.tobytes():
+            staged = None  # staged for other ids
+        if staged is not None:
             _, stage, need = staged
-            pos, found = self._staged_rows(need, missed)
             if stage.copied is not None:
                 torch.cuda.current_stream(self.device).wait_event(stage.copied)
+            if crc is not None and zlib.crc32(stage.dev[: need.size].cpu().numpy().tobytes()) != crc:
+                # Corrupted staged bytes: dropped, the wave fetched again.
+                staged, reason = None, "corrupt-staged"
+                self.corruption_detected += 1
+                _MET_CORRUPTION.inc()
+        if staged is not None:
+            pos, found = self._staged_rows(need, missed)
             if not found.all():
                 # Cached when staged, evicted by this wave's admissions.
                 k0 = need.size
@@ -245,7 +333,8 @@ class ColdStore:
             self.prefetch_hits += 1
             _MET_PREFETCH_HITS.inc()
         else:
-            with tracer().span("storage.cold.fetch", rows=int(flat_ids.size)):
+            kw = {} if reason is None else {"reason": reason}
+            with tracer().span("storage.cold.fetch", rows=int(flat_ids.size), **kw):
                 stage = self._next_stage(flat_ids.size)
                 need, pos = self._distinct(missed)
                 self._fill(stage, need)
@@ -261,12 +350,16 @@ class ColdStore:
                                         packed=self.packed, use_kernel=self.use_kernel)
         if stage.read is not None:
             stage.read.record()
+        self.wave += 1
         return out
 
     def reset_counters(self) -> None:
-        """Zero the traffic counters (the policy's too); membership persists."""
+        """Zero the traffic and recovery counters (the policy's too);
+        membership persists."""
         self.cache.reset_counters()
         self.prefetch_hits = self.demand_puts = self.topup_rows = self.copied_rows = 0
+        self.retry_stats = RetryStats()
+        self.prefetch_dropped = self.corruption_detected = 0
 
     def warm_start(self, freqs) -> None:
         """Admit the top rows by frequency (a restarted server's warm cache)."""

@@ -17,9 +17,20 @@ tensors indexed by id, which the routed paths read as before.  A move set
 that writes dirty rows back, and a :meth:`HotRowCache.flush`, is one
 ``storage.writeback`` span (``rows``, ``store``); the registry's
 ``storage.writeback_rows`` grows wherever ``writebacks`` does, so over any
-window it equals the sum of the caches' ``writebacks``.  The reference's
-fault seams around the policy (admission OOM, write-back retries) are not
-ported: their counters read 0.
+window it equals the sum of the caches' ``writebacks``.
+
+Fault seams (:mod:`repro_torch.faults`), as the reference's:
+``cache.admission`` makes :meth:`HotRowCache.observe` refuse a wave (its
+index: the observe calls so far) before any policy state moves, counted in
+``admission_oom``; the wave then runs off the backing, bitwise.  Unlike the
+reference, a refused wave with ``write=True`` still marks the cached rows
+it touched dirty: the routed row step wrote them to the hot tier, and the
+reference, which does not, loses those writes at the next eviction or
+export.  ``tiered.writeback`` fails :meth:`HotRowCache.flush`'s write-back
+``fails`` times (its index: the flush calls so far); it runs behind
+:func:`~repro_torch.faults.recovery.retry_with_backoff` (``retry_stats``,
+``writeback_retries``), the write is idempotent, and on exhaustion
+``RetryError`` is raised with the rows still flagged.
 """
 from __future__ import annotations
 
@@ -30,6 +41,8 @@ import numpy as np
 
 from repro_torch.core.codestore import CodeStore
 from repro_torch.core.tiered import TieredCodes, apply_moves, wrap_codes, write_back
+from repro_torch.faults import plan as faultplan
+from repro_torch.faults.recovery import RetryStats, retry_with_backoff
 from repro_torch.obs import counters as obs_counters
 from repro_torch.obs.trace import tracer
 
@@ -66,6 +79,12 @@ class HotRowCache:
         self.clock = 0
         self.hits = self.misses = self.evictions = self.writebacks = 0
         self.policy_s = 0.0
+        # Waves refused on (injected) admission memory pressure: they run off
+        # the backing tier, bitwise.
+        self.admission_oom = 0
+        self.observe_calls = 0  # the cache.admission seam's wave index
+        self.flush_calls = 0  # the tiered.writeback seam's flush index
+        self.retry_stats = RetryStats()  # the dirty write-back's retries
 
     # ------------------------------------------------------------ wrap
 
@@ -95,10 +114,26 @@ class HotRowCache:
         and meets the same victim.
         """
         t0 = time.perf_counter()
+        wave = self.observe_calls
+        self.observe_calls += 1
         try:
+            spec = faultplan.lookup("cache.admission")
+            if spec is not None and spec.fires(wave):
+                self._refuse(ids, write)
+                return None
             return self._observe(ids, write)
         finally:
             self.policy_s += time.perf_counter() - t0
+
+    def _refuse(self, ids, write: bool) -> None:
+        """An injected admission OOM: nothing of the policy moves (no clock,
+        counts or admissions); only the cached rows a write touched are
+        flagged dirty, since the step wrote them to the hot tier."""
+        self.admission_oom += 1
+        if write:
+            ids = np.asarray(ids).reshape(-1).astype(np.int64)
+            slots = self.slot_of_arr[ids[(ids >= 0) & (ids < self.n_alloc)]]
+            self.dirty[slots[slots >= 0]] = True
 
     def _observe(self, ids, write: bool):
         ids = np.asarray(ids).reshape(-1).astype(np.int64)
@@ -215,13 +250,32 @@ class HotRowCache:
     def flush(self, tiered: TieredCodes) -> TieredCodes:
         """Write every dirty hot row back into the backing, in place;
         membership and the hot tier stay (training continues through the
-        cache)."""
+        cache).  The write-back runs behind bounded retry + backoff (the
+        ``tiered.writeback`` seam); it is idempotent, so a retried attempt
+        writes what the first would have, and exhaustion raises
+        ``RetryError`` with the rows still flagged."""
         slots, ids = self._dirty()
-        if slots.size:
-            with tracer().span("storage.writeback", rows=int(slots.size), store=self.name):
-                write_back(tiered, slots, ids, tiered.backing.data)
-            self.dirty[:] = False
-            self._count_writebacks(int(slots.size))
+        flush_idx = self.flush_calls
+        self.flush_calls += 1
+        if not slots.size:
+            return tiered
+        spec = faultplan.lookup("tiered.writeback")
+        fails = [int(spec.param("fails", 1)) if spec is not None and spec.fires(flush_idx)
+                 else 0]
+
+        def write():
+            if fails[0] > 0:
+                fails[0] -= 1
+                raise faultplan.TransientFault(
+                    f"tiered.writeback injected failure (flush {flush_idx})")
+            write_back(tiered, slots, ids, tiered.backing.data)
+
+        attempts = int(spec.param("attempts", 4)) if spec is not None else 4
+        with tracer().span("storage.writeback", rows=int(slots.size), store=self.name):
+            retry_with_backoff(write, op="tiered.writeback", attempts=attempts, base_s=0.002,
+                               stats=self.retry_stats)
+        self.dirty[:] = False
+        self._count_writebacks(int(slots.size))
         return tiered
 
     def unwrap(self, tiered: TieredCodes) -> CodeStore:
@@ -283,17 +337,18 @@ class HotRowCache:
                    + self.last_used.nbytes + self.dirty.nbytes)
 
     def reset_counters(self) -> None:
-        """Zero the traffic counters (and the policy's host seconds);
-        membership and policy state persist."""
+        """Zero the traffic counters (the policy's host seconds, the
+        refusals and the retries too); membership and policy state persist."""
         self.hits = self.misses = self.evictions = self.writebacks = 0
         self.policy_s = 0.0
+        self.admission_oom = 0
+        self.retry_stats = RetryStats()
 
     def stats(self) -> dict:
-        """The reference's keys; ``admission_oom`` and ``writeback_retries``
-        count fault seams that are not ported, and read 0."""
+        """The reference's keys."""
         return {
             "name": self.name, "capacity": self.capacity, "rows_cached": self.rows_cached,
             "hits": self.hits, "misses": self.misses, "evictions": self.evictions,
-            "writebacks": self.writebacks, "admission_oom": 0, "writeback_retries": 0,
-            "hit_rate": self.hit_rate,
+            "writebacks": self.writebacks, "admission_oom": self.admission_oom,
+            "writeback_retries": self.retry_stats.retries, "hit_rate": self.hit_rate,
         }

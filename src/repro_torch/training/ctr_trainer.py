@@ -33,7 +33,17 @@ The data-parallel hooks (:meth:`CTRTrainer.build_grad_fn`,
 split the step at the gradient sync on the method's *dense* formulation,
 the [n, d] table's gradient every rank shares
 (:mod:`repro_torch.training.data_parallel`); ``TrainerConfig.dp_sync_bits``
-is its sync width.  The non-finite guard is not ported yet.
+is its sync width.
+
+``TrainerConfig.guard`` turns on the non-finite guard
+(:func:`repro_torch.faults.wrap_ctr_step`, where the reference applies it:
+around the fused step, inside the host refresh): a step whose loss or dense
+parameters come out non-finite is skipped, the state returned to its value
+before the step with the step counter and the generator advanced, and the
+cache's policy still observes the batch.  It hosts the ``trainer.nonfinite``
+and ``alpt.delta`` seams of the fault plan installed at construction;
+``CTRTrainer.guard_stats`` adds up its counters.  Off, the step runs as
+before.
 """
 from __future__ import annotations
 
@@ -45,7 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch import methods, metrics
+from repro_torch import faults, methods, metrics
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.core import alpt as alpt_core
 from repro_torch.core import quant
@@ -72,6 +82,10 @@ class TrainerConfig:
     # Gradient-sync width of data-parallel training
     # (repro_torch.training.data_parallel): 32 = exact fp32, 2..8 = SR codes.
     dp_sync_bits: int = 32
+    # The opt-in non-finite guard (repro_torch.faults.guards): skip a step
+    # whose loss or dense params come out NaN / Inf (the state rolls back,
+    # the step counter and generator advance).  Off: the step is untouched.
+    guard: bool = False
 
     @property
     def model_cfg(self):
@@ -180,6 +194,9 @@ class CTRTrainer:
         self.method = methods.get(cfg.spec.method)
         self.device = device_mod.resolve(device)
         self._step = self._train_step
+        self.guard_stats = faults.GuardStats() if cfg.guard else None
+        if cfg.guard:
+            self._step = faults.wrap_ctr_step(self._step, method=self.method, spec=self.spec)
         if self.method.has_host_refresh:
             self._step = self.wrap_host_refresh(self._step)
         self._caches: list = []  # [(CacheSlot, HotRowCache)]
@@ -294,6 +311,8 @@ class CTRTrainer:
         with tr.span("train.step", step=state.step):
             state, m = self._step(state, ids, labels, noise=noise, masks=masks)
             tr.fence(m)
+        if self.guard_stats is not None:
+            self.guard_stats.observe(m)
         with tr.span("train.writeback"):
             self._maintain_caches(state, ids)
         return state, m

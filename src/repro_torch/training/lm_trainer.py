@@ -24,9 +24,14 @@ the reference's draw instead (``quant.sr_noise(kn, (n, d))`` for LPT,
 the sync width).  :func:`wrap_host_refresh` wraps a step with prune's
 host-side mask refresh (``LMTrainerConfig.prune`` is its schedule);
 ``LMTrainerConfig.pad_to_tiles`` allocates the table at the reference's
-padded geometry.  The reference's guard and ``alpt_every`` are not ported:
-their settings come with the slices whose code reads them.  :func:`save` /
-:func:`restore` checkpoint a state (``repro_torch.checkpoint``).
+padded geometry.  ``LMTrainerConfig.guard`` wraps the step in the
+non-finite guard (:func:`repro_torch.faults.wrap_lm_step`, inside the prune
+refresh as in the reference): a step whose loss or params come out
+non-finite returns the state before it, its step counter and generator
+advanced; it hosts the ``trainer.nonfinite`` and ``alpt.delta`` seams of
+the plan installed when the step is made.  The reference's ``alpt_every``
+is not ported: no path reads it.  :func:`save` / :func:`restore`
+checkpoint a state (``repro_torch.checkpoint``).
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch import methods
+from repro_torch import faults, methods
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.core.alpt import ALPTConfig
 from repro_torch.core.codestore import CodeStore
@@ -75,6 +80,9 @@ class LMTrainerConfig:
     # Pad the vocab table to the reference's tile geometry
     # (EmbeddingSpec.pad_to_tiles: a scratch row, rows and width rounded).
     pad_to_tiles: bool = False
+    # The opt-in non-finite guard (repro_torch.faults.guards): skip a step
+    # whose loss or params come out NaN / Inf.  Off: the step is untouched.
+    guard: bool = False
 
 
 def embedding_spec_of(cfg: tfm.ModelConfig,
@@ -354,6 +362,8 @@ def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, grad_sync=No
                         delta_grad=delta_grad,
                         batch_rows=int(batch["labels"].numel()) * dp_size)
 
+    if tcfg.guard:
+        return faults.wrap_lm_step(train_step)
     return train_step
 
 

@@ -1334,3 +1334,169 @@ def test_traced_equals_untraced_on_the_card(cuda):
     names = collections.Counter(e["name"] for e in eb)
     assert (names["train.step"], names["train.writeback"], names["engine.wave"],
             names["engine.score"]) == (3, 3, 1, 1)
+
+
+# ------------------------------------------------------------------ faults
+
+
+def _fault_plan(*specs):
+    from repro_torch import faults
+
+    return faults.FaultPlan(specs=tuple(faults.FaultSpec(site=s, steps=st, always=a,
+                                                         params=p or {})
+                                        for s, st, a, p in specs))
+
+
+def _state_tensors(state):
+    t = state.emb_state
+    return [t.codes.data, t.step, t.mu, t.nu, *state.dense.parameters(),
+            *state.dense_opt.mu, *state.dense_opt.nu, state.generator.get_state()]
+
+
+def test_guard_rollback_on_the_card_is_bitwise(cuda):
+    """ALPT-8 with the kernels on, 4 steps: guarded without a plan ==
+    unguarded bitwise; ``trainer.nonfinite`` at step 1 and ``alpt.delta`` at
+    step 2: each fired step leaves every tensor of the state as before it
+    (the generator advanced as unguarded), one skip each, the kernels
+    launched on every step."""
+    from repro_torch import faults
+
+    synth, cfg = _small_ctr("alpt")
+    state0 = init_state(cfg, device=cuda)
+    batches = [synth.batch("train", i, 128) for i in range(4)]
+
+    def run(guard, plan=None):
+        faults.install(plan)
+        try:
+            trainer = CTRTrainer(dataclasses.replace(cfg, guard=guard), device=cuda)
+            state, out = clone_state(state0), []
+            ops.reset_kernel_calls()
+            for ids, labels in batches:
+                before = [x.clone() for x in _state_tensors(state)]
+                state, m = trainer.train_step(state, ids, labels)
+                out.append((before, [x.clone() for x in _state_tensors(state)], float(m["loss"])))
+            torch.cuda.synchronize()
+            return out, trainer.guard_stats, ops.kernel_calls()
+        finally:
+            faults.uninstall()
+
+    plain, _, launched = run(False)
+    guarded, stats, launched_g = run(True)
+    assert stats.skipped == 0 and launched_g == launched
+    for (_, a, la), (_, b, lb) in zip(plain, guarded):
+        assert la == lb and all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+    chaos, stats, launched_c = run(True, _fault_plan(("trainer.nonfinite", (1,), False, None),
+                                                     ("alpt.delta", (2,), False, None)))
+    assert (stats.skipped, stats.nonfinite_fired, stats.delta_fired) == (2, 1, 1)
+    assert launched_c["sparse_row_update_runs"] == 4 and launched_c["adam_update"] == 4
+    for i in (1, 2):
+        before, after, _ = chaos[i]
+        *tensors, gen = after
+        assert all(torch.equal(x, y) for x, y in zip(before[:-1], tensors, strict=True)), i
+        assert torch.equal(gen, plain[i][1][-1])
+    assert all(torch.equal(x, y) for x, y in zip(chaos[0][1], plain[0][1], strict=True))
+
+
+def test_forced_fallback_on_the_card_is_counted_and_bitwise(cuda):
+    """``kernels.force_fallback`` over 2 ALPT-8 steps on the card: the state
+    and losses of the kernels-on run, each forced dispatch counted with
+    reason ``fault-injected`` and launching nothing; after ``uninstall()``
+    the same steps fall back nowhere and launch again."""
+    from repro_torch import faults
+
+    synth, cfg = _small_ctr("alpt")
+    state0 = init_state(cfg, device=cuda)
+    batches = [synth.batch("train", i, 128) for i in range(2)]
+
+    def run():
+        trainer = CTRTrainer(cfg, device=cuda)
+        state, losses = clone_state(state0), []
+        ops.reset_kernel_calls()
+        with ops.fallback_scope() as scope:
+            for ids, labels in batches:
+                state, m = trainer.train_step(state, ids, labels)
+                losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        return state, losses, ops.kernel_calls(), scope.stats()
+
+    on, l_on, launched, st = run()
+    assert st["total_fallbacks"] == 0
+    faults.install(_fault_plan(("kernels.force_fallback", (), True, None)))
+    try:
+        forced, l_forced, launched_f, st_f = run()
+    finally:
+        faults.uninstall()
+    assert l_on == l_forced
+    # The scratch row takes the dedup sentinel's run: unspecified between a
+    # kernel and its plain version, so the table is compared over its live rows.
+    assert all(torch.equal(x, y) for x, y in zip(_live(on.emb_state, cfg.spec),
+                                                 _live(forced.emb_state, cfg.spec), strict=True))
+    assert all(torch.equal(x, y) for x, y in zip(_state_tensors(on)[4:], _state_tensors(forced)[4:],
+                                                 strict=True))
+    assert launched_f == {} and {f["reason"] for f in st_f["fallbacks"]} == {"fault-injected"}
+    assert st_f["total_fallbacks"] == sum(launched.values())
+    again, _, launched_a, st_a = run()
+    assert st_a["total_fallbacks"] == 0 and launched_a == launched
+
+
+def test_no_fallback_on_the_card_without_a_plan(cuda):
+    """With no plan (and after a plan is gone) a CUDA dispatch launches its
+    kernel: no fallback is noted."""
+    from repro_torch import faults
+
+    g = _gen(7, cuda)
+    codes = torch.randint(-127, 128, (64, 16), generator=g, device=cuda, dtype=torch.int8)
+    step = torch.rand(64, generator=g, device=cuda) * 0.05
+    ids = torch.randint(0, 64, (100,), generator=g, device=cuda, dtype=torch.int32)
+    faults.install(_fault_plan(("kernels.force_fallback", (), True, {"ops": ["sr_round"]})))
+    faults.uninstall()
+    ops.reset_kernel_calls()
+    with ops.fallback_scope() as scope:
+        ops.dequant_gather(codes, step, ids)
+        ops.sr_round(torch.randn(64, 16, generator=g, device=cuda), step,
+                     torch.rand(64, 16, generator=g, device=cuda))
+    torch.cuda.synchronize()
+    assert scope.stats()["total_fallbacks"] == 0
+    assert ops.kernel_calls() == {"dequant_gather": 1, "sr_round": 1}
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cold_tier_seams_on_the_card_are_bitwise(cuda, bits):
+    """The cold tier on the card (pinned rows, the side stream) with
+    ``codestore.corrupt``, ``cold.fetch`` (2 failures) and
+    ``cold.prefetch_loss`` on three staged waves: every read bitwise the
+    fault-free store's, each seam counted once."""
+    from repro_torch import faults
+    from repro_torch.storage.cold import ColdStore
+
+    g = _gen(60 + bits, cuda)
+    n, d = 400, 16
+    lo, hi = quant.code_bounds(bits)
+    codes = torch.randint(lo, hi + 1, (n, d), generator=g, device=cuda, dtype=torch.int8)
+    step = torch.rand(n, generator=g, device=cuda) * 0.05 + 1e-3
+    warm = CodeStore.from_codes(codes, bits)
+    rs = np.random.RandomState(bits)
+    waves = [rs.randint(0, n, size=96) for _ in range(4)]
+
+    def serve():
+        cold = ColdStore(warm, step, cache_rows=16)
+        out = []
+        for i, wave in enumerate(waves):
+            cold.admit(wave)
+            out.append(cold.rows(wave))
+            if i + 1 < len(waves):
+                cold.stage(waves[i + 1])
+        torch.cuda.synchronize()
+        return out, cold
+
+    want, _ = serve()
+    faults.install(_fault_plan(("codestore.corrupt", (1,), False, None),
+                               ("cold.fetch", (2,), False, {"fails": 2}),
+                               ("cold.prefetch_loss", (3,), False, None)))
+    try:
+        got, cold = serve()
+    finally:
+        faults.uninstall()
+    assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+    assert (cold.corruption_detected, cold.prefetch_dropped, cold.retry_stats.retries,
+            cold.retry_stats.failures) == (1, 1, 2, 0)

@@ -228,7 +228,8 @@ def test_engine_metrics_keep_their_keys_and_add_latency():
            "wall_s", "resident_embedding_bytes", "embedding_code_bytes",
            "embedding_scale_bytes", "int8_resident", "kernel_launches", "us_per_request",
            "caches", "cache_hit_rate", "cache_budget_bytes", "prefetch_depth"}
-    assert set(doc) == old | {"latency_us", "kernel_fallbacks"}
+    assert set(doc) == old | {"latency_us", "kernel_fallbacks", "served_degraded",
+                              "deadline_misses", "wave_retries", "retry_failures"}
     assert set(doc) - {"kernel_launches"} <= {f.name for f in dataclasses.fields(
         JEngineMetrics)} | {"us_per_request"}
     assert doc["kernel_fallbacks"] == 0 and doc["requests_completed"] == 12
