@@ -5,8 +5,9 @@ training, of checkpoints (resume, serving from a checkpoint), of the
 storage tiers (hot-row cache, host-memory cold tier), of data-parallel
 training (exact and SR-compressed gradient sync), of the SSM and MoE LM
 families (mamba2-370m, deepseek-moe-16b), of observability (spans,
-counters, latency quantiles, --trace-out) and of faults and recovery (the
-fault plan's seams, bounded retry, the non-finite guard) on one NVIDIA GPU.
+counters, latency quantiles, --trace-out), of faults and recovery (the
+fault plan's seams, bounded retry, the non-finite guard) and of the VLM
+(qwen2-vl-7b: M-RoPE, QKV bias, the mixed input mode) on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -244,6 +245,27 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      trainer.nonfinite at step 1 (4 x 1,024 tokens, 3 steps): one skip, and
      in process the guarded step leaves the state as before it; serve ctr
      --deadline-ms 0.001: deadline_misses == waves;
+  16. the VLM (vlm_only runs the phase without the rest, with its timings),
+     after phase 13: 16a. qwen2-vl-7b at full width and depth (28 layers,
+     d = 3,584, 28/4 heads at D = 128 with QKV bias, M-RoPE, an untied head
+     over 152,064 rows; ~28.3 GB of fp32 params, no optimizer state) served
+     at 8 and 4 bits packed with phase 13's requests: its text path, three
+     equal position streams; launches exactly one gather per prefill and
+     decode step and 28 flash launches per request; the plain path
+     teacher-forced within the LM tolerance; peak memory and host ms per
+     decode step and prefill printed; 16b. flash at 28/4 heads, D = 128,
+     causal, T = 64/100/128/157/256 within FLASH_ATOL of its plain version,
+     both gathers on the served 152,064 x 3,584 tables over a decode step's,
+     a prefill's and a training batch's ids and sr_round over a table of
+     that shape, bitwise; 16c. ALPT-8 at full width with 2 of its 28 layers
+     (at 4 the kernels-off replay runs out of memory), 3 steps of 4 x 1,024
+     tokens, each with a
+     256-position visual prefix laid out as a 16 x 16 patch grid in M-RoPE
+     positions, replayed kernels off from the same seed: equal checksums of
+     every tensor of the state and equal losses; peak memory printed; 16d.
+     serve lm --arch qwen2-vl-7b at full depth in a subprocess (4 requests),
+     train lm --arch qwen2-vl-7b --smoke on the card and its exit 2 under
+     --dp-compress-bits 8;
   5. time each kernel at the slices' shapes (median of per-launch CUDA-event
      times after warm-up, device work only) beside its bound, its plain
      version's time and the library's one call where there is one, and the
@@ -264,7 +286,11 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      (plain PyTorch, no bound row); the head at mamba2-370m's table (N =
      50,280, K = 1,024) and flash at deepseek-moe-16b's prefill (16/16
      heads, D = 128, causal, T = 64, 100, 128 and 256), each beside its
-     bound, its plain version and the library's call (time_families).
+     bound, its plain version and the library's call (time_families);
+     flash at qwen2-vl-7b's prefill (28/4 heads, D = 128, causal, T = 64,
+     100, 128, 157 and 256) beside its bound, plain version and SDPA, and
+     both gathers on its 152,064 x 3,584 tables at a decode step and a
+     prefill beside their bounds (time_vlm).
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  Without a GPU, or outside a checkout, it
 exits with code 2 and prints no result.
@@ -950,11 +976,13 @@ def check_head(torch, dev, g, err: dict) -> None:
         "plain matmul; packed heads bitwise equal to the int8 head on the same codes")
 
 
-def check_flash(torch, dev, g, err: dict) -> None:
-    """flash_attention_fwd against its plain version at ``FLASH_CASES``."""
+def check_flash(torch, dev, g, err: dict, cases=None) -> None:
+    """flash_attention_fwd against its plain version at ``cases`` (default
+    ``FLASH_CASES``)."""
     from repro_torch.kernels import ops
 
-    for b, t, s, h, kh, d, causal, window in FLASH_CASES:
+    cases = FLASH_CASES if cases is None else cases
+    for b, t, s, h, kh, d, causal, window in cases:
         q = torch.randn(b, t, h, d, generator=g, device=dev)
         k = torch.randn(b, s, kh, d, generator=g, device=dev)
         v = torch.randn(b, s, kh, d, generator=g, device=dev)
@@ -966,7 +994,7 @@ def check_flash(torch, dev, g, err: dict) -> None:
         check(bool(torch.isfinite(got).all()) and e <= FLASH_ATOL,
               f"flash_attention_fwd {(b, t, s, h, kh, d, causal, window)}: max err {e}")
     log(f"[check] flash_attention_fwd within {FLASH_ATOL} of the plain masked softmax at "
-        f"{[c[:6] for c in FLASH_CASES]}; max err {err['flash_attention_fwd']:.3g}")
+        f"{[c[:6] for c in cases]}; max err {err['flash_attention_fwd']:.3g}")
 
 
 def lm_engine_class():
@@ -2012,7 +2040,8 @@ def time_flash(torch, flush, heads=(9, 3, 64), lengths=(*LM_PROMPTS, 2048)
 
 def flash_only() -> int:
     """Build flash_attention_fwd, check it at ``FLASH_CASES`` and time it at
-    every prompt length, without the rest of the smoke:
+    every prompt length, and at qwen2-vl-7b's prefill (28/4 heads, D = 128),
+    without the rest of the smoke:
     ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.flash_only())"``."""
     import torch
 
@@ -2030,6 +2059,8 @@ def flash_only() -> int:
     check_flash(torch, torch.device("cuda"), torch.Generator(device="cuda").manual_seed(0), err)
     flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     for line in time_flash(torch, flush_buf.zero_)[1]:
+        log(line)
+    for line in time_flash(torch, flush_buf.zero_, heads=VLM_HEADS, lengths=VLM_FLASH_LENGTHS)[1]:
         log(line)
     flash_phases(torch, flush_buf.zero_)
     one = torch.zeros(1, device="cuda")
@@ -4062,14 +4093,16 @@ def state_checksums(torch, state) -> list:
             *(checksum(torch, x) for x in tensors)]
 
 
-def family_serve(torch, np, dev, arch: str, bits: int) -> dict:
-    """13a / 13b serving: ``arch`` at full width behind ``LMEngine`` (the main
-    path), then the plain path teacher-forced on its tokens."""
+def family_serve(torch, np, dev, arch: str, bits: int, cfg=None, tag: str = "family") -> dict:
+    """13a / 13b (16a) serving: ``arch`` at full width (``cfg``, default
+    phase 13's depth) behind ``LMEngine`` (the main path), then the plain
+    path teacher-forced on its tokens.  The state is built without its
+    optimizer (the same draws)."""
     from repro_torch.kernels import ops
     from repro_torch.serving.lm import LMRequest
     from repro_torch.training import lm_trainer
 
-    cfg = family_config(arch, embedding_bits=bits)
+    cfg = cfg or family_config(arch, embedding_bits=bits)
     label = f"{arch} bits={bits}"
     rng = np.random.RandomState(30 + bits)
     lens = [FAMILY_PROMPTS[i % len(FAMILY_PROMPTS)] for i in range(FAMILY_REQUESTS - 1)]
@@ -4084,7 +4117,7 @@ def family_serve(torch, np, dev, arch: str, bits: int) -> dict:
     ops.reset_kernel_calls()  # the main path starts here ...
     ops.reset_fallbacks()
     t0 = time.perf_counter()
-    state = lm_trainer.init_state(cfg, seed=40 + bits, device=dev)
+    state = lm_trainer.init_state(cfg, seed=40 + bits, device=dev, optimizer=False)
     engine = lm_engine_class().from_state(state, cfg, batch=FAMILY_BATCH, max_len=FAMILY_MAX_LEN)
     for i, p in enumerate(prompts):
         engine.submit(LMRequest(prompt=p, max_new=FAMILY_MAX_NEW, rid=i))
@@ -4115,7 +4148,7 @@ def family_serve(torch, np, dev, arch: str, bits: int) -> dict:
     prefill = {n: statistics.mean(ms for t, ms in engine.prefill_ms[1:] if t == n)
                for n in sorted(set(map(len, prompts)))}  # the first one warms up
     decode_ms = statistics.mean(engine.decode_ms[1:])
-    log(f"[family] {label}: {cfg.n_layers} layers, d={cfg.d_model}, vocab {cfg.vocab_size}; "
+    log(f"[{tag}] {label}: {cfg.n_layers} layers, d={cfg.d_model}, vocab {cfg.vocab_size}; "
         f"{FAMILY_REQUESTS} requests x {FAMILY_MAX_NEW} tokens, slot batch {FAMILY_BATCH}: "
         f"init+serve {wall:.2f}s (host clock), per decode step {decode_ms:.2f} ms, per "
         "prefill " + ", ".join(f"T={n}: {ms:.2f} ms" for n, ms in prefill.items())
@@ -4125,32 +4158,36 @@ def family_serve(torch, np, dev, arch: str, bits: int) -> dict:
     plain = dataclasses.replace(engine.table, use_kernels=False)
     summary = teacher_forced(torch, engine, state.params, plain, cfg, prompts, done,
                              FAMILY_MAX_NEW, FAMILY_MAX_LEN, label)
-    log(f"[family] {label}: teacher-forced plain path {summary}; "
+    log(f"[{tag}] {label}: teacher-forced plain path {summary}; "
         f"{time.perf_counter() - t0:.1f}s with the serving")
-    if arch == "mamba2-370m" and bits == 8:
+    if arch in ("mamba2-370m", VLM_ARCH) and bits == 8:
         profile_decode(torch, engine, bits)
     return {"launches": launches, "table": (engine.table.codes, engine.table.step),
             "peak": peak, "prompts": sorted(set(map(len, prompts)))}
 
 
-def family_train(torch, dev, arch: str, method: str, bits: int, steps: int) -> dict:
-    """13a / 13b training: ``arch`` at full width (the main path), then the
-    first LM_REPLAY steps again with the kernels off from the same seed."""
+def family_train(torch, dev, arch: str, method: str, bits: int, steps: int, cfg=None,
+                 batches=None, tag: str = "family-train") -> dict:
+    """13a / 13b (16c) training: ``arch`` at full width (``cfg``, default
+    phase 13's depth; ``batches``, default the token stream's) through the
+    main path, then the first LM_REPLAY steps again with the kernels off
+    from the same seed."""
     from repro_torch.core import lpt as lpt_core
     from repro_torch.data.lm_synth import LMTokenStream
     from repro_torch.kernels import ops
     from repro_torch.training import lm_trainer
 
-    cfg = family_config(arch, embedding_method=method, embedding_bits=bits)
+    cfg = cfg or family_config(arch, embedding_method=method, embedding_bits=bits)
     tcfg = lm_trainer.LMTrainerConfig()
     label = f"{arch} {method} bits={bits}"
     write_back = "sr_round" if method == "alpt" else (
         "lpt_fused_update_packed" if bits < 8 else "lpt_fused_update")
-    stream = LMTokenStream(cfg.vocab_size, LM_TRAIN_SEQ, seed=17)
-    batches = []
-    for i in range(steps):
-        full = torch.from_numpy(stream.batch(i, LM_TRAIN_BATCH)).to(dev)
-        batches.append({"tokens": full[:, :-1], "labels": full[:, 1:]})
+    if batches is None:
+        stream = LMTokenStream(cfg.vocab_size, LM_TRAIN_SEQ, seed=17)
+        batches = []
+        for i in range(steps):
+            full = torch.from_numpy(stream.batch(i, LM_TRAIN_BATCH)).to(dev)
+            batches.append({"tokens": full[:, :-1], "labels": full[:, 1:]})
     train_step = lm_trainer.make_train_step(cfg, tcfg)
     seed = 50 + bits
 
@@ -4188,7 +4225,7 @@ def family_train(torch, dev, arch: str, method: str, bits: int, steps: int) -> d
     check(held_bytes == lpt_core.memory_bytes(t, bits, count_optimizer=True) == expected,
           f"{label}: table training bytes {held_bytes} != {expected}")
     ms = statistics.mean(wall[1:])
-    log(f"[family-train] {label}: {cfg.n_layers} layers, d={d}; {steps} steps of "
+    log(f"[{tag}] {label}: {cfg.n_layers} layers, d={d}; {steps} steps of "
         f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens, loss {losses[0]:.4f} -> {losses[-1]:.4f}"
         + (f", aux {aux}" if cfg.moe is not None else "")
         + f", gradient norms {norms}; host clock: first step {wall[0]:.1f} ms, then "
@@ -4210,7 +4247,7 @@ def family_train(torch, dev, arch: str, method: str, bits: int, steps: int) -> d
     same = (state_checksums(torch, replay), replay_losses) == early
     check(same, f"{label}: kernels-off steps 1-{LM_REPLAY} differ from kernels-on: "
                 f"{replay_losses} vs {early[1]}")
-    log(f"[family-train] {label}: steps 1-{LM_REPLAY} with the kernels off equal the kernels-on "
+    log(f"[{tag}] {label}: steps 1-{LM_REPLAY} with the kernels off equal the kernels-on "
         f"run (losses {early[1]}; the checksums of every param, Adam moment, code, Delta and "
         f"row-Adam slot, the step, count and generator state); {time.perf_counter() - t_run:.1f}s "
         "with the replay")
@@ -4283,6 +4320,244 @@ def families_only() -> int:
     flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
     time_families(torch, tables, flush_buf.zero_)
     log(f"[chip_smoke] phase 13 alone in {time.perf_counter() - t_start:.1f}s")
+    return 0
+
+
+# Phase 16: the VLM, qwen2-vl-7b (28 layers, d = 3,584, 28/4 heads at D =
+# 128 with QKV bias, M-RoPE sections 16/24/24, an untied head over 152,064
+# rows).  Served at full width and depth (28.3 GB of fp32 params, built
+# without Adam moments) with phase 13's requests; trained ALPT-8 at full
+# width with its depth cut to VLM_TRAIN_DEPTH of 28 layers: one card holds
+# the params, gradients, two Adam moments and the out-of-place update's
+# new copies of the head's and the layers' parameters, the table's training
+# state and the activations of 4 x 1,024 tokens.  At 4 layers the
+# kernels-on run peaks at 79.8 GB of the card's 85.0 and its kernels-off
+# replay (the plain Adam's and write-back's temporaries) runs out of
+# memory.  Each training batch is phase 8's 4 x 1,024 tokens with a
+# 256-position visual prefix laid out as a VLM_GRID patch grid.
+VLM_ARCH = "qwen2-vl-7b"
+VLM_SERVE_BITS = (8, 4)
+VLM_TRAIN_DEPTH = 2
+VLM_TRAIN_STEPS = 3
+VLM_GRID = (16, 16)
+VLM_HEADS = (28, 4, 128)
+VLM_FLASH_LENGTHS = (64, 100, 128, 157, 256)
+VLM_CLI_REQUESTS, VLM_CLI_PROMPT, VLM_CLI_GEN = 4, 64, 8
+
+
+def vlm_positions(torch, b: int, t: int, dev):
+    """Grid M-RoPE positions [3, b, t]: the prefix a VLM_GRID of patches
+    (temporal 0, height = row, width = col), the text after it equal in all
+    three streams from the prefix's largest position + 1 on."""
+    rows, cols = VLM_GRID
+    p = rows * cols
+    pos = torch.zeros(3, t, dtype=torch.int32)
+    pos[1, :p] = torch.arange(rows).repeat_interleave(cols)
+    pos[2, :p] = torch.arange(cols).repeat(rows)
+    pos[:, p:] = max(rows, cols) + torch.arange(t - p)
+    return pos[:, None].expand(3, b, t).contiguous().to(dev)
+
+
+def vlm_batches(torch, dev, cfg) -> list:
+    """VLM_TRAIN_STEPS batches of LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens (the
+    token stream's), each with a seeded normal visual prefix [B, 256, d] and
+    grid positions."""
+    from repro_torch.data.lm_synth import LMTokenStream
+
+    stream = LMTokenStream(cfg.vocab_size, LM_TRAIN_SEQ, seed=17)
+    g = torch.Generator(device=dev).manual_seed(16)
+    out = []
+    for i in range(VLM_TRAIN_STEPS):
+        full = torch.from_numpy(stream.batch(i, LM_TRAIN_BATCH)).to(dev)
+        out.append({"tokens": full[:, :-1], "labels": full[:, 1:],
+                    "prefix_embeds": torch.randn(LM_TRAIN_BATCH, cfg.visual_prefix,
+                                                 cfg.d_model, generator=g, device=dev),
+                    "positions": vlm_positions(torch, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev)})
+    return out
+
+
+def vlm_kernels(torch, dev, tables: dict, err: dict) -> None:
+    """16b: the kernels at the VLM's shapes against their plain versions:
+    flash at 28/4 heads, D = 128, causal, at every length of VLM_FLASH_LENGTHS
+    (within FLASH_ATOL); both gathers on the served 152,064 x 3,584 tables
+    over a decode step's, the longest prefill's and a training batch's token
+    ids (bitwise); sr_round over a table of that shape (bitwise)."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sr_round as sr_kernel
+
+    g = torch.Generator(device=dev).manual_seed(161)
+    h, kh, d = VLM_HEADS
+    check_flash(torch, dev, g, err, [(1, t, t, h, kh, d, True, None) for t in VLM_FLASH_LENGTHS])
+    vocab = tables[8][0].n
+    for bits, (store, step) in tables.items():
+        kernel = "dequant_gather" if bits == 8 else "dequant_gather_packed"
+        for b in (FAMILY_BATCH, FAMILY_LONG_PROMPT, LM_TRAIN_BATCH * LM_TRAIN_SEQ):
+            ids = torch.randint(0, vocab, (b,), generator=g, device=dev, dtype=torch.int32)
+            ids[:2] = torch.tensor([vocab - 1, 0], device=dev)
+            got = ops.dequant_gather(store, step, ids)
+            want = ops.dequant_gather(store, step, ids, use_kernel=False)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            err[kernel] = max(err[kernel], e)
+            check(torch.equal(got, want), f"16b: {kernel} {vocab}x{store.d} b={b}: max err {e}")
+    w = torch.randn(vocab, tables[8][0].d, generator=g, device=dev) * 0.01
+    noise = quant.sr_noise(g, tuple(w.shape))
+    step = quant.init_step_size(w, 8)
+    got = sr_kernel.sr_round(w, step, noise, 8)
+    want = ref.sr_round_ref(w, step, noise, 8)
+    torch.cuda.synchronize()
+    e = float((got.int() - want.int()).abs().max())
+    err["sr_round"] = max(err["sr_round"], e)
+    check(torch.equal(got, want), f"16b: sr_round {tuple(w.shape)}: max err {e}")
+    log(f"[vlm] 16b: flash_attention_fwd at {h}/{kh} heads, D = {d}, causal, T = "
+        f"{list(VLM_FLASH_LENGTHS)} within {FLASH_ATOL} of the plain masked softmax; both gathers "
+        f"bitwise on the {vocab} x {tables[8][0].d} tables over {FAMILY_BATCH}, "
+        f"{FAMILY_LONG_PROMPT} and {LM_TRAIN_BATCH * LM_TRAIN_SEQ} token ids; sr_round bitwise "
+        f"over {w.numel()} elements")
+
+
+def vlm_clis(torch) -> dict:
+    """16d: ``serve lm --arch qwen2-vl-7b`` at full width and depth in a
+    subprocess (its own card memory; VLM_CLI_REQUESTS prompts of
+    VLM_CLI_PROMPT tokens, VLM_CLI_GEN new each), ``train lm --arch
+    qwen2-vl-7b --smoke`` on the card in this process, and its exit 2 under
+    ``--dp-compress-bits 8``.  Returns the CLIs' launches."""
+    from repro_torch import configs
+    from repro_torch.launch import train as train_mod
+
+    layers = configs.full_config(VLM_ARCH).n_layers
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "lm", "--arch", VLM_ARCH,
+         "--requests", str(VLM_CLI_REQUESTS), "--prompt-len", str(VLM_CLI_PROMPT), "--gen",
+         str(VLM_CLI_GEN), "--batch", str(VLM_CLI_REQUESTS)],
+        capture_output=True, text=True, cwd=ROOT, env=env, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and bool(lines),
+          f"16d: serve lm --arch {VLM_ARCH} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    m = json.loads(lines[-1])
+    served = m["kernel_launches"]
+    # The engine's waves (its table's init is not one): a prefill each, then
+    # the decode steps, one gather each; flash once per layer and request.
+    reads = VLM_CLI_REQUESTS + VLM_CLI_GEN - 1
+    want = {"dequant_gather": reads, "flash_attention_fwd": VLM_CLI_REQUESTS * layers}
+    check(m["requests_completed"] == VLM_CLI_REQUESTS
+          and m["tokens_generated"] == VLM_CLI_REQUESTS * VLM_CLI_GEN and m["int8_resident"]
+          and m["kernel_fallbacks"] == 0 and served == want,
+          f"16d: serve lm CLI metrics {m}, launches expected {want}")
+    log(f"[vlm] 16d: {lines[0]} ({time.perf_counter() - t0:.1f}s with the process)")
+    rc, report, err = cli_json(train_mod.main, [
+        "lm", "--arch", VLM_ARCH, "--smoke", "--steps", "3", "--batch", "2", "--seq", "64",
+        "--log-every", "0"])
+    check(rc == 0 and len(report["losses"]) == 3 and all(map(math.isfinite, report["losses"]))
+          and report["kernel_fallbacks"] == 0 and report["fallbacks"] == []
+          and report["kernel_launches"] == {"sr_round": 4, "adam_update": 3},
+          f"16d: train lm --arch {VLM_ARCH} --smoke: rc {rc}, {report}: {err[-2000:]}")
+    out, errs = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(errs):
+        try:
+            train_mod.main(["lm", "--arch", VLM_ARCH, "--smoke", "--steps", "1",
+                            "--dp-compress-bits", "8"])
+            code = 0
+        except SystemExit as exc:
+            code = exc.code
+    check(code == 2 and "does not support mixed-input" in errs.getvalue(),
+          f"16d: train lm --dp-compress-bits 8 exited {code}: {errs.getvalue()[-500:]}")
+    log(f"[vlm] 16d: train lm --arch {VLM_ARCH} --smoke on the card: losses "
+        f"{report['losses']}, launches {report['kernel_launches']}; with --dp-compress-bits 8: "
+        f"exit 2, \"{errs.getvalue().strip().splitlines()[-1]}\"")
+    return added(served, report["kernel_launches"])
+
+
+def vlm_phase(torch, np, dev, err: dict) -> tuple[dict, dict]:
+    """Phase 16: qwen2-vl-7b served at full width and depth at 8 and 4 bits
+    (16a), its kernels against their plain versions at its shapes (16b),
+    trained ALPT-8 at full width (16c), its CLIs (16d).  Returns the
+    phase's launches and the served tables ({bits: (codes, step)})."""
+    import gc
+
+    from repro_torch import configs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    log(f"[vlm] phase 16 starts with {torch.cuda.memory_allocated(dev)} B allocated")
+    total, tables = {}, {}
+    for bits in VLM_SERVE_BITS:
+        cfg = configs.full_config(VLM_ARCH, embedding_bits=bits)
+        r = family_serve(torch, np, dev, VLM_ARCH, bits, cfg=cfg, tag="vlm")
+        total = added(total, r["launches"])
+        tables[bits] = r["table"]
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[vlm] 16a: {time.perf_counter() - t_phase:.1f}s")
+    vlm_kernels(torch, dev, tables, err)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.full_config(VLM_ARCH, n_layers=VLM_TRAIN_DEPTH)
+    r = family_train(torch, dev, VLM_ARCH, "alpt", 8, VLM_TRAIN_STEPS, cfg=cfg,
+                     batches=vlm_batches(torch, dev, cfg), tag="vlm-train")
+    total = added(total, r["launches"])
+    log(f"[vlm] 16c: {VLM_TRAIN_DEPTH} of 28 layers, peak memory {r['peak']} B; "
+        f"{time.perf_counter() - t_phase:.1f}s into phase 16")
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = added(total, vlm_clis(torch))
+    log(f"[vlm] phase 16: launches {total}; {time.perf_counter() - t_phase:.1f}s; "
+        f"{card_name()}")
+    return total, tables
+
+
+def time_vlm(torch, tables: dict, flush) -> None:
+    """Phase 5 for phase 16's shapes: flash at qwen2-vl-7b's prefill (28/4
+    heads, D = 128, causal, VLM_FLASH_LENGTHS) and both gathers on its
+    152,064 x 3,584 tables at a decode step (8 ids) and the longest prefill
+    (256), each beside its bound (and flash beside its plain version and
+    SDPA's one call)."""
+    _, notes = time_flash(torch, flush, heads=VLM_HEADS, lengths=VLM_FLASH_LENGTHS)
+    vocab = tables[8][0].n
+    g = torch.Generator(device="cuda").manual_seed(162)
+    pools = {label: ("vlm", [torch.randint(0, vocab, (b,), generator=g, device="cuda",
+                                           dtype=torch.int32) for _ in range(GATHER_POOL)])
+             for label, b in (("VLM decode", FAMILY_BATCH), ("VLM prefill", FAMILY_LONG_PROMPT))}
+    _, gather_notes = time_gathers(torch, {("vlm", bits): t for bits, t in tables.items()},
+                                   pools, flush)
+    for line in notes + gather_notes:
+        log(f"{line}; {card_name()}")
+
+
+def vlm_only() -> int:
+    """Phase 16 alone, with its timings:
+    ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.vlm_only())"``."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[chip_smoke] needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import device as device_mod
+    from repro_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    dev = device_mod.resolve("cuda")
+    for lib in _build.build():
+        _build.library(lib)
+    log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}; build "
+        f"{time.perf_counter() - t_start:.1f}s")
+    err = {k: 0.0 for k in KERNELS}
+    launches, tables = vlm_phase(torch, np, dev, err)
+    check(set(launches) <= set(KERNELS), f"phase 16 launched {launches}")
+    flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    time_vlm(torch, tables, flush_buf.zero_)
+    log(f"[vlm] max abs errors against the plain versions: "
+        f"{ {k: v for k, v in err.items() if v} }")
+    log(f"[chip_smoke] phase 16 alone in {time.perf_counter() - t_start:.1f}s")
     return 0
 
 
@@ -5331,6 +5606,11 @@ def main() -> int:
     phase13, family_tables = families_phase(torch, np, dev)
     check(set(phase13) <= set(KERNELS), f"phase 13 launched {phase13}")
     launches = {k: launches[k] + phase13.get(k, 0) for k in KERNELS}
+    # 16. the VLM: qwen2-vl-7b served at full width and depth, its kernels at
+    # its shapes, trained ALPT-8 at full width with its depth cut, its CLIs.
+    phase16, vlm_tables = vlm_phase(torch, np, dev, err)
+    check(set(phase16) <= set(KERNELS), f"phase 16 launched {phase16}")
+    launches = {k: launches[k] + phase16.get(k, 0) for k in KERNELS}
     # sr_round_seeded has no main path (no caller in the JAX package but its
     # kernel test): its launches are its unbiasedness run's (phase 2e).
     launches["sr_round_seeded"] += wb_ops["seeded_launches"]
@@ -5405,6 +5685,7 @@ def main() -> int:
                               time_ms(torch, lib_opt.step, 50, flush)[0])
     timings.update(time_lm_kernels(torch, lm_runs, flush))
     time_families(torch, family_tables, flush)
+    time_vlm(torch, vlm_tables, flush)
     timings.update(time_write_back(torch, wb_ops, flush))
     for line in gather_notes:
         log(line)

@@ -18,9 +18,10 @@ engine's metrics.  ``--method`` and ``--model`` take what ``train`` takes.
 ``--seed`` (``--smoke``: its reduced
 config), submits ``--requests`` random prompts of ``--prompt-len`` tokens,
 decodes ``--gen`` tokens each greedily in ``LMEngine`` (slot batch
-``--batch``: token rows through ``dequant_gather``, the tied head through
+``--batch``: token rows through ``dequant_gather``, a tied head through
 ``dequant_matmul``, prefill attention through ``flash_attention_fwd``) and
-ends with the same JSON line.
+ends with the same JSON line.  It builds no optimizer state, so
+qwen2-vl-7b (whose text path it serves) fits one card at full depth.
 
 Storage tiers (``ctr``): ``--zipf`` serves the reference's Zipf(1.1)
 fixture (``train.CTR_ZIPF_DATA``); ``--cache-rows`` composes a device
@@ -122,7 +123,7 @@ def _run_ctr(args) -> int:
 def _run_lm(args) -> int:
     device = device_mod.resolve(args.device)
     cfg = configs.smoke_config(args.arch) if args.smoke else configs.full_config(args.arch)
-    state = lm_trainer.init_state(cfg, seed=args.seed, device=device)
+    state = lm_trainer.init_state(cfg, seed=args.seed, device=device, optimizer=False)
     engine = LMEngine.from_state(state, cfg, batch=args.batch,
                                  max_len=args.prompt_len + args.gen)
     if args.deadline_ms is not None:

@@ -1,6 +1,6 @@
 """Training CLI of the port: CTR training of the paper's DCN (or DeepFM) with
-any embedding method, and LM training (dense, SSM, MoE and hybrid stacks)
-with a quantized vocab table.
+any embedding method, and LM training (dense, SSM, MoE and hybrid stacks,
+the VLM) with a quantized vocab table.
 
     python -m repro_torch.launch.train ctr --config avazu --scale 1.0 \\
         --method alpt --bits 8 --batch 1024 --steps 20 [--model deepfm]
@@ -12,7 +12,9 @@ with a quantized vocab table.
 ``cuda`` and fails without a GPU.  The state is initialized from
 ``--seed`` (``lm``: from seed 0, with the reference's token stream, seed
 17), and the report ends with one JSON line: the losses, host milliseconds
-per step, kernel launches, fallbacks and the table's training memory.
+per step, kernel launches, fallbacks and the table's training memory.  A
+``mixed``-input arch (qwen2-vl-7b) also takes a seeded normal visual prefix
+and three equal M-RoPE position streams per batch (:func:`lm_batch`).
 ``--method`` takes any name in ``repro_torch.methods.available()``; mixed
 takes the dataset's field cardinalities, DeepFM a table one column wider
 than its embedding (the first-order weight), Criteo's DCN its dropout 0.2.
@@ -39,7 +41,8 @@ rank restores the same checkpoint (the state is replicated, so a checkpoint
 of one ``--mesh-data`` resumes at another); on SIGTERM the ranks agree on
 the step to stop at before rank 0 saves and all exit 75.  ``--mesh-model``
 other than 1 and ``--mesh-data`` > 1 without ``--dp-compress-bits`` are the
-reference's GSPMD sharding path (ROADMAP A13b), refused here.
+reference's GSPMD sharding path (ROADMAP A13b), refused here, as is
+``--dp-compress-bits`` for a mixed-input arch (the reference refuses it).
 
 Storage tiers (``ctr``): ``--zipf`` trains on the reference's Zipf(1.1)
 skewed-traffic fixture (:data:`CTR_ZIPF_DATA`: 8 fields, 4,092 rows) in
@@ -78,6 +81,7 @@ import signal
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -455,13 +459,37 @@ def _run_lm(args) -> int:
         dist.destroy_process_group()
 
 
+def lm_config(args):
+    """The ``--arch`` config the LM scenario runs (``--smoke``: its reduced
+    one; ``--embedding-method`` overrides its method)."""
+    cfg = configs.smoke_config(args.arch) if args.smoke else configs.full_config(args.arch)
+    if args.embedding_method:
+        cfg = dataclasses.replace(cfg, embedding_method=args.embedding_method)
+    return cfg
+
+
+def lm_batch(cfg, data: LMTokenStream, step: int, batch: int, seq: int,
+             device: torch.device) -> dict:
+    """Step ``step``'s batch on ``device``: ``tokens`` / ``labels`` from the
+    token stream; a ``mixed`` arch's also ``prefix_embeds`` [batch,
+    visual_prefix, d], ``RandomState(step)`` normals, and three equal
+    ``positions`` streams [3, batch, seq], as the reference's CLI makes
+    them."""
+    full = torch.from_numpy(data.batch(step, batch)).to(device)
+    out = {"tokens": full[:, :-1], "labels": full[:, 1:]}
+    if cfg.input_mode == "mixed":
+        emb = np.random.RandomState(step).normal(0, 1, (batch, cfg.visual_prefix, cfg.d_model))
+        out["prefix_embeds"] = torch.from_numpy(emb).to(device=device, dtype=cfg.dtype)
+        pos = torch.arange(seq, dtype=torch.int32, device=device)[None].expand(batch, seq)
+        out["positions"] = torch.stack([pos, pos, pos], 0)
+    return out
+
+
 def _train_lm(args, device: torch.device) -> int:
     dp_mode = args.dp_compress_bits is not None
     rank = dist.get_rank() if dp_mode else 0
     say = print if rank == 0 else (lambda *a, **k: None)
-    cfg = configs.smoke_config(args.arch) if args.smoke else configs.full_config(args.arch)
-    if args.embedding_method:
-        cfg = dataclasses.replace(cfg, embedding_method=args.embedding_method)
+    cfg = lm_config(args)
     tcfg = lm_trainer.LMTrainerConfig(lr=args.lr, use_kernels=not args.no_kernels,
                                       dp_sync_bits=args.dp_compress_bits if dp_mode else 32,
                                       pad_to_tiles=args.pad_to_tiles, guard=args.guard)
@@ -499,8 +527,7 @@ def _train_lm(args, device: torch.device) -> int:
     guard_stats = faults.GuardStats() if args.guard else None
 
     def one_step(state):
-        full = torch.from_numpy(data.batch(state.step, args.batch)).to(device)
-        batch = {"tokens": full[:, :-1], "labels": full[:, 1:]}
+        batch = lm_batch(cfg, data, state.step, args.batch, args.seq, device)
         t0 = time.perf_counter()
         with tracer().span("train.step", step=state.step):
             state, metrics = step_fn(state, batch)
@@ -632,6 +659,8 @@ def main(argv=None) -> int:
             lm.error("--guard is single-program only (each rank would judge its own loss "
                      "before the sync); drop --dp-compress-bits")
         check_mesh(lm, args)
+        if args.dp_compress_bits is not None and lm_config(args).input_mode == "mixed":
+            lm.error("--dp-compress-bits does not support mixed-input (M-RoPE positions) archs")
     run = _run_lm if args.scenario == "lm" else _run_ctr
     return run_with_plan(plan, lambda: run_traced(args.trace_out, "train", lambda: run(args)))
 

@@ -1,4 +1,4 @@
-"""Transformer building blocks: norms, RoPE, GQA/SWA attention, SwiGLU
+"""Transformer building blocks: norms, RoPE / M-RoPE, GQA/SWA attention, SwiGLU
 (port of repro/models/layers.py).
 
 All functions are plain tensor code in the reference's layouts (activations
@@ -10,8 +10,8 @@ pure-jnp ``flash_attention`` with its custom VJP, a ``torch.autograd.Function``
 in plain PyTorch: an online-softmax forward over the key blocks each query
 block's footprint touches, and a backward that keeps only ``(q, k, v, o,
 lse)``.  Decode attention against the KV cache is plain PyTorch, as it is
-plain jnp in the reference.  M-RoPE, LayerNorm and the GELU MLP come with the
-architectures that use them.
+plain jnp in the reference.  M-RoPE (:func:`mrope_angles`) serves the VLM;
+LayerNorm and the GELU MLP come with the architectures that use them.
 """
 from __future__ import annotations
 
@@ -60,6 +60,24 @@ def rope_angles(positions: torch.Tensor, head_dim: int, base: float = 10000.0):
     """positions [...] -> (cos, sin) of shape [..., head_dim // 2], f32."""
     freqs = _rope_freqs_on(head_dim, float(base), positions.device)
     ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_angles(positions3: torch.Tensor, head_dim: int, sections: tuple[int, int, int],
+                 base: float = 10000.0):
+    """Qwen2-VL M-RoPE: positions [3, B, T] (temporal, height, width) ->
+    (cos, sin) [B, T, head_dim // 2], f32.  Frequency band j takes its
+    position from the stream ``sections`` assigns it (the first
+    ``sections[0]`` bands the temporal stream, and so on); with three equal
+    streams this is :func:`rope_angles` bit for bit."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"sections {sections} must sum to head_dim//2={half}")
+    freqs = _rope_freqs_on(head_dim, float(base), positions3.device)
+    sec_id = torch.repeat_interleave(torch.arange(3, device=positions3.device),
+                                     torch.tensor(sections, device=positions3.device))
+    pos = positions3.index_select(0, sec_id)  # [half, B, T]
+    ang = torch.movedim(pos, 0, -1).to(torch.float32) * freqs
     return torch.cos(ang), torch.sin(ang)
 
 

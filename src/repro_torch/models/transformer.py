@@ -1,15 +1,18 @@
 """The unified LM backbone (port of repro/models/transformer.py): dense
 llama-family stacks, Mamba2 (SSD) mixers, routed MoE with shared experts,
-and hybrid period patterns (Jamba).
+hybrid period patterns (Jamba) and the VLM (Qwen2-VL).
 
-GQA attention with optional QK-RMSNorm, QKV bias and a sliding window (a
-window-sized ring buffer at decode), SwiGLU MLPs or MoE layers
+GQA attention with optional QK-RMSNorm, QKV bias, M-RoPE (positions [3, B,
+T], ``layers.mrope_angles``) and a sliding window (a window-sized ring
+buffer at decode), SwiGLU MLPs or MoE layers
 (:mod:`repro_torch.models.moe`, whose load-balance loss :func:`backbone`
 sums), mamba mixers (:mod:`repro_torch.models.ssm`; a pure-mamba block with
 ``d_ff == 0`` has no MLP and no ``norm2``), a tied or untied head.  The
-``embeds`` / ``mixed`` input modes, M-RoPE, the gelu MLP and ``remat``
-raise ``NotImplementedError`` (:func:`check_supported`): they come with the
-slices that port them.
+``mixed`` input mode (:func:`assemble_embeds`) puts ``prefix_embeds`` in
+the first ``visual_prefix`` positions in training; serving runs the text
+path, three equal position streams.  The ``embeds`` input mode, the gelu
+MLP and ``remat`` raise ``NotImplementedError`` (:func:`check_supported`):
+they come with the slices that port them.
 
 Parameters are plain dicts of tensors in the reference's layout, so a
 reference state crosses over leaf for leaf (``repro_torch.interop``):
@@ -113,13 +116,13 @@ class ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError``, naming it, for what the port does not
-    run yet: the ``embeds`` / ``mixed`` input modes, M-RoPE, the gelu MLP
-    and ``remat``; ``ValueError`` for a malformed layer pattern."""
-    if cfg.input_mode != "tokens":
+    run yet: the ``embeds`` input mode, the gelu MLP and ``remat``;
+    ``ValueError`` for a malformed layer pattern or an unknown input mode."""
+    if cfg.input_mode == "embeds":
         raise NotImplementedError(
-            f"{cfg.name}: input_mode {cfg.input_mode!r} comes with the encoder / VLM slice")
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the VLM slice")
+            f"{cfg.name}: input_mode 'embeds' comes with the encoder slice")
+    if cfg.input_mode not in ("tokens", "mixed"):
+        raise ValueError(f"{cfg.name}: unknown input_mode {cfg.input_mode!r}")
     if cfg.d_ff > 0 and cfg.mlp_type != "swiglu":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.mlp_type} MLP comes with the encoder slice")
@@ -139,6 +142,14 @@ def _has_attention(cfg: ModelConfig) -> bool:
 
 def _has_mamba(cfg: ModelConfig) -> bool:
     return "mamba" in cfg.layer_types
+
+
+def rope_of(positions: torch.Tensor, cfg: ModelConfig):
+    """``(cos, sin)`` [B, T, hd // 2] of ``positions``: M-RoPE of [3, B, T]
+    streams where ``cfg.mrope_sections`` is set, else RoPE of [B, T]."""
+    if cfg.mrope_sections is not None:
+        return L.mrope_angles(positions, cfg.hd, cfg.mrope_sections, cfg.rope_base)
+    return L.rope_angles(positions, cfg.hd, cfg.rope_base)
 
 
 # --------------------------------------------------------------------- init
@@ -192,10 +203,29 @@ def _init_block(g: torch.Generator, cfg: ModelConfig, pos: int) -> dict[str, Any
     return p
 
 
-def _stack(trees: list) -> Any:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stacked_blocks(generator: torch.Generator, cfg: ModelConfig, pos: int, n: int) -> dict:
+    """``n`` blocks of period position ``pos`` drawn in turn, every leaf
+    stacked ``[n, ...]``: each block is copied into its slot as it is
+    drawn, so one unstacked block is alive at a time, not all ``n`` (at
+    qwen2-vl-7b's full depth, 26 GB)."""
+    def alloc(tree):
+        return {k: alloc(v) if isinstance(v, dict) else v.new_empty((n, *v.shape))
+                for k, v in tree.items()}
+
+    def put(stacked, tree, i):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                put(stacked[k], v, i)
+            else:
+                stacked[k][i].copy_(v)
+
+    stacked = None
+    for i in range(n):
+        block = _init_block(generator, cfg, pos)
+        if stacked is None:
+            stacked = alloc(block)
+        put(stacked, block, i)
+    return stacked
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig) -> dict[str, Any]:
@@ -205,8 +235,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> dict[str, Any]:
     embedding table is not here (see ``training.lm_trainer.init_state``);
     untied archs get a float ``head`` [V, d]."""
     check_supported(cfg)
-    blocks = [_stack([_init_block(generator, cfg, pos) for _ in range(cfg.n_groups)])
-              for pos in range(cfg.period)]
+    blocks = [_stacked_blocks(generator, cfg, pos, cfg.n_groups) for pos in range(cfg.period)]
     params: dict[str, Any] = {
         "blocks": blocks,
         "final_norm": torch.ones((cfg.d_model,), dtype=cfg.param_dtype,
@@ -283,7 +312,7 @@ def _decode_slots(cfg: ModelConfig, cache_size: int, cl: torch.Tensor, b: int):
 
 def _attn_block(p, x, cfg: ModelConfig, *, rope, cache=None, slots=None,
                 use_kernel: bool = True, train: bool = False):
-    """Pre-norm attention; ``rope`` is ``rope_angles`` of the positions.
+    """Pre-norm attention; ``rope`` is :func:`rope_of` the positions.
     ``cache=None``: full sequence through the flash kernel (``train``: the
     differentiable ``flash_attention_train``), returning the rope'd ``(k,
     v)`` for the prefill cache.  Else a single-token decode against
@@ -361,7 +390,7 @@ def backbone(params: dict[str, Any], embeds: torch.Tensor, cfg: ModelConfig,
     forward-only kernel."""
     check_supported(cfg)
     x = embeds.to(cfg.dtype)
-    rope = L.rope_angles(positions, cfg.hd, cfg.rope_base) if _has_attention(cfg) else None
+    rope = rope_of(positions, cfg) if _has_attention(cfg) else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi in range(cfg.n_groups):
         group_aux = None
@@ -424,10 +453,16 @@ def chunked_ce_loss(params, table_fp: torch.Tensor, h: torch.Tensor, labels: tor
 
 
 def assemble_embeds(table_fp: torch.Tensor, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Input embeddings [B, T, d] of ``batch["tokens"]`` (the ``tokens`` input
-    mode; ``embeds`` / ``mixed`` come with the encoder / VLM slices)."""
+    """Input embeddings [B, T, d] of ``batch["tokens"]``; in the ``mixed``
+    mode ``batch["prefix_embeds"]`` [B, P, d] (P = ``cfg.visual_prefix``)
+    replaces token positions 0..P-1 (``embeds`` comes with the encoder
+    slice)."""
     check_supported(cfg)
-    return embed_tokens(table_fp, batch["tokens"], cfg)
+    tok_emb = embed_tokens(table_fp, batch["tokens"], cfg)
+    if cfg.input_mode == "mixed" and cfg.visual_prefix > 0:
+        prefix = batch["prefix_embeds"].to(cfg.dtype)
+        return torch.cat([prefix, tok_emb[:, cfg.visual_prefix:]], dim=1)
+    return tok_emb
 
 
 def loss_fn(params: dict[str, Any], table_fp: torch.Tensor, batch: dict,
@@ -444,10 +479,12 @@ def loss_fn(params: dict[str, Any], table_fp: torch.Tensor, batch: dict,
 
 
 def default_positions(b: int, t: int, cfg: ModelConfig, device=None) -> torch.Tensor:
-    """Positions 0..t-1 for each of ``b`` rows, int32 [b, t]."""
+    """Positions 0..t-1 for each of ``b`` rows, int32 [b, t]; for M-RoPE
+    [3, b, t], the three streams equal (text)."""
+    pos = torch.arange(t, dtype=torch.int32, device=device)[None, :].expand(b, t)
     if cfg.mrope_sections is not None:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the VLM slice")
-    return torch.arange(t, dtype=torch.int32, device=device)[None, :].expand(b, t)
+        return pos[None].expand(3, b, t)
+    return pos
 
 
 # --------------------------------------------------------------------- decode
@@ -504,7 +541,7 @@ def decode_step(params, table, token: torch.Tensor, cache: list, cache_len,
         cl = torch.as_tensor(cache_len, dtype=torch.int32, device=token.device)
         offset = cl[:, None] if cl.ndim == 1 else cl
         positions = default_positions(b, 1, cfg, device=token.device) + offset
-        rope = L.rope_angles(positions, cfg.hd, cfg.rope_base)
+        rope = rope_of(positions, cfg)
         first = cfg.layer_types.index("attn")
         slots = _decode_slots(cfg, cache[first]["k"].shape[2], cl, b)
     for gi in range(cfg.n_groups):
@@ -550,7 +587,7 @@ def prefill(params, table, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
     rope = None
     if _has_attention(cfg):
         positions = default_positions(b, t, cfg, device=tokens.device)
-        rope = L.rope_angles(positions, cfg.hd, cfg.rope_base)
+        rope = rope_of(positions, cfg)
     for gi in range(cfg.n_groups):
         for pos in range(cfg.period):
             p = _group(params["blocks"][pos], gi)

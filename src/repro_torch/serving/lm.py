@@ -18,8 +18,12 @@ a fixed order whatever the batch — and prefill is per
 request, so a request's tokens are bitwise identical whatever the arrival
 order or slot.
 
+A ``mixed``-input arch (the VLM) serves its text path: prompts of tokens,
+three equal M-RoPE position streams; an ``embeds`` arch (encoder-only) has
+no decode path and is refused, as in the reference.
+
 The embedding table stays int8-resident end to end: token rows read through
-``ops.dequant_gather``, the tied head contracts through
+``ops.dequant_gather``, a tied head contracts through
 ``ops.dequant_matmul``, prefill attention runs ``ops.flash_attention_fwd``
 (``spec.use_kernels=False`` asks for the plain versions of all three).
 Each prefill is one ``engine.prefill`` span and each decode step one
@@ -63,6 +67,8 @@ class LMEngine(Engine):
 
     def __init__(self, params, serving_table, cfg: tfm.ModelConfig,
                  spec: methods.EmbeddingSpec, *, batch: int, max_len: int):
+        if cfg.input_mode == "embeds":
+            raise ValueError(f"{cfg.name}: encoder-only archs have no decode path")
         tfm.check_supported(cfg)
         if batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")

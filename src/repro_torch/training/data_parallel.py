@@ -168,10 +168,10 @@ def _transpose(per_shard: list[list]) -> list[list]:
     return [list(x) for x in zip(*per_shard)]
 
 
-def _shards(t: torch.Tensor, n: int) -> list[torch.Tensor]:
-    if t.shape[0] % n:
-        raise ValueError(f"batch dim {t.shape[0]} not divisible by n_shards={n}")
-    return list(torch.chunk(t, n, dim=0))
+def _shards(t: torch.Tensor, n: int, dim: int = 0) -> list[torch.Tensor]:
+    if t.shape[dim] % n:
+        raise ValueError(f"batch dim {t.shape[dim]} not divisible by n_shards={n}")
+    return list(torch.chunk(t, n, dim=dim))
 
 
 def _require_group(group):
@@ -299,17 +299,21 @@ def make_ctr_microbatch_step(trainer, n_shards: int, dp: DPConfig | None = None,
 # -------------------------------------------------------------- LM trainers
 
 
-def _check_lm_batch(batch: dict) -> None:
-    if "positions" in batch:
-        raise NotImplementedError("data parallel slices the leading batch dim; [3, B, T] "
-                                  "positions (M-RoPE) are not supported here")
+def _lm_shards(batch: dict, n: int) -> dict:
+    """``{key: [shard, ...]}`` of an LM batch over its batch dimension: the
+    leading one, but dimension 1 of M-RoPE ``positions`` [3, B, T].  (The
+    reference refuses such positions; its CLI refuses the mixed archs in DP
+    mode, as the port's does.)"""
+    return {k: _shards(v, n, dim=1 if k == "positions" and v.ndim == 3 else 0)
+            for k, v in batch.items()}
 
 
 def make_lm_dp_step(cfg, tcfg, group=None, dp: DPConfig | None = None, *,
                     sync_noise: NoiseFn | None = None):
     """Data-parallel LM step over ``group``: ``step(state, batch, noise=None)
     -> (state, metrics)``, run by every rank on the GLOBAL ``batch`` (every
-    leaf leads with the batch dimension); the LM trainer's own step with its
+    leaf leads with the batch dimension but M-RoPE ``positions`` [3, B, T],
+    sliced on B); the LM trainer's own step with its
     sync hooks filled in.  ``loss`` and ``aux_loss`` are exact means over
     the ranks."""
     dp = _resolve(dp, tcfg.dp_sync_bits)
@@ -326,9 +330,8 @@ def make_lm_dp_step(cfg, tcfg, group=None, dp: DPConfig | None = None, *,
                                         step_grad_sync=step_grad_sync, dp_size=n)
 
     def step(state, batch, noise=None):
-        _check_lm_batch(batch)
         rank = dist.get_rank(sync.group)
-        local = {k: _shards(v, n)[rank] for k, v in batch.items()}
+        local = {k: v[rank] for k, v in _lm_shards(batch, n).items()}
         new_state, metrics = hooked(state, local, noise)
         metrics = dict(metrics)
         metrics["loss"] = collectives.exact_pmean_local(metrics["loss"], sync.group)
@@ -353,10 +356,9 @@ def make_lm_microbatch_step(cfg, tcfg, n_shards: int, dp: DPConfig | None = None
     delta_fn = lm_trainer.make_delta_grad_fn(cfg, tcfg) if method.has_learned_step else None
 
     def step(state, batch, noise=None):
-        _check_lm_batch(batch)
         if noise is None:
             noise = method.dense_noise(state.generator, state.table, spec)
-        parts = {k: _shards(v, n_shards) for k, v in batch.items()}
+        parts = _lm_shards(batch, n_shards)
         shards = [{k: v[i] for k, v in parts.items()} for i in range(n_shards)]
         outs = [grad_fn(state, shard) for shard in shards]
         grads = outs[0][1]

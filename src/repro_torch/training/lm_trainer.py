@@ -110,12 +110,15 @@ def embedding_spec_of(cfg: tfm.ModelConfig,
 
 
 def init_state(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None = None, *, seed: int = 0,
-               device: str | torch.device = "cuda") -> LMTrainState:
+               device: str | torch.device = "cuda", optimizer: bool = True) -> LMTrainState:
     """Params, then the vocab table, drawn from one generator seeded with
     ``seed`` on ``device`` (``cuda`` unless the caller asks for the CPU;
     raises if CUDA is asked for and absent), which then draws the SR noise.
     The draws are torch's: a parity test carries the reference's state
-    across through ``repro_torch.interop``."""
+    across through ``repro_torch.interop``.  ``optimizer=False`` leaves
+    ``opt`` and ``table_opt`` None (the same draws): a state to serve, which
+    at qwen2-vl-7b's full depth is 28 GB of params without 57 GB of Adam
+    moments."""
     dev = device_mod.resolve(device)
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
@@ -124,9 +127,11 @@ def init_state(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None = None, *, see
     method = methods.get(spec.method)
     table = method.init(generator, spec)
     emb = method.trainable_params(table, spec)
-    return LMTrainState(params=params, opt=adam_init(tree_leaves(params)), table=table,
-                        table_opt=None if emb is None else adam_init(tree_leaves(emb)), step=0,
-                        generator=generator)
+    return LMTrainState(params=params, opt=adam_init(tree_leaves(params)) if optimizer else None,
+                        table=table,
+                        table_opt=None if emb is None or not optimizer else adam_init(
+                            tree_leaves(emb)),
+                        step=0, generator=generator)
 
 
 def clone_state(state: LMTrainState) -> LMTrainState:
@@ -326,7 +331,9 @@ def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, grad_sync=No
     """``train_step(state, batch, noise=None) -> (state, metrics)``.
 
     ``batch`` holds int32 ``tokens`` and ``labels`` [B, T] on the state's
-    device.  ``noise`` f32 [n, d] (the table's allocated shape; a composed
+    device; a ``mixed``-input config's also ``prefix_embeds`` [B, P, d] and,
+    optionally, M-RoPE ``positions`` [3, B, T] (default: three equal
+    streams), which the backward and ALPT's Delta recompute both read.  ``noise`` f32 [n, d] (the table's allocated shape; a composed
     table's, one per sub-table) is the SR draw of the write-back; by default
     it comes from ``state.generator`` (``method.dense_noise``).
 

@@ -101,6 +101,30 @@ def test_dequant_gather_kernels_bitwise(cuda, d, bits, b, offset):
     assert torch.equal(got[inside], ref.dequant_gather_ref(codes, step, ids[inside]))
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dequant_gather_kernels_bitwise_at_the_vlm_width(cuda, bits):
+    """qwen2-vl-7b's vocab table, 152,064 x 3,584 (896 four-byte lane tasks a
+    row at 8 bits): a decode step's, a prefill's and a training batch's
+    token ids, the first and last rows among them, bitwise the plain
+    version."""
+    g = _gen(3584 + bits, cuda)
+    n, d = 152_064, 3_584
+    lo, hi = quant.code_bounds(bits)
+    codes = torch.randint(lo, hi + 1, (n, d), generator=g, device=cuda, dtype=torch.int8)
+    step = torch.rand(n, generator=g, device=cuda) * 0.1 + 1e-3
+    store = CodeStore.from_codes(codes, bits)
+    del codes
+    kernel = "dequant_gather_packed" if store.packed else "dequant_gather"
+    for b in (8, 256, 4 * 1024):
+        ids = torch.randint(0, n, (b,), generator=g, device=cuda, dtype=torch.int32)
+        ids[:2] = torch.tensor([n - 1, 0], device=cuda)
+        ops.reset_kernel_calls()
+        got = ops.dequant_gather(store, step, ids)
+        torch.cuda.synchronize()
+        assert ops.kernel_calls() == {kernel: 1}
+        assert torch.equal(got, ops.dequant_gather(store, step, ids, use_kernel=False)), b
+
+
 def test_dequant_gather_out_of_range_ids_give_nan_rows(cuda):
     codes = torch.ones(8, 16, dtype=torch.int8, device=cuda)
     step = torch.ones(8, device=cuda)
@@ -562,7 +586,10 @@ def test_dequant_matmul_wrappers_raise_on_bad_operands(cuda):
     (2, 100, 100, 8, 1, 64, True, None), (1, 50, 50, 16, 1, 32, True, None),
     (1, 40, 40, 9, 1, 16, False, None), (2, 37, 90, 6, 2, 64, False, 20),
     (2, 1031, 1031, 8, 4, 128, True, 100), (1, 100, 100, 3, 1, 64, True, None),
-    (1, 157, 157, 9, 3, 64, True, 40)])
+    (1, 157, 157, 9, 3, 64, True, 40),
+    # qwen2-vl-7b's prefill: 28/4 heads at D = 128, a group of 7 in one block.
+    (1, 64, 64, 28, 4, 128, True, None), (1, 157, 157, 28, 4, 128, True, None),
+    (2, 256, 256, 28, 4, 128, True, None)])
 def test_flash_attention_kernel_matches_plain(cuda, b, t, s, h, kh, d, causal, window):
     g = _gen(t * d + s, cuda)
     q = torch.randn(b, t, h, d, generator=g, device=cuda)
@@ -595,7 +622,8 @@ def test_flash_attention_wrapper_raises_on_bad_operands(cuda):
                                        ("qwen3-1.7b", 8), ("h2o-danube-1.8b", 8),
                                        ("mamba2-370m", 8), ("mamba2-370m", 4),
                                        ("deepseek-moe-16b", 8), ("mixtral-8x7b", 8),
-                                       ("jamba-v0.1-52b", 8)])
+                                       ("jamba-v0.1-52b", 8), ("qwen2-vl-7b", 8),
+                                       ("qwen2-vl-7b", 4)])
 def test_lm_engine_kernels_vs_plain_teacher_forced(cuda, arch, bits):
     """Smoke configs on the card: the kernels launch (the head kernel only
     for a tied table: Danube's and the MoE stacks' heads are float matmuls;
@@ -763,6 +791,60 @@ def test_lm_train_step_kernels_bitwise_vs_plain(cuda, method, bits):
         assert torch.equal(getattr(on.table, name), getattr(off.table, name)), name
     for a, b in zip(tree_leaves(on.params), tree_leaves(off.params)):
         assert torch.equal(a, b)
+
+
+def _vlm_positions(b: int, t: int, rows: int, cols: int, device) -> torch.Tensor:
+    """Grid M-RoPE positions [3, b, t]: the prefix a ``rows`` x ``cols`` patch
+    grid (temporal 0, height = row, width = col), the text after it equal in
+    all three streams from the prefix's largest position + 1 on."""
+    p = rows * cols
+    pos = torch.zeros(3, t, dtype=torch.int32)
+    pos[1, :p] = torch.arange(rows).repeat_interleave(cols)
+    pos[2, :p] = torch.arange(cols).repeat(rows)
+    pos[:, p:] = max(rows, cols) + torch.arange(t - p)
+    return pos[:, None].expand(3, b, t).contiguous().to(device)
+
+
+def test_vlm_width_alpt_step_kernels_bitwise_vs_plain(cuda):
+    """qwen2-vl-7b at full width with one layer (d = 3,584, 28/4 heads with
+    QKV bias, the untied head, the 152,064-row ALPT-8 table): two steps of
+    a mixed batch (a 256-position visual prefix, grid M-RoPE positions) with
+    the kernels on and off from one seed: ``sr_round`` and ``adam_update``
+    launch once per step, and losses, gradient norms, params, Adam moments
+    and the table agree bit for bit."""
+    cfg = configs.full_config("qwen2-vl-7b", n_layers=1)
+    b, t = 1, 512
+    stream = LMTokenStream(cfg.vocab_size, t, seed=17)
+    g = _gen(7, cuda)
+    batches = []
+    for i in range(2):
+        full = torch.from_numpy(stream.batch(i, b)).to(cuda)
+        batches.append({"tokens": full[:, :-1], "labels": full[:, 1:],
+                        "prefix_embeds": torch.randn(b, cfg.visual_prefix, cfg.d_model,
+                                                     generator=g, device=cuda),
+                        "positions": _vlm_positions(b, t, 16, 16, cuda)})
+    runs = []
+    for use_kernels in (True, False):
+        tcfg = lm_trainer.LMTrainerConfig(use_kernels=use_kernels)
+        state = lm_trainer.init_state(cfg, tcfg, seed=3, device=cuda)
+        step = lm_trainer.make_train_step(cfg, tcfg)
+        ops.reset_kernel_calls()
+        ops.reset_fallbacks()
+        metrics = []
+        for batch in batches:
+            state, m = step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"]), float(m["step_grad_norm"])))
+        runs.append((state, metrics, ops.kernel_calls()))
+        assert ops.fallbacks() == []
+    (on, on_metrics, launches), (off, off_metrics, none) = runs
+    assert launches == {"sr_round": 2, "adam_update": 2} and none == {}
+    assert on_metrics == off_metrics and all(np.isfinite(on_metrics).ravel())
+    assert torch.equal(on.table.codes.data, off.table.codes.data)
+    for name in ("step", "mu", "nu"):
+        assert torch.equal(getattr(on.table, name), getattr(off.table, name)), name
+    for a, b_ in zip(tree_leaves(on.params) + on.opt.mu + on.opt.nu,
+                     tree_leaves(off.params) + off.opt.mu + off.opt.nu):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.parametrize("method,bits", [("alpt", 8), ("lpt", 4)])

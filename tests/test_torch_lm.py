@@ -202,13 +202,19 @@ def test_untied_head_and_float_table_match_the_reference():
 
 
 def test_unported_architectures_raise():
+    """The gelu MLP and remat are refused by name; the mixed input mode and
+    M-RoPE, ported with the VLM, are taken."""
     cfg = configs.smoke_config("smollm-135m")
     for bad, what in ((dict(mlp_type="gelu"), "gelu"),
-                      (dict(remat=True), "remat"),
-                      (dict(input_mode="mixed"), "mixed"),
-                      (dict(mrope_sections=(4, 2, 2)), "M-RoPE")):
+                      (dict(remat=True), "remat")):
         with pytest.raises(NotImplementedError, match=what):
             tfm.init_params(torch.Generator().manual_seed(0), dataclasses.replace(cfg, **bad))
+    for ported in (dict(input_mode="mixed", visual_prefix=4),
+                   dict(mrope_sections=(8, 12, 12))):
+        params = tfm.init_params(torch.Generator().manual_seed(0),
+                                 dataclasses.replace(cfg, **ported))
+        assert tfm.param_count(params) == tfm.param_count(
+            tfm.init_params(torch.Generator().manual_seed(0), cfg))
 
 
 def test_init_state_builds_params_and_an_alpt_table():

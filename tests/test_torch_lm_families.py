@@ -1,6 +1,8 @@
 """The SSM and MoE LM families (mamba2-370m, deepseek-moe-16b, mixtral-8x7b,
-jamba-v0.1-52b) as a whole, against the JAX package, at their smoke configs;
-the LM trainer's prune refresh and ``pad_to_tiles``.
+jamba-v0.1-52b) and the VLM (qwen2-vl-7b: the layout, ``loss_fn`` on a mixed
+batch, the engine on its text path) as a whole, against the JAX package, at
+their smoke configs; the LM trainer's prune refresh and ``pad_to_tiles``.
+The VLM's own tests are in tests/test_torch_vlm.py.
 
 The reference's ``lm_trainer.init_state`` builds params and the vocab table;
 ``interop`` carries them into the port; the same token batches
@@ -66,7 +68,7 @@ from repro_torch.training import lm_trainer
 
 jax.config.update("jax_platform_name", "cpu")
 REPO = pathlib.Path(__file__).resolve().parent.parent
-ARCHS = ["mamba2-370m", "deepseek-moe-16b", "mixtral-8x7b", "jamba-v0.1-52b"]
+ARCHS = ["mamba2-370m", "deepseek-moe-16b", "mixtral-8x7b", "jamba-v0.1-52b", "qwen2-vl-7b"]
 ATOL, RTOL = 5e-5, 1e-5
 MAX_LEN = 24
 # (prompt length, max_new), two prompt lengths (each one reference trace):
@@ -93,10 +95,16 @@ def _pair(arch, method="alpt", bits=8, seed=1):
     return jcfg, cfg, jt, pt, js, ps
 
 
-def _batches(vocab, i, batch=2, seq=32):
+def _batches(vocab, i, batch=2, seq=32, cfg=None):
+    """The step-``i`` batch, (reference's, port's); a mixed-input ``cfg``'s
+    also carries a seeded normal visual prefix (default positions)."""
     data = LMTokenStream(vocab, seq, seed=17).batch(i, batch)
-    return ({"tokens": jnp.asarray(data[:, :-1]), "labels": jnp.asarray(data[:, 1:])},
-            {"tokens": torch.from_numpy(data[:, :-1]), "labels": torch.from_numpy(data[:, 1:])})
+    out = {"tokens": data[:, :-1], "labels": data[:, 1:]}
+    if cfg is not None and cfg.input_mode == "mixed":
+        out["prefix_embeds"] = np.random.RandomState(i).normal(
+            0, 1, (batch, cfg.visual_prefix, cfg.d_model)).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in out.items()},
+            {k: torch.from_numpy(v) for k, v in out.items()})
 
 
 def _ref_noise(method, kn, shape):
@@ -134,16 +142,23 @@ def test_registry_and_configs_match_the_reference():
     assert configs.full_config("mamba2-370m").ssm.n_heads == 32
 
 
-@pytest.mark.parametrize("override,what", [
-    (dict(mrope_sections=(4, 2, 2)), "M-RoPE"), (dict(input_mode="embeds"), "embeds"),
-    (dict(input_mode="mixed"), "mixed"), (dict(mlp_type="gelu"), "gelu"),
-    (dict(remat=True), "remat")])
-def test_check_supported_names_only_what_is_unported(override, what):
+@pytest.mark.parametrize("override,what,refused", [
+    (dict(mrope_sections=(4, 2, 2)), "M-RoPE", False), (dict(input_mode="embeds"), "embeds", True),
+    (dict(input_mode="mixed", visual_prefix=4), "mixed", False),
+    (dict(mlp_type="gelu"), "gelu", True), (dict(remat=True), "remat", True)])
+def test_check_supported_names_only_what_is_unported(override, what, refused):
+    """The embeds mode, the gelu MLP and remat are refused by name; M-RoPE
+    and the mixed mode (the VLM slice) are taken."""
     for arch in ARCHS + ["smollm-135m"]:
         tfm.check_supported(configs.smoke_config(arch))
     cfg = dataclasses.replace(configs.smoke_config("jamba-v0.1-52b"), **override)
-    with pytest.raises(NotImplementedError, match=what):
-        tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    if refused:
+        with pytest.raises(NotImplementedError, match=what):
+            tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    else:
+        tfm.check_supported(cfg)
+        params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+        assert set(params) == {"blocks", "final_norm", "head"}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -174,7 +189,7 @@ def test_loss_fn_and_gradients_match_the_reference(arch):
     """``loss_fn`` (CE + the MoE aux summed over groups) and its gradients
     w.r.t. every param and the dense table."""
     jcfg, cfg, jt, _, js, ps = _pair(arch)
-    jb, pb = _batches(cfg.vocab_size, 0)
+    jb, pb = _batches(cfg.vocab_size, 0, cfg=cfg)
     jspec = jlm.embedding_spec_of(jcfg, jt)
     jtab = jmethods.get(jspec.method).dense_table(js.table, jspec)
     (jl, jaux), (jgp, jgt) = jax.jit(jax.value_and_grad(
