@@ -6,8 +6,10 @@ storage tiers (hot-row cache, host-memory cold tier), of data-parallel
 training (exact and SR-compressed gradient sync), of the SSM and MoE LM
 families (mamba2-370m, deepseek-moe-16b), of observability (spans,
 counters, latency quantiles, --trace-out), of faults and recovery (the
-fault plan's seams, bounded retry, the non-finite guard) and of the VLM
-(qwen2-vl-7b: M-RoPE, QKV bias, the mixed input mode) on one NVIDIA GPU.
+fault plan's seams, bounded retry, the non-finite guard), of the VLM
+(qwen2-vl-7b: M-RoPE, QKV bias, the mixed input mode), of the encoder
+(hubert-xlarge: frames in, the gelu MLP, non-causal attention) and of remat
+(deepseek-67b) on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -266,6 +268,30 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      serve lm --arch qwen2-vl-7b at full depth in a subprocess (4 requests),
      train lm --arch qwen2-vl-7b --smoke on the card and its exit 2 under
      --dp-compress-bits 8;
+  17. the encoder and remat (encoder_remat_only runs the phase without the
+     rest, with its timings), after phase 16: 17a. hubert-xlarge at full
+     width and depth (48 layers, d = 1,280, 16/16 heads at D = 80,
+     non-causal, the gelu MLP with biases, an untied 504-way head;
+     944,794,880 fp32 params) trained ALPT-8 and LPT-4 packed, 3 steps each
+     of 4 x 1,024 frames made as the train CLI makes them, replayed kernels
+     off from the same seed: equal checksums of every tensor and equal
+     losses; launches sr_round per ALPT step, lpt_fused_update_packed per
+     LPT step, one adam_update per step, no fallback; peak memory and ms
+     per step printed; 17b. deepseek-67b at full width (d = 8,192, 64/8
+     heads at D = 128, d_ff 22,016, an untied head over 102,400 rows) with
+     16 of its 95 layers served at 8 and 4 bits packed with phase 13's
+     requests: one gather per prefill and decode step, 16 flash launches per
+     request, the plain path teacher-forced within the LM tolerance; 17c.
+     flash at 64/8 heads (g = 8), D = 128, causal, T = 64/100/128/157/256
+     within FLASH_ATOL, both gathers on the served 102,400 x 8,192 tables
+     and sr_round over a table of that shape, bitwise; 17d. deepseek-67b
+     ALPT-8 at full width with 1 layer and remat, the step donated (params
+     and Adam moments stepped in place), 3 steps of 4 x 1,024 tokens,
+     replayed kernels off (bitwise), then again with remat off: losses and
+     every tensor's checksum equal the remat run's; memory allocated at the
+     end of the training forward with remat on and off printed; 17e. train
+     lm --arch hubert-xlarge --smoke and --arch deepseek-67b --smoke on the
+     card, serve lm --arch hubert-xlarge exits 0 with the reference's line;
   5. time each kernel at the slices' shapes (median of per-launch CUDA-event
      times after warm-up, device work only) beside its bound, its plain
      version's time and the library's one call where there is one, and the
@@ -290,7 +316,9 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      flash at qwen2-vl-7b's prefill (28/4 heads, D = 128, causal, T = 64,
      100, 128, 157 and 256) beside its bound, plain version and SDPA, and
      both gathers on its 152,064 x 3,584 tables at a decode step and a
-     prefill beside their bounds (time_vlm).
+     prefill beside their bounds (time_vlm); the same at deepseek-67b's
+     prefill (64/8 heads, D = 128) and 102,400 x 8,192 tables
+     (time_encoder_remat).
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  Without a GPU, or outside a checkout, it
 exits with code 2 and prints no result.
@@ -4167,11 +4195,15 @@ def family_serve(torch, np, dev, arch: str, bits: int, cfg=None, tag: str = "fam
 
 
 def family_train(torch, dev, arch: str, method: str, bits: int, steps: int, cfg=None,
-                 batches=None, tag: str = "family-train") -> dict:
-    """13a / 13b (16c) training: ``arch`` at full width (``cfg``, default
-    phase 13's depth; ``batches``, default the token stream's) through the
-    main path, then the first LM_REPLAY steps again with the kernels off
-    from the same seed."""
+                 batches=None, tag: str = "family-train", donate: bool = False,
+                 replay: bool = True) -> dict:
+    """13a / 13b (16c, 17a, 17d) training: ``arch`` at full width (``cfg``,
+    default phase 13's depth; ``batches``, default the token stream's)
+    through the main path (``donate``: the step consumes its state), then,
+    with ``replay``, the first LM_REPLAY steps again with the kernels off
+    from the same seed.  Returns the run's launches, host ms, peak memory
+    and ``sums``, the state's checksums and the losses after LM_REPLAY
+    steps."""
     from repro_torch.core import lpt as lpt_core
     from repro_torch.data.lm_synth import LMTokenStream
     from repro_torch.kernels import ops
@@ -4188,7 +4220,7 @@ def family_train(torch, dev, arch: str, method: str, bits: int, steps: int, cfg=
         for i in range(steps):
             full = torch.from_numpy(stream.batch(i, LM_TRAIN_BATCH)).to(dev)
             batches.append({"tokens": full[:, :-1], "labels": full[:, 1:]})
-    train_step = lm_trainer.make_train_step(cfg, tcfg)
+    train_step = lm_trainer.make_train_step(cfg, tcfg, donate=donate)
     seed = 50 + bits
 
     torch.cuda.empty_cache()
@@ -4224,6 +4256,7 @@ def family_train(torch, dev, arch: str, method: str, bits: int, steps: int, cfg=
     expected = v * -(-d * bits // 8) + 4 * v + 8 * v * d
     check(held_bytes == lpt_core.memory_bytes(t, bits, count_optimizer=True) == expected,
           f"{label}: table training bytes {held_bytes} != {expected}")
+    del t  # the table's tensors go with the state below, before the replay
     ms = statistics.mean(wall[1:])
     log(f"[{tag}] {label}: {cfg.n_layers} layers, d={d}; {steps} steps of "
         f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens, loss {losses[0]:.4f} -> {losses[-1]:.4f}"
@@ -4233,10 +4266,14 @@ def family_train(torch, dev, arch: str, method: str, bits: int, steps: int, cfg=
         f"launches {launches}; {time.perf_counter() - t_run:.1f}s; {card_name()}")
     del state
     torch.cuda.empty_cache()
+    out = {"launches": launches, "ms": ms, "first_ms": wall[0], "peak": peak, "sums": early}
+    if not replay:
+        return out
 
     # The first LM_REPLAY steps again with the kernels off, from the same seed.
     replay = lm_trainer.init_state(cfg, tcfg, seed=seed, device=dev)
-    off_step = lm_trainer.make_train_step(cfg, dataclasses.replace(tcfg, use_kernels=False))
+    off_step = lm_trainer.make_train_step(cfg, dataclasses.replace(tcfg, use_kernels=False),
+                                          donate=donate)
     ops.reset_kernel_calls()
     replay_losses = []
     for batch in batches[:LM_REPLAY]:
@@ -4253,7 +4290,7 @@ def family_train(torch, dev, arch: str, method: str, bits: int, steps: int, cfg=
         "with the replay")
     del replay
     torch.cuda.empty_cache()
-    return {"launches": launches, "ms": ms, "first_ms": wall[0], "peak": peak}
+    return out
 
 
 def families_phase(torch, np, dev) -> tuple[dict, dict]:
@@ -4376,19 +4413,21 @@ def vlm_batches(torch, dev, cfg) -> list:
     return out
 
 
-def vlm_kernels(torch, dev, tables: dict, err: dict) -> None:
-    """16b: the kernels at the VLM's shapes against their plain versions:
-    flash at 28/4 heads, D = 128, causal, at every length of VLM_FLASH_LENGTHS
-    (within FLASH_ATOL); both gathers on the served 152,064 x 3,584 tables
-    over a decode step's, the longest prefill's and a training batch's token
-    ids (bitwise); sr_round over a table of that shape (bitwise)."""
+def shape_kernels(torch, dev, tables: dict, err: dict, heads, lengths, seed: int,
+                  tag: str) -> None:
+    """16b / 17c: the kernels at a family's shapes against their plain
+    versions: flash at ``heads`` (H, KH, D), causal, at every length of
+    ``lengths`` (within FLASH_ATOL); both gathers on the served tables
+    ({bits: (codes, step)}) over a decode step's, the longest prefill's and
+    a training batch's token ids (bitwise); sr_round over a table of that
+    shape (bitwise)."""
     from repro_torch.core import quant
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import sr_round as sr_kernel
 
-    g = torch.Generator(device=dev).manual_seed(161)
-    h, kh, d = VLM_HEADS
-    check_flash(torch, dev, g, err, [(1, t, t, h, kh, d, True, None) for t in VLM_FLASH_LENGTHS])
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, kh, d = heads
+    check_flash(torch, dev, g, err, [(1, t, t, h, kh, d, True, None) for t in lengths])
     vocab = tables[8][0].n
     for bits, (store, step) in tables.items():
         kernel = "dequant_gather" if bits == 8 else "dequant_gather_packed"
@@ -4400,7 +4439,7 @@ def vlm_kernels(torch, dev, tables: dict, err: dict) -> None:
             torch.cuda.synchronize()
             e = float((got - want).abs().max())
             err[kernel] = max(err[kernel], e)
-            check(torch.equal(got, want), f"16b: {kernel} {vocab}x{store.d} b={b}: max err {e}")
+            check(torch.equal(got, want), f"{tag}: {kernel} {vocab}x{store.d} b={b}: max err {e}")
     w = torch.randn(vocab, tables[8][0].d, generator=g, device=dev) * 0.01
     noise = quant.sr_noise(g, tuple(w.shape))
     step = quant.init_step_size(w, 8)
@@ -4409,9 +4448,9 @@ def vlm_kernels(torch, dev, tables: dict, err: dict) -> None:
     torch.cuda.synchronize()
     e = float((got.int() - want.int()).abs().max())
     err["sr_round"] = max(err["sr_round"], e)
-    check(torch.equal(got, want), f"16b: sr_round {tuple(w.shape)}: max err {e}")
-    log(f"[vlm] 16b: flash_attention_fwd at {h}/{kh} heads, D = {d}, causal, T = "
-        f"{list(VLM_FLASH_LENGTHS)} within {FLASH_ATOL} of the plain masked softmax; both gathers "
+    check(torch.equal(got, want), f"{tag}: sr_round {tuple(w.shape)}: max err {e}")
+    log(f"{tag}: flash_attention_fwd at {h}/{kh} heads, D = {d}, causal, T = "
+        f"{list(lengths)} within {FLASH_ATOL} of the plain masked softmax; both gathers "
         f"bitwise on the {vocab} x {tables[8][0].d} tables over {FAMILY_BATCH}, "
         f"{FAMILY_LONG_PROMPT} and {LM_TRAIN_BATCH * LM_TRAIN_SEQ} token ids; sr_round bitwise "
         f"over {w.numel()} elements")
@@ -4494,7 +4533,7 @@ def vlm_phase(torch, np, dev, err: dict) -> tuple[dict, dict]:
         gc.collect()
         torch.cuda.empty_cache()
     log(f"[vlm] 16a: {time.perf_counter() - t_phase:.1f}s")
-    vlm_kernels(torch, dev, tables, err)
+    shape_kernels(torch, dev, tables, err, VLM_HEADS, VLM_FLASH_LENGTHS, 161, "[vlm] 16b")
     gc.collect()
     torch.cuda.empty_cache()
     cfg = configs.full_config(VLM_ARCH, n_layers=VLM_TRAIN_DEPTH)
@@ -4558,6 +4597,229 @@ def vlm_only() -> int:
     log(f"[vlm] max abs errors against the plain versions: "
         f"{ {k: v for k, v in err.items() if v} }")
     log(f"[chip_smoke] phase 16 alone in {time.perf_counter() - t_start:.1f}s")
+    return 0
+
+
+# Phase 17: the encoder and remat.  hubert-xlarge (48 layers, d = 1,280,
+# 16/16 heads at D = 80, non-causal, the gelu MLP with biases, an untied
+# 504-way head; 944,794,880 fp32 params, the ``embeds`` input mode) trains
+# at full width and depth, ALPT-8 (its config) and LPT-4 packed, on 4 x
+# 1,024 frames made as the train CLI makes them.  deepseek-67b (d = 8,192,
+# 64/8 heads at D = 128, d_ff 22,016, an untied head over 102,400 rows,
+# remat) is served at full width with its depth cut to REMAT_SERVE_DEPTH of 95
+# layers (a layer is 2.77 GB of fp32 weights: 16 layers, 44.3 GB, leave the
+# init's fp32 table and noise and the plain path's room on the card) and
+# trained ALPT-8 at full width with REMAT_TRAIN_DEPTH layer(s): its head and
+# table (839 M elements each) with Adam and the row optimizer fill the card
+# at one layer, so the step is donated (params and Adam moments stepped in
+# place, as the reference's CLI donates its state).
+ENC_ARCH, REMAT_ARCH = "hubert-xlarge", "deepseek-67b"
+ENC_TRAIN = (("alpt", 8), ("lpt", 4))
+ENC_STEPS = 3
+REMAT_SERVE_DEPTH = 16
+REMAT_SERVE_BITS = (8, 4)
+REMAT_TRAIN_DEPTH = 1
+REMAT_STEPS = 3
+REMAT_HEADS = (64, 8, 128)
+REMAT_FLASH_LENGTHS = (64, 100, 128, 157, 256)
+
+
+def encoder_batches(torch, dev, cfg) -> list:
+    """ENC_STEPS batches of LM_TRAIN_BATCH x LM_TRAIN_SEQ frames as the train
+    CLI builds them (``lm_batch``: ``RandomState(step)`` normal frames, the
+    token stream's labels modulo the vocabulary)."""
+    from repro_torch.data.lm_synth import LMTokenStream
+    from repro_torch.launch.train import lm_batch
+
+    stream = LMTokenStream(cfg.vocab_size, LM_TRAIN_SEQ, seed=17)
+    return [lm_batch(cfg, stream, i, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev)
+            for i in range(ENC_STEPS)]
+
+
+def forward_bytes(torch, dev, cfg) -> dict:
+    """17d: ``torch.cuda.memory_allocated()`` at the end of a training
+    forward (the loss under grad mode, before its backward) less before it,
+    with remat on and off, from one state (no optimizer) and one batch: the
+    tensors the backward keeps."""
+    from repro_torch.data.lm_synth import LMTokenStream
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import tree_leaves, tree_like
+    from repro_torch.training import lm_trainer
+
+    state = lm_trainer.init_state(cfg, seed=58, device=dev, optimizer=False)
+    table = lm_trainer.table_fp_of(state, cfg)
+    full = torch.from_numpy(LMTokenStream(cfg.vocab_size, LM_TRAIN_SEQ, seed=17).batch(
+        0, LM_TRAIN_BATCH)).to(dev)
+    batch = {"tokens": full[:, :-1], "labels": full[:, 1:]}
+    out = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        params = tree_like(state.params, [p.detach().requires_grad_(True)
+                                          for p in tree_leaves(state.params)])
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        with torch.enable_grad():
+            loss, _ = tfm.loss_fn(params, table, batch, c)
+            torch.cuda.synchronize()
+            out[remat] = torch.cuda.memory_allocated(dev) - before
+        del loss, params
+    del state, table
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_train(torch, dev) -> dict:
+    """17d: deepseek-67b ALPT-8 at full width with REMAT_TRAIN_DEPTH
+    layer(s), donated, REMAT_STEPS steps of 4 x 1,024 tokens through the
+    main path, replayed kernels off from the same seed (bitwise), then the
+    same steps with remat off at the same depth: the losses and every
+    tensor's checksum equal the remat run's.  Returns the launches."""
+    from repro_torch import configs
+
+    cfg = configs.full_config(REMAT_ARCH, n_layers=REMAT_TRAIN_DEPTH)
+    fwd = forward_bytes(torch, dev, cfg)
+    log(f"[remat] 17d: memory allocated at the end of the training forward ({REMAT_TRAIN_DEPTH} "
+        f"layer(s), {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens): remat on {fwd[True]} B, off "
+        f"{fwd[False]} B, {(fwd[False] - fwd[True]) / REMAT_TRAIN_DEPTH:.0f} B a layer saved; "
+        f"{card_name()}")
+    on = family_train(torch, dev, REMAT_ARCH, "alpt", 8, REMAT_STEPS, cfg=cfg,
+                      tag="remat-train", donate=True)
+    off = family_train(torch, dev, REMAT_ARCH, "alpt", 8, REMAT_STEPS,
+                       cfg=dataclasses.replace(cfg, remat=False), tag="remat-train (remat off)",
+                       donate=True, replay=False)
+    check(off["sums"] == on["sums"], f"17d: remat off differs from remat on: losses "
+                                     f"{off['sums'][1]} vs {on['sums'][1]}")
+    log(f"[remat] 17d: remat off equals remat on over {REMAT_STEPS} steps (losses "
+        f"{on['sums'][1]} and the checksums of every tensor of the state); peak memory "
+        f"{on['peak']} B with remat, {off['peak']} B without; {on['ms']:.2f} / {off['ms']:.2f} "
+        "ms a step")
+    return added(on["launches"], off["launches"])
+
+
+def encoder_remat_clis(torch) -> dict:
+    """17e: ``train lm --arch hubert-xlarge --smoke`` and ``train lm --arch
+    deepseek-67b --smoke`` on the card in this process; ``serve lm --arch
+    hubert-xlarge`` exits 0 with the reference's line.  Returns the CLIs'
+    launches."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+
+    total = {}
+    for arch in (ENC_ARCH, REMAT_ARCH):
+        rc, report, err = cli_json(train_mod.main, [
+            "lm", "--arch", arch, "--smoke", "--steps", "3", "--batch", "2", "--seq", "64",
+            "--log-every", "0"])
+        check(rc == 0 and len(report["losses"]) == 3 and all(map(math.isfinite, report["losses"]))
+              and report["kernel_fallbacks"] == 0 and report["fallbacks"] == []
+              and report["kernel_launches"] == {"sr_round": 4, "adam_update": 3},
+              f"17e: train lm --arch {arch} --smoke: rc {rc}, {report}: {err[-2000:]}")
+        log(f"[encoder] 17e: train lm --arch {arch} --smoke on the card: losses "
+            f"{report['losses']}, launches {report['kernel_launches']}")
+        total = added(total, report["kernel_launches"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve_mod.main(["lm", "--arch", ENC_ARCH])
+    line = "[serve] encoder-only arch has no decode; nothing to serve"
+    check(rc == 0 and out.getvalue().strip() == line,
+          f"17e: serve lm --arch {ENC_ARCH} exited {rc}: {out.getvalue()[-500:]}")
+    log(f"[encoder] 17e: serve lm --arch {ENC_ARCH}: exit 0, '{line}'")
+    return total
+
+
+def encoder_remat_phase(torch, np, dev, err: dict) -> tuple[dict, dict]:
+    """Phase 17: hubert-xlarge trained at full width and depth (17a),
+    deepseek-67b served at full width (17b), its kernels against their plain
+    versions at its shapes (17c), trained ALPT-8 at full width with remat
+    (17d), the CLIs (17e).  Returns the phase's launches and the served
+    tables ({bits: (codes, step)})."""
+    import gc
+
+    from repro_torch import configs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    log(f"[encoder] phase 17 starts with {torch.cuda.memory_allocated(dev)} B allocated")
+    total, tables = {}, {}
+    for method, bits in ENC_TRAIN:
+        cfg = configs.full_config(ENC_ARCH, embedding_method=method, embedding_bits=bits)
+        r = family_train(torch, dev, ENC_ARCH, method, bits, ENC_STEPS, cfg=cfg,
+                         batches=encoder_batches(torch, dev, cfg), tag="encoder-train")
+        total = added(total, r["launches"])
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[encoder] 17a: {time.perf_counter() - t_phase:.1f}s")
+    for bits in REMAT_SERVE_BITS:
+        cfg = configs.full_config(REMAT_ARCH, n_layers=REMAT_SERVE_DEPTH, embedding_bits=bits)
+        r = family_serve(torch, np, dev, REMAT_ARCH, bits, cfg=cfg, tag="remat")
+        total = added(total, r["launches"])
+        tables[bits] = r["table"]
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[remat] 17b: {REMAT_SERVE_DEPTH} of 95 layers; {time.perf_counter() - t_phase:.1f}s "
+        "into phase 17")
+    shape_kernels(torch, dev, tables, err, REMAT_HEADS, REMAT_FLASH_LENGTHS, 171, "[remat] 17c")
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = added(total, remat_train(torch, dev))
+    log(f"[remat] 17d: {time.perf_counter() - t_phase:.1f}s into phase 17")
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = added(total, encoder_remat_clis(torch))
+    log(f"[encoder] phase 17: launches {total}; {time.perf_counter() - t_phase:.1f}s; "
+        f"{card_name()}")
+    return total, tables
+
+
+def time_encoder_remat(torch, tables: dict, flush) -> None:
+    """Phase 5 for phase 17's shapes: flash at deepseek-67b's prefill (64/8
+    heads, D = 128, causal, g = 8, REMAT_FLASH_LENGTHS) beside its bound,
+    plain version and SDPA's one call, and both gathers on its 102,400 x
+    8,192 tables at a decode step (8 ids) and the longest prefill (256)
+    beside their bounds."""
+    _, notes = time_flash(torch, flush, heads=REMAT_HEADS, lengths=REMAT_FLASH_LENGTHS)
+    vocab = tables[8][0].n
+    g = torch.Generator(device="cuda").manual_seed(172)
+    pools = {label: ("remat", [torch.randint(0, vocab, (b,), generator=g, device="cuda",
+                                             dtype=torch.int32) for _ in range(GATHER_POOL)])
+             for label, b in (("deepseek-67b decode", FAMILY_BATCH),
+                              ("deepseek-67b prefill", FAMILY_LONG_PROMPT))}
+    _, gather_notes = time_gathers(torch, {("remat", bits): t for bits, t in tables.items()},
+                                   pools, flush)
+    for line in notes + gather_notes:
+        log(f"{line}; {card_name()}")
+
+
+def encoder_remat_only() -> int:
+    """Phase 17 alone, with its timings:
+    ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.encoder_remat_only())"``."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[chip_smoke] needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import device as device_mod
+    from repro_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    dev = device_mod.resolve("cuda")
+    for lib in _build.build():
+        _build.library(lib)
+    log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}; build "
+        f"{time.perf_counter() - t_start:.1f}s")
+    err = {k: 0.0 for k in KERNELS}
+    launches, tables = encoder_remat_phase(torch, np, dev, err)
+    check(set(launches) <= set(KERNELS), f"phase 17 launched {launches}")
+    flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    time_encoder_remat(torch, tables, flush_buf.zero_)
+    log(f"[encoder] max abs errors against the plain versions: "
+        f"{ {k: v for k, v in err.items() if v} }")
+    log(f"[chip_smoke] phase 17 alone in {time.perf_counter() - t_start:.1f}s")
     return 0
 
 
@@ -5611,6 +5873,12 @@ def main() -> int:
     phase16, vlm_tables = vlm_phase(torch, np, dev, err)
     check(set(phase16) <= set(KERNELS), f"phase 16 launched {phase16}")
     launches = {k: launches[k] + phase16.get(k, 0) for k in KERNELS}
+    # 17. the encoder and remat: hubert-xlarge trained at full width and
+    # depth, deepseek-67b served at full width with its depth cut, its
+    # kernels at its shapes, trained ALPT-8 at full width with remat, the CLIs.
+    phase17, remat_tables = encoder_remat_phase(torch, np, dev, err)
+    check(set(phase17) <= set(KERNELS), f"phase 17 launched {phase17}")
+    launches = {k: launches[k] + phase17.get(k, 0) for k in KERNELS}
     # sr_round_seeded has no main path (no caller in the JAX package but its
     # kernel test): its launches are its unbiasedness run's (phase 2e).
     launches["sr_round_seeded"] += wb_ops["seeded_launches"]
@@ -5686,6 +5954,7 @@ def main() -> int:
     timings.update(time_lm_kernels(torch, lm_runs, flush))
     time_families(torch, family_tables, flush)
     time_vlm(torch, vlm_tables, flush)
+    time_encoder_remat(torch, remat_tables, flush)
     timings.update(time_write_back(torch, wb_ops, flush))
     for line in gather_notes:
         log(line)

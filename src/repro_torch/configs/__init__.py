@@ -1,11 +1,11 @@
 """Configurations of the port: the paper's DCN setups (``dcn_ctr``) and the
 LM architecture registry (port of repro/configs/__init__.py).
 
-``--arch <id>`` resolves here.  The registry holds the architectures the
-port runs: the dense attention-only stacks, mamba2 (SSM), the MoE stacks,
-Jamba's hybrid and the VLM (qwen2-vl-7b: M-RoPE, QKV bias, the ``mixed``
-input mode).  The encoder-only and remat architectures of the reference
-(hubert-xlarge, deepseek-67b) come with their slices.
+``--arch <id>`` resolves here.  The registry holds every architecture of
+the reference's: the dense attention-only stacks, deepseek-67b (``remat``),
+mamba2 (SSM), the MoE stacks, Jamba's hybrid, the encoder (hubert-xlarge:
+the ``embeds`` input mode, the gelu MLP, non-causal attention) and the VLM
+(qwen2-vl-7b: M-RoPE, QKV bias, the ``mixed`` input mode).
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ ARCHS = {
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "qwen3-1.7b": "repro_torch.configs.qwen3_1p7b",
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1p8b",
+    "deepseek-67b": "repro_torch.configs.deepseek_67b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
     "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
 }
 

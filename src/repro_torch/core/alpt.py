@@ -162,12 +162,23 @@ def dense_delta_grad(w_new: torch.Tensor, step_vec: torch.Tensor,
                      gscale: float) -> torch.Tensor:
     """Delta gradient (Algorithm 1 line 4): ``loss_fn_q`` of the fake-quantized
     *updated* table differentiated w.r.t. the step vector [n] (Eq. 7 through
-    :func:`repro_torch.core.quant.fake_quant_lsq`)."""
+    :func:`repro_torch.core.quant.fake_quant_lsq`).  A loss that does not read
+    the table (an encoder's, from its frames) gives the zero gradient that
+    ``jax.grad`` gives."""
     step_vec = step_vec.detach().clone().requires_grad_(True)
     with torch.enable_grad():
         table_q = quant.fake_quant_lsq(w_new.detach(), step_vec, cfg.bits, gscale)
-        (g_step,) = torch.autograd.grad(loss_fn_q(table_q), [step_vec])
+        (g_step,) = grads_or_zeros(loss_fn_q(table_q), [step_vec])
     return g_step
+
+
+def grads_or_zeros(loss: torch.Tensor, inputs: list) -> list:
+    """``torch.autograd.grad(loss, inputs)`` with ``jax.grad``'s zeros for an
+    input the loss does not read (where ``torch.autograd.grad`` raises)."""
+    if not loss.requires_grad:
+        return [torch.zeros_like(x.detach()) for x in inputs]
+    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    return [torch.zeros_like(x.detach()) if g is None else g for x, g in zip(inputs, grads)]
 
 
 def delta_step(step: torch.Tensor, g_step: torch.Tensor, cfg: ALPTConfig) -> torch.Tensor:

@@ -40,7 +40,7 @@ def _broadcast_step(w: torch.Tensor, step) -> torch.Tensor:
 
 def round_deterministic(x: torch.Tensor) -> torch.Tensor:
     """Eq. 3: floor(x) if frac < 0.5 else floor(x)+1 (ties round up)."""
-    return torch.floor(x + 0.5)
+    return (x + 0.5).floor_()
 
 
 def round_stochastic(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
@@ -122,17 +122,22 @@ class _FakeQuantLSQ(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # Elementwise over the whole table (ALPT's Delta gradient), so each
+        # temporary is a table's worth: dw only when asked for, and the
+        # rest in place where the values are the same.
         w, step = ctx.saved_tensors
         n, p = code_bounds(ctx.bits)
         scaled = w.to(torch.float32) / _broadcast_step(w, step)
-        in_range = (scaled > n) & (scaled < p)
-        # dQ/dw: straight-through inside the clip range, 0 outside.
-        dw = (g * in_range).to(w.dtype)
+        dw = None
+        if ctx.needs_input_grad[0]:
+            # dQ/dw: straight-through inside the clip range, 0 outside.
+            dw = (g * ((scaled > n) & (scaled < p))).to(w.dtype)
         # dQ/dstep (Eq. 7): -2^{m-1} below, 2^{m-1}-1 above, R(w/D) - w/D inside.
-        dstep_elem = torch.where(
-            scaled <= n, float(n),
-            torch.where(scaled >= p, float(p), round_deterministic(scaled) - scaled))
-        dstep_full = g.to(torch.float32) * dstep_elem * ctx.grad_scale
+        dstep_elem = round_deterministic(scaled).sub_(scaled)
+        dstep_elem.masked_fill_(scaled >= p, float(p)).masked_fill_(scaled <= n, float(n))
+        del scaled
+        dstep_full = (g.to(torch.float32) * dstep_elem).mul_(ctx.grad_scale)
+        del dstep_elem
         if step.ndim == 0:
             dstep = torch.sum(dstep_full)
         elif step.ndim == w.ndim - 1:

@@ -14,7 +14,7 @@ trained state against the reference's.
 
 For the LM slice, :func:`lm_params_from_numpy` carries the reference's
 transformer params (``repro.models.transformer.init_params``, numpy leaves;
-attention, ``mamba`` and ``moe`` blocks alike, their structure checked
+attention, ``mamba`` and ``moe`` blocks and the gelu MLP alike, their structure checked
 against the config)
 and :func:`quant_table_from_numpy` its serving table (codes + Delta, int8 or
 packed) into the port's layouts; :func:`lm_state_from_numpy` its whole

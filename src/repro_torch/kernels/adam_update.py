@@ -17,11 +17,13 @@ from repro_torch.kernels import _build, ref
 
 def adam_update(params, grads, mu, nu, lr: float, bc1: float, bc2: float, *,
                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                weight_decay: float = 0.0):
+                weight_decay: float = 0.0, inplace: bool = False):
     """``(new_params, new_mu, new_nu)`` for equal-length lists of contiguous
     float32 CUDA tensors on one device, each quadruple of one shape; the
-    inputs are left as they are.  ``lr``, ``bc1`` and ``bc2`` are float32
-    values (host scalars, passed by value)."""
+    inputs are left as they are, or (``inplace``) ``params``, ``mu`` and
+    ``nu`` are overwritten and returned (each thread reads its element
+    before it writes it).  ``lr``, ``bc1`` and ``bc2`` are float32 values
+    (host scalars, passed by value)."""
     params, grads, mu, nu = (list(x) for x in (params, grads, mu, nu))
     count = len(params)
     if not len(grads) == len(mu) == len(nu) == count:
@@ -34,7 +36,8 @@ def adam_update(params, grads, mu, nu, lr: float, bc1: float, bc2: float, *,
         shape = tuple(p.shape) if isinstance(p, torch.Tensor) else ()
         for name, t in (("param", p), ("grad", grads[i]), ("mu", mu[i]), ("nu", nu[i])):
             _build.check_operand("adam_update", f"{name} {i}", t, torch.float32, shape, dev)
-    outs = [[torch.empty_like(p) for p in params] for _ in range(3)]
+    outs = ([params, list(mu), list(nu)] if inplace
+            else [[torch.empty_like(p) for p in params] for _ in range(3)])
     tensors = [*params, *grads, *mu, *nu, *outs[0], *outs[1], *outs[2]]
     ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
     sizes = (ctypes.c_int64 * count)(*(p.numel() for p in params))

@@ -429,12 +429,13 @@ def sparse_row_update_runs(codes, step: torch.Tensor, mu: torch.Tensor, nu: torc
 
 def adam_update(params, grads, mu, nu, lr: float, bc1: float, bc2: float, *,
                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                weight_decay: float = 0.0, use_kernel: bool = True):
+                weight_decay: float = 0.0, use_kernel: bool = True, inplace: bool = False):
     """One AdamW step over lists of tensors -> ``(new_params, new_mu, new_nu)``
-    (the dense optimizer; one launch for the whole list on the card)."""
+    (the dense optimizer; one launch for the whole list on the card);
+    ``inplace`` overwrites and returns ``params``, ``mu`` and ``nu``."""
     if not params or _plain(params[0], use_kernel, "adam_update",
                             (sum(p.numel() for p in params),)):
         return ref.adam_update_ref(params, grads, mu, nu, lr, bc1, bc2, b1=b1, b2=b2, eps=eps,
-                                   weight_decay=weight_decay)
+                                   weight_decay=weight_decay, inplace=inplace)
     return _adam.adam_update(params, grads, mu, nu, lr, bc1, bc2, b1=b1, b2=b2, eps=eps,
-                             weight_decay=weight_decay)
+                             weight_decay=weight_decay, inplace=inplace)

@@ -483,10 +483,11 @@ def _row_step(codes_rows, step, mu, nu, safe, g_sum, noise, lr, c1, c2, bits, we
 
 def adam_update_ref(params, grads, mu, nu, lr: float, bc1: float, bc2: float, *,
                     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                    weight_decay: float = 0.0):
+                    weight_decay: float = 0.0, inplace: bool = False):
     """One AdamW step over lists of tensors -> ``(new_params, new_mu, new_nu)``,
-    new tensors throughout.  ``lr``, ``bc1 = 1 - b1^t`` and ``bc2 = 1 - b2^t``
-    are float32 values.
+    new tensors throughout, or (``inplace``) each tensor's result copied into
+    ``params`` / ``mu`` / ``nu`` as it is computed, which are returned.
+    ``lr``, ``bc1 = 1 - b1^t`` and ``bc2 = 1 - b2^t`` are float32 values.
 
     The reference's ``optim/adam.py`` update as XLA:CPU compiles it inside
     the jitted train step: the moment updates and the parameter step are
@@ -496,15 +497,18 @@ def adam_update_ref(params, grads, mu, nu, lr: float, bc1: float, bc2: float, *,
     lr, bc1, bc2 = f32(lr), f32(bc1), f32(bc2)
     B1_, A1_, B2_, A2_ = f32(b1), f32(1.0 - b1), f32(b2), f32(1.0 - b2)
     new_p, new_m, new_v = [], [], []
-    for p, g, m, v in zip(params, grads, mu, nu):
+    for p, g, m_in, v_in in zip(params, grads, mu, nu):
         g32 = g.to(torch.float32)
-        m = fma(B1_, m, A1_ * g32)
-        v = fma(B2_, v, A2_ * (g32 * g32))
+        m = fma(B1_, m_in, A1_ * g32)
+        v = fma(B2_, v_in, A2_ * (g32 * g32))
         update = m / (bc1 * (sqrt_rn(v / scalar(bc2, v)) + f32(eps)))
         p32 = p.detach().to(torch.float32)
         if weight_decay:
             update = fma(f32(weight_decay), p32, update)
-        new_p.append(fma(-lr, update, p32).to(p.dtype))
+        p_new = fma(-lr, update, p32).to(p.dtype)
+        if inplace:
+            p_new, m, v = p.detach().copy_(p_new), m_in.copy_(m), v_in.copy_(v)
+        new_p.append(p_new)
         new_m.append(m)
         new_v.append(v)
     return new_p, new_m, new_v

@@ -21,7 +21,9 @@ decodes ``--gen`` tokens each greedily in ``LMEngine`` (slot batch
 ``--batch``: token rows through ``dequant_gather``, a tied head through
 ``dequant_matmul``, prefill attention through ``flash_attention_fwd``) and
 ends with the same JSON line.  It builds no optimizer state, so
-qwen2-vl-7b (whose text path it serves) fits one card at full depth.
+qwen2-vl-7b (whose text path it serves) fits one card at full depth.  An
+encoder-only arch (hubert-xlarge) has no decode: ``lm`` says so and exits 0
+before building anything, as the reference's CLI does.
 
 Storage tiers (``ctr``): ``--zipf`` serves the reference's Zipf(1.1)
 fixture (``train.CTR_ZIPF_DATA``); ``--cache-rows`` composes a device
@@ -121,8 +123,11 @@ def _run_ctr(args) -> int:
 
 
 def _run_lm(args) -> int:
-    device = device_mod.resolve(args.device)
     cfg = configs.smoke_config(args.arch) if args.smoke else configs.full_config(args.arch)
+    if cfg.input_mode == "embeds":
+        print("[serve] encoder-only arch has no decode; nothing to serve")
+        return 0
+    device = device_mod.resolve(args.device)
     state = lm_trainer.init_state(cfg, seed=args.seed, device=device, optimizer=False)
     engine = LMEngine.from_state(state, cfg, batch=args.batch,
                                  max_len=args.prompt_len + args.gen)

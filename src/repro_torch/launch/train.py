@@ -1,6 +1,6 @@
 """Training CLI of the port: CTR training of the paper's DCN (or DeepFM) with
 any embedding method, and LM training (dense, SSM, MoE and hybrid stacks,
-the VLM) with a quantized vocab table.
+the encoder, the VLM) with a quantized vocab table.
 
     python -m repro_torch.launch.train ctr --config avazu --scale 1.0 \\
         --method alpt --bits 8 --batch 1024 --steps 20 [--model deepfm]
@@ -14,7 +14,12 @@ the VLM) with a quantized vocab table.
 17), and the report ends with one JSON line: the losses, host milliseconds
 per step, kernel launches, fallbacks and the table's training memory.  A
 ``mixed``-input arch (qwen2-vl-7b) also takes a seeded normal visual prefix
-and three equal M-RoPE position streams per batch (:func:`lm_batch`).
+and three equal M-RoPE position streams per batch, an ``embeds`` arch
+(hubert-xlarge) seeded normal frames in place of the tokens
+(:func:`lm_batch`).  The single-program ``lm`` step is donated
+(``make_train_step(donate=True)``: params and Adam moments stepped in
+place), as the reference's CLI donates its state, unless ``--guard`` needs
+the state before the step to roll back to.
 ``--method`` takes any name in ``repro_torch.methods.available()``; mixed
 takes the dataset's field cardinalities, DeepFM a table one column wider
 than its embedding (the first-order weight), Criteo's DCN its dropout 0.2.
@@ -470,13 +475,19 @@ def lm_config(args):
 
 def lm_batch(cfg, data: LMTokenStream, step: int, batch: int, seq: int,
              device: torch.device) -> dict:
-    """Step ``step``'s batch on ``device``: ``tokens`` / ``labels`` from the
-    token stream; a ``mixed`` arch's also ``prefix_embeds`` [batch,
-    visual_prefix, d], ``RandomState(step)`` normals, and three equal
-    ``positions`` streams [3, batch, seq], as the reference's CLI makes
-    them."""
+    """Step ``step``'s batch on ``device``, as the reference's CLI makes it:
+    ``tokens`` / ``labels`` from the token stream; an ``embeds`` arch's (the
+    encoder) ``embeds`` [batch, seq, d], ``RandomState(step)`` normals, in
+    place of the tokens and its labels the stream's modulo the vocabulary;
+    a ``mixed`` arch's also ``prefix_embeds`` [batch, visual_prefix, d],
+    ``RandomState(step)`` normals, and three equal ``positions`` streams
+    [3, batch, seq]."""
     full = torch.from_numpy(data.batch(step, batch)).to(device)
     out = {"tokens": full[:, :-1], "labels": full[:, 1:]}
+    if cfg.input_mode == "embeds":
+        emb = np.random.RandomState(step).normal(0, 1, (batch, seq, cfg.d_model))
+        return {"embeds": torch.from_numpy(emb).to(device=device, dtype=cfg.dtype),
+                "labels": full[:, 1:] % cfg.vocab_size}
     if cfg.input_mode == "mixed":
         emb = np.random.RandomState(step).normal(0, 1, (batch, cfg.visual_prefix, cfg.d_model))
         out["prefix_embeds"] = torch.from_numpy(emb).to(device=device, dtype=cfg.dtype)
@@ -521,7 +532,10 @@ def _train_lm(args, device: torch.device) -> int:
             return bool(t.item())
     else:
         # The host-side refresh (prune's mask); the identity for other methods.
-        step_fn = lm_trainer.wrap_host_refresh(lm_trainer.make_train_step(cfg, tcfg), cfg, tcfg)
+        # The step is donated, as the reference's CLI jits it with
+        # donate_argnums=(0,), unless the guard needs the old state back.
+        step_fn = lm_trainer.wrap_host_refresh(
+            lm_trainer.make_train_step(cfg, tcfg, donate=not args.guard), cfg, tcfg)
 
     watchdog = StragglerWatchdog()
     guard_stats = faults.GuardStats() if args.guard else None
@@ -619,7 +633,8 @@ def main(argv=None) -> int:
     add_trace_arg(ctr)
     add_fault_arg(ctr)
     add_guard_arg(ctr)
-    lm = sub.add_parser("lm", help="LM training (dense, SSM, MoE) with a quantized vocab table")
+    lm = sub.add_parser("lm", help="LM training (dense, SSM, MoE, encoder, VLM) with a "
+                                   "quantized vocab table")
     lm.add_argument("--arch", choices=sorted(configs.ARCHS), default="smollm-135m")
     lm.add_argument("--smoke", action="store_true", help="the reduced config of --arch")
     lm.add_argument("--steps", type=int, default=100)

@@ -297,4 +297,4 @@ class QRALPTMethod(QRLPTMethod):
             rq = quant.fake_quant_lsq(w_r.detach(), s_r, cfg.bits, gscale)
             qq = quant.fake_quant_lsq(w_q.detach(), s_q, cfg.bits, gscale)
             table_q = alpt_core.take_rows(rq, rid) * alpt_core.take_rows(qq, qid)
-            return tuple(torch.autograd.grad(loss_fn_q(table_q), [s_r, s_q]))
+            return tuple(alpt_core.grads_or_zeros(loss_fn_q(table_q), [s_r, s_q]))

@@ -10,8 +10,9 @@ pure-jnp ``flash_attention`` with its custom VJP, a ``torch.autograd.Function``
 in plain PyTorch: an online-softmax forward over the key blocks each query
 block's footprint touches, and a backward that keeps only ``(q, k, v, o,
 lse)``.  Decode attention against the KV cache is plain PyTorch, as it is
-plain jnp in the reference.  M-RoPE (:func:`mrope_angles`) serves the VLM;
-LayerNorm and the GELU MLP come with the architectures that use them.
+plain jnp in the reference.  M-RoPE (:func:`mrope_angles`) serves the VLM,
+the GELU MLP (:func:`gelu_mlp`) the encoder.  The reference's ``layer_norm``
+has no caller (its hubert config takes RMSNorm) and is not ported.
 """
 from __future__ import annotations
 
@@ -296,6 +297,13 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """LLaMA-family MLP: down( silu(x @ gate) * (x @ up) )."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,
+             b_out: torch.Tensor) -> torch.Tensor:
+    """Encoder MLP: out( gelu(x @ in + b_in) ) + b_out, with ``jax.nn.gelu``'s
+    default, the tanh approximation."""
+    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
 
 
 # ----------------------------------------------------------------- init

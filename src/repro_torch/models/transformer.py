@@ -1,18 +1,19 @@
 """The unified LM backbone (port of repro/models/transformer.py): dense
 llama-family stacks, Mamba2 (SSD) mixers, routed MoE with shared experts,
-hybrid period patterns (Jamba) and the VLM (Qwen2-VL).
+hybrid period patterns (Jamba), the encoder (HuBERT) and the VLM (Qwen2-VL).
 
 GQA attention with optional QK-RMSNorm, QKV bias, M-RoPE (positions [3, B,
 T], ``layers.mrope_angles``) and a sliding window (a window-sized ring
-buffer at decode), SwiGLU MLPs or MoE layers
-(:mod:`repro_torch.models.moe`, whose load-balance loss :func:`backbone`
-sums), mamba mixers (:mod:`repro_torch.models.ssm`; a pure-mamba block with
-``d_ff == 0`` has no MLP and no ``norm2``), a tied or untied head.  The
-``mixed`` input mode (:func:`assemble_embeds`) puts ``prefix_embeds`` in
-the first ``visual_prefix`` positions in training; serving runs the text
-path, three equal position streams.  The ``embeds`` input mode, the gelu
-MLP and ``remat`` raise ``NotImplementedError`` (:func:`check_supported`):
-they come with the slices that port them.
+buffer at decode), non-causal attention (the encoder), SwiGLU or GELU
+MLPs or MoE layers (:mod:`repro_torch.models.moe`, whose load-balance loss
+:func:`backbone` sums), mamba mixers (:mod:`repro_torch.models.ssm`; a
+pure-mamba block with ``d_ff == 0`` has no MLP and no ``norm2``), a tied or
+untied head.  Input modes (:func:`assemble_embeds`): ``tokens``; ``embeds``
+(the encoder's precomputed frames, the table not read); ``mixed``, which
+puts ``prefix_embeds`` in the first ``visual_prefix`` positions in
+training, while serving runs the text path, three equal position streams.
+``remat`` recomputes each group's forward in the backward
+(``torch.utils.checkpoint``, bitwise the step without it).
 
 Parameters are plain dicts of tensors in the reference's layout, so a
 reference state crosses over leaf for leaf (``repro_torch.interop``):
@@ -115,20 +116,12 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError``, naming it, for what the port does not
-    run yet: the ``embeds`` input mode, the gelu MLP and ``remat``;
-    ``ValueError`` for a malformed layer pattern or an unknown input mode."""
-    if cfg.input_mode == "embeds":
-        raise NotImplementedError(
-            f"{cfg.name}: input_mode 'embeds' comes with the encoder slice")
-    if cfg.input_mode not in ("tokens", "mixed"):
+    """Raise ``ValueError`` for a malformed config: an unknown input mode,
+    MLP type or layer type, or mamba layers without an SSM config."""
+    if cfg.input_mode not in ("tokens", "embeds", "mixed"):
         raise ValueError(f"{cfg.name}: unknown input_mode {cfg.input_mode!r}")
-    if cfg.d_ff > 0 and cfg.mlp_type != "swiglu":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.mlp_type} MLP comes with the encoder slice")
-    if cfg.remat:
-        raise NotImplementedError(f"{cfg.name}: remat (activation checkpointing per group) "
-                                  "comes with the configs that set it")
+    if cfg.mlp_type not in ("swiglu", "gelu"):
+        raise ValueError(f"{cfg.name}: unknown mlp_type {cfg.mlp_type!r}")
     for kind in cfg.layer_types:
         if kind not in ("attn", "mamba"):
             raise ValueError(f"{cfg.name}: unknown layer type {kind!r}")
@@ -196,6 +189,11 @@ def _init_block(g: torch.Generator, cfg: ModelConfig, pos: int) -> dict[str, Any
         p["norm2"] = torch.ones((d,), dtype=dt, device=g.device)
     if cfg.is_moe(pos):
         p["moe"] = moe_mod.init_moe(g, cfg.moe, dtype=dt)
+    elif f > 0 and cfg.mlp_type == "gelu":
+        p["mlp"] = {"w_in": L.dense_init(g, (d, f), dtype=dt),
+                    "b_in": torch.zeros((f,), dtype=dt, device=g.device),
+                    "w_out": L.dense_init(g, (f, d), dtype=dt),
+                    "b_out": torch.zeros((d,), dtype=dt, device=g.device)}
     elif f > 0:
         p["mlp"] = {"w_gate": L.dense_init(g, (d, f), dtype=dt),
                     "w_up": L.dense_init(g, (d, f), dtype=dt),
@@ -375,7 +373,27 @@ def _mlp_block(p, x, cfg: ModelConfig, pos: int):
     if cfg.is_moe(pos):
         out, aux = moe_mod.moe_forward(p["moe"], y, cfg.moe)
         return x + out, aux
-    return x + L.swiglu(y, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"]), None
+    m = p["mlp"]
+    if cfg.mlp_type == "gelu":
+        return x + L.gelu_mlp(y, m["w_in"], m["b_in"], m["w_out"], m["b_out"]), None
+    return x + L.swiglu(y, m["w_gate"], m["w_up"], m["w_down"]), None
+
+
+def _period_fwd(blocks: list, x: torch.Tensor, rope, cfg: ModelConfig, use_kernel: bool,
+                train: bool):
+    """One group: the ``cfg.period`` layers of ``blocks`` (a group's blocks,
+    one per period position) over ``x`` -> ``(x, aux)``, ``aux`` the group's
+    summed MoE loss or None where there is no MoE."""
+    group_aux = None
+    for pos, p in enumerate(blocks):
+        if cfg.layer_type(pos) == "attn":
+            x, _ = _attn_block(p, x, cfg, rope=rope, use_kernel=use_kernel, train=train)
+        else:
+            x, _ = _mamba_block(p, x, cfg)
+        x, a = _mlp_block(p, x, cfg, pos)
+        if a is not None:
+            group_aux = a if group_aux is None else group_aux + a
+    return x, group_aux
 
 
 # --------------------------------------------------------------------- fwd
@@ -387,22 +405,23 @@ def backbone(params: dict[str, Any], embeds: torch.Tensor, cfg: ModelConfig,
     """``(hidden [B, T, d] after the final norm, MoE aux loss)``, the aux summed
     per group and then over the groups as the reference's scan does;
     ``train`` runs the differentiable training attention instead of the
-    forward-only kernel."""
+    forward-only kernel.  With ``cfg.remat`` each group's forward, its aux
+    included, runs under ``torch.utils.checkpoint`` (non-reentrant): the
+    backward recomputes what it needs from the group's inputs, so under
+    grad mode a group keeps its inputs instead of its activations, and the
+    gradients are bitwise those without remat (the same graph, its saved
+    tensors recomputed by the same operations)."""
     check_supported(cfg)
     x = embeds.to(cfg.dtype)
     rope = rope_of(positions, cfg) if _has_attention(cfg) else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi in range(cfg.n_groups):
-        group_aux = None
-        for pos in range(cfg.period):
-            p = _group(params["blocks"][pos], gi)
-            if cfg.layer_type(pos) == "attn":
-                x, _ = _attn_block(p, x, cfg, rope=rope, use_kernel=use_kernel, train=train)
-            else:
-                x, _ = _mamba_block(p, x, cfg)
-            x, a = _mlp_block(p, x, cfg, pos)
-            if a is not None:
-                group_aux = a if group_aux is None else group_aux + a
+        blocks = [_group(params["blocks"][pos], gi) for pos in range(cfg.period)]
+        if cfg.remat:
+            x, group_aux = torch.utils.checkpoint.checkpoint(
+                _period_fwd, blocks, x, rope, cfg, use_kernel, train, use_reentrant=False)
+        else:
+            x, group_aux = _period_fwd(blocks, x, rope, cfg, use_kernel, train)
         if group_aux is not None:
             aux = aux + group_aux
     return L.rms_norm(x, params["final_norm"]), aux
@@ -453,11 +472,14 @@ def chunked_ce_loss(params, table_fp: torch.Tensor, h: torch.Tensor, labels: tor
 
 
 def assemble_embeds(table_fp: torch.Tensor, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Input embeddings [B, T, d] of ``batch["tokens"]``; in the ``mixed``
-    mode ``batch["prefix_embeds"]`` [B, P, d] (P = ``cfg.visual_prefix``)
-    replaces token positions 0..P-1 (``embeds`` comes with the encoder
-    slice)."""
+    """Input embeddings [B, T, d] of every input mode: ``embeds`` returns
+    ``batch["embeds"]`` (the encoder's frames; the table is not read);
+    otherwise the rows of ``batch["tokens"]``, and in the ``mixed`` mode
+    ``batch["prefix_embeds"]`` [B, P, d] (P = ``cfg.visual_prefix``)
+    replaces token positions 0..P-1."""
     check_supported(cfg)
+    if cfg.input_mode == "embeds":
+        return batch["embeds"].to(cfg.dtype)
     tok_emb = embed_tokens(table_fp, batch["tokens"], cfg)
     if cfg.input_mode == "mixed" and cfg.visual_prefix > 0:
         prefix = batch["prefix_embeds"].to(cfg.dtype)

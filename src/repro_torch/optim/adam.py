@@ -36,16 +36,18 @@ def adam_init(params) -> OptState:
 @torch.no_grad()
 def adam_update(grads, state: OptState, params, lr: float, *, b1: float = 0.9,
                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
-                use_kernel: bool = True):
-    """One AdamW step -> ``(new_params, new_state)``, new tensors throughout;
-    ``lr`` is rounded to float32, as the reference holds it.  CUDA tensors
-    take the ``adam_update`` kernel unless ``use_kernel`` is False."""
+                use_kernel: bool = True, inplace: bool = False):
+    """One AdamW step -> ``(new_params, new_state)``, new tensors throughout,
+    or (``inplace``) ``params`` and ``state``'s moments overwritten, bitwise
+    the same values; ``lr`` is rounded to float32, as the reference holds
+    it.  CUDA tensors take the ``adam_update`` kernel unless ``use_kernel``
+    is False."""
     step = state.step + 1
     bc1, bc2 = adam_bias_corrections(step, b1, b2)
     params = [p.detach() for p in params]
     new_p, new_m, new_v = ops.adam_update(params, list(grads), state.mu, state.nu, lr, bc1, bc2,
                                           b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-                                          use_kernel=use_kernel)
+                                          use_kernel=use_kernel, inplace=inplace)
     return new_p, OptState(step=step, mu=new_m, nu=new_v)
 
 
@@ -76,9 +78,12 @@ def tree_like(tree, leaves):
     return build(tree)
 
 
-def clip_by_global_norm(grads: list, max_norm: float):
+def clip_by_global_norm(grads: list, max_norm: float, *, inplace: bool = False):
     """``(grads * min(1, max_norm / (||grads|| + 1e-12)), ||grads||)`` over a
-    list of tensors, the global norm a 0-d tensor (no host sync)."""
+    list of tensors, the global norm a 0-d tensor (no host sync);
+    ``inplace`` scales ``grads`` themselves (float32) and returns them."""
     gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in grads))
     scale = torch.clamp_max(max_norm / (gnorm + 1e-12), 1.0)
+    if inplace:
+        return [g.mul_(scale) for g in grads], gnorm
     return [(g * scale).to(g.dtype) for g in grads], gnorm

@@ -301,9 +301,10 @@ def make_ctr_microbatch_step(trainer, n_shards: int, dp: DPConfig | None = None,
 
 def _lm_shards(batch: dict, n: int) -> dict:
     """``{key: [shard, ...]}`` of an LM batch over its batch dimension: the
-    leading one, but dimension 1 of M-RoPE ``positions`` [3, B, T].  (The
-    reference refuses such positions; its CLI refuses the mixed archs in DP
-    mode, as the port's does.)"""
+    leading one (an encoder's ``embeds`` [B, T, d] among them), but
+    dimension 1 of M-RoPE ``positions`` [3, B, T].  (The reference refuses
+    such positions; its CLI refuses the mixed archs in DP mode, as the
+    port's does.)"""
     return {k: _shards(v, n, dim=1 if k == "positions" and v.ndim == 3 else 0)
             for k, v in batch.items()}
 

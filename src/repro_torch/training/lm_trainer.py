@@ -44,6 +44,7 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch import faults, methods
 from repro_torch.checkpoint import manager as ckpt
+from repro_torch.core import alpt as alpt_core
 from repro_torch.core.alpt import ALPTConfig
 from repro_torch.core.codestore import CodeStore
 from repro_torch.core.pruning import PruneConfig
@@ -244,7 +245,10 @@ def make_grad_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
     """One backward: ``(state, batch) -> ((loss, aux), (g_emb, g_params))``,
     ``g_emb`` shaped as the method's ``dense_params`` (for integer tables the
     de-quantized [V, d] table) and ``g_params`` a list in
-    ``tree_leaves(state.params)`` order."""
+    ``tree_leaves(state.params)`` order.  A leaf the loss does not read has
+    a zero gradient, as ``jax.grad`` gives: the table of an ``embeds``
+    config with an untied head (the encoder), which then steps as the
+    reference's does, by its optimizer's decay and Delta's own step."""
     spec = embedding_spec_of(cfg, tcfg)
     method = methods.get(spec.method)
 
@@ -256,7 +260,7 @@ def make_grad_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
         with torch.enable_grad():
             table_fp = method.dense_table_from(state.table, tree_like(dense, emb), spec)
             loss, aux = tfm.loss_fn(params, table_fp, batch, cfg)
-            grads = torch.autograd.grad(loss, [*emb, *leaves])
+            grads = alpt_core.grads_or_zeros(loss, [*emb, *leaves])
         g_emb = tree_like(dense, list(grads[: len(emb)]))
         return (loss.detach(), aux.detach()), (g_emb, list(grads[len(emb):]))
 
@@ -276,13 +280,17 @@ def make_delta_grad_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
     return delta_fn
 
 
-def make_apply_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
+def make_apply_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, donate: bool = False):
     """The update: ``apply_fn(state, loss_aux, grads, *, lr, noise,
     delta_grad=None, batch_rows=None) -> (state, metrics)``.
 
     ``delta_grad(w_new, step_vec, new_params, gscale) -> g_step`` supplies
     ALPT's Delta gradient at the updated params; ``batch_rows`` is the
-    paper's b, the batch's token count."""
+    paper's b, the batch's token count.  ``donate`` (the reference's CLI
+    jits its step with ``donate_argnums=(0,)``): the step consumes
+    ``state`` and ``grads``, clipping the gradients and stepping the params
+    and their Adam moments in place (bitwise the same values), so the old
+    and new params and moments are not alive together."""
     spec = embedding_spec_of(cfg, tcfg)
     method = methods.get(spec.method)
 
@@ -290,10 +298,10 @@ def make_apply_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
                  batch_rows=None):
         loss, aux = loss_aux
         g_table, g_params = grads
-        g_params, gnorm = clip_by_global_norm(g_params, tcfg.grad_clip)
+        g_params, gnorm = clip_by_global_norm(g_params, tcfg.grad_clip, inplace=donate)
         new_leaves, new_opt = adam_update(g_params, state.opt, tree_leaves(state.params), lr,
                                           weight_decay=tcfg.weight_decay,
-                                          use_kernel=tcfg.use_kernels)
+                                          use_kernel=tcfg.use_kernels, inplace=donate)
         new_params = tree_like(state.params, new_leaves)
         wrapped = None
         if delta_grad is not None:
@@ -327,13 +335,15 @@ def check_trainable(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig) -> None:
 
 
 def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, grad_sync=None,
-                    step_grad_sync=None, dp_size: int = 1):
+                    step_grad_sync=None, dp_size: int = 1, donate: bool = False):
     """``train_step(state, batch, noise=None) -> (state, metrics)``.
 
     ``batch`` holds int32 ``tokens`` and ``labels`` [B, T] on the state's
     device; a ``mixed``-input config's also ``prefix_embeds`` [B, P, d] and,
     optionally, M-RoPE ``positions`` [3, B, T] (default: three equal
-    streams), which the backward and ALPT's Delta recompute both read.  ``noise`` f32 [n, d] (the table's allocated shape; a composed
+    streams), which the backward and ALPT's Delta recompute both read; an
+    ``embeds`` config's (the encoder) ``embeds`` [B, T, d] in place of
+    ``tokens``.  ``noise`` f32 [n, d] (the table's allocated shape; a composed
     table's, one per sub-table) is the SR draw of the write-back; by default
     it comes from ``state.generator`` (``method.dense_noise``).
 
@@ -342,13 +352,22 @@ def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, grad_sync=No
     applied between backward and update and to ALPT's Delta gradient.
     ``dp_size`` is the number of ranks, so that the paper's b (the Delta
     gradient's scale) counts the GLOBAL batch's token lookups.
+
+    ``donate`` (:func:`make_apply_fn`): the step steps the params and their
+    Adam moments in place, and the caller must not read the state it passed
+    in; it spares a full copy of them, which is what lets deepseek-67b's
+    full-width head and a layer train on one card.  The guard keeps the old
+    state to roll back to, so ``tcfg.guard`` refuses it.
     """
     check_trainable(cfg, tcfg)
+    if donate and tcfg.guard:
+        raise ValueError("donate: the guard rolls back to the state before the step, which a "
+                         "donated step overwrites")
     spec = embedding_spec_of(cfg, tcfg)
     method = methods.get(spec.method)
     lr_at = make_lr_fn(tcfg)
     grad_fn = make_grad_fn(cfg, tcfg)
-    apply_fn = make_apply_fn(cfg, tcfg)
+    apply_fn = make_apply_fn(cfg, tcfg, donate=donate)
     delta_fn = make_delta_grad_fn(cfg, tcfg) if method.has_learned_step else None
 
     def train_step(state: LMTrainState, batch: dict, noise: torch.Tensor | None = None):

@@ -501,6 +501,20 @@ def test_adam_update_kernel_bitwise(cuda, weight_decay):
     for got_list, want_list in zip(got, want):
         assert all(torch.equal(x, y) for x, y in zip(got_list, want_list))
     assert all(torch.equal(p, q) for p, q in zip(params, before))  # out of place
+    # In place (a donated LM step): the kernel and its plain version each
+    # overwrite their own copies with the same values.
+    copies = [[[t.clone() for t in ts] for ts in (params, mu, nu)] for _ in range(2)]
+    ops.reset_kernel_calls()
+    for (p_, m_, v_), use_kernel in zip(copies, (True, False)):
+        out = ops.adam_update(p_, grads, m_, v_, 3e-3, bc1, bc2, weight_decay=weight_decay,
+                              use_kernel=use_kernel, inplace=True)
+        assert all(o is t for o, t in zip(out[1] + out[2], m_ + v_))
+        assert all(o.data_ptr() == t.data_ptr() for o, t in zip(out[0], p_))
+    torch.cuda.synchronize()
+    assert ops.kernel_calls() == {"adam_update": 1}
+    for got_list, *copied in zip(want, *copies):
+        for y, a, b in zip(got_list, *copied):
+            assert torch.equal(a, y) and torch.equal(b, y)
 
 
 def test_adam_update_wrapper_raises_on_bad_operands(cuda):
@@ -589,7 +603,10 @@ def test_dequant_matmul_wrappers_raise_on_bad_operands(cuda):
     (1, 157, 157, 9, 3, 64, True, 40),
     # qwen2-vl-7b's prefill: 28/4 heads at D = 128, a group of 7 in one block.
     (1, 64, 64, 28, 4, 128, True, None), (1, 157, 157, 28, 4, 128, True, None),
-    (2, 256, 256, 28, 4, 128, True, None)])
+    (2, 256, 256, 28, 4, 128, True, None),
+    # deepseek-67b's prefill: 64/8 heads at D = 128, a group of 8 in one block.
+    (1, 64, 64, 64, 8, 128, True, None), (1, 100, 100, 64, 8, 128, True, None),
+    (2, 256, 256, 64, 8, 128, True, None)])
 def test_flash_attention_kernel_matches_plain(cuda, b, t, s, h, kh, d, causal, window):
     g = _gen(t * d + s, cuda)
     q = torch.randn(b, t, h, d, generator=g, device=cuda)
@@ -883,6 +900,75 @@ def test_mamba2_train_step_kernels_bitwise_vs_plain(cuda, method, bits):
     for a, b in zip(tree_leaves(on.params) + on.opt.mu + on.opt.nu,
                     tree_leaves(off.params) + off.opt.mu + off.opt.nu):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("method,bits", [("alpt", 8), ("lpt", 4)])
+def test_encoder_train_step_kernels_bitwise_vs_plain(cuda, method, bits):
+    """hubert's smoke config (frames in, the gelu MLP, non-causal attention,
+    an untied head, so the loss reads no table): two steps with the kernels
+    on and off from one state: the write-back and ``adam_update`` launch
+    once per step, and losses, gradient norms, params, Adam moments and the
+    table (which a zero gradient leaves as it was) agree bit for bit."""
+    from repro_torch.launch.train import lm_batch
+
+    cfg = dataclasses.replace(configs.smoke_config("hubert-xlarge"), embedding_method=method,
+                              embedding_bits=bits)
+    stream = LMTokenStream(cfg.vocab_size, 64, seed=17)
+    batches = [lm_batch(cfg, stream, i, 4, 64, cuda) for i in range(2)]
+    runs = []
+    for use_kernels in (True, False):
+        tcfg = lm_trainer.LMTrainerConfig(use_kernels=use_kernels)
+        state = lm_trainer.init_state(cfg, tcfg, seed=3, device=cuda)
+        codes0 = state.table.codes.data.clone()
+        step = lm_trainer.make_train_step(cfg, tcfg)
+        ops.reset_kernel_calls()
+        ops.reset_fallbacks()
+        metrics = []
+        for batch in batches:
+            state, m = step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs.append((state, metrics, ops.kernel_calls()))
+        assert ops.fallbacks() == [] and torch.equal(state.table.codes.data, codes0)
+    (on, on_metrics, launches), (off, off_metrics, none) = runs
+    write_back = "sr_round" if method == "alpt" else "lpt_fused_update_packed"
+    assert launches == {write_back: 2, "adam_update": 2} and none == {}
+    assert on_metrics == off_metrics and all(np.isfinite(on_metrics).ravel())
+    for name in ("step", "mu", "nu"):
+        assert torch.equal(getattr(on.table, name), getattr(off.table, name)), name
+    for a, b in zip(tree_leaves(on.params) + on.opt.mu + on.opt.nu,
+                    tree_leaves(off.params) + off.opt.mu + off.opt.nu):
+        assert torch.equal(a, b)
+
+
+def test_remat_train_step_bitwise_vs_without_on_the_card(cuda):
+    """deepseek-67b's smoke config (remat per group) on the card, kernels on:
+    two ALPT-8 steps with remat on and off, and with remat on and the state
+    donated (the in-place Adam kernel), from one seed give the same losses,
+    params, Adam moments and table bit for bit, with the same launches."""
+    stream = LMTokenStream(512, 64, seed=17)
+    batches = [{"tokens": torch.from_numpy(b[:, :-1]).to(cuda),
+                "labels": torch.from_numpy(b[:, 1:]).to(cuda)}
+               for b in (stream.batch(i, 4) for i in range(2))]
+    runs = []
+    for remat, donate in ((True, False), (False, False), (True, True)):
+        cfg = dataclasses.replace(configs.smoke_config("deepseek-67b"), remat=remat)
+        tcfg = lm_trainer.LMTrainerConfig()
+        state = lm_trainer.init_state(cfg, tcfg, seed=3, device=cuda)
+        step = lm_trainer.make_train_step(cfg, tcfg, donate=donate)
+        ops.reset_kernel_calls()
+        losses = []
+        for batch in batches:
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        t = state.table
+        runs.append((losses, ops.kernel_calls(), [*tree_leaves(state.params), *state.opt.mu,
+                                                  *state.opt.nu, t.codes.data, t.step, t.mu,
+                                                  t.nu]))
+    (on_losses, on_launches, on), *others = runs
+    assert on_launches == {"sr_round": 2, "adam_update": 2} and all(np.isfinite(on_losses))
+    for losses, launches, leaves in others:
+        assert launches == on_launches and losses == on_losses
+        assert all(torch.equal(a, b) for a, b in zip(on, leaves))
 
 
 @pytest.mark.parametrize("bits", [8, 4, 2])

@@ -41,6 +41,7 @@ from repro_torch.data.lm_synth import LMTokenStream
 from repro_torch.dist import collectives
 from repro_torch.launch import train as train_cli
 from repro_torch.models import ctr as pctr
+from repro_torch.optim import tree_leaves
 from repro_torch.training import ctr_trainer as ptr
 from repro_torch.training import data_parallel as dpm
 from repro_torch.training import lm_trainer
@@ -151,9 +152,19 @@ def test_dp_builders_refuse_what_they_cannot_train():
     with pytest.raises(ValueError, match="not divisible"):
         dpm.make_ctr_microbatch_step(uncached, 3)(uncached.init_state(),
                                                   *DATA.batch("train", 0, BATCH))
-    cfg = dataclasses.replace(configs.smoke_config("smollm-135m"), remat=True)
-    with pytest.raises(NotImplementedError, match="remat"):
-        dpm.make_lm_microbatch_step(cfg, lm_trainer.LMTrainerConfig(), 2)
+    # remat is taken (its refusal lifted with the remat slice): the twin with
+    # it is bitwise the twin without.
+    tcfg = lm_trainer.LMTrainerConfig()
+    cfg = dataclasses.replace(configs.smoke_config("smollm-135m"), n_layers=1)
+    full = torch.from_numpy(LMTokenStream(cfg.vocab_size, 16, seed=17).batch(0, 4))
+    batch = {"tokens": full[:, :-1], "labels": full[:, 1:]}
+    runs = []
+    for remat in (True, False):
+        cfg = dataclasses.replace(cfg, remat=remat)
+        state, m = dpm.make_lm_microbatch_step(cfg, tcfg, 2, dpm.DPConfig(sync_bits=8))(
+            lm_trainer.init_state(cfg, tcfg, seed=1, device="cpu"), batch)
+        runs.append([m["loss"], *tree_leaves(state.params), state.table.codes.data])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 # ------------------------------------------- (f) n ranks over gloo, (g) CLI
@@ -165,6 +176,7 @@ RANKS = textwrap.dedent('''
     from repro_torch.core.alpt import ALPTConfig
     from repro_torch.data.ctr_synth import CTRDatasetConfig, CTRSynthetic
     from repro_torch.data.lm_synth import LMTokenStream
+    from repro_torch.launch.train import lm_batch
     from repro_torch.models.ctr import DCNConfig
     from repro_torch.training import data_parallel as dpm, lm_trainer
     from repro_torch.training.ctr_trainer import CTRTrainer, TrainerConfig
@@ -222,8 +234,10 @@ RANKS = textwrap.dedent('''
                 b, mb = twin(b, ids, labels)
                 losses.append([float(ma["loss"]), float(mb["loss"])])
             out[f"ctr/{method}/{bits}"] = [digest(a), digest(b), losses]
-        for method, bits in (("alpt", 8), ("alpt", 32), ("lpt", 4), ("fp", 2)):
-            cfg = dataclasses.replace(configs.smoke_config("smollm-135m"),
+        for arch, method, bits in (("smollm-135m", "alpt", 8), ("smollm-135m", "alpt", 32),
+                                   ("smollm-135m", "lpt", 4), ("smollm-135m", "fp", 2),
+                                   ("hubert-xlarge", "alpt", 8)):
+            cfg = dataclasses.replace(configs.smoke_config(arch),
                                       embedding_method=method, n_layers=1)
             tcfg = lm_trainer.LMTrainerConfig(lr=1e-3)
             dp = dpm.DPConfig(sync_bits=bits)
@@ -233,13 +247,12 @@ RANKS = textwrap.dedent('''
             b = lm_trainer.init_state(cfg, tcfg, device="cpu")
             losses = []
             for i in range(2):
-                full = torch.from_numpy(LMTokenStream(cfg.vocab_size, 16, seed=17).batch(
-                    i, 2 * world))
-                batch = {"tokens": full[:, :-1], "labels": full[:, 1:]}
+                batch = lm_batch(cfg, LMTokenStream(cfg.vocab_size, 16, seed=17), i, 2 * world,
+                                 16, torch.device("cpu"))
                 a, ma = step(a, batch)
                 b, mb = twin(b, batch)
                 losses.append([float(ma["loss"]), float(mb["loss"])])
-            out[f"lm/{method}/{bits}"] = [digest(a), digest(b), losses]
+            out[f"lm/{arch}/{method}/{bits}"] = [digest(a), digest(b), losses]
     else:  # "sigterm": one rank is signalled during step 2; both stop there
         from repro_torch.launch import train as train_cli
         os.environ["WORLD_SIZE"] = str(world)
@@ -291,11 +304,12 @@ def _run_ranks(tmp_path, scenario, world, *extra, timeout=240):
 def test_gloo_dp_steps_bitwise_their_microbatched_twins(tmp_path, world):
     """``make_ctr_dp_step`` / ``make_lm_dp_step`` on ``world`` processes
     (CTR with dropout 0.2; alpt padded, qr_alpt's two Delta leaves, mixed's
-    three groups, lsq's float leaves) against each rank's own twin with
-    ``n_shards = world``: every leaf, the generator and the losses bitwise;
-    every rank the same state."""
+    three groups, lsq's float leaves; the LM on tokens and, hubert-smoke's
+    encoder, on frames cut on their batch dimension) against each rank's
+    own twin with ``n_shards = world``: every leaf, the generator and the
+    losses bitwise; every rank the same state."""
     outs = _run_ranks(tmp_path, "dp", world)
-    assert len(outs[0]) == 8 + 4
+    assert len(outs[0]) == 8 + 5
     for key, (dp_digest, twin_digest, losses) in outs[0].items():
         assert dp_digest == twin_digest, key
         assert all(a == b for a, b in losses), (key, losses)

@@ -27,6 +27,7 @@ from repro.training import lm_trainer as jlm
 from repro_torch import configs, interop
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tfm
+from repro_torch.optim import tree_leaves
 from repro_torch.training import lm_trainer
 
 jax.config.update("jax_platform_name", "cpu")
@@ -65,7 +66,7 @@ def test_configs_match_the_reference():
             assert got.padded_heads == want.padded_heads and got.hd == want.hd
     assert configs.full_config("smollm-135m", embedding_bits=4).embedding_bits == 4
     with pytest.raises(KeyError, match="unknown arch"):
-        configs.get_arch("hubert-xlarge")
+        configs.get_arch("no-such-arch")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -202,19 +203,23 @@ def test_untied_head_and_float_table_match_the_reference():
 
 
 def test_unported_architectures_raise():
-    """The gelu MLP and remat are refused by name; the mixed input mode and
-    M-RoPE, ported with the VLM, are taken."""
-    cfg = configs.smoke_config("smollm-135m")
-    for bad, what in ((dict(mlp_type="gelu"), "gelu"),
-                      (dict(remat=True), "remat")):
-        with pytest.raises(NotImplementedError, match=what):
+    """Every feature of the reference's configs is taken, with the
+    reference's param layout: the mixed input mode and M-RoPE (the VLM
+    slice), the gelu MLP and remat (the encoder and remat slice); only a
+    malformed config is refused, by name."""
+    cfg, jcfg = configs.smoke_config("smollm-135m"), jconfigs.smoke_config("smollm-135m")
+    for bad, what in ((dict(mlp_type="relu"), "mlp_type"),
+                      (dict(input_mode="frames"), "input_mode")):
+        with pytest.raises(ValueError, match=what):
             tfm.init_params(torch.Generator().manual_seed(0), dataclasses.replace(cfg, **bad))
     for ported in (dict(input_mode="mixed", visual_prefix=4),
-                   dict(mrope_sections=(8, 12, 12))):
+                   dict(mrope_sections=(8, 12, 12)), dict(mlp_type="gelu"), dict(remat=True)):
         params = tfm.init_params(torch.Generator().manual_seed(0),
                                  dataclasses.replace(cfg, **ported))
-        assert tfm.param_count(params) == tfm.param_count(
-            tfm.init_params(torch.Generator().manual_seed(0), cfg))
+        want = jax.eval_shape(lambda k: jtfm.init_params(k, dataclasses.replace(jcfg, **ported)),
+                              jax.ShapeDtypeStruct((2,), jnp.uint32))
+        assert [tuple(t.shape) for t in tree_leaves(params)] == [
+            a.shape for a in jax.tree.leaves(want)], ported
 
 
 def test_init_state_builds_params_and_an_alpt_table():

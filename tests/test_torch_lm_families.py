@@ -143,22 +143,30 @@ def test_registry_and_configs_match_the_reference():
 
 
 @pytest.mark.parametrize("override,what,refused", [
-    (dict(mrope_sections=(4, 2, 2)), "M-RoPE", False), (dict(input_mode="embeds"), "embeds", True),
+    (dict(mrope_sections=(4, 2, 2)), "M-RoPE", False), (dict(input_mode="embeds"), "embeds", False),
     (dict(input_mode="mixed", visual_prefix=4), "mixed", False),
-    (dict(mlp_type="gelu"), "gelu", True), (dict(remat=True), "remat", True)])
+    (dict(mlp_type="gelu"), "gelu", False), (dict(remat=True), "remat", False),
+    (dict(input_mode="frames"), "input_mode", True), (dict(mlp_type="relu"), "mlp_type", True)])
 def test_check_supported_names_only_what_is_unported(override, what, refused):
-    """The embeds mode, the gelu MLP and remat are refused by name; M-RoPE
-    and the mixed mode (the VLM slice) are taken."""
+    """Every feature of the reference's configs is taken (M-RoPE and the
+    mixed mode with the VLM slice; the embeds mode, the gelu MLP and remat
+    with the encoder and remat slice) and its params drawn in the
+    reference's layout (the gelu MLP's ``w_in`` / ``b_in`` / ``w_out`` /
+    ``b_out``); only a malformed config is refused, by name."""
     for arch in ARCHS + ["smollm-135m"]:
         tfm.check_supported(configs.smoke_config(arch))
     cfg = dataclasses.replace(configs.smoke_config("jamba-v0.1-52b"), **override)
     if refused:
-        with pytest.raises(NotImplementedError, match=what):
+        with pytest.raises(ValueError, match=what):
             tfm.init_params(torch.Generator().manual_seed(0), cfg)
-    else:
-        tfm.check_supported(cfg)
-        params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
-        assert set(params) == {"blocks", "final_norm", "head"}
+        return
+    tfm.check_supported(cfg)
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    assert set(params) == {"blocks", "final_norm", "head"}
+    jcfg = dataclasses.replace(jconfigs.smoke_config("jamba-v0.1-52b"), **override)
+    want = jax.eval_shape(functools.partial(jtfm.init_params, cfg=jcfg),
+                          jax.ShapeDtypeStruct((2,), jnp.uint32))
+    assert [tuple(t.shape) for t in tree_leaves(params)] == [a.shape for a in jax.tree.leaves(want)]
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -253,8 +253,9 @@ def test_lm_state_round_trips_through_numpy():
 def test_trainer_refuses_what_later_slices_bring():
     """The reference's alpt_every setting is not a field of the port's
     config (nothing reads it; its DP sync width, prune schedule,
-    pad_to_tiles and guard are, since their slices are ported); an
-    unported architecture is refused by name."""
+    pad_to_tiles and guard are, since their slices are ported); remat, the
+    last feature of the reference's configs to be ported, is taken: a step
+    with it is bitwise the step without."""
     with pytest.raises(TypeError, match="alpt_every"):
         lm_trainer.LMTrainerConfig(alpt_every=2)
     assert lm_trainer.LMTrainerConfig(guard=True).guard
@@ -263,9 +264,16 @@ def test_trainer_refuses_what_later_slices_bring():
     cfg = configs.smoke_config("smollm-135m")
     lm_trainer.make_train_step(dataclasses.replace(cfg, embedding_method="prune"),
                                lm_trainer.LMTrainerConfig())
-    with pytest.raises(NotImplementedError, match="remat"):
-        lm_trainer.make_train_step(dataclasses.replace(cfg, remat=True),
-                                   lm_trainer.LMTrainerConfig())
+    tcfg = lm_trainer.LMTrainerConfig()
+    full = torch.from_numpy(LMTokenStream(cfg.vocab_size, 32, seed=17).batch(0, 2))
+    batch = {"tokens": full[:, :-1], "labels": full[:, 1:]}
+    runs = []
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        state, m = lm_trainer.make_train_step(c, tcfg)(
+            lm_trainer.init_state(c, tcfg, seed=1, device="cpu"), batch)
+        runs.append([m["loss"], *tree_leaves(state.params), state.table.codes.data])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def test_train_cli_lm_smoke_on_cpu():
