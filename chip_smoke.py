@@ -8,8 +8,9 @@ families (mamba2-370m, deepseek-moe-16b), of observability (spans,
 counters, latency quantiles, --trace-out), of faults and recovery (the
 fault plan's seams, bounded retry, the non-finite guard), of the VLM
 (qwen2-vl-7b: M-RoPE, QKV bias, the mixed input mode), of the encoder
-(hubert-xlarge: frames in, the gelu MLP, non-causal attention) and of remat
-(deepseek-67b) on one NVIDIA GPU.
+(hubert-xlarge: frames in, the gelu MLP, non-causal attention), of remat
+(deepseek-67b) and of the sharding path (tensor and sequence parallel LM
+training on a (data, model) grid of ranks) on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -292,6 +293,34 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      end of the training forward with remat on and off printed; 17e. train
      lm --arch hubert-xlarge --smoke and --arch deepseek-67b --smoke on the
      card, serve lm --arch hubert-xlarge exits 0 with the reference's line;
+  18. the sharding path (sharding_only runs the phase without the rest),
+     after phase 17, on gloo ranks of their own processes on the one card
+     (NCCL refuses two ranks on one device), each run's one-process twin
+     first (the same seed, batches and noise, kernels on; its card memory
+     freed before the ranks start); a rank exiting non-zero fails the run:
+     18a. qwen3-1.7b at full width and depth (28 layers, d = 2,048, 16/8
+     heads at D = 128, d_ff 6,144, a tied vocab of 151,936) ALPT-8 under
+     tp on a 1 x 2 grid, each rank its shard of the one-process init, 3
+     donated steps of 2 x 1,024 tokens: per-step losses within 1e-4 of the
+     twin's, the first and last layers after step 1 within rtol 1e-4 /
+     atol 1e-6 where the twin's gradient is at least 1e-6 (within 2 lr
+     elsewhere), codes differing on at most 0.5%; launches per rank (one
+     sr_round for the init and one a step, one adam_update a step), peak
+     memory per rank and host ms per step printed; 18b. train lm --arch
+     qwen3-1.7b --layers 4 --embedding-method lpt, 3 steps of 4 x 512, at
+     1 x 1 in this process and at 2 x 2 on four gloo ranks whose launcher
+     made the group: losses within 1e-4 step for step, lpt_fused_update on
+     every rank's rows; its checkpoint (written from the gathered shards)
+     restored in this process and cut to each rank's coordinates equals, in
+     every leaf, the live shards each rank saved and the shards each rank
+     restores on the grid under tp_sp (checksums); one tp_sp step through the API, its loss within 1e-4 of
+     its one-process twin's from that state; 18a and 18c share one launch
+     of two ranks, after both twins; 18c.
+     mixtral-8x7b at full width (d = 4,096, 32/8 heads, 8 experts of d_ff
+     14,336 top-2, an untied head over 32,000) with 1 of 32 layers ALPT-8
+     on 1 x 2 (4 experts a rank), 2 steps of 2 x 1,024, as 18a; 18d.
+     sr_round and lpt_fused_update(_packed) on each of two row blocks of
+     qwen3-1.7b's table equal the one-process call's rows bitwise;
   5. time each kernel at the slices' shapes (median of per-launch CUDA-event
      times after warm-up, device work only) beside its bound, its plain
      version's time and the library's one call where there is one, and the
@@ -3986,9 +4015,11 @@ def dp_phase(torch, dev, lm_data) -> dict:
 
 
 def gloo_probe_rank(rank: int, world: int, directory: str) -> int:
-    """One rank of ``gloo_probe``: each collective phase 12 takes, on CUDA
-    tensors over gloo, its result printed; then one table-sized all_gather
-    (float32) and all_reduce (int32 SUM) timed on the host clock."""
+    """One rank of ``gloo_probe``: each collective phases 12 and 18 take, on
+    CUDA tensors over gloo, its result printed; then one table-sized
+    all_gather (float32) and all_reduce (int32 SUM), and phase 18's
+    activation-sized all_reduce (SUM, MAX) and all_gather, timed on the host
+    clock."""
     import datetime
 
     import torch
@@ -4008,15 +4039,28 @@ def gloo_probe_rank(rank: int, world: int, directory: str) -> int:
             t = (torch.arange(4, device=dev) * (rank + 1)).to(dtype)
             dist.all_reduce(t, op=op)
             out[f"all_reduce {op} {dtype}"] = t.tolist()
+        # Phase 18's: an activation [2, 1,024, 2,048] (qwen3-1.7b, 2 x 1,024
+        # tokens) summed, its max, and gathered along T (sequence parallel).
+        act = (torch.arange(2 * 1024 * 2048, device=dev, dtype=torch.float32)
+               .reshape(2, 1024, 2048) % 7) * (rank + 1)
+        for op in (dist.ReduceOp.SUM, dist.ReduceOp.MAX):
+            t = act.clone()
+            dist.all_reduce(t, op=op)
+            want = act / (rank + 1) * (3 if op == dist.ReduceOp.SUM else 2)
+            out[f"activation all_reduce {op} equal"] = bool(torch.equal(t, want))
         for name, t in (("all_gather", torch.full((4_428_288 * 16,), float(rank), device=dev)),
                         ("all_reduce", torch.full((4_428_288 * 16,), rank + 1, device=dev,
-                                                  dtype=torch.int32))):
+                                                  dtype=torch.int32)),
+                        ("activation all_reduce SUM", act.clone()),
+                        ("activation all_reduce MAX", act.clone()),
+                        ("activation all_gather", act.clone())):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            if name == "all_gather":
+            if name.endswith("all_gather"):
                 dist.all_gather([torch.empty_like(t) for _ in range(world)], t)
             else:
-                dist.all_reduce(t)
+                dist.all_reduce(t, op=dist.ReduceOp.MAX if name.endswith("MAX")
+                                else dist.ReduceOp.SUM)
             torch.cuda.synchronize()
             out[f"{name} of {t.numel() * 4} B, s"] = time.perf_counter() - t0
         print(f"[probe] rank {rank}: {json.dumps(out)}", flush=True)
@@ -4820,6 +4864,552 @@ def encoder_remat_only() -> int:
     log(f"[encoder] max abs errors against the plain versions: "
         f"{ {k: v for k, v in err.items() if v} }")
     log(f"[chip_smoke] phase 17 alone in {time.perf_counter() - t_start:.1f}s")
+    return 0
+
+
+# Phase 18: the sharding path (tensor and sequence parallel LM training on a
+# (data, model) grid of gloo ranks on the one card; NCCL refuses two ranks on
+# one device).  Each one-process twin runs and frees the card before its
+# ranks start; every rank is a process of its own with its own CUDA context.
+SHARD_ARCH = "qwen3-1.7b"
+SHARD_STEPS, SHARD_BATCH, SHARD_SEQ = 3, 2, 1024  # 18a: full width and depth, 1 x 2
+SHARD_CLI_LAYERS, SHARD_CLI_STEPS, SHARD_CLI_BATCH, SHARD_CLI_SEQ = 4, 3, 4, 512  # 18b, 2 x 2
+SHARD_MOE_ARCH, SHARD_MOE_LAYERS, SHARD_MOE_STEPS = "mixtral-8x7b", 1, 2  # 18c, 1 x 2
+# The CPU tests' bounds (tests/test_torch_sharded_step.py) against the
+# one-process step: loss, params after step 1 (where the one-process
+# gradient is at least 1e-6; within 2 lr elsewhere), codes differing.
+SHARD_LOSS_ATOL, SHARD_RTOL, SHARD_ATOL, SHARD_CODES_FRAC = 1e-4, 1e-4, 1e-6, 0.005
+SHARD_LR = 3e-4  # LMTrainerConfig's default
+SHARD_TABLE = (151_936, 2_048)  # 18d: qwen3-1.7b's vocab table, two row blocks
+SHARD_SP_LAUNCHES = {"lpt_fused_update": 1, "adam_update": 1}  # 18b's tp_sp step, a rank
+# The 18b CLI's model flags (a rehearsal on the CPU swaps them for --smoke
+# --device cpu, and shard_config for the smoke configs).
+SHARD_CLI_MODEL = ["--arch", SHARD_ARCH, "--layers", str(SHARD_CLI_LAYERS)]
+
+
+def shard_config(arch: str, **overrides):
+    """Phase 18's config of ``arch``: the full one, ``overrides`` applied."""
+    from repro_torch import configs
+
+    return configs.full_config(arch, **overrides)
+
+
+def _on_card(torch, dev, what: str, *args):
+    """``torch.cuda.<what>(*args)`` when ``dev`` is the card (0 elsewhere)."""
+    return getattr(torch.cuda, what)(*args) if dev.type == "cuda" else 0
+
+
+def shard_batches(torch, vocab: int, steps: int, batch: int, seq: int, seed: int = 17) -> list:
+    """Token batches on the host (the ranks move them to the card)."""
+    from repro_torch.data.lm_synth import LMTokenStream
+
+    stream = LMTokenStream(vocab, seq, seed=seed)
+    out = []
+    for i in range(steps):
+        full = torch.from_numpy(stream.batch(i, batch))
+        out.append({"tokens": full[:, :-1].contiguous(), "labels": full[:, 1:].contiguous()})
+    return out
+
+
+# A leaf of more elements is compared on its first SHARD_BLOCK_ROWS rows of
+# its second-to-last dim (mixtral's expert stacks, 470 M elements a layer:
+# moving them to the host and back would take the phase's budget).
+SHARD_COMPARE_MAX, SHARD_BLOCK_ROWS = 1 << 26, 256
+
+
+def compared(leaf):
+    """The part of a group's leaf that phase 18 compares element for element."""
+    return leaf if leaf.numel() <= SHARD_COMPARE_MAX else leaf[..., :SHARD_BLOCK_ROWS, :]
+
+
+def end_layers(params) -> dict:
+    """The compared part (:func:`compared`) of the first and the last group
+    of every block leaf (views)."""
+    return {f"{pos}.{name}": (compared(leaf[0]), compared(leaf[-1]))
+            for pos, block in enumerate(params["blocks"])
+            for name, leaf in _named_leaves(block)}
+
+
+def _named_leaves(tree, prefix=""):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def gathered_end_layers(torch, params, specs, mesh, compare_max: int, block_rows: int) -> dict:
+    """:func:`end_layers` of the whole params from this rank's shards (the
+    groups' dim is never sharded, nor is a compared block's row dim: an
+    expert stack splits its experts), on the host."""
+    from repro_torch.dist import sharding
+
+    out = {}
+    for pos, (block, spec) in enumerate(zip(params["blocks"], specs["blocks"])):
+        for (name, leaf), (_, s) in zip(_named_leaves(block), _named_leaves(spec)):
+            whole = leaf[0].numel() * (mesh.shape["model"] if sharding.is_sharded(s, mesh)
+                                       else 1)
+            ends = leaf[[0, -1]]
+            if whole > compare_max:
+                check(s[-2] is None, f"{name}: a compared block would cut a sharded dim")
+                ends = ends[..., :block_rows, :]
+            ends = sharding.gather_tree(ends.contiguous(), s, mesh)
+            out[f"{pos}.{name}"] = (ends[0].cpu(), ends[1].cpu())
+    return out
+
+
+def sharding_rank(rank: int, world: int, data: int, model: int, directory: str) -> int:
+    """One gloo rank of phase 18 (a process of its own on the one card):
+    runs each of ``directory/job.pt``'s runs in turn on a ``data x model``
+    mesh and writes ``directory/rank<r>.pt``, a result per run (launches,
+    fallbacks, peak memory, host ms, the gathered results)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import datetime
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import device as device_mod
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.dist import context, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training import lm_trainer
+
+    directory = pathlib.Path(directory)
+    job = torch.load(directory / "job.pt", weights_only=False)
+    dev = device_mod.resolve(job["device"])
+    dist.init_process_group("gloo", init_method=f"file://{directory}/init", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = make_host_mesh(data, model)
+        tcfg = lm_trainer.LMTrainerConfig()
+        clock = [time.perf_counter()]
+
+        def lap(out, name):  # host seconds of each part of the rank's run
+            now = time.perf_counter()
+            out.setdefault("times", {})[name] = round(now - clock[0], 2)
+            clock[0] = now
+
+        outs = []
+        for run in job["runs"]:
+            out: dict = {}
+            gc.collect()
+            _on_card(torch, dev, "empty_cache")
+            _on_card(torch, dev, "reset_peak_memory_stats", dev)
+            ops.reset_kernel_calls()  # the main path starts here ...
+            ops.reset_fallbacks()
+            cfg = run["cfg"]
+            if run["kind"] == "train":
+                pol = sharding.policy_from_name("tp", model_size=model)
+                with context.use(mesh, pol):
+                    state = lm_trainer.init_state(cfg, tcfg, seed=run["seed"], device=dev)
+                    step = lm_trainer.make_train_step(cfg, tcfg, donate=True)
+                    specs = lm_trainer._shards(cfg, tcfg).specs
+                lap(out, "init")
+                losses, wall = [], []
+                for i, b in enumerate(run["batches"]):
+                    batch = {k: v.to(dev) for k, v in b.items()}
+                    t0 = time.perf_counter()
+                    state, m = step(state, batch)
+                    losses.append(float(m["loss"]))
+                    wall.append((time.perf_counter() - t0) * 1e3)
+                    if i == 0:
+                        with context.use(mesh, pol):
+                            out["layers"] = gathered_end_layers(torch, state.params, specs.params,
+                                                                mesh, *run["compare"])
+                _on_card(torch, dev, "synchronize")
+                out.update(launches=ops.kernel_calls(), fallbacks=ops.fallbacks())  # ... and here
+                lap(out, "steps")
+                with context.use(mesh, pol):
+                    table = sharding.gather_tree(state.table, specs.table, mesh)
+                out.update(losses=losses, wall=wall, codes=table.codes.data.cpu(),
+                           delta=table.step.cpu())
+                del table
+                lap(out, "gather")
+            else:  # 18b: the CLI on the launcher's group, then a tp_sp step through the API
+                real_save = lm_trainer.save
+
+                def save_and_sum(manager, cfg_, state_, *args, **kwargs):
+                    # The live shards just before the CLI saves them (the
+                    # newest save wins).
+                    due = kwargs.get("force") or manager.should_save(state_.step)
+                    sums = state_checksums(torch, state_) if due else None
+                    saved = real_save(manager, cfg_, state_, *args, **kwargs)
+                    if saved:
+                        out["live_sums"] = sums
+                    return saved
+
+                lm_trainer.save = save_and_sum
+                try:
+                    rc, report, err = cli_json(train_mod.main, run["argv"])
+                finally:
+                    lm_trainer.save = real_save
+                check(rc == 0, f"18b rank {rank}: train lm exited {rc}: {err[-2000:]}")
+                out.update(report=report, launches=ops.kernel_calls(),
+                           fallbacks=ops.fallbacks())
+                lap(out, "cli")
+                pol = sharding.policy_from_name("tp_sp", model_size=model)
+                with context.use(mesh, pol):
+                    state = lm_trainer.restore(CheckpointManager(run["ckpt"]), cfg, tcfg,
+                                               device=dev)
+                    step = lm_trainer.make_train_step(cfg, tcfg)
+                out["sums"] = state_checksums(torch, state)  # the checkpoint on this mesh
+                lap(out, "restore")
+                batch = {k: v.to(dev) for k, v in run["batch"].items()}
+                ops.reset_kernel_calls()
+                state, m = step(state, batch)
+                _on_card(torch, dev, "synchronize")
+                out.update(sp_loss=float(m["loss"]), sp_launches=ops.kernel_calls())
+                lap(out, "tp_sp step")
+            out["peak"] = _on_card(torch, dev, "max_memory_allocated", dev)
+            outs.append(out)
+            del state, step
+        torch.save(outs, directory / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(torch, directory: pathlib.Path, job: dict, data: int, model: int,
+              label: str) -> list:
+    """``data x model`` processes of :func:`sharding_rank` on ``job``: any rank
+    that exits non-zero fails the run.  Returns the ranks' outputs (a list
+    of per-run results each)."""
+    torch.save(job, directory / "job.pt")
+    world = data * model
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke, sys; "
+         f"sys.exit(chip_smoke.sharding_rank({r}, {world}, {data}, {model}, "
+         f"{str(directory)!r}))"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(world)]
+    try:
+        for r, p in enumerate(procs):
+            _, err_text = p.communicate(timeout=600)
+            check(p.returncode == 0, f"{label} rank {r} exited {p.returncode}: "
+                                     f"{err_text[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [torch.load(directory / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def close_layers(torch, got: dict, want: dict, grads: dict, lr: float) -> tuple[float, int]:
+    """The CPU tests' param bound on the first and last layers: within rtol /
+    atol where the one-process gradient is at least 1e-6, within 2 lr
+    elsewhere.  Returns (max abs difference, elements under the eps guard)."""
+    worst, guarded = 0.0, 0
+    for key, pair in want.items():
+        for x, y, g in zip(got[key], pair, grads[key]):
+            d = (x - y).abs()
+            ok = d <= SHARD_ATOL + SHARD_RTOL * y.abs()
+            conditioned = g.abs() >= 1e-6
+            check(bool((ok | ~conditioned).all()) and float(d.max()) <= 2 * lr,
+                  f"layer {key}: differs from the one-process step by {float(d.max())}")
+            worst = max(worst, float(d.max()))
+            guarded += int((~ok).sum())
+    return worst, guarded
+
+
+def shard_twin(torch, dev, cfg, seed: int, batches: list, label: str) -> dict:
+    """The one-process run of 18a / 18c (the same seed, batches and noise;
+    kernels on): per-step losses, the first and last layers after step 1
+    and their step-1 gradients, the table at the end, on the host; the
+    card freed after it."""
+    import gc
+
+    from repro_torch.optim import tree_like
+    from repro_torch.training import lm_trainer
+
+    t0_twin = time.perf_counter()
+    tcfg = lm_trainer.LMTrainerConfig()
+    state = lm_trainer.init_state(cfg, tcfg, seed=seed, device=dev)
+    first = {k: v.to(dev) for k, v in batches[0].items()}
+    g_params = lm_trainer.make_grad_fn(cfg, tcfg)(state, first)[1][1]
+    grads = end_layers(tree_like(state.params, g_params))
+    grads = {k: (a.cpu(), b.cpu()) for k, (a, b) in grads.items()}
+    del g_params
+    step = lm_trainer.make_train_step(cfg, tcfg, donate=True)
+    losses, wall, layers = [], [], None
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+        wall.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            layers = {k: (a.to("cpu", copy=True), b_.to("cpu", copy=True))
+                      for k, (a, b_) in end_layers(state.params).items()}  # the step is donated
+    _on_card(torch, dev, "synchronize")
+    peak = _on_card(torch, dev, "max_memory_allocated", dev)
+    out = {"losses": losses, "wall": wall, "layers": layers, "grads": grads, "peak": peak,
+           "codes": state.table.codes.data.cpu(), "delta": state.table.step.cpu()}
+    del state, step
+    gc.collect()
+    _on_card(torch, dev, "empty_cache")
+    log(f"[sharding] {label}: one-process twin, losses {losses}, host clock "
+        f"{statistics.mean(wall[1:]):.1f} ms/step (first {wall[0]:.1f}), peak {peak} B, "
+        f"{time.perf_counter() - t0_twin:.1f}s")
+    return out
+
+
+def compare_shard_run(torch, twin: dict, ranks: list, label: str, lr: float) -> None:
+    """A mesh run against its twin within the CPU tests' bounds."""
+    r0 = ranks[0]
+    gaps = [abs(a - b) for a, b in zip(r0["losses"], twin["losses"])]
+    check(len(gaps) == len(twin["losses"]) and max(gaps) < SHARD_LOSS_ATOL,
+          f"{label}: losses {r0['losses']} against the twin's {twin['losses']}")
+    worst, guarded = close_layers(torch, r0["layers"], twin["layers"], twin["grads"], lr)
+    frac = float((r0["codes"] != twin["codes"]).float().mean())
+    check(frac <= SHARD_CODES_FRAC, f"{label}: {frac:.4%} of the codes differ from the twin's")
+    d_delta = float((r0["delta"] - twin["delta"]).abs().max())
+    log(f"[sharding] {label}: per-step loss gaps {gaps}; first and last layers after step 1 "
+        f"within {worst:.3g} ({guarded} elements past rtol {SHARD_RTOL} / atol {SHARD_ATOL}, "
+        f"each with a one-process gradient under 1e-6); codes differing {frac:.6%}, Delta "
+        f"within {d_delta:.3g}")
+
+
+def shard_launches(method: str, bits: int, steps: int) -> dict:
+    """A rank's launches in a run of ``steps`` from its init (the table's
+    init through sr_round)."""
+    write_back = "sr_round" if method == "alpt" else (
+        "lpt_fused_update_packed" if bits < 8 else "lpt_fused_update")
+    want = {"sr_round": 1, "adam_update": steps}
+    want[write_back] = want.get(write_back, 0) + steps
+    return want
+
+
+def shard_trains(torch, dev, directory: pathlib.Path, runs: list, model: int) -> dict:
+    """18a / 18c: each run's twin (in turn, the card freed after each), then
+    one launch of ``1 x model`` ranks that run them in turn from the same
+    seeds and batches (each rank its shard of the one-process init, the
+    noise the rows' slice of the one-process draw), compared.  ``runs``
+    holds ``(label, cfg, seed, batches)``.  Returns the ranks' launches."""
+    twins = []
+    for label, cfg, seed, batches in runs:
+        _on_card(torch, dev, "reset_peak_memory_stats", dev)
+        twins.append(shard_twin(torch, dev, cfg, seed, batches, label))
+    t0 = time.perf_counter()
+    job = {"device": dev.type, "runs": [
+        {"kind": "train", "cfg": cfg, "seed": seed, "batches": batches,
+         "compare": (SHARD_COMPARE_MAX, SHARD_BLOCK_ROWS)} for _, cfg, seed, batches in runs]}
+    ranks = run_ranks(torch, directory, job, 1, model, "18a / 18c")
+    ranks_s = time.perf_counter() - t0
+    total = {}
+    for i, ((label, cfg, _, batches), twin) in enumerate(zip(runs, twins)):
+        outs = [r[i] for r in ranks]
+        want = shard_launches(cfg.embedding_method, cfg.embedding_bits, len(batches))
+        for r, o in enumerate(outs):
+            check(o["launches"] == want and o["fallbacks"] == [],
+                  f"{label} rank {r}: launches {o['launches']} (expected {want}), fallbacks "
+                  f"{o['fallbacks']}")
+            total = added(total, o["launches"])
+        compare_shard_run(torch, twin, outs, label, SHARD_LR)
+        tokens = tuple(batches[0]["labels"].shape)
+        log(f"[sharding] {label}: 1 x {model} gloo ranks on one card, {len(batches)} steps of "
+            f"{tokens[0]} x {tokens[1]} tokens: losses {outs[0]['losses']}; per rank: host clock "
+            + ", ".join(f"{statistics.mean(o['wall'][1:]):.1f} ms/step (first {o['wall'][0]:.1f})"
+                        for o in outs)
+            + f"; peak memory {[o['peak'] for o in outs]} B (the twin's {twin['peak']} B); "
+            f"launches {[o['launches'] for o in outs]}; rank 0 {outs[0]['times']} s; "
+            f"{card_name()}")
+    log(f"[sharding] 18a / 18c: the ranks' processes {ranks_s:.1f}s; {card_name()}")
+    return total
+
+
+def shard_cli(torch, dev, directory: pathlib.Path) -> dict:
+    """18b: ``train lm`` at 2 x 2 (four gloo ranks, the launcher's group)
+    against the CLI at 1 x 1, loss for loss; its checkpoint (written from
+    the gathered shards) restored in one process and cut to each rank's
+    coordinates equals, in every leaf, the live shards each rank saved
+    (their checksums taken as the CLI saves) and the shards each rank
+    restores on the grid under tp_sp; then one tp_sp step through the API, its loss against
+    its one-process twin's from the same state.  Returns the ranks'
+    launches."""
+    import gc
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.training import lm_trainer
+
+    argv = ["lm", *SHARD_CLI_MODEL, "--embedding-method", "lpt", "--steps", str(SHARD_CLI_STEPS), "--batch",
+            str(SHARD_CLI_BATCH), "--seq", str(SHARD_CLI_SEQ), "--log-every", "0"]
+    t0 = time.perf_counter()
+    ops.reset_kernel_calls()
+    rc, one, err = cli_json(train_mod.main, argv)
+    check(rc == 0, f"18b train lm at 1 x 1 exited {rc}: {err[-2000:]}")
+    total = ops.kernel_calls()
+    one_s = time.perf_counter() - t0
+    gc.collect()
+    _on_card(torch, dev, "empty_cache")
+    ckpt = directory / "ckpt"
+    cfg = shard_config(SHARD_ARCH, n_layers=SHARD_CLI_LAYERS, embedding_method="lpt")
+    batch = shard_batches(torch, cfg.vocab_size, 1, SHARD_CLI_BATCH, SHARD_CLI_SEQ, seed=23)[0]
+    job = {"device": dev.type, "runs": [{
+        "kind": "cli", "cfg": cfg, "ckpt": str(ckpt), "batch": batch,
+        "argv": argv + ["--mesh-data", "2", "--mesh-model", "2", "--ckpt-dir", str(ckpt),
+                        "--ckpt-every", str(SHARD_CLI_STEPS)]}]}
+    t0 = time.perf_counter()
+    ranks = [r[0] for r in run_ranks(torch, directory, job, 2, 2, "18b")]
+    ranks_s = time.perf_counter() - t0
+    report = ranks[0]["report"]
+    gaps = [abs(a - b) for a, b in zip(report["losses"], one["losses"])]
+    check(report["mesh_data"] == 2 and report["mesh_model"] == 2
+          and len(gaps) == SHARD_CLI_STEPS and max(gaps) < SHARD_LOSS_ATOL,
+          f"18b losses at 2 x 2 {report['losses']} against 1 x 1 {one['losses']}")
+    want = shard_launches("lpt", 8, SHARD_CLI_STEPS)
+    sp_want = SHARD_SP_LAUNCHES
+    for r, o in enumerate(ranks):
+        check(o["launches"] == want and o["fallbacks"] == [] and o["sp_launches"] == sp_want,
+              f"18b rank {r}: launches {o['launches']} (expected {want}), tp_sp step "
+              f"{o['sp_launches']}, fallbacks {o['fallbacks']}")
+        total = added(total, o["launches"], o["sp_launches"])
+    # The CLI's checkpoint restored in one process and cut to each rank's
+    # coordinates: every leaf the live shard the rank saved (so a faulty
+    # gather or write shows), and the shard the rank restored on the grid.
+    t_checks = time.perf_counter()
+    tcfg = lm_trainer.LMTrainerConfig()
+    state = lm_trainer.restore(CheckpointManager(ckpt), cfg, tcfg, device=dev)
+    pol = sharding.policy_from_name("tp_sp", model_size=2)
+    for r, o in enumerate(ranks):
+        mesh = HostMesh(shape={"data": 2, "model": 2}, coords={"data": r // 2, "model": r % 2},
+                        groups={"data": None, "model": None})
+        mine = sharding.shard_tree(state, lm_trainer.state_specs(cfg, tcfg, mesh, pol), mesh)
+        sums = state_checksums(torch, mine)
+        check("live_sums" in o and sums == o["live_sums"],
+              f"18b rank {r}: the one-process restore's shard differs from the live shard it "
+              f"saved")
+        check(sums == o["sums"],
+              f"18b rank {r}: its shard of the checkpoint differs from the one-process restore's")
+        del mine
+    # The tp_sp step's one-process twin from the same state.
+    state, m = lm_trainer.make_train_step(cfg, tcfg)(state, {k: v.to(dev)
+                                                            for k, v in batch.items()})
+    sp_gap = abs(float(m["loss"]) - ranks[0]["sp_loss"])
+    check(sp_gap < SHARD_LOSS_ATOL, f"18b tp_sp step loss {ranks[0]['sp_loss']} against the "
+                                    f"one-process {float(m['loss'])}")
+    del state
+    gc.collect()
+    _on_card(torch, dev, "empty_cache")
+    log(f"[sharding] 18b train lm {SHARD_ARCH} (d = 2,048, {SHARD_CLI_LAYERS} of 28 layers) "
+        f"LPT-8, {SHARD_CLI_STEPS} steps of {SHARD_CLI_BATCH} x {SHARD_CLI_SEQ}: 1 x 1 "
+        f"{one['losses']} ({one_s:.1f}s), 2 x 2 {report['losses']} (gaps {gaps}); 2 x 2 rank "
+        f"0 {report['ms_per_step']:.1f} ms/step after the first; its checkpoint restored in "
+        f"one process and cut to each rank equals, in every leaf, the live shards each rank "
+        f"saved and the shards each rank restored on the grid under tp_sp; one tp_sp step (loss {ranks[0]['sp_loss']}, "
+        f"one-process {float(m['loss'])}, gap {sp_gap:.3g}); peak memory per rank "
+        f"{[o['peak'] for o in ranks]} B; the ranks' processes {ranks_s:.1f}s, rank 0 "
+        f"{ranks[0]['times']} s; the checks here {time.perf_counter() - t_checks:.1f}s; "
+        f"{card_name()}")
+    return total
+
+
+def shard_kernels(torch, dev, err: dict) -> None:
+    """18d: sr_round and lpt_fused_update(_packed) on each rank's rows of
+    qwen3-1.7b's table (SHARD_TABLE, two row blocks) equal the one-process
+    call's rows bitwise, given the same operands (rung 1)."""
+    from repro_torch.core import quant
+    from repro_torch.core.codestore import CodeStore
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(180)
+    n, d = SHARD_TABLE
+    w = torch.randn(n, d, generator=g, device=dev) * 0.02
+    step = quant.init_step_size(w, 8)
+    noise = quant.sr_noise(g, (n, d))
+    upd = torch.randn(n, d, generator=g, device=dev)
+    half = n // 2
+    full = ops.sr_round(w, step, noise, 8)
+    for r in range(2):
+        rows = slice(r * half, (r + 1) * half)
+        got = ops.sr_round(w[rows].contiguous(), step[rows].contiguous(),
+                           noise[rows].contiguous(), 8)
+        check(torch.equal(got, full[rows]), f"18d sr_round: rank {r}'s rows differ")
+    for bits in (8, 4):
+        codes = CodeStore.from_codes(torch.clamp(full, *quant.code_bounds(bits)), bits)
+        whole = ops.lpt_update(codes, step, upd, noise, 3e-4, bits, weight_decay=5e-8)
+        for r in range(2):
+            rows = slice(r * half, (r + 1) * half)
+            shard = CodeStore(data=codes.data[rows].contiguous(), bits=codes.bits, n=half, d=d,
+                              packed=codes.packed)
+            got = ops.lpt_update(shard, step[rows].contiguous(), upd[rows].contiguous(),
+                                 noise[rows].contiguous(), 3e-4, bits, weight_decay=5e-8)
+            check(torch.equal(got.data, whole.data[rows]),
+                  f"18d lpt_fused_update bits={bits}: rank {r}'s rows differ")
+    _on_card(torch, dev, "synchronize")
+    log(f"[sharding] 18d sr_round (bits 8) and lpt_fused_update / lpt_fused_update_packed "
+        f"(bits 8, 4) on each of two row blocks of {n} x {d} equal the one-process call's rows "
+        "bitwise")
+    del w, noise, upd, full
+
+
+def sharding_phase(torch, dev, err: dict) -> dict:
+    """Phase 18: 18a qwen3-1.7b ALPT-8 at full width and depth on 1 x 2, 18b
+    the train lm CLI at 2 x 2 (with the tp_sp step and the checkpoint), 18c
+    mixtral-8x7b ALPT-8 at 1 layer with its experts over 2 ranks, 18d the
+    shard-local kernels.  Returns the ranks' launches (and 18b's 1 x 1 CLI)."""
+    import gc
+    import tempfile
+
+    gc.collect()
+    _on_card(torch, dev, "empty_cache")
+    t_phase = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as tmp:
+        root = pathlib.Path(tmp)
+        for sub in ("a", "b"):
+            (root / sub).mkdir()
+        qwen3, mixtral = shard_config(SHARD_ARCH), shard_config(SHARD_MOE_ARCH,
+                                                                 n_layers=SHARD_MOE_LAYERS)
+        runs = [("18a qwen3-1.7b ALPT-8 tp", qwen3, 181,
+                 shard_batches(torch, qwen3.vocab_size, SHARD_STEPS, SHARD_BATCH, SHARD_SEQ)),
+                ("18c mixtral-8x7b ALPT-8 tp, 4 experts a rank", mixtral, 183,
+                 shard_batches(torch, mixtral.vocab_size, SHARD_MOE_STEPS, SHARD_BATCH,
+                               SHARD_SEQ))]
+        total = added(total, shard_trains(torch, dev, root / "a", runs, 2))
+        log(f"[sharding] 18a and 18c: {time.perf_counter() - t_phase:.1f}s")
+        total = added(total, shard_cli(torch, dev, root / "b"))
+        log(f"[sharding] 18b: {time.perf_counter() - t_phase:.1f}s into phase 18")
+    shard_kernels(torch, dev, err)
+    gc.collect()
+    _on_card(torch, dev, "empty_cache")
+    log(f"[sharding] phase 18: launches {total}; {time.perf_counter() - t_phase:.1f}s; "
+        f"{card_name()}")
+    return total
+
+
+def sharding_only() -> int:
+    """Phase 18 alone:
+    ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.sharding_only())"``."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[chip_smoke] needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import device as device_mod
+    from repro_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    dev = device_mod.resolve("cuda")
+    for lib in _build.build():
+        _build.library(lib)
+    log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}; build "
+        f"{time.perf_counter() - t_start:.1f}s")
+    err = {k: 0.0 for k in KERNELS}
+    launches = sharding_phase(torch, dev, err)
+    check(set(launches) <= set(KERNELS), f"phase 18 launched {launches}")
+    log(f"[chip_smoke] phase 18 alone in {time.perf_counter() - t_start:.1f}s")
     return 0
 
 
@@ -5879,6 +6469,12 @@ def main() -> int:
     phase17, remat_tables = encoder_remat_phase(torch, np, dev, err)
     check(set(phase17) <= set(KERNELS), f"phase 17 launched {phase17}")
     launches = {k: launches[k] + phase17.get(k, 0) for k in KERNELS}
+    # 18. the sharding path: qwen3-1.7b on a 1 x 2 grid of gloo ranks at full
+    # width and depth, the train lm CLI at 2 x 2 with a tp_sp step and its
+    # checkpoint, mixtral-8x7b's experts over 2 ranks, the shard-local kernels.
+    phase18 = sharding_phase(torch, dev, err)
+    check(set(phase18) <= set(KERNELS), f"phase 18 launched {phase18}")
+    launches = {k: launches[k] + phase18.get(k, 0) for k in KERNELS}
     # sr_round_seeded has no main path (no caller in the JAX package but its
     # kernel test): its launches are its unbiasedness run's (phase 2e).
     launches["sr_round_seeded"] += wb_ops["seeded_launches"]

@@ -26,8 +26,11 @@ lists); the trainers' ``restore`` turn it into their states, and a
 restore given the config's ``spec`` refuses another config's table before
 any array loads.
 
-Single card, single process: elastic re-sharding (``shardings=``) comes with
-data parallelism.
+Re-sharding (``CheckpointManager.restore(shardings=)``): the files hold
+whole leaves, so a restore cuts each rank's shard for the mesh it runs on
+(``repro_torch.dist.sharding.shard_tree``), whatever mesh saved them; a
+save from shards gathers them first and rank 0 writes
+(``training.lm_trainer.save``).
 
 Observability, as the reference's: a save is one ``ckpt.save`` span and a
 restore one ``ckpt.restore`` span; the registry counts ``ckpt.saves``,
@@ -574,13 +577,20 @@ class CheckpointManager:
         return True
 
     def restore(self, step: int | None = None, device: str | torch.device = "cuda", *,
-                spec: Any = None):
+                spec: Any = None, shardings=None):
         """``(tree, manifest)`` of ``step`` (a corrupted artifact refused
         loudly) or, with ``step=None``, of the newest committed checkpoint
         that passes verification: corrupted ones are skipped, recorded in
         ``corrupt_steps``, and the walk falls back to the last good one.
         Given ``spec``, another config's table is refused, not skipped
-        (:func:`load_pytree`)."""
+        (:func:`load_pytree`).  ``shardings`` = ``(specs, mesh)``: each leaf
+        is cut to this rank's shard under its spec (a spec tree laid out as
+        the saved tree, ``repro_torch.dist.sharding.shard_tree``)."""
+        if shardings is not None:
+            from repro_torch.dist import sharding
+
+            tree, manifest = self.restore(step, device, spec=spec)
+            return sharding.shard_tree(tree, *shardings), manifest
         if step is not None:
             return load_pytree(self.directory, step=step, device=device, spec=spec)
         steps = _committed(self.directory)[::-1]

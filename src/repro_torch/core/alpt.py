@@ -26,6 +26,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core import lpt, quant
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.kernels import ops, ref
 
 
@@ -148,7 +149,7 @@ def dense_weight_update(table: lpt.LPTTable, grad_table: torch.Tensor, *, cfg: A
                         lr: float) -> DenseWeightUpdate:
     """Dense float weight update (Algorithm 1 line 2) without the write-back:
     the whole table de-quantized and stepped by the row optimizer."""
-    touched = torch.any(grad_table != 0.0, dim=-1)
+    touched = tp.rows_any(torch.any(grad_table != 0.0, dim=-1))
     count = table.count + 1
     w_new, mu_new, nu_new = lpt._row_update(
         table.codes.unpack().to(torch.float32), table.step, grad_table.to(torch.float32),
@@ -164,12 +165,13 @@ def dense_delta_grad(w_new: torch.Tensor, step_vec: torch.Tensor,
     *updated* table differentiated w.r.t. the step vector [n] (Eq. 7 through
     :func:`repro_torch.core.quant.fake_quant_lsq`).  A loss that does not read
     the table (an encoder's, from its frames) gives the zero gradient that
-    ``jax.grad`` gives."""
+    ``jax.grad`` gives.  A table sharded over d (``StepLayout.width_split``)
+    sums each row's partial gradient over the model ranks."""
     step_vec = step_vec.detach().clone().requires_grad_(True)
     with torch.enable_grad():
         table_q = quant.fake_quant_lsq(w_new.detach(), step_vec, cfg.bits, gscale)
         (g_step,) = grads_or_zeros(loss_fn_q(table_q), [step_vec])
-    return g_step
+    return tp.rows_sum(g_step)
 
 
 def grads_or_zeros(loss: torch.Tensor, inputs: list) -> list:

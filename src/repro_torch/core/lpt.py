@@ -35,6 +35,7 @@ import torch
 from repro_torch.core import quant
 from repro_torch.core.codestore import CodeStore, in_range_rows, is_packable, packed_width
 from repro_torch.core.tiered import TieredCodes
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.kernels import ops, ref
 
 
@@ -336,7 +337,8 @@ def dense_apply(table: LPTTable, grad_table: torch.Tensor, *, lr: float, bits: i
     """Dense LPT update: the whole table stepped, touched rows kept.
 
     A row is touched iff any element of its gradient ``grad_table`` f32
-    [n, d] is nonzero; untouched rows keep their codes, Adam slots and Delta
+    [n, d] is nonzero (on any model rank, for a table sharded over d:
+    ``tp.rows_any``); untouched rows keep their codes, Adam slots and Delta
     bit-identical.  ``noise`` f32 [n, d] is the SR noise (the reference's
     ``sr_noise(noise_key, (n, d))``); ``lr`` a float32 value.
 
@@ -346,7 +348,7 @@ def dense_apply(table: LPTTable, grad_table: torch.Tensor, *, lr: float, bits: i
     never built).  DR takes the plain path below, counted as a fallback
     (``ops.fallbacks()``); the two paths are bitwise equal.
     """
-    touched = torch.any(grad_table != 0.0, dim=-1)
+    touched = tp.rows_any(torch.any(grad_table != 0.0, dim=-1))
     count = table.count + 1
     step = table.step if new_step is None else new_step
     if rounding == "sr" and noise is None:

@@ -1,0 +1,295 @@
+"""Tensor and sequence parallelism on explicit shards: the collectives that
+stand where the reference's ``hint``\\ s let GSPMD place them.
+
+A rank of a ``(data, model)`` mesh (:mod:`repro_torch.launch.mesh`) holds
+its shard of every leaf (:func:`repro_torch.dist.sharding.shard_tree`) and
+runs the one-process model code on it; with a context active
+(:func:`repro_torch.dist.context.use`) and a model axis larger than 1, the
+model calls these at the reference's hint sites:
+
+* :func:`enter` before a column-parallel projection (``q_heads`` /
+  ``kv_heads``, an MLP's in-projections, the routed experts): identity
+  forward / all-reduce backward (Megatron's *f*), after an all-gather along
+  T under sequence parallelism (``carry``; backward: the rank's slice);
+* :func:`leave` after a row-parallel one (``wo``, ``w_down``, the expert
+  combine): all-reduce forward / identity backward (*g*), then the rank's
+  slice of T under sequence parallelism (backward: all-gather).  A bias on
+  the output is added once, after it;
+* :func:`embed_rows` (``embed_table``): a vocab shard gives zero rows for
+  ids outside it, then *g*; a shard over d is all-gathered along d;
+* :func:`token_losses` (``head_weight`` / ``logits``): a vocab shard's
+  logits go through a vocab-parallel cross-entropy (a MAX, then a SUM of
+  exp, then the label's logit from the rank that holds it); a shard over d
+  contracts its columns and all-reduces the logits;
+* :func:`partial_weight`: a replicated weight that reads this rank's
+  block of T (the norms under sequence parallelism) or its heads (QK-norm)
+  gets the model ranks' summed gradient (*f* on the weight);
+* :func:`rows_any` / :func:`rows_sum`: a table sharded over d reduces a
+  row's touched flag and its Delta gradient over the model group;
+* :func:`batch_mean`: a batch statistic that is not a mean of per-token
+  terms (the MoE load-balance loss) takes the whole batch's over a split
+  data axis.
+
+No context, or a model axis of 1: every function is the identity and no
+collective runs.  Every collective is ``all_reduce`` (SUM, MAX) or
+``all_gather`` on the model group, the two that gloo takes on CUDA tensors
+(several ranks on one card, where NCCL refuses); a reduce-scatter is an
+all-reduce followed by the rank's slice.  All ranks run the same backward
+graph, so they reach the collectives in the same order.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.dist import context as dist_ctx
+
+
+def active():
+    """The active context when its mesh has a model axis > 1, else None."""
+    ctx = dist_ctx.current()
+    if ctx is None or ctx.mesh.shape.get("model", 1) <= 1:
+        return None
+    return ctx
+
+
+def _group():
+    return dist_ctx.current().mesh.groups["model"]
+
+
+def model_rank() -> int:
+    ctx = active()
+    return 0 if ctx is None else int(ctx.mesh.coords["model"])
+
+
+def seq_split(shape) -> bool:
+    """Whether the ``carry`` [B, T, d] of this whole ``shape`` is split over
+    T (a sequence-parallel policy, T divisible by the model axis)."""
+    ctx = active()
+    if ctx is None:
+        return False
+    spec = dist_ctx.spec_of("carry", shape)
+    return spec is not None and spec[1] is not None
+
+
+# --------------------------------------------------------------- autograd ops
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _own_slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    k = x.shape[dim] // n
+    return x.narrow(dim, dist.get_rank(group) * k, k).contiguous()
+
+
+class _GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_slice(g, ctx.dim, ctx.group), None, None
+
+
+class _SliceAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _own_slice(x, dim, group).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group), None, None
+
+
+def copy_to_model(x):
+    """Identity forward, all-reduce (SUM) of the gradient over the model group."""
+    return x if active() is None else _CopyToModel.apply(x, _group())
+
+
+def reduce_from_model(x):
+    """All-reduce (SUM) forward over the model group, identity backward."""
+    return x if active() is None else _ReduceFromModel.apply(x, _group())
+
+
+def gather_along(x, dim: int):
+    """The model ranks' blocks concatenated along ``dim``; backward: the
+    rank's block of the gradient."""
+    return x if active() is None else _GatherAlong.apply(x, dim % x.ndim, _group())
+
+
+def slice_along(x, dim: int):
+    """The rank's block of ``x`` along ``dim``; backward: the ranks'
+    gradients all-gathered."""
+    return x if active() is None else _SliceAlong.apply(x, dim % x.ndim, _group())
+
+
+def partial_weight(w, partial: bool):
+    """A replicated weight that reads only this rank's part of its input
+    (``partial``: QK-norm over the rank's heads, a norm over its block of
+    T under sequence parallelism): its gradient is the model ranks' sum."""
+    return copy_to_model(w) if partial else w
+
+
+def enter(y, sharded: bool, seq: bool):
+    """Into a column-parallel sub-layer: the whole sequence (``seq``), then
+    *f* when the sub-layer's weights are sharded."""
+    if seq:
+        y = gather_along(y, 1)
+    return copy_to_model(y) if sharded else y
+
+
+def leave(o, sharded: bool, seq: bool):
+    """Out of a row-parallel sub-layer: *g* when its weights are sharded,
+    then the rank's block of the sequence (``seq``)."""
+    if sharded:
+        o = reduce_from_model(o)
+    return slice_along(o, 1) if seq else o
+
+
+# ------------------------------------------------------------ vocab shards
+
+
+def embed_rows(table: torch.Tensor, ids: torch.Tensor, vocab: int, width: int) -> torch.Tensor:
+    """Rows of ``ids`` from this rank's shard of the [vocab, width] table:
+    a block of rows gives zeros for the ids it does not hold and the model
+    ranks' rows are summed; a block of columns is all-gathered along d."""
+    rows, cols = table.shape
+    if active() is None or (rows == vocab and cols == width):
+        return table[ids]
+    if rows < vocab:
+        local = ids.long() - model_rank() * rows
+        inside = (local >= 0) & (local < rows)
+        out = torch.where(inside[..., None], table[local.clamp(0, rows - 1)], 0.0)
+        return reduce_from_model(out)
+    return gather_along(table[ids], -1)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token ``logsumexp(logits) - logits[label]`` over vocab shards:
+    ``logits`` [N, V/m] this rank's columns ``[r0, r0 + V/m)``."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, r0, group):
+        v = logits.shape[-1]
+        lmax = logits.max(dim=-1).values
+        dist.all_reduce(lmax, op=dist.ReduceOp.MAX, group=group)
+        shifted = logits - lmax[..., None]
+        e = torch.exp(shifted)
+        total = e.sum(dim=-1)
+        dist.all_reduce(total, group=group)
+        local = labels.long() - r0
+        inside = (local >= 0) & (local < v)
+        idx = local.clamp(0, v - 1)
+        gold = torch.where(inside, shifted.gather(-1, idx[..., None])[..., 0], 0.0)
+        dist.all_reduce(gold, group=group)
+        e.div_(total[..., None])  # this rank's columns of the softmax
+        ctx.save_for_backward(e, idx, inside)
+        return torch.log(total) - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        softmax, idx, inside = ctx.saved_tensors
+        grad = softmax.clone()
+        grad.scatter_add_(-1, idx[..., None], -inside.to(grad.dtype)[..., None])
+        return grad * g[..., None], None, None, None
+
+
+def token_losses(w: torch.Tensor, h: torch.Tensor, labels: torch.Tensor, vocab: int,
+                 logits_of) -> torch.Tensor | None:
+    """``logsumexp - gold`` per token of ``h`` [..., d] against this rank's
+    shard of the head ``w`` (``logits_of(w, h)`` the plain contraction), or
+    None when the head is whole (the caller's plain path)."""
+    rows, cols = w.shape
+    if active() is None or (rows == vocab and cols == h.shape[-1]):
+        return None
+    if rows < vocab:
+        logits = logits_of(w, copy_to_model(h))
+        return _VocabParallelCE.apply(logits, labels, model_rank() * rows, _group())
+    logits = reduce_from_model(logits_of(w, slice_along(h, -1)))
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+# ------------------------------------------------- the step's layout
+
+
+def _layout() -> dist_ctx.StepLayout:
+    ctx = dist_ctx.current()
+    return dist_ctx.StepLayout() if ctx is None else ctx.layout
+
+
+def rows_any(mask: torch.Tensor) -> torch.Tensor:
+    """A row's flag set on any model rank (a row touched in another rank's
+    columns is touched) when the table is sharded over d, else ``mask``."""
+    if not (_layout().width_split and active() is not None):
+        return mask
+    t = mask.to(torch.float32)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_group())
+    return t > 0
+
+
+def rows_sum(g: torch.Tensor) -> torch.Tensor:
+    """A per-row sum over the model ranks' columns (ALPT's Delta gradient)
+    when the table is sharded over d, else ``g``."""
+    if not (_layout().width_split and active() is not None):
+        return g
+    g = g.contiguous().clone()
+    dist.all_reduce(g, group=_group())
+    return g
+
+
+class _DataMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y * (1.0 / n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the data ranks of a statistic of the batch (the MoE
+    load-balance loss's token shares and mean router probabilities), so a
+    split batch gives the whole batch's; its gradient passes as it is, each
+    rank's share of the whole batch's gradient before the step's data-axis
+    mean.  ``x`` itself when the batch is not split."""
+    ctx = dist_ctx.current()
+    if ctx is None or not _layout().batch_split or ctx.mesh.shape.get("data", 1) <= 1:
+        return x
+    return _DataMean.apply(x, ctx.mesh.groups["data"], int(ctx.mesh.shape["data"]))

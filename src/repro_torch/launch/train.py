@@ -44,10 +44,22 @@ and ``--mesh-data`` must equal ``WORLD_SIZE``.  ``--mesh-data 1`` without
 ``torchrun`` makes a one-rank group itself.  Rank 0 logs and saves; every
 rank restores the same checkpoint (the state is replicated, so a checkpoint
 of one ``--mesh-data`` resumes at another); on SIGTERM the ranks agree on
-the step to stop at before rank 0 saves and all exit 75.  ``--mesh-model``
-other than 1 and ``--mesh-data`` > 1 without ``--dp-compress-bits`` are the
-reference's GSPMD sharding path (ROADMAP A13b), refused here, as is
-``--dp-compress-bits`` for a mixed-input arch (the reference refuses it).
+the step to stop at before rank 0 saves and all exit 75.
+``--dp-compress-bits`` refuses a mixed-input arch (as the reference does).
+
+Sharded (``lm``, the reference's GSPMD path): without
+``--dp-compress-bits``, ``--mesh-data D --mesh-model M`` trains on a
+``D x M`` grid of ranks (``repro_torch.launch.mesh``; ``D * M`` processes
+under ``torch.distributed.run``, or ranks whose launcher made the default
+group) under ``--policy`` (``tp``, the reference CLI's, or ``tp_sp``): the
+state follows ``state_pspecs`` (each rank its shard of the one-process
+init), the batch ``batch_pspecs`` (a batch the data axis does not divide is
+replicated and still trains), and the step is donated.  Every rank saves
+through the gather and rank 0 writes whole leaves; a resume cuts each
+rank's shard for this mesh, whatever mesh saved the checkpoint.  Exit 2:
+a world size that is not ``D * M``, an fsdp / dp / ep policy, mamba blocks
+or a method other than fp / lpt / alpt under ``--mesh-model`` > 1 (ROADMAP
+A13c).
 
 Storage tiers (``ctr``): ``--zipf`` trains on the reference's Zipf(1.1)
 skewed-traffic fixture (:data:`CTR_ZIPF_DATA`: 8 fields, 4,092 rows) in
@@ -98,7 +110,10 @@ from repro_torch.checkpoint.manager import check_embedding_manifest, config_hash
 from repro_torch.configs import dcn_ctr
 from repro_torch.data.ctr_synth import CTRDatasetConfig, CTRSynthetic
 from repro_torch.data.lm_synth import LMTokenStream
+from repro_torch.dist import context as dist_ctx
+from repro_torch.dist import sharding
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import HostMesh, make_host_mesh
 from repro_torch.models import ctr as ctr_models
 from repro_torch.obs import counters as obs_counters
 from repro_torch.obs.stats import StreamingQuantiles
@@ -400,27 +415,51 @@ def _run_ctr(args) -> int:
     return 0
 
 
+def _world() -> int | None:
+    """The ranks of the default group (a launcher's), else ``WORLD_SIZE``."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    world = os.environ.get("WORLD_SIZE")
+    return None if world is None else int(world)
+
+
 def check_mesh(parser: argparse.ArgumentParser, args) -> None:
     """The reference's checks of the mesh flags (``repro/launch/train.py:298``),
-    and the port's: the sharded (GSPMD) path is ROADMAP A13b, and N ranks
-    are N processes under ``torch.distributed.run``."""
+    and the port's: N ranks are N processes, and the sharded step's
+    refusals (``lm_trainer.check_shardable``, ROADMAP A13c)."""
     dp_mode = args.dp_compress_bits is not None
-    if args.mesh_model != 1:
-        if dp_mode:
-            parser.error("--dp-compress-bits is pure data parallelism; use --mesh-model 1")
-        parser.error("--mesh-model > 1 is the reference's GSPMD sharding policy, not ported "
-                     "(ROADMAP A13b)")
-    if args.mesh_data < 1:
-        parser.error(f"--mesh-data must be >= 1, got {args.mesh_data}")
-    if args.mesh_data > 1 and not dp_mode:
-        parser.error("--mesh-data > 1 without --dp-compress-bits is the reference's GSPMD "
-                     "sharding policy, not ported (ROADMAP A13b); pass --dp-compress-bits 32 "
-                     "for exact data parallelism")
+    if args.mesh_data < 1 or args.mesh_model < 1:
+        parser.error(f"mesh axes must be >= 1, got --mesh-data {args.mesh_data} "
+                     f"--mesh-model {args.mesh_model}")
+    if dp_mode and args.mesh_model != 1:
+        parser.error("--dp-compress-bits is pure data parallelism; use --mesh-model 1")
+    if dp_mode and args.policy != "tp":
+        parser.error("--policy is the sharded path's; --dp-compress-bits replicates the state")
+    world = _world()
+    if not dp_mode:
+        n = args.mesh_data * args.mesh_model
+        if world is not None and world != n:
+            parser.error(f"a {args.mesh_data} x {args.mesh_model} mesh needs {n} ranks; "
+                         f"WORLD_SIZE is {world}")
+        if world is None and n > 1:
+            parser.error(f"a {args.mesh_data} x {args.mesh_model} mesh takes {n} processes: "
+                         f"run under python -m torch.distributed.run --standalone "
+                         f"--nproc-per-node {n}")
+        shape = {"data": args.mesh_data, "model": args.mesh_model}
+        try:
+            lm_trainer.check_shardable(
+                lm_config(args), lm_trainer.LMTrainerConfig(pad_to_tiles=args.pad_to_tiles,
+                                                            guard=args.guard),
+                HostMesh(shape=shape, coords={"data": 0, "model": 0},
+                         groups={"data": None, "model": None}),
+                sharding.policy_from_name(args.policy, model_size=args.mesh_model))
+        except ValueError as err:
+            parser.error(str(err))
+        return
     if dp_mode and args.dp_compress_bits != 32 and not 2 <= args.dp_compress_bits <= 8:
         parser.error("--dp-compress-bits must be 32 (exact) or in [2, 8] (SR-compressed), "
                      f"got {args.dp_compress_bits}")
-    world = os.environ.get("WORLD_SIZE")
-    if dp_mode and world is not None and int(world) != args.mesh_data:
+    if dp_mode and world is not None and world != args.mesh_data:
         parser.error(f"--mesh-data {args.mesh_data} != WORLD_SIZE {world} of torch.distributed.run")
     if dp_mode and world is None and args.mesh_data > 1:
         parser.error(f"--mesh-data {args.mesh_data} takes {args.mesh_data} processes: run under "
@@ -452,22 +491,28 @@ def _join_group(device: torch.device) -> torch.device:
 
 def _run_lm(args) -> int:
     device = device_mod.resolve(args.device)
-    if args.dp_compress_bits is None:
+    if args.dp_compress_bits is None and args.mesh_data * args.mesh_model == 1:
         return _train_lm(args, device)
-    if args.mesh_data == 1 and args.dp_compress_bits != 32:
+    if args.dp_compress_bits is not None and args.mesh_data == 1 and args.dp_compress_bits != 32:
         print("[train] WARNING: --dp-compress-bits < 32 with --mesh-data 1 injects "
               "quantization noise with nothing to communicate")
+    made = not dist.is_initialized()
     device = _join_group(device)
     try:
         return _train_lm(args, device)
     finally:
-        dist.destroy_process_group()
+        if made:  # a launcher's group stays its own
+            dist.destroy_process_group()
 
 
 def lm_config(args):
     """The ``--arch`` config the LM scenario runs (``--smoke``: its reduced
-    one; ``--embedding-method`` overrides its method)."""
-    cfg = configs.smoke_config(args.arch) if args.smoke else configs.full_config(args.arch)
+    one; ``--layers``: the full one's depth cut; ``--embedding-method``
+    overrides its method)."""
+    if args.smoke:
+        cfg = configs.smoke_config(args.arch)
+    else:
+        cfg = configs.full_config(args.arch, **({"n_layers": args.layers} if args.layers else {}))
     if args.embedding_method:
         cfg = dataclasses.replace(cfg, embedding_method=args.embedding_method)
     return cfg
@@ -498,7 +543,20 @@ def lm_batch(cfg, data: LMTokenStream, step: int, batch: int, seq: int,
 
 def _train_lm(args, device: torch.device) -> int:
     dp_mode = args.dp_compress_bits is not None
-    rank = dist.get_rank() if dp_mode else 0
+    mesh = None
+    if not dp_mode and args.mesh_data * args.mesh_model > 1:
+        mesh = make_host_mesh(args.mesh_data, args.mesh_model)
+        pol = sharding.policy_from_name(args.policy, model_size=args.mesh_model)
+        with dist_ctx.use(mesh, pol):
+            return _train_lm_in(args, device, mesh)
+    return _train_lm_in(args, device, None)
+
+
+def _train_lm_in(args, device: torch.device, mesh) -> int:
+    """The ``lm`` scenario's run, under the caller's sharding context when
+    ``mesh`` is given."""
+    dp_mode = args.dp_compress_bits is not None
+    rank = dist.get_rank() if dp_mode or mesh is not None else 0
     say = print if rank == 0 else (lambda *a, **k: None)
     cfg = lm_config(args)
     tcfg = lm_trainer.LMTrainerConfig(lr=args.lr, use_kernels=not args.no_kernels,
@@ -518,6 +576,11 @@ def _train_lm(args, device: torch.device) -> int:
         state = lm_trainer.init_state(cfg, tcfg, seed=0, device=device)
     agree = bool
     wire = None
+    if dp_mode or mesh is not None:
+        def agree(flag: bool) -> bool:  # the ranks stop at the same step
+            t = torch.tensor([float(flag)], device=device)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX)
+            return bool(t.item())
     if dp_mode:
         step_fn = data_parallel.make_lm_dp_step(cfg, tcfg)
         wire = data_parallel.wire_report(data_parallel.lm_grad_shapes(cfg, tcfg, state),
@@ -525,11 +588,6 @@ def _train_lm(args, device: torch.device) -> int:
         say(f"[train] dp sync_bits={tcfg.dp_sync_bits} "
             f"wire_bytes/step={wire['wire_bytes_per_step']} "
             f"({wire['compression_ratio']:.2f}x vs fp32)")
-
-        def agree(flag: bool) -> bool:  # the ranks stop at the same step
-            t = torch.tensor([int(flag)], device=device)
-            dist.all_reduce(t, op=dist.ReduceOp.MAX)
-            return bool(t.item())
     else:
         # The host-side refresh (prune's mask); the identity for other methods.
         # The step is donated, as the reference's CLI jits it with
@@ -555,8 +613,8 @@ def _train_lm(args, device: torch.device) -> int:
                 f"{' STRAGGLER' if slow else ''}")
         return state, loss, dt * 1e3
 
-    def save(state, force):
-        return (bool(manager) and rank == 0
+    def save(state, force):  # sharded: every rank gathers, rank 0 writes
+        return (bool(manager) and (rank == 0 or mesh is not None)
                 and lm_trainer.save(manager, cfg, state, tcfg, force=force))
 
     start = state.step
@@ -580,6 +638,8 @@ def _train_lm(args, device: torch.device) -> int:
         report["kernel_fallbacks"] = ops.fallback_stats()["total_fallbacks"]
     if wire is not None:
         report.update(mesh_data=dist.get_world_size(), **wire)
+    if mesh is not None:
+        report.update(mesh_data=args.mesh_data, mesh_model=args.mesh_model, policy=args.policy)
     if manager and manager.corrupt_steps:
         report["corrupt_checkpoints"] = manager.corrupt_steps
     if guard_stats is not None:
@@ -637,6 +697,8 @@ def main(argv=None) -> int:
                                    "quantized vocab table")
     lm.add_argument("--arch", choices=sorted(configs.ARCHS), default="smollm-135m")
     lm.add_argument("--smoke", action="store_true", help="the reduced config of --arch")
+    lm.add_argument("--layers", type=int, default=None,
+                    help="cut the full config's depth to this many layers (width kept)")
     lm.add_argument("--steps", type=int, default=100)
     lm.add_argument("--batch", type=int, default=8)
     lm.add_argument("--seq", type=int, default=128)
@@ -651,10 +713,13 @@ def main(argv=None) -> int:
     lm.add_argument("--log-every", type=int, default=10)
     lm.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     lm.add_argument("--mesh-data", type=int, default=1,
-                    help="data-parallel ranks (with --dp-compress-bits; N > 1 under "
-                         "torch.distributed.run)")
+                    help="data-parallel ranks (N > 1 under torch.distributed.run)")
     lm.add_argument("--mesh-model", type=int, default=1,
-                    help="tensor-parallel ranks: only 1 (the sharded path is not ported)")
+                    help="tensor-parallel ranks of the sharded path (data x model processes)")
+    lm.add_argument("--policy", default="tp",
+                    choices=("tp", "tp_sp", "fsdp_tp", "fsdp_tp_sp", "fsdp_tp_ep", "tp_ep", "dp"),
+                    help="sharding policy of the sharded path (executed: tp, tp_sp; the "
+                         "fsdp / dp / ep ones exit 2 on any mesh)")
     lm.add_argument("--dp-compress-bits", type=int, default=None, metavar="BITS",
                     help="data-parallel mode: replicate the state over --mesh-data ranks and "
                          "sync gradients at this width (32 = exact fp32 mean, 2..8 = "

@@ -25,6 +25,7 @@ from repro_torch.core import lpt as lpt_core
 from repro_torch.core import quant
 from repro_torch.core.alpt import ALPTConfig
 from repro_torch.core.pruning import PruneConfig
+from repro_torch.dist.sharding import P
 from repro_torch.kernels import ref
 from repro_torch.optim import adam_update, tree_leaves, tree_like
 from repro_torch.serving import table as serving_tbl
@@ -237,6 +238,19 @@ class EmbeddingMethod(abc.ABC):
         integer codes inside the state.  Float-leaf methods have none."""
         return ()
 
+    # -------------------------------------------------- sharding
+
+    def table_pspec(self, row, col, *, row_optimizer: str = "adam"):
+        """Spec tree mirroring the state (:mod:`repro_torch.dist.sharding`);
+        ``row`` / ``col`` are the mesh-axis entries the caller chose
+        (divisibility-guarded)."""
+        return P(row, col)
+
+    def param_pspec(self, row, col):
+        """Spec tree mirroring ``trainable_params`` (None for integer tables:
+        they carry no float-leaf optimizer state)."""
+        return P(row, col)
+
     def fused_row_step(self, state: Any, ids: torch.Tensor, *, spec: EmbeddingSpec,
                        loss_from_rows: Callable, dense_params: list,
                        update_dense: Callable, lr: float, weight_decay: float,
@@ -277,6 +291,9 @@ class IntegerTableMethod(EmbeddingMethod):
     def checkpoint_schema(self, spec):
         return lpt_core.schema(spec.n_padded, spec.d_padded, spec.bits,
                                optimizer=spec.row_optimizer, packed=spec.packed)
+
+    def param_pspec(self, row, col):
+        return None
 
     @abc.abstractmethod
     def dense_table(self, state: Any, spec: EmbeddingSpec) -> torch.Tensor:

@@ -9,6 +9,7 @@ hands codes + Delta to the serving Engine as they are.
 from __future__ import annotations
 
 from repro_torch.core import lpt as lpt_core
+from repro_torch.dist.sharding import P
 from repro_torch.methods.base import IntegerTableMethod, pad_grads, register
 
 
@@ -16,6 +17,10 @@ from repro_torch.methods.base import IntegerTableMethod, pad_grads, register
 class LPTMethod(IntegerTableMethod):
     # Vanilla LPT fixes Delta from the tuned clip value; ALPT overrides this.
     _clip_value_of = staticmethod(lambda spec: spec.clip_value)
+
+    def table_pspec(self, row, col, *, row_optimizer="adam"):
+        slot = P(row, col) if row_optimizer == "adam" else P(row)
+        return lpt_core.LPTTable(codes=P(row, col), step=P(row), mu=slot, nu=slot, count=P())
 
     def init(self, generator, spec):
         return lpt_core.init_table(

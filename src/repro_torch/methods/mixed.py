@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.core import lpt as lpt_core
 from repro_torch.core import quant
+from repro_torch.dist.sharding import P
 from repro_torch.methods.base import TILE, IntegerTableMethod, _round_up, pad_grads, register
 from repro_torch.serving import table as serving_tbl
 from repro_torch.storage.base import CacheSlot
@@ -115,6 +116,13 @@ def _map_ids(plan: MixedPlan, ids: torch.Tensor):
 class MixedMethod(IntegerTableMethod):
     def noise_draws(self, spec):
         return len(plan_of(spec).group_bits)
+
+    def table_pspec(self, row, col, *, row_optimizer="adam"):
+        # Group row counts rarely divide the mesh axes; stay replicated (the
+        # degenerate single-group layout, the only one a spec without
+        # field_cards makes).
+        sub = lpt_core.LPTTable(codes=P(), step=P(), mu=P(), nu=P(), count=P())
+        return MixedTable(subs=(sub,))
 
     def sparse_noise(self, noise):
         return list(noise)

@@ -4,6 +4,7 @@ trainer recomputes every ``spec.prune.update_every`` steps."""
 from __future__ import annotations
 
 from repro_torch.core import pruning
+from repro_torch.dist.sharding import P
 from repro_torch.methods.base import EmbeddingMethod, register
 
 
@@ -19,6 +20,12 @@ class PruneMethod(EmbeddingMethod):
 
     def trainable_params(self, state, spec):
         return {"weights": state.weights}
+
+    def table_pspec(self, row, col, *, row_optimizer="adam"):
+        return pruning.PruneState(weights=P(row, col), mask=P(row, col), step=P())
+
+    def param_pspec(self, row, col):
+        return {"weights": P(row, col)}
 
     def with_params(self, state, params, spec):
         return state._replace(weights=params["weights"])

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from repro_torch.core import qat as qat_core
 from repro_torch.core.codestore import CodeStore
+from repro_torch.dist.sharding import P
 from repro_torch.methods.base import EmbeddingMethod, register
 from repro_torch.serving import table as serving_tbl
 
@@ -24,6 +25,12 @@ class _QATMethod(EmbeddingMethod):
 
     def trainable_params(self, state, spec):
         return {"weights": state.weights, "scale": state.scale}
+
+    def table_pspec(self, row, col, *, row_optimizer="adam"):
+        return qat_core.QATTable(weights=P(row, col), scale=P(row))
+
+    def param_pspec(self, row, col):
+        return {"weights": P(row, col), "scale": P(row)}
 
     def with_params(self, state, params, spec):
         return qat_core.QATTable(weights=params["weights"], scale=params["scale"])

@@ -4,6 +4,7 @@ element-wise product."""
 from __future__ import annotations
 
 from repro_torch.core import hashing
+from repro_torch.dist.sharding import P
 from repro_torch.methods.base import EmbeddingMethod, register
 
 
@@ -18,6 +19,13 @@ class QRHashMethod(EmbeddingMethod):
 
     def trainable_params(self, state, spec):
         return hashing.qr_params(state)
+
+    def table_pspec(self, row, col, *, row_optimizer="adam"):
+        # Sub-table row counts rarely divide the mesh axes; stay replicated.
+        return hashing.QRTable(remainder=P(), quotient=P(), r=P())
+
+    def param_pspec(self, row, col):
+        return {"remainder": P(), "quotient": P()}
 
     def with_params(self, state, params, spec):
         return hashing.QRTable(remainder=params["remainder"], quotient=params["quotient"],

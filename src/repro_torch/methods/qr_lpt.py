@@ -27,6 +27,7 @@ from repro_torch.core import alpt as alpt_core
 from repro_torch.core import hashing
 from repro_torch.core import lpt as lpt_core
 from repro_torch.core import quant
+from repro_torch.dist.sharding import P
 from repro_torch.kernels import ops
 from repro_torch.methods.base import TILE, IntegerTableMethod, _round_up, pad_grads, register
 from repro_torch.serving import table as serving_tbl
@@ -52,6 +53,11 @@ def _split(state: QRLPTTable, ids: torch.Tensor):
 class QRLPTMethod(IntegerTableMethod):
     def noise_draws(self, spec):
         return 2
+
+    def table_pspec(self, row, col, *, row_optimizer="adam"):
+        # Sub-table row counts rarely divide the mesh axes; stay replicated.
+        sub = lpt_core.LPTTable(codes=P(), step=P(), mu=P(), nu=P(), count=P())
+        return QRLPTTable(remainder=sub, quotient=sub, r=P())
 
     def sparse_noise(self, noise):
         return list(noise)

@@ -300,10 +300,12 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 
 def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,
-             b_out: torch.Tensor) -> torch.Tensor:
+             b_out: torch.Tensor, reduce=None) -> torch.Tensor:
     """Encoder MLP: out( gelu(x @ in + b_in) ) + b_out, with ``jax.nn.gelu``'s
-    default, the tanh approximation."""
-    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+    default, the tanh approximation; ``reduce`` (a model shard's all-reduce)
+    goes between the out-projection and its bias."""
+    out = F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out
+    return (out if reduce is None else reduce(out)) + b_out
 
 
 # ----------------------------------------------------------------- init

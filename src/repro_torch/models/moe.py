@@ -21,8 +21,16 @@ Where the reference differs only by its framework:
   written (``index_put`` raises on an out-of-range index).  Kept pairs hold
   distinct slots, so writing them equals adding them into zeros.
 
-Expert parallelism (the reference's ``moe_forward_ep``) comes with GSPMD
-sharding (ROADMAP A13b).
+Expert shards (the reference's ``moe_buf`` hints under a ``tp`` policy):
+when this rank holds ``E/m`` of the experts (``repro_torch.dist``), the
+router and the dispatch run as above on every model rank, the rank runs
+its experts on its slice of the buffer and combines their gate-weighted
+outputs, and one all-reduce over the model group sums the ranks'.  The
+router and the shared experts are replicated and count once.  One body
+serves both: with every expert on the rank, the slice is the whole buffer
+and the collectives are the identity.  The
+reference's explicit expert-parallel dispatch (``moe_forward_ep``, the
+``ep`` policies) is ROADMAP A13c.
 """
 from __future__ import annotations
 
@@ -32,6 +40,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist import tensor_parallel as tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,9 +102,21 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 def moe_forward(params: dict[str, Any], x: torch.Tensor, cfg: MoEConfig
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [B, S, d] -> ``(y [B, S, d], aux_loss scalar)``."""
+    """x [B, S, d] -> ``(y [B, S, d], aux_loss scalar)``.
+
+    On a rank that holds experts ``[e0, e0 + E/m)`` (``params``' expert
+    stacks shorter than ``E``), the routing and places are the whole
+    model's, the rank runs its experts on its pairs, and their gate-weighted
+    sum is all-reduced over the model group; the experts' input and the
+    gates enter through ``tp.enter`` (each rank's gradient covers its
+    experts only), while the router and the shared experts read ``x`` as it
+    is (their gradients are whole on every rank).  With every expert here,
+    ``e0`` is 0 and the collectives are the identity."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    el = params["w_gate"].shape[0]
+    split = el < e
+    e0 = tp.model_rank() * el if split else 0
     c = capacity(cfg, s)
 
     logits = x.to(torch.float32) @ params["router"]  # [B, S, E]
@@ -108,32 +130,36 @@ def moe_forward(params: dict[str, Any], x: torch.Tensor, cfg: MoEConfig
     oh = F.one_hot(flat_e, e)  # [B, S*k, E]
     pos = torch.cumsum(oh, dim=1) - oh  # exclusive prefix count
     flat_p = (pos * oh).sum(-1)  # [B, S*k]
-    keep = flat_p < c
+    keep = (flat_p < c) & (flat_e >= e0) & (flat_e < e0 + el)  # kept, and this rank's
 
-    # Dispatch the kept pairs into [B, E, C, d].
-    x_rep = x[:, :, None, :].expand(b, s, k, d).reshape(b, s * k, d)
+    # Dispatch the kept pairs into [B, E/m, C, d].
+    x_e = tp.enter(x, split, False)
+    x_rep = x_e[:, :, None, :].expand(b, s, k, d).reshape(b, s * k, d)
     bidx = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
-    buf = x.new_zeros((b, e, c, d)).index_put(
-        (bidx[keep], flat_e[keep], flat_p[keep]), x_rep[keep])
+    local_e = torch.clamp(flat_e - e0, 0, el - 1)
+    buf = x.new_zeros((b, el, c, d)).index_put(
+        (bidx[keep], local_e[keep], flat_p[keep]), x_rep[keep])
 
     # Per-expert SwiGLU.
     h = F.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"]))
     h = h * torch.einsum("becd,edf->becf", buf, params["w_up"])
-    y_buf = torch.einsum("becf,efd->becd", h, params["w_down"])  # [B, E, C, d]
+    y_buf = torch.einsum("becf,efd->becd", h, params["w_down"])  # [B, E/m, C, d]
 
     # Gather back (dropped pairs read a clamped slot and weigh 0) and combine.
-    y_tok = y_buf[bidx, flat_e, torch.clamp_max(flat_p, c - 1)]  # [B, S*k, d]
-    y_tok = y_tok * (keep[..., None] * gate_vals.reshape(b, s * k, 1)).to(y_tok.dtype)
-    y = y_tok.reshape(b, s, k, d).sum(dim=2)
+    y_tok = y_buf[bidx, local_e, torch.clamp_max(flat_p, c - 1)]  # [B, S*k, d]
+    gates = tp.enter(gate_vals, split, False).reshape(b, s * k, 1)
+    y_tok = y_tok * (keep[..., None] * gates).to(y_tok.dtype)
+    y = tp.leave(y_tok.reshape(b, s, k, d).sum(dim=2), split, False)
 
     if cfg.n_shared_experts:
         sh = params["shared"]
         y = y + (F.silu(x @ sh["w_gate"]) * (x @ sh["w_up"])) @ sh["w_down"]
 
     # Load-balance loss (Switch/Mixtral form): E * sum_e f_e * P_e, with f_e
-    # the share of tokens routed to e before any drop.
+    # the share of tokens routed to e before any drop; over a batch split
+    # across data ranks, the whole batch's shares (tp.batch_mean).
     routed = oh.reshape(b, s, k, e).sum(dim=2) > 0
-    frac_tokens = torch.mean(routed.to(torch.float32), dim=(0, 1))  # [E]
-    mean_probs = torch.mean(probs, dim=(0, 1))
+    frac_tokens = tp.batch_mean(torch.mean(routed.to(torch.float32), dim=(0, 1)))  # [E]
+    mean_probs = tp.batch_mean(torch.mean(probs, dim=(0, 1)))
     aux = cfg.aux_loss_coef * e * torch.sum(frac_tokens * mean_probs)
     return y.to(x.dtype), aux

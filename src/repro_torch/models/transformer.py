@@ -35,6 +35,10 @@ reference's training step does: the embedding is a plain index into it, the
 tied head a plain fp32 matmul, attention the differentiable
 ``layers.flash_attention_train``, and the cross-entropy is taken over chunks
 of the sequence (:func:`chunked_ce_loss`), each recomputed in the backward.
+Under a sharding context (:mod:`repro_torch.dist`) the same code runs on a
+rank's shards: the collectives of :mod:`repro_torch.dist.tensor_parallel`
+sit where the reference's ``hint`` calls do, and are the identity without
+a context.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch import device as device_mod
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -309,18 +314,26 @@ def _decode_slots(cfg: ModelConfig, cache_size: int, cl: torch.Tensor, b: int):
 
 
 def _attn_block(p, x, cfg: ModelConfig, *, rope, cache=None, slots=None,
-                use_kernel: bool = True, train: bool = False):
+                use_kernel: bool = True, train: bool = False, seq: bool = False):
     """Pre-norm attention; ``rope`` is :func:`rope_of` the positions.
     ``cache=None``: full sequence through the flash kernel (``train``: the
     differentiable ``flash_attention_train``), returning the rope'd ``(k,
     v)`` for the prefill cache.  Else a single-token decode against
     ``cache`` (``{"k", "v"}`` [B, S, KH, D], written **in place** where
-    ``slots`` (``_decode_slots``) says)."""
+    ``slots`` (``_decode_slots``) says).
+
+    A model shard of the heads (``wq`` narrower than the padded heads: the
+    reference's ``q_heads`` / ``kv_heads`` hints) runs this rank's heads
+    between :func:`~repro_torch.dist.tensor_parallel.enter` and ``leave``;
+    ``seq``: ``x`` is this rank's block of the sequence (``carry``)."""
     b, t, _ = x.shape
     h, kv = cfg.padded_heads
     hd = cfg.hd
     a = p["attn"]
-    y = L.rms_norm(x, p["norm1"])
+    y = L.rms_norm(x, tp.partial_weight(p["norm1"], seq))
+    sharded = a["wq"].shape[-1] < h * hd
+    y = tp.enter(y, sharded, seq)
+    t, h, kv = y.shape[1], a["wq"].shape[-1] // hd, a["wk"].shape[-1] // hd
     q = y @ a["wq"]
     k = y @ a["wk"]
     v = y @ a["wv"]
@@ -330,8 +343,8 @@ def _attn_block(p, x, cfg: ModelConfig, *, rope, cache=None, slots=None,
     k = k.reshape(b, t, kv, hd)
     v = v.reshape(b, t, kv, hd)
     if cfg.qk_norm:
-        q = L.rms_norm(q, a["q_norm"])
-        k = L.rms_norm(k, a["k_norm"])
+        q = L.rms_norm(q, tp.partial_weight(a["q_norm"], sharded))
+        k = L.rms_norm(k, tp.partial_weight(a["k_norm"], sharded))
     q = L.apply_rope(q, *rope)
     k = L.apply_rope(k, *rope)
 
@@ -349,7 +362,7 @@ def _attn_block(p, x, cfg: ModelConfig, *, rope, cache=None, slots=None,
         cache["v"][rows, write_idx] = v[:, 0]
         o = L.decode_attention(q, cache["k"], cache["v"], None, valid=valid)
         new_kv = None
-    o = o.reshape(b, t, h * hd) @ a["wo"]
+    o = tp.leave(o.reshape(b, t, h * hd) @ a["wo"], sharded, seq)
     return x + o, new_kv
 
 
@@ -364,33 +377,43 @@ def _mamba_block(p, x, cfg: ModelConfig, *, cache=None, return_cache: bool = Fal
     return x + out, new_cache
 
 
-def _mlp_block(p, x, cfg: ModelConfig, pos: int):
+def _mlp_block(p, x, cfg: ModelConfig, pos: int, seq: bool = False):
     """The MLP or MoE sub-layer -> ``(x, aux)``, ``aux`` the MoE's
-    load-balance loss or None where there is no MoE."""
+    load-balance loss or None where there is no MoE.  A model shard of the
+    MLP's hidden dim runs between ``tp.enter`` and ``tp.leave`` (the MoE's
+    expert shards inside ``moe_forward``); a bias on the output is added
+    once, after the reduce; ``seq`` as in :func:`_attn_block`."""
     if not cfg.is_moe(pos) and cfg.d_ff == 0:
         return x, None
-    y = L.rms_norm(x, p["norm2"])
+    y = L.rms_norm(x, tp.partial_weight(p["norm2"], seq))
     if cfg.is_moe(pos):
-        out, aux = moe_mod.moe_forward(p["moe"], y, cfg.moe)
-        return x + out, aux
+        out, aux = moe_mod.moe_forward(p["moe"], tp.enter(y, False, seq), cfg.moe)
+        return x + tp.leave(out, False, seq), aux
     m = p["mlp"]
     if cfg.mlp_type == "gelu":
-        return x + L.gelu_mlp(y, m["w_in"], m["b_in"], m["w_out"], m["b_out"]), None
-    return x + L.swiglu(y, m["w_gate"], m["w_up"], m["w_down"]), None
+        sharded = m["w_in"].shape[-1] < cfg.d_ff
+        out = L.gelu_mlp(tp.enter(y, sharded, seq), m["w_in"], m["b_in"], m["w_out"], m["b_out"],
+                         reduce=lambda o: tp.leave(o, sharded, seq))
+        return x + out, None
+    sharded = m["w_gate"].shape[-1] < cfg.d_ff
+    out = L.swiglu(tp.enter(y, sharded, seq), m["w_gate"], m["w_up"], m["w_down"])
+    return x + tp.leave(out, sharded, seq), None
 
 
 def _period_fwd(blocks: list, x: torch.Tensor, rope, cfg: ModelConfig, use_kernel: bool,
-                train: bool):
+                train: bool, seq: bool = False):
     """One group: the ``cfg.period`` layers of ``blocks`` (a group's blocks,
     one per period position) over ``x`` -> ``(x, aux)``, ``aux`` the group's
-    summed MoE loss or None where there is no MoE."""
+    summed MoE loss or None where there is no MoE; ``seq``: ``x`` is this
+    rank's block of the sequence."""
     group_aux = None
     for pos, p in enumerate(blocks):
         if cfg.layer_type(pos) == "attn":
-            x, _ = _attn_block(p, x, cfg, rope=rope, use_kernel=use_kernel, train=train)
+            x, _ = _attn_block(p, x, cfg, rope=rope, use_kernel=use_kernel, train=train,
+                               seq=seq)
         else:
             x, _ = _mamba_block(p, x, cfg)
-        x, a = _mlp_block(p, x, cfg, pos)
+        x, a = _mlp_block(p, x, cfg, pos, seq)
         if a is not None:
             group_aux = a if group_aux is None else group_aux + a
     return x, group_aux
@@ -410,21 +433,29 @@ def backbone(params: dict[str, Any], embeds: torch.Tensor, cfg: ModelConfig,
     backward recomputes what it needs from the group's inputs, so under
     grad mode a group keeps its inputs instead of its activations, and the
     gradients are bitwise those without remat (the same graph, its saved
-    tensors recomputed by the same operations)."""
+    tensors recomputed by the same operations).
+
+    Under a sequence-parallel context (``tp.seq_split``, the reference's
+    ``activation`` / ``carry`` hints) the residual stream between the
+    sub-layers is this rank's block of T; the hidden comes back whole."""
     check_supported(cfg)
     x = embeds.to(cfg.dtype)
+    seq = tp.seq_split(tuple(x.shape))
+    if seq:
+        x = tp.slice_along(x, 1)
     rope = rope_of(positions, cfg) if _has_attention(cfg) else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi in range(cfg.n_groups):
         blocks = [_group(params["blocks"][pos], gi) for pos in range(cfg.period)]
         if cfg.remat:
             x, group_aux = torch.utils.checkpoint.checkpoint(
-                _period_fwd, blocks, x, rope, cfg, use_kernel, train, use_reentrant=False)
+                _period_fwd, blocks, x, rope, cfg, use_kernel, train, seq, use_reentrant=False)
         else:
-            x, group_aux = _period_fwd(blocks, x, rope, cfg, use_kernel, train)
+            x, group_aux = _period_fwd(blocks, x, rope, cfg, use_kernel, train, seq)
         if group_aux is not None:
             aux = aux + group_aux
-    return L.rms_norm(x, params["final_norm"]), aux
+    h = L.rms_norm(x, tp.partial_weight(params["final_norm"], seq))
+    return (tp.gather_along(h, 1) if seq else h), aux
 
 
 def embed_tokens(table, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -455,11 +486,16 @@ def chunked_ce_loss(params, table_fp: torch.Tensor, h: torch.Tensor, labels: tor
     w = table_fp if cfg.tie_embeddings else params["head"]
 
     def piece(h_blk, l_blk, w):
-        logits = serving_tbl.head_logits(w, h_blk)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, torch.clamp_min(l_blk, 0).long()[..., None])[..., 0]
+        labels = torch.clamp_min(l_blk, 0).long()
+        # A model shard of the head (the reference's head_weight / logits
+        # hints): the vocab-parallel cross-entropy.
+        per = tp.token_losses(w, h_blk, labels, cfg.vocab_size, serving_tbl.head_logits)
+        if per is None:
+            logits = serving_tbl.head_logits(w, h_blk)
+            per = torch.logsumexp(logits, dim=-1) - torch.gather(logits, -1,
+                                                                 labels[..., None])[..., 0]
         mask = (l_blk >= 0).to(torch.float32)
-        return torch.sum((logz - gold) * mask), torch.sum(mask)
+        return torch.sum(per * mask), torch.sum(mask)
 
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -480,7 +516,11 @@ def assemble_embeds(table_fp: torch.Tensor, batch: dict, cfg: ModelConfig) -> to
     check_supported(cfg)
     if cfg.input_mode == "embeds":
         return batch["embeds"].to(cfg.dtype)
-    tok_emb = embed_tokens(table_fp, batch["tokens"], cfg)
+    if tp.active() is not None:  # a model shard of the table (embed_table)
+        tok_emb = tp.embed_rows(table_fp, batch["tokens"], cfg.vocab_size,
+                                cfg.d_model).to(cfg.dtype)
+    else:
+        tok_emb = embed_tokens(table_fp, batch["tokens"], cfg)
     if cfg.input_mode == "mixed" and cfg.visual_prefix > 0:
         prefix = batch["prefix_embeds"].to(cfg.dtype)
         return torch.cat([prefix, tok_emb[:, cfg.visual_prefix:]], dim=1)

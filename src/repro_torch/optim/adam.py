@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.lpt import adam_bias_corrections
 from repro_torch.kernels import ops
@@ -78,11 +79,24 @@ def tree_like(tree, leaves):
     return build(tree)
 
 
-def clip_by_global_norm(grads: list, max_norm: float, *, inplace: bool = False):
+def clip_by_global_norm(grads: list, max_norm: float, *, inplace: bool = False,
+                        sharded: list | None = None, group=None):
     """``(grads * min(1, max_norm / (||grads|| + 1e-12)), ||grads||)`` over a
     list of tensors, the global norm a 0-d tensor (no host sync);
-    ``inplace`` scales ``grads`` themselves (float32) and returns them."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in grads))
+    ``inplace`` scales ``grads`` themselves (float32) and returns them.
+
+    ``sharded`` (one flag a leaf) marks the leaves that are this rank's
+    shard over ``group`` (the model axis): their squares are summed over the
+    group, the replicated leaves' counted once, so the norm is the whole
+    tree's."""
+    if sharded is None:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in grads))
+    else:
+        sq = [torch.sum(torch.square(g.to(torch.float32))) for g in grads]
+        zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        part = sum((q for q, s in zip(sq, sharded, strict=True) if s), zero).reshape(1)
+        dist.all_reduce(part, group=group)
+        gnorm = torch.sqrt(sum((q for q, s in zip(sq, sharded) if not s), zero) + part[0])
     scale = torch.clamp_max(max_norm / (gnorm + 1e-12), 1.0)
     if inplace:
         return [g.mul_(scale) for g in grads], gnorm

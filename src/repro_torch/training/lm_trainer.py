@@ -32,6 +32,24 @@ advanced; it hosts the ``trainer.nonfinite`` and ``alpt.delta`` seams of
 the plan installed when the step is made.  The reference's ``alpt_every``
 is not ported: no path reads it.  :func:`save` / :func:`restore`
 checkpoint a state (``repro_torch.checkpoint``).
+
+The sharded path (port of the reference's GSPMD step): under
+``repro_torch.dist.context.use(mesh, policy)`` (a ``(data, model)`` rank
+grid, :mod:`repro_torch.launch.mesh`; a ``tp`` or ``tp_sp`` policy),
+:func:`init_state` gives this rank's shard of the one-process init (every
+leaf the slice of the one-process draw, :func:`state_specs`), and
+:func:`make_train_step` a step over shards: the batch's slice over the
+data axis (``batch_pspecs``; a batch the axis does not divide is
+replicated), the model's collectives at the reference's hint sites
+(:mod:`repro_torch.dist.tensor_parallel`), the data-axis gradient mean
+through ``collectives.exact_pmean_local``, the global norm over the whole
+tree, and the table's write-back on this rank's rows (its SR noise the
+rows' slice of the one-process draw, so codes compare across meshes).
+:func:`save` gathers the shards and rank 0 writes the reference's layout
+(whole leaves); :func:`restore` hands each rank its shard for the mesh it
+runs on.  Refused, naming ROADMAP A13c: fsdp / dp / ep policies, mamba
+blocks and methods other than fp / lpt / alpt under a model axis > 1, a
+shard that splits an attention head.
 """
 from __future__ import annotations
 
@@ -45,12 +63,17 @@ from repro_torch import device as device_mod
 from repro_torch import faults, methods
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.core import alpt as alpt_core
+from repro_torch.core import quant
 from repro_torch.core.alpt import ALPTConfig
 from repro_torch.core.codestore import CodeStore
 from repro_torch.core.pruning import PruneConfig
+from repro_torch.dist import collectives
+from repro_torch.dist import context as dist_ctx
+from repro_torch.dist import sharding
 from repro_torch.methods import layout
 from repro_torch.models import transformer as tfm
-from repro_torch.optim import adam_init, adam_update, clip_by_global_norm, tree_leaves, tree_like
+from repro_torch.optim import (OptState, adam_init, adam_update, clip_by_global_norm, tree_leaves,
+                               tree_like)
 
 
 class LMTrainState(NamedTuple):
@@ -110,6 +133,113 @@ def embedding_spec_of(cfg: tfm.ModelConfig,
     )
 
 
+# ------------------------------------------------------------- the shards
+
+#: Methods the sharded step takes under a model axis > 1 (a vocab table of
+#: one [V, d] leaf family); the others run at model = 1 (ROADMAP A13c).
+MODEL_SHARDED_METHODS = ("fp", "lpt", "alpt")
+
+
+class Shards(NamedTuple):
+    """The active context's layout of an LM state: the mesh and policy,
+    the spec tree of :class:`LMTrainState` (:func:`state_specs`), this
+    rank's table geometry (``spec``: its rows and columns), whether the
+    table is split over d, the transformer leaves that are model shards,
+    and the whole table's allocated shape."""
+
+    mesh: Any
+    policy: Any
+    specs: Any
+    spec: methods.EmbeddingSpec
+    width_split: bool
+    sharded_leaves: list
+    table_shape: tuple
+
+
+def check_shardable(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, mesh, pol) -> None:
+    """Raise ``ValueError`` for what the sharded step does not execute
+    (ROADMAP A13c) on this ``(data, model)`` mesh: an fsdp / dp / ep policy
+    (on any mesh, so that such a policy never passes unexecuted); under a
+    model axis > 1 mamba blocks, a method other
+    than fp / lpt / alpt, a padded table, the guard, or an attention shard
+    that splits a head (the spec builders split ``wk``'s columns, an
+    executor of explicit shards cannot)."""
+    m = int(mesh.shape["model"])
+    if pol.fsdp or pol.pure_dp or pol.ep:
+        raise ValueError(f"policy {pol.name!r}: fsdp / dp / ep execution is ROADMAP A13c (its "
+                         "specs are ported)")
+    if pol.model_size != m:
+        raise ValueError(f"policy model_size {pol.model_size} != the mesh's model axis {m}")
+    if tcfg.guard and mesh.size > 1:
+        raise ValueError("the guard is single-program only (each rank would judge its own loss)")
+    if m == 1:
+        return
+    if "mamba" in cfg.layer_types:
+        raise ValueError(f"{cfg.name}: mamba blocks under a model axis > 1 are ROADMAP A13c")
+    if cfg.embedding_method not in MODEL_SHARDED_METHODS:
+        raise ValueError(f"method {cfg.embedding_method!r} under a model axis > 1 is ROADMAP "
+                         f"A13c (model-sharded: {', '.join(MODEL_SHARDED_METHODS)})")
+    if tcfg.pad_to_tiles:
+        raise ValueError("a padded table (pad_to_tiles) under a model axis > 1 is ROADMAP A13c")
+    h, kv = cfg.padded_heads
+    if "attn" in cfg.layer_types and ((h * cfg.hd) % m == 0 or (kv * cfg.hd) % m == 0) and (
+            h % m or kv % m):
+        raise ValueError(f"{cfg.name}: {h}/{kv} heads do not split {m} ways, and the specs "
+                         "shard the projections mid-head (ROADMAP A13c)")
+
+
+def _table_axes(cfg: tfm.ModelConfig, spec: methods.EmbeddingSpec, pol):
+    """The table's (row, col) entries as the step executes them: the spec
+    builders', with a d split of packed codes dropped (the table
+    replicated) where a shard's codes would not fill whole bytes."""
+    row, col = sharding._table_axes(cfg, pol)
+    if col is not None and spec.packed and spec.bits in (2, 4) and (
+            cfg.d_model // pol.model_size * spec.bits) % 8:
+        return None, None
+    return row, col
+
+
+def state_specs(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None, mesh, pol) -> LMTrainState:
+    """The spec tree of an :class:`LMTrainState` on ``mesh``: the
+    reference's ``state_pspecs`` with the Adam moments as the state holds
+    them (a list over ``tree_leaves(params)``)."""
+    tcfg = LMTrainerConfig() if tcfg is None else tcfg
+    spec = embedding_spec_of(cfg, tcfg)
+    method = methods.get(spec.method)
+    ck = sharding.state_pspecs(cfg, pol, tcfg)
+    row, col = _table_axes(cfg, spec, pol)
+    emb = method.param_pspec(row, col)
+
+    def opt(mu, nu):
+        return OptState(step=sharding.P(), mu=sharding.spec_leaves(mu),
+                        nu=sharding.spec_leaves(nu))
+
+    return LMTrainState(params=ck.params, opt=opt(ck.opt.mu, ck.opt.nu),
+                        table=method.table_pspec(row, col, row_optimizer=tcfg.row_optimizer),
+                        table_opt=None if emb is None else opt(emb, emb), step=sharding.P(),
+                        generator=sharding.P())
+
+
+def _shards(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None) -> Shards | None:
+    """The active context's :class:`Shards` (None without a context or on a
+    1 x 1 mesh), after :func:`check_shardable`."""
+    ctx = dist_ctx.current()
+    if ctx is None or ctx.mesh.size == 1:
+        return None
+    tcfg = LMTrainerConfig() if tcfg is None else tcfg
+    mesh, pol = ctx.mesh, ctx.policy
+    check_shardable(cfg, tcfg, mesh, pol)
+    spec = embedding_spec_of(cfg, tcfg)
+    specs = state_specs(cfg, tcfg, mesh, pol)
+    row, col = _table_axes(cfg, spec, pol)
+    m = int(mesh.shape["model"])
+    local = dataclasses.replace(spec, n=spec.n // m if row else spec.n,
+                                d=spec.d // m if col else spec.d)
+    flags = [sharding.is_sharded(p, mesh) for p in sharding.spec_leaves(specs.params)]
+    return Shards(mesh=mesh, policy=pol, specs=specs, spec=local, width_split=col is not None,
+                  sharded_leaves=flags, table_shape=(spec.n_padded, spec.d_padded))
+
+
 def init_state(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None = None, *, seed: int = 0,
                device: str | torch.device = "cuda", optimizer: bool = True) -> LMTrainState:
     """Params, then the vocab table, drawn from one generator seeded with
@@ -119,7 +249,8 @@ def init_state(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None = None, *, see
     across through ``repro_torch.interop``.  ``optimizer=False`` leaves
     ``opt`` and ``table_opt`` None (the same draws): a state to serve, which
     at qwen2-vl-7b's full depth is 28 GB of params without 57 GB of Adam
-    moments."""
+    moments.  Under a sharding context (:func:`state_specs`), this rank's
+    shard of that state (the whole draws made, sliced, then freed)."""
     dev = device_mod.resolve(device)
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
@@ -127,6 +258,11 @@ def init_state(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None = None, *, see
     spec = embedding_spec_of(cfg, tcfg)
     method = methods.get(spec.method)
     table = method.init(generator, spec)
+    sh = _shards(cfg, tcfg)
+    if sh is not None:  # this rank's slice of the one-process draws
+        params = sharding.shard_tree(params, sh.specs.params, sh.mesh)
+        table = sharding.shard_tree(table, sh.specs.table, sh.mesh)
+        spec = sh.spec
     emb = method.trainable_params(table, spec)
     return LMTrainState(params=params, opt=adam_init(tree_leaves(params)) if optimizer else None,
                         table=table,
@@ -180,16 +316,18 @@ def checkpoint_tree(cfg: tfm.ModelConfig, state: LMTrainState,
 
 
 def state_from_checkpoint(cfg: tfm.ModelConfig, tree, tcfg: LMTrainerConfig | None = None, *,
-                          seed: int = 0, device: str | torch.device = "cuda") -> LMTrainState:
+                          seed: int = 0, device: str | torch.device = "cuda",
+                          spec: methods.EmbeddingSpec | None = None) -> LMTrainState:
     """The ``LMTrainState`` of a restored checkpoint tree (port or
     reference: the reference's param tree, its ``OptState`` with ``mu`` /
     ``nu`` laid out as the params, the table in ``methods.layout``'s layout
     with a float-leaf method's ``table_opt``), its leaves on ``device``; a
     missing optimizer state loads as zeros.  A reference checkpoint's
     generator is seeded with ``checkpoint.manager.reference_generator_seed``
-    of ``seed`` and the step."""
+    of ``seed`` and the step.  ``spec``: the table's geometry when the tree
+    holds this rank's shards (:class:`Shards`)."""
     dev = device_mod.resolve(device)
-    spec = embedding_spec_of(cfg, tcfg)
+    spec = embedding_spec_of(cfg, tcfg) if spec is None else spec
 
     def param_moments(t):
         return tree_leaves(tfm.params_from_numpy(cfg, t, device=dev))
@@ -211,7 +349,17 @@ def save(manager: ckpt.CheckpointManager, cfg: tfm.ModelConfig, state: LMTrainSt
     says so, or when ``force``d: the reference's ``LMTrainState`` leaves
     (:func:`checkpoint_tree`), the generator's state, and a manifest with
     the config's hash and the embedding metadata.  Returns whether it
-    saved."""
+    saved.  Under a sharding context every rank calls it: the shards are
+    gathered over the model group (a collective, when the cadence says so)
+    and rank 0 writes the whole leaves, the reference's layout."""
+    sh = _shards(cfg, tcfg)
+    if sh is not None:
+        if not (force or manager.should_save(state.step)):
+            return False
+        state = sharding.gather_tree(state, sh.specs, sh.mesh)
+        if sh.mesh.rank != 0:
+            return True
+        force = True
     meta = {"config_hash": ckpt.config_hash(cfg),
             **ckpt.embedding_manifest(embedding_spec_of(cfg, tcfg))}
     return manager.maybe_save(checkpoint_tree(cfg, state, tcfg), state.step,
@@ -226,12 +374,30 @@ def restore(manager: ckpt.CheckpointManager, cfg: tfm.ModelConfig,
     (:func:`state_from_checkpoint`, its generator seeded from
     :func:`init_state`'s default seed and the step).  Another config's
     table (method, schema, bits or packing in the manifest, or the leaves
-    themselves) raises ``ValueError``."""
+    themselves) raises ``ValueError``.  Under a sharding context each rank
+    gets its shard for the mesh it runs on, whatever mesh saved it."""
     dev = device_mod.resolve(device)
     spec = embedding_spec_of(cfg, tcfg)
-    tree, _ = manager.restore(step=step, device=dev, spec=spec)
-    ckpt.check_table(tree["table"], spec)
-    return state_from_checkpoint(cfg, tree, tcfg, device=dev)
+    sh = _shards(cfg, tcfg)
+    shardings = None if sh is None else (_checkpoint_specs(cfg, tcfg, sh), sh.mesh)
+    tree, _ = manager.restore(step=step, device=dev, spec=spec, shardings=shardings)
+    local = spec if sh is None else sh.spec
+    ckpt.check_table(tree["table"], local)
+    return state_from_checkpoint(cfg, tree, tcfg, device=dev, spec=local)
+
+
+def _checkpoint_specs(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None,
+                      sh: Shards) -> LMCheckpoint:
+    """:class:`Shards`' spec tree laid out as a checkpoint tree (moments as
+    their params)."""
+    spec = embedding_spec_of(cfg, tcfg)
+    emb = methods.get(spec.method).param_pspec(*_table_axes(cfg, spec, sh.policy))
+    p = sh.specs.params
+    return LMCheckpoint(params=p, opt=OptState(step=sharding.P(), mu=p, nu=p),
+                        table=sh.specs.table,
+                        table_opt=None if emb is None else OptState(step=sharding.P(), mu=emb,
+                                                                    nu=emb),
+                        step=sharding.P(), generator=sharding.P())
 
 
 def table_fp_of(state: LMTrainState, cfg: tfm.ModelConfig,
@@ -241,15 +407,17 @@ def table_fp_of(state: LMTrainState, cfg: tfm.ModelConfig,
     return methods.get(spec.method).eval_table(state.table, spec)
 
 
-def make_grad_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
+def make_grad_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig,
+                 spec: methods.EmbeddingSpec | None = None):
     """One backward: ``(state, batch) -> ((loss, aux), (g_emb, g_params))``,
     ``g_emb`` shaped as the method's ``dense_params`` (for integer tables the
     de-quantized [V, d] table) and ``g_params`` a list in
     ``tree_leaves(state.params)`` order.  A leaf the loss does not read has
     a zero gradient, as ``jax.grad`` gives: the table of an ``embeds``
     config with an untied head (the encoder), which then steps as the
-    reference's does, by its optimizer's decay and Delta's own step."""
-    spec = embedding_spec_of(cfg, tcfg)
+    reference's does, by its optimizer's decay and Delta's own step.
+    ``spec``: the table's geometry when it is a shard (:class:`Shards`)."""
+    spec = embedding_spec_of(cfg, tcfg) if spec is None else spec
     method = methods.get(spec.method)
 
     def grad_fn(state: LMTrainState, batch: dict):
@@ -267,9 +435,10 @@ def make_grad_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
     return grad_fn
 
 
-def make_delta_grad_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
+def make_delta_grad_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig,
+                       spec: methods.EmbeddingSpec | None = None):
     """ALPT's Delta gradient: ``(w_new, step_vec, params, batch, gscale) -> g_step``."""
-    spec = embedding_spec_of(cfg, tcfg)
+    spec = embedding_spec_of(cfg, tcfg) if spec is None else spec
     method = methods.get(spec.method)
 
     def delta_fn(w_new, step_vec, params, batch, gscale):
@@ -280,7 +449,8 @@ def make_delta_grad_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
     return delta_fn
 
 
-def make_apply_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, donate: bool = False):
+def make_apply_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, donate: bool = False,
+                  shards: Shards | None = None):
     """The update: ``apply_fn(state, loss_aux, grads, *, lr, noise,
     delta_grad=None, batch_rows=None) -> (state, metrics)``.
 
@@ -290,15 +460,20 @@ def make_apply_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, donate: bool =
     jits its step with ``donate_argnums=(0,)``): the step consumes
     ``state`` and ``grads``, clipping the gradients and stepping the params
     and their Adam moments in place (bitwise the same values), so the old
-    and new params and moments are not alive together."""
-    spec = embedding_spec_of(cfg, tcfg)
+    and new params and moments are not alive together.  ``shards``: the
+    state is this rank's (:class:`Shards`); the global norm sums the model
+    shards' squares over the model group."""
+    spec = embedding_spec_of(cfg, tcfg) if shards is None else shards.spec
     method = methods.get(spec.method)
+    clip = {}
+    if shards is not None and shards.mesh.shape["model"] > 1:
+        clip = {"sharded": shards.sharded_leaves, "group": shards.mesh.groups["model"]}
 
     def apply_fn(state: LMTrainState, loss_aux, grads, *, lr, noise, delta_grad=None,
                  batch_rows=None):
         loss, aux = loss_aux
         g_table, g_params = grads
-        g_params, gnorm = clip_by_global_norm(g_params, tcfg.grad_clip, inplace=donate)
+        g_params, gnorm = clip_by_global_norm(g_params, tcfg.grad_clip, inplace=donate, **clip)
         new_leaves, new_opt = adam_update(g_params, state.opt, tree_leaves(state.params), lr,
                                           weight_decay=tcfg.weight_decay,
                                           use_kernel=tcfg.use_kernels, inplace=donate)
@@ -358,11 +533,21 @@ def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, grad_sync=No
     in; it spares a full copy of them, which is what lets deepseek-67b's
     full-width head and a layer train on one card.  The guard keeps the old
     state to roll back to, so ``tcfg.guard`` refuses it.
+
+    Made under a sharding context (``dist.context.use``), the step runs on
+    this rank's shards (:func:`_sharded_step`) and installs that context for
+    each call; the data-parallel hooks do not combine with it.
     """
     check_trainable(cfg, tcfg)
     if donate and tcfg.guard:
         raise ValueError("donate: the guard rolls back to the state before the step, which a "
                          "donated step overwrites")
+    sh = _shards(cfg, tcfg)
+    if sh is not None:
+        if grad_sync is not None or step_grad_sync is not None:
+            raise ValueError("the data-parallel hooks take a replicated state; a sharding "
+                             "context syncs the data axis itself")
+        return _sharded_step(cfg, tcfg, sh, donate)
     spec = embedding_spec_of(cfg, tcfg)
     method = methods.get(spec.method)
     lr_at = make_lr_fn(tcfg)
@@ -390,6 +575,66 @@ def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, grad_sync=No
 
     if tcfg.guard:
         return faults.wrap_lm_step(train_step)
+    return train_step
+
+
+def _sharded_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, sh: Shards, donate: bool):
+    """The step over this rank's shards (``make_train_step`` under a
+    context): ``train_step(state, batch, noise=None)`` on the GLOBAL batch.
+
+    The batch follows ``batch_pspecs``: this rank's slice over the data axis,
+    or the whole batch where the axis does not divide it.  ``noise`` is the
+    one-process draw (the whole table's; a shard's shape is taken as it
+    is), of which the step keeps this rank's rows; where the table is
+    replicated (a model axis of 1) it is the method's one-process draw
+    (``dense_noise``: a composed table's list), used as it is.  With a split batch, the
+    gradients, ALPT's Delta gradient, the loss and the aux are exact
+    rank-ordered means over the data group.  The paper's b counts the global
+    batch's lookups; a table split over d scales it by the model axis, so
+    that the gradient scale's b·d is the whole table's."""
+    mesh, pol, spec = sh.mesh, sh.policy, sh.spec
+    method = methods.get(spec.method)
+    lr_at = make_lr_fn(tcfg)
+    grad_fn = make_grad_fn(cfg, tcfg, spec)
+    apply_fn = make_apply_fn(cfg, tcfg, donate=donate, shards=sh)
+    delta_fn = make_delta_grad_fn(cfg, tcfg, spec) if method.has_learned_step else None
+    data_group = mesh.groups["data"]
+    width = int(mesh.shape["model"]) if sh.width_split else 1
+    table_split = any(sharding.is_sharded(s, mesh) for s in sharding.spec_leaves(sh.specs.table))
+
+    def train_step(state: LMTrainState, batch: dict, noise: torch.Tensor | None = None):
+        bspecs = sharding.batch_pspecs(batch, cfg, pol, mesh)
+        split = any(e is not None for b in bspecs.values() for e in b)
+        layout = dist_ctx.StepLayout(width_split=sh.width_split, batch_split=split)
+        with dist_ctx.use(mesh, pol, layout):
+            if method.is_integer_table and not table_split:
+                # The whole table on every rank: the one-process draw as it is.
+                if noise is None:
+                    noise = method.dense_noise(state.generator, state.table, spec)
+            elif method.is_integer_table:  # one [V, d] table (lpt / alpt): this rank's rows
+                if noise is None:
+                    noise = quant.sr_noise(state.generator, sh.table_shape)
+                if tuple(noise.shape) == sh.table_shape:
+                    noise = sharding.shard_tree(noise, sh.specs.table.codes, mesh)
+            local = sharding.shard_tree(batch, bspecs, mesh) if split else batch
+
+            def mean(tree):  # leaf by leaf (a composed table's are tuples)
+                if not split:
+                    return tree
+                return tree_like(tree, [collectives.exact_pmean_local(t, data_group)
+                                        for t in tree_leaves(tree)])
+
+            (loss, aux), (g_table, g_params) = grad_fn(state, local)
+            g_table, g_params = mean(g_table), mean(g_params)
+            delta_grad = None
+            if delta_fn is not None:
+                def delta_grad(w_new, step_vec, new_params, gscale):
+                    return mean(delta_fn(w_new, step_vec, new_params, local, gscale))
+
+            return apply_fn(state, (mean(loss), mean(aux)), (g_table, g_params),
+                            lr=lr_at(state.step), noise=noise, delta_grad=delta_grad,
+                            batch_rows=int(batch["labels"].numel()) * width)
+
     return train_step
 
 

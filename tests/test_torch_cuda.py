@@ -1668,3 +1668,67 @@ def test_cold_tier_seams_on_the_card_are_bitwise(cuda, bits):
     assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
     assert (cold.corruption_detected, cold.prefetch_dropped, cold.retry_stats.retries,
             cold.retry_stats.failures) == (1, 1, 2, 0)
+
+
+# --------------------------------------------------------------- the sharding path
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("blocks", [2, 4])
+def test_write_back_kernels_on_row_shards_equal_the_whole_call(cuda, bits, blocks):
+    """sr_round and lpt_fused_update(_packed) on each rank's row block of a
+    table equal the one-process call's rows bitwise (the sharded step's
+    write-back, rung 1), the operands the whole call's rows."""
+    g = _gen(300 + bits + blocks, cuda)
+    n, d = 4096, 64
+    w = torch.randn(n, d, generator=g, device=cuda) * 0.02
+    step = quant.init_step_size(w, 8)
+    noise = quant.sr_noise(g, (n, d))
+    upd = torch.randn(n, d, generator=g, device=cuda)
+    full = ops.sr_round(w, step, noise, 8)
+    codes = CodeStore.from_codes(torch.clamp(full, *quant.code_bounds(bits)), bits)
+    whole = ops.lpt_update(codes, step, upd, noise, 3e-4, bits, weight_decay=5e-8)
+    k = n // blocks
+    for r in range(blocks):
+        rows = slice(r * k, (r + 1) * k)
+        got = ops.sr_round(w[rows].contiguous(), step[rows].contiguous(), noise[rows].contiguous(),
+                           8)
+        assert torch.equal(got, full[rows])
+        shard = CodeStore(data=codes.data[rows].contiguous(), bits=bits, n=k, d=d,
+                          packed=codes.packed)
+        new = ops.lpt_update(shard, step[rows].contiguous(), upd[rows].contiguous(),
+                             noise[rows].contiguous(), 3e-4, bits, weight_decay=5e-8)
+        assert torch.equal(new.data, whole.data[rows])
+
+
+def test_gloo_1x2_step_on_the_card_tracks_the_one_process_step(cuda, tmp_path):
+    """Two gloo ranks on the one card (a 1 x 2 grid, tp), each its shard of
+    the one-process init of qwen3-1.7b's smoke config, one ALPT-8 step:
+    loss within 1e-4 of the one-process step on the card, codes differing
+    on at most 0.5%, every replicated leaf the same on both ranks."""
+    import pathlib
+    import subprocess
+    import sys
+
+    cfg = configs.smoke_config("qwen3-1.7b")
+    tcfg = lm_trainer.LMTrainerConfig()
+    full = torch.from_numpy(LMTokenStream(cfg.vocab_size, 64, seed=17).batch(0, 2))
+    batch = {"tokens": full[:, :-1].contiguous(), "labels": full[:, 1:].contiguous()}
+    torch.save({"steps": {"qwen3": {"cfg": cfg, "tcfg": tcfg, "policy": "tp", "seed": 9,
+                                    "batch": batch}}}, tmp_path / "in.pt")
+    root = pathlib.Path(__file__).resolve().parent.parent
+    procs = [subprocess.Popen([sys.executable, str(root / "tests" / "_torch_sharded_ranks.py"),
+                               str(tmp_path), str(r), "2", "1", "2", "cuda"], cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    errs = [p.communicate(timeout=300)[1] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], [e[-2000:] for e in errs]
+    got = torch.load(tmp_path / "rank0.pt", weights_only=False)
+    assert got["same_replicas"]
+    got = got["steps"]["qwen3"]
+    state = lm_trainer.init_state(cfg, tcfg, seed=9, device=cuda)
+    state, m = lm_trainer.make_train_step(cfg, tcfg)(state, {k: v.to(cuda)
+                                                            for k, v in batch.items()})
+    assert abs(got["metrics"]["loss"] - float(m["loss"])) < 1e-4
+    frac = (got["table"]["codes"] != state.table.codes.data.cpu()).float().mean()
+    assert float(frac) <= 0.005

@@ -1,0 +1,285 @@
+"""The port's sharded LM step (tensor and sequence parallel on a ``(data,
+model)`` grid of gloo ranks) against the JAX package's single-device jitted
+step and the port's own one-process step, at smoke configs on the CPU.
+
+The reference's own sharded steps (tests/test_distribution.py) need 8 XLA
+devices; the port is held to the contract they state against the
+reference's single-device step: loss within 2e-3, codes differing on under
+2% after one step (there: SR noise keyed alike, reductions reordered).
+Against the port's one-process step from the same state, batch and noise
+the bounds are tighter: loss within 1e-4; gradients (as the global norm)
+within rtol 1e-5; every param within rtol 1e-4 / atol 1e-6 where its
+one-process gradient is at least 1e-6, and within 2·lr elsewhere (AdamW's
+first step is ``lr·g/(|g| + 1e-8)``: for |g| near eps the reordered sums'
+last bits move the update by up to lr; measured: 2 of 49,152 qwen3 smoke
+weights, gradients 7e-10 and 7e-8); codes differing on at most 0.5%
+(measured 0).  Given the same table gradient rows, a shard's update is the
+one-process update's rows bitwise (rung 2).
+
+Four rank processes are spawned once for the module (a 2 x 2 grid, one
+thread each, ``tests/_torch_sharded_ranks.py``) and run every check of the
+module in one launch: qwen3-1.7b's smoke config (``head_pad_multiple=2``)
+under ``tp`` and ``tp_sp``, mixtral's smoke config (4 experts, 2 a rank),
+a vocabulary that does not divide the model axis (the table split over d),
+qr_alpt on the same ranks as a 4 x 1 mesh (a data axis only),
+rung 2, checkpoints across meshes both ways, the ``train lm`` CLI.
+"""
+import contextlib
+import dataclasses
+import io
+import json
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.core import quant as jq
+from repro.training import lm_trainer as jlm
+from repro_torch import configs, interop, methods
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core import quant
+from repro_torch.data.lm_synth import LMTokenStream
+from repro_torch.dist import sharding
+from repro_torch.launch import train as train_cli
+from repro_torch.launch.mesh import HostMesh
+from repro_torch.optim import tree_leaves
+from repro_torch.training import lm_trainer
+
+jax.config.update("jax_platform_name", "cpu")
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+LR = 1e-3
+BATCH, SEQ = 4, 32
+CLI = ["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu", "--steps", "2", "--batch",
+       str(BATCH), "--seq", str(SEQ), "--log-every", "0"]
+
+
+def _qwen3(**kw):
+    jcfg = dataclasses.replace(jconfigs.smoke_config("qwen3-1.7b"), head_pad_multiple=2, **kw)
+    cfg = dataclasses.replace(configs.smoke_config("qwen3-1.7b"), head_pad_multiple=2, **kw)
+    return jcfg, cfg
+
+
+def _batch(vocab, seed=0):
+    data = LMTokenStream(vocab, SEQ, seed=17).batch(seed, BATCH)
+    return ({"tokens": jnp.asarray(data[:, :-1]), "labels": jnp.asarray(data[:, 1:])},
+            {"tokens": torch.from_numpy(data[:, :-1]), "labels": torch.from_numpy(data[:, 1:])})
+
+
+def _ref_state_np(js):
+    tree = jax.tree.map(np.asarray, js)
+    return {"params": tree.params, "table": {
+        "codes": np.asarray(js.table.codes.data), "step": tree.table.step, "mu": tree.table.mu,
+        "nu": tree.table.nu, "count": tree.table.count},
+        "opt": {"step": tree.opt.step, "mu": tree.opt.mu, "nu": tree.opt.nu}}
+
+
+def _one_process(cfg, tcfg, state, batch, noise=None):
+    grads = lm_trainer.make_grad_fn(cfg, tcfg)(lm_trainer.clone_state(state), batch)[1][1]
+    new, m = lm_trainer.make_train_step(cfg, tcfg)(state, batch, noise)
+    return new, m, grads
+
+
+def _spawn(d):
+    return [subprocess.Popen([sys.executable, str(ROOT / "tests" / "_torch_sharded_ranks.py"),
+                              str(d), str(r), "4", "2", "2", "cpu"], cwd=ROOT,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(4)]
+
+
+@pytest.fixture(scope="module")
+def launch(tmp_path_factory):
+    """The ranks' inputs, the ranks started, then (while they run) the
+    reference's jitted step, the one-process twins, rung 2's whole updates
+    and the CLI at 1 x 1 in this process; then the ranks' outputs."""
+    d = tmp_path_factory.mktemp("sharded")
+    # qwen3 smoke (head_pad_multiple=2), ALPT-8, from the reference's state.
+    jcfg, cfg = _qwen3()
+    jt, pt = jlm.LMTrainerConfig(lr=LR), lm_trainer.LMTrainerConfig(lr=LR)
+    js = jlm.init_state(jax.random.PRNGKey(0), jcfg, jt)
+    jb, pb = _batch(cfg.vocab_size)
+    kn = jax.random.split(js.rng)[1]
+    noise = torch.from_numpy(np.array(jq.sr_noise(jax.random.fold_in(kn, 1),
+                                                  tuple(js.table.codes.shape))))
+    state_np = _ref_state_np(js)
+    ps = interop.lm_state_from_numpy(cfg, pt, **state_np, device="cpu")
+    lm_trainer.save(CheckpointManager(d / "ck_one"), cfg, ps, pt, force=True)
+    steps = {f"qwen3_{pol}": {"cfg": cfg, "tcfg": pt, "policy": pol, "state": state_np,
+                              "batch": pb, "noise": noise} for pol in ("tp", "tp_sp")}
+    # mixtral smoke (4 experts, 2 a rank) and a 509-row vocabulary (the table
+    # split over d), each from this rank's shard of the port's init.
+    mixtral = configs.smoke_config("mixtral-8x7b")
+    _, odd = _qwen3(vocab_size=509)
+    for name, c, seed in (("mixtral", mixtral, 3), ("width", odd, 5)):
+        steps[name] = {"cfg": c, "tcfg": pt, "policy": "tp", "seed": seed,
+                       "batch": _batch(c.vocab_size, 1)[1]}
+    # qr_alpt (a composed table: one SR draw per sub-table, a pair of Delta
+    # gradients) on the same four ranks as a 4 x 1 mesh: the batch split
+    # over data, the table replicated.
+    qr = dataclasses.replace(cfg, embedding_method="qr_alpt")
+    steps["qrdata"] = {"cfg": qr, "tcfg": pt, "policy": "tp", "seed": 9, "data_only": True,
+                       "batch": _batch(qr.vocab_size, 2)[1]}
+    # Rung 2: LPT-8 and ALPT-8 updates from one gradient, noise and Delta gradient.
+    rows = {}
+    g = torch.Generator().manual_seed(7)
+    for method in ("lpt", "alpt"):
+        c = dataclasses.replace(cfg, embedding_method=method)
+        grad = torch.randn((c.vocab_size, c.d_model), generator=g) * 1e-2
+        grad[::3] = 0.0  # untouched rows
+        rows[method] = {"cfg": c, "tcfg": pt, "grad": grad, "lr": LR, "batch_rows": BATCH * SEQ,
+                        "state": interop.lm_state_to_numpy(
+                            lm_trainer.init_state(c, pt, seed=11, device="cpu")),
+                        "noise": quant.sr_noise(g, (c.vocab_size, c.d_model)),
+                        "g_step": torch.randn((c.vocab_size,), generator=g) * 1e-3}
+    torch.save({"steps": steps, "save_case": "qwen3_tp",
+                "restore": {"cfg": cfg, "tcfg": pt, "state": state_np}, "rows": rows,
+                "cli": ["lm", *CLI, "--mesh-data", "2", "--mesh-model", "2"]}, d / "in.pt")
+    procs = _spawn(d)
+    try:
+        js1, jm = jax.jit(jlm.make_train_step(jcfg, jt))(js, jb)
+        out = {"ref": {"loss": float(jm["loss"]), "codes": np.asarray(js1.table.codes.data)}}
+        one = {"qwen3": _one_process(cfg, pt, ps, pb, noise)}
+        for name in ("mixtral", "width", "qrdata"):
+            c, b = steps[name]["cfg"], steps[name]["batch"]
+            st = lm_trainer.init_state(c, pt, seed=steps[name]["seed"], device="cpu")
+            one[name] = _one_process(c, pt, st, b)
+        for method, r in rows.items():
+            spec = lm_trainer.embedding_spec_of(r["cfg"], pt)
+            st = interop.lm_state_from_numpy(r["cfg"], pt, **r["state"], device="cpu")
+            r["want"], _, _ = methods.get(method).dense_update(
+                st.table, None, r["grad"], spec=spec, lr=LR, weight_decay=pt.emb_weight_decay,
+                noise=r["noise"], delta_grad=lambda w, s_, gs, g_step=r["g_step"]: g_step,
+                batch_rows=BATCH * SEQ)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert train_cli.main(["lm", *CLI]) == 0
+        out["cli_one"] = json.loads(buf.getvalue().strip().splitlines()[-1])["losses"]
+        errs = [p.communicate(timeout=240)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0] * 4, [e[-3000:] for e in errs]
+    out["ranks"] = [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(4)]
+    out.update(one=one, dir=d, cfg=cfg, tcfg=pt, rows=rows)
+    return out
+
+
+def _close_params(got, want, grads, lr=LR):
+    for x, y, g in zip(tree_leaves(got), tree_leaves(want), grads):
+        ok = torch.abs(x - y) <= 1e-6 + 1e-4 * torch.abs(y)
+        conditioned = torch.abs(g) >= 1e-6
+        assert bool(torch.all(ok | ~conditioned)), (tuple(y.shape), (x - y).abs().max())
+        assert float((x - y).abs().max()) <= 2 * lr
+
+
+@pytest.mark.parametrize("policy", ["tp", "tp_sp"])
+def test_sharded_step_meets_the_reference_contract(launch, policy):
+    """2 x 2 grid, one step from the reference's state with its SR noise,
+    against the reference's single-device jitted step: the reference's own
+    bounds (tests/test_distribution.py)."""
+    got = launch["ranks"][0]["steps"][f"qwen3_{policy}"]
+    assert abs(got["metrics"]["loss"] - launch["ref"]["loss"]) < 2e-3
+    frac = float((got["table"]["codes"].numpy() != launch["ref"]["codes"]).mean())
+    assert frac < 0.02
+
+
+@pytest.mark.parametrize("case", ["qwen3_tp", "qwen3_tp_sp", "mixtral", "width", "qrdata"])
+def test_sharded_step_tracks_the_one_process_step(launch, case):
+    """The same state, batch and noise through the one-process step: loss,
+    grad norm, params and the table (module docstring's bounds); every
+    replicated leaf the same on all ranks.  ``qrdata``: qr_alpt on a 4 x 1
+    mesh, its two sub-tables' codes in order."""
+    got = launch["ranks"][0]["steps"][case]
+    new, m, grads = launch["one"][case.split("_")[0]]
+    assert abs(got["metrics"]["loss"] - float(m["loss"])) < 1e-4
+    np.testing.assert_allclose(got["metrics"]["grad_norm"], float(m["grad_norm"]), rtol=1e-5)
+    _close_params(got["params"], new.params, grads)
+    codes, table = got["table"]["codes"], new.table
+    want = table.codes.data if hasattr(table, "codes") else torch.cat(
+        [t.codes.data.reshape(-1) for t in (table.remainder, table.quotient)])
+    assert codes.shape == want.shape
+    assert float((codes != want).float().mean()) <= 0.005
+    assert all(r["same_replicas"] for r in launch["ranks"])
+
+
+def test_shard_update_from_the_same_gradient_rows_is_bitwise(launch):
+    """Rung 2: LPT-8's and ALPT-8's ``dense_update`` on each rank's rows
+    (the one-process gradient's, noise's and Delta gradient's rows) equal
+    the one-process update's rows bitwise: codes, Delta and both slots."""
+    for rank, r in enumerate(launch["ranks"]):
+        mesh = HostMesh(shape={"data": 2, "model": 2}, coords={"data": rank // 2,
+                                                                "model": rank % 2},
+                        groups={"data": None, "model": None})
+        for method, c in launch["rows"].items():
+            want = sharding.shard_tree(c["want"], methods.get(method).table_pspec("model", None),
+                                       mesh)
+            got = r["rows"][method]
+            assert torch.equal(got.codes.data, want.codes.data)
+            assert all(torch.equal(getattr(got, k), getattr(want, k)) for k in ("step", "mu", "nu"))
+
+
+def test_checkpoint_from_shards_restores_in_one_process_bitwise(launch):
+    """Saved at 2 x 2 (gathered, rank 0 writes whole leaves), restored at 1 x
+    1: every leaf equals the gathered shards bitwise."""
+    cfg, pt = launch["cfg"], launch["tcfg"]
+    back = lm_trainer.restore(CheckpointManager(launch["dir"] / "ck_mesh"), cfg, pt,
+                              device="cpu")
+    got = launch["ranks"][0]["steps"]["qwen3_tp"]
+    assert back.step == 1
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(back.params),
+                                                 tree_leaves(got["params"])))
+    for key in ("codes", "step", "mu", "nu"):
+        mine = back.table.codes.data if key == "codes" else getattr(back.table, key)
+        assert torch.equal(mine, got["table"][key])
+
+
+def test_one_process_checkpoint_restores_on_the_mesh_bitwise(launch):
+    """Saved at 1 x 1, restored at 2 x 2: each rank's shard of every leaf
+    (Adam moments, table, generator) is the slice of the saved state; and
+    ``gather_tree`` of ``shard_tree`` is the identity, bitwise."""
+    for r in launch["ranks"]:
+        assert r["restore_bitwise"] and r["shard_gather_identity"]
+
+
+def test_cli_on_a_2x2_mesh_tracks_1x1(launch, capsys):
+    """``train lm --mesh-data 2 --mesh-model 2`` on four gloo ranks (the
+    launcher's group): its losses against the CLI at 1 x 1."""
+    cli = launch["ranks"][0]["cli"]
+    assert cli["code"] == 0
+    report = json.loads(cli["stdout"].strip().splitlines()[-1])
+    assert report["mesh_data"] == 2 and report["mesh_model"] == 2 and report["policy"] == "tp"
+    assert all(r["cli"]["stdout"] == "" for r in launch["ranks"][1:])
+    np.testing.assert_allclose(report["losses"], launch["cli_one"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--arch", "qwen3-1.7b", "--mesh-data", "2", "--mesh-model", "2"], "WORLD_SIZE is 3"),
+    (["--arch", "mamba2-370m", "--mesh-model", "2"], "A13c"),
+    (["--arch", "jamba-v0.1-52b", "--mesh-model", "2"], "A13c"),
+    (["--arch", "qwen3-1.7b", "--mesh-model", "2", "--policy", "fsdp_tp"], "A13c"),
+    (["--arch", "mixtral-8x7b", "--mesh-model", "2", "--policy", "fsdp_tp_ep"], "A13c"),
+    (["--arch", "qwen3-1.7b", "--mesh-data", "2", "--policy", "dp"], "A13c"),
+    (["--arch", "qwen3-1.7b", "--policy", "fsdp_tp"], "A13c"),
+    (["--arch", "qwen3-1.7b", "--mesh-model", "2", "--embedding-method", "qr_alpt"], "A13c"),
+    (["--arch", "smollm-135m", "--mesh-model", "2"], "mid-head"),
+])
+def test_cli_refuses_what_the_sharded_step_does_not_run(argv, message, capsys, monkeypatch):
+    """Exit 2 naming ROADMAP A13c: fsdp / dp / ep policies (at 1 x 1 too),
+    mamba blocks and the other methods under a model axis > 1; a world size
+    that is not data x model; SmolLM's 3 kv heads on 2 ranks (``wk`` split
+    mid-head)."""
+    def axis(flag):
+        return int(argv[argv.index(flag) + 1]) if flag in argv else 1
+
+    world = 3 if message.startswith("WORLD") else axis("--mesh-data") * axis("--mesh-model")
+    monkeypatch.setenv("WORLD_SIZE", str(world))
+    with pytest.raises(SystemExit) as exc:
+        train_cli.main(["lm", "--smoke", "--device", "cpu", *argv])
+    assert exc.value.code == 2
+    assert message in capsys.readouterr().err
