@@ -4877,11 +4877,19 @@ SHARD_CLI_LAYERS, SHARD_CLI_STEPS, SHARD_CLI_BATCH, SHARD_CLI_SEQ = 4, 3, 4, 512
 SHARD_MOE_ARCH, SHARD_MOE_LAYERS, SHARD_MOE_STEPS = "mixtral-8x7b", 1, 2  # 18c, 1 x 2
 # The CPU tests' bounds (tests/test_torch_sharded_step.py) against the
 # one-process step: loss, params after step 1 (where the one-process
-# gradient is at least 1e-6; within 2 lr elsewhere), codes differing.
+# gradient AdamW takes, after the global-norm clip, is at least 1e-6;
+# within 2 lr elsewhere), codes differing.
 SHARD_LOSS_ATOL, SHARD_RTOL, SHARD_ATOL, SHARD_CODES_FRAC = 1e-4, 1e-4, 1e-6, 0.005
 SHARD_LR = 3e-4  # LMTrainerConfig's default
 SHARD_TABLE = (151_936, 2_048)  # 18d: qwen3-1.7b's vocab table, two row blocks
 SHARD_SP_LAUNCHES = {"lpt_fused_update": 1, "adam_update": 1}  # 18b's tp_sp step, a rank
+# 18e-18h, ALPT-8 on 1 x 2 beside their twins: SmolLM-135M at full width and
+# depth (9/3 heads split mid-head), mamba2-370m at full width and depth (16
+# of its 32 SSD heads a rank), hubert-xlarge at full width with its depth
+# cut under tp_sp, and SmolLM again with the guard and trainer.nonfinite at
+# step SHARD_GUARD_AT (both ranks skip it).
+SHARD_SMOL_ARCH, SHARD_SSM_ARCH, SHARD_ENC_ARCH = "smollm-135m", "mamba2-370m", "hubert-xlarge"
+SHARD_FAMILY_STEPS, SHARD_ENC_LAYERS, SHARD_GUARD_AT = 2, 2, 1
 # The 18b CLI's model flags (a rehearsal on the CPU swaps them for --smoke
 # --device cpu, and shard_config for the smoke configs).
 SHARD_CLI_MODEL = ["--arch", SHARD_ARCH, "--layers", str(SHARD_CLI_LAYERS)]
@@ -4909,6 +4917,28 @@ def shard_batches(torch, vocab: int, steps: int, batch: int, seq: int, seed: int
         full = torch.from_numpy(stream.batch(i, batch))
         out.append({"tokens": full[:, :-1].contiguous(), "labels": full[:, 1:].contiguous()})
     return out
+
+
+def shard_frames(torch, cfg, steps: int, batch: int, seq: int) -> list:
+    """An ``embeds`` arch's batches on the host, as the train CLI makes them
+    (``lm_batch``: normal frames, the token stream's labels)."""
+    from repro_torch.data.lm_synth import LMTokenStream
+    from repro_torch.launch.train import lm_batch
+
+    stream = LMTokenStream(cfg.vocab_size, seq, seed=17)
+    return [lm_batch(cfg, stream, i, batch, seq, torch.device("cpu")) for i in range(steps)]
+
+
+def shard_run_config(run: dict):
+    """A phase-18 run's ``(trainer config, fault plan or None, donate)``: a
+    guarded run keeps the state before each step, so it is not donated."""
+    from repro_torch.training import lm_trainer
+
+    at = run.get("guard_at")
+    if at is None:
+        return lm_trainer.LMTrainerConfig(), None, True
+    return (lm_trainer.LMTrainerConfig(guard=True),
+            fault_plan(("trainer.nonfinite", (at,), False, None)), False)
 
 
 # A leaf of more elements is compared on its first SHARD_BLOCK_ROWS rows of
@@ -4987,7 +5017,6 @@ def sharding_rank(rank: int, world: int, data: int, model: int, directory: str) 
                             world_size=world, timeout=datetime.timedelta(seconds=600))
     try:
         mesh = make_host_mesh(data, model)
-        tcfg = lm_trainer.LMTrainerConfig()
         clock = [time.perf_counter()]
 
         def lap(out, name):  # host seconds of each part of the rank's run
@@ -5004,31 +5033,38 @@ def sharding_rank(rank: int, world: int, data: int, model: int, directory: str) 
             ops.reset_kernel_calls()  # the main path starts here ...
             ops.reset_fallbacks()
             cfg = run["cfg"]
+            tcfg, plan, donate = shard_run_config(run)
             if run["kind"] == "train":
-                pol = sharding.policy_from_name("tp", model_size=model)
-                with context.use(mesh, pol):
+                pol = sharding.policy_from_name(run.get("policy", "tp"), model_size=model)
+                with plan_installed(plan), context.use(mesh, pol):
                     state = lm_trainer.init_state(cfg, tcfg, seed=run["seed"], device=dev)
-                    step = lm_trainer.make_train_step(cfg, tcfg, donate=True)
+                    step = lm_trainer.make_train_step(cfg, tcfg, donate=donate)
                     specs = lm_trainer._shards(cfg, tcfg).specs
                 lap(out, "init")
-                losses, wall = [], []
+                losses, wall, skipped = [], [], []
                 for i, b in enumerate(run["batches"]):
                     batch = {k: v.to(dev) for k, v in b.items()}
                     t0 = time.perf_counter()
+                    before = state if plan is not None else None  # (a guarded step's)
                     state, m = step(state, batch)
                     losses.append(float(m["loss"]))
                     wall.append((time.perf_counter() - t0) * 1e3)
+                    if plan is not None:
+                        skipped.append(int(m["guard_skipped"]))
+                        if skipped[-1]:  # this rank's shards as they were before the step
+                            out["kept"] = shards_same(torch, before, state)
                     if i == 0:
                         with context.use(mesh, pol):
                             out["layers"] = gathered_end_layers(torch, state.params, specs.params,
                                                                 mesh, *run["compare"])
                 _on_card(torch, dev, "synchronize")
                 out.update(launches=ops.kernel_calls(), fallbacks=ops.fallbacks())  # ... and here
+                del before
                 lap(out, "steps")
                 with context.use(mesh, pol):
                     table = sharding.gather_tree(state.table, specs.table, mesh)
-                out.update(losses=losses, wall=wall, codes=table.codes.data.cpu(),
-                           delta=table.step.cpu())
+                out.update(losses=losses, wall=wall, skipped=skipped,
+                           codes=table.codes.data.cpu(), delta=table.step.cpu())
                 del table
                 lap(out, "gather")
             else:  # 18b: the CLI on the launcher's group, then a tp_sp step through the API
@@ -5075,6 +5111,18 @@ def sharding_rank(rank: int, world: int, data: int, model: int, directory: str) 
     return 0
 
 
+def shards_same(torch, a, b) -> bool:
+    """Two LM states' params, Adam moments and table equal, on the card."""
+    from repro_torch.optim import tree_leaves
+
+    la = tree_leaves(a.params) + a.opt.mu + a.opt.nu
+    lb = tree_leaves(b.params) + b.opt.mu + b.opt.nu
+    return (all(torch.equal(x, y) for x, y in zip(la, lb, strict=True))
+            and torch.equal(a.table.codes.data, b.table.codes.data)
+            and all(torch.equal(getattr(a.table, k), getattr(b.table, k))
+                    for k in ("step", "mu", "nu")))
+
+
 def run_ranks(torch, directory: pathlib.Path, job: dict, data: int, model: int,
               label: str) -> list:
     """``data x model`` processes of :func:`sharding_rank` on ``job``: any rank
@@ -5101,55 +5149,69 @@ def run_ranks(torch, directory: pathlib.Path, job: dict, data: int, model: int,
     return [torch.load(directory / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
-def close_layers(torch, got: dict, want: dict, grads: dict, lr: float) -> tuple[float, int]:
+def close_layers(torch, got: dict, want: dict, grads: dict, lr: float,
+                 clip: float) -> tuple[float, int, int]:
     """The CPU tests' param bound on the first and last layers: within rtol /
-    atol where the one-process gradient is at least 1e-6, within 2 lr
-    elsewhere.  Returns (max abs difference, elements under the eps guard)."""
-    worst, guarded = 0.0, 0
+    atol where the one-process gradient AdamW takes (``grads`` times the
+    global-norm ``clip`` factor) is at least 1e-6, within 2 lr elsewhere:
+    AdamW's first step is ``lr g / (|g| + 1e-8)``, so near eps the last
+    bits of a reordered sum move the update by up to lr.  Returns (max abs
+    difference, elements under the eps guard, those of them whose gradient
+    is at least 1e-6 before the clip)."""
+    worst, guarded, clipped = 0.0, 0, 0
     for key, pair in want.items():
         for x, y, g in zip(got[key], pair, grads[key]):
             d = (x - y).abs()
             ok = d <= SHARD_ATOL + SHARD_RTOL * y.abs()
-            conditioned = g.abs() >= 1e-6
+            conditioned = g.abs() * clip >= 1e-6
             check(bool((ok | ~conditioned).all()) and float(d.max()) <= 2 * lr,
                   f"layer {key}: differs from the one-process step by {float(d.max())}")
             worst = max(worst, float(d.max()))
             guarded += int((~ok).sum())
-    return worst, guarded
+            clipped += int((~ok & (g.abs() >= 1e-6)).sum())
+    return worst, guarded, clipped
 
 
-def shard_twin(torch, dev, cfg, seed: int, batches: list, label: str) -> dict:
-    """The one-process run of 18a / 18c (the same seed, batches and noise;
-    kernels on): per-step losses, the first and last layers after step 1
-    and their step-1 gradients, the table at the end, on the host; the
-    card freed after it."""
+def shard_twin(torch, dev, run: dict) -> dict:
+    """The one-process run of a phase-18 train run (the same seed, batches,
+    noise and trainer config, a guarded run's fault plan; kernels on):
+    per-step losses (and the guard's verdicts), the first and last layers
+    after step 1 and their step-1 gradients with the step's clip factor,
+    the table at the end, on the host; the card freed after it."""
     import gc
 
     from repro_torch.optim import tree_like
     from repro_torch.training import lm_trainer
 
     t0_twin = time.perf_counter()
-    tcfg = lm_trainer.LMTrainerConfig()
-    state = lm_trainer.init_state(cfg, tcfg, seed=seed, device=dev)
+    cfg, batches, label = run["cfg"], run["batches"], run["label"]
+    tcfg, plan, donate = shard_run_config(run)
+    state = lm_trainer.init_state(cfg, tcfg, seed=run["seed"], device=dev)
     first = {k: v.to(dev) for k, v in batches[0].items()}
     g_params = lm_trainer.make_grad_fn(cfg, tcfg)(state, first)[1][1]
     grads = end_layers(tree_like(state.params, g_params))
     grads = {k: (a.cpu(), b.cpu()) for k, (a, b) in grads.items()}
+    norm = float(torch.sqrt(sum(torch.sum(torch.square(g)) for g in g_params)))
+    clip = min(1.0, tcfg.grad_clip / (norm + 1e-12))  # clip_by_global_norm's factor
     del g_params
-    step = lm_trainer.make_train_step(cfg, tcfg, donate=True)
-    losses, wall, layers = [], [], None
+    with plan_installed(plan):
+        step = lm_trainer.make_train_step(cfg, tcfg, donate=donate)
+    losses, wall, layers, skipped = [], [], None, []
     for i, b in enumerate(batches):
         t0 = time.perf_counter()
         state, m = step(state, {k: v.to(dev) for k, v in b.items()})
         losses.append(float(m["loss"]))
         wall.append((time.perf_counter() - t0) * 1e3)
+        if plan is not None:
+            skipped.append(int(m["guard_skipped"]))
         if i == 0:
             layers = {k: (a.to("cpu", copy=True), b_.to("cpu", copy=True))
                       for k, (a, b_) in end_layers(state.params).items()}  # the step is donated
     _on_card(torch, dev, "synchronize")
     peak = _on_card(torch, dev, "max_memory_allocated", dev)
     out = {"losses": losses, "wall": wall, "layers": layers, "grads": grads, "peak": peak,
-           "codes": state.table.codes.data.cpu(), "delta": state.table.step.cpu()}
+           "codes": state.table.codes.data.cpu(), "delta": state.table.step.cpu(),
+           "skipped": skipped, "clip": clip}
     del state, step
     gc.collect()
     _on_card(torch, dev, "empty_cache")
@@ -5160,18 +5222,27 @@ def shard_twin(torch, dev, cfg, seed: int, batches: list, label: str) -> dict:
 
 
 def compare_shard_run(torch, twin: dict, ranks: list, label: str, lr: float) -> None:
-    """A mesh run against its twin within the CPU tests' bounds."""
+    """A mesh run against its twin within the CPU tests' bounds (a step the
+    guard skipped has a NaN loss on both sides); a guarded run's verdicts
+    the twin's on every rank, and every rank's shards kept through a skip."""
     r0 = ranks[0]
-    gaps = [abs(a - b) for a, b in zip(r0["losses"], twin["losses"])]
-    check(len(gaps) == len(twin["losses"]) and max(gaps) < SHARD_LOSS_ATOL,
+    pairs = list(zip(r0["losses"], twin["losses"]))
+    gaps = [abs(a - b) for a, b in pairs if not (math.isnan(a) and math.isnan(b))]
+    check(len(pairs) == len(twin["losses"]) and gaps and max(gaps) < SHARD_LOSS_ATOL,
           f"{label}: losses {r0['losses']} against the twin's {twin['losses']}")
-    worst, guarded = close_layers(torch, r0["layers"], twin["layers"], twin["grads"], lr)
+    for r, o in enumerate(ranks):
+        check(o["skipped"] == twin["skipped"] and o.get("kept", True),
+              f"{label} rank {r}: guard verdicts {o['skipped']} (the twin's {twin['skipped']}), "
+              f"shards kept through the skip: {o.get('kept')}")
+    worst, guarded, clipped = close_layers(torch, r0["layers"], twin["layers"], twin["grads"],
+                                           lr, twin["clip"])
     frac = float((r0["codes"] != twin["codes"]).float().mean())
     check(frac <= SHARD_CODES_FRAC, f"{label}: {frac:.4%} of the codes differ from the twin's")
     d_delta = float((r0["delta"] - twin["delta"]).abs().max())
     log(f"[sharding] {label}: per-step loss gaps {gaps}; first and last layers after step 1 "
         f"within {worst:.3g} ({guarded} elements past rtol {SHARD_RTOL} / atol {SHARD_ATOL}, "
-        f"each with a one-process gradient under 1e-6); codes differing {frac:.6%}, Delta "
+        f"each with a one-process gradient under 1e-6 after the clip by {twin['clip']:.6g}, "
+        f"{clipped} of them at least 1e-6 before it); codes differing {frac:.6%}, Delta "
         f"within {d_delta:.3g}")
 
 
@@ -5186,23 +5257,26 @@ def shard_launches(method: str, bits: int, steps: int) -> dict:
 
 
 def shard_trains(torch, dev, directory: pathlib.Path, runs: list, model: int) -> dict:
-    """18a / 18c: each run's twin (in turn, the card freed after each), then
-    one launch of ``1 x model`` ranks that run them in turn from the same
-    seeds and batches (each rank its shard of the one-process init, the
-    noise the rows' slice of the one-process draw), compared.  ``runs``
-    holds ``(label, cfg, seed, batches)``.  Returns the ranks' launches."""
+    """18a, 18c, 18e-18h: each run's twin (in turn, the card freed after
+    each), then one launch of ``1 x model`` ranks that run them in turn from
+    the same seeds and batches (each rank its shard of the one-process init,
+    the noise the rows' slice of the one-process draw), compared.  A run is
+    a dict of ``label``, ``cfg``, ``seed``, ``batches``, and optionally its
+    ``policy`` (tp) and ``guard_at`` (the step ``trainer.nonfinite`` fires
+    on under the guard).  Returns the ranks' launches."""
     twins = []
-    for label, cfg, seed, batches in runs:
+    for run in runs:
         _on_card(torch, dev, "reset_peak_memory_stats", dev)
-        twins.append(shard_twin(torch, dev, cfg, seed, batches, label))
+        twins.append(shard_twin(torch, dev, run))
     t0 = time.perf_counter()
     job = {"device": dev.type, "runs": [
-        {"kind": "train", "cfg": cfg, "seed": seed, "batches": batches,
-         "compare": (SHARD_COMPARE_MAX, SHARD_BLOCK_ROWS)} for _, cfg, seed, batches in runs]}
-    ranks = run_ranks(torch, directory, job, 1, model, "18a / 18c")
+        {"kind": "train", "compare": (SHARD_COMPARE_MAX, SHARD_BLOCK_ROWS), **run}
+        for run in runs]}
+    ranks = run_ranks(torch, directory, job, 1, model, "18a / 18c / 18e-18h")
     ranks_s = time.perf_counter() - t0
     total = {}
-    for i, ((label, cfg, _, batches), twin) in enumerate(zip(runs, twins)):
+    for i, (run, twin) in enumerate(zip(runs, twins)):
+        label, cfg, batches = run["label"], run["cfg"], run["batches"]
         outs = [r[i] for r in ranks]
         want = shard_launches(cfg.embedding_method, cfg.embedding_bits, len(batches))
         for r, o in enumerate(outs):
@@ -5219,7 +5293,7 @@ def shard_trains(torch, dev, directory: pathlib.Path, runs: list, model: int) ->
             + f"; peak memory {[o['peak'] for o in outs]} B (the twin's {twin['peak']} B); "
             f"launches {[o['launches'] for o in outs]}; rank 0 {outs[0]['times']} s; "
             f"{card_name()}")
-    log(f"[sharding] 18a / 18c: the ranks' processes {ranks_s:.1f}s; {card_name()}")
+    log(f"[sharding] 18a / 18c / 18e-18h: the ranks' processes {ranks_s:.1f}s; {card_name()}")
     return total
 
 
@@ -5356,7 +5430,10 @@ def sharding_phase(torch, dev, err: dict) -> dict:
     """Phase 18: 18a qwen3-1.7b ALPT-8 at full width and depth on 1 x 2, 18b
     the train lm CLI at 2 x 2 (with the tp_sp step and the checkpoint), 18c
     mixtral-8x7b ALPT-8 at 1 layer with its experts over 2 ranks, 18d the
-    shard-local kernels.  Returns the ranks' launches (and 18b's 1 x 1 CLI)."""
+    shard-local kernels, and on 1 x 2 18e SmolLM-135M (heads split
+    mid-head) and 18f mamba2-370m at full width and depth, 18g hubert-xlarge
+    at full width under tp_sp, 18h SmolLM guarded with a poisoned step.
+    Returns the ranks' launches (and 18b's 1 x 1 CLI)."""
     import gc
     import tempfile
 
@@ -5370,13 +5447,30 @@ def sharding_phase(torch, dev, err: dict) -> dict:
             (root / sub).mkdir()
         qwen3, mixtral = shard_config(SHARD_ARCH), shard_config(SHARD_MOE_ARCH,
                                                                  n_layers=SHARD_MOE_LAYERS)
-        runs = [("18a qwen3-1.7b ALPT-8 tp", qwen3, 181,
-                 shard_batches(torch, qwen3.vocab_size, SHARD_STEPS, SHARD_BATCH, SHARD_SEQ)),
-                ("18c mixtral-8x7b ALPT-8 tp, 4 experts a rank", mixtral, 183,
-                 shard_batches(torch, mixtral.vocab_size, SHARD_MOE_STEPS, SHARD_BATCH,
-                               SHARD_SEQ))]
+        smol, ssm = shard_config(SHARD_SMOL_ARCH), shard_config(SHARD_SSM_ARCH)
+        enc = shard_config(SHARD_ENC_ARCH, n_layers=SHARD_ENC_LAYERS)
+
+        def tokens(cfg, steps):
+            return shard_batches(torch, cfg.vocab_size, steps, SHARD_BATCH, SHARD_SEQ)
+
+        fam = SHARD_FAMILY_STEPS
+        runs = [
+            {"label": "18a qwen3-1.7b ALPT-8 tp", "cfg": qwen3, "seed": 181,
+             "batches": tokens(qwen3, SHARD_STEPS)},
+            {"label": "18c mixtral-8x7b ALPT-8 tp, 4 experts a rank", "cfg": mixtral,
+             "seed": 183, "batches": tokens(mixtral, SHARD_MOE_STEPS)},
+            {"label": "18e smollm-135m ALPT-8 tp, 9/3 heads split mid-head", "cfg": smol,
+             "seed": 185, "batches": tokens(smol, fam)},
+            {"label": "18f mamba2-370m ALPT-8 tp, 16 of 32 SSD heads a rank", "cfg": ssm,
+             "seed": 186, "batches": tokens(ssm, fam)},
+            {"label": f"18g hubert-xlarge ALPT-8 tp_sp, {SHARD_ENC_LAYERS} of 48 layers",
+             "cfg": enc, "seed": 187, "policy": "tp_sp",
+             "batches": shard_frames(torch, enc, fam, SHARD_BATCH, SHARD_SEQ)},
+            {"label": f"18h smollm-135m ALPT-8 tp, guarded, trainer.nonfinite at step "
+                      f"{SHARD_GUARD_AT}", "cfg": smol, "seed": 188,
+             "guard_at": SHARD_GUARD_AT, "batches": tokens(smol, fam)}]
         total = added(total, shard_trains(torch, dev, root / "a", runs, 2))
-        log(f"[sharding] 18a and 18c: {time.perf_counter() - t_phase:.1f}s")
+        log(f"[sharding] 18a, 18c, 18e-18h: {time.perf_counter() - t_phase:.1f}s")
         total = added(total, shard_cli(torch, dev, root / "b"))
         log(f"[sharding] 18b: {time.perf_counter() - t_phase:.1f}s into phase 18")
     shard_kernels(torch, dev, err)

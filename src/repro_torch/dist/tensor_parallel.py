@@ -19,11 +19,20 @@ model calls these at the reference's hint sites:
   ids outside it, then *g*; a shard over d is all-gathered along d;
 * :func:`token_losses` (``head_weight`` / ``logits``): a vocab shard's
   logits go through a vocab-parallel cross-entropy (a MAX, then a SUM of
-  exp, then the label's logit from the rank that holds it); a shard over d
-  contracts its columns and all-reduces the logits;
+  exp, then the label's logit from the rank that holds it; the rows of a
+  padded table past the vocabulary masked out); a shard over d contracts
+  its columns and all-reduces the logits;
 * :func:`partial_weight`: a replicated weight that reads this rank's
-  block of T (the norms under sequence parallelism) or its heads (QK-norm)
-  gets the model ranks' summed gradient (*f* on the weight);
+  block of T (the norms under sequence parallelism, the encoder MLP's
+  ``b_out``) or its heads (QK-norm, the mamba mixer's B / C streams) gets
+  the model ranks' summed gradient (*f* on the weight);
+* :func:`whole`: a leaf the specs cut where the executor cannot run a
+  shard (attention heads split mid-head, SSD heads that do not split)
+  gathered before use, its backward the rank's block; the sub-layer then
+  runs replicated, with neither *f* nor *g*;
+* :func:`sum_over_model`: a statistic summed over the ranks' blocks of a
+  sharded width (the gated norm over the mixer's ``d_inner``), whose
+  backward sums too, since every rank's output reads it;
 * :func:`rows_any` / :func:`rows_sum`: a table sharded over d reduces a
   row's touched flag and its Delta gradient over the model group;
 * :func:`batch_mean`: a batch statistic that is not a mean of per-token
@@ -55,6 +64,11 @@ def active():
 
 def _group():
     return dist_ctx.current().mesh.groups["model"]
+
+
+def model_size() -> int:
+    ctx = active()
+    return 1 if ctx is None else int(ctx.mesh.shape["model"])
 
 
 def model_rank() -> int:
@@ -134,6 +148,21 @@ class _SliceAlong(torch.autograd.Function):
         return _all_gather(g, ctx.dim, ctx.group), None, None
 
 
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 def copy_to_model(x):
     """Identity forward, all-reduce (SUM) of the gradient over the model group."""
     return x if active() is None else _CopyToModel.apply(x, _group())
@@ -154,6 +183,22 @@ def slice_along(x, dim: int):
     """The rank's block of ``x`` along ``dim``; backward: the ranks'
     gradients all-gathered."""
     return x if active() is None else _SliceAlong.apply(x, dim % x.ndim, _group())
+
+
+def sum_over_model(x):
+    """All-reduce (SUM) over the model group, forward and backward: a sum of
+    the ranks' partial terms that every rank then reads."""
+    return x if active() is None else _SumOverModel.apply(x, _group())
+
+
+def whole(x, shape):
+    """``x``, a rank's block of a leaf of the whole ``shape``, gathered
+    along each dimension where it is narrower (the identity for a
+    replicated leaf); backward: the rank's block of the gradient."""
+    for dim, (have, want) in enumerate(zip(x.shape, shape, strict=True)):
+        if have < want:
+            x = gather_along(x, dim)
+    return x
 
 
 def partial_weight(w, partial: bool):
@@ -237,7 +282,11 @@ def token_losses(w: torch.Tensor, h: torch.Tensor, labels: torch.Tensor, vocab: 
         return None
     if rows < vocab:
         logits = logits_of(w, copy_to_model(h))
-        return _VocabParallelCE.apply(logits, labels, model_rank() * rows, _group())
+        r0 = model_rank() * rows
+        if r0 + rows > vocab:  # a padded table's rows past the vocabulary
+            live = torch.arange(rows, device=logits.device) < vocab - r0
+            logits = torch.where(live, logits, -torch.inf)
+        return _VocabParallelCE.apply(logits, labels, r0, _group())
     logits = reduce_from_model(logits_of(w, slice_along(h, -1)))
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.logsumexp(logits, dim=-1) - gold

@@ -49,6 +49,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.faults import plan as _plan
 
@@ -209,11 +210,17 @@ def wrap_ctr_step(step_fn, *, method, spec):
     return guarded
 
 
-def wrap_lm_step(step_fn):
+def wrap_lm_step(step_fn, group=None):
     """Guard an LM step ``(state, batch, *args, **kw) -> (state, metrics)``
     of ``repro_torch.training.lm_trainer`` (same signature).  The step is
     functional, so the seams poison copies and a skip returns the state
-    before the step with its step counter and generator advanced."""
+    before the step with its step counter and generator advanced.
+
+    ``group``: the step runs on one rank's shards of a mesh, and the
+    verdict is the whole group's (any rank's loss or param shards
+    non-finite, one all-reduce before the host read), as the reference's
+    one program judges its global loss and params; every rank then keeps
+    or rolls back together."""
     from repro_torch.optim import tree_leaves, tree_like
 
     fire_nf, fire_dl, scale = _seams()
@@ -231,6 +238,10 @@ def wrap_lm_step(step_fn):
                                                lambda t: t._replace(step=t.step * scale)))
         new_state, m = step_fn(st, batch, *args, **kw)
         ok = _all_finite(m["loss"], tree_leaves(new_state.params))
+        if group is not None:
+            bad = (~ok).to(torch.float32).reshape(1)
+            dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=group)
+            ok = bad[0] == 0
         skipped = not bool(ok)  # the one host read (the optimizers' clocks are host ints)
         if skipped:
             new_state = state._replace(step=new_state.step, generator=new_state.generator)

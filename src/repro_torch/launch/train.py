@@ -56,9 +56,11 @@ state follows ``state_pspecs`` (each rank its shard of the one-process
 init), the batch ``batch_pspecs`` (a batch the data axis does not divide is
 replicated and still trains), and the step is donated.  Every rank saves
 through the gather and rank 0 writes whole leaves; a resume cuts each
-rank's shard for this mesh, whatever mesh saved the checkpoint.  Exit 2:
-a world size that is not ``D * M``, an fsdp / dp / ep policy, mamba blocks
-or a method other than fp / lpt / alpt under ``--mesh-model`` > 1 (ROADMAP
+rank's shard for this mesh, whatever mesh saved the checkpoint.  Every
+arch runs there (mamba mixers and heads that split mid-head among them),
+and so do ``--pad-to-tiles`` and ``--guard`` (one verdict for every rank).
+Exit 2: a world size that is not ``D * M``, an fsdp / dp / ep policy, a
+method other than fp / lpt / alpt under ``--mesh-model`` > 1 (ROADMAP
 A13c).
 
 Storage tiers (``ctr``): ``--zipf`` trains on the reference's Zipf(1.1)
@@ -85,8 +87,9 @@ the graceful shutdown after its step: the checkpoint, then exit 75.
 ``--guard`` turns on the non-finite skip-step guard, and a plan naming
 ``trainer.nonfinite`` or ``alpt.delta`` turns it on by itself; the JSON
 line then carries ``guard`` (skipped steps, fired seams, clamped Delta
-rows).  ``--guard`` is single-program only: ``--dp-compress-bits`` refuses
-it, since each rank would judge its own loss before the sync.
+rows).  ``--dp-compress-bits`` refuses ``--guard``, as the reference's CLI
+does, since each rank would judge its own loss before the sync; the
+sharded path takes it.
 """
 from __future__ import annotations
 
@@ -448,8 +451,7 @@ def check_mesh(parser: argparse.ArgumentParser, args) -> None:
         shape = {"data": args.mesh_data, "model": args.mesh_model}
         try:
             lm_trainer.check_shardable(
-                lm_config(args), lm_trainer.LMTrainerConfig(pad_to_tiles=args.pad_to_tiles,
-                                                            guard=args.guard),
+                lm_config(args),
                 HostMesh(shape=shape, coords={"data": 0, "model": 0},
                          groups={"data": None, "model": None}),
                 sharding.policy_from_name(args.policy, model_size=args.mesh_model))

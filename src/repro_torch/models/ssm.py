@@ -30,6 +30,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.models.layers import rms_norm
 
 
@@ -93,6 +94,27 @@ def init_ssm(generator: torch.Generator, cfg: SSMConfig, dtype=torch.float32) ->
         "norm_w": torch.ones((di,), dtype=dtype, device=dev),
         "out_proj": normal((di, d), 1.0 / math.sqrt(di)),
     }
+
+
+def param_shapes(cfg: SSMConfig) -> dict[str, tuple[int, ...]]:
+    """The whole shapes of :func:`init_ssm`'s leaves."""
+    d, di, n, h, w = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.conv_width
+    return {"wz": (d, di), "wx": (d, di), "wB": (d, n), "wC": (d, n), "wdt": (d, h),
+            "conv_x": (w, di), "conv_B": (w, n), "conv_C": (w, n), "conv_bx": (di,),
+            "conv_bB": (n,), "conv_bC": (n,), "dt_bias": (h,), "A_log": (h,), "D": (h,),
+            "norm_w": (di,), "out_proj": (di, d)}
+
+
+def _gated_norm(v: torch.Tensor, w: torch.Tensor, width: int, eps: float = 1e-6):
+    """``rms_norm`` over the whole ``width`` (``d_inner``) of ``v``: a model
+    shard's block of it takes the mean of squares over every rank's block
+    (:func:`~repro_torch.dist.tensor_parallel.sum_over_model`, whose
+    backward sums too: every rank's output reads it)."""
+    if v.shape[-1] == width:
+        return rms_norm(v, w, eps)
+    v32 = v.to(torch.float32)
+    var = tp.sum_over_model(torch.sum(torch.square(v32), dim=-1, keepdim=True)) / width
+    return ((v32 * torch.rsqrt(var + eps)) * w.to(torch.float32)).to(v.dtype)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -167,7 +189,9 @@ def ssm_forward(params: dict[str, Any], u: torch.Tensor, cfg: SSMConfig,
                 ssm_state: torch.Tensor | None = None, return_cache: bool = False):
     """The full mamba2 mixer over u [B, T, d_model] -> ``(out, cache | None)``;
     the cache (``return_cache``) holds the last ``conv_width - 1`` raw conv
-    inputs per stream and the final SSD state."""
+    inputs per stream and the final SSD state.  ``params`` may be a model
+    shard's (``transformer._mamba_block``): its heads and its block of
+    ``d_inner``, ``out`` then this rank's partial sum."""
     b, t, _ = u.shape
     if return_cache:
         check_prefill_len(cfg, t)
@@ -175,12 +199,12 @@ def ssm_forward(params: dict[str, Any], u: torch.Tensor, cfg: SSMConfig,
     x = _causal_conv(x_raw, params["conv_x"], params["conv_bx"])
     B_ = _causal_conv(B_raw, params["conv_B"], params["conv_bB"])
     C_ = _causal_conv(C_raw, params["conv_C"], params["conv_bC"])
-    x = x.reshape(b, t, cfg.n_heads, cfg.headdim)
+    x = x.reshape(b, t, -1, cfg.headdim)
     dt = F.softplus(dt_raw.to(torch.float32) + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     y, state = ssd_chunked(x, dt, A, B_, C_, min(cfg.chunk, t), ssm_state)
     y = y + params["D"].to(y.dtype)[None, None, :, None] * x
-    y = rms_norm(y.reshape(b, t, cfg.d_inner) * F.silu(z), params["norm_w"])
+    y = _gated_norm(y.reshape(b, t, -1) * F.silu(z), params["norm_w"], cfg.d_inner)
     out = y @ params["out_proj"]
     if not return_cache:
         return out, None

@@ -171,6 +171,15 @@ def _init_attn(g: torch.Generator, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     return p
 
 
+def _attn_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The whole shapes of one layer's attention leaves (:func:`_init_attn`)."""
+    h, kv = cfg.padded_heads
+    hd, d = cfg.hd, cfg.d_model
+    return {"wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd), "wo": (h * hd, d),
+            "bq": (h * hd,), "bk": (kv * hd,), "bv": (kv * hd,), "q_norm": (hd,),
+            "k_norm": (hd,)}
+
+
 def _block_keys(cfg: ModelConfig, pos: int) -> set[str]:
     """The keys of the block at period position ``pos``: its norms, its mixer
     and its MLP or MoE (a pure-mamba block with ``d_ff == 0`` has neither, and
@@ -324,14 +333,23 @@ def _attn_block(p, x, cfg: ModelConfig, *, rope, cache=None, slots=None,
 
     A model shard of the heads (``wq`` narrower than the padded heads: the
     reference's ``q_heads`` / ``kv_heads`` hints) runs this rank's heads
-    between :func:`~repro_torch.dist.tensor_parallel.enter` and ``leave``;
-    ``seq``: ``x`` is this rank's block of the sequence (``carry``)."""
+    between :func:`~repro_torch.dist.tensor_parallel.enter` and ``leave``.
+    Where the specs cut the projections mid-head (heads that do not split
+    over the model axis), every sharded leaf is gathered whole
+    (``tp.whole``) and the attention runs replicated on every rank, with
+    neither the input's all-reduce nor the output's: each rank already
+    computes the whole gradient.  ``seq``: ``x`` is this rank's block of
+    the sequence (``carry``)."""
     b, t, _ = x.shape
     h, kv = cfg.padded_heads
     hd = cfg.hd
     a = p["attn"]
     y = L.rms_norm(x, tp.partial_weight(p["norm1"], seq))
-    sharded = a["wq"].shape[-1] < h * hd
+    sharded = a["wq"].shape[-1] < h * hd or a["wk"].shape[-1] < kv * hd
+    m = tp.model_size()
+    if sharded and (h % m or kv % m):
+        shapes = _attn_shapes(cfg)
+        a, sharded = {k: tp.whole(v, shapes[k]) for k, v in a.items()}, False
     y = tp.enter(y, sharded, seq)
     t, h, kv = y.shape[1], a["wq"].shape[-1] // hd, a["wk"].shape[-1] // hd
     q = y @ a["wq"]
@@ -366,13 +384,35 @@ def _attn_block(p, x, cfg: ModelConfig, *, rope, cache=None, slots=None,
     return x + o, new_kv
 
 
-def _mamba_block(p, x, cfg: ModelConfig, *, cache=None, return_cache: bool = False):
+#: The mixer's leaves the specs replicate that every SSD head reads.
+_SSM_SHARED = frozenset({"wB", "wC", "conv_B", "conv_C", "conv_bB", "conv_bC"})
+
+
+def _mamba_block(p, x, cfg: ModelConfig, *, cache=None, return_cache: bool = False,
+                 seq: bool = False):
     """Pre-norm mamba mixer over the full sequence (``return_cache``: with its
-    decode cache), or one recurrent step against ``cache`` -> ``(x, cache)``."""
-    y = L.rms_norm(x, p["norm1"])
+    decode cache), or one recurrent step against ``cache`` -> ``(x, cache)``.
+
+    A model shard of the mixer (``wx`` narrower than ``d_inner``: its z / x
+    / dt columns, conv channels, SSD heads and gated-norm weights over
+    'model', ``out_proj``'s rows) runs this rank's heads between
+    ``tp.enter`` and ``tp.leave``; the replicated B / C streams feed every
+    rank's heads, so their weights take ``tp.partial_weight``.  SSD heads
+    that do not split while ``d_inner`` does are gathered whole and run
+    replicated, as a mid-head attention shard is.  ``seq`` as in
+    :func:`_attn_block`."""
+    y = L.rms_norm(x, tp.partial_weight(p["norm1"], seq))
     if cache is None:
-        out, c = ssm_mod.ssm_forward(p["mamba"], y, cfg.ssm, return_cache=return_cache)
-        return x + out, c
+        mp, s = p["mamba"], cfg.ssm
+        sharded = mp["wx"].shape[-1] < s.d_inner
+        if sharded and s.n_heads % tp.model_size():
+            shapes = ssm_mod.param_shapes(s)
+            mp, sharded = {k: tp.whole(v, shapes[k]) for k, v in mp.items()}, False
+        elif sharded:
+            mp = {k: tp.partial_weight(v, k in _SSM_SHARED) for k, v in mp.items()}
+        out, c = ssm_mod.ssm_forward(mp, tp.enter(y, sharded, seq), s,
+                                     return_cache=return_cache)
+        return x + tp.leave(out, sharded, seq), c
     out, new_cache = ssm_mod.ssm_decode_step(p["mamba"], y, cfg.ssm, cache)
     return x + out, new_cache
 
@@ -391,8 +431,11 @@ def _mlp_block(p, x, cfg: ModelConfig, pos: int, seq: bool = False):
         return x + tp.leave(out, False, seq), aux
     m = p["mlp"]
     if cfg.mlp_type == "gelu":
+        # b_out is added to this rank's block of T under sequence
+        # parallelism: a replicated weight that reads part of its input.
         sharded = m["w_in"].shape[-1] < cfg.d_ff
-        out = L.gelu_mlp(tp.enter(y, sharded, seq), m["w_in"], m["b_in"], m["w_out"], m["b_out"],
+        out = L.gelu_mlp(tp.enter(y, sharded, seq), m["w_in"], m["b_in"], m["w_out"],
+                         tp.partial_weight(m["b_out"], seq),
                          reduce=lambda o: tp.leave(o, sharded, seq))
         return x + out, None
     sharded = m["w_gate"].shape[-1] < cfg.d_ff
@@ -412,7 +455,7 @@ def _period_fwd(blocks: list, x: torch.Tensor, rope, cfg: ModelConfig, use_kerne
             x, _ = _attn_block(p, x, cfg, rope=rope, use_kernel=use_kernel, train=train,
                                seq=seq)
         else:
-            x, _ = _mamba_block(p, x, cfg)
+            x, _ = _mamba_block(p, x, cfg, seq=seq)
         x, a = _mlp_block(p, x, cfg, pos, seq)
         if a is not None:
             group_aux = a if group_aux is None else group_aux + a

@@ -1,4 +1,4 @@
-"""Adam over a list of float32 tensors (port of repro/optim/adam.py).
+"""Adam and SGD over a list of float32 tensors (port of repro/optim/adam.py).
 
 Not ``torch.optim.Adam``: the reference's update is ``(m / bc1) / (sqrt(v /
 bc2) + eps)``, and PyTorch's orders it otherwise.  The arithmetic is
@@ -8,6 +8,8 @@ holds it bitwise), and on the card the ``adam_update`` kernel, which equals
 it bit for bit.  ``OptState.mu`` / ``nu`` follow the order of the parameter
 list (for the DCN, ``module.parameters()``; for the transformer's nested
 param dict, :func:`tree_leaves`, the reference's pytree order).
+:func:`sgd_update` is the reference's plain SGD, and :func:`make_optimizer`
+picks either by name.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.lpt import adam_bias_corrections
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 
 class OptState(NamedTuple):
@@ -50,6 +52,36 @@ def adam_update(grads, state: OptState, params, lr: float, *, b1: float = 0.9,
                                           b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
                                           use_kernel=use_kernel, inplace=inplace)
     return new_p, OptState(step=step, mu=new_m, nu=new_v)
+
+
+def sgd_init(params) -> OptState:
+    """SGD keeps no moments."""
+    return OptState(step=0, mu=(), nu=())
+
+
+@torch.no_grad()
+def sgd_update(grads, state: OptState, params, lr: float, *, weight_decay: float = 0.0):
+    """One SGD step -> ``(new_params, new_state)``: ``p - lr * (g + wd * p)``
+    as XLA:CPU compiles the reference's, ``fma(-lr, fma(wd, p, g), p)``
+    (``fma(-lr, g, p)`` without decay); ``lr`` and ``weight_decay`` rounded
+    to float32."""
+    neg_lr, wd = -ref.f32(lr), ref.f32(weight_decay)
+    new = []
+    for p, g in zip(params, grads, strict=True):
+        p32, g32 = p.detach().to(torch.float32), g.to(torch.float32)
+        if weight_decay:
+            g32 = ref.fma(wd, p32, g32)
+        new.append(ref.fma(neg_lr, g32, p32).to(p.dtype))
+    return new, OptState(step=state.step + 1, mu=(), nu=())
+
+
+def make_optimizer(name: str):
+    """``(init_fn, update_fn)`` for ``'adam'`` | ``'adamw'`` | ``'sgd'``."""
+    if name in ("adam", "adamw"):
+        return adam_init, adam_update
+    if name == "sgd":
+        return sgd_init, sgd_update
+    raise ValueError(f"unknown optimizer {name!r}")
 
 
 def tree_leaves(tree) -> list:

@@ -310,13 +310,13 @@ def _lm_shards(batch: dict, n: int) -> dict:
 
 
 def make_lm_dp_step(cfg, tcfg, group=None, dp: DPConfig | None = None, *,
-                    sync_noise: NoiseFn | None = None):
+                    sync_noise: NoiseFn | None = None, lr_schedule=None):
     """Data-parallel LM step over ``group``: ``step(state, batch, noise=None)
     -> (state, metrics)``, run by every rank on the GLOBAL ``batch`` (every
     leaf leads with the batch dimension but M-RoPE ``positions`` [3, B, T],
     sliced on B); the LM trainer's own step with its
-    sync hooks filled in.  ``loss`` and ``aux_loss`` are exact means over
-    the ranks."""
+    sync hooks filled in (``lr_schedule`` passed on to it).  ``loss`` and
+    ``aux_loss`` are exact means over the ranks."""
     dp = _resolve(dp, tcfg.dp_sync_bits)
     sync = GradSync(dp, sync_noise, _require_group(group))
     n = dist.get_world_size(sync.group)
@@ -327,7 +327,7 @@ def make_lm_dp_step(cfg, tcfg, group=None, dp: DPConfig | None = None, *,
     def step_grad_sync(g_step, step):
         return tree_like(g_step, sync.delta(tree_leaves(g_step), step))
 
-    hooked = lm_trainer.make_train_step(cfg, tcfg, grad_sync=grad_sync,
+    hooked = lm_trainer.make_train_step(cfg, tcfg, lr_schedule, grad_sync=grad_sync,
                                         step_grad_sync=step_grad_sync, dp_size=n)
 
     def step(state, batch, noise=None):
@@ -343,15 +343,15 @@ def make_lm_dp_step(cfg, tcfg, group=None, dp: DPConfig | None = None, *,
 
 
 def make_lm_microbatch_step(cfg, tcfg, n_shards: int, dp: DPConfig | None = None, *,
-                            sync_noise: NoiseFn | None = None):
+                            sync_noise: NoiseFn | None = None, lr_schedule=None):
     """One-process microbatched LM step: bitwise :func:`make_lm_dp_step` on
-    ``n_shards`` ranks."""
+    ``n_shards`` ranks (the same ``lr_schedule``)."""
     lm_trainer.check_trainable(cfg, tcfg)
     dp = _resolve(dp, tcfg.dp_sync_bits)
     sync = GradSync(dp, sync_noise)
     spec = lm_trainer.embedding_spec_of(cfg, tcfg)
     method = methods.get(spec.method)
-    lr_at = lm_trainer.make_lr_fn(tcfg)
+    lr_at = lm_trainer.make_lr_fn(tcfg, lr_schedule)
     grad_fn = lm_trainer.make_grad_fn(cfg, tcfg)
     apply_fn = lm_trainer.make_apply_fn(cfg, tcfg)
     delta_fn = lm_trainer.make_delta_grad_fn(cfg, tcfg) if method.has_learned_step else None

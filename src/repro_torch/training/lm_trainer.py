@@ -47,9 +47,12 @@ tree, and the table's write-back on this rank's rows (its SR noise the
 rows' slice of the one-process draw, so codes compare across meshes).
 :func:`save` gathers the shards and rank 0 writes the reference's layout
 (whole leaves); :func:`restore` hands each rank its shard for the mesh it
-runs on.  Refused, naming ROADMAP A13c: fsdp / dp / ep policies, mamba
-blocks and methods other than fp / lpt / alpt under a model axis > 1, a
-shard that splits an attention head.
+runs on.  Mamba mixers run their heads' shards; an attention or SSD
+shard that splits a head is gathered and run replicated; a padded table
+splits its allocated rows (the scratch row lands on the rank whose block
+holds it); the guard's verdict is the whole world's.  Refused, naming
+ROADMAP A13c: fsdp / dp / ep policies, and methods other than fp / lpt /
+alpt under a model axis > 1.
 """
 from __future__ import annotations
 
@@ -58,6 +61,7 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import device as device_mod
 from repro_torch import faults, methods
@@ -156,45 +160,44 @@ class Shards(NamedTuple):
     table_shape: tuple
 
 
-def check_shardable(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, mesh, pol) -> None:
+def check_shardable(cfg: tfm.ModelConfig, mesh, pol) -> None:
     """Raise ``ValueError`` for what the sharded step does not execute
     (ROADMAP A13c) on this ``(data, model)`` mesh: an fsdp / dp / ep policy
-    (on any mesh, so that such a policy never passes unexecuted); under a
-    model axis > 1 mamba blocks, a method other
-    than fp / lpt / alpt, a padded table, the guard, or an attention shard
-    that splits a head (the spec builders split ``wk``'s columns, an
-    executor of explicit shards cannot)."""
+    (on any mesh, so that such a policy never passes unexecuted), and under
+    a model axis > 1 a method other than fp / lpt / alpt."""
     m = int(mesh.shape["model"])
     if pol.fsdp or pol.pure_dp or pol.ep:
         raise ValueError(f"policy {pol.name!r}: fsdp / dp / ep execution is ROADMAP A13c (its "
                          "specs are ported)")
     if pol.model_size != m:
         raise ValueError(f"policy model_size {pol.model_size} != the mesh's model axis {m}")
-    if tcfg.guard and mesh.size > 1:
-        raise ValueError("the guard is single-program only (each rank would judge its own loss)")
-    if m == 1:
-        return
-    if "mamba" in cfg.layer_types:
-        raise ValueError(f"{cfg.name}: mamba blocks under a model axis > 1 are ROADMAP A13c")
-    if cfg.embedding_method not in MODEL_SHARDED_METHODS:
+    if m > 1 and cfg.embedding_method not in MODEL_SHARDED_METHODS:
         raise ValueError(f"method {cfg.embedding_method!r} under a model axis > 1 is ROADMAP "
                          f"A13c (model-sharded: {', '.join(MODEL_SHARDED_METHODS)})")
-    if tcfg.pad_to_tiles:
-        raise ValueError("a padded table (pad_to_tiles) under a model axis > 1 is ROADMAP A13c")
-    h, kv = cfg.padded_heads
-    if "attn" in cfg.layer_types and ((h * cfg.hd) % m == 0 or (kv * cfg.hd) % m == 0) and (
-            h % m or kv % m):
-        raise ValueError(f"{cfg.name}: {h}/{kv} heads do not split {m} ways, and the specs "
-                         "shard the projections mid-head (ROADMAP A13c)")
+
+
+def _allocated(spec: methods.EmbeddingSpec) -> tuple[int, int]:
+    """The allocated [rows, width] of an fp / lpt / alpt table: an integer
+    table's padded geometry, a float table's live one (fp pads nothing)."""
+    if methods.get(spec.method).is_integer_table:
+        return spec.n_padded, spec.d_padded
+    return spec.n, spec.d
 
 
 def _table_axes(cfg: tfm.ModelConfig, spec: methods.EmbeddingSpec, pol):
     """The table's (row, col) entries as the step executes them: the spec
-    builders', with a d split of packed codes dropped (the table
-    replicated) where a shard's codes would not fill whole bytes."""
+    builders', dropped (the table replicated) where the allocated table
+    does not split: a padded table (``pad_to_tiles``, its scratch row and
+    tile rounding) whose padded rows or width the axis does not divide, or
+    whose padded width is not its live width; packed codes whose d split
+    would not fill whole bytes."""
     row, col = sharding._table_axes(cfg, pol)
+    m = pol.model_size
+    n, d = _allocated(spec)
+    if (n, d) != (spec.n, spec.d) and (d != spec.d or (row and n % m) or (col and d % m)):
+        return None, None
     if col is not None and spec.packed and spec.bits in (2, 4) and (
-            cfg.d_model // pol.model_size * spec.bits) % 8:
+            cfg.d_model // m * spec.bits) % 8:
         return None, None
     return row, col
 
@@ -228,13 +231,16 @@ def _shards(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None) -> Shards | None
         return None
     tcfg = LMTrainerConfig() if tcfg is None else tcfg
     mesh, pol = ctx.mesh, ctx.policy
-    check_shardable(cfg, tcfg, mesh, pol)
+    check_shardable(cfg, mesh, pol)
     spec = embedding_spec_of(cfg, tcfg)
     specs = state_specs(cfg, tcfg, mesh, pol)
     row, col = _table_axes(cfg, spec, pol)
     m = int(mesh.shape["model"])
-    local = dataclasses.replace(spec, n=spec.n // m if row else spec.n,
-                                d=spec.d // m if col else spec.d)
+    local = spec
+    if row or col:  # this rank's block of the allocated table (a padded one's scratch row too)
+        n, d = _allocated(spec)
+        local = dataclasses.replace(spec, n=n // m if row else n, d=d // m if col else d,
+                                    pad_to_tiles=False)
     flags = [sharding.is_sharded(p, mesh) for p in sharding.spec_leaves(specs.params)]
     return Shards(mesh=mesh, policy=pol, specs=specs, spec=local, width_split=col is not None,
                   sharded_leaves=flags, table_shape=(spec.n_padded, spec.d_padded))
@@ -495,11 +501,12 @@ def make_apply_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, donate: bool =
     return apply_fn
 
 
-def make_lr_fn(tcfg: LMTrainerConfig):
-    """``lr_at(step) -> float``: the constant ``tcfg.lr``, rounded to float32
-    as the reference holds it."""
+def make_lr_fn(tcfg: LMTrainerConfig, lr_schedule=None):
+    """``lr_at(step) -> float``: ``lr_schedule(step)`` of the host step (a
+    :mod:`repro_torch.optim.schedule`), or the constant ``tcfg.lr`` without
+    one, rounded to float32 as the reference holds it."""
     def lr_at(step: int) -> float:
-        return float(np.float32(tcfg.lr))
+        return float(np.float32(tcfg.lr if lr_schedule is None else lr_schedule(step)))
 
     return lr_at
 
@@ -509,9 +516,11 @@ def check_trainable(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig) -> None:
     tfm.check_supported(cfg)
 
 
-def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, grad_sync=None,
-                    step_grad_sync=None, dp_size: int = 1, donate: bool = False):
-    """``train_step(state, batch, noise=None) -> (state, metrics)``.
+def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, lr_schedule=None, *,
+                    grad_sync=None, step_grad_sync=None, dp_size: int = 1,
+                    donate: bool = False):
+    """``train_step(state, batch, noise=None) -> (state, metrics)``; the
+    step's ``lr`` is ``lr_schedule`` of ``state.step`` (:func:`make_lr_fn`).
 
     ``batch`` holds int32 ``tokens`` and ``labels`` [B, T] on the state's
     device; a ``mixed``-input config's also ``prefix_embeds`` [B, P, d] and,
@@ -536,7 +545,8 @@ def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, grad_sync=No
 
     Made under a sharding context (``dist.context.use``), the step runs on
     this rank's shards (:func:`_sharded_step`) and installs that context for
-    each call; the data-parallel hooks do not combine with it.
+    each call, the guard's verdict one for the whole world group; the
+    data-parallel hooks do not combine with it.
     """
     check_trainable(cfg, tcfg)
     if donate and tcfg.guard:
@@ -547,10 +557,11 @@ def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, grad_sync=No
         if grad_sync is not None or step_grad_sync is not None:
             raise ValueError("the data-parallel hooks take a replicated state; a sharding "
                              "context syncs the data axis itself")
-        return _sharded_step(cfg, tcfg, sh, donate)
+        step = _sharded_step(cfg, tcfg, sh, donate, lr_schedule)
+        return faults.wrap_lm_step(step, group=dist.group.WORLD) if tcfg.guard else step
     spec = embedding_spec_of(cfg, tcfg)
     method = methods.get(spec.method)
-    lr_at = make_lr_fn(tcfg)
+    lr_at = make_lr_fn(tcfg, lr_schedule)
     grad_fn = make_grad_fn(cfg, tcfg)
     apply_fn = make_apply_fn(cfg, tcfg, donate=donate)
     delta_fn = make_delta_grad_fn(cfg, tcfg) if method.has_learned_step else None
@@ -578,7 +589,8 @@ def make_train_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, grad_sync=No
     return train_step
 
 
-def _sharded_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, sh: Shards, donate: bool):
+def _sharded_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, sh: Shards, donate: bool,
+                  lr_schedule=None):
     """The step over this rank's shards (``make_train_step`` under a
     context): ``train_step(state, batch, noise=None)`` on the GLOBAL batch.
 
@@ -594,7 +606,7 @@ def _sharded_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, sh: Shards, donat
     that the gradient scale's b·d is the whole table's."""
     mesh, pol, spec = sh.mesh, sh.policy, sh.spec
     method = methods.get(spec.method)
-    lr_at = make_lr_fn(tcfg)
+    lr_at = make_lr_fn(tcfg, lr_schedule)
     grad_fn = make_grad_fn(cfg, tcfg, spec)
     apply_fn = make_apply_fn(cfg, tcfg, donate=donate, shards=sh)
     delta_fn = make_delta_grad_fn(cfg, tcfg, spec) if method.has_learned_step else None

@@ -6,8 +6,9 @@ Joins a gloo group through ``DIR/init``, reads ``DIR/in.pt`` (the parent's
 one-process states, batches and noise, as numpy), runs every check of the
 launch on a ``DATA x MODEL`` mesh (a case marked ``data_only`` on a
 ``WORLD x 1`` one) and writes ``DIR/rank<r>.pt`` (rank 0:
-the gathered states and losses; every rank: its flags).  Imports torch and
-the port only, so the same program runs on the card.
+the gathered states and losses; every rank: its flags, per case and in
+all, and the guard's world verdicts).  Imports torch and the port only, so
+the same program runs on the card.
 """
 import dataclasses
 import datetime
@@ -20,7 +21,7 @@ import torch.distributed as dist
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch import interop, methods  # noqa: E402
+from repro_torch import faults, interop, methods  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.dist import context, sharding  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
@@ -45,29 +46,68 @@ def _whole_state(case, dev):
     return interop.lm_state_from_numpy(case["cfg"], case["tcfg"], **case["state"], device=dev)
 
 
-def _step_case(case, mesh, pol, dev, out):
-    """A one-process state (or this rank's init) sharded, one step, gathered."""
+def _step_case(case, mesh, pol, dev):
+    """A one-process state (or this rank's init) sharded, one step, gathered.
+    ``guard_at``: a guarded step under a plan that poisons the params at
+    those steps, taken twice: the steps' verdicts and whether this rank's
+    shards came through the second as they were.  Returns the rank's state,
+    the whole state, the first step's metrics and the rank's flags."""
     cfg, tcfg = case["cfg"], case["tcfg"]
-    with context.use(mesh, pol):
-        sh = lm_trainer._shards(cfg, tcfg)
-        if "state" in case:
-            state = sharding.shard_tree(_whole_state(case, dev), sh.specs, mesh)
-        else:
-            state = lm_trainer.init_state(cfg, tcfg, seed=case["seed"], device=dev)
-        step = lm_trainer.make_train_step(cfg, tcfg, donate=case.get("donate", False))
+    guard_at = case.get("guard_at")
+    if guard_at is not None:  # the seams bind when the step is made
+        faults.install(faults.FaultPlan(specs=(faults.FaultSpec(site="trainer.nonfinite",
+                                                                steps=guard_at),)))
+    try:
+        with context.use(mesh, pol):
+            sh = lm_trainer._shards(cfg, tcfg)
+            if "state" in case:
+                state = sharding.shard_tree(_whole_state(case, dev), sh.specs, mesh)
+            else:
+                state = lm_trainer.init_state(cfg, tcfg, seed=case["seed"], device=dev)
+            step = lm_trainer.make_train_step(cfg, tcfg, donate=case.get("donate", False))
+    finally:
+        faults.uninstall()
     noise = case.get("noise")
-    state, m = step(state, _to(case["batch"], dev), None if noise is None else noise.to(dev))
+    batch = _to(case["batch"], dev)
+    state, m = step(state, batch, None if noise is None else noise.to(dev))
+    guard = None
+    if guard_at is not None:
+        new, m2 = step(state, batch)
+        guard = {"skipped": [int(m["guard_skipped"]), int(m2["guard_skipped"])],
+                 "kept": _same_state(new, state, clocks=False)}
+        state = new
     with context.use(mesh, pol):
         whole = sharding.gather_tree(state, sh.specs, mesh)
-    # Replicated leaves are the same on every rank of the model group.
+    # Replicated leaves are the same on every rank of the mesh.
     same = True
     for leaf, spec in zip(tree_leaves(state.params), sharding.spec_leaves(sh.specs.params)):
         if not sharding.is_sharded(spec, mesh):
             parts = [torch.empty_like(leaf) for _ in range(mesh.size)]
             dist.all_gather(parts, leaf.contiguous())
             same &= all(torch.equal(p, leaf) for p in parts)
-    out["same_replicas"] &= bool(same)
-    return state, whole, {k: float(v) for k, v in m.items() if torch.is_tensor(v) and v.ndim == 0}
+    metrics = {k: float(v) for k, v in m.items() if torch.is_tensor(v) and v.ndim == 0}
+    return state, whole, metrics, {"guard": guard, "same_replicas": bool(same)}
+
+
+def _guard_world(dev) -> list:
+    """The guard's verdicts over the world group when only rank 0's shard
+    of the params comes out non-finite: a step that does so at its first
+    call, then a clean one."""
+    state = lm_trainer.LMTrainState(params={"w": torch.ones(3, device=dev)}, opt=None,
+                                    table=None, table_opt=None, step=0,
+                                    generator=torch.Generator(device=dev))
+
+    def step(st, batch):
+        bad = st.step == 0 and dist.get_rank() == 0
+        w = st.params["w"] * (torch.nan if bad else 2.0)
+        return st._replace(params={"w": w}, step=st.step + 1), {"loss": torch.ones((), device=dev)}
+
+    guarded = faults.wrap_lm_step(step, group=dist.group.WORLD)
+    verdicts = []
+    for _ in range(2):
+        state, m = guarded(state, None)
+        verdicts.append(int(m["guard_skipped"]))
+    return verdicts
 
 
 def _subtables(table):
@@ -97,22 +137,24 @@ def main(directory, rank, world, data, model, device):
     inp = torch.load(directory / "in.pt", weights_only=False)
     mesh = make_host_mesh(data, model)
     data_only = None  # the same ranks as a world x 1 mesh, made when a case asks
-    out = {"same_replicas": True, "steps": {}}
+    out = {"steps": {}, "guard_world": _guard_world(dev)}
     for name, case in inp["steps"].items():
         at = mesh
         if case.get("data_only"):
             data_only = data_only or make_host_mesh(world, 1)
             at = data_only
         pol = sharding.policy_from_name(case["policy"], model_size=at.shape["model"])
-        state, whole, metrics = _step_case(case, at, pol, dev, out)
+        state, whole, metrics, flags = _step_case(case, at, pol, dev)
         out["steps"][name] = {"metrics": metrics, "params": _cpu(whole.params),
-                              "table": _table_np(whole.table)}
+                              "table": _table_np(whole.table), **flags}
         if name == inp.get("save_case"):
             # Save from shards: every rank gathers, rank 0 writes whole leaves.
             with context.use(mesh, pol):
                 lm_trainer.save(CheckpointManager(directory / "ck_mesh"), case["cfg"], state,
                                 case["tcfg"], force=True)
         del state, whole
+
+    out["same_replicas"] = all(c["same_replicas"] for c in out["steps"].values())
 
     if "restore" in inp:  # a 1 x 1 checkpoint restored on this mesh
         case = inp["restore"]
@@ -144,16 +186,20 @@ def main(directory, rank, world, data, model, device):
     return 0
 
 
-def _same_state(a, b) -> bool:
+def _same_state(a, b, clocks: bool = True) -> bool:
+    """Two states' params, Adam moments and table bitwise equal, and with
+    ``clocks`` their step counters and generators too."""
     la = tree_leaves(a.params) + a.opt.mu + a.opt.nu
     lb = tree_leaves(b.params) + b.opt.mu + b.opt.nu
-    same = all(torch.equal(x, y) for x, y in zip(la, lb)) and a.step == b.step
+    same = all(torch.equal(x, y) for x, y in zip(la, lb, strict=True))
+    if clocks:
+        same = (same and a.step == b.step
+                and torch.equal(a.generator.get_state(), b.generator.get_state()))
     if isinstance(a.table, torch.Tensor):
         return same and torch.equal(a.table, b.table)
     ta, tb = a.table, b.table
     return (same and torch.equal(ta.codes.data, tb.codes.data) and torch.equal(ta.step, tb.step)
-            and torch.equal(ta.mu, tb.mu) and torch.equal(ta.nu, tb.nu) and ta.count == tb.count
-            and torch.equal(a.generator.get_state(), b.generator.get_state()))
+            and torch.equal(ta.mu, tb.mu) and torch.equal(ta.nu, tb.nu) and ta.count == tb.count)
 
 
 def _rows_check(case, mesh, dev) -> dict:

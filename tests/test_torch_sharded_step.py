@@ -21,8 +21,16 @@ thread each, ``tests/_torch_sharded_ranks.py``) and run every check of the
 module in one launch: qwen3-1.7b's smoke config (``head_pad_multiple=2``)
 under ``tp`` and ``tp_sp``, mixtral's smoke config (4 experts, 2 a rank),
 a vocabulary that does not divide the model axis (the table split over d),
-qr_alpt on the same ranks as a 4 x 1 mesh (a data axis only),
-rung 2, checkpoints across meshes both ways, the ``train lm`` CLI.
+qr_alpt on the same ranks as a 4 x 1 mesh (a data axis only); hubert's
+smoke config under ``tp_sp`` (the gelu MLP's ``b_out`` added to a block of
+T), qwen2-vl's (the mixed input mode, [3, B, T] grid positions, seeded
+QKV biases), mamba2's under ``tp`` and ``tp_sp`` (the SSD heads split)
+and at 3 SSD heads (``d_inner`` split, the heads not: gathered), jamba's
+(mamba, attention and MoE layers in one period), SmolLM's 3/1
+heads at D = 16 (``wq`` and ``wk`` split mid-head), a ``pad_to_tiles``
+table (its 520 allocated rows split, the scratch row on rank 1), the
+guard with ``trainer.nonfinite`` at step 1 (every rank skips); rung 2,
+checkpoints across meshes both ways, the ``train lm`` CLI.
 """
 import contextlib
 import dataclasses
@@ -41,13 +49,14 @@ import torch
 from repro import configs as jconfigs
 from repro.core import quant as jq
 from repro.training import lm_trainer as jlm
-from repro_torch import configs, interop, methods
+from repro_torch import configs, faults, interop, methods
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import quant
 from repro_torch.data.lm_synth import LMTokenStream
 from repro_torch.dist import sharding
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import HostMesh
+from repro_torch.models.ssm import SSMConfig
 from repro_torch.optim import tree_leaves
 from repro_torch.training import lm_trainer
 
@@ -79,10 +88,71 @@ def _ref_state_np(js):
         "opt": {"step": tree.opt.step, "mu": tree.opt.mu, "nu": tree.opt.nu}}
 
 
-def _one_process(cfg, tcfg, state, batch, noise=None):
+def _one_process(cfg, tcfg, state, batch, noise=None, guard_at=None):
+    """One step (``guard_at``: two guarded steps under a plan that poisons
+    the params at those steps) -> (state, the first step's metrics, its
+    gradients)."""
     grads = lm_trainer.make_grad_fn(cfg, tcfg)(lm_trainer.clone_state(state), batch)[1][1]
-    new, m = lm_trainer.make_train_step(cfg, tcfg)(state, batch, noise)
+    if guard_at is not None:
+        faults.install(faults.FaultPlan(specs=(faults.FaultSpec(site="trainer.nonfinite",
+                                                                steps=guard_at),)))
+    try:
+        step = lm_trainer.make_train_step(cfg, tcfg)
+    finally:
+        faults.uninstall()
+    new, m = step(state, batch, noise)
+    if guard_at is not None:
+        new, _ = step(new, batch)
     return new, m, grads
+
+
+def _grid_positions(b, t, rows, cols):
+    """[3, b, t] M-RoPE positions: a rows x cols patch grid (temporal 0),
+    then text equal in all three streams."""
+    pos = np.zeros((3, t), np.int32)
+    pos[1, :rows * cols] = np.repeat(np.arange(rows), cols)
+    pos[2, :rows * cols] = np.tile(np.arange(cols), rows)
+    pos[:, rows * cols:] = max(rows, cols) + np.arange(t - rows * cols)
+    return torch.from_numpy(np.ascontiguousarray(np.broadcast_to(pos[:, None], (3, b, t))))
+
+
+def _mesh_cases(pt):
+    """The archs and options of the sharded path's model-level rest, each a
+    case of the rank launch: (cfg, tcfg, policy, its init's seed or the
+    whole state it starts from, batch, extras)."""
+    g = np.random.RandomState(23)
+    cases = {}
+    hubert = configs.smoke_config("hubert-xlarge")
+    tok = _batch(hubert.vocab_size, 3)[1]
+    frames = torch.from_numpy(g.normal(0, 1, (BATCH, SEQ, hubert.d_model)).astype(np.float32))
+    cases["hubert_tp_sp"] = (hubert, pt, "tp_sp", 15,
+                             {"embeds": frames, "labels": tok["labels"]}, {})
+    vl = configs.smoke_config("qwen2-vl-7b")
+    st = lm_trainer.init_state(vl, pt, seed=17, device="cpu")
+    for attn in (b["attn"] for b in st.params["blocks"] if "attn" in b):
+        for name in ("bq", "bk", "bv"):
+            attn[name] = torch.from_numpy(g.normal(0, 0.5, attn[name].shape).astype(np.float32))
+    batch = dict(_batch(vl.vocab_size, 4)[1], positions=_grid_positions(BATCH, SEQ, 2, 4),
+                 prefix_embeds=torch.from_numpy(g.normal(
+                     0, 1, (BATCH, vl.visual_prefix, vl.d_model)).astype(np.float32)))
+    cases["qwen2vl"] = (vl, pt, "tp", interop.lm_state_to_numpy(st), batch, {})
+    mamba = configs.smoke_config("mamba2-370m")
+    for pol in ("tp", "tp_sp"):
+        cases[f"mamba_{pol}"] = (mamba, pt, pol, 19, _batch(mamba.vocab_size, 5)[1], {})
+    # 3 SSD heads of 16 (d_inner 48): the specs split d_inner, not the heads.
+    odd = dataclasses.replace(mamba, n_layers=2, d_model=24, ssm=SSMConfig(
+        d_model=24, d_state=16, headdim=16, expand=2, chunk=32))
+    cases["mamba_midhead"] = (odd, pt, "tp", 31, _batch(odd.vocab_size, 10)[1], {})
+    jamba = configs.smoke_config("jamba-v0.1-52b")
+    cases["jamba"] = (jamba, pt, "tp", 21, _batch(jamba.vocab_size, 6)[1], {})
+    smol = configs.smoke_config("smollm-135m")
+    cases["smollm"] = (smol, pt, "tp", 25, _batch(smol.vocab_size, 7)[1], {})
+    _, cfg = _qwen3()
+    cases["padded"] = (cfg, dataclasses.replace(pt, pad_to_tiles=True), "tp", 27,
+                       _batch(cfg.vocab_size, 8)[1], {})
+    cases["guard"] = (cfg, dataclasses.replace(pt, guard=True), "tp", 29,
+                      _batch(cfg.vocab_size, 9)[1], {"guard_at": (1,)})
+    return cases
 
 
 def _spawn(d):
@@ -124,6 +194,10 @@ def launch(tmp_path_factory):
     qr = dataclasses.replace(cfg, embedding_method="qr_alpt")
     steps["qrdata"] = {"cfg": qr, "tcfg": pt, "policy": "tp", "seed": 9, "data_only": True,
                        "batch": _batch(qr.vocab_size, 2)[1]}
+    mesh_cases = _mesh_cases(pt)
+    for name, (c, tc, pol, start, b, extra) in mesh_cases.items():
+        steps[name] = {"cfg": c, "tcfg": tc, "policy": pol, "batch": b, **extra,
+                       **({"state": start} if isinstance(start, dict) else {"seed": start})}
     # Rung 2: LPT-8 and ALPT-8 updates from one gradient, noise and Delta gradient.
     rows = {}
     g = torch.Generator().manual_seed(7)
@@ -143,11 +217,18 @@ def launch(tmp_path_factory):
     try:
         js1, jm = jax.jit(jlm.make_train_step(jcfg, jt))(js, jb)
         out = {"ref": {"loss": float(jm["loss"]), "codes": np.asarray(js1.table.codes.data)}}
-        one = {"qwen3": _one_process(cfg, pt, ps, pb, noise)}
-        for name in ("mixtral", "width", "qrdata"):
-            c, b = steps[name]["cfg"], steps[name]["batch"]
-            st = lm_trainer.init_state(c, pt, seed=steps[name]["seed"], device="cpu")
-            one[name] = _one_process(c, pt, st, b)
+        one = {"qwen3_tp": _one_process(cfg, pt, ps, pb, noise)}
+        one["qwen3_tp_sp"] = one["qwen3_tp"]
+        for name in ("mixtral", "width", "qrdata", *mesh_cases):
+            if name == "mamba_tp_sp":  # the same state and batch as mamba_tp
+                one[name] = one["mamba_tp"]
+                continue
+            case = steps[name]
+            c, tc, b = case["cfg"], case["tcfg"], case["batch"]
+            st = (interop.lm_state_from_numpy(c, tc, **case["state"], device="cpu")
+                  if "state" in case else
+                  lm_trainer.init_state(c, tc, seed=case["seed"], device="cpu"))
+            one[name] = _one_process(c, tc, st, b, guard_at=case.get("guard_at"))
         for method, r in rows.items():
             spec = lm_trainer.embedding_spec_of(r["cfg"], pt)
             st = interop.lm_state_from_numpy(r["cfg"], pt, **r["state"], device="cpu")
@@ -159,7 +240,7 @@ def launch(tmp_path_factory):
         with contextlib.redirect_stdout(buf):
             assert train_cli.main(["lm", *CLI]) == 0
         out["cli_one"] = json.loads(buf.getvalue().strip().splitlines()[-1])["losses"]
-        errs = [p.communicate(timeout=240)[1] for p in procs]
+        errs = [p.communicate(timeout=300)[1] for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -189,14 +270,22 @@ def test_sharded_step_meets_the_reference_contract(launch, policy):
     assert frac < 0.02
 
 
-@pytest.mark.parametrize("case", ["qwen3_tp", "qwen3_tp_sp", "mixtral", "width", "qrdata"])
+@pytest.mark.parametrize("case", ["qwen3_tp", "qwen3_tp_sp", "mixtral", "width", "qrdata",
+                                  "hubert_tp_sp", "qwen2vl", "mamba_tp", "mamba_tp_sp",
+                                  "mamba_midhead", "jamba", "smollm", "padded", "guard"])
 def test_sharded_step_tracks_the_one_process_step(launch, case):
     """The same state, batch and noise through the one-process step: loss,
     grad norm, params and the table (module docstring's bounds); every
     replicated leaf the same on all ranks.  ``qrdata``: qr_alpt on a 4 x 1
-    mesh, its two sub-tables' codes in order."""
+    mesh, its two sub-tables' codes in order.  ``guard``: two guarded steps,
+    the second poisoned; every rank skips it and keeps its shards of the
+    state the first step left (the one-process twin's, whose first step's
+    loss and norm are compared)."""
     got = launch["ranks"][0]["steps"][case]
-    new, m, grads = launch["one"][case.split("_")[0]]
+    new, m, grads = launch["one"][case]
+    if case == "guard":
+        for r in launch["ranks"]:
+            assert r["steps"][case]["guard"] == {"skipped": [0, 1], "kept": True}
     assert abs(got["metrics"]["loss"] - float(m["loss"])) < 1e-4
     np.testing.assert_allclose(got["metrics"]["grad_norm"], float(m["grad_norm"]), rtol=1e-5)
     _close_params(got["params"], new.params, grads)
@@ -205,7 +294,14 @@ def test_sharded_step_tracks_the_one_process_step(launch, case):
         [t.codes.data.reshape(-1) for t in (table.remainder, table.quotient)])
     assert codes.shape == want.shape
     assert float((codes != want).float().mean()) <= 0.005
-    assert all(r["same_replicas"] for r in launch["ranks"])
+    assert all(r["steps"][case]["same_replicas"] for r in launch["ranks"])
+
+
+def test_guard_verdict_is_the_whole_worlds(launch):
+    """A step whose params come out non-finite on rank 0's shard alone is
+    skipped on all four ranks (one all-reduce of the verdict), and a clean
+    step after it on none."""
+    assert [r["guard_world"] for r in launch["ranks"]] == [[1, 0]] * 4
 
 
 def test_shard_update_from_the_same_gradient_rows_is_bitwise(launch):
@@ -260,20 +356,19 @@ def test_cli_on_a_2x2_mesh_tracks_1x1(launch, capsys):
 
 @pytest.mark.parametrize("argv,message", [
     (["--arch", "qwen3-1.7b", "--mesh-data", "2", "--mesh-model", "2"], "WORLD_SIZE is 3"),
-    (["--arch", "mamba2-370m", "--mesh-model", "2"], "A13c"),
-    (["--arch", "jamba-v0.1-52b", "--mesh-model", "2"], "A13c"),
+    (["--arch", "qwen3-1.7b", "--mesh-model", "2", "--embedding-method", "hash"], "A13c"),
+    (["--arch", "mamba2-370m", "--mesh-model", "2", "--embedding-method", "prune"], "A13c"),
     (["--arch", "qwen3-1.7b", "--mesh-model", "2", "--policy", "fsdp_tp"], "A13c"),
     (["--arch", "mixtral-8x7b", "--mesh-model", "2", "--policy", "fsdp_tp_ep"], "A13c"),
     (["--arch", "qwen3-1.7b", "--mesh-data", "2", "--policy", "dp"], "A13c"),
     (["--arch", "qwen3-1.7b", "--policy", "fsdp_tp"], "A13c"),
     (["--arch", "qwen3-1.7b", "--mesh-model", "2", "--embedding-method", "qr_alpt"], "A13c"),
-    (["--arch", "smollm-135m", "--mesh-model", "2"], "mid-head"),
+    (["--arch", "smollm-135m", "--mesh-model", "2", "--embedding-method", "lsq"], "A13c"),
 ])
 def test_cli_refuses_what_the_sharded_step_does_not_run(argv, message, capsys, monkeypatch):
     """Exit 2 naming ROADMAP A13c: fsdp / dp / ep policies (at 1 x 1 too),
-    mamba blocks and the other methods under a model axis > 1; a world size
-    that is not data x model; SmolLM's 3 kv heads on 2 ranks (``wk`` split
-    mid-head)."""
+    the methods other than fp / lpt / alpt (hash, prune, lsq, qr_alpt)
+    under a model axis > 1; a world size that is not data x model."""
     def axis(flag):
         return int(argv[argv.index(flag) + 1]) if flag in argv else 1
 
