@@ -320,7 +320,20 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      14,336 top-2, an untied head over 32,000) with 1 of 32 layers ALPT-8
      on 1 x 2 (4 experts a rank), 2 steps of 2 x 1,024, as 18a; 18d.
      sr_round and lpt_fused_update(_packed) on each of two row blocks of
-     qwen3-1.7b's table equal the one-process call's rows bitwise;
+     qwen3-1.7b's table equal the one-process call's rows bitwise; in the
+     launch of 18a and 18c, each 2 steps of 2 x 1,024 on 1 x 2 beside its
+     twin: 18e. SmolLM-135M and 18f. mamba2-370m at full width and depth,
+     18g. hubert-xlarge at 2 layers under tp_sp, 18h. SmolLM guarded with
+     trainer.nonfinite at step 1; 18i. SmolLM-135M at full width with 2 of
+     its 30 layers under each of qr_lpt-8, qr_alpt-8, hash, mixed, prune
+     (refreshed over the whole table every step), lsq-8 and pact-8 (a
+     replicated table's replicas equal, the grad norm within 1e-5, codes
+     or the float leaves as the params, prune's mask bitwise the refresh
+     of the ranks' whole table and within 0.5% of the twin's); 18j.
+     deepseek-moe-16b at full width with 2 of its 28 layers ALPT-8 under
+     tp_ep (32 experts a rank, the all-to-all dispatch) against its
+     one-process EP twin, under tp (ms only), and gloo's all-to-all at its
+     64 MB send buffer;
   5. time each kernel at the slices' shapes (median of per-launch CUDA-event
      times after warm-up, device work only) beside its bound, its plain
      version's time and the library's one call where there is one, and the
@@ -4063,10 +4076,44 @@ def gloo_probe_rank(rank: int, world: int, directory: str) -> int:
                                 else dist.ReduceOp.SUM)
             torch.cuda.synchronize()
             out[f"{name} of {t.numel() * 4} B, s"] = time.perf_counter() - t0
+        out.update(all_to_all_probe(torch, dist, dev, rank, world))
         print(f"[probe] rank {rank}: {json.dumps(out)}", flush=True)
     finally:
         dist.destroy_process_group()
     return 0
+
+
+# 18j's all-to-all: deepseek-moe-16b's send buffer [m, E/m, B, C, d] on 1 x 2
+# at 2 x 1,024 tokens (s_loc 512, C = int(512 * 6 * 1.25 / 64) + 1 = 61).
+EP_SEND_SHAPE = (2, 32, 2, 61, 2048)
+
+
+def all_to_all_probe(torch, dist, dev, rank: int, world: int, reps: int = 3) -> dict:
+    """gloo's ``all_to_all_single`` on CUDA tensors: a small exchange checked
+    against what each rank sent, then EP_SEND_SHAPE's buffer timed on the
+    host clock (``reps`` calls).  A refusal is reported as it is."""
+    out = {}
+    try:
+        t = torch.arange(world * 3, device=dev, dtype=torch.float32) + 100 * rank
+        got = torch.empty_like(t)
+        dist.all_to_all_single(got, t)
+        want = torch.cat([torch.arange(3, device=dev, dtype=torch.float32) + 3 * rank + 100 * j
+                          for j in range(world)])
+        out["all_to_all_single equal"] = bool(torch.equal(got, want))
+        buf = torch.full(EP_SEND_SHAPE, float(rank), device=dev)
+        recv = torch.empty_like(buf)
+        times = []
+        for _ in range(reps):
+            _on_card(torch, dev, "synchronize")
+            t0 = time.perf_counter()
+            dist.all_to_all_single(recv, buf)
+            _on_card(torch, dev, "synchronize")
+            times.append(time.perf_counter() - t0)
+        out[f"all_to_all_single of {buf.numel() * 4} B, s"] = times
+        out["all_to_all_single sources"] = [float(recv[j].flatten()[0]) for j in range(world)]
+    except RuntimeError as exc:
+        out["all_to_all_single refused"] = str(exc)[:300]
+    return out
 
 
 def gloo_probe() -> int:
@@ -4890,6 +4937,17 @@ SHARD_SP_LAUNCHES = {"lpt_fused_update": 1, "adam_update": 1}  # 18b's tp_sp ste
 # step SHARD_GUARD_AT (both ranks skip it).
 SHARD_SMOL_ARCH, SHARD_SSM_ARCH, SHARD_ENC_ARCH = "smollm-135m", "mamba2-370m", "hubert-xlarge"
 SHARD_FAMILY_STEPS, SHARD_ENC_LAYERS, SHARD_GUARD_AT = 2, 2, 1
+# 18i: the seven other embedding methods (8 bits where they quantize) on
+# SmolLM-135M at full width with SHARD_METHOD_LAYERS of its 30 layers; 18j:
+# deepseek-moe-16b at full width with SHARD_EP_LAYERS of its 28, ALPT-8
+# under tp_ep (32 experts a rank) against its one-process EP twin, beside
+# the same layers under tp (rank ms only) and an all-to-all probe at the
+# layer's send buffer (EP_SEND_SHAPE).  Each 2 steps of 2 x 1,024 on 1 x 2.
+SHARD_METHODS = ("qr_lpt", "qr_alpt", "hash", "mixed", "prune", "lsq", "pact")
+SHARD_METHOD_LAYERS, SHARD_EP_ARCH, SHARD_EP_LAYERS = 2, "deepseek-moe-16b", 2
+# The first step's global gradient norm against the twin's (18i, 18j: the
+# CPU tests' bound).
+SHARD_NORM_RTOL = 1e-5
 # The 18b CLI's model flags (a rehearsal on the CPU swaps them for --smoke
 # --device cpu, and shard_config for the smoke configs).
 SHARD_CLI_MODEL = ["--arch", SHARD_ARCH, "--layers", str(SHARD_CLI_LAYERS)]
@@ -4929,16 +4987,71 @@ def shard_frames(torch, cfg, steps: int, batch: int, seq: int) -> list:
     return [lm_batch(cfg, stream, i, batch, seq, torch.device("cpu")) for i in range(steps)]
 
 
+def shard_prune():
+    """18i's prune schedule: no warmup, the mask refreshed after every step,
+    target 0.5 with damping 0.5 over 1 step (ratio 0.25 after step 1, 0.375
+    after step 2); the defaults' 200 warmup steps would keep every weight."""
+    from repro_torch.core.pruning import PruneConfig
+
+    return PruneConfig(target_sparsity=0.5, damping=0.5, damping_steps=1, warmup_steps=0,
+                       update_every=1)
+
+
 def shard_run_config(run: dict):
-    """A phase-18 run's ``(trainer config, fault plan or None, donate)``: a
-    guarded run keeps the state before each step, so it is not donated."""
+    """A phase-18 run's ``(trainer config, fault plan or None, donate)``: its
+    ``trainer`` overrides applied; a guarded run keeps the state before each
+    step, so it is not donated."""
     from repro_torch.training import lm_trainer
 
+    tcfg = lm_trainer.LMTrainerConfig(**run.get("trainer", {}))
     at = run.get("guard_at")
     if at is None:
-        return lm_trainer.LMTrainerConfig(), None, True
-    return (lm_trainer.LMTrainerConfig(guard=True),
+        return tcfg, None, True
+    return (dataclasses.replace(tcfg, guard=True),
             fault_plan(("trainer.nonfinite", (at,), False, None)), False)
+
+
+def code_tables(table) -> list:
+    """The code tables of a method's state (one, or a composed table's in
+    order)."""
+    if hasattr(table, "codes"):
+        return [table]
+    if isinstance(table, tuple):
+        return [t for x in table for t in code_tables(x)]
+    return []
+
+
+def table_summary(torch, cfg, tcfg, table) -> dict:
+    """A whole table's state on the host, as phase 18 compares it: an
+    integer table's codes and Deltas (a composed table's sub-tables
+    flattened in order), or a float-leaf method's leaves
+    (``trainable_params``, in ``tree_leaves`` order) and prune's mask."""
+    from repro_torch import methods
+    from repro_torch.optim import tree_leaves
+    from repro_torch.training import lm_trainer
+
+    spec = lm_trainer.embedding_spec_of(cfg, tcfg)
+    emb = methods.get(spec.method).trainable_params(table, spec)
+    if emb is None:
+        subs = code_tables(table)
+        return {"codes": torch.cat([t.codes.data.reshape(-1).cpu() for t in subs]),
+                "delta": torch.cat([t.step.cpu() for t in subs])}
+    mask = getattr(table, "mask", None)
+    return {"emb": tuple(x.detach().cpu() for x in tree_leaves(emb)),
+            "mask": None if mask is None else mask.cpu()}
+
+
+def ep_twin(run: dict):
+    """A ``tp_ep`` run's one-process twin of its 1 x model mesh
+    (``tests/_torch_sharded_ranks.py``'s ``ep_twin``: the MoE layers through
+    the EP arithmetic of each virtual rank); nothing for another run."""
+    if run.get("policy") != "tp_ep":
+        return contextlib.nullcontext()
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_sharded_ranks
+
+    return _torch_sharded_ranks.ep_twin(1, run["model"])
 
 
 # A leaf of more elements is compared on its first SHARD_BLOCK_ROWS rows of
@@ -5003,6 +5116,7 @@ def sharding_rank(rank: int, world: int, data: int, model: int, directory: str) 
 
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import device as device_mod
+    from repro_torch import methods
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.dist import context, sharding
     from repro_torch.kernels import ops
@@ -5032,13 +5146,18 @@ def sharding_rank(rank: int, world: int, data: int, model: int, directory: str) 
             _on_card(torch, dev, "reset_peak_memory_stats", dev)
             ops.reset_kernel_calls()  # the main path starts here ...
             ops.reset_fallbacks()
+            if run["kind"] == "probe":  # 18j: gloo's all-to-all at the layer's send buffer
+                out["probe"] = all_to_all_probe(torch, dist, dev, mesh.coords["model"], model)
+                outs.append(out)
+                continue
             cfg = run["cfg"]
             tcfg, plan, donate = shard_run_config(run)
             if run["kind"] == "train":
                 pol = sharding.policy_from_name(run.get("policy", "tp"), model_size=model)
                 with plan_installed(plan), context.use(mesh, pol):
                     state = lm_trainer.init_state(cfg, tcfg, seed=run["seed"], device=dev)
-                    step = lm_trainer.make_train_step(cfg, tcfg, donate=donate)
+                    step = lm_trainer.wrap_host_refresh(  # prune's mask; else the identity
+                        lm_trainer.make_train_step(cfg, tcfg, donate=donate), cfg, tcfg)
                     specs = lm_trainer._shards(cfg, tcfg).specs
                 lap(out, "init")
                 losses, wall, skipped = [], [], []
@@ -5054,18 +5173,25 @@ def sharding_rank(rank: int, world: int, data: int, model: int, directory: str) 
                         if skipped[-1]:  # this rank's shards as they were before the step
                             out["kept"] = shards_same(torch, before, state)
                     if i == 0:
-                        with context.use(mesh, pol):
-                            out["layers"] = gathered_end_layers(torch, state.params, specs.params,
-                                                                mesh, *run["compare"])
+                        out["grad_norm"] = float(m["grad_norm"])
+                        if run["compare"] is not None:
+                            with context.use(mesh, pol):
+                                out["layers"] = gathered_end_layers(
+                                    torch, state.params, specs.params, mesh, *run["compare"])
+                                if not methods.get(cfg.embedding_method).is_integer_table:
+                                    whole = sharding.gather_tree(state.table, specs.table, mesh)
+                                    out["emb1"] = table_summary(torch, cfg, tcfg, whole)["emb"]
+                                    del whole
                 _on_card(torch, dev, "synchronize")
                 out.update(launches=ops.kernel_calls(), fallbacks=ops.fallbacks())  # ... and here
                 del before
                 lap(out, "steps")
-                with context.use(mesh, pol):
-                    table = sharding.gather_tree(state.table, specs.table, mesh)
-                out.update(losses=losses, wall=wall, skipped=skipped,
-                           codes=table.codes.data.cpu(), delta=table.step.cpu())
-                del table
+                if run["compare"] is not None:
+                    with context.use(mesh, pol):
+                        table = sharding.gather_tree(state.table, specs.table, mesh)
+                    out["table"] = table_summary(torch, cfg, tcfg, table)
+                    del table
+                out.update(losses=losses, wall=wall, skipped=skipped)
                 lap(out, "gather")
             else:  # 18b: the CLI on the launcher's group, then a tp_sp step through the API
                 real_save = lm_trainer.save
@@ -5180,7 +5306,7 @@ def shard_twin(torch, dev, run: dict) -> dict:
     the table at the end, on the host; the card freed after it."""
     import gc
 
-    from repro_torch.optim import tree_like
+    from repro_torch.optim import tree_leaves, tree_like
     from repro_torch.training import lm_trainer
 
     t0_twin = time.perf_counter()
@@ -5188,30 +5314,40 @@ def shard_twin(torch, dev, run: dict) -> dict:
     tcfg, plan, donate = shard_run_config(run)
     state = lm_trainer.init_state(cfg, tcfg, seed=run["seed"], device=dev)
     first = {k: v.to(dev) for k, v in batches[0].items()}
-    g_params = lm_trainer.make_grad_fn(cfg, tcfg)(state, first)[1][1]
+    with ep_twin(run):
+        g_emb, g_params = lm_trainer.make_grad_fn(cfg, tcfg)(state, first)[1]
     grads = end_layers(tree_like(state.params, g_params))
     grads = {k: (a.cpu(), b.cpu()) for k, (a, b) in grads.items()}
+    # A float-leaf table's own gradient (its Adam step is not clipped).
+    emb_grads = (None if isinstance(g_emb, torch.Tensor)
+                 else tuple(g.cpu() for g in tree_leaves(g_emb)))
     norm = float(torch.sqrt(sum(torch.sum(torch.square(g)) for g in g_params)))
     clip = min(1.0, tcfg.grad_clip / (norm + 1e-12))  # clip_by_global_norm's factor
-    del g_params
+    del g_params, g_emb
     with plan_installed(plan):
-        step = lm_trainer.make_train_step(cfg, tcfg, donate=donate)
+        step = lm_trainer.wrap_host_refresh(
+            lm_trainer.make_train_step(cfg, tcfg, donate=donate), cfg, tcfg)
     losses, wall, layers, skipped = [], [], None, []
     for i, b in enumerate(batches):
         t0 = time.perf_counter()
-        state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+        with ep_twin(run):
+            state, m = step(state, {k: v.to(dev) for k, v in b.items()})
         losses.append(float(m["loss"]))
         wall.append((time.perf_counter() - t0) * 1e3)
         if plan is not None:
             skipped.append(int(m["guard_skipped"]))
         if i == 0:
+            grad_norm = float(m["grad_norm"])
             layers = {k: (a.to("cpu", copy=True), b_.to("cpu", copy=True))
                       for k, (a, b_) in end_layers(state.params).items()}  # the step is donated
+            emb1 = None if emb_grads is None else table_summary(torch, cfg, tcfg,
+                                                                state.table)["emb"]
     _on_card(torch, dev, "synchronize")
     peak = _on_card(torch, dev, "max_memory_allocated", dev)
     out = {"losses": losses, "wall": wall, "layers": layers, "grads": grads, "peak": peak,
-           "codes": state.table.codes.data.cpu(), "delta": state.table.step.cpu(),
-           "skipped": skipped, "clip": clip}
+           "table": table_summary(torch, cfg, tcfg, state.table), "emb_grads": emb_grads,
+           "emb1": emb1,
+           "grad_norm": grad_norm, "skipped": skipped, "clip": clip}
     del state, step
     gc.collect()
     _on_card(torch, dev, "empty_cache")
@@ -5221,79 +5357,150 @@ def shard_twin(torch, dev, run: dict) -> dict:
     return out
 
 
-def compare_shard_run(torch, twin: dict, ranks: list, label: str, lr: float) -> None:
+def compare_shard_run(torch, twin: dict, ranks: list, run: dict, lr: float) -> None:
     """A mesh run against its twin within the CPU tests' bounds (a step the
     guard skipped has a NaN loss on both sides); a guarded run's verdicts
-    the twin's on every rank, and every rank's shards kept through a skip."""
-    r0 = ranks[0]
+    the twin's on every rank, and every rank's shards kept through a skip;
+    every rank's whole table the same (a replicated table's replicas); an
+    integer table's codes, or a float-leaf table's leaves after step 1
+    under the params bound (their Adam step unclipped); prune's last mask
+    bitwise the one-process refresh of the ranks' own whole table, and
+    differing from the twin's on at most SHARD_CODES_FRAC (its weights
+    differ where AdamW's first step turns a gradient near eps into up to
+    lr); ``run["check_norm"]``: the first step's gradient norm within
+    SHARD_NORM_RTOL."""
+    from repro_torch.core import pruning
+    from repro_torch.optim import tree_leaves
+
+    label, r0 = run["label"], ranks[0]
     pairs = list(zip(r0["losses"], twin["losses"]))
     gaps = [abs(a - b) for a, b in pairs if not (math.isnan(a) and math.isnan(b))]
     check(len(pairs) == len(twin["losses"]) and gaps and max(gaps) < SHARD_LOSS_ATOL,
           f"{label}: losses {r0['losses']} against the twin's {twin['losses']}")
+    norm_gap = abs(r0["grad_norm"] - twin["grad_norm"]) / twin["grad_norm"]
+    check(not run.get("check_norm") or norm_gap <= SHARD_NORM_RTOL,
+          f"{label}: grad norm {r0['grad_norm']} against the twin's {twin['grad_norm']}")
     for r, o in enumerate(ranks):
         check(o["skipped"] == twin["skipped"] and o.get("kept", True),
               f"{label} rank {r}: guard verdicts {o['skipped']} (the twin's {twin['skipped']}), "
               f"shards kept through the skip: {o.get('kept')}")
+        check(all(a is b or torch.equal(a, b) for a, b in zip(
+            tree_leaves(o["table"]), tree_leaves(r0["table"]), strict=True)),
+              f"{label} rank {r}: its table differs from rank 0's")
     worst, guarded, clipped = close_layers(torch, r0["layers"], twin["layers"], twin["grads"],
                                            lr, twin["clip"])
-    frac = float((r0["codes"] != twin["codes"]).float().mean())
-    check(frac <= SHARD_CODES_FRAC, f"{label}: {frac:.4%} of the codes differ from the twin's")
-    d_delta = float((r0["delta"] - twin["delta"]).abs().max())
-    log(f"[sharding] {label}: per-step loss gaps {gaps}; first and last layers after step 1 "
+    got, want = r0["table"], twin["table"]
+    if "codes" in want:
+        frac = float((got["codes"] != want["codes"]).float().mean())
+        check(frac <= SHARD_CODES_FRAC, f"{label}: {frac:.4%} of the codes differ from the "
+                                        f"twin's")
+        table = (f"codes differing {frac:.6%}, Delta within "
+                 f"{float((got['delta'] - want['delta']).abs().max()):.3g}")
+    else:  # the leaves after step 1, the step the gradients are of
+        t_worst, t_guarded, _ = close_layers(torch, {"emb": r0["emb1"]}, {"emb": twin["emb1"]},
+                                             {"emb": twin["emb_grads"]}, lr, 1.0)
+        t_end = max(float((a - b).abs().max()) for a, b in zip(got["emb"], want["emb"]))
+        table = (f"table leaves after step 1 within {t_worst:.3g} ({t_guarded} elements past "
+                 f"rtol, each with a one-process gradient under 1e-6), at the end within "
+                 f"{t_end:.3g}")
+        if want["mask"] is not None:
+            cfg = run["trainer"]["prune"]
+            steps = len(run["batches"])
+            (w,), (w_twin,) = got["emb"], want["emb"]
+            own = pruning.update_mask(pruning.PruneState(w, got["mask"], steps), cfg).mask
+            check(torch.equal(own, got["mask"]), f"{label}: the ranks' mask is not the "
+                                                 f"one-process refresh of their whole table")
+            diff = got["mask"] != want["mask"]
+            check(float(diff.float().mean()) <= SHARD_CODES_FRAC,
+                  f"{label}: the mask differs in {int(diff.sum())} elements from the twin's")
+            ratio = pruning.prune_ratio(cfg, steps)
+            table += (f"; the mask bitwise the refresh of the ranks' whole table (threshold "
+                      f"{float(pruning.quantile_linear(w.abs(), ratio)):.9g}, the twin's "
+                      f"{float(pruning.quantile_linear(w_twin.abs(), ratio)):.9g}), differing "
+                      f"from the twin's in {int(diff.sum())} of {diff.numel()} elements (|w| "
+                      f"there {w[diff].abs().tolist()[:8]}, the twin's "
+                      f"{w_twin[diff].abs().tolist()[:8]}), sparsity "
+                      f"{1.0 - float(got['mask'].float().mean()):.6f}")
+    log(f"[sharding] {label}: per-step loss gaps {gaps}; grad norm gap {norm_gap:.3g} "
+        f"(relative); first and last layers after step 1 "
         f"within {worst:.3g} ({guarded} elements past rtol {SHARD_RTOL} / atol {SHARD_ATOL}, "
         f"each with a one-process gradient under 1e-6 after the clip by {twin['clip']:.6g}, "
-        f"{clipped} of them at least 1e-6 before it); codes differing {frac:.6%}, Delta "
-        f"within {d_delta:.3g}")
+        f"{clipped} of them at least 1e-6 before it); {table}")
+
 
 
 def shard_launches(method: str, bits: int, steps: int) -> dict:
-    """A rank's launches in a run of ``steps`` from its init (the table's
-    init through sr_round)."""
-    write_back = "sr_round" if method == "alpt" else (
-        "lpt_fused_update_packed" if bits < 8 else "lpt_fused_update")
-    want = {"sr_round": 1, "adam_update": steps}
-    want[write_back] = want.get(write_back, 0) + steps
+    """A rank's launches in a run of ``steps`` from its init: an integer
+    table's init through sr_round (one a sub-table: qr_* two) and its
+    write-back (ALPT's sr_round, LPT's lpt_fused_update); a composed table's
+    dense form read through dequant_gather (qr_*: each sub-table for the
+    table and for the product rule's factors, 4 a step; mixed's one group 1);
+    a float-leaf table (hash, prune, lsq, pact) steps by adam_update beside
+    the params'."""
+    if method in ("fp", "hash", "prune", "lsq", "pact"):
+        return {"adam_update": 2 * steps}
+    subs = 2 if method.startswith("qr_") else 1
+    packed = "_packed" if bits < 8 else ""
+    write_back = "sr_round" if method in ("alpt", "qr_alpt") else "lpt_fused_update" + packed
+    want = {"sr_round": subs, "adam_update": steps}
+    want[write_back] = want.get(write_back, 0) + subs * steps
+    gathers = {"qr_lpt": 4, "qr_alpt": 4, "mixed": 1}.get(method, 0) * steps
+    if gathers:
+        want["dequant_gather" + packed] = gathers
     return want
 
 
 def shard_trains(torch, dev, directory: pathlib.Path, runs: list, model: int) -> dict:
-    """18a, 18c, 18e-18h: each run's twin (in turn, the card freed after
+    """18a, 18c, 18e-18j: each run's twin (in turn, the card freed after
     each), then one launch of ``1 x model`` ranks that run them in turn from
     the same seeds and batches (each rank its shard of the one-process init,
     the noise the rows' slice of the one-process draw), compared.  A run is
     a dict of ``label``, ``cfg``, ``seed``, ``batches``, and optionally its
-    ``policy`` (tp) and ``guard_at`` (the step ``trainer.nonfinite`` fires
-    on under the guard).  Returns the ranks' launches."""
+    ``policy`` (tp; a tp_ep run's twin is the one-process EP twin),
+    ``trainer`` (LMTrainerConfig overrides), ``guard_at`` (the step
+    ``trainer.nonfinite`` fires on under the guard), ``twin`` (False: the
+    ranks' times only) and ``check_norm`` (the gradient norm against the
+    twin's); or ``{"kind": "probe"}``, 18j's all-to-all probe.  Returns the
+    ranks' launches."""
     twins = []
     for run in runs:
         _on_card(torch, dev, "reset_peak_memory_stats", dev)
-        twins.append(shard_twin(torch, dev, run))
+        twins.append(shard_twin(torch, dev, dict(run, model=model))
+                     if run.get("kind", "train") == "train" and run.get("twin", True) else None)
     t0 = time.perf_counter()
     job = {"device": dev.type, "runs": [
-        {"kind": "train", "compare": (SHARD_COMPARE_MAX, SHARD_BLOCK_ROWS), **run}
-        for run in runs]}
-    ranks = run_ranks(torch, directory, job, 1, model, "18a / 18c / 18e-18h")
+        {"kind": "train", "compare": (SHARD_COMPARE_MAX, SHARD_BLOCK_ROWS)
+         if run.get("twin", True) else None, **run} for run in runs]}
+    ranks = run_ranks(torch, directory, job, 1, model, "18a / 18c / 18e-18j")
     ranks_s = time.perf_counter() - t0
     total = {}
     for i, (run, twin) in enumerate(zip(runs, twins)):
-        label, cfg, batches = run["label"], run["cfg"], run["batches"]
         outs = [r[i] for r in ranks]
+        if run.get("kind") == "probe":
+            log(f"[sharding] 18j gloo all_to_all_single on the card, {EP_SEND_SHAPE} float32 "
+                f"a rank: {[o['probe'] for o in outs]}; {card_name()}")
+            check(all(o["probe"].get("all_to_all_single equal") for o in outs),
+                  f"18j all-to-all probe: {[o['probe'] for o in outs]}")
+            continue
+        label, cfg, batches = run["label"], run["cfg"], run["batches"]
         want = shard_launches(cfg.embedding_method, cfg.embedding_bits, len(batches))
         for r, o in enumerate(outs):
             check(o["launches"] == want and o["fallbacks"] == [],
                   f"{label} rank {r}: launches {o['launches']} (expected {want}), fallbacks "
                   f"{o['fallbacks']}")
             total = added(total, o["launches"])
-        compare_shard_run(torch, twin, outs, label, SHARD_LR)
+        if twin is not None:
+            compare_shard_run(torch, twin, outs, run, SHARD_LR)
         tokens = tuple(batches[0]["labels"].shape)
         log(f"[sharding] {label}: 1 x {model} gloo ranks on one card, {len(batches)} steps of "
             f"{tokens[0]} x {tokens[1]} tokens: losses {outs[0]['losses']}; per rank: host clock "
             + ", ".join(f"{statistics.mean(o['wall'][1:]):.1f} ms/step (first {o['wall'][0]:.1f})"
                         for o in outs)
-            + f"; peak memory {[o['peak'] for o in outs]} B (the twin's {twin['peak']} B); "
-            f"launches {[o['launches'] for o in outs]}; rank 0 {outs[0]['times']} s; "
+            + f"; peak memory {[o['peak'] for o in outs]} B"
+            + ("" if twin is None else f" (the twin's {twin['peak']} B)")
+            + f"; launches {[o['launches'] for o in outs]}; rank 0 {outs[0]['times']} s; "
             f"{card_name()}")
-    log(f"[sharding] 18a / 18c / 18e-18h: the ranks' processes {ranks_s:.1f}s; {card_name()}")
+    log(f"[sharding] 18a / 18c / 18e-18j: the ranks' processes {ranks_s:.1f}s; {card_name()}")
     return total
 
 
@@ -5432,8 +5639,10 @@ def sharding_phase(torch, dev, err: dict) -> dict:
     mixtral-8x7b ALPT-8 at 1 layer with its experts over 2 ranks, 18d the
     shard-local kernels, and on 1 x 2 18e SmolLM-135M (heads split
     mid-head) and 18f mamba2-370m at full width and depth, 18g hubert-xlarge
-    at full width under tp_sp, 18h SmolLM guarded with a poisoned step.
-    Returns the ranks' launches (and 18b's 1 x 1 CLI)."""
+    at full width under tp_sp, 18h SmolLM guarded with a poisoned step, 18i
+    SmolLM at 2 layers with each of the seven other methods, 18j
+    deepseek-moe-16b at 2 layers under tp_ep (and tp, and the all-to-all
+    probe).  Returns the ranks' launches (and 18b's 1 x 1 CLI)."""
     import gc
     import tempfile
 
@@ -5469,8 +5678,24 @@ def sharding_phase(torch, dev, err: dict) -> dict:
             {"label": f"18h smollm-135m ALPT-8 tp, guarded, trainer.nonfinite at step "
                       f"{SHARD_GUARD_AT}", "cfg": smol, "seed": 188,
              "guard_at": SHARD_GUARD_AT, "batches": tokens(smol, fam)}]
+        for i, method in enumerate(SHARD_METHODS):
+            cfg = shard_config(SHARD_SMOL_ARCH, n_layers=SHARD_METHOD_LAYERS,
+                               embedding_method=method, embedding_bits=8)
+            runs.append({"label": f"18i smollm-135m {method} tp, {SHARD_METHOD_LAYERS} of 30 "
+                                  f"layers", "cfg": cfg, "seed": 190 + i, "check_norm": True,
+                         "trainer": {"prune": shard_prune()} if method == "prune" else {},
+                         "batches": tokens(cfg, fam)})
+        moe = shard_config(SHARD_EP_ARCH, n_layers=SHARD_EP_LAYERS)
+        ep_batches = tokens(moe, fam)
+        runs += [
+            {"label": f"18j {SHARD_EP_ARCH} ALPT-8 tp_ep, {SHARD_EP_LAYERS} of 28 layers, 32 "
+                      "experts a rank", "cfg": moe, "seed": 199, "policy": "tp_ep",
+             "check_norm": True, "batches": ep_batches},
+            {"label": f"18j {SHARD_EP_ARCH} ALPT-8 tp, the same layers", "cfg": moe,
+             "seed": 199, "twin": False, "batches": ep_batches},
+            {"kind": "probe"}]
         total = added(total, shard_trains(torch, dev, root / "a", runs, 2))
-        log(f"[sharding] 18a, 18c, 18e-18h: {time.perf_counter() - t_phase:.1f}s")
+        log(f"[sharding] 18a, 18c, 18e-18j: {time.perf_counter() - t_phase:.1f}s")
         total = added(total, shard_cli(torch, dev, root / "b"))
         log(f"[sharding] 18b: {time.perf_counter() - t_phase:.1f}s into phase 18")
     shard_kernels(torch, dev, err)
@@ -6565,7 +6790,8 @@ def main() -> int:
     launches = {k: launches[k] + phase17.get(k, 0) for k in KERNELS}
     # 18. the sharding path: qwen3-1.7b on a 1 x 2 grid of gloo ranks at full
     # width and depth, the train lm CLI at 2 x 2 with a tp_sp step and its
-    # checkpoint, mixtral-8x7b's experts over 2 ranks, the shard-local kernels.
+    # checkpoint, mixtral-8x7b's experts over 2 ranks, the shard-local
+    # kernels, the other families, the seven other methods and tp_ep.
     phase18 = sharding_phase(torch, dev, err)
     check(set(phase18) <= set(KERNELS), f"phase 18 launched {phase18}")
     launches = {k: launches[k] + phase18.get(k, 0) for k in KERNELS}

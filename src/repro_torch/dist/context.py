@@ -25,10 +25,11 @@ state spec never disagree about what fits an axis.
 The port holds explicit per-rank shards, so a tensor already has its
 layout and :func:`hint` changes nothing: the collectives the reference's
 hints imply run at the same sites through :mod:`repro_torch.dist.tensor_parallel`,
-which reads this context (:func:`spec_of`).  :func:`hint` and
-:func:`moe_ep_context` are kept for parity with the reference's API (its
-tests hold them); no model code calls them, and the ``ep`` policies they
-would serve are refused (ROADMAP A13c).
+which reads this context (:func:`spec_of`).  :func:`hint` is kept for
+parity with the reference's API (its tests hold it); no model code calls
+it.  :func:`moe_ep_context` picks the explicit expert-parallel dispatch
+(``models.moe.moe_forward_ep``) under an ``ep`` policy, as in the
+reference's ``_moe_apply``.
 """
 from __future__ import annotations
 

@@ -393,9 +393,11 @@ def _gather(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
             continue
         if _axes(entry) != ("model",):
             raise NotImplementedError(f"gathering over {entry!r} (fsdp) is ROADMAP A13c")
-        # int8 codes travel as their bytes (gloo's all_gather of uint8 on CUDA
-        # tensors is the probed one, chip_smoke.gloo_probe).
-        wire = t.contiguous().view(torch.uint8) if t.dtype == torch.int8 else t.contiguous()
+        # int8 codes and bool masks (prune's) travel as their bytes (gloo's
+        # all_gather of uint8 on CUDA tensors is the probed one,
+        # chip_smoke.gloo_probe).
+        wire = (t.contiguous().view(torch.uint8) if t.dtype in (torch.int8, torch.bool)
+                else t.contiguous())
         parts = [torch.empty_like(wire) for _ in range(size)]
         dist.all_gather(parts, wire, group=mesh.groups["model"])
         t = torch.cat(parts, dim=dim).view(t.dtype)

@@ -37,14 +37,18 @@ model calls these at the reference's hint sites:
   row's touched flag and its Delta gradient over the model group;
 * :func:`batch_mean`: a batch statistic that is not a mean of per-token
   terms (the MoE load-balance loss) takes the whole batch's over a split
-  data axis.
+  data axis;
+* :func:`all_to_all` and :func:`mean_over_model`: expert parallelism's
+  dispatch and return trip (``models.moe.moe_forward_ep``), and its
+  per-slice load-balance loss averaged once over the model ranks.
 
 No context, or a model axis of 1: every function is the identity and no
-collective runs.  Every collective is ``all_reduce`` (SUM, MAX) or
-``all_gather`` on the model group, the two that gloo takes on CUDA tensors
-(several ranks on one card, where NCCL refuses); a reduce-scatter is an
-all-reduce followed by the rank's slice.  All ranks run the same backward
-graph, so they reach the collectives in the same order.
+collective runs.  Every collective is ``all_reduce`` (SUM, MAX),
+``all_gather`` or ``all_to_all_single`` on the model group, which gloo
+takes on CUDA tensors (several ranks on one card, where NCCL refuses); a
+reduce-scatter is an all-reduce followed by the rank's slice.  All ranks
+run the same backward graph, so they reach the collectives in the same
+order.
 """
 from __future__ import annotations
 
@@ -163,6 +167,26 @@ class _SumOverModel(torch.autograd.Function):
         return g, None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """Block ``j`` of dim 0 to model rank ``j``; block ``j`` of the result
+    from rank ``j`` (gloo takes CUDA tensors here: chip_smoke.gloo_probe)."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
 def copy_to_model(x):
     """Identity forward, all-reduce (SUM) of the gradient over the model group."""
     return x if active() is None else _CopyToModel.apply(x, _group())
@@ -189,6 +213,22 @@ def sum_over_model(x):
     """All-reduce (SUM) over the model group, forward and backward: a sum of
     the ranks' partial terms that every rank then reads."""
     return x if active() is None else _SumOverModel.apply(x, _group())
+
+
+def all_to_all(x):
+    """``x`` [m, ...]: block ``j`` of dim 0 sent to model rank ``j``, and
+    block ``j`` of the result the one rank ``j`` sent here (the reference's
+    ``all_to_all(split_axis=0, concat_axis=0)``); backward: the reverse
+    exchange of the gradient, which is the same exchange."""
+    return x if active() is None else _AllToAll.apply(x, _group())
+
+
+def mean_over_model(x):
+    """The model ranks' mean of a per-rank term that the loss counts once
+    (EP's per-slice load-balance loss): all-reduce forward over ``m``,
+    identity backward, so each rank's gradient reaches its own term with
+    weight ``1/m`` (a summing backward would count it ``m`` times)."""
+    return x if active() is None else reduce_from_model(x) / model_size()
 
 
 def whole(x, shape):

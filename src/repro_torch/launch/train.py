@@ -51,17 +51,19 @@ Sharded (``lm``, the reference's GSPMD path): without
 ``--dp-compress-bits``, ``--mesh-data D --mesh-model M`` trains on a
 ``D x M`` grid of ranks (``repro_torch.launch.mesh``; ``D * M`` processes
 under ``torch.distributed.run``, or ranks whose launcher made the default
-group) under ``--policy`` (``tp``, the reference CLI's, or ``tp_sp``): the
+group) under ``--policy`` (``tp``, the reference CLI's, ``tp_sp``, or
+``tp_ep``: the MoE layers' explicit expert-parallel dispatch): the
 state follows ``state_pspecs`` (each rank its shard of the one-process
 init), the batch ``batch_pspecs`` (a batch the data axis does not divide is
 replicated and still trains), and the step is donated.  Every rank saves
 through the gather and rank 0 writes whole leaves; a resume cuts each
 rank's shard for this mesh, whatever mesh saved the checkpoint.  Every
-arch runs there (mamba mixers and heads that split mid-head among them),
-and so do ``--pad-to-tiles`` and ``--guard`` (one verdict for every rank).
-Exit 2: a world size that is not ``D * M``, an fsdp / dp / ep policy, a
-method other than fp / lpt / alpt under ``--mesh-model`` > 1 (ROADMAP
-A13c).
+arch and every ``--embedding-method`` runs there (mamba mixers and heads
+that split mid-head among them; qr_*, hash and mixed tables replicated on
+every rank; prune's refresh over the whole table), and so do
+``--pad-to-tiles`` and ``--guard`` (one verdict for every rank).  Exit 2: a
+world size that is not ``D * M``, an fsdp or dp policy (ROADMAP A13c part
+2c).
 
 Storage tiers (``ctr``): ``--zipf`` trains on the reference's Zipf(1.1)
 skewed-traffic fixture (:data:`CTR_ZIPF_DATA`: 8 fields, 4,092 rows) in
@@ -451,7 +453,6 @@ def check_mesh(parser: argparse.ArgumentParser, args) -> None:
         shape = {"data": args.mesh_data, "model": args.mesh_model}
         try:
             lm_trainer.check_shardable(
-                lm_config(args),
                 HostMesh(shape=shape, coords={"data": 0, "model": 0},
                          groups={"data": None, "model": None}),
                 sharding.policy_from_name(args.policy, model_size=args.mesh_model))
@@ -720,8 +721,9 @@ def main(argv=None) -> int:
                     help="tensor-parallel ranks of the sharded path (data x model processes)")
     lm.add_argument("--policy", default="tp",
                     choices=("tp", "tp_sp", "fsdp_tp", "fsdp_tp_sp", "fsdp_tp_ep", "tp_ep", "dp"),
-                    help="sharding policy of the sharded path (executed: tp, tp_sp; the "
-                         "fsdp / dp / ep ones exit 2 on any mesh)")
+                    help="sharding policy of the sharded path (executed, with every "
+                         "--embedding-method: tp, tp_sp, tp_ep (the MoE layers' expert-parallel "
+                         "all-to-all dispatch); the fsdp and dp ones exit 2 on any mesh)")
     lm.add_argument("--dp-compress-bits", type=int, default=None, metavar="BITS",
                     help="data-parallel mode: replicate the state over --mesh-data ranks and "
                          "sync gradients at this width (32 = exact fp32 mean, 2..8 = "

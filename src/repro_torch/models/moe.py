@@ -28,9 +28,15 @@ its experts on its slice of the buffer and combines their gate-weighted
 outputs, and one all-reduce over the model group sums the ranks'.  The
 router and the shared experts are replicated and count once.  One body
 serves both: with every expert on the rank, the slice is the whole buffer
-and the collectives are the identity.  The
-reference's explicit expert-parallel dispatch (``moe_forward_ep``, the
-``ep`` policies) is ROADMAP A13c.
+and the collectives are the identity.
+
+Expert parallelism (:func:`moe_forward_ep`, the reference's explicit
+dispatch under an ``ep`` policy): each model rank routes its slice of the
+sequence, sends every expert owner its pairs through an all-to-all, runs
+its experts on what it receives and sends the outputs back; one all-reduce
+restores the replicated [B, S, d].  Capacity and drops are per slice, and
+the load-balance loss is the slice's, averaged over the model ranks: not
+the dense layer's numbers.
 """
 from __future__ import annotations
 
@@ -100,6 +106,22 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig):
+    """x [B, S, d] -> ``(probs [B, S, E], gates [B, S, k], experts [B, S*k],
+    one-hot [B, S*k, E], places [B, S*k])``: the router's softmax, its top-k
+    (renormalized where the config says so), and each (token, slot) pair's
+    place within its expert, an exclusive running count in token order."""
+    b, s, _ = x.shape
+    probs = torch.softmax(x.to(torch.float32) @ router, dim=-1)
+    gate_vals, expert_ids = top_k(probs, cfg.top_k)
+    if cfg.normalize_gates:
+        gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(dim=-1, keepdim=True), 1e-9)
+    flat_e = expert_ids.reshape(b, s * cfg.top_k)
+    oh = F.one_hot(flat_e, cfg.n_experts)
+    pos = torch.cumsum(oh, dim=1) - oh  # exclusive prefix count
+    return probs, gate_vals, flat_e, oh, (pos * oh).sum(-1)
+
+
 def moe_forward(params: dict[str, Any], x: torch.Tensor, cfg: MoEConfig
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> ``(y [B, S, d], aux_loss scalar)``.
@@ -119,17 +141,7 @@ def moe_forward(params: dict[str, Any], x: torch.Tensor, cfg: MoEConfig
     e0 = tp.model_rank() * el if split else 0
     c = capacity(cfg, s)
 
-    logits = x.to(torch.float32) @ params["router"]  # [B, S, E]
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_ids = top_k(probs, k)  # [B, S, k]
-    if cfg.normalize_gates:
-        gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(dim=-1, keepdim=True), 1e-9)
-
-    # Place of each (token, slot) pair within its expert, per sample.
-    flat_e = expert_ids.reshape(b, s * k)
-    oh = F.one_hot(flat_e, e)  # [B, S*k, E]
-    pos = torch.cumsum(oh, dim=1) - oh  # exclusive prefix count
-    flat_p = (pos * oh).sum(-1)  # [B, S*k]
+    probs, gate_vals, flat_e, oh, flat_p = _route(x, params["router"], cfg)
     keep = (flat_p < c) & (flat_e >= e0) & (flat_e < e0 + el)  # kept, and this rank's
 
     # Dispatch the kept pairs into [B, E/m, C, d].
@@ -163,3 +175,60 @@ def moe_forward(params: dict[str, Any], x: torch.Tensor, cfg: MoEConfig
     mean_probs = tp.batch_mean(torch.mean(probs, dim=(0, 1)))
     aux = cfg.aux_loss_coef * e * torch.sum(frac_tokens * mean_probs)
     return y.to(x.dtype), aux
+
+
+def moe_forward_ep(params: dict[str, Any], x: torch.Tensor, cfg: MoEConfig
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, d], the same on every rank of the active context's model
+    group of ``m`` ranks, this rank ``r`` holding experts ``[r E/m, (r+1)
+    E/m)`` -> ``(y [B, S, d], aux)``, the reference's ``moe_forward_ep``
+    (``repro/models/moe.py:142``) step by step:
+
+    1. this rank's slice of the sequence, ``s_loc = S // m`` tokens from
+       ``r s_loc`` (tokens past ``m s_loc`` get no output at all, routed or
+       shared, as in the reference), routed;
+    2. a send buffer [m, E/m, B, C, d] with ``C = int(s_loc k cf / E) + 1``,
+       pairs placed in token order within the slice (later ones dropped);
+    3. an all-to-all, this rank's experts (SwiGLU) on what every rank sent
+       it, an all-to-all back;
+    4. the gate-weighted combine and the shared experts on the slice, the
+       slice placed in zeros of [B, S, d] and summed over the model group.
+
+    The input enters through ``tp.copy_to_model`` and the router and the
+    shared experts through ``tp.partial_weight``: each rank reads only its
+    slice, so their gradients are the ranks' sum; the output's all-reduce
+    has an identity backward.  ``aux`` is the slice's load-balance loss
+    averaged over the model ranks (``tp.mean_over_model``: counted once)."""
+    m, r = tp.model_size(), tp.model_rank()
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    el, s_loc = e // m, s // m
+    xs = tp.copy_to_model(x)[:, r * s_loc:(r + 1) * s_loc]
+    probs, gate_vals, flat_e, oh, flat_p = _route(xs, tp.partial_weight(params["router"], True),
+                                                  cfg)
+    c = capacity(cfg, s_loc)
+    keep = flat_p < c
+    dest_rank, dest_exp = flat_e // el, flat_e % el
+    bidx = torch.arange(b, device=x.device)[:, None].expand(b, s_loc * k)
+    x_rep = xs[:, :, None, :].expand(b, s_loc, k, d).reshape(b, s_loc * k, d)
+    send = x.new_zeros((m, el, b, c, d)).index_put(
+        (dest_rank[keep], dest_exp[keep], bidx[keep], flat_p[keep]), x_rep[keep])
+
+    recv = tp.all_to_all(send)  # [m (source), E/m, B, C, d]: pairs for this rank's experts
+    h = F.silu(torch.einsum("sebcd,edf->sebcf", recv, params["w_gate"]))
+    h = h * torch.einsum("sebcd,edf->sebcf", recv, params["w_up"])
+    back = tp.all_to_all(torch.einsum("sebcf,efd->sebcd", h, params["w_down"]))
+
+    y_tok = back[dest_rank, dest_exp, bidx, torch.clamp_max(flat_p, c - 1)]  # [B, s_loc*k, d]
+    y_tok = y_tok * (keep[..., None] * gate_vals.reshape(b, s_loc * k, 1)).to(y_tok.dtype)
+    ys = y_tok.reshape(b, s_loc, k, d).sum(dim=2)
+    if cfg.n_shared_experts:
+        sh = {n: tp.partial_weight(w, True) for n, w in params["shared"].items()}
+        ys = ys + (F.silu(xs @ sh["w_gate"]) * (xs @ sh["w_up"])) @ sh["w_down"]
+    y = tp.reduce_from_model(F.pad(ys.to(x.dtype), (0, 0, r * s_loc, s - (r + 1) * s_loc)))
+
+    routed = oh.reshape(b, s_loc, k, e).sum(dim=2) > 0
+    frac_tokens = torch.mean(routed.to(torch.float32), dim=(0, 1))
+    mean_probs = torch.mean(probs, dim=(0, 1))
+    aux = cfg.aux_loss_coef * e * torch.sum(frac_tokens * mean_probs)
+    return y, tp.mean_over_model(aux)

@@ -50,6 +50,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch import device as device_mod
+from repro_torch.dist import context as dist_ctx
 from repro_torch.dist import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -421,12 +422,18 @@ def _mlp_block(p, x, cfg: ModelConfig, pos: int, seq: bool = False):
     """The MLP or MoE sub-layer -> ``(x, aux)``, ``aux`` the MoE's
     load-balance loss or None where there is no MoE.  A model shard of the
     MLP's hidden dim runs between ``tp.enter`` and ``tp.leave`` (the MoE's
-    expert shards inside ``moe_forward``); a bias on the output is added
-    once, after the reduce; ``seq`` as in :func:`_attn_block`."""
+    expert shards inside ``moe_forward``, or ``moe_forward_ep`` under an
+    ``ep`` policy); a bias on the output is added once, after the reduce;
+    ``seq`` as in :func:`_attn_block`."""
     if not cfg.is_moe(pos) and cfg.d_ff == 0:
         return x, None
     y = L.rms_norm(x, tp.partial_weight(p["norm2"], seq))
     if cfg.is_moe(pos):
+        if dist_ctx.moe_ep_context() is not None and cfg.moe.n_experts % tp.model_size() == 0:
+            # The reference's _moe_apply: the explicit EP dispatch under an
+            # ep policy (never with sp); the path below where E does not split.
+            out, aux = moe_mod.moe_forward_ep(p["moe"], y, cfg.moe)
+            return x + out, aux
         out, aux = moe_mod.moe_forward(p["moe"], tp.enter(y, False, seq), cfg.moe)
         return x + tp.leave(out, False, seq), aux
     m = p["mlp"]

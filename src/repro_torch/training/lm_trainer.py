@@ -35,9 +35,9 @@ checkpoint a state (``repro_torch.checkpoint``).
 
 The sharded path (port of the reference's GSPMD step): under
 ``repro_torch.dist.context.use(mesh, policy)`` (a ``(data, model)`` rank
-grid, :mod:`repro_torch.launch.mesh`; a ``tp`` or ``tp_sp`` policy),
-:func:`init_state` gives this rank's shard of the one-process init (every
-leaf the slice of the one-process draw, :func:`state_specs`), and
+grid, :mod:`repro_torch.launch.mesh`; a ``tp``, ``tp_sp`` or ``tp_ep``
+policy), :func:`init_state` gives this rank's shard of the one-process
+init (every leaf the slice of the one-process draw, :func:`state_specs`), and
 :func:`make_train_step` a step over shards: the batch's slice over the
 data axis (``batch_pspecs``; a batch the axis does not divide is
 replicated), the model's collectives at the reference's hint sites
@@ -50,9 +50,15 @@ rows' slice of the one-process draw, so codes compare across meshes).
 runs on.  Mamba mixers run their heads' shards; an attention or SSD
 shard that splits a head is gathered and run replicated; a padded table
 splits its allocated rows (the scratch row lands on the rank whose block
-holds it); the guard's verdict is the whole world's.  Refused, naming
-ROADMAP A13c: fsdp / dp / ep policies, and methods other than fp / lpt /
-alpt under a model axis > 1.
+holds it); the guard's verdict is the whole world's.  Every method runs
+there: a table the method's specs keep whole (qr_lpt, qr_alpt, hash,
+mixed) is a replica on every rank, stepped as the one process steps it; a
+split table's replicated float leaf that reads only the rank's columns
+(lsq's step size, pact's alpha) takes the ranks' summed gradient; prune's
+mask refresh reads the whole table (:func:`wrap_host_refresh`).  Under a
+``tp_ep`` policy the MoE layers take the explicit expert-parallel dispatch
+(``models.moe.moe_forward_ep``).  Refused, naming ROADMAP A13c part 2c:
+fsdp and dp policies, and ``ep`` with ``sp``.
 """
 from __future__ import annotations
 
@@ -74,6 +80,7 @@ from repro_torch.core.pruning import PruneConfig
 from repro_torch.dist import collectives
 from repro_torch.dist import context as dist_ctx
 from repro_torch.dist import sharding
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.methods import layout
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import (OptState, adam_init, adam_update, clip_by_global_norm, tree_leaves,
@@ -139,10 +146,6 @@ def embedding_spec_of(cfg: tfm.ModelConfig,
 
 # ------------------------------------------------------------- the shards
 
-#: Methods the sharded step takes under a model axis > 1 (a vocab table of
-#: one [V, d] leaf family); the others run at model = 1 (ROADMAP A13c).
-MODEL_SHARDED_METHODS = ("fp", "lpt", "alpt")
-
 
 class Shards(NamedTuple):
     """The active context's layout of an LM state: the mesh and policy,
@@ -159,21 +162,36 @@ class Shards(NamedTuple):
     sharded_leaves: list
     table_shape: tuple
 
+    @property
+    def table_split(self) -> bool:
+        """Whether any leaf of the table's state is a block of the whole
+        (False for a table every rank holds whole)."""
+        return any(sharding.is_sharded(s, self.mesh)
+                   for s in sharding.spec_leaves(self.specs.table))
 
-def check_shardable(cfg: tfm.ModelConfig, mesh, pol) -> None:
+    @property
+    def partial_emb(self) -> list | None:
+        """Per float leaf of the table (``trainable_params``' leaves), whether
+        it is replicated over a table split over d, so that it reads only
+        this rank's columns (lsq's step size, pact's alpha) and its gradient
+        is the model ranks' sum; None for an integer table."""
+        if self.specs.table_opt is None:
+            return None
+        return [self.width_split and not sharding.is_sharded(s, self.mesh)
+                for s in self.specs.table_opt.mu]
+
+
+def check_shardable(mesh, pol) -> None:
     """Raise ``ValueError`` for what the sharded step does not execute
-    (ROADMAP A13c) on this ``(data, model)`` mesh: an fsdp / dp / ep policy
-    (on any mesh, so that such a policy never passes unexecuted), and under
-    a model axis > 1 a method other than fp / lpt / alpt."""
+    (ROADMAP A13c part 2c) on this ``(data, model)`` mesh: an fsdp or dp
+    policy, or ``ep`` with ``sp`` (on any mesh, so that such a policy never
+    passes unexecuted)."""
     m = int(mesh.shape["model"])
-    if pol.fsdp or pol.pure_dp or pol.ep:
-        raise ValueError(f"policy {pol.name!r}: fsdp / dp / ep execution is ROADMAP A13c (its "
-                         "specs are ported)")
+    if pol.fsdp or pol.pure_dp or (pol.ep and pol.seq_parallel):
+        raise ValueError(f"policy {pol.name!r}: fsdp / dp execution and ep with sp are ROADMAP "
+                         "A13c part 2c (their specs are ported)")
     if pol.model_size != m:
         raise ValueError(f"policy model_size {pol.model_size} != the mesh's model axis {m}")
-    if m > 1 and cfg.embedding_method not in MODEL_SHARDED_METHODS:
-        raise ValueError(f"method {cfg.embedding_method!r} under a model axis > 1 is ROADMAP "
-                         f"A13c (model-sharded: {', '.join(MODEL_SHARDED_METHODS)})")
 
 
 def _allocated(spec: methods.EmbeddingSpec) -> tuple[int, int]:
@@ -186,12 +204,16 @@ def _allocated(spec: methods.EmbeddingSpec) -> tuple[int, int]:
 
 def _table_axes(cfg: tfm.ModelConfig, spec: methods.EmbeddingSpec, pol):
     """The table's (row, col) entries as the step executes them: the spec
-    builders', dropped (the table replicated) where the allocated table
-    does not split: a padded table (``pad_to_tiles``, its scratch row and
-    tile rounding) whose padded rows or width the axis does not divide, or
-    whose padded width is not its live width; packed codes whose d split
-    would not fill whole bytes."""
+    builders', dropped (the table replicated) where the method's specs keep
+    the table whole (qr_*, hash, mixed: every leaf ``P()``) or where the
+    allocated table does not split: a padded table (``pad_to_tiles``, its
+    scratch row and tile rounding) whose padded rows or width the axis does
+    not divide, or whose padded width is not its live width; packed codes
+    whose d split would not fill whole bytes."""
     row, col = sharding._table_axes(cfg, pol)
+    if not any(e is not None for s in sharding.spec_leaves(
+            methods.get(spec.method).table_pspec(row, col)) for e in s):
+        return None, None
     m = pol.model_size
     n, d = _allocated(spec)
     if (n, d) != (spec.n, spec.d) and (d != spec.d or (row and n % m) or (col and d % m)):
@@ -231,7 +253,7 @@ def _shards(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None) -> Shards | None
         return None
     tcfg = LMTrainerConfig() if tcfg is None else tcfg
     mesh, pol = ctx.mesh, ctx.policy
-    check_shardable(cfg, mesh, pol)
+    check_shardable(mesh, pol)
     spec = embedding_spec_of(cfg, tcfg)
     specs = state_specs(cfg, tcfg, mesh, pol)
     row, col = _table_axes(cfg, spec, pol)
@@ -288,8 +310,10 @@ def clone_state(state: LMTrainState) -> LMTrainState:
             return {k: copy(v) for k, v in x.items()}
         if isinstance(x, list):
             return [copy(v) for v in x]
-        if isinstance(x, tuple):  # the NamedTuples: OptState, LPTTable
+        if isinstance(x, tuple) and hasattr(x, "_fields"):  # OptState, LPTTable, ...
             return type(x)(*(copy(v) for v in x))
+        if isinstance(x, tuple):  # mixed's tuple of sub-tables
+            return tuple(copy(v) for v in x)
         return x
 
     generator = torch.Generator(device=state.generator.device)
@@ -414,7 +438,7 @@ def table_fp_of(state: LMTrainState, cfg: tfm.ModelConfig,
 
 
 def make_grad_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig,
-                 spec: methods.EmbeddingSpec | None = None):
+                 spec: methods.EmbeddingSpec | None = None, partial: list | None = None):
     """One backward: ``(state, batch) -> ((loss, aux), (g_emb, g_params))``,
     ``g_emb`` shaped as the method's ``dense_params`` (for integer tables the
     de-quantized [V, d] table) and ``g_params`` a list in
@@ -422,17 +446,21 @@ def make_grad_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig,
     a zero gradient, as ``jax.grad`` gives: the table of an ``embeds``
     config with an untied head (the encoder), which then steps as the
     reference's does, by its optimizer's decay and Delta's own step.
-    ``spec``: the table's geometry when it is a shard (:class:`Shards`)."""
+    ``spec``: the table's geometry when it is a shard (:class:`Shards`);
+    ``partial``: its float leaves that take the model ranks' summed
+    gradient (:attr:`Shards.partial_emb`)."""
     spec = embedding_spec_of(cfg, tcfg) if spec is None else spec
     method = methods.get(spec.method)
 
     def grad_fn(state: LMTrainState, batch: dict):
         dense = method.dense_params(state.table, spec)
         emb = [t.detach().requires_grad_(True) for t in tree_leaves(dense)]
+        read = emb if partial is None else [tp.partial_weight(t, p)
+                                            for t, p in zip(emb, partial, strict=True)]
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(state.params)]
         params = tree_like(state.params, leaves)
         with torch.enable_grad():
-            table_fp = method.dense_table_from(state.table, tree_like(dense, emb), spec)
+            table_fp = method.dense_table_from(state.table, tree_like(dense, read), spec)
             loss, aux = tfm.loss_fn(params, table_fp, batch, cfg)
             grads = alpt_core.grads_or_zeros(loss, [*emb, *leaves])
         g_emb = tree_like(dense, list(grads[: len(emb)]))
@@ -607,12 +635,12 @@ def _sharded_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, sh: Shards, donat
     mesh, pol, spec = sh.mesh, sh.policy, sh.spec
     method = methods.get(spec.method)
     lr_at = make_lr_fn(tcfg, lr_schedule)
-    grad_fn = make_grad_fn(cfg, tcfg, spec)
+    grad_fn = make_grad_fn(cfg, tcfg, spec, sh.partial_emb)
     apply_fn = make_apply_fn(cfg, tcfg, donate=donate, shards=sh)
     delta_fn = make_delta_grad_fn(cfg, tcfg, spec) if method.has_learned_step else None
     data_group = mesh.groups["data"]
     width = int(mesh.shape["model"]) if sh.width_split else 1
-    table_split = any(sharding.is_sharded(s, mesh) for s in sharding.spec_leaves(sh.specs.table))
+    table_split = sh.table_split
 
     def train_step(state: LMTrainState, batch: dict, noise: torch.Tensor | None = None):
         bspecs = sharding.batch_pspecs(batch, cfg, pol, mesh)
@@ -656,15 +684,31 @@ def wrap_host_refresh(step_fn, cfg: tfm.ModelConfig, tcfg: LMTrainerConfig):
     schedule clock is synced to the step count and every ``refresh_every``
     steps the mask is recomputed (``EmbeddingMethod.after_step``).  The
     identity for every other method, so a training loop applies it
-    unconditionally, as the reference's does."""
+    unconditionally, as the reference's does.
+
+    Wrapped under a sharding context whose table splits, a refresh step
+    reads the whole table, as the reference's does: the shards are
+    all-gathered over the model group, refreshed (prune's threshold the
+    whole table's quantile, bitwise the one-process one), and this rank's
+    block cut back; the other steps sync the clock on the shard."""
     spec = embedding_spec_of(cfg, tcfg)
     method = methods.get(spec.method)
     if not method.has_host_refresh:
         return step_fn
+    sh = _shards(cfg, tcfg)
+    whole_refresh = sh is not None and sh.table_split
+    local = spec if sh is None else sh.spec
 
     def step_with_refresh(state: LMTrainState, batch: dict, *args, **kwargs):
         state, m = step_fn(state, batch, *args, **kwargs)
-        return state._replace(table=method.after_step(state.table, state.step, spec)), m
+        table = state.table
+        if whole_refresh and state.step % method.refresh_every(spec) == 0:
+            whole = method.after_step(sharding.gather_tree(table, sh.specs.table, sh.mesh),
+                                      state.step, spec)
+            table = sharding.shard_tree(whole, sh.specs.table, sh.mesh)
+        else:
+            table = method.after_step(table, state.step, local)
+        return state._replace(table=table), m
 
     return step_with_refresh
 

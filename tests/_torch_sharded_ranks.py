@@ -7,9 +7,14 @@ one-process states, batches and noise, as numpy), runs every check of the
 launch on a ``DATA x MODEL`` mesh (a case marked ``data_only`` on a
 ``WORLD x 1`` one) and writes ``DIR/rank<r>.pt`` (rank 0:
 the gathered states and losses; every rank: its flags, per case and in
-all, and the guard's world verdicts).  Imports torch and the port only, so
-the same program runs on the card.
+all, the guard's world verdicts and its ``moe_forward_ep`` results).
+Imports torch and the port only, so the same program runs on the card.
+
+:func:`moe_ep_twin` is the one-process twin of the expert-parallel MoE
+(``models.moe.moe_forward_ep`` on a mesh), which the tests and
+``chip_smoke.py`` put in a one-process step with :func:`ep_twin`.
 """
+import contextlib
 import dataclasses
 import datetime
 import pathlib
@@ -17,6 +22,7 @@ import sys
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -26,6 +32,7 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.dist import context, sharding  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.optim import tree_leaves  # noqa: E402
 from repro_torch.training import lm_trainer  # noqa: E402
 
@@ -64,7 +71,9 @@ def _step_case(case, mesh, pol, dev):
                 state = sharding.shard_tree(_whole_state(case, dev), sh.specs, mesh)
             else:
                 state = lm_trainer.init_state(cfg, tcfg, seed=case["seed"], device=dev)
-            step = lm_trainer.make_train_step(cfg, tcfg, donate=case.get("donate", False))
+            step = lm_trainer.wrap_host_refresh(  # prune's mask; the identity for the others
+                lm_trainer.make_train_step(cfg, tcfg, donate=case.get("donate", False)), cfg,
+                tcfg)
     finally:
         faults.uninstall()
     noise = case.get("noise")
@@ -78,15 +87,33 @@ def _step_case(case, mesh, pol, dev):
         state = new
     with context.use(mesh, pol):
         whole = sharding.gather_tree(state, sh.specs, mesh)
-    # Replicated leaves are the same on every rank of the mesh.
+    # Replicated leaves (params, and a table and its float leaves' Adam
+    # moments where the specs keep them whole) are the same on every rank.
     same = True
-    for leaf, spec in zip(tree_leaves(state.params), sharding.spec_leaves(sh.specs.params)):
-        if not sharding.is_sharded(spec, mesh):
-            parts = [torch.empty_like(leaf) for _ in range(mesh.size)]
-            dist.all_gather(parts, leaf.contiguous())
-            same &= all(torch.equal(p, leaf) for p in parts)
+    for leaf in _replicated(state, sh.specs, mesh):
+        wire = leaf.contiguous().view(torch.uint8) if leaf.dtype in (torch.int8,
+                                                                     torch.bool) else leaf
+        parts = [torch.empty_like(wire) for _ in range(mesh.size)]
+        dist.all_gather(parts, wire.contiguous())
+        same &= all(torch.equal(p, wire) for p in parts)
     metrics = {k: float(v) for k, v in m.items() if torch.is_tensor(v) and v.ndim == 0}
     return state, whole, metrics, {"guard": guard, "same_replicas": bool(same)}
+
+
+def _replicated(state, specs, mesh) -> list:
+    """The tensors of ``state`` whose spec places nothing over the mesh (a
+    code container's bytes), in the spec tree's order."""
+    from repro_torch.core.codestore import CodeStore
+
+    out = []
+
+    def keep(leaf, spec):
+        if not sharding.is_sharded(spec, mesh):
+            out.append(leaf.data if isinstance(leaf, CodeStore) else leaf)
+        return leaf
+
+    sharding._map_specs(keep, state._replace(generator=None), specs._replace(generator=None))
+    return out
 
 
 def _guard_world(dev) -> list:
@@ -122,8 +149,12 @@ def _subtables(table):
 def _table_np(table):
     if isinstance(table, torch.Tensor):
         return {"table": table.cpu()}
-    if not hasattr(table, "codes"):  # a composed table: its codes, flattened in order
-        return {"codes": torch.cat([t.codes.data.reshape(-1).cpu() for t in _subtables(table)])}
+    if not hasattr(table, "codes"):  # a composed table: its codes and Deltas, in order
+        subs = _subtables(table)  # (none: a float-leaf method's, held through "emb")
+        if not subs:
+            return {}
+        return {"codes": torch.cat([t.codes.data.reshape(-1).cpu() for t in subs]),
+                "step": torch.cat([t.step.cpu() for t in subs])}
     return {"codes": table.codes.data.cpu(), "step": table.step.cpu(), "mu": table.mu.cpu(),
             "nu": table.nu.cpu()}
 
@@ -145,13 +176,17 @@ def main(directory, rank, world, data, model, device):
             at = data_only
         pol = sharding.policy_from_name(case["policy"], model_size=at.shape["model"])
         state, whole, metrics, flags = _step_case(case, at, pol, dev)
+        spec = lm_trainer.embedding_spec_of(case["cfg"], case["tcfg"])
         out["steps"][name] = {"metrics": metrics, "params": _cpu(whole.params),
-                              "table": _table_np(whole.table), **flags}
-        if name == inp.get("save_case"):
+                              "table": _table_np(whole.table),
+                              "emb": _cpu(methods.get(spec.method).trainable_params(whole.table,
+                                                                                    spec)),
+                              "mask": _cpu(getattr(whole.table, "mask", None)), **flags}
+        if name in inp.get("save_cases", ()):
             # Save from shards: every rank gathers, rank 0 writes whole leaves.
             with context.use(mesh, pol):
-                lm_trainer.save(CheckpointManager(directory / "ck_mesh"), case["cfg"], state,
-                                case["tcfg"], force=True)
+                lm_trainer.save(CheckpointManager(directory / f"ck_mesh_{name}"), case["cfg"],
+                                state, case["tcfg"], force=True)
         del state, whole
 
     out["same_replicas"] = all(c["same_replicas"] for c in out["steps"].values())
@@ -172,14 +207,17 @@ def main(directory, rank, world, data, model, device):
     if "rows" in inp:  # rung 2: the same gradient rows give the same shard rows
         out["rows"] = _rows_check(inp["rows"], mesh, dev)
 
-    if "cli" in inp:  # last: the CLI tears the default group down
-        import contextlib
-        import io
+    if "ep" in inp:  # the port's moe_forward_ep against the reference's
+        out["ep"] = [_ep_case(c, mesh, dev) for c in inp["ep"]]
 
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            code = train_cli.main(inp["cli"])
-        out["cli"] = {"code": code, "stdout": buf.getvalue()}
+    for key in ("cli", "cli_ep"):  # the CLI on the launcher's group (it keeps it)
+        if key in inp:
+            import io
+
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                code = train_cli.main(inp[key])
+            out[key] = {"code": code, "stdout": buf.getvalue()}
     torch.save(out, directory / f"rank{rank}.pt")
     if dist.is_initialized():
         dist.destroy_process_group()
@@ -200,6 +238,107 @@ def _same_state(a, b, clocks: bool = True) -> bool:
     ta, tb = a.table, b.table
     return (same and torch.equal(ta.codes.data, tb.codes.data) and torch.equal(ta.step, tb.step)
             and torch.equal(ta.mu, tb.mu) and torch.equal(ta.nu, tb.nu) and ta.count == tb.count)
+
+
+def _ep_case(case, mesh, dev) -> dict:
+    """``moe_forward_ep`` under ``tp_ep`` on this rank (its data row's block
+    of the parent's numpy batch, its experts), then the backward of
+    ``sum(y * ct) + aux``: y, aux, and the gradients of the input and of
+    every weight the rank holds, on the host."""
+    cfg, p = case["cfg"], case["params"]
+    m, r = mesh.shape["model"], mesh.coords["model"]
+    el, bd = cfg.n_experts // m, case["x"].shape[0] // mesh.shape["data"]
+    rows = slice(mesh.coords["data"] * bd, (mesh.coords["data"] + 1) * bd)
+
+    def leaf(a):
+        return torch.from_numpy(a).to(dev).requires_grad_(True)
+
+    params = {"router": leaf(p["router"]),
+              **{n: leaf(p[n][r * el:(r + 1) * el]) for n in ("w_gate", "w_up", "w_down")}}
+    if "shared" in p:
+        params["shared"] = {n: leaf(v) for n, v in p["shared"].items()}
+    x = leaf(case["x"][rows])
+    pol = sharding.policy_from_name("tp_ep", model_size=m)
+    with context.use(mesh, pol):
+        y, aux = moe_mod.moe_forward_ep(params, x, cfg)
+        (torch.sum(y * torch.from_numpy(case["ct"][rows]).to(dev)) + aux).backward()
+    grads = {"x": x.grad, **{n: params[n].grad for n in ("router", "w_gate", "w_up", "w_down")}}
+    if "shared" in p:
+        grads["shared"] = {n: w.grad for n, w in params["shared"].items()}
+    return {"y": y.detach().cpu(), "aux": float(aux), "grads": _cpu(grads)}
+
+
+def moe_ep_twin(params, x, cfg, data: int, model: int):
+    """``moe_forward_ep``'s arithmetic for the cells of a ``data x model``
+    mesh in one process: each data row's block of the batch (the whole
+    batch where the axis does not divide it, as the sharded step
+    replicates it), each of its ``model`` virtual ranks routing its slice
+    of the sequence into a send buffer [model, E/model, b, C, d], the
+    buffers' blocks stacked where the all-to-all exchanges them, each
+    virtual rank's experts on what it receives, the return trip stacked
+    back; the slices concatenated where the all-reduce sums them (tokens
+    past ``model * s_loc`` get no output), the aux the mean of the cells'.
+    -> ``(y [B, S, d], aux)``, differentiable in ``params`` and ``x``."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    data = data if b % data == 0 else 1
+    bd, el, s_loc = b // data, e // model, s // model
+    c = max(int(s_loc * k * cfg.capacity_factor / e) + 1, 1)
+    rows, auxes = [], []
+    for i in range(data):
+        xb = x[i * bd:(i + 1) * bd]
+        sends, routes = [], []
+        for j in range(model):  # virtual rank j routes its slice
+            xs = xb[:, j * s_loc:(j + 1) * s_loc]
+            probs = torch.softmax(xs.to(torch.float32) @ params["router"], dim=-1)
+            gates, ids = moe_mod.top_k(probs, k)
+            if cfg.normalize_gates:
+                gates = gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9)
+            flat_e = ids.reshape(bd, s_loc * k)
+            oh = F.one_hot(flat_e, e)
+            flat_p = ((torch.cumsum(oh, dim=1) - oh) * oh).sum(-1)
+            keep = flat_p < c
+            bidx = torch.arange(bd, device=x.device)[:, None].expand(bd, s_loc * k)
+            x_rep = xs[:, :, None, :].expand(bd, s_loc, k, d).reshape(bd, s_loc * k, d)
+            sends.append(xs.new_zeros((model, el, bd, c, d)).index_put(
+                (flat_e[keep] // el, flat_e[keep] % el, bidx[keep], flat_p[keep]), x_rep[keep]))
+            routes.append((xs, flat_e, flat_p, keep, bidx, gates))
+            routed = oh.reshape(bd, s_loc, k, e).sum(dim=2) > 0
+            auxes.append(cfg.aux_loss_coef * e * torch.sum(
+                torch.mean(routed.to(torch.float32), dim=(0, 1)) * torch.mean(probs, dim=(0, 1))))
+        outs = []
+        for r in range(model):  # virtual rank r's experts on every rank's block for them
+            recv = torch.stack([sends[j][r] for j in range(model)])
+            w = {n: params[n][r * el:(r + 1) * el] for n in ("w_gate", "w_up", "w_down")}
+            h = F.silu(torch.einsum("sebcd,edf->sebcf", recv, w["w_gate"]))
+            h = h * torch.einsum("sebcd,edf->sebcf", recv, w["w_up"])
+            outs.append(torch.einsum("sebcf,efd->sebcd", h, w["w_down"]))
+        ys = []
+        for j, (xs, flat_e, flat_p, keep, bidx, gates) in enumerate(routes):
+            back = torch.stack([outs[r][j] for r in range(model)])
+            y_tok = back[flat_e // el, flat_e % el, bidx, torch.clamp_max(flat_p, c - 1)]
+            y_tok = y_tok * (keep[..., None] * gates.reshape(bd, s_loc * k, 1)).to(y_tok.dtype)
+            y_j = y_tok.reshape(bd, s_loc, k, d).sum(dim=2)
+            if cfg.n_shared_experts:
+                sh = params["shared"]
+                y_j = y_j + (F.silu(xs @ sh["w_gate"]) * (xs @ sh["w_up"])) @ sh["w_down"]
+            ys.append(y_j.to(x.dtype))
+        ys.append(xb.new_zeros((bd, s - model * s_loc, d)))
+        rows.append(torch.cat(ys, dim=1))
+    return torch.cat(rows, dim=0), torch.stack(auxes).mean()
+
+
+@contextlib.contextmanager
+def ep_twin(data: int, model: int):
+    """One-process steps made and run inside it take :func:`moe_ep_twin`
+    for their MoE layers (``models.moe.moe_forward`` swapped): the
+    one-process twin of a ``tp_ep`` step on a ``data x model`` mesh."""
+    real = moe_mod.moe_forward
+    moe_mod.moe_forward = lambda params, x, cfg: moe_ep_twin(params, x, cfg, data, model)
+    try:
+        yield
+    finally:
+        moe_mod.moe_forward = real
 
 
 def _rows_check(case, mesh, dev) -> dict:

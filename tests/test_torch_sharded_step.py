@@ -29,17 +29,27 @@ and at 3 SSD heads (``d_inner`` split, the heads not: gathered), jamba's
 (mamba, attention and MoE layers in one period), SmolLM's 3/1
 heads at D = 16 (``wq`` and ``wk`` split mid-head), a ``pad_to_tiles``
 table (its 520 allocated rows split, the scratch row on rank 1), the
-guard with ``trainer.nonfinite`` at step 1 (every rank skips); rung 2,
-checkpoints across meshes both ways, the ``train lm`` CLI.
+guard with ``trainer.nonfinite`` at step 1 (every rank skips); the seven
+other embedding methods under the model axis (qr_lpt, qr_alpt, hash and
+mixed replicated on every rank, prune with its mask refreshed over the
+whole table, lsq and pact with rows split and, at the 509-row vocabulary,
+with the width split); expert parallelism (``tp_ep``: deepseek-moe's and
+jamba's smoke configs against a one-process twin of the EP arithmetic,
+``_torch_sharded_ranks.moe_ep_twin``, and ``moe_forward_ep`` itself against
+the reference's under ``jax.vmap(axis_name="model")``); rung 2,
+checkpoints across meshes both ways, the ``train lm`` CLI (tp, and tp_ep
+against its one-process EP twin).
 """
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import pathlib
 import subprocess
 import sys
 
+import _torch_sharded_ranks as ranks_mod
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -48,14 +58,17 @@ import torch
 
 from repro import configs as jconfigs
 from repro.core import quant as jq
+from repro.models import moe as jmoe
 from repro.training import lm_trainer as jlm
 from repro_torch import configs, faults, interop, methods
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import quant
+from repro_torch.core.pruning import PruneConfig
 from repro_torch.data.lm_synth import LMTokenStream
 from repro_torch.dist import sharding
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import HostMesh
+from repro_torch.models.moe import MoEConfig
 from repro_torch.models.ssm import SSMConfig
 from repro_torch.optim import tree_leaves
 from repro_torch.training import lm_trainer
@@ -66,6 +79,19 @@ LR = 1e-3
 BATCH, SEQ = 4, 32
 CLI = ["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu", "--steps", "2", "--batch",
        str(BATCH), "--seq", str(SEQ), "--log-every", "0"]
+CLI_EP = ["--arch", "deepseek-moe-16b", *CLI[2:], "--policy", "tp_ep"]
+#: The methods other than fp / lpt / alpt, each a case on the model axis.
+OTHER_METHODS = ("qr_lpt", "qr_alpt", "hash", "mixed", "prune", "lsq", "pact")
+#: prune's schedule in these cases: no warmup and a refresh after every
+#: step, with a ratio of 0.25 after step 1 (damping 0.5 over 1 step); the
+#: defaults' 200 warmup steps would keep every weight.
+PRUNE = PruneConfig(target_sparsity=0.5, damping=0.5, damping_steps=1, warmup_steps=0,
+                    update_every=1)
+#: moe_forward_ep against the reference: 8 experts top-2 with a shared one,
+#: capacity factor 1.25 (pairs drop), on the ranks' 2 x 2 grid; S = 16
+#: splits over the model axis, S = 15 leaves the reference's last token out.
+EP_MOE = MoEConfig(n_experts=8, top_k=2, d_model=16, d_ff=32, n_shared_experts=1, shared_d_ff=32)
+EP_SEQ = {"even": 16, "ragged": 15}
 
 
 def _qwen3(**kw):
@@ -88,22 +114,25 @@ def _ref_state_np(js):
         "opt": {"step": tree.opt.step, "mu": tree.opt.mu, "nu": tree.opt.nu}}
 
 
-def _one_process(cfg, tcfg, state, batch, noise=None, guard_at=None):
+def _one_process(cfg, tcfg, state, batch, noise=None, guard_at=None, ep=False):
     """One step (``guard_at``: two guarded steps under a plan that poisons
-    the params at those steps) -> (state, the first step's metrics, its
-    gradients)."""
-    grads = lm_trainer.make_grad_fn(cfg, tcfg)(lm_trainer.clone_state(state), batch)[1][1]
-    if guard_at is not None:
-        faults.install(faults.FaultPlan(specs=(faults.FaultSpec(site="trainer.nonfinite",
-                                                                steps=guard_at),)))
-    try:
-        step = lm_trainer.make_train_step(cfg, tcfg)
-    finally:
-        faults.uninstall()
-    new, m = step(state, batch, noise)
-    if guard_at is not None:
-        new, _ = step(new, batch)
-    return new, m, grads
+    the params at those steps; prune's mask refreshed after it; ``ep``: the
+    MoE layers through the EP twin of the 2 x 2 grid) -> (state, the first
+    step's metrics, its params' gradients, its table's)."""
+    with ranks_mod.ep_twin(2, 2) if ep else contextlib.nullcontext():
+        g_emb, grads = lm_trainer.make_grad_fn(cfg, tcfg)(lm_trainer.clone_state(state),
+                                                          batch)[1]
+        if guard_at is not None:
+            faults.install(faults.FaultPlan(specs=(faults.FaultSpec(site="trainer.nonfinite",
+                                                                    steps=guard_at),)))
+        try:
+            step = lm_trainer.wrap_host_refresh(lm_trainer.make_train_step(cfg, tcfg), cfg, tcfg)
+        finally:
+            faults.uninstall()
+        new, m = step(state, batch, noise)
+        if guard_at is not None:
+            new, _ = step(new, batch)
+    return new, m, grads, g_emb
 
 
 def _grid_positions(b, t, rows, cols):
@@ -152,7 +181,91 @@ def _mesh_cases(pt):
                        _batch(cfg.vocab_size, 8)[1], {})
     cases["guard"] = (cfg, dataclasses.replace(pt, guard=True), "tp", 29,
                       _batch(cfg.vocab_size, 9)[1], {"guard_at": (1,)})
+    # The other methods: rows split (qwen3's 512-row vocabulary) or, for
+    # lsq and pact, the width split (509 rows).
+    _, odd = _qwen3(vocab_size=509)
+    for i, method in enumerate(OTHER_METHODS):
+        c = dataclasses.replace(cfg, embedding_method=method)
+        tc = dataclasses.replace(pt, prune=PRUNE) if method == "prune" else pt
+        cases[method] = (c, tc, "tp", _clipping(c, tc, 41 + i) if method == "pact" else 41 + i,
+                         _batch(cfg.vocab_size, 11 + i)[1], {})
+    for i, method in enumerate(("lsq", "pact")):
+        c = dataclasses.replace(odd, embedding_method=method)
+        cases[f"{method}_width"] = (c, pt, "tp",
+                                    _clipping(c, pt, 51 + i) if method == "pact" else 51 + i,
+                                    _batch(odd.vocab_size, 21 + i)[1], {})
+    for i, arch in enumerate(("deepseek-moe-16b", "jamba-v0.1-52b")):
+        c = configs.smoke_config(arch)
+        cases[f"{arch.split('-')[0]}_ep"] = (c, pt, "tp_ep", 61 + i,
+                                             _batch(c.vocab_size, 31 + i)[1], {"ep": True})
     return cases
+
+
+def _clipping(cfg, tcfg, seed: int) -> dict:
+    """pact's init of ``seed`` with alpha cut to a twentieth, about one
+    standard deviation of a row's weights, so that weights clip and alpha
+    has a gradient (at its init, 2 mean|w| sqrt(127), none clips)."""
+    st = interop.lm_state_to_numpy(lm_trainer.init_state(cfg, tcfg, seed=seed, device="cpu"))
+    weights, alpha = st["table"]
+    return dict(st, table={"weights": weights, "scale": alpha * np.float32(0.05)}, table_opt=None)
+
+
+def _ep_inputs(seq: int) -> dict:
+    """EP_MOE's weights (the reference's init scales), a [4, seq, 16] input
+    and the output's cotangent, seeded with numpy."""
+    g = np.random.RandomState(40 + seq)
+    d, f, e, fs = EP_MOE.d_model, EP_MOE.d_ff, EP_MOE.n_experts, EP_MOE.shared_hidden
+
+    def normal(shape, scale):
+        return (g.normal(0.0, 1.0, shape) * scale).astype(np.float32)
+
+    params = {"router": normal((d, e), d**-0.5), "w_gate": normal((e, d, f), d**-0.5),
+              "w_up": normal((e, d, f), d**-0.5), "w_down": normal((e, f, d), f**-0.5),
+              "shared": {"w_gate": normal((d, fs), d**-0.5), "w_up": normal((d, fs), d**-0.5),
+                         "w_down": normal((fs, d), fs**-0.5)}}
+    return {"cfg": EP_MOE, "params": params, "x": normal((BATCH, seq, d), 1.0),
+            "ct": normal((BATCH, seq, d), 1.0)}
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_ep_grad(m: int):
+    """The reference's ``moe_forward_ep`` on ``m`` virtual ranks under
+    ``jax.vmap(axis_name="model")``, jitted: ``(w [m, E/m, ...] stacked,
+    router, shared, x, ct, a) -> (gradients, (y, aux))`` of ``sum(y * ct) +
+    a * aux``."""
+    cfg = jmoe.MoEConfig(**dataclasses.asdict(EP_MOE))
+
+    def loss(w, router, shared, x, ct, a):
+        def inner(w_loc):
+            return jmoe.moe_forward_ep({"router": router, "shared": shared, **w_loc}, x, cfg,
+                                       axis="model")
+
+        y, aux = jax.vmap(inner, axis_name="model")(w)
+        return jnp.sum(y[0] * ct) + a * aux[0], (y[0], aux[0])
+
+    return jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3), has_aux=True))
+
+
+def _reference_ep(case: dict, data: int, m: int, a: float) -> list:
+    """Per data row's block of the batch: the reference's y, aux and the
+    gradients of ``sum(y * ct) + a * aux`` (the expert stacks unstacked to
+    [E, ...]), as numpy."""
+    p, e = case["params"], EP_MOE.n_experts
+    w = {n: jnp.asarray(p[n].reshape(m, e // m, *p[n].shape[1:]))
+         for n in ("w_gate", "w_up", "w_down")}
+    shared = jax.tree.map(jnp.asarray, p["shared"])
+    bd = case["x"].shape[0] // data
+    out = []
+    for i in range(data):
+        rows = slice(i * bd, (i + 1) * bd)
+        (gw, gr, gs, gx), (y, aux) = _reference_ep_grad(m)(
+            w, jnp.asarray(p["router"]), shared, jnp.asarray(case["x"][rows]),
+            jnp.asarray(case["ct"][rows]), a)
+        grads = {"x": gx, "router": gr, "shared": gs,
+                 **{n: gw[n].reshape(e, *gw[n].shape[2:]) for n in gw}}
+        out.append({"y": np.asarray(y), "aux": float(aux),
+                    "grads": jax.tree.map(np.asarray, grads)})
+    return out
 
 
 def _spawn(d):
@@ -210,9 +323,12 @@ def launch(tmp_path_factory):
                             lm_trainer.init_state(c, pt, seed=11, device="cpu")),
                         "noise": quant.sr_noise(g, (c.vocab_size, c.d_model)),
                         "g_step": torch.randn((c.vocab_size,), generator=g) * 1e-3}
-    torch.save({"steps": steps, "save_case": "qwen3_tp",
+    ep = {name: _ep_inputs(seq) for name, seq in EP_SEQ.items()}
+    mesh_flags = ["--mesh-data", "2", "--mesh-model", "2"]
+    torch.save({"steps": steps, "save_cases": ("qwen3_tp", "qr_alpt", "lsq"),
                 "restore": {"cfg": cfg, "tcfg": pt, "state": state_np}, "rows": rows,
-                "cli": ["lm", *CLI, "--mesh-data", "2", "--mesh-model", "2"]}, d / "in.pt")
+                "ep": list(ep.values()), "cli": ["lm", *CLI, *mesh_flags],
+                "cli_ep": ["lm", *CLI_EP, *mesh_flags]}, d / "in.pt")
     procs = _spawn(d)
     try:
         js1, jm = jax.jit(jlm.make_train_step(jcfg, jt))(js, jb)
@@ -228,7 +344,8 @@ def launch(tmp_path_factory):
             st = (interop.lm_state_from_numpy(c, tc, **case["state"], device="cpu")
                   if "state" in case else
                   lm_trainer.init_state(c, tc, seed=case["seed"], device="cpu"))
-            one[name] = _one_process(c, tc, st, b, guard_at=case.get("guard_at"))
+            one[name] = _one_process(c, tc, st, b, guard_at=case.get("guard_at"),
+                                     ep=case.get("ep", False))
         for method, r in rows.items():
             spec = lm_trainer.embedding_spec_of(r["cfg"], pt)
             st = interop.lm_state_from_numpy(r["cfg"], pt, **r["state"], device="cpu")
@@ -236,10 +353,13 @@ def launch(tmp_path_factory):
                 st.table, None, r["grad"], spec=spec, lr=LR, weight_decay=pt.emb_weight_decay,
                 noise=r["noise"], delta_grad=lambda w, s_, gs, g_step=r["g_step"]: g_step,
                 batch_rows=BATCH * SEQ)
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            assert train_cli.main(["lm", *CLI]) == 0
-        out["cli_one"] = json.loads(buf.getvalue().strip().splitlines()[-1])["losses"]
+        for key, argv, twin in (("cli_one", CLI, False), ("cli_ep_one", CLI_EP[:-2], True)):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), ranks_mod.ep_twin(2, 2) if twin else \
+                    contextlib.nullcontext():
+                assert train_cli.main(["lm", *argv]) == 0
+            out[key] = json.loads(buf.getvalue().strip().splitlines()[-1])["losses"]
+        out["ep_ref"] = {name: _reference_ep(c, 2, 2, 1.0) for name, c in ep.items()}
         errs = [p.communicate(timeout=300)[1] for p in procs]
     finally:
         for p in procs:
@@ -247,7 +367,7 @@ def launch(tmp_path_factory):
                 p.kill()
     assert [p.returncode for p in procs] == [0] * 4, [e[-3000:] for e in errs]
     out["ranks"] = [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(4)]
-    out.update(one=one, dir=d, cfg=cfg, tcfg=pt, rows=rows)
+    out.update(one=one, dir=d, cfg=cfg, tcfg=pt, rows=rows, steps=steps, ep=ep)
     return out
 
 
@@ -272,28 +392,46 @@ def test_sharded_step_meets_the_reference_contract(launch, policy):
 
 @pytest.mark.parametrize("case", ["qwen3_tp", "qwen3_tp_sp", "mixtral", "width", "qrdata",
                                   "hubert_tp_sp", "qwen2vl", "mamba_tp", "mamba_tp_sp",
-                                  "mamba_midhead", "jamba", "smollm", "padded", "guard"])
+                                  "mamba_midhead", "jamba", "smollm", "padded", "guard",
+                                  *OTHER_METHODS, "lsq_width", "pact_width", "deepseek_ep",
+                                  "jamba_ep"])
 def test_sharded_step_tracks_the_one_process_step(launch, case):
     """The same state, batch and noise through the one-process step: loss,
     grad norm, params and the table (module docstring's bounds); every
-    replicated leaf the same on all ranks.  ``qrdata``: qr_alpt on a 4 x 1
-    mesh, its two sub-tables' codes in order.  ``guard``: two guarded steps,
-    the second poisoned; every rank skips it and keeps its shards of the
-    state the first step left (the one-process twin's, whose first step's
-    loss and norm are compared)."""
+    replicated leaf the same on all ranks (a replicated table's codes,
+    Delta and slots, a float leaf's Adam moments too).  ``qrdata``: qr_alpt
+    on a 4 x 1 mesh, its two sub-tables' codes in order.  ``guard``: two
+    guarded steps, the second poisoned; every rank skips it and keeps its
+    shards of the state the first step left (the one-process twin's, whose
+    first step's loss and norm are compared).  A float-leaf method's table
+    (hash, prune, lsq, pact) meets the params bound against its one-process
+    gradient (lsq's step size and pact's alpha, replicated over a table
+    split over d, take the ranks' summed gradient); prune's mask, refreshed
+    after the step over the whole table, is the one-process mask bitwise.
+    ``*_ep``: ``tp_ep`` against the one-process EP twin."""
     got = launch["ranks"][0]["steps"][case]
-    new, m, grads = launch["one"][case]
+    new, m, grads, g_emb = launch["one"][case]
     if case == "guard":
         for r in launch["ranks"]:
             assert r["steps"][case]["guard"] == {"skipped": [0, 1], "kept": True}
     assert abs(got["metrics"]["loss"] - float(m["loss"])) < 1e-4
     np.testing.assert_allclose(got["metrics"]["grad_norm"], float(m["grad_norm"]), rtol=1e-5)
     _close_params(got["params"], new.params, grads)
-    codes, table = got["table"]["codes"], new.table
-    want = table.codes.data if hasattr(table, "codes") else torch.cat(
-        [t.codes.data.reshape(-1) for t in (table.remainder, table.quotient)])
-    assert codes.shape == want.shape
-    assert float((codes != want).float().mean()) <= 0.005
+    cfg = launch["steps"][case]["cfg"]
+    spec = lm_trainer.embedding_spec_of(cfg, launch["steps"][case]["tcfg"])
+    emb = methods.get(spec.method).trainable_params(new.table, spec)
+    if emb is not None:
+        _close_params(got["emb"], emb, tree_leaves(g_emb))
+    if got["mask"] is not None:
+        assert torch.equal(got["mask"], new.table.mask)
+        assert 0.2 < float(1.0 - got["mask"].float().mean()) < 0.3  # PRUNE's 0.25 after step 1
+    subs = ranks_mod._subtables(new.table)
+    if subs:
+        codes = got["table"]["codes"]
+        want = subs[0].codes.data if hasattr(new.table, "codes") else torch.cat(
+            [t.codes.data.reshape(-1) for t in subs])
+        assert codes.shape == want.shape
+        assert float((codes != want).float().mean()) <= 0.005
     assert all(r["steps"][case]["same_replicas"] for r in launch["ranks"])
 
 
@@ -324,7 +462,7 @@ def test_checkpoint_from_shards_restores_in_one_process_bitwise(launch):
     """Saved at 2 x 2 (gathered, rank 0 writes whole leaves), restored at 1 x
     1: every leaf equals the gathered shards bitwise."""
     cfg, pt = launch["cfg"], launch["tcfg"]
-    back = lm_trainer.restore(CheckpointManager(launch["dir"] / "ck_mesh"), cfg, pt,
+    back = lm_trainer.restore(CheckpointManager(launch["dir"] / "ck_mesh_qwen3_tp"), cfg, pt,
                               device="cpu")
     got = launch["ranks"][0]["steps"]["qwen3_tp"]
     assert back.step == 1
@@ -333,6 +471,29 @@ def test_checkpoint_from_shards_restores_in_one_process_bitwise(launch):
     for key in ("codes", "step", "mu", "nu"):
         mine = back.table.codes.data if key == "codes" else getattr(back.table, key)
         assert torch.equal(mine, got["table"][key])
+
+
+@pytest.mark.parametrize("case", ["qr_alpt", "lsq"])
+def test_method_checkpoint_from_shards_restores_in_one_process_bitwise(launch, case):
+    """qr_alpt's replicated sub-tables and lsq's row-split weights and step
+    sizes saved at 2 x 2 (rank 0 writes whole leaves), restored at 1 x 1:
+    params, the codes and Delta of both sub-tables, the float leaves, all
+    equal to the gathered shards bitwise."""
+    c = launch["steps"][case]
+    back = lm_trainer.restore(CheckpointManager(launch["dir"] / f"ck_mesh_{case}"), c["cfg"],
+                              c["tcfg"], device="cpu")
+    got = launch["ranks"][0]["steps"][case]
+    assert back.step == 1
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(back.params),
+                                                 tree_leaves(got["params"])))
+    spec = lm_trainer.embedding_spec_of(c["cfg"], c["tcfg"])
+    table = ranks_mod._table_np(back.table)
+    assert table.keys() == got["table"].keys()
+    assert all(torch.equal(table[k], got["table"][k]) for k in table)
+    emb = methods.get(spec.method).trainable_params(back.table, spec)
+    assert (emb is None) == (got["emb"] is None)
+    if emb is not None:
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(emb), tree_leaves(got["emb"])))
 
 
 def test_one_process_checkpoint_restores_on_the_mesh_bitwise(launch):
@@ -354,21 +515,85 @@ def test_cli_on_a_2x2_mesh_tracks_1x1(launch, capsys):
     np.testing.assert_allclose(report["losses"], launch["cli_one"], rtol=0, atol=1e-4)
 
 
+def test_cli_tp_ep_on_a_2x2_mesh_tracks_its_ep_twin(launch):
+    """``train lm --arch deepseek-moe-16b --policy tp_ep`` on the 2 x 2 grid:
+    its losses against the CLI at 1 x 1 whose MoE layers take the one-process
+    EP twin of that grid."""
+    cli = launch["ranks"][0]["cli_ep"]
+    assert cli["code"] == 0
+    report = json.loads(cli["stdout"].strip().splitlines()[-1])
+    assert report["policy"] == "tp_ep" and report["mesh_model"] == 2
+    np.testing.assert_allclose(report["losses"], launch["cli_ep_one"], rtol=0, atol=1e-4)
+
+
+def _close_tree(got, want, rtol, atol):
+    for x, y in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        np.testing.assert_allclose(np.asarray(x), np.asarray(y), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("name", list(EP_SEQ))
+def test_moe_forward_ep_on_the_ranks_matches_the_reference(launch, name):
+    """The port's ``moe_forward_ep`` on each rank of the 2 x 2 grid (its
+    data row's block of the batch, its 4 of 8 experts) against the
+    reference's on 2 virtual ranks under ``jax.vmap(axis_name="model")``:
+    output and input gradient within 2e-5 (the reference test's bound),
+    aux within rtol 1e-5, the router's, experts' and shared expert's
+    gradients within rtol 1e-4 / atol 1e-6.  ``ragged``: S = 15 on 2 ranks,
+    the last token without output, as in the reference."""
+    i = list(EP_SEQ).index(name)
+    el = EP_MOE.n_experts // 2
+    for rank, r in enumerate(launch["ranks"]):
+        got, want = r["ep"][i], launch["ep_ref"][name][rank // 2]
+        np.testing.assert_allclose(got["y"].numpy(), want["y"], rtol=0, atol=2e-5)
+        np.testing.assert_allclose(got["aux"], want["aux"], rtol=1e-5)
+        g, w = got["grads"], dict(want["grads"])
+        np.testing.assert_allclose(g["x"].numpy(), w.pop("x"), rtol=0, atol=2e-5)
+        for n in ("w_gate", "w_up", "w_down"):
+            w[n] = w[n][(rank % 2) * el:(rank % 2 + 1) * el]
+        _close_tree({k: v for k, v in g.items() if k != "x"}, w, 1e-4, 1e-6)
+    if name == "ragged":
+        assert not launch["ep_ref"][name][0]["y"][:, -1].any()
+
+
+@pytest.mark.parametrize("name", list(EP_SEQ))
+def test_moe_ep_twin_matches_the_reference(launch, name):
+    """The one-process EP twin (``moe_ep_twin``, the steps' twin of
+    ``tp_ep``) on a 2 x 2 grid's four cells against the reference's
+    ``moe_forward_ep`` per data row under ``jax.vmap``: y, the aux (the
+    cells' mean), and the gradients of ``sum(y * ct) + aux``, within the
+    bounds of the ranks' test."""
+    case = launch["ep"][name]
+    params = jax.tree.map(lambda a: torch.from_numpy(a).requires_grad_(True), case["params"])
+    x = torch.from_numpy(case["x"]).requires_grad_(True)
+    y, aux = ranks_mod.moe_ep_twin(params, x, EP_MOE, 2, 2)
+    (torch.sum(y * torch.from_numpy(case["ct"])) + aux).backward()
+    ref = _reference_ep(case, 2, 2, 0.5)  # each data row's aux weighs 1/2 in the cells' mean
+    np.testing.assert_allclose(y.detach().numpy(), np.concatenate([o["y"] for o in ref]),
+                               rtol=0, atol=2e-5)
+    np.testing.assert_allclose(float(aux.detach()), np.mean([o["aux"] for o in ref]), rtol=1e-5)
+    np.testing.assert_allclose(x.grad.numpy(), np.concatenate([o["grads"]["x"] for o in ref]),
+                               rtol=0, atol=2e-5)
+    want = jax.tree.map(lambda *a: sum(a), *[{k: v for k, v in o["grads"].items() if k != "x"}
+                                             for o in ref])
+    _close_tree(jax.tree.map(lambda t: t.grad, params), want, 1e-4, 1e-6)
+
+
 @pytest.mark.parametrize("argv,message", [
     (["--arch", "qwen3-1.7b", "--mesh-data", "2", "--mesh-model", "2"], "WORLD_SIZE is 3"),
-    (["--arch", "qwen3-1.7b", "--mesh-model", "2", "--embedding-method", "hash"], "A13c"),
-    (["--arch", "mamba2-370m", "--mesh-model", "2", "--embedding-method", "prune"], "A13c"),
+    (["--arch", "qwen3-1.7b", "--mesh-model", "2", "--policy", "fsdp_tp_sp"], "A13c"),
+    (["--arch", "mamba2-370m", "--mesh-model", "2", "--policy", "dp"], "A13c"),
     (["--arch", "qwen3-1.7b", "--mesh-model", "2", "--policy", "fsdp_tp"], "A13c"),
     (["--arch", "mixtral-8x7b", "--mesh-model", "2", "--policy", "fsdp_tp_ep"], "A13c"),
     (["--arch", "qwen3-1.7b", "--mesh-data", "2", "--policy", "dp"], "A13c"),
     (["--arch", "qwen3-1.7b", "--policy", "fsdp_tp"], "A13c"),
-    (["--arch", "qwen3-1.7b", "--mesh-model", "2", "--embedding-method", "qr_alpt"], "A13c"),
-    (["--arch", "smollm-135m", "--mesh-model", "2", "--embedding-method", "lsq"], "A13c"),
+    (["--arch", "deepseek-moe-16b", "--policy", "fsdp_tp_ep"], "A13c"),
+    (["--arch", "smollm-135m", "--mesh-data", "2", "--mesh-model", "2", "--policy", "fsdp_tp"],
+     "A13c"),
 ])
 def test_cli_refuses_what_the_sharded_step_does_not_run(argv, message, capsys, monkeypatch):
-    """Exit 2 naming ROADMAP A13c: fsdp / dp / ep policies (at 1 x 1 too),
-    the methods other than fp / lpt / alpt (hash, prune, lsq, qr_alpt)
-    under a model axis > 1; a world size that is not data x model."""
+    """Exit 2 naming ROADMAP A13c: fsdp and dp policies (at 1 x 1 too, and
+    with every method: the seven other methods and tp_ep run since the
+    model axis takes them); a world size that is not data x model."""
     def axis(flag):
         return int(argv[argv.index(flag) + 1]) if flag in argv else 1
 
