@@ -78,7 +78,7 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      (1, 64, 64, 4, 4, 128) non-causal and (1, 2048, 2048, 9, 3, 64);
   7. serve SmolLM-135M at full width (30 layers, d=576, 9/3 heads, vocab
      49,152, ALPT table, random weights from a seed) at 8 bits, then 4 bits
-     packed: 16 requests, prompts of 64/100/128/157 tokens, 32 new tokens
+     packed: 16 requests, prompts of 64/100/128/157 tokens, 16 new tokens
      each, slot batch 8 (token rows through dequant_gather, prefill attention
      through flash_attention_fwd, the tied head through dequant_matmul);
      the plain path (use_kernel=False) teacher-forced on the engine's tokens
@@ -178,13 +178,13 @@ Phases (each prints its lines; any failure exits non-zero with no result):
   13. the SSM and MoE LM families at full width (families_only runs the
      phase without the rest, with its timings): 13a. mamba2-370m (48 mamba
      layers, d = 1,024, tied vocabulary of 50,280) served at 8 and 4 bits
-     packed (16 requests, prompts of 64/100/128 tokens and one of 256, 32
+     packed (16 requests, prompts of 64/100/128 tokens and one of 256, 16
      new tokens each, slot batch 8: token rows through dequant_gather, the
      tied head through dequant_matmul), launches exactly one gather and one
      head per prefill and decode step; the plain path (use_kernel=False)
      teacher-forced on the engine's tokens within the LM tolerance; then
-     trained ALPT-8 and LPT-4 packed, 5 steps of 4 x 1,024 tokens each, the
-     first 3 replayed kernels off from the same seed with equal checksums of
+     trained ALPT-8 and LPT-4 packed, 3 steps of 4 x 1,024 tokens each, all
+     3 replayed kernels off from the same seed with equal checksums of
      every tensor of the state and equal losses, losses and gradient norms
      finite; 13b. deepseek-moe-16b at full width with 2 of its 28 layers (16
      MHA heads at D = 128, 64 routed experts top-6 and 2 shared, untied
@@ -298,42 +298,47 @@ Phases (each prints its lines; any failure exits non-zero with no result):
      (NCCL refuses two ranks on one device), each run's one-process twin
      first (the same seed, batches and noise, kernels on; its card memory
      freed before the ranks start); a rank exiting non-zero fails the run:
-     18a. qwen3-1.7b at full width and depth (28 layers, d = 2,048, 16/8
-     heads at D = 128, d_ff 6,144, a tied vocab of 151,936) ALPT-8 under
-     tp on a 1 x 2 grid, each rank its shard of the one-process init, 3
-     donated steps of 2 x 1,024 tokens: per-step losses within 1e-4 of the
-     twin's, the first and last layers after step 1 within rtol 1e-4 /
-     atol 1e-6 where the twin's gradient is at least 1e-6 (within 2 lr
-     elsewhere), codes differing on at most 0.5%; launches per rank (one
+     each train run's per-step losses within 1e-4 of its twin's, the first
+     and last layers after step 1 within rtol 1e-4 / atol 1e-6 where the
+     twin's gradient is at least 1e-6 (within 2 lr elsewhere) and the same
+     on every rank, codes differing on at most 0.5%; launches per rank (one
      sr_round for the init and one a step, one adam_update a step), peak
-     memory per rank and host ms per step printed; 18b. train lm --arch
-     qwen3-1.7b --layers 4 --embedding-method lpt, 3 steps of 4 x 512, at
-     1 x 1 in this process and at 2 x 2 on four gloo ranks whose launcher
-     made the group: losses within 1e-4 step for step, lpt_fused_update on
-     every rank's rows; its checkpoint (written from the gathered shards)
-     restored in this process and cut to each rank's coordinates equals, in
-     every leaf, the live shards each rank saved and the shards each rank
-     restores on the grid under tp_sp (checksums); one tp_sp step through the API, its loss within 1e-4 of
-     its one-process twin's from that state; 18a and 18c share one launch
-     of two ranks, after both twins; 18c.
+     memory per rank and host ms per step printed; one launch of two ranks
+     (1 x 2), after every twin, each run 2 steps of 2 x 1,024 tokens: 18c.
      mixtral-8x7b at full width (d = 4,096, 32/8 heads, 8 experts of d_ff
      14,336 top-2, an untied head over 32,000) with 1 of 32 layers ALPT-8
-     on 1 x 2 (4 experts a rank), 2 steps of 2 x 1,024, as 18a; 18d.
-     sr_round and lpt_fused_update(_packed) on each of two row blocks of
-     qwen3-1.7b's table equal the one-process call's rows bitwise; in the
-     launch of 18a and 18c, each 2 steps of 2 x 1,024 on 1 x 2 beside its
-     twin: 18e. SmolLM-135M and 18f. mamba2-370m at full width and depth,
-     18g. hubert-xlarge at 2 layers under tp_sp, 18h. SmolLM guarded with
-     trainer.nonfinite at step 1; 18i. SmolLM-135M at full width with 2 of
-     its 30 layers under each of qr_lpt-8, qr_alpt-8, hash, mixed, prune
-     (refreshed over the whole table every step), lsq-8 and pact-8 (a
-     replicated table's replicas equal, the grad norm within 1e-5, codes
-     or the float leaves as the params, prune's mask bitwise the refresh
-     of the ranks' whole table and within 0.5% of the twin's); 18j.
+     (4 experts a rank); 18e. SmolLM-135M at full width and depth, 18f.
+     mamba2-370m at full width with 8 of its 48 layers, 18g.
+     hubert-xlarge at 2 layers under tp_sp, 18h. SmolLM at 2 layers
+     guarded with trainer.nonfinite at step 1; 18i. SmolLM-135M at full
+     width with 2 of its 30 layers under each of qr_lpt-8, qr_alpt-8, hash,
+     mixed, prune (refreshed over the whole table every step), lsq-8 and
+     pact-8 (a replicated table's replicas equal, the grad norm within
+     1e-5, codes or the float leaves as the params, prune's mask bitwise the
+     refresh of the ranks' whole table and within 0.5% of the twin's); 18j.
      deepseek-moe-16b at full width with 2 of its 28 layers ALPT-8 under
      tp_ep (32 experts a rank, the all-to-all dispatch) against its
      one-process EP twin, under tp (ms only), and gloo's all-to-all at its
-     64 MB send buffer;
+     64 MB send buffer; 18d. sr_round and lpt_fused_update(_packed) on each
+     of two row blocks of qwen3-1.7b's table equal the one-process call's
+     rows bitwise; then one launch of four gloo ranks on a 2 x 2 grid, after
+     the 1 x 1 CLI and the twins: 18b / 18k. train lm --arch qwen3-1.7b
+     --layers 4 --embedding-method lpt --policy fsdp_tp (d = 2,048, 16/8
+     heads at D = 128, d_ff 6,144, a tied vocab of 151,936; the projections
+     cut over the data axis too), 3 steps of 4 x 512, at 1 x 1 in this
+     process and on the grid, whose launcher made the group: losses within
+     1e-4 step for step, lpt_fused_update on every rank's rows; its
+     checkpoint (written from the gathered shards) restored in this
+     process and cut to each rank's coordinates equals, in every leaf, the
+     live shards each rank saved and the shards each rank restores on the
+     grid under tp_sp (18b) and fsdp_tp_sp (18k) (checksums); one step
+     through the API under each, its loss within 1e-4 of its one-process
+     twin's from that state; 18l. SmolLM-135M at full width and depth
+     ALPT-8 under dp, 2 steps of 4 x 1,024 (one sequence a rank), its
+     params the same on all four ranks; 18m. 18j's deepseek-moe-16b run
+     under fsdp_tp_ep and tp_sp_ep with 1 of its 28 layers (32 experts a
+     rank; under sp the dispatch reads the gathered sequence) against one
+     twin, 18j's EP arithmetic on the 2 x 2 grid;
   5. time each kernel at the slices' shapes (median of per-launch CUDA-event
      times after warm-up, device work only) beside its bound, its plain
      version's time and the library's one call where there is one, and the
@@ -469,7 +474,7 @@ LAUNCHES_FROM = {"sparse_row_update": "phase 2b check", "sparse_row_update_packe
                  "phase 2b check", "sr_round_seeded": "phase 2e unbiasedness run"}
 # LM serving (phase 7): SmolLM-135M at full width.
 LM_ARCH = "smollm-135m"
-LM_REQUESTS, LM_PROMPTS, LM_MAX_NEW, LM_BATCH, LM_MAX_LEN = 16, (64, 100, 128, 157), 32, 8, 192
+LM_REQUESTS, LM_PROMPTS, LM_MAX_NEW, LM_BATCH, LM_MAX_LEN = 16, (64, 100, 128, 157), 16, 8, 192
 # Resident vocab table: 49,152 rows of 576 codes (1 byte each at 8 bits, 288
 # bytes per packed 4-bit row) + fp32 Delta.
 EXPECTED_LM_RESIDENT = {8: 28_508_160, 4: 14_352_384}
@@ -2983,8 +2988,8 @@ def serve_from_checkpoint(torch, np, dev, cfg, state, test_ids, directory, label
 def lm_from_checkpoint(torch, dev, lm_run: dict, directory) -> dict:
     """10d: SmolLM-135M's ALPT-8 serving state at full width saved as a
     serving checkpoint (table leaves exactly its resident bytes) and
-    restored with LMEngine.from_checkpoint: 4 of phase 7's prompts, 32 new
-    tokens each, the same tokens as the engine built from the state."""
+    restored with LMEngine.from_checkpoint: 4 of phase 7's prompts, LM_MAX_NEW
+    new tokens each, the same tokens as the engine built from the state."""
     from repro_torch.checkpoint import manager as ckpt
     from repro_torch.kernels import ops
     from repro_torch.serving.lm import LMEngine, LMRequest
@@ -4166,11 +4171,11 @@ FAMILY_DEPTH = {"mamba2-370m": None, "deepseek-moe-16b": 2}
 # Prompts of at most one SSD chunk (128) or a multiple of it: an SSM
 # prefills at exact length.  The last request's prompt is two chunks.
 FAMILY_PROMPTS, FAMILY_LONG_PROMPT = (64, 100, 128), 256
-FAMILY_REQUESTS, FAMILY_MAX_NEW, FAMILY_BATCH = 16, 32, 8
+FAMILY_REQUESTS, FAMILY_MAX_NEW, FAMILY_BATCH = 16, 16, 8
 FAMILY_MAX_LEN = FAMILY_LONG_PROMPT + FAMILY_MAX_NEW
 FAMILY_SERVE = (("mamba2-370m", 8), ("mamba2-370m", 4), ("deepseek-moe-16b", 8))
 # (arch, method, bits, steps); the first LM_REPLAY steps replayed kernels off.
-FAMILY_TRAIN = (("mamba2-370m", "alpt", 8, 5), ("mamba2-370m", "lpt", 4, 5),
+FAMILY_TRAIN = (("mamba2-370m", "alpt", 8, 3), ("mamba2-370m", "lpt", 4, 3),
                 ("deepseek-moe-16b", "alpt", 8, 3))
 
 CHECKSUM_CHUNK = 1 << 26
@@ -4919,8 +4924,11 @@ def encoder_remat_only() -> int:
 # one device).  Each one-process twin runs and frees the card before its
 # ranks start; every rank is a process of its own with its own CUDA context.
 SHARD_ARCH = "qwen3-1.7b"
-SHARD_STEPS, SHARD_BATCH, SHARD_SEQ = 3, 2, 1024  # 18a: full width and depth, 1 x 2
-SHARD_CLI_LAYERS, SHARD_CLI_STEPS, SHARD_CLI_BATCH, SHARD_CLI_SEQ = 4, 3, 4, 512  # 18b, 2 x 2
+# 18a (qwen3-1.7b ALPT-8 under tp on 1 x 2) is gone: its model at full width
+# trains on the ranks in 18b / 18k, ALPT's write-back under tp in 18c-18j,
+# and the run's 1,200 s had no room for it beside 18k-18m.
+SHARD_BATCH, SHARD_SEQ = 2, 1024
+SHARD_CLI_LAYERS, SHARD_CLI_STEPS, SHARD_CLI_BATCH, SHARD_CLI_SEQ = 4, 3, 4, 512  # 18b / 18k
 SHARD_MOE_ARCH, SHARD_MOE_LAYERS, SHARD_MOE_STEPS = "mixtral-8x7b", 1, 2  # 18c, 1 x 2
 # The CPU tests' bounds (tests/test_torch_sharded_step.py) against the
 # one-process step: loss, params after step 1 (where the one-process
@@ -4929,14 +4937,17 @@ SHARD_MOE_ARCH, SHARD_MOE_LAYERS, SHARD_MOE_STEPS = "mixtral-8x7b", 1, 2  # 18c,
 SHARD_LOSS_ATOL, SHARD_RTOL, SHARD_ATOL, SHARD_CODES_FRAC = 1e-4, 1e-4, 1e-6, 0.005
 SHARD_LR = 3e-4  # LMTrainerConfig's default
 SHARD_TABLE = (151_936, 2_048)  # 18d: qwen3-1.7b's vocab table, two row blocks
-SHARD_SP_LAUNCHES = {"lpt_fused_update": 1, "adam_update": 1}  # 18b's tp_sp step, a rank
+SHARD_SP_LAUNCHES = {"lpt_fused_update": 1, "adam_update": 1}  # 18b / 18k's sp steps, a rank
 # 18e-18h, ALPT-8 on 1 x 2 beside their twins: SmolLM-135M at full width and
-# depth (9/3 heads split mid-head), mamba2-370m at full width and depth (16
-# of its 32 SSD heads a rank), hubert-xlarge at full width with its depth
+# depth (9/3 heads split mid-head), mamba2-370m at full width with
+# SHARD_SSM_LAYERS of its 48 layers (16 of its 32 SSD heads a rank),
+# hubert-xlarge at full width with its depth
 # cut under tp_sp, and SmolLM again with the guard and trainer.nonfinite at
 # step SHARD_GUARD_AT (both ranks skip it).
 SHARD_SMOL_ARCH, SHARD_SSM_ARCH, SHARD_ENC_ARCH = "smollm-135m", "mamba2-370m", "hubert-xlarge"
 SHARD_FAMILY_STEPS, SHARD_ENC_LAYERS, SHARD_GUARD_AT = 2, 2, 1
+SHARD_SSM_LAYERS = 8  # 18f's depth, cut from 48 (phase 13 trains it at full depth)
+SHARD_GUARD_LAYERS = 2  # 18h's depth, cut from 30 (18e runs SmolLM at full depth)
 # 18i: the seven other embedding methods (8 bits where they quantize) on
 # SmolLM-135M at full width with SHARD_METHOD_LAYERS of its 30 layers; 18j:
 # deepseek-moe-16b at full width with SHARD_EP_LAYERS of its 28, ALPT-8
@@ -4948,7 +4959,20 @@ SHARD_METHOD_LAYERS, SHARD_EP_ARCH, SHARD_EP_LAYERS = 2, "deepseek-moe-16b", 2
 # The first step's global gradient norm against the twin's (18i, 18j: the
 # CPU tests' bound).
 SHARD_NORM_RTOL = 1e-5
-# The 18b CLI's model flags (a rehearsal on the CPU swaps them for --smoke
+# 18b and 18k-18m, one launch of 2 x 2 ranks: 18b / 18k the train lm CLI
+# under fsdp_tp (its 1 x 1 run the twin), its checkpoint saved from the fsdp
+# shards, then restored under tp_sp (18b) and fsdp_tp_sp (18k) for one step
+# through the API each (one CLI run where 18b had its own under tp: the
+# run's 1,200 s had no room for both); 18l SmolLM-135M at full width and depth ALPT-8 under dp,
+# SHARD_DP_STEPS steps of SHARD_DP_BATCH x SHARD_SEQ (one sequence a rank);
+# 18m 18j's deepseek-moe-16b run (its seed and batches) with
+# SHARD_GRID_EP_LAYERS of its layers under fsdp_tp_ep and tp_sp_ep, 32
+# experts a rank, against one twin of the 2 x 2 grid's EP arithmetic (at
+# 18j's 2 layers four ranks ran out of the card's 80 GB: a rank holds its
+# 32 experts' params, Adam moments and gradients, 8.9 GB at 2 layers).
+SHARD_GRID_POLICY, SHARD_GRID_SP_POLICY = "fsdp_tp", "fsdp_tp_sp"
+SHARD_DP_STEPS, SHARD_DP_BATCH, SHARD_GRID_EP_LAYERS = 2, 4, 1
+# The 18b / 18k CLI's model flags (a rehearsal on the CPU swaps them for --smoke
 # --device cpu, and shard_config for the smoke configs).
 SHARD_CLI_MODEL = ["--arch", SHARD_ARCH, "--layers", str(SHARD_CLI_LAYERS)]
 
@@ -5042,16 +5066,18 @@ def table_summary(torch, cfg, tcfg, table) -> dict:
 
 
 def ep_twin(run: dict):
-    """A ``tp_ep`` run's one-process twin of its 1 x model mesh
+    """An ``ep`` run's one-process twin of its ``data x model`` mesh
     (``tests/_torch_sharded_ranks.py``'s ``ep_twin``: the MoE layers through
     the EP arithmetic of each virtual rank); nothing for another run."""
-    if run.get("policy") != "tp_ep":
+    from repro_torch.dist import sharding
+
+    if not sharding.policy_from_name(run.get("policy", "tp")).ep:
         return contextlib.nullcontext()
     if str(ROOT / "tests") not in sys.path:
         sys.path.insert(0, str(ROOT / "tests"))
     import _torch_sharded_ranks
 
-    return _torch_sharded_ranks.ep_twin(1, run["model"])
+    return _torch_sharded_ranks.ep_twin(run.get("data", 1), run["model"])
 
 
 # A leaf of more elements is compared on its first SHARD_BLOCK_ROWS rows of
@@ -5091,11 +5117,12 @@ def gathered_end_layers(torch, params, specs, mesh, compare_max: int, block_rows
     out = {}
     for pos, (block, spec) in enumerate(zip(params["blocks"], specs["blocks"])):
         for (name, leaf), (_, s) in zip(_named_leaves(block), _named_leaves(spec)):
-            whole = leaf[0].numel() * (mesh.shape["model"] if sharding.is_sharded(s, mesh)
-                                       else 1)
+            whole = leaf[0].numel() * math.prod(mesh.shape[a]
+                                                for a in sharding.split_axes(s, mesh))
             ends = leaf[[0, -1]]
             if whole > compare_max:
-                check(s[-2] is None, f"{name}: a compared block would cut a sharded dim")
+                check(len(s) < 2 or s[-2] is None,
+                      f"{name}: a compared block would cut a sharded dim")
                 ends = ends[..., :block_rows, :]
             ends = sharding.gather_tree(ends.contiguous(), s, mesh)
             out[f"{pos}.{name}"] = (ends[0].cpu(), ends[1].cpu())
@@ -5153,7 +5180,8 @@ def sharding_rank(rank: int, world: int, data: int, model: int, directory: str) 
             cfg = run["cfg"]
             tcfg, plan, donate = shard_run_config(run)
             if run["kind"] == "train":
-                pol = sharding.policy_from_name(run.get("policy", "tp"), model_size=model)
+                pol = sharding.policy_from_name(run.get("policy", "tp"), model_size=model,
+                                                data_size=data)
                 with plan_installed(plan), context.use(mesh, pol):
                     state = lm_trainer.init_state(cfg, tcfg, seed=run["seed"], device=dev)
                     step = lm_trainer.wrap_host_refresh(  # prune's mask; else the identity
@@ -5193,7 +5221,7 @@ def sharding_rank(rank: int, world: int, data: int, model: int, directory: str) 
                     del table
                 out.update(losses=losses, wall=wall, skipped=skipped)
                 lap(out, "gather")
-            else:  # 18b: the CLI on the launcher's group, then a tp_sp step through the API
+            else:  # 18b / 18k: the CLI on the launcher's group, then sp steps through the API
                 real_save = lm_trainer.save
 
                 def save_and_sum(manager, cfg_, state_, *args, **kwargs):
@@ -5211,23 +5239,26 @@ def sharding_rank(rank: int, world: int, data: int, model: int, directory: str) 
                     rc, report, err = cli_json(train_mod.main, run["argv"])
                 finally:
                     lm_trainer.save = real_save
-                check(rc == 0, f"18b rank {rank}: train lm exited {rc}: {err[-2000:]}")
+                check(rc == 0, f"{run['label']} rank {rank}: train lm exited {rc}: "
+                               f"{err[-2000:]}")
                 out.update(report=report, launches=ops.kernel_calls(),
                            fallbacks=ops.fallbacks())
                 lap(out, "cli")
-                pol = sharding.policy_from_name("tp_sp", model_size=model)
-                with context.use(mesh, pol):
-                    state = lm_trainer.restore(CheckpointManager(run["ckpt"]), cfg, tcfg,
-                                               device=dev)
-                    step = lm_trainer.make_train_step(cfg, tcfg)
-                out["sums"] = state_checksums(torch, state)  # the checkpoint on this mesh
-                lap(out, "restore")
-                batch = {k: v.to(dev) for k, v in run["batch"].items()}
-                ops.reset_kernel_calls()
-                state, m = step(state, batch)
-                _on_card(torch, dev, "synchronize")
-                out.update(sp_loss=float(m["loss"]), sp_launches=ops.kernel_calls())
-                lap(out, "tp_sp step")
+                out["sp"] = {}
+                for sp, b in run["sp_steps"]:  # the checkpoint restored under sp, one step
+                    pol = sharding.policy_from_name(sp, model_size=model, data_size=data)
+                    with context.use(mesh, pol):
+                        state = lm_trainer.restore(CheckpointManager(run["ckpt"]), cfg, tcfg,
+                                                   device=dev)
+                        step = lm_trainer.make_train_step(cfg, tcfg)
+                    sums = state_checksums(torch, state)  # the checkpoint on this mesh
+                    lap(out, f"{sp} restore")
+                    ops.reset_kernel_calls()
+                    state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+                    _on_card(torch, dev, "synchronize")
+                    out["sp"][sp] = {"sums": sums, "loss": float(m["loss"]),
+                                     "launches": ops.kernel_calls()}
+                    lap(out, f"{sp} step")
             out["peak"] = _on_card(torch, dev, "max_memory_allocated", dev)
             outs.append(out)
             del state, step
@@ -5256,17 +5287,22 @@ def run_ranks(torch, directory: pathlib.Path, job: dict, data: int, model: int,
     of per-run results each)."""
     torch.save(job, directory / "job.pt")
     world = data * model
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # Four ranks share one card: segments that grow in place keep a rank's
+    # reserved memory near what it holds.
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     procs = [subprocess.Popen(
         [sys.executable, "-c", "import chip_smoke, sys; "
          f"sys.exit(chip_smoke.sharding_rank({r}, {world}, {data}, {model}, "
          f"{str(directory)!r}))"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for r in range(world)]
     try:
+        failed = {}
         for r, p in enumerate(procs):
             _, err_text = p.communicate(timeout=600)
-            check(p.returncode == 0, f"{label} rank {r} exited {p.returncode}: "
-                                     f"{err_text[-3000:]}")
+            if p.returncode != 0:
+                failed[r] = f"exited {p.returncode}: {err_text[-2000:]}"
+        check(not failed, f"{label}: " + " | ".join(f"rank {r} {e}" for r, e in failed.items()))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -5361,7 +5397,8 @@ def compare_shard_run(torch, twin: dict, ranks: list, run: dict, lr: float) -> N
     """A mesh run against its twin within the CPU tests' bounds (a step the
     guard skipped has a NaN loss on both sides); a guarded run's verdicts
     the twin's on every rank, and every rank's shards kept through a skip;
-    every rank's whole table the same (a replicated table's replicas); an
+    every rank's whole table and its gathered first and last layers the
+    same (replicas: a replicated table's, dp's whole params); an
     integer table's codes, or a float-leaf table's leaves after step 1
     under the params bound (their Adam step unclipped); prune's last mask
     bitwise the one-process refresh of the ranks' own whole table, and
@@ -5387,6 +5424,9 @@ def compare_shard_run(torch, twin: dict, ranks: list, run: dict, lr: float) -> N
         check(all(a is b or torch.equal(a, b) for a, b in zip(
             tree_leaves(o["table"]), tree_leaves(r0["table"]), strict=True)),
               f"{label} rank {r}: its table differs from rank 0's")
+        check(all(torch.equal(a, b) for k, pair in r0["layers"].items()
+                  for a, b in zip(o["layers"][k], pair)),
+              f"{label} rank {r}: its first and last layers (gathered) differ from rank 0's")
     worst, guarded, clipped = close_layers(torch, r0["layers"], twin["layers"], twin["grads"],
                                            lr, twin["clip"])
     got, want = r0["table"], twin["table"]
@@ -5450,13 +5490,13 @@ def shard_launches(method: str, bits: int, steps: int) -> dict:
     return want
 
 
-def shard_trains(torch, dev, directory: pathlib.Path, runs: list, model: int) -> dict:
-    """18a, 18c, 18e-18j: each run's twin (in turn, the card freed after
+def shard_trains(torch, dev, directory: pathlib.Path, runs: list, model: int):
+    """18c, 18e-18j: each run's twin (in turn, the card freed after
     each), then one launch of ``1 x model`` ranks that run them in turn from
     the same seeds and batches (each rank its shard of the one-process init,
     the noise the rows' slice of the one-process draw), compared.  A run is
     a dict of ``label``, ``cfg``, ``seed``, ``batches``, and optionally its
-    ``policy`` (tp; a tp_ep run's twin is the one-process EP twin),
+    ``policy`` (tp; an ep run's twin is the one-process EP twin),
     ``trainer`` (LMTrainerConfig overrides), ``guard_at`` (the step
     ``trainer.nonfinite`` fires on under the guard), ``twin`` (False: the
     ranks' times only) and ``check_norm`` (the gradient norm against the
@@ -5468,10 +5508,7 @@ def shard_trains(torch, dev, directory: pathlib.Path, runs: list, model: int) ->
         twins.append(shard_twin(torch, dev, dict(run, model=model))
                      if run.get("kind", "train") == "train" and run.get("twin", True) else None)
     t0 = time.perf_counter()
-    job = {"device": dev.type, "runs": [
-        {"kind": "train", "compare": (SHARD_COMPARE_MAX, SHARD_BLOCK_ROWS)
-         if run.get("twin", True) else None, **run} for run in runs]}
-    ranks = run_ranks(torch, directory, job, 1, model, "18a / 18c / 18e-18j")
+    ranks = run_ranks(torch, directory, shard_job(dev, runs), 1, model, "18c / 18e-18j")
     ranks_s = time.perf_counter() - t0
     total = {}
     for i, (run, twin) in enumerate(zip(runs, twins)):
@@ -5482,115 +5519,208 @@ def shard_trains(torch, dev, directory: pathlib.Path, runs: list, model: int) ->
             check(all(o["probe"].get("all_to_all_single equal") for o in outs),
                   f"18j all-to-all probe: {[o['probe'] for o in outs]}")
             continue
-        label, cfg, batches = run["label"], run["cfg"], run["batches"]
-        want = shard_launches(cfg.embedding_method, cfg.embedding_bits, len(batches))
-        for r, o in enumerate(outs):
-            check(o["launches"] == want and o["fallbacks"] == [],
-                  f"{label} rank {r}: launches {o['launches']} (expected {want}), fallbacks "
-                  f"{o['fallbacks']}")
-            total = added(total, o["launches"])
-        if twin is not None:
-            compare_shard_run(torch, twin, outs, run, SHARD_LR)
-        tokens = tuple(batches[0]["labels"].shape)
-        log(f"[sharding] {label}: 1 x {model} gloo ranks on one card, {len(batches)} steps of "
-            f"{tokens[0]} x {tokens[1]} tokens: losses {outs[0]['losses']}; per rank: host clock "
-            + ", ".join(f"{statistics.mean(o['wall'][1:]):.1f} ms/step (first {o['wall'][0]:.1f})"
-                        for o in outs)
-            + f"; peak memory {[o['peak'] for o in outs]} B"
-            + ("" if twin is None else f" (the twin's {twin['peak']} B)")
-            + f"; launches {[o['launches'] for o in outs]}; rank 0 {outs[0]['times']} s; "
-            f"{card_name()}")
-    log(f"[sharding] 18a / 18c / 18e-18j: the ranks' processes {ranks_s:.1f}s; {card_name()}")
+        total = added(total, check_train_run(torch, run, twin, outs, f"1 x {model}"))
+    log(f"[sharding] 18c / 18e-18j: the ranks' processes {ranks_s:.1f}s; {card_name()}")
     return total
 
 
-def shard_cli(torch, dev, directory: pathlib.Path) -> dict:
-    """18b: ``train lm`` at 2 x 2 (four gloo ranks, the launcher's group)
-    against the CLI at 1 x 1, loss for loss; its checkpoint (written from
-    the gathered shards) restored in one process and cut to each rank's
-    coordinates equals, in every leaf, the live shards each rank saved
-    (their checksums taken as the CLI saves) and the shards each rank
-    restores on the grid under tp_sp; then one tp_sp step through the API, its loss against
-    its one-process twin's from the same state.  Returns the ranks'
-    launches."""
+def shard_job(dev, runs: list) -> dict:
+    """The ranks' job: the runs, each train run with its compared layers'
+    limits (none for a run without a twin)."""
+    return {"device": dev.type, "runs": [
+        {"kind": "train", "compare": (SHARD_COMPARE_MAX, SHARD_BLOCK_ROWS)
+         if run.get("twin", True) else None, **run} for run in runs]}
+
+
+def check_train_run(torch, run: dict, twin: dict | None, outs: list, grid: str) -> dict:
+    """A train run's launches on every rank (:func:`shard_launches`, no
+    fallback) and, beside its twin, :func:`compare_shard_run`; its ms a step
+    and peak memory a rank logged.  Returns the ranks' launches."""
+    label, cfg, batches = run["label"], run["cfg"], run["batches"]
+    want = shard_launches(cfg.embedding_method, cfg.embedding_bits, len(batches))
+    total = {}
+    for r, o in enumerate(outs):
+        check(o["launches"] == want and o["fallbacks"] == [],
+              f"{label} rank {r}: launches {o['launches']} (expected {want}), fallbacks "
+              f"{o['fallbacks']}")
+        total = added(total, o["launches"])
+    if twin is not None:
+        compare_shard_run(torch, twin, outs, run, SHARD_LR)
+    tokens = tuple(batches[0]["labels"].shape)
+    log(f"[sharding] {label}: {grid} gloo ranks on one card, {len(batches)} steps of "
+        f"{tokens[0]} x {tokens[1]} tokens: losses {outs[0]['losses']}; per rank: host clock "
+        + ", ".join(f"{statistics.mean(o['wall'][1:]):.1f} ms/step (first {o['wall'][0]:.1f})"
+                    for o in outs)
+        + f"; peak memory {[o['peak'] for o in outs]} B"
+        + ("" if twin is None else f" (the twin's {twin['peak']} B)")
+        + f"; launches {[o['launches'] for o in outs]}; rank 0 {outs[0]['times']} s; "
+        f"{card_name()}")
+    return total
+
+
+def shard_cli_argv() -> list:
+    """18b's (and 18k's) ``train lm`` arguments at 1 x 1."""
+    return ["lm", *SHARD_CLI_MODEL, "--embedding-method", "lpt", "--steps",
+            str(SHARD_CLI_STEPS), "--batch", str(SHARD_CLI_BATCH), "--seq", str(SHARD_CLI_SEQ),
+            "--log-every", "0"]
+
+
+def shard_cli_run(torch, directory: pathlib.Path) -> dict:
+    """18b / 18k, a ranks' run: ``train lm`` at 2 x 2 under fsdp_tp
+    (checkpointed into ``directory/ckpt`` at its last step), then that
+    checkpoint restored under tp_sp (18b) and under fsdp_tp_sp (18k), and
+    one step through the API under each, each on a batch of its own seed."""
+    cfg = shard_config(SHARD_ARCH, n_layers=SHARD_CLI_LAYERS, embedding_method="lpt")
+    ckpt = directory / "ckpt"
+
+    def batch(seed):
+        return shard_batches(torch, cfg.vocab_size, 1, SHARD_CLI_BATCH, SHARD_CLI_SEQ,
+                             seed=seed)[0]
+
+    return {"kind": "cli", "label": f"18b / 18k (train lm --policy {SHARD_GRID_POLICY})",
+            "cfg": cfg, "ckpt": str(ckpt), "policy": SHARD_GRID_POLICY,
+            "sp_steps": [("tp_sp", batch(23)), (SHARD_GRID_SP_POLICY, batch(29))],
+            "argv": shard_cli_argv() + ["--mesh-data", "2", "--mesh-model", "2", "--policy",
+                                        SHARD_GRID_POLICY, "--ckpt-dir", str(ckpt),
+                                        "--ckpt-every", str(SHARD_CLI_STEPS)]}
+
+
+def shard_cli_one(torch, dev) -> tuple[dict, dict]:
+    """18b's (and 18k's) ``train lm`` at 1 x 1 in this process: its
+    launches and its report (with the seconds it took)."""
+    import gc
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+
+    t0 = time.perf_counter()
+    ops.reset_kernel_calls()
+    rc, one, err = cli_json(train_mod.main, shard_cli_argv())
+    check(rc == 0, f"18b train lm at 1 x 1 exited {rc}: {err[-2000:]}")
+    one["seconds"] = time.perf_counter() - t0
+    launched = ops.kernel_calls()
+    gc.collect()
+    _on_card(torch, dev, "empty_cache")
+    return launched, one
+
+
+def check_cli_run(torch, dev, run: dict, one: dict, ranks: list) -> dict:
+    """18b / 18k: the 2 x 2 CLI's losses against the 1 x 1 run's within
+    SHARD_LOSS_ATOL step for step, its launches (and each sp step's) on
+    every rank; its checkpoint (written from the gathered shards) restored
+    in this process and cut to each rank's coordinates equals, in every
+    leaf, the live shards each rank saved (under the CLI's policy) and the
+    shards each rank restored on the grid under each sp policy; each sp
+    step's loss against its one-process twin's from that state.  Returns
+    the ranks' launches."""
     import gc
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.dist import sharding
-    from repro_torch.kernels import ops
-    from repro_torch.launch import train as train_mod
     from repro_torch.launch.mesh import HostMesh
     from repro_torch.training import lm_trainer
 
-    argv = ["lm", *SHARD_CLI_MODEL, "--embedding-method", "lpt", "--steps", str(SHARD_CLI_STEPS), "--batch",
-            str(SHARD_CLI_BATCH), "--seq", str(SHARD_CLI_SEQ), "--log-every", "0"]
-    t0 = time.perf_counter()
-    ops.reset_kernel_calls()
-    rc, one, err = cli_json(train_mod.main, argv)
-    check(rc == 0, f"18b train lm at 1 x 1 exited {rc}: {err[-2000:]}")
-    total = ops.kernel_calls()
-    one_s = time.perf_counter() - t0
-    gc.collect()
-    _on_card(torch, dev, "empty_cache")
-    ckpt = directory / "ckpt"
-    cfg = shard_config(SHARD_ARCH, n_layers=SHARD_CLI_LAYERS, embedding_method="lpt")
-    batch = shard_batches(torch, cfg.vocab_size, 1, SHARD_CLI_BATCH, SHARD_CLI_SEQ, seed=23)[0]
-    job = {"device": dev.type, "runs": [{
-        "kind": "cli", "cfg": cfg, "ckpt": str(ckpt), "batch": batch,
-        "argv": argv + ["--mesh-data", "2", "--mesh-model", "2", "--ckpt-dir", str(ckpt),
-                        "--ckpt-every", str(SHARD_CLI_STEPS)]}]}
-    t0 = time.perf_counter()
-    ranks = [r[0] for r in run_ranks(torch, directory, job, 2, 2, "18b")]
-    ranks_s = time.perf_counter() - t0
+    label, cfg = run["label"], run["cfg"]
     report = ranks[0]["report"]
     gaps = [abs(a - b) for a, b in zip(report["losses"], one["losses"])]
     check(report["mesh_data"] == 2 and report["mesh_model"] == 2
+          and report["policy"] == run["policy"]
           and len(gaps) == SHARD_CLI_STEPS and max(gaps) < SHARD_LOSS_ATOL,
-          f"18b losses at 2 x 2 {report['losses']} against 1 x 1 {one['losses']}")
+          f"{label} losses at 2 x 2 {report['losses']} against 1 x 1 {one['losses']}")
     want = shard_launches("lpt", 8, SHARD_CLI_STEPS)
-    sp_want = SHARD_SP_LAUNCHES
+    total = {}
     for r, o in enumerate(ranks):
-        check(o["launches"] == want and o["fallbacks"] == [] and o["sp_launches"] == sp_want,
-              f"18b rank {r}: launches {o['launches']} (expected {want}), tp_sp step "
-              f"{o['sp_launches']}, fallbacks {o['fallbacks']}")
-        total = added(total, o["launches"], o["sp_launches"])
+        check(o["launches"] == want and o["fallbacks"] == []
+              and all(v["launches"] == SHARD_SP_LAUNCHES for v in o["sp"].values()),
+              f"{label} rank {r}: launches {o['launches']} (expected {want}), sp steps "
+              f"{ {k: v['launches'] for k, v in o['sp'].items()} }, fallbacks {o['fallbacks']}")
+        total = added(total, o["launches"], *(v["launches"] for v in o["sp"].values()))
     # The CLI's checkpoint restored in one process and cut to each rank's
     # coordinates: every leaf the live shard the rank saved (so a faulty
-    # gather or write shows), and the shard the rank restored on the grid.
+    # gather or write shows), and the shards the rank restored on the grid.
     t_checks = time.perf_counter()
     tcfg = lm_trainer.LMTrainerConfig()
-    state = lm_trainer.restore(CheckpointManager(ckpt), cfg, tcfg, device=dev)
-    pol = sharding.policy_from_name("tp_sp", model_size=2)
+    state = lm_trainer.restore(CheckpointManager(run["ckpt"]), cfg, tcfg, device=dev)
     for r, o in enumerate(ranks):
         mesh = HostMesh(shape={"data": 2, "model": 2}, coords={"data": r // 2, "model": r % 2},
                         groups={"data": None, "model": None})
-        mine = sharding.shard_tree(state, lm_trainer.state_specs(cfg, tcfg, mesh, pol), mesh)
-        sums = state_checksums(torch, mine)
-        check("live_sums" in o and sums == o["live_sums"],
-              f"18b rank {r}: the one-process restore's shard differs from the live shard it "
-              f"saved")
-        check(sums == o["sums"],
-              f"18b rank {r}: its shard of the checkpoint differs from the one-process restore's")
-        del mine
-    # The tp_sp step's one-process twin from the same state.
-    state, m = lm_trainer.make_train_step(cfg, tcfg)(state, {k: v.to(dev)
-                                                            for k, v in batch.items()})
-    sp_gap = abs(float(m["loss"]) - ranks[0]["sp_loss"])
-    check(sp_gap < SHARD_LOSS_ATOL, f"18b tp_sp step loss {ranks[0]['sp_loss']} against the "
-                                    f"one-process {float(m['loss'])}")
-    del state
+        for name in (run["policy"], *o["sp"]):
+            pol = sharding.policy_from_name(name, model_size=2, data_size=2)
+            mine = sharding.shard_tree(state, lm_trainer.state_specs(cfg, tcfg, mesh, pol), mesh)
+            sums = state_checksums(torch, mine)
+            del mine
+            if name == run["policy"]:
+                check("live_sums" in o and sums == o["live_sums"],
+                      f"{label} rank {r}: the one-process restore's {name} shard differs from "
+                      f"the live shard it saved")
+            else:
+                check(sums == o["sp"][name]["sums"],
+                      f"{label} rank {r}: its {name} shard of the checkpoint differs from the "
+                      f"one-process restore's")
+    # Each sp step's one-process twin from the same state.
+    steps = []
+    step = lm_trainer.make_train_step(cfg, tcfg)
+    for name, b in run["sp_steps"]:
+        _, m = step(state, {k: v.to(dev) for k, v in b.items()})
+        gap = abs(float(m["loss"]) - ranks[0]["sp"][name]["loss"])
+        check(gap < SHARD_LOSS_ATOL, f"{label} {name} step loss {ranks[0]['sp'][name]['loss']} "
+                                     f"against the one-process {float(m['loss'])}")
+        steps.append(f"one {name} step (loss {ranks[0]['sp'][name]['loss']}, one-process "
+                     f"{float(m['loss'])}, gap {gap:.3g})")
+    del state, step
     gc.collect()
     _on_card(torch, dev, "empty_cache")
-    log(f"[sharding] 18b train lm {SHARD_ARCH} (d = 2,048, {SHARD_CLI_LAYERS} of 28 layers) "
-        f"LPT-8, {SHARD_CLI_STEPS} steps of {SHARD_CLI_BATCH} x {SHARD_CLI_SEQ}: 1 x 1 "
-        f"{one['losses']} ({one_s:.1f}s), 2 x 2 {report['losses']} (gaps {gaps}); 2 x 2 rank "
-        f"0 {report['ms_per_step']:.1f} ms/step after the first; its checkpoint restored in "
-        f"one process and cut to each rank equals, in every leaf, the live shards each rank "
-        f"saved and the shards each rank restored on the grid under tp_sp; one tp_sp step (loss {ranks[0]['sp_loss']}, "
-        f"one-process {float(m['loss'])}, gap {sp_gap:.3g}); peak memory per rank "
-        f"{[o['peak'] for o in ranks]} B; the ranks' processes {ranks_s:.1f}s, rank 0 "
-        f"{ranks[0]['times']} s; the checks here {time.perf_counter() - t_checks:.1f}s; "
-        f"{card_name()}")
+    log(f"[sharding] {label} train lm {SHARD_ARCH} (d = 2,048, {SHARD_CLI_LAYERS} of 28 layers) "
+        f"LPT-8 under {run['policy']}, {SHARD_CLI_STEPS} steps of {SHARD_CLI_BATCH} x "
+        f"{SHARD_CLI_SEQ}: 1 x 1 {one['losses']} ({one['seconds']:.1f}s), 2 x 2 "
+        f"{report['losses']} (gaps {gaps}); 2 x 2 rank 0 {report['ms_per_step']:.1f} ms/step "
+        f"after the first; its checkpoint restored in one process and cut to each rank equals, "
+        f"in every leaf, the live shards each rank saved and the shards each rank restored on "
+        f"the grid under {', '.join(o['sp'])}; {'; '.join(steps)}; peak memory per rank "
+        f"{[o['peak'] for o in ranks]} B; rank 0 {ranks[0]['times']} s; the checks here "
+        f"{time.perf_counter() - t_checks:.1f}s; {card_name()}")
+    return total
+
+
+def shard_grid(torch, dev, directory: pathlib.Path, ep_run: dict) -> dict:
+    """18b and 18k-18m in one launch of 2 x 2 ranks: 18b / 18k
+    :func:`shard_cli_run` (the CLI under fsdp_tp, then a tp_sp and an
+    fsdp_tp_sp step from its checkpoint), held by :func:`check_cli_run`
+    against the 1 x 1 run of the same CLI (:func:`shard_cli_one`); 18l SmolLM-135M at full width
+    and depth under dp, one sequence a rank, its params bitwise equal on
+    the four ranks; 18m ``ep_run`` (18j's deepseek-moe-16b run: its seed
+    and batches) with SHARD_GRID_EP_LAYERS layers under fsdp_tp_ep and
+    tp_sp_ep against one EP twin,
+    18j's arithmetic on the 2 x 2 grid (each data row's load-balance loss
+    its own, as on the ranks).  The 1 x 1 CLI and the twins run first, the
+    card freed after each.  Returns the ranks' launches (and the 1 x 1
+    CLI's)."""
+    total, one = shard_cli_one(torch, dev)
+    smol = shard_config(SHARD_SMOL_ARCH)
+    dp_run = {"label": f"18l {SHARD_SMOL_ARCH} ALPT-8 dp, one sequence a rank", "cfg": smol,
+              "seed": 201, "policy": "dp", "check_norm": True,
+              "batches": shard_batches(torch, smol.vocab_size, SHARD_DP_STEPS, SHARD_DP_BATCH,
+                                       SHARD_SEQ)}
+    moe = shard_config(SHARD_EP_ARCH, n_layers=SHARD_GRID_EP_LAYERS)
+    moe_runs = [dict(ep_run, cfg=moe, policy=pol, check_norm=True,
+                     label=f"18m {SHARD_EP_ARCH} ALPT-8 {pol}, {SHARD_GRID_EP_LAYERS} of 28 "
+                           "layers, 32 experts a rank")
+                for pol in ("fsdp_tp_ep", "tp_sp_ep")]
+    twins = []
+    for run in (dp_run, moe_runs[0]):
+        _on_card(torch, dev, "reset_peak_memory_stats", dev)
+        twins.append(shard_twin(torch, dev, dict(run, model=2, data=2)))
+    cli = shard_cli_run(torch, directory)
+    runs = [dp_run, *moe_runs]
+    job = shard_job(dev, runs)
+    job["runs"].insert(0, cli)
+    t0 = time.perf_counter()
+    ranks = run_ranks(torch, directory, job, 2, 2, "18b, 18k-18m")
+    ranks_s = time.perf_counter() - t0
+    total = added(total, check_cli_run(torch, dev, cli, one, [r[0] for r in ranks]))
+    for i, (run, twin) in enumerate(zip(runs, [*twins, twins[1]]), start=1):
+        total = added(total, check_train_run(torch, run, twin, [r[i] for r in ranks], "2 x 2"))
+    log(f"[sharding] 18b, 18k-18m: the ranks' processes {ranks_s:.1f}s; {card_name()}")
     return total
 
 
@@ -5634,15 +5764,17 @@ def shard_kernels(torch, dev, err: dict) -> None:
 
 
 def sharding_phase(torch, dev, err: dict) -> dict:
-    """Phase 18: 18a qwen3-1.7b ALPT-8 at full width and depth on 1 x 2, 18b
-    the train lm CLI at 2 x 2 (with the tp_sp step and the checkpoint), 18c
-    mixtral-8x7b ALPT-8 at 1 layer with its experts over 2 ranks, 18d the
-    shard-local kernels, and on 1 x 2 18e SmolLM-135M (heads split
-    mid-head) and 18f mamba2-370m at full width and depth, 18g hubert-xlarge
-    at full width under tp_sp, 18h SmolLM guarded with a poisoned step, 18i
-    SmolLM at 2 layers with each of the seven other methods, 18j
-    deepseek-moe-16b at 2 layers under tp_ep (and tp, and the all-to-all
-    probe).  Returns the ranks' launches (and 18b's 1 x 1 CLI)."""
+    """Phase 18: on 1 x 2, 18c mixtral-8x7b ALPT-8 at 1 layer with its
+    experts over 2 ranks, 18e SmolLM-135M (heads split mid-head) at full
+    width and depth, 18f mamba2-370m at full width with SHARD_SSM_LAYERS of
+    its layers, 18g hubert-xlarge at full width under tp_sp, 18h SmolLM
+    guarded with a poisoned step, 18i SmolLM at 2 layers with each of the
+    seven other methods, 18j deepseek-moe-16b at 2 layers under tp_ep (and
+    tp, and the all-to-all probe); then one launch of 2 x 2 ranks: 18b / 18k
+    the train lm CLI under fsdp_tp (its checkpoint, a tp_sp and an
+    fsdp_tp_sp step from it), 18l SmolLM-135M under dp, 18m 18j's model
+    under fsdp_tp_ep and tp_sp_ep; 18d the shard-local kernels.
+    Returns the ranks' launches (and the 1 x 1 CLI's)."""
     import gc
     import tempfile
 
@@ -5654,9 +5786,9 @@ def sharding_phase(torch, dev, err: dict) -> dict:
         root = pathlib.Path(tmp)
         for sub in ("a", "b"):
             (root / sub).mkdir()
-        qwen3, mixtral = shard_config(SHARD_ARCH), shard_config(SHARD_MOE_ARCH,
-                                                                 n_layers=SHARD_MOE_LAYERS)
-        smol, ssm = shard_config(SHARD_SMOL_ARCH), shard_config(SHARD_SSM_ARCH)
+        mixtral = shard_config(SHARD_MOE_ARCH, n_layers=SHARD_MOE_LAYERS)
+        smol = shard_config(SHARD_SMOL_ARCH)
+        ssm = shard_config(SHARD_SSM_ARCH, n_layers=SHARD_SSM_LAYERS)
         enc = shard_config(SHARD_ENC_ARCH, n_layers=SHARD_ENC_LAYERS)
 
         def tokens(cfg, steps):
@@ -5664,19 +5796,19 @@ def sharding_phase(torch, dev, err: dict) -> dict:
 
         fam = SHARD_FAMILY_STEPS
         runs = [
-            {"label": "18a qwen3-1.7b ALPT-8 tp", "cfg": qwen3, "seed": 181,
-             "batches": tokens(qwen3, SHARD_STEPS)},
             {"label": "18c mixtral-8x7b ALPT-8 tp, 4 experts a rank", "cfg": mixtral,
              "seed": 183, "batches": tokens(mixtral, SHARD_MOE_STEPS)},
             {"label": "18e smollm-135m ALPT-8 tp, 9/3 heads split mid-head", "cfg": smol,
              "seed": 185, "batches": tokens(smol, fam)},
-            {"label": "18f mamba2-370m ALPT-8 tp, 16 of 32 SSD heads a rank", "cfg": ssm,
+            {"label": f"18f mamba2-370m ALPT-8 tp, 16 of 32 SSD heads a rank, "
+                      f"{SHARD_SSM_LAYERS} of 48 layers", "cfg": ssm,
              "seed": 186, "batches": tokens(ssm, fam)},
             {"label": f"18g hubert-xlarge ALPT-8 tp_sp, {SHARD_ENC_LAYERS} of 48 layers",
              "cfg": enc, "seed": 187, "policy": "tp_sp",
              "batches": shard_frames(torch, enc, fam, SHARD_BATCH, SHARD_SEQ)},
-            {"label": f"18h smollm-135m ALPT-8 tp, guarded, trainer.nonfinite at step "
-                      f"{SHARD_GUARD_AT}", "cfg": smol, "seed": 188,
+            {"label": f"18h smollm-135m ALPT-8 tp, {SHARD_GUARD_LAYERS} of 30 layers, guarded, "
+                      f"trainer.nonfinite at step {SHARD_GUARD_AT}",
+             "cfg": shard_config(SHARD_SMOL_ARCH, n_layers=SHARD_GUARD_LAYERS), "seed": 188,
              "guard_at": SHARD_GUARD_AT, "batches": tokens(smol, fam)}]
         for i, method in enumerate(SHARD_METHODS):
             cfg = shard_config(SHARD_SMOL_ARCH, n_layers=SHARD_METHOD_LAYERS,
@@ -5687,17 +5819,18 @@ def sharding_phase(torch, dev, err: dict) -> dict:
                          "batches": tokens(cfg, fam)})
         moe = shard_config(SHARD_EP_ARCH, n_layers=SHARD_EP_LAYERS)
         ep_batches = tokens(moe, fam)
+        ep_run = {"label": f"18j {SHARD_EP_ARCH} ALPT-8 tp_ep, {SHARD_EP_LAYERS} of 28 layers, "
+                           "32 experts a rank", "cfg": moe, "seed": 199, "policy": "tp_ep",
+                  "check_norm": True, "batches": ep_batches}
         runs += [
-            {"label": f"18j {SHARD_EP_ARCH} ALPT-8 tp_ep, {SHARD_EP_LAYERS} of 28 layers, 32 "
-                      "experts a rank", "cfg": moe, "seed": 199, "policy": "tp_ep",
-             "check_norm": True, "batches": ep_batches},
+            ep_run,
             {"label": f"18j {SHARD_EP_ARCH} ALPT-8 tp, the same layers", "cfg": moe,
              "seed": 199, "twin": False, "batches": ep_batches},
             {"kind": "probe"}]
         total = added(total, shard_trains(torch, dev, root / "a", runs, 2))
-        log(f"[sharding] 18a, 18c, 18e-18j: {time.perf_counter() - t_phase:.1f}s")
-        total = added(total, shard_cli(torch, dev, root / "b"))
-        log(f"[sharding] 18b: {time.perf_counter() - t_phase:.1f}s into phase 18")
+        log(f"[sharding] 18c, 18e-18j: {time.perf_counter() - t_phase:.1f}s")
+        total = added(total, shard_grid(torch, dev, root / "b", ep_run))
+        log(f"[sharding] 18b, 18k-18m: {time.perf_counter() - t_phase:.1f}s into phase 18")
     shard_kernels(torch, dev, err)
     gc.collect()
     _on_card(torch, dev, "empty_cache")

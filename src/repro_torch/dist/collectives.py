@@ -96,10 +96,25 @@ def _gather(t: torch.Tensor, group) -> list[torch.Tensor]:
     return parts
 
 
+#: Elements of a leaf that :func:`exact_pmean_local` all-gathers at a time:
+#: a mean then holds the ranks' chunks beside the leaf, not n copies of it
+#: (deepseek-moe-16b's expert stack, 738 MB a rank, on four ranks of one card).
+MEAN_CHUNK = 1 << 24
+
+
 def exact_pmean_local(grad: torch.Tensor, group=None) -> torch.Tensor:
     """fp32 mean of ``grad`` over the ranks of ``group``, summed in rank
-    order: bitwise :func:`exact_pmean_stacked` of the ranks' stack."""
-    return exact_pmean_stacked(_gather(grad.to(f32), group))
+    order: bitwise :func:`exact_pmean_stacked` of the ranks' stack (a leaf
+    of more than :data:`MEAN_CHUNK` elements chunk by chunk, the same
+    elementwise sums)."""
+    grad = grad.to(f32)
+    if grad.numel() <= MEAN_CHUNK:
+        return exact_pmean_stacked(_gather(grad, group))
+    flat = grad.reshape(-1)
+    out = torch.empty_like(flat)
+    for c0 in range(0, flat.numel(), MEAN_CHUNK):
+        out[c0:c0 + MEAN_CHUNK] = exact_pmean_stacked(_gather(flat[c0:c0 + MEAN_CHUNK], group))
+    return out.reshape(grad.shape)
 
 
 def compressed_psum_local(grad: torch.Tensor, noise: torch.Tensor, bits: int = 8, group=None,

@@ -384,24 +384,46 @@ def _slice(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
 
 
 def _gather(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
-    """The whole leaf from every rank's block (all-gathers over the model
-    group, in rank order).  Blocks over a data axis (fsdp) are not executed
-    by the port: ROADMAP A13c."""
+    """The whole leaf from every rank's block: all-gathered along each split
+    dimension over its axis's group (the model group, or the data group for
+    an fsdp block), in rank order."""
     for dim, entry in enumerate(spec):
         size = _entry_size(entry, mesh)
         if size <= 1:
             continue
-        if _axes(entry) != ("model",):
-            raise NotImplementedError(f"gathering over {entry!r} (fsdp) is ROADMAP A13c")
+        axes = tuple(a for a in _axes(entry) if int(mesh.shape.get(a, 1)) > 1)
+        if len(axes) != 1:
+            raise ValueError(f"a block over {entry!r} spans several axes of the mesh")
         # int8 codes and bool masks (prune's) travel as their bytes (gloo's
         # all_gather of uint8 on CUDA tensors is the probed one,
         # chip_smoke.gloo_probe).
         wire = (t.contiguous().view(torch.uint8) if t.dtype in (torch.int8, torch.bool)
                 else t.contiguous())
         parts = [torch.empty_like(wire) for _ in range(size)]
-        dist.all_gather(parts, wire, group=mesh.groups["model"])
+        dist.all_gather(parts, wire, group=mesh.groups[axes[0]])
         t = torch.cat(parts, dim=dim).view(t.dtype)
     return t
+
+
+def split_axes(spec: P, mesh) -> tuple[str, ...]:
+    """The mesh axes of size > 1 that cut a leaf of ``spec``, in the mesh's
+    order (``()`` for a replicated leaf)."""
+    used = {a for e in spec for a in _axes(e) if int(mesh.shape.get(a, 1)) > 1}
+    return tuple(a for a in mesh.axis_names if a in used)
+
+
+def block_shape(shape, spec: P, mesh) -> tuple[int, ...]:
+    """The shape of a rank's block of a leaf of the whole ``shape`` (a spec
+    shorter than the shape replicates the dimensions it leaves out)."""
+    entries = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(n // _entry_size(e, mesh) for n, e in zip(shape, entries))
+
+
+def fsdp_dim(name: str) -> int | None:
+    """The dimension fsdp cuts over the data axes in a block's leaf
+    ``name`` (an attention, dense MLP or mamba projection; never an
+    expert's), or None."""
+    return next((d for d, which in _param_placements((name,)).items() if which == "fsdp"), None)
 
 
 def _map_specs(fn, tree, specs):
@@ -456,8 +478,8 @@ def shard_tree(tree, specs, mesh):
 
 
 def gather_tree(tree, specs, mesh):
-    """The whole tree from every model rank's shards (a collective: every
-    rank of the model group calls it); the inverse of :func:`shard_tree`."""
+    """The whole tree from every rank's shards (a collective: every rank
+    of the mesh calls it); the inverse of :func:`shard_tree`."""
     from repro_torch.core.codestore import CodeStore
 
     def one(leaf, spec):

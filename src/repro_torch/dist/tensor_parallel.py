@@ -40,11 +40,23 @@ model calls these at the reference's hint sites:
   data axis;
 * :func:`all_to_all` and :func:`mean_over_model`: expert parallelism's
   dispatch and return trip (``models.moe.moe_forward_ep``), and its
-  per-slice load-balance loss averaged once over the model ranks.
+  per-slice load-balance loss averaged once over the model ranks;
+* :func:`fsdp_whole` (fsdp): a sub-layer's projections, cut over the data
+  axis, all-gathered over the data group where the sub-layer reads them;
+  backward: the data ranks' gradients' exact rank-ordered mean, then the
+  rank's block (so the step does not mean those leaves again);
+* :func:`vocab_whole` (dp, where the model ranks hold different
+  sequences): the vocab table and the untied head, which the specs still
+  split over the model axis, all-gathered whole before the model reads
+  them; backward: the exact mean over every rank of the mesh, then the
+  rank's block.  Every other leaf is whole under dp, so no other hint site
+  runs a collective.
 
 No context, or a model axis of 1: every function is the identity and no
-collective runs.  Every collective is ``all_reduce`` (SUM, MAX),
-``all_gather`` or ``all_to_all_single`` on the model group, which gloo
+collective runs (:func:`fsdp_whole` and :func:`batch_mean` read the data
+axis).  Every collective is ``all_reduce`` (SUM, MAX), ``all_gather`` or
+``all_to_all_single`` on the model group (the data group or the world for
+the two above and :func:`vocab_whole`), which gloo
 takes on CUDA tensors (several ranks on one card, where NCCL refuses); a
 reduce-scatter is an all-reduce followed by the rank's slice.  All ranks
 run the same backward graph, so they reach the collectives in the same
@@ -55,7 +67,9 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.dist import collectives
 from repro_torch.dist import context as dist_ctx
+from repro_torch.dist import sharding
 
 
 def active():
@@ -373,12 +387,79 @@ class _DataMean(torch.autograd.Function):
 
 
 def batch_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean over the data ranks of a statistic of the batch (the MoE
-    load-balance loss's token shares and mean router probabilities), so a
-    split batch gives the whole batch's; its gradient passes as it is, each
-    rank's share of the whole batch's gradient before the step's data-axis
-    mean.  ``x`` itself when the batch is not split."""
+    """The mean over the ranks that split the batch (the data group; under
+    dp, where the model axis is more data parallelism, every rank) of a
+    statistic of the batch (the MoE load-balance loss's token shares and
+    mean router probabilities), so a split batch gives the whole batch's;
+    its gradient passes as it is, each rank's share of the whole batch's
+    gradient before the step's mean.  ``x`` itself when the batch is not
+    split."""
     ctx = dist_ctx.current()
-    if ctx is None or not _layout().batch_split or ctx.mesh.shape.get("data", 1) <= 1:
+    if ctx is None or not _layout().batch_split:
         return x
-    return _DataMean.apply(x, ctx.mesh.groups["data"], int(ctx.mesh.shape["data"]))
+    if ctx.policy.pure_dp:
+        return _DataMean.apply(x, None, ctx.mesh.size)
+    n = int(ctx.mesh.shape.get("data", 1))
+    return x if n <= 1 else _DataMean.apply(x, ctx.mesh.groups["data"], n)
+
+
+# ------------------------------------------------------------ fsdp and dp
+
+
+class _GatherMean(torch.autograd.Function):
+    """The ranks' blocks of ``gather`` all-gathered along ``dim``; backward:
+    with ``mean`` the exact rank-ordered mean of the ranks' gradients over
+    ``over`` (``collectives.exact_pmean_local``, None: the world), then
+    this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, dim, gather, mean, over):
+        ctx.dim, ctx.gather, ctx.mean, ctx.over = dim, gather, mean, over
+        return _all_gather(x, dim, gather)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.mean:
+            g = collectives.exact_pmean_local(g, ctx.over)
+        return _own_slice(g, ctx.dim, ctx.gather), None, None, None, None
+
+
+def fsdp_active() -> bool:
+    """Whether the active policy cuts projections over a data axis of
+    size > 1 (fsdp)."""
+    ctx = dist_ctx.current()
+    return (ctx is not None and ctx.policy.fsdp
+            and int(ctx.mesh.shape.get("data", 1)) > 1)
+
+
+def fsdp_whole(tree: dict, shapes: dict) -> dict:
+    """A sub-layer's leaves (``tree``, one group's: the whole ``shapes``)
+    with each projection that fsdp cuts over the data axis
+    (``sharding.fsdp_dim``) all-gathered over the data group; the identity
+    without fsdp.  The backward means the data ranks' gradients of the
+    whole leaf (when the batch is split) and keeps this rank's block."""
+    if not fsdp_active():
+        return tree
+    ctx = dist_ctx.current()
+    group = ctx.mesh.groups["data"]
+    out = {}
+    for k, v in tree.items():
+        dim = sharding.fsdp_dim(k)
+        if dim is not None and v.shape[dim] < shapes[k][dim]:
+            v = _GatherMean.apply(v, dim % v.ndim, group, _layout().batch_split, group)
+        out[k] = v
+    return out
+
+
+def vocab_whole(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Under dp: ``x``, this rank's block of a [rows, cols] table or head
+    split over the model axis (a padded table's block of its allocated
+    rows), all-gathered over the model group and cut to [rows, cols]; its
+    gradient the exact mean over every rank of the mesh (the batch's
+    split), then this rank's block.  ``x`` itself otherwise."""
+    ctx = active()
+    if ctx is None or not ctx.policy.pure_dp or (x.shape[0] >= rows and x.shape[1] >= cols):
+        return x
+    dim = 0 if x.shape[0] < rows else 1
+    whole = _GatherMean.apply(x, dim, _group(), _layout().batch_split, None)
+    return whole[:rows, :cols]

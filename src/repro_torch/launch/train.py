@@ -51,19 +51,21 @@ Sharded (``lm``, the reference's GSPMD path): without
 ``--dp-compress-bits``, ``--mesh-data D --mesh-model M`` trains on a
 ``D x M`` grid of ranks (``repro_torch.launch.mesh``; ``D * M`` processes
 under ``torch.distributed.run``, or ranks whose launcher made the default
-group) under ``--policy`` (``tp``, the reference CLI's, ``tp_sp``, or
-``tp_ep``: the MoE layers' explicit expert-parallel dispatch): the
-state follows ``state_pspecs`` (each rank its shard of the one-process
-init), the batch ``batch_pspecs`` (a batch the data axis does not divide is
-replicated and still trains), and the step is donated.  Every rank saves
+group) under ``--policy`` (``tp``, the reference CLI's; ``tp_sp``;
+``tp_ep``, the MoE layers' explicit expert-parallel dispatch; ``fsdp_tp``,
+``fsdp_tp_sp`` and ``fsdp_tp_ep``, the projections also cut over the data
+axis; ``dp``, the model axis more data parallelism), built with the mesh's
+``data_size`` (``--mesh-data``): the state follows ``state_pspecs`` (each
+rank its shard of the one-process init), the batch ``batch_pspecs`` (a
+batch the data axes do not divide is replicated and still trains), and
+the step is donated.  Every rank saves
 through the gather and rank 0 writes whole leaves; a resume cuts each
 rank's shard for this mesh, whatever mesh saved the checkpoint.  Every
 arch and every ``--embedding-method`` runs there (mamba mixers and heads
 that split mid-head among them; qr_*, hash and mixed tables replicated on
 every rank; prune's refresh over the whole table), and so do
 ``--pad-to-tiles`` and ``--guard`` (one verdict for every rank).  Exit 2: a
-world size that is not ``D * M``, an fsdp or dp policy (ROADMAP A13c part
-2c).
+world size that is not ``D * M``.
 
 Storage tiers (``ctr``): ``--zipf`` trains on the reference's Zipf(1.1)
 skewed-traffic fixture (:data:`CTR_ZIPF_DATA`: 8 fields, 4,092 rows) in
@@ -431,7 +433,7 @@ def _world() -> int | None:
 def check_mesh(parser: argparse.ArgumentParser, args) -> None:
     """The reference's checks of the mesh flags (``repro/launch/train.py:298``),
     and the port's: N ranks are N processes, and the sharded step's
-    refusals (``lm_trainer.check_shardable``, ROADMAP A13c)."""
+    refusals (``lm_trainer.check_shardable``)."""
     dp_mode = args.dp_compress_bits is not None
     if args.mesh_data < 1 or args.mesh_model < 1:
         parser.error(f"mesh axes must be >= 1, got --mesh-data {args.mesh_data} "
@@ -455,7 +457,8 @@ def check_mesh(parser: argparse.ArgumentParser, args) -> None:
             lm_trainer.check_shardable(
                 HostMesh(shape=shape, coords={"data": 0, "model": 0},
                          groups={"data": None, "model": None}),
-                sharding.policy_from_name(args.policy, model_size=args.mesh_model))
+                sharding.policy_from_name(args.policy, model_size=args.mesh_model,
+                                          data_size=args.mesh_data))
         except ValueError as err:
             parser.error(str(err))
         return
@@ -549,7 +552,8 @@ def _train_lm(args, device: torch.device) -> int:
     mesh = None
     if not dp_mode and args.mesh_data * args.mesh_model > 1:
         mesh = make_host_mesh(args.mesh_data, args.mesh_model)
-        pol = sharding.policy_from_name(args.policy, model_size=args.mesh_model)
+        pol = sharding.policy_from_name(args.policy, model_size=args.mesh_model,
+                                        data_size=args.mesh_data)
         with dist_ctx.use(mesh, pol):
             return _train_lm_in(args, device, mesh)
     return _train_lm_in(args, device, None)
@@ -721,9 +725,10 @@ def main(argv=None) -> int:
                     help="tensor-parallel ranks of the sharded path (data x model processes)")
     lm.add_argument("--policy", default="tp",
                     choices=("tp", "tp_sp", "fsdp_tp", "fsdp_tp_sp", "fsdp_tp_ep", "tp_ep", "dp"),
-                    help="sharding policy of the sharded path (executed, with every "
+                    help="sharding policy of the sharded path, every one executed with every "
                          "--embedding-method: tp, tp_sp, tp_ep (the MoE layers' expert-parallel "
-                         "all-to-all dispatch); the fsdp and dp ones exit 2 on any mesh)")
+                         "all-to-all dispatch), fsdp_* (the projections also cut over the data "
+                         "axis), dp (the model axis more data parallelism)")
     lm.add_argument("--dp-compress-bits", type=int, default=None, metavar="BITS",
                     help="data-parallel mode: replicate the state over --mesh-data ranks and "
                          "sync gradients at this width (32 = exact fp32 mean, 2..8 = "

@@ -340,16 +340,18 @@ def _attn_block(p, x, cfg: ModelConfig, *, rope, cache=None, slots=None,
     (``tp.whole``) and the attention runs replicated on every rank, with
     neither the input's all-reduce nor the output's: each rank already
     computes the whole gradient.  ``seq``: ``x`` is this rank's block of
-    the sequence (``carry``)."""
+    the sequence (``carry``).  Under fsdp the projections' blocks over the
+    data axis are gathered first (``tp.fsdp_whole``), so a leaf that
+    ``tp.whole`` gathers is gathered over both axes."""
     b, t, _ = x.shape
     h, kv = cfg.padded_heads
     hd = cfg.hd
-    a = p["attn"]
+    shapes = _attn_shapes(cfg)
+    a = tp.fsdp_whole(p["attn"], shapes)
     y = L.rms_norm(x, tp.partial_weight(p["norm1"], seq))
     sharded = a["wq"].shape[-1] < h * hd or a["wk"].shape[-1] < kv * hd
     m = tp.model_size()
     if sharded and (h % m or kv % m):
-        shapes = _attn_shapes(cfg)
         a, sharded = {k: tp.whole(v, shapes[k]) for k, v in a.items()}, False
     y = tp.enter(y, sharded, seq)
     t, h, kv = y.shape[1], a["wq"].shape[-1] // hd, a["wk"].shape[-1] // hd
@@ -400,14 +402,15 @@ def _mamba_block(p, x, cfg: ModelConfig, *, cache=None, return_cache: bool = Fal
     ``tp.enter`` and ``tp.leave``; the replicated B / C streams feed every
     rank's heads, so their weights take ``tp.partial_weight``.  SSD heads
     that do not split while ``d_inner`` does are gathered whole and run
-    replicated, as a mid-head attention shard is.  ``seq`` as in
+    replicated, as a mid-head attention shard is.  ``seq`` and fsdp as in
     :func:`_attn_block`."""
     y = L.rms_norm(x, tp.partial_weight(p["norm1"], seq))
     if cache is None:
-        mp, s = p["mamba"], cfg.ssm
+        s = cfg.ssm
+        shapes = ssm_mod.param_shapes(s)
+        mp = tp.fsdp_whole(p["mamba"], shapes)
         sharded = mp["wx"].shape[-1] < s.d_inner
         if sharded and s.n_heads % tp.model_size():
-            shapes = ssm_mod.param_shapes(s)
             mp, sharded = {k: tp.whole(v, shapes[k]) for k, v in mp.items()}, False
         elif sharded:
             mp = {k: tp.partial_weight(v, k in _SSM_SHARED) for k, v in mp.items()}
@@ -418,25 +421,36 @@ def _mamba_block(p, x, cfg: ModelConfig, *, cache=None, return_cache: bool = Fal
     return x + out, new_cache
 
 
+def _mlp_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The whole shapes of one layer's dense MLP leaves (:func:`_init_block`)."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d), "w_in": (d, f), "b_in": (f,),
+            "w_out": (f, d), "b_out": (d,)}
+
+
 def _mlp_block(p, x, cfg: ModelConfig, pos: int, seq: bool = False):
     """The MLP or MoE sub-layer -> ``(x, aux)``, ``aux`` the MoE's
     load-balance loss or None where there is no MoE.  A model shard of the
     MLP's hidden dim runs between ``tp.enter`` and ``tp.leave`` (the MoE's
     expert shards inside ``moe_forward``, or ``moe_forward_ep`` under an
-    ``ep`` policy); a bias on the output is added once, after the reduce;
-    ``seq`` as in :func:`_attn_block`."""
+    ``ep`` policy, which reads the whole sequence, as the reference's
+    ``shard_map`` takes it, so under sp the rank's block is gathered before
+    it and cut after); a bias on the output is added once, after the
+    reduce; ``seq`` and fsdp (the dense MLP's projections; never the
+    experts) as in :func:`_attn_block`."""
     if not cfg.is_moe(pos) and cfg.d_ff == 0:
         return x, None
     y = L.rms_norm(x, tp.partial_weight(p["norm2"], seq))
     if cfg.is_moe(pos):
         if dist_ctx.moe_ep_context() is not None and cfg.moe.n_experts % tp.model_size() == 0:
             # The reference's _moe_apply: the explicit EP dispatch under an
-            # ep policy (never with sp); the path below where E does not split.
-            out, aux = moe_mod.moe_forward_ep(p["moe"], y, cfg.moe)
-            return x + out, aux
-        out, aux = moe_mod.moe_forward(p["moe"], tp.enter(y, False, seq), cfg.moe)
+            # ep policy; the path below where E does not split.
+            forward = moe_mod.moe_forward_ep
+        else:
+            forward = moe_mod.moe_forward
+        out, aux = forward(p["moe"], tp.enter(y, False, seq), cfg.moe)
         return x + tp.leave(out, False, seq), aux
-    m = p["mlp"]
+    m = tp.fsdp_whole(p["mlp"], _mlp_shapes(cfg))
     if cfg.mlp_type == "gelu":
         # b_out is added to this rank's block of T under sequence
         # parallelism: a replicated weight that reads part of its input.
@@ -487,7 +501,11 @@ def backbone(params: dict[str, Any], embeds: torch.Tensor, cfg: ModelConfig,
 
     Under a sequence-parallel context (``tp.seq_split``, the reference's
     ``activation`` / ``carry`` hints) the residual stream between the
-    sub-layers is this rank's block of T; the hidden comes back whole."""
+    sub-layers is this rank's block of T; the hidden comes back whole.
+    Under fsdp (``tp.fsdp_active``) every group runs as with remat, so the
+    projections it gathers over the data axis are freed after its forward
+    and gathered again for its backward: the whole model is never
+    gathered at once."""
     check_supported(cfg)
     x = embeds.to(cfg.dtype)
     seq = tp.seq_split(tuple(x.shape))
@@ -497,7 +515,7 @@ def backbone(params: dict[str, Any], embeds: torch.Tensor, cfg: ModelConfig,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi in range(cfg.n_groups):
         blocks = [_group(params["blocks"][pos], gi) for pos in range(cfg.period)]
-        if cfg.remat:
+        if cfg.remat or tp.fsdp_active():
             x, group_aux = torch.utils.checkpoint.checkpoint(
                 _period_fwd, blocks, x, rope, cfg, use_kernel, train, seq, use_reentrant=False)
         else:
@@ -580,7 +598,14 @@ def assemble_embeds(table_fp: torch.Tensor, batch: dict, cfg: ModelConfig) -> to
 def loss_fn(params: dict[str, Any], table_fp: torch.Tensor, batch: dict,
             cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Training loss ``(ce + aux, aux)`` from the dense fp32 table [V, d]
-    (``aux`` is the MoE load-balance loss, 0 without MoE layers)."""
+    (``aux`` is the MoE load-balance loss, 0 without MoE layers).  Under dp
+    the table (where the model reads it) and the untied head enter whole
+    (``tp.vocab_whole``)."""
+    v, d = cfg.vocab_size, cfg.d_model
+    if cfg.input_mode != "embeds" or cfg.tie_embeddings:
+        table_fp = tp.vocab_whole(table_fp, v, d)
+    if "head" in params:
+        params = dict(params, head=tp.vocab_whole(params["head"], v, d))
     embeds = assemble_embeds(table_fp, batch, cfg)
     b, t, _ = embeds.shape
     positions = batch.get("positions")

@@ -112,23 +112,32 @@ def tree_like(tree, leaves):
 
 
 def clip_by_global_norm(grads: list, max_norm: float, *, inplace: bool = False,
-                        sharded: list | None = None, group=None):
+                        split: list | None = None, groups: dict | None = None):
     """``(grads * min(1, max_norm / (||grads|| + 1e-12)), ||grads||)`` over a
     list of tensors, the global norm a 0-d tensor (no host sync);
     ``inplace`` scales ``grads`` themselves (float32) and returns them.
 
-    ``sharded`` (one flag a leaf) marks the leaves that are this rank's
-    shard over ``group`` (the model axis): their squares are summed over the
-    group, the replicated leaves' counted once, so the norm is the whole
-    tree's."""
-    if sharded is None:
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in grads))
+    ``split`` (one entry a leaf: the mesh axes that cut it, empty for a
+    replicated leaf) marks the leaves that are this rank's block: the
+    squares of the leaves cut by the same axes are summed over that key's
+    process group in ``groups`` (all-gathered, added in rank order, so
+    every rank gets the same norm bitwise), the replicated leaves' counted
+    once, so the norm is the whole tree's."""
+    sq = [torch.sum(torch.square(g.to(torch.float32))) for g in grads]
+    if split is None:
+        gnorm = torch.sqrt(sum(sq))
     else:
-        sq = [torch.sum(torch.square(g.to(torch.float32))) for g in grads]
         zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-        part = sum((q for q, s in zip(sq, sharded, strict=True) if s), zero).reshape(1)
-        dist.all_reduce(part, group=group)
-        gnorm = torch.sqrt(sum((q for q, s in zip(sq, sharded) if not s), zero) + part[0])
+        total = sum((q for q, axes in zip(sq, split, strict=True) if not axes), zero)
+        for key in sorted({axes for axes in split if axes}):
+            part = sum((q for q, axes in zip(sq, split) if axes == key), zero).reshape(1)
+            parts = [torch.empty_like(part) for _ in range(dist.get_world_size(groups[key]))]
+            dist.all_gather(parts, part, group=groups[key])
+            ordered = parts[0]
+            for p in parts[1:]:
+                ordered = ordered + p
+            total = total + ordered[0]
+        gnorm = torch.sqrt(total)
     scale = torch.clamp_max(max_norm / (gnorm + 1e-12), 1.0)
     if inplace:
         return [g.mul_(scale) for g in grads], gnorm

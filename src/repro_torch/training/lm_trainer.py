@@ -35,9 +35,11 @@ checkpoint a state (``repro_torch.checkpoint``).
 
 The sharded path (port of the reference's GSPMD step): under
 ``repro_torch.dist.context.use(mesh, policy)`` (a ``(data, model)`` rank
-grid, :mod:`repro_torch.launch.mesh`; a ``tp``, ``tp_sp`` or ``tp_ep``
-policy), :func:`init_state` gives this rank's shard of the one-process
-init (every leaf the slice of the one-process draw, :func:`state_specs`), and
+grid, :mod:`repro_torch.launch.mesh`; any of the reference's policies:
+``tp``, ``tp_sp``, ``tp_ep``, ``tp_sp_ep``, ``fsdp_tp``, ``fsdp_tp_sp``,
+``fsdp_tp_ep``, ``dp``), :func:`init_state` gives this rank's shard of the
+one-process init (every leaf the slice of the one-process draw,
+:func:`state_specs`), and
 :func:`make_train_step` a step over shards: the batch's slice over the
 data axis (``batch_pspecs``; a batch the axis does not divide is
 replicated), the model's collectives at the reference's hint sites
@@ -57,8 +59,23 @@ split table's replicated float leaf that reads only the rank's columns
 (lsq's step size, pact's alpha) takes the ranks' summed gradient; prune's
 mask refresh reads the whole table (:func:`wrap_host_refresh`).  Under a
 ``tp_ep`` policy the MoE layers take the explicit expert-parallel dispatch
-(``models.moe.moe_forward_ep``).  Refused, naming ROADMAP A13c part 2c:
-fsdp and dp policies, and ``ep`` with ``sp``.
+(``models.moe.moe_forward_ep``); with ``sp`` the dispatch reads the whole
+sequence, gathered before it and cut after.
+
+fsdp (``fsdp_tp``, ``fsdp_tp_sp``, ``fsdp_tp_ep``, with the policy's
+``data_size`` the mesh's data axis): the projections' blocks over the
+data axis are gathered where each sub-layer reads them and freed after
+(``tp.fsdp_whole``; each group runs as with remat, so its backward gathers
+them again), their gradients meaned over the data group in that gather's
+backward, not again by the step; Adam steps each block with its
+moments' blocks; the global norm sums each leaf's squares over exactly the
+axes that cut it.  dp (``pure_dp``, the model axis more data parallelism):
+the batch is cut over every rank, the blocks' params are whole, the vocab
+table and the untied head (split over the model axis, as the reference's
+specs keep them) enter whole (``tp.vocab_whole``), every gradient is the
+exact mean over all the mesh's ranks, and each rank steps its model block
+of every param with its moments' blocks (ZeRO-1), then all-gathers the new
+params over the model group, so the replicas stay bitwise equal.
 """
 from __future__ import annotations
 
@@ -151,16 +168,34 @@ class Shards(NamedTuple):
     """The active context's layout of an LM state: the mesh and policy,
     the spec tree of :class:`LMTrainState` (:func:`state_specs`), this
     rank's table geometry (``spec``: its rows and columns), whether the
-    table is split over d, the transformer leaves that are model shards,
-    and the whole table's allocated shape."""
+    table is split over d, the mesh axes that cut each transformer leaf
+    (``sharding.split_axes``, in ``tree_leaves`` order), and the whole
+    table's allocated shape."""
 
     mesh: Any
     policy: Any
     specs: Any
     spec: methods.EmbeddingSpec
     width_split: bool
-    sharded_leaves: list
+    split_axes: list
     table_shape: tuple
+
+    @property
+    def premeaned(self) -> list:
+        """Per transformer leaf, whether the gather that brings it whole
+        already took the batch's mean of its gradient (fsdp's blocks over
+        the data axis; under dp the head's vocab blocks), so the step does
+        not mean it again."""
+        if self.policy.pure_dp:
+            return [bool(axes) for axes in self.split_axes]
+        return ["data" in axes for axes in self.split_axes]
+
+    @property
+    def table_premeaned(self) -> bool:
+        """Whether the table's gradients come meaned over the batch's
+        ranks: under dp a split table enters whole through
+        ``tp.vocab_whole``, whose backward means."""
+        return bool(self.policy.pure_dp and self.table_split)
 
     @property
     def table_split(self) -> bool:
@@ -182,16 +217,15 @@ class Shards(NamedTuple):
 
 
 def check_shardable(mesh, pol) -> None:
-    """Raise ``ValueError`` for what the sharded step does not execute
-    (ROADMAP A13c part 2c) on this ``(data, model)`` mesh: an fsdp or dp
-    policy, or ``ep`` with ``sp`` (on any mesh, so that such a policy never
-    passes unexecuted)."""
-    m = int(mesh.shape["model"])
-    if pol.fsdp or pol.pure_dp or (pol.ep and pol.seq_parallel):
-        raise ValueError(f"policy {pol.name!r}: fsdp / dp execution and ep with sp are ROADMAP "
-                         "A13c part 2c (their specs are ported)")
+    """Raise ``ValueError`` for a policy whose shape facts are not this
+    ``(data, model)`` mesh's: a ``model_size`` other than the model axis,
+    or a ``data_size`` other than the data axis (None places nothing over
+    the data axis, the reference's rule, so fsdp then cuts no block)."""
+    m, d = int(mesh.shape["model"]), int(mesh.shape["data"])
     if pol.model_size != m:
         raise ValueError(f"policy model_size {pol.model_size} != the mesh's model axis {m}")
+    if pol.data_size is not None and pol.data_size != d:
+        raise ValueError(f"policy data_size {pol.data_size} != the mesh's data axis {d}")
 
 
 def _allocated(spec: methods.EmbeddingSpec) -> tuple[int, int]:
@@ -263,9 +297,9 @@ def _shards(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None) -> Shards | None
         n, d = _allocated(spec)
         local = dataclasses.replace(spec, n=n // m if row else n, d=d // m if col else d,
                                     pad_to_tiles=False)
-    flags = [sharding.is_sharded(p, mesh) for p in sharding.spec_leaves(specs.params)]
+    axes = [sharding.split_axes(p, mesh) for p in sharding.spec_leaves(specs.params)]
     return Shards(mesh=mesh, policy=pol, specs=specs, spec=local, width_split=col is not None,
-                  sharded_leaves=flags, table_shape=(spec.n_padded, spec.d_padded))
+                  split_axes=axes, table_shape=(spec.n_padded, spec.d_padded))
 
 
 def init_state(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None = None, *, seed: int = 0,
@@ -278,7 +312,9 @@ def init_state(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None = None, *, see
     ``opt`` and ``table_opt`` None (the same draws): a state to serve, which
     at qwen2-vl-7b's full depth is 28 GB of params without 57 GB of Adam
     moments.  Under a sharding context (:func:`state_specs`), this rank's
-    shard of that state (the whole draws made, sliced, then freed)."""
+    shard of that state (the whole draws made, sliced, then freed; the
+    moments zeros of their own blocks, which under dp are blocks of whole
+    params)."""
     dev = device_mod.resolve(device)
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
@@ -287,12 +323,17 @@ def init_state(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None = None, *, see
     method = methods.get(spec.method)
     table = method.init(generator, spec)
     sh = _shards(cfg, tcfg)
+    opt = None
+    if optimizer:  # zeros shaped as the moments' blocks (under dp, blocks of whole params)
+        opt = adam_init(tree_leaves(params) if sh is None else [
+            torch.empty(sharding.block_shape(p.shape, s, sh.mesh), device=dev)
+            for p, s in zip(tree_leaves(params), sh.specs.opt.mu, strict=True)])
     if sh is not None:  # this rank's slice of the one-process draws
         params = sharding.shard_tree(params, sh.specs.params, sh.mesh)
         table = sharding.shard_tree(table, sh.specs.table, sh.mesh)
         spec = sh.spec
     emb = method.trainable_params(table, spec)
-    return LMTrainState(params=params, opt=adam_init(tree_leaves(params)) if optimizer else None,
+    return LMTrainState(params=params, opt=opt,
                         table=table,
                         table_opt=None if emb is None or not optimizer else adam_init(
                             tree_leaves(emb)),
@@ -422,8 +463,9 @@ def _checkpoint_specs(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig | None,
     their params)."""
     spec = embedding_spec_of(cfg, tcfg)
     emb = methods.get(spec.method).param_pspec(*_table_axes(cfg, spec, sh.policy))
-    p = sh.specs.params
-    return LMCheckpoint(params=p, opt=OptState(step=sharding.P(), mu=p, nu=p),
+    moments = sharding.state_pspecs(cfg, sh.policy, tcfg).opt.mu  # laid out as the params
+    return LMCheckpoint(params=sh.specs.params,
+                        opt=OptState(step=sharding.P(), mu=moments, nu=moments),
                         table=sh.specs.table,
                         table_opt=None if emb is None else OptState(step=sharding.P(), mu=emb,
                                                                     nu=emb),
@@ -495,22 +537,31 @@ def make_apply_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, donate: bool =
     ``state`` and ``grads``, clipping the gradients and stepping the params
     and their Adam moments in place (bitwise the same values), so the old
     and new params and moments are not alive together.  ``shards``: the
-    state is this rank's (:class:`Shards`); the global norm sums the model
-    shards' squares over the model group."""
+    state is this rank's (:class:`Shards`); the global norm sums each
+    leaf's squares over the group of the axes that cut it; under dp each
+    rank steps its moments' block of a whole param and the new blocks are
+    all-gathered over the model group (:func:`_zero1_adam`)."""
     spec = embedding_spec_of(cfg, tcfg) if shards is None else shards.spec
     method = methods.get(spec.method)
     clip = {}
-    if shards is not None and shards.mesh.shape["model"] > 1:
-        clip = {"sharded": shards.sharded_leaves, "group": shards.mesh.groups["model"]}
+    if shards is not None:
+        mesh = shards.mesh
+        clip = {"split": shards.split_axes,
+                "groups": {("model",): mesh.groups["model"], ("data",): mesh.groups["data"],
+                           ("data", "model"): dist.group.WORLD}}
+    zero1 = shards is not None and shards.policy.pure_dp and shards.mesh.shape["model"] > 1
 
     def apply_fn(state: LMTrainState, loss_aux, grads, *, lr, noise, delta_grad=None,
                  batch_rows=None):
         loss, aux = loss_aux
         g_table, g_params = grads
         g_params, gnorm = clip_by_global_norm(g_params, tcfg.grad_clip, inplace=donate, **clip)
-        new_leaves, new_opt = adam_update(g_params, state.opt, tree_leaves(state.params), lr,
-                                          weight_decay=tcfg.weight_decay,
-                                          use_kernel=tcfg.use_kernels, inplace=donate)
+        if zero1:
+            new_leaves, new_opt = _zero1_adam(g_params, state, lr, tcfg, shards)
+        else:
+            new_leaves, new_opt = adam_update(g_params, state.opt, tree_leaves(state.params), lr,
+                                              weight_decay=tcfg.weight_decay,
+                                              use_kernel=tcfg.use_kernels, inplace=donate)
         new_params = tree_like(state.params, new_leaves)
         wrapped = None
         if delta_grad is not None:
@@ -527,6 +578,27 @@ def make_apply_fn(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, *, donate: bool =
                             generator=state.generator), metrics
 
     return apply_fn
+
+
+def _zero1_adam(grads: list, state: LMTrainState, lr: float, tcfg: LMTrainerConfig,
+                sh: Shards):
+    """dp's AdamW (the reference's ZeRO-1 layout, ``state_pspecs``' moments
+    over the model axis): each param the moments cut from a whole param is
+    stepped on this rank's block of it, the rest as they are, in one
+    ``adam_update``; the new blocks are all-gathered over the model group
+    into whole params, the same on every rank."""
+    mesh = sh.mesh
+    params = tree_leaves(state.params)
+    cut = [sharding.is_sharded(m, mesh) and not axes
+           for m, axes in zip(sh.specs.opt.mu, sh.split_axes, strict=True)]
+    blocks = [sharding.shard_tree(t, m, mesh) if c else t
+              for t, m, c in zip(params, sh.specs.opt.mu, cut)]
+    grads = [sharding.shard_tree(g, m, mesh) if c else g
+             for g, m, c in zip(grads, sh.specs.opt.mu, cut)]
+    new, opt = adam_update(grads, state.opt, blocks, lr, weight_decay=tcfg.weight_decay,
+                           use_kernel=tcfg.use_kernels)
+    return [sharding.gather_tree(t, m, mesh) if c else t
+            for t, m, c in zip(new, sh.specs.opt.mu, cut)], opt
 
 
 def make_lr_fn(tcfg: LMTrainerConfig, lr_schedule=None):
@@ -629,18 +701,23 @@ def _sharded_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, sh: Shards, donat
     replicated (a model axis of 1) it is the method's one-process draw
     (``dense_noise``: a composed table's list), used as it is.  With a split batch, the
     gradients, ALPT's Delta gradient, the loss and the aux are exact
-    rank-ordered means over the data group.  The paper's b counts the global
-    batch's lookups; a table split over d scales it by the model axis, so
-    that the gradient scale's b·d is the whole table's."""
+    rank-ordered means over the ranks that split it (the data group; under
+    dp every rank, in the row-major order of the batch's cut), each leaf
+    once: a gradient that a gather's backward has meaned
+    (:attr:`Shards.premeaned`, :attr:`Shards.table_premeaned`) is not
+    meaned again.  The paper's b counts the global batch's lookups; a table
+    split over d scales it by the model axis, so that the gradient scale's
+    b·d is the whole table's."""
     mesh, pol, spec = sh.mesh, sh.policy, sh.spec
     method = methods.get(spec.method)
     lr_at = make_lr_fn(tcfg, lr_schedule)
     grad_fn = make_grad_fn(cfg, tcfg, spec, sh.partial_emb)
     apply_fn = make_apply_fn(cfg, tcfg, donate=donate, shards=sh)
     delta_fn = make_delta_grad_fn(cfg, tcfg, spec) if method.has_learned_step else None
-    data_group = mesh.groups["data"]
+    group = None if pol.pure_dp else mesh.groups["data"]  # None: the world
     width = int(mesh.shape["model"]) if sh.width_split else 1
     table_split = sh.table_split
+    skip_params, skip_table = sh.premeaned, sh.table_premeaned
 
     def train_step(state: LMTrainState, batch: dict, noise: torch.Tensor | None = None):
         bspecs = sharding.batch_pspecs(batch, cfg, pol, mesh)
@@ -658,20 +735,22 @@ def _sharded_step(cfg: tfm.ModelConfig, tcfg: LMTrainerConfig, sh: Shards, donat
                     noise = sharding.shard_tree(noise, sh.specs.table.codes, mesh)
             local = sharding.shard_tree(batch, bspecs, mesh) if split else batch
 
-            def mean(tree):  # leaf by leaf (a composed table's are tuples)
+            def mean(tree, skip):  # leaf by leaf (a composed table's are tuples)
                 if not split:
                     return tree
-                return tree_like(tree, [collectives.exact_pmean_local(t, data_group)
-                                        for t in tree_leaves(tree)])
+                leaves = tree_leaves(tree)
+                skip = [skip] * len(leaves) if isinstance(skip, bool) else skip
+                return tree_like(tree, [t if s else collectives.exact_pmean_local(t, group)
+                                        for t, s in zip(leaves, skip, strict=True)])
 
             (loss, aux), (g_table, g_params) = grad_fn(state, local)
-            g_table, g_params = mean(g_table), mean(g_params)
+            g_table, g_params = mean(g_table, skip_table), mean(g_params, skip_params)
             delta_grad = None
             if delta_fn is not None:
                 def delta_grad(w_new, step_vec, new_params, gscale):
-                    return mean(delta_fn(w_new, step_vec, new_params, local, gscale))
+                    return mean(delta_fn(w_new, step_vec, new_params, local, gscale), skip_table)
 
-            return apply_fn(state, (mean(loss), mean(aux)), (g_table, g_params),
+            return apply_fn(state, (mean(loss, False), mean(aux, False)), (g_table, g_params),
                             lr=lr_at(state.step), noise=noise, delta_grad=delta_grad,
                             batch_rows=int(batch["labels"].numel()) * width)
 

@@ -5,9 +5,11 @@ WORLD DATA MODEL DEVICE``.
 Joins a gloo group through ``DIR/init``, reads ``DIR/in.pt`` (the parent's
 one-process states, batches and noise, as numpy), runs every check of the
 launch on a ``DATA x MODEL`` mesh (a case marked ``data_only`` on a
-``WORLD x 1`` one) and writes ``DIR/rank<r>.pt`` (rank 0:
-the gathered states and losses; every rank: its flags, per case and in
-all, the guard's world verdicts and its ``moe_forward_ep`` results).
+``WORLD x 1`` one; each case's policy with the mesh's ``model_size`` and
+``data_size``) and writes ``DIR/rank<r>.pt`` (rank 0: the gathered states
+and losses; every rank: its flags, per case and in all, the guard's world
+verdicts, the one-process checkpoint restored under each policy, and its
+``moe_forward_ep`` results).
 Imports torch and the port only, so the same program runs on the card.
 
 :func:`moe_ep_twin` is the one-process twin of the expert-parallel MoE
@@ -29,7 +31,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import faults, interop, methods  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.dist import context, sharding  # noqa: E402
+from repro_torch.dist import collectives, context, sharding  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -174,10 +176,12 @@ def main(directory, rank, world, data, model, device):
         if case.get("data_only"):
             data_only = data_only or make_host_mesh(world, 1)
             at = data_only
-        pol = sharding.policy_from_name(case["policy"], model_size=at.shape["model"])
+        pol = sharding.policy_from_name(case["policy"], model_size=at.shape["model"],
+                                        data_size=at.shape["data"])
         state, whole, metrics, flags = _step_case(case, at, pol, dev)
         spec = lm_trainer.embedding_spec_of(case["cfg"], case["tcfg"])
         out["steps"][name] = {"metrics": metrics, "params": _cpu(whole.params),
+                              "opt": _cpu([whole.opt.mu, whole.opt.nu]),
                               "table": _table_np(whole.table),
                               "emb": _cpu(methods.get(spec.method).trainable_params(whole.table,
                                                                                     spec)),
@@ -191,26 +195,40 @@ def main(directory, rank, world, data, model, device):
 
     out["same_replicas"] = all(c["same_replicas"] for c in out["steps"].values())
 
-    if "restore" in inp:  # a 1 x 1 checkpoint restored on this mesh
+    if "restore" in inp:  # a 1 x 1 checkpoint restored on this mesh, under each policy
         case = inp["restore"]
-        pol = sharding.policy_from_name("tp", model_size=model)
-        with context.use(mesh, pol):
-            got = lm_trainer.restore(CheckpointManager(directory / "ck_one"), case["cfg"],
-                                     case["tcfg"], device=dev)
-            sh = lm_trainer._shards(case["cfg"], case["tcfg"])
-            want = sharding.shard_tree(_whole_state(case, dev), sh.specs, mesh)
-            back = sharding.gather_tree(want, sh.specs, mesh)
-        whole = _whole_state(case, dev)
-        out["restore_bitwise"] = _same_state(got, want)
-        out["shard_gather_identity"] = _same_state(back, whole)
+        out["restore"] = {}
+        for name in case["policies"]:
+            pol = sharding.policy_from_name(name, model_size=model, data_size=data)
+            with context.use(mesh, pol):
+                got = lm_trainer.restore(CheckpointManager(directory / "ck_one"), case["cfg"],
+                                         case["tcfg"], device=dev)
+                sh = lm_trainer._shards(case["cfg"], case["tcfg"])
+                want = sharding.shard_tree(_whole_state(case, dev), sh.specs, mesh)
+                back = sharding.gather_tree(want, sh.specs, mesh)
+            whole = _whole_state(case, dev)
+            out["restore"][name] = {"bitwise": _same_state(got, want),
+                                    "identity": _same_state(back, whole)}
 
     if "rows" in inp:  # rung 2: the same gradient rows give the same shard rows
         out["rows"] = _rows_check(inp["rows"], mesh, dev)
 
+    if "chunked_mean" in inp:  # exact_pmean_local chunk by chunk, bitwise the whole leaf's
+        g = torch.Generator().manual_seed(100 + rank)
+        leaf = torch.randn(inp["chunked_mean"], generator=g).to(dev)
+        whole = collectives.exact_pmean_local(leaf)
+        real = collectives.MEAN_CHUNK
+        collectives.MEAN_CHUNK = 7
+        try:
+            chunked = collectives.exact_pmean_local(leaf)
+        finally:
+            collectives.MEAN_CHUNK = real
+        out["chunked_mean"] = (torch.equal(whole, chunked), whole.cpu())
+
     if "ep" in inp:  # the port's moe_forward_ep against the reference's
         out["ep"] = [_ep_case(c, mesh, dev) for c in inp["ep"]]
 
-    for key in ("cli", "cli_ep"):  # the CLI on the launcher's group (it keeps it)
+    for key in ("cli", "cli_ep", "cli_fsdp"):  # the CLI on the launcher's group (it keeps it)
         if key in inp:
             import io
 

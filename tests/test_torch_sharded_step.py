@@ -1,6 +1,7 @@
-"""The port's sharded LM step (tensor and sequence parallel on a ``(data,
-model)`` grid of gloo ranks) against the JAX package's single-device jitted
-step and the port's own one-process step, at smoke configs on the CPU.
+"""The port's sharded LM step (every policy of the reference: tensor,
+sequence and expert parallel, fsdp and dp, on a ``(data, model)`` grid of
+gloo ranks) against the JAX package's single-device jitted step and the
+port's own one-process step, at smoke configs on the CPU.
 
 The reference's own sharded steps (tests/test_distribution.py) need 8 XLA
 devices; the port is held to the contract they state against the
@@ -36,9 +37,15 @@ whole table, lsq and pact with rows split and, at the 509-row vocabulary,
 with the width split); expert parallelism (``tp_ep``: deepseek-moe's and
 jamba's smoke configs against a one-process twin of the EP arithmetic,
 ``_torch_sharded_ranks.moe_ep_twin``, and ``moe_forward_ep`` itself against
-the reference's under ``jax.vmap(axis_name="model")``); rung 2,
-checkpoints across meshes both ways, the ``train lm`` CLI (tp, and tp_ep
-against its one-process EP twin).
+the reference's under ``jax.vmap(axis_name="model")``); the policies that
+cut over the data axis or reuse the model axis for data (qwen3's smoke
+config under ``fsdp_tp``, ``fsdp_tp_sp`` and ``dp`` from the reference's
+state and noise, deepseek-moe's under ``fsdp_tp_ep`` and ``tp_sp_ep``
+against its EP twin and under ``dp``, deepseek-67b's under ``fsdp_tp``, its reference
+default, and h2o-danube's windowed attention under ``fsdp_tp_sp``); rung
+2, checkpoints across meshes both ways (tp, fsdp_tp and dp shards), the
+``train lm`` CLI (tp and fsdp_tp, and tp_ep against its one-process EP
+twin).
 """
 import contextlib
 import dataclasses
@@ -65,7 +72,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import quant
 from repro_torch.core.pruning import PruneConfig
 from repro_torch.data.lm_synth import LMTokenStream
-from repro_torch.dist import sharding
+from repro_torch.dist import collectives, sharding
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import HostMesh
 from repro_torch.models.moe import MoEConfig
@@ -92,6 +99,10 @@ PRUNE = PruneConfig(target_sparsity=0.5, damping=0.5, damping_steps=1, warmup_st
 #: splits over the model axis, S = 15 leaves the reference's last token out.
 EP_MOE = MoEConfig(n_experts=8, top_k=2, d_model=16, d_ff=32, n_shared_experts=1, shared_d_ff=32)
 EP_SEQ = {"even": 16, "ragged": 15}
+#: qwen3's cases saved from their shards (each rank gathers, rank 0 writes),
+#: and the policies the one-process checkpoint is restored under on the grid.
+SAVED = ("qwen3_tp", "qwen3_fsdp_tp", "qwen3_dp")
+RESTORED = ("tp", "fsdp_tp", "dp")
 
 
 def _qwen3(**kw):
@@ -198,7 +209,26 @@ def _mesh_cases(pt):
         c = configs.smoke_config(arch)
         cases[f"{arch.split('-')[0]}_ep"] = (c, pt, "tp_ep", 61 + i,
                                              _batch(c.vocab_size, 31 + i)[1], {"ep": True})
+    # dp over an MoE: the load-balance statistics' mean over all four ranks.
+    moe = configs.smoke_config("deepseek-moe-16b")
+    cases["deepseek_dp"] = (moe, pt, "dp", 61, _batch(moe.vocab_size, 31)[1], {})
+    # The reference's default for deepseek-67b, and a sliding window (32)
+    # over a sequence split in two, both with projections cut over data.
+    for i, (name, arch, pol) in enumerate((("deepseek67b_fsdp_tp", "deepseek-67b", "fsdp_tp"),
+                                           ("danube_fsdp_tp_sp", "h2o-danube-1.8b",
+                                            "fsdp_tp_sp"))):
+        c = configs.smoke_config(arch)
+        cases[name] = (c, pt, pol, 71 + i, _batch(c.vocab_size, 41 + i)[1], {})
     return cases
+
+
+#: Cases that share a case's state, batch and noise under another policy,
+#: and so its one-process twin (deepseek-moe's: the EP twin, which reads the
+#: whole sequence, as the dispatch does under sp).
+SAME_TWIN = {"qwen3_tp_sp": "qwen3_tp", "qwen3_fsdp_tp": "qwen3_tp",
+             "qwen3_fsdp_tp_sp": "qwen3_tp", "qwen3_dp": "qwen3_tp",
+             "mamba_tp_sp": "mamba_tp", "deepseek_fsdp_tp_ep": "deepseek_ep",
+             "deepseek_tp_sp_ep": "deepseek_ep"}
 
 
 def _clipping(cfg, tcfg, seed: int) -> dict:
@@ -293,7 +323,8 @@ def launch(tmp_path_factory):
     ps = interop.lm_state_from_numpy(cfg, pt, **state_np, device="cpu")
     lm_trainer.save(CheckpointManager(d / "ck_one"), cfg, ps, pt, force=True)
     steps = {f"qwen3_{pol}": {"cfg": cfg, "tcfg": pt, "policy": pol, "state": state_np,
-                              "batch": pb, "noise": noise} for pol in ("tp", "tp_sp")}
+                              "batch": pb, "noise": noise}
+             for pol in ("tp", "tp_sp", "fsdp_tp", "fsdp_tp_sp", "dp")}
     # mixtral smoke (4 experts, 2 a rank) and a 509-row vocabulary (the table
     # split over d), each from this rank's shard of the port's init.
     mixtral = configs.smoke_config("mixtral-8x7b")
@@ -311,6 +342,8 @@ def launch(tmp_path_factory):
     for name, (c, tc, pol, start, b, extra) in mesh_cases.items():
         steps[name] = {"cfg": c, "tcfg": tc, "policy": pol, "batch": b, **extra,
                        **({"state": start} if isinstance(start, dict) else {"seed": start})}
+    for pol in ("fsdp_tp_ep", "tp_sp_ep"):
+        steps[f"deepseek_{pol}"] = dict(steps["deepseek_ep"], policy=pol)
     # Rung 2: LPT-8 and ALPT-8 updates from one gradient, noise and Delta gradient.
     rows = {}
     g = torch.Generator().manual_seed(7)
@@ -325,19 +358,20 @@ def launch(tmp_path_factory):
                         "g_step": torch.randn((c.vocab_size,), generator=g) * 1e-3}
     ep = {name: _ep_inputs(seq) for name, seq in EP_SEQ.items()}
     mesh_flags = ["--mesh-data", "2", "--mesh-model", "2"]
-    torch.save({"steps": steps, "save_cases": ("qwen3_tp", "qr_alpt", "lsq"),
-                "restore": {"cfg": cfg, "tcfg": pt, "state": state_np}, "rows": rows,
-                "ep": list(ep.values()), "cli": ["lm", *CLI, *mesh_flags],
-                "cli_ep": ["lm", *CLI_EP, *mesh_flags]}, d / "in.pt")
+    torch.save({"steps": steps, "save_cases": (*SAVED, "qr_alpt", "lsq"),
+                "restore": {"cfg": cfg, "tcfg": pt, "state": state_np,
+                            "policies": RESTORED},
+                "rows": rows, "ep": list(ep.values()), "cli": ["lm", *CLI, *mesh_flags],
+                "cli_fsdp": ["lm", *CLI, *mesh_flags, "--policy", "fsdp_tp"],
+                "cli_ep": ["lm", *CLI_EP, *mesh_flags], "chunked_mean": (5, 3, 11)},
+               d / "in.pt")
     procs = _spawn(d)
     try:
         js1, jm = jax.jit(jlm.make_train_step(jcfg, jt))(js, jb)
         out = {"ref": {"loss": float(jm["loss"]), "codes": np.asarray(js1.table.codes.data)}}
         one = {"qwen3_tp": _one_process(cfg, pt, ps, pb, noise)}
-        one["qwen3_tp_sp"] = one["qwen3_tp"]
         for name in ("mixtral", "width", "qrdata", *mesh_cases):
-            if name == "mamba_tp_sp":  # the same state and batch as mamba_tp
-                one[name] = one["mamba_tp"]
+            if name in SAME_TWIN:
                 continue
             case = steps[name]
             c, tc, b = case["cfg"], case["tcfg"], case["batch"]
@@ -346,6 +380,7 @@ def launch(tmp_path_factory):
                   lm_trainer.init_state(c, tc, seed=case["seed"], device="cpu"))
             one[name] = _one_process(c, tc, st, b, guard_at=case.get("guard_at"),
                                      ep=case.get("ep", False))
+        one.update({name: one[twin] for name, twin in SAME_TWIN.items()})
         for method, r in rows.items():
             spec = lm_trainer.embedding_spec_of(r["cfg"], pt)
             st = interop.lm_state_from_numpy(r["cfg"], pt, **r["state"], device="cpu")
@@ -379,7 +414,7 @@ def _close_params(got, want, grads, lr=LR):
         assert float((x - y).abs().max()) <= 2 * lr
 
 
-@pytest.mark.parametrize("policy", ["tp", "tp_sp"])
+@pytest.mark.parametrize("policy", ["tp", "tp_sp", "fsdp_tp", "dp"])
 def test_sharded_step_meets_the_reference_contract(launch, policy):
     """2 x 2 grid, one step from the reference's state with its SR noise,
     against the reference's single-device jitted step: the reference's own
@@ -394,7 +429,9 @@ def test_sharded_step_meets_the_reference_contract(launch, policy):
                                   "hubert_tp_sp", "qwen2vl", "mamba_tp", "mamba_tp_sp",
                                   "mamba_midhead", "jamba", "smollm", "padded", "guard",
                                   *OTHER_METHODS, "lsq_width", "pact_width", "deepseek_ep",
-                                  "jamba_ep"])
+                                  "jamba_ep", "qwen3_fsdp_tp", "qwen3_fsdp_tp_sp", "qwen3_dp",
+                                  "deepseek_fsdp_tp_ep", "deepseek_tp_sp_ep", "deepseek_dp",
+                                  "deepseek67b_fsdp_tp", "danube_fsdp_tp_sp"])
 def test_sharded_step_tracks_the_one_process_step(launch, case):
     """The same state, batch and noise through the one-process step: loss,
     grad norm, params and the table (module docstring's bounds); every
@@ -408,7 +445,12 @@ def test_sharded_step_tracks_the_one_process_step(launch, case):
     gradient (lsq's step size and pact's alpha, replicated over a table
     split over d, take the ranks' summed gradient); prune's mask, refreshed
     after the step over the whole table, is the one-process mask bitwise.
-    ``*_ep``: ``tp_ep`` against the one-process EP twin."""
+    ``*_ep``: ``tp_ep``, ``fsdp_tp_ep`` and ``tp_sp_ep`` (the dispatch
+    reading the sequence gathered from its blocks) against the one-process
+    EP twin.  ``*fsdp*``: the projections' blocks over the data axis;
+    ``*_dp``: one sequence a rank, the params whole and bitwise equal on
+    all four ranks (the replicas check); deepseek-moe's load-balance
+    statistics meaned over all four."""
     got = launch["ranks"][0]["steps"][case]
     new, m, grads, g_emb = launch["one"][case]
     if case == "guard":
@@ -435,6 +477,19 @@ def test_sharded_step_tracks_the_one_process_step(launch, case):
     assert all(r["steps"][case]["same_replicas"] for r in launch["ranks"])
 
 
+def test_exact_mean_chunk_by_chunk_is_the_whole_leafs(launch):
+    """``collectives.exact_pmean_local`` over the four ranks, its leaf in
+    chunks of 7 elements (``MEAN_CHUNK``; a 5 x 3 x 11 leaf, a ragged last
+    chunk), bitwise the mean of the whole leaf, and that mean the
+    rank-ordered one of the ranks' draws."""
+    ranks = launch["ranks"]
+    assert all(r["chunked_mean"][0] for r in ranks)
+    draws = [torch.randn((5, 3, 11), generator=torch.Generator().manual_seed(100 + r))
+             for r in range(4)]
+    want = collectives.exact_pmean_stacked(draws)
+    assert all(torch.equal(r["chunked_mean"][1], want) for r in ranks)
+
+
 def test_guard_verdict_is_the_whole_worlds(launch):
     """A step whose params come out non-finite on rank 0's shard alone is
     skipped on all four ranks (one all-reduce of the verdict), and a clean
@@ -458,16 +513,21 @@ def test_shard_update_from_the_same_gradient_rows_is_bitwise(launch):
             assert all(torch.equal(getattr(got, k), getattr(want, k)) for k in ("step", "mu", "nu"))
 
 
-def test_checkpoint_from_shards_restores_in_one_process_bitwise(launch):
-    """Saved at 2 x 2 (gathered, rank 0 writes whole leaves), restored at 1 x
-    1: every leaf equals the gathered shards bitwise."""
+@pytest.mark.parametrize("case", SAVED)
+def test_checkpoint_from_shards_restores_in_one_process_bitwise(launch, case):
+    """Saved at 2 x 2 (gathered, rank 0 writes whole leaves; fsdp's blocks
+    over the data axis, dp's Adam moments over the model axis), restored at
+    1 x 1: every leaf, the Adam moments too, equals the gathered shards
+    bitwise."""
     cfg, pt = launch["cfg"], launch["tcfg"]
-    back = lm_trainer.restore(CheckpointManager(launch["dir"] / "ck_mesh_qwen3_tp"), cfg, pt,
+    back = lm_trainer.restore(CheckpointManager(launch["dir"] / f"ck_mesh_{case}"), cfg, pt,
                               device="cpu")
-    got = launch["ranks"][0]["steps"]["qwen3_tp"]
+    got = launch["ranks"][0]["steps"][case]
     assert back.step == 1
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(back.params),
                                                  tree_leaves(got["params"])))
+    assert all(torch.equal(a, b) for a, b in zip([*back.opt.mu, *back.opt.nu],
+                                                 [*got["opt"][0], *got["opt"][1]], strict=True))
     for key in ("codes", "step", "mu", "nu"):
         mine = back.table.codes.data if key == "codes" else getattr(back.table, key)
         assert torch.equal(mine, got["table"][key])
@@ -496,22 +556,28 @@ def test_method_checkpoint_from_shards_restores_in_one_process_bitwise(launch, c
         assert all(torch.equal(a, b) for a, b in zip(tree_leaves(emb), tree_leaves(got["emb"])))
 
 
-def test_one_process_checkpoint_restores_on_the_mesh_bitwise(launch):
-    """Saved at 1 x 1, restored at 2 x 2: each rank's shard of every leaf
-    (Adam moments, table, generator) is the slice of the saved state; and
-    ``gather_tree`` of ``shard_tree`` is the identity, bitwise."""
+@pytest.mark.parametrize("policy", RESTORED)
+def test_one_process_checkpoint_restores_on_the_mesh_bitwise(launch, policy):
+    """Saved at 1 x 1, restored at 2 x 2 under ``policy``: each rank's shard
+    of every leaf (Adam moments, table, generator) is the slice of the
+    saved state (fsdp: blocks over both axes; dp: whole params, moments
+    over the model axis); and ``gather_tree`` of ``shard_tree`` is the
+    identity, bitwise."""
     for r in launch["ranks"]:
-        assert r["restore_bitwise"] and r["shard_gather_identity"]
+        assert r["restore"][policy] == {"bitwise": True, "identity": True}
 
 
-def test_cli_on_a_2x2_mesh_tracks_1x1(launch, capsys):
-    """``train lm --mesh-data 2 --mesh-model 2`` on four gloo ranks (the
-    launcher's group): its losses against the CLI at 1 x 1."""
-    cli = launch["ranks"][0]["cli"]
+@pytest.mark.parametrize("policy", ["tp", "fsdp_tp"])
+def test_cli_on_a_2x2_mesh_tracks_1x1(launch, policy):
+    """``train lm --mesh-data 2 --mesh-model 2 [--policy fsdp_tp]`` on four
+    gloo ranks (the launcher's group; the policy's ``data_size`` the mesh's
+    data axis): its losses against the CLI at 1 x 1."""
+    key = "cli" if policy == "tp" else "cli_fsdp"
+    cli = launch["ranks"][0][key]
     assert cli["code"] == 0
     report = json.loads(cli["stdout"].strip().splitlines()[-1])
-    assert report["mesh_data"] == 2 and report["mesh_model"] == 2 and report["policy"] == "tp"
-    assert all(r["cli"]["stdout"] == "" for r in launch["ranks"][1:])
+    assert report["mesh_data"] == 2 and report["mesh_model"] == 2 and report["policy"] == policy
+    assert all(r[key]["stdout"] == "" for r in launch["ranks"][1:])
     np.testing.assert_allclose(report["losses"], launch["cli_one"], rtol=0, atol=1e-4)
 
 
@@ -578,28 +644,50 @@ def test_moe_ep_twin_matches_the_reference(launch, name):
     _close_tree(jax.tree.map(lambda t: t.grad, params), want, 1e-4, 1e-6)
 
 
-@pytest.mark.parametrize("argv,message", [
-    (["--arch", "qwen3-1.7b", "--mesh-data", "2", "--mesh-model", "2"], "WORLD_SIZE is 3"),
-    (["--arch", "qwen3-1.7b", "--mesh-model", "2", "--policy", "fsdp_tp_sp"], "A13c"),
-    (["--arch", "mamba2-370m", "--mesh-model", "2", "--policy", "dp"], "A13c"),
-    (["--arch", "qwen3-1.7b", "--mesh-model", "2", "--policy", "fsdp_tp"], "A13c"),
-    (["--arch", "mixtral-8x7b", "--mesh-model", "2", "--policy", "fsdp_tp_ep"], "A13c"),
-    (["--arch", "qwen3-1.7b", "--mesh-data", "2", "--policy", "dp"], "A13c"),
-    (["--arch", "qwen3-1.7b", "--policy", "fsdp_tp"], "A13c"),
-    (["--arch", "deepseek-moe-16b", "--policy", "fsdp_tp_ep"], "A13c"),
-    (["--arch", "smollm-135m", "--mesh-data", "2", "--mesh-model", "2", "--policy", "fsdp_tp"],
-     "A13c"),
+@pytest.mark.parametrize("argv,world,message", [
+    (["--arch", "qwen3-1.7b", "--mesh-data", "2", "--mesh-model", "2"], 3, "WORLD_SIZE is 3"),
+    (["--arch", "deepseek-moe-16b", "--mesh-model", "4", "--policy", "fsdp_tp_ep"], 2,
+     "WORLD_SIZE is 2"),
+    (["--mesh-data", "2", "--mesh-model", "2", "--policy", "dp"], None, "takes 4 processes"),
+    (["--policy", "fsdp_tp", "--dp-compress-bits", "32"], 1, "the sharded path's"),
+    (["--mesh-data", "2", "--policy", "dp", "--dp-compress-bits", "8"], 2,
+     "the sharded path's"),
+    (["--mesh-data", "2", "--mesh-model", "2", "--policy", "fsdp_tp_sp",
+      "--dp-compress-bits", "8"], 4, "pure data parallelism"),
+    (["--mesh-model", "0", "--policy", "fsdp_tp"], 1, ">= 1"),
+    (["--mesh-data", "2", "--mesh-model", "0", "--policy", "dp"], 1, ">= 1"),
+    (["--mesh-data", "4", "--dp-compress-bits", "32", "--batch", "6"], 4, "multiple"),
 ])
-def test_cli_refuses_what_the_sharded_step_does_not_run(argv, message, capsys, monkeypatch):
-    """Exit 2 naming ROADMAP A13c: fsdp and dp policies (at 1 x 1 too, and
-    with every method: the seven other methods and tp_ep run since the
-    model axis takes them); a world size that is not data x model."""
-    def axis(flag):
-        return int(argv[argv.index(flag) + 1]) if flag in argv else 1
-
-    world = 3 if message.startswith("WORLD") else axis("--mesh-data") * axis("--mesh-model")
-    monkeypatch.setenv("WORLD_SIZE", str(world))
+def test_cli_refuses_what_the_sharded_step_does_not_run(argv, world, message, capsys,
+                                                        monkeypatch):
+    """Exit 2 for a mesh the flags cannot make (a world size that is not
+    data x model, a launch without the processes, an axis of 0), for
+    ``--dp-compress-bits`` beside a sharding policy or a model axis, and for
+    a DP batch its ranks do not split; every policy itself runs (fsdp, dp,
+    ep at any mesh, each with the mesh's ``data_size``)."""
+    if world is None:
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("WORLD_SIZE", str(world))
     with pytest.raises(SystemExit) as exc:
         train_cli.main(["lm", "--smoke", "--device", "cpu", *argv])
     assert exc.value.code == 2
     assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("policy", ["fsdp_tp", "dp", "tp_sp_ep"])
+def test_check_shardable_takes_every_policy_at_the_meshs_sizes(policy):
+    """``check_shardable`` takes each policy built with the mesh's axes (and
+    with ``data_size=None``, which places nothing over the data axis), and
+    refuses a ``data_size`` or ``model_size`` other than the mesh's."""
+    mesh = HostMesh(shape={"data": 2, "model": 2}, coords={"data": 0, "model": 0},
+                    groups={"data": None, "model": None})
+    for data_size in (2, None):
+        lm_trainer.check_shardable(mesh, sharding.policy_from_name(policy, model_size=2,
+                                                                   data_size=data_size))
+    with pytest.raises(ValueError, match="data_size 16 != the mesh's data axis 2"):
+        lm_trainer.check_shardable(mesh, sharding.default_policy("deepseek-67b", model_size=2,
+                                                                 override=policy))
+    with pytest.raises(ValueError, match="model_size 4"):
+        lm_trainer.check_shardable(mesh, sharding.policy_from_name(policy, model_size=4,
+                                                                   data_size=2))
